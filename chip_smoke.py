@@ -1,0 +1,316 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py [--scale 20] [--seed 0]
+
+Run from the repository root on a machine with a CUDA card and ``nvcc``.  It
+uses neither JAX nor the reference package.  Phases, each fatal on failure:
+
+1. card    — the card's name and power limit, as nvidia-smi gives them;
+2. build   — compile the kernels from ``src/repro_torch/csrc`` (seconds and
+             the ptxas register lines);
+3. kernels — each CUDA kernel against its plain PyTorch version on the card,
+             at the shapes of the main path: relative inf-norm error at most
+             1e-4 in float32 (hub rows of ~40k terms summed in another
+             order, atomics in no fixed order) and 2e-2 in bfloat16;
+4. main    — ``repro_torch.sparse(csr) @ x`` for two Graph500-scale R-MAT
+             graphs (scale 20, edge factor 16: Graph500 Kronecker a,b,c =
+             .57,.19,.19, and uniform .25,.25,.25) at N = 1, 4, 32, 128:
+             the selector's pick, the launch counter of the kernel it maps
+             to, agreement with the plain "torch" backend, a cache hit with
+             new values, and a small graph against a dense float64 product;
+5. times   — per (graph, N): the kernel, its plain version and
+             ``torch.sparse.mm`` (cuSPARSE, the paper's baseline) by CUDA
+             events, median of 20 runs after a warm-up, beside the bound:
+             max(bytes / 3.35 TB/s, 2·nnz·N / 67 TFLOP/s) with bytes =
+             12·nnz (8·nnz for ELL) + 4·K·N + 4·M·N;
+6. summary — one JSON line of the kernels, the card line, then the result.
+
+Without a CUDA device it prints no result and exits 2.  ``--scale`` below 20
+runs smaller graphs for a quick look; the graph statistics published with
+the slice are checked at scale 20 only.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA data sheet (SXM)
+H100_F32_FLOP_PER_S = 67e12     # float32 outside the tensor cores
+RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+NS = (1, 4, 32, 128)
+GRAPHS = {"g500": (0.57, 0.19, 0.19), "unif": (0.25, 0.25, 0.25)}
+#: the selector's pick per (graph, N) at the default thresholds
+PICKS = {"g500": {1: "nb_pr", 4: "nb_pr", 32: "nb_sr", 128: "nb_sr"},
+         "unif": {1: "nb_pr", 4: "nb_pr", 32: "rs_sr", 128: "rs_sr"}}
+#: statistics of the scale-20 graphs (seed 0) from the reference package's
+#: host code, which the port's generator must reproduce
+STATS_S20 = {"g500": {"nnz": 16086387, "max_row": 39642, "empty_rows": 501549,
+                      "span": 6453},
+             "unif": {"nnz": 16777094, "max_row": 39, "empty_rows": 0,
+                      "span": 39}}
+KERNELS = {
+    "vsr_spmm": {"route": "cuda", "source": "src/repro_torch/csrc/vsr.cu",
+                 "replaces": "src/repro/kernels/vsr.py:141"},
+    "vsr_spmv": {"route": "cuda", "source": "src/repro_torch/csrc/spmv.cu",
+                 "replaces": "src/repro/kernels/spmv.py:131"},
+    "csc_spmm": {"route": "cuda", "source": "src/repro_torch/csrc/csc.cu",
+                 "replaces": "src/repro/kernels/csc.py:36"},
+}
+#: the (graph, N) whose times stand for each kernel in the summary line
+SUMMARY_SHAPE = {"vsr_spmm": ("g500", 128), "vsr_spmv": ("g500", 1),
+                 "csc_spmm": ("unif", 128)}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def kernel_of(pick: str, n: int) -> str:
+    if pick.startswith("rs_"):
+        return "csc_spmm"
+    return "vsr_spmv" if n == 1 else "vsr_spmm"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scale", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    import repro_torch
+    from repro_torch.core import formats, stats
+    from repro_torch.core.rmat import rmat
+    from repro_torch.kernels import (_build, csc, launch_counts,
+                                     reset_launch_counts, spmv, vsr)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    def errors(got, want):
+        diff = float((got.float() - want.float()).abs().max())
+        return diff / max(float(want.float().abs().max()), 1e-30), diff
+
+    def time_ms(fn, reps: int = 20) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    # -- 1. card ------------------------------------------------------------
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+
+    # -- 2. build -----------------------------------------------------------
+    built = _build.build()
+    _build.lib()
+    print(f"[build] {built.path.name}: {built.seconds:.1f} s")
+    for line in built.log.splitlines():
+        if line.startswith("==") or "registers" in line or "Compiling" in line:
+            print(f"[build] {line}")
+    sys.stdout.flush()
+
+    # -- the graphs ---------------------------------------------------------
+    graphs = {}
+    for name, (a, b, c) in GRAPHS.items():
+        t0 = time.perf_counter()
+        csr = rmat(args.scale, 16, a, b, c, seed=args.seed, device=dev)
+        st = stats.matrix_stats(csr)
+        span = stats.balanced_tile_span(csr, 512)
+        print(f"[graph] {name}_s{args.scale}_e16: M=K={st.m} nnz={st.nnz} "
+              f"avg_row={st.avg_row:.2f} cv={st.cv:.2f} max_row={st.max_row} "
+              f"empty_rows={st.empty_rows} span={span} "
+              f"({time.perf_counter() - t0:.1f} s on the host)", flush=True)
+        if args.scale == 20:
+            got = {"nnz": st.nnz, "max_row": st.max_row,
+                   "empty_rows": st.empty_rows, "span": span}
+            if got != STATS_S20[name]:
+                fail(f"{name}: graph statistics {got} != {STATS_S20[name]}")
+        graphs[name] = csr
+
+    # -- 3. kernels against their plain versions ------------------------------
+    max_abs = {k: 0.0 for k in KERNELS}     # over the float32 checks
+
+    def hold(kernel, label, got, want, dtype):
+        rel, diff = errors(got, want)
+        if dtype == "float32":
+            max_abs[kernel] = max(max_abs[kernel], diff)
+        ok = rel <= RTOL[dtype]
+        print(f"[check] {kernel} {label} {dtype}: rel_inf_err={rel:.3e} "
+              f"max_abs_err={diff:.3e} tol={RTOL[dtype]:g} "
+              f"{'ok' if ok else 'MISS'}", flush=True)
+        if not ok:
+            fail(f"{kernel} {label} {dtype} disagrees with its plain version")
+
+    g500_bal = formats.csr_to_balanced(graphs["g500"], 512)
+    unif_bal = formats.csr_to_balanced(graphs["unif"], 512)
+    unif_ell = formats.csr_to_ell(graphs["unif"])
+    k_dim = graphs["g500"].shape[1]
+    for n, dtype in ((4, torch.float32), (32, torch.float32),
+                     (128, torch.float32), (32, torch.bfloat16)):
+        x = randn(k_dim, n, dtype=dtype)
+        hold("vsr_spmm", f"g500 N={n}", vsr.spmm_vsr_fused(g500_bal, x),
+             vsr.spmm_vsr_plain(g500_bal, x), str(dtype).split(".")[1])
+    for name, bal in (("g500", g500_bal), ("unif", unif_bal)):
+        x = randn(k_dim)
+        hold("vsr_spmv", f"{name} N=1", spmv.spmv_vsr_fused(bal, x),
+             spmv.spmv_vsr_plain(bal, x), "float32")
+    for n in (32, 128):
+        x = randn(k_dim, n)
+        hold("csc_spmm", f"unif N={n}", csc.spmm_csc(unif_ell, x),
+             csc.spmm_csc_plain(unif_ell, x), "float32")
+    torch.cuda.synchronize()
+    del g500_bal, unif_bal, unif_ell
+    torch.cuda.empty_cache()
+
+    # -- 4. the main path through the facade -----------------------------------
+    launches = {k: 0 for k in KERNELS}
+
+    def drive(A, x):
+        """One user call, with the launch counts set to 0 just before and
+        read just after."""
+        reset_launch_counts()
+        y = A @ x
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        return y, counts
+
+    for name, csr in graphs.items():
+        for n in NS:
+            x = randn(csr.shape[1], n) if n > 1 else randn(csr.shape[1])
+            t0 = time.perf_counter()
+            A = repro_torch.sparse(csr)
+            t1 = time.perf_counter()
+            pick = A.plan.select(n)
+            y, counts = drive(A, x)
+            t2 = time.perf_counter()
+            kernel = kernel_of(pick, n)
+            if A.backend != "hopper":
+                fail(f"{name} N={n}: backend {A.backend!r}, expected 'hopper'")
+            if pick != PICKS[name][n]:
+                fail(f"{name} N={n}: selector picked {pick}, expected {PICKS[name][n]}")
+            if counts[kernel] < 1:
+                fail(f"{name} N={n}: {kernel} was not launched ({counts})")
+            if y.shape != ((csr.shape[0], n) if n > 1 else (csr.shape[0],)) \
+                    or not torch.isfinite(y).all():
+                fail(f"{name} N={n}: output of shape {tuple(y.shape)} is not "
+                     "finite or has the wrong shape")
+            rel, _ = errors(y, A.matmul(x, backend="torch"))
+            # a second matrix on the same pattern: a cache hit, live values
+            hits = repro_torch.cache_stats()["hits"]
+            B = repro_torch.sparse(formats.CSR(csr.indptr, csr.indices,
+                                               randn(csr.nnz), csr.shape))
+            y2, counts2 = drive(B, x)
+            rel2, _ = errors(y2, B.matmul(x, backend="torch"))
+            hit = repro_torch.cache_stats()["hits"] == hits + 1 and B.plan is A.plan
+            print(f"[main] {name} N={n}: pick={pick} kernel={kernel} "
+                  f"launches={counts} rel_err_vs_torch={rel:.3e} "
+                  f"sparse_s={t1 - t0:.3f} first_call_s={t2 - t1:.3f} "
+                  f"(host clock) | new values: cache_hit={hit} "
+                  f"launches={counts2} rel_err={rel2:.3e}", flush=True)
+            if max(rel, rel2) > RTOL["float32"]:
+                fail(f"{name} N={n}: the main path disagrees with the torch backend")
+            if not hit or counts2[kernel] < 1:
+                fail(f"{name} N={n}: new values missed the plan cache or the kernel")
+    for name, (a, b, c) in GRAPHS.items():
+        small = rmat(10, 8, a, b, c, seed=args.seed, device=dev)
+        for n in NS:
+            x = randn(small.shape[1], n) if n > 1 else randn(small.shape[1])
+            y, _ = drive(repro_torch.sparse(small), x)
+            want = small.to_dense().double() @ x.double()
+            rel, _ = errors(y, want)
+            print(f"[main] {name}_s10_e8 N={n}: rel_err_vs_dense_f64={rel:.3e}")
+            if rel > RTOL["float32"]:
+                fail(f"{name}_s10_e8 N={n}: disagrees with the dense product")
+    for k, v in launches.items():
+        if v < 1:
+            fail(f"{k} was never launched on the main path")
+    print(f"[main] launches on the main path: {launches}", flush=True)
+
+    # -- 5. times ---------------------------------------------------------------
+    rows = {}
+    for name, csr in graphs.items():
+        m, k_dim = csr.shape
+        lib_a = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
+                                        size=csr.shape, check_invariants=False)
+        for n in NS:
+            x = randn(k_dim, n) if n > 1 else randn(k_dim)
+            A = repro_torch.sparse(csr)
+            pick = A.plan.select(n)
+            kernel = kernel_of(pick, n)
+            if kernel == "csc_spmm":
+                sub = A.plan.substrate("ell")
+                run, plain = csc.spmm_csc, csc.spmm_csc_plain
+                sub_bytes = 8 * csr.nnz
+            else:
+                sub = A.plan.substrate("balanced")
+                run = vsr.spmm_vsr_fused if n > 1 else spmv.spmv_vsr_fused
+                plain = vsr.spmm_vsr_plain if n > 1 else spmv.spmv_vsr_plain
+                sub_bytes = 12 * csr.nnz
+            t_bytes = (sub_bytes + 4 * k_dim * n + 4 * m * n) / H100_BYTES_PER_S
+            t_ops = 2 * csr.nnz * n / H100_F32_FLOP_PER_S
+            row = {
+                "kernel": kernel, "pick": pick,
+                "kernel_ms": time_ms(lambda: run(sub, x)),
+                "e2e_ms": time_ms(lambda: A @ x),
+                "plain_ms": time_ms(lambda: plain(sub, x)),
+                "library_ms": time_ms(lambda: lib_a @ x),
+                "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            }
+            rows[(name, n)] = row
+            print(f"[time] {name}_s{args.scale}_e16 N={n} "
+                  + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+        del lib_a
+        torch.cuda.empty_cache()
+
+    # -- 6. summary ---------------------------------------------------------------
+    summary = []
+    for kernel, meta in KERNELS.items():
+        name, n = SUMMARY_SHAPE[kernel]
+        row = rows[(name, n)]
+        summary.append({"name": kernel, **meta, "launches": launches[kernel],
+                        "max_abs_err": max_abs[kernel], "ms": row["kernel_ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"],
+                        "shape": f"{name}_s{args.scale}_e16 N={n}"})
+    print(json.dumps({"kernels": summary}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

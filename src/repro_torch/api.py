@@ -1,0 +1,177 @@
+"""The port's public facade; counterpart of ``repro.api`` (forward path).
+
+    from repro_torch import api
+
+    A = api.sparse(csr)              # plan once, on the card, cached by topology
+    y = A @ x                        # adaptive SpMV / SpMM through the Hopper kernels
+    y = A.with_values(stream) @ x    # same plan, live value stream
+
+    A = api.sparse(csr, device="cpu")    # plain "torch" backend on the CPU
+    with api.use_backend("torch"):       # scoped backend, no kwarg threading
+        y = api.sparse(csr) @ x
+
+``sparse()`` runs on the card unless the caller passes ``device="cpu"``: by
+default the data go to CUDA and the ``"hopper"`` backend runs, and without a
+CUDA device the call raises instead of carrying on on the CPU.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.cache import (DEFAULT_CACHE, PlanCache, cached_plan,
+                                    pattern_fingerprint)
+from .core.formats import CSR, csr_from_dense
+from .core.plan import PlanBuilder, execute, plan
+from .core.registry import backend_scope, default_backend
+from .core.selector import (SelectorThresholds, TileGeometry,
+                                       default_thresholds)
+from .core.stats import MatrixStats
+
+__all__ = ["SparseMatrix", "sparse", "use_backend", "cache_stats",
+           "clear_cache", "PlanCache", "SelectorThresholds", "TileGeometry"]
+
+use_backend = backend_scope
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch.sparse() runs on a CUDA device and none is "
+                "available; pass device='cpu' for the plain 'torch' backend")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class SparseMatrix:
+    """A sparse operand: a (possibly cache-shared) plan plus this matrix's
+    value stream.  Immutable; ``with_values`` returns a new handle."""
+
+    def __init__(self, plan_obj: PlanBuilder,
+                 values: torch.Tensor | None = None,
+                 cache: PlanCache | None = None):
+        self._plan = plan_obj
+        self._values = values
+        self._cache = cache
+
+    @property
+    def plan(self) -> PlanBuilder:
+        return self._plan
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self._plan.csr.shape)
+
+    @property
+    def nnz(self) -> int:
+        return self._plan.csr.nnz
+
+    @property
+    def stats(self) -> MatrixStats:
+        return self._plan.stats
+
+    @property
+    def backend(self) -> str:
+        return self._plan.backend
+
+    @property
+    def device(self) -> torch.device:
+        return self._plan.device
+
+    def __repr__(self) -> str:
+        m, k = self.shape
+        live = "live" if self._values is not None else "baked"
+        return (f"SparseMatrix({m}x{k}, nnz={self.nnz}, backend="
+                f"{self.backend!r}, device={self.device}, values={live})")
+
+    def matmul(self, x: torch.Tensor, *, impl: str | None = None,
+               backend: str | None = None) -> torch.Tensor:
+        """``A @ x`` with per-call overrides: ``impl`` forces a logical
+        kernel, ``backend`` another backend for this call.  ``x`` must lie
+        on the matrix's device."""
+        if x.device != self.device:
+            raise ValueError(f"x lies on {x.device}, the matrix on {self.device}")
+        return execute(self._plan, x, vals=self._values, impl=impl,
+                       backend=backend)
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.matmul(x)
+
+    def with_values(self, stream: torch.Tensor) -> "SparseMatrix":
+        """Same pattern and plan, new CSR-ordered nonzero values."""
+        stream = torch.as_tensor(stream, device=self.device)
+        if stream.numel() != self.nnz:
+            raise ValueError(f"value stream has {stream.numel()} entries but "
+                             f"the pattern has {self.nnz} nonzeros")
+        return SparseMatrix(self._plan, values=stream.reshape(-1),
+                            cache=self._cache)
+
+
+def _as_csr(a, device: torch.device) -> tuple[CSR, "torch.Tensor | None"]:
+    """Normalise ``sparse()`` input to (CSR on ``device``, live values or
+    None); a SparseMatrix input keeps its live values."""
+    if isinstance(a, CSR):
+        return a.to(device), None
+    if isinstance(a, SparseMatrix):
+        live = None if a._values is None else a._values.to(device)
+        return a.plan.csr.to(device), live
+    if isinstance(a, torch.Tensor) or isinstance(a, np.ndarray):
+        if a.ndim != 2:
+            raise ValueError(f"sparse() takes a CSR or a dense 2-D array; "
+                             f"got shape {tuple(a.shape)}")
+        return csr_from_dense(a, device=device), None
+    raise TypeError(f"sparse() takes a CSR, a SparseMatrix or a dense 2-D "
+                    f"array, got {type(a).__name__}")
+
+
+def sparse(a, *, device=None, backend: str | None = None,
+           thresholds: SelectorThresholds | None = None,
+           tile: int | None = None, n_hint: int | None = None,
+           geometry: TileGeometry | None = None,
+           cache: "PlanCache | bool | None" = True) -> SparseMatrix:
+    """Build a sparse operand from a CSR, a SparseMatrix or a dense 2-D
+    array.
+
+    ``device=None`` means CUDA (raising without one); ``backend=None`` takes
+    the ``use_backend`` scope, else ``"hopper"`` on CUDA and ``"torch"`` on
+    the CPU.  Planning goes through the topology-keyed ``PlanCache`` (the
+    process default for ``cache=True``, a given instance, or ``cache=False``
+    to re-plan): a hit whose baked values differ from ``a``'s returns a
+    handle that streams its own values, so reuse is always value-correct.
+    ``geometry=None`` resolves the thresholds' geometry table here, with
+    ``n_hint``, so the cache keys on the resolved geometry."""
+    device = _resolve_device(device)
+    csr, values = _as_csr(a, device)
+    resolved_backend = backend or default_backend(device)
+    th = thresholds if thresholds is not None else default_thresholds()
+    if geometry is None and th.geometries:
+        geometry = th.geometry_for(pattern_fingerprint(csr), n_hint,
+                                   resolved_backend)
+    if cache is True:
+        cache_obj = DEFAULT_CACHE
+    elif cache is False:
+        cache_obj = None
+    else:
+        cache_obj = cache
+    kw = dict(backend=resolved_backend, thresholds=th, tile=tile,
+              geometry=geometry)
+    p = (plan(csr, **kw) if cache_obj is None
+         else cached_plan(csr, cache=cache_obj, **kw))
+    if values is None and p.csr is not csr and not torch.equal(p.csr.data, csr.data):
+        # a cache hit from a pattern-equal matrix: stream OUR values
+        values = csr.data.reshape(-1)
+    if n_hint is not None:
+        p.kernel_opts(p.entry(p.select(n_hint)))
+    return SparseMatrix(p, values=values, cache=cache_obj)
+
+
+def cache_stats(cache: PlanCache | None = None) -> dict:
+    return (cache or DEFAULT_CACHE).stats()
+
+
+def clear_cache(cache: PlanCache | None = None) -> None:
+    (cache or DEFAULT_CACHE).clear()

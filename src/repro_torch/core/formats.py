@@ -1,0 +1,195 @@
+"""Sparse-matrix formats of the port (counterpart of ``repro.core.formats``).
+
+Construction is host-side numpy (building a format is an offline step, as in
+the paper's static-profiling usage), then ``.to(device)``: every container is
+a frozen dataclass of tensors on one device.  Index arrays are int32.
+
+CSR          canonical row-compressed storage (the paper's input format).
+ELL          row-split padded storage — the substrate of the RS kernels.
+BalancedCOO  nnz-split tiled storage: exactly ``tile`` nonzeros per tile, the
+             tail padded with ``row == M`` sentinels, zero values and column
+             0.  Substrate of the NB kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def host(t: torch.Tensor) -> np.ndarray:
+    """A numpy view (CPU tensors) or copy (device tensors) of ``t``."""
+    return t.detach().cpu().numpy()
+
+
+@dataclasses.dataclass(frozen=True)
+class CSR:
+    """Compressed sparse row. indptr:(M+1,) indices:(nnz,) data:(nnz,)."""
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    data: torch.Tensor
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def to(self, device) -> "CSR":
+        device = torch.device(device)
+        if self.device == device:
+            return self
+        return CSR(self.indptr.to(device), self.indices.to(device),
+                   self.data.to(device), self.shape)
+
+    def to_dense(self) -> torch.Tensor:
+        m, k = self.shape
+        rows = torch.from_numpy(row_ids_from_indptr(host(self.indptr), self.nnz))
+        out = torch.zeros((m, k), dtype=self.data.dtype, device=self.device)
+        out.index_put_((rows.to(self.device).long(), self.indices.long()),
+                       self.data, accumulate=True)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ELL:
+    """Row-split padded format. cols/vals: (M, width); padding has vals==0
+    and cols==0, so gathers stay in bounds."""
+
+    cols: torch.Tensor
+    vals: torch.Tensor
+    shape: Tuple[int, int]
+
+    @property
+    def width(self) -> int:
+        return int(self.cols.shape[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class BalancedCOO:
+    """nnz-split tiled COO. rows/cols/vals: (n_tiles, tile).  Tiles may span
+    row boundaries (paper §2.1.1); padding is rows==M, vals==0, cols==0."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    vals: torch.Tensor
+    shape: Tuple[int, int]
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def tile(self) -> int:
+        return int(self.rows.shape[1])
+
+
+#: constructions per substrate since process start (or last reset); the plan
+#: layer promises to build only the substrate the selected kernel consumes.
+BUILD_COUNTS: dict[str, int] = {"ell": 0, "balanced": 0}
+
+
+def reset_build_counts() -> dict[str, int]:
+    """Zero the substrate-construction counters; returns the previous values."""
+    prev = dict(BUILD_COUNTS)
+    for k in BUILD_COUNTS:
+        BUILD_COUNTS[k] = 0
+    return prev
+
+
+def row_ids_from_indptr(indptr: np.ndarray, nnz: int) -> np.ndarray:
+    """Expand CSR indptr to a per-nonzero row-id vector (int32)."""
+    indptr = np.asarray(indptr)
+    return np.repeat(np.arange(len(indptr) - 1), np.diff(indptr)).astype(np.int32)[:nnz]
+
+
+def _tensor(a: np.ndarray, dtype=None) -> torch.Tensor:
+    # torch wants writable memory; read-only inputs (views of another
+    # framework's buffers) are copied
+    return torch.from_numpy(np.require(a, dtype, ["C", "W"]))
+
+
+def _csr(indptr, indices, data, shape, device) -> CSR:
+    return CSR(_tensor(indptr, np.int32).to(device),
+               _tensor(indices, np.int32).to(device),
+               _tensor(data).to(device), (int(shape[0]), int(shape[1])))
+
+
+def csr_from_coo(rows, cols, vals, shape, dtype=np.float32, *,
+                 device="cpu") -> CSR:
+    """Build CSR from (possibly unsorted, possibly duplicated) COO triplets.
+    Duplicates are summed, matching scipy semantics."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    vals = np.asarray(vals, dtype)
+    m, k = shape
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    if len(rows):
+        keep = np.ones(len(rows), bool)
+        keep[1:] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
+        grp = np.cumsum(keep) - 1
+        vals = np.bincount(grp, weights=vals.astype(np.float64),
+                           minlength=keep.sum()).astype(dtype)
+        rows, cols = rows[keep], cols[keep]
+    indptr = np.zeros(m + 1, np.int32)
+    np.add.at(indptr, rows + 1, 1)
+    indptr = np.cumsum(indptr, dtype=np.int32)
+    return _csr(indptr, cols.astype(np.int32), vals, (m, k), device)
+
+
+def csr_from_dense(a, *, device="cpu") -> CSR:
+    a = host(a) if isinstance(a, torch.Tensor) else np.asarray(a)
+    rows, cols = np.nonzero(a)
+    return csr_from_coo(rows, cols, a[rows, cols], a.shape, a.dtype,
+                        device=device)
+
+
+def csr_to_ell(csr: CSR, width: int | None = None) -> ELL:
+    """Row-split padded copy of ``csr``; rows longer than ``width`` are cut.
+    Vectorised: each kept nonzero lands at (its row, its rank in the row)."""
+    BUILD_COUNTS["ell"] += 1
+    indptr = host(csr.indptr).astype(np.int64)
+    indices = host(csr.indices)
+    m, _ = csr.shape
+    lens = np.diff(indptr)
+    w = (int(lens.max()) if m else 0) if width is None else int(width)
+    w = max(w, 1)
+    rows = row_ids_from_indptr(indptr, len(indices)).astype(np.int64)
+    rank = np.arange(len(indices), dtype=np.int64) - indptr[rows]
+    keep = np.nonzero(rank < w)[0]
+    slot = rows[keep] * w + rank[keep]
+    cols = np.zeros(m * w, np.int32)
+    cols[slot] = indices[keep]
+    dev = csr.device
+    vals = torch.zeros(m * w, dtype=csr.data.dtype, device=dev)
+    vals[torch.from_numpy(slot).to(dev)] = csr.data[torch.from_numpy(keep).to(dev)]
+    return ELL(torch.from_numpy(cols.reshape(m, w)).to(dev), vals.reshape(m, w),
+               csr.shape)
+
+
+def csr_to_balanced(csr: CSR, tile: int = 512) -> BalancedCOO:
+    """nnz-split: chop the row-major nonzero stream into fixed ``tile``
+    quotas — the paper's workload-balancing step (Fig. 2(e))."""
+    BUILD_COUNTS["balanced"] += 1
+    indptr = host(csr.indptr)
+    indices = host(csr.indices)
+    m, _ = csr.shape
+    nnz = csr.nnz
+    rows = row_ids_from_indptr(indptr, nnz)
+    n_tiles = max(1, -(-nnz // tile))
+    pad = n_tiles * tile - nnz
+    rows = np.concatenate([rows, np.full(pad, m, np.int32)])
+    cols = np.concatenate([indices, np.zeros(pad, np.int32)])
+    dev = csr.device
+    vals = torch.cat([csr.data, csr.data.new_zeros(pad)])
+    return BalancedCOO(
+        torch.from_numpy(rows.reshape(n_tiles, tile)).to(dev),
+        torch.from_numpy(cols.reshape(n_tiles, tile)).to(dev),
+        vals.reshape(n_tiles, tile), csr.shape)

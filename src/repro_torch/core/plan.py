@@ -1,0 +1,226 @@
+"""Plan/execute for one device, forward only; counterpart of
+``repro.core.plan``.
+
+* ``plan(csr, ...)`` returns a ``PlanBuilder``, the host side of the
+  offline/online split: the Fig. 4 statistics computed once, thresholds
+  fixed (``$REPRO_THRESHOLDS`` auto-loads), a backend chosen, and the
+  substrates (ELL / BalancedCOO) built lazily — only the one the selected
+  kernel consumes — with each registry entry's ``prep`` hook run once.
+* ``execute(plan, x)`` is the online step: select the logical kernel from
+  (stats, N), resolve it through the registry, run it.  ``vals=`` streams a
+  CSR-ordered value vector in place of the values baked into the plan.
+
+Two rules of the reference do not carry over.  Its plans demote
+``pallas`` to ``xla`` when a tile spans more rows than ``max_win`` — a TPU
+spill-window limit; the Hopper kernels size nothing by a tile's row span,
+so a ``"hopper"`` plan keeps its backend.  Its dispatch reroutes a failing
+kernel to ``xla``; here a kernel that fails to build or launch raises.
+Frozen artifacts, sharding, quantization, chains and sentinels are not
+ported yet: ``plan()`` raises ``NotImplementedError`` on their arguments.
+"""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from typing import Any
+
+import numpy as np
+import torch
+
+from . import registry
+from .formats import CSR, BalancedCOO, csr_to_balanced, csr_to_ell, host
+from .selector import (SelectorThresholds, TileGeometry, default_thresholds,
+                       select_kernel)
+from .stats import MatrixStats, matrix_stats
+
+#: plan-context kwargs a prep hook may opt into by declaring them
+_PREP_CONTEXT_NAMES = ("geometry", "max_win")
+
+#: accepted-keyword cache of prep hooks (see ``_prep_context_kwargs``)
+_PREP_KWARGS: dict = {}
+
+#: plan() arguments of reference paths not yet ported
+_UNPORTED = ("mesh", "shard_axis", "shard_kind", "inner_backend", "quant",
+             "chain_op", "validate", "sentinel", "bsr_block")
+
+
+def _prep_context_kwargs(prep, ctx: dict) -> dict:
+    """Filter the plan context (geometry, ``max_win``) down to the names
+    this prep hook declares, so hooks keep the minimal ``prep(substrate)``
+    signature unless they opt in."""
+    accepted = _PREP_KWARGS.get(prep)
+    if accepted is None:
+        try:
+            params = inspect.signature(prep).parameters.values()
+            if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params):
+                accepted = _PREP_CONTEXT_NAMES
+            else:
+                accepted = tuple(p.name for p in params
+                                 if p.kind in (inspect.Parameter.KEYWORD_ONLY,
+                                               inspect.Parameter.POSITIONAL_OR_KEYWORD)
+                                 and p.name in _PREP_CONTEXT_NAMES)
+        except (TypeError, ValueError):
+            accepted = ()
+        _PREP_KWARGS[prep] = accepted
+    return {k: v for k, v in ctx.items() if k in accepted and v is not None}
+
+
+@dataclasses.dataclass
+class PlanBuilder:
+    """Host-side plan: statistics, thresholds, backend, and caches of the
+    lazily built substrates and prep opts."""
+
+    csr: CSR
+    stats: MatrixStats
+    thresholds: SelectorThresholds
+    backend: str
+    tile: int = 512
+    geometry: TileGeometry | None = None
+    _substrates: dict = dataclasses.field(default_factory=dict, repr=False)
+    _opts: dict = dataclasses.field(default_factory=dict, repr=False)
+    _ell_lens: Any = dataclasses.field(default=None, repr=False)
+    _ell_src: Any = dataclasses.field(default=None, repr=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.csr.device
+
+    # -- substrates ---------------------------------------------------------
+    def substrate(self, kind: str):
+        """Build-and-cache the named substrate; only ever called for the
+        format the resolved kernel consumes (the laziness contract)."""
+        sub = self._substrates.get(kind)
+        if sub is None:
+            if kind == "ell":
+                sub = csr_to_ell(self.csr)
+            elif kind == "balanced":
+                sub = csr_to_balanced(self.csr, tile=self.tile)
+            else:
+                raise ValueError(f"unknown substrate {kind!r}")
+            self._substrates[kind] = sub
+        return sub
+
+    @property
+    def built_substrates(self) -> tuple[str, ...]:
+        return tuple(sorted(self._substrates))
+
+    # -- selection and resolution ---------------------------------------------
+    def select(self, n: int) -> str:
+        return select_kernel(self.stats, n, self.thresholds)
+
+    def entry(self, name: str, backend: str | None = None) -> registry.KernelEntry:
+        return registry.resolve(name, backend or self.backend)
+
+    def kernel_opts(self, entry: registry.KernelEntry) -> dict:
+        """The entry's prep-hook opts for this matrix, computed once on the
+        built substrate."""
+        sub = self.substrate(entry.substrate)
+        key = (entry.logical, entry.backend)
+        opts = self._opts.get(key)
+        if opts is None:
+            if entry.prep is None:
+                opts = {}
+            else:
+                ctx = _prep_context_kwargs(
+                    entry.prep, {"geometry": self.geometry,
+                                 "max_win": self.thresholds.max_win})
+                opts = dict(entry.prep(sub, **ctx))
+            self._opts[key] = opts
+        return opts
+
+    # -- ELL live-value support -----------------------------------------------
+    def ell_lens(self) -> torch.Tensor:
+        """(M,) stored entries per row — the ELL padding mask."""
+        if self._ell_lens is None:
+            lens = np.diff(host(self.csr.indptr)).astype(np.int32)
+            self._ell_lens = torch.from_numpy(lens).to(self.device)
+        return self._ell_lens
+
+    def ell_src(self) -> torch.Tensor:
+        """(M, width) gather map from the CSR value stream into the ELL slab:
+        ``ell_vals = where(valid, stream[src], 0)``."""
+        if self._ell_src is None:
+            ell = self.substrate("ell")
+            indptr = host(self.csr.indptr).astype(np.int64)
+            j = np.arange(ell.width, dtype=np.int64)[None, :]
+            src = np.minimum(indptr[:-1, None] + j, max(self.csr.nnz - 1, 0))
+            self._ell_src = torch.from_numpy(src.astype(np.int32)).to(self.device)
+        return self._ell_src
+
+
+def plan(csr: CSR, *, n_hint: int | None = None,
+         thresholds: SelectorThresholds | None = None,
+         backend: str | None = None, tile: int | None = None,
+         geometry: TileGeometry | None = None, **unported) -> PlanBuilder:
+    """Offline planning front door.
+
+    ``n_hint`` (the expected N) builds the substrate and prep of the kernel
+    the selector will pick now, off the hot path.  ``thresholds=None``
+    auto-loads ``$REPRO_THRESHOLDS`` or takes the defaults; ``backend=None``
+    takes the ``use_backend`` scope, else ``"hopper"`` for a CSR on a CUDA
+    device and ``"torch"`` on the CPU.  ``geometry=None`` consults the
+    thresholds' geometry table for (pattern, ``n_hint``, backend);
+    ``tile=None`` takes the geometry's quota (default 512)."""
+    given = sorted(k for k, v in unported.items() if v is not None)
+    unknown = sorted(k for k in unported if k not in _UNPORTED)
+    if unknown:
+        raise TypeError(f"plan() got unexpected arguments {unknown}")
+    if given:
+        raise NotImplementedError(f"plan() arguments {given} belong to paths "
+                                  "of the reference not yet ported")
+    if backend is None:
+        backend = registry.default_backend(csr.device)
+    th = thresholds if thresholds is not None else default_thresholds()
+    stats = matrix_stats(csr)
+    if geometry is None and th.geometries:
+        from .cache import pattern_fingerprint
+        geometry = th.geometry_for(pattern_fingerprint(csr), n_hint, backend)
+    if tile is None:
+        tile = geometry.tile if geometry is not None else 512
+    p = PlanBuilder(csr=csr, stats=stats, thresholds=th, backend=backend,
+                    tile=int(tile), geometry=geometry)
+    if n_hint is not None:
+        p.kernel_opts(p.entry(p.select(n_hint)))
+    return p
+
+
+def _stream_to_balanced(stream: torch.Tensor, bal: BalancedCOO) -> torch.Tensor:
+    """Pad the CSR-ordered value stream to the tile grid (the balanced slabs
+    keep row-major order, so this is a pad and a reshape)."""
+    flat = stream.reshape(-1)
+    total = bal.n_tiles * bal.tile
+    return torch.nn.functional.pad(flat, (0, total - flat.shape[0])).reshape(
+        bal.rows.shape)
+
+
+def execute(p: PlanBuilder, x: torch.Tensor, *,
+            vals: torch.Tensor | None = None, impl: str | None = None,
+            backend: str | None = None) -> torch.Tensor:
+    """``y = A @ x``.  ``vals`` is a live CSR-ordered value stream in place
+    of the plan's baked values; ``impl`` forces a logical kernel (oracle /
+    ablation mode); ``backend`` overrides the plan's for this call."""
+    if vals is not None and vals.numel() != p.csr.nnz:
+        raise ValueError(f"vals stream has {vals.numel()} entries but the "
+                         f"matrix has {p.csr.nnz} nonzeros")
+    if x.ndim not in (1, 2) or x.shape[0] != p.csr.shape[1]:
+        raise ValueError(f"x of shape {tuple(x.shape)} does not match A of "
+                         f"shape {p.csr.shape}")
+    n = 1 if x.ndim == 1 else x.shape[1]
+    entry = p.entry(impl or p.select(n), backend)
+    sub = p.substrate(entry.substrate)
+    if vals is not None:
+        if entry.substrate == "balanced":
+            sub = BalancedCOO(sub.rows, sub.cols,
+                              _stream_to_balanced(vals, sub), sub.shape)
+        else:
+            if p.csr.nnz == 0:
+                v = torch.zeros_like(sub.vals)
+            else:
+                lens = p.ell_lens()
+                valid = (torch.arange(sub.width, device=lens.device)[None, :]
+                         < lens[:, None])
+                gathered = vals.reshape(-1).index_select(
+                    0, p.ell_src().reshape(-1)).reshape(sub.vals.shape)
+                v = torch.where(valid, gathered, 0).to(sub.vals.dtype)
+            sub = dataclasses.replace(sub, vals=v)
+    return entry.fn(sub, x, **p.kernel_opts(entry))

@@ -1,0 +1,128 @@
+"""Backend-aware kernel registry; counterpart of ``repro.core.registry``.
+
+The paper's 2x2 design space (row-split / nnz-balanced x sequential /
+parallel reduction) gives four logical kernels.  The registry maps
+``(logical kernel, backend)`` to one ``KernelEntry``:
+
+* ``"torch"`` — the plain PyTorch lowerings in ``repro_torch.core.spmm``: the
+  CPU path and the oracle the Hopper kernels are held to;
+* ``"hopper"`` — the hand-written CUDA kernels in ``repro_torch.kernels``.
+
+Backend modules register their entries when imported, and are imported on
+first resolve.  An entry's ``fn`` has the signature ``fn(substrate, x,
+**opts)``, where ``opts`` come from the entry's optional host-side ``prep``
+hook, run once per plan.
+
+There is no demotion ladder: a kernel that fails raises.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import importlib
+import threading
+from typing import Callable, Optional
+
+import torch
+
+#: the paper's 2x2 SpMM space — the kernels ``execute`` dispatches between
+MATMUL_KERNELS: tuple[str, ...] = ("rs_sr", "rs_pr", "nb_sr", "nb_pr")
+
+#: substrate format each entry consumes
+SUBSTRATES: tuple[str, ...] = ("ell", "balanced")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelEntry:
+    logical: str                      # one of MATMUL_KERNELS
+    backend: str                      # "torch" | "hopper" | ...
+    substrate: str                    # one of SUBSTRATES
+    fn: Callable                      # fn(substrate, x, **opts)
+    prep: Optional[Callable] = None   # prep(substrate, **ctx) -> opts dict
+
+
+_REGISTRY: dict[tuple[str, str], KernelEntry] = {}
+
+#: module that registers each backend's kernels; imported on first resolve
+_LAZY_BACKENDS: dict[str, str] = {
+    "torch": "repro_torch.core.spmm",
+    "hopper": "repro_torch.kernels",
+}
+
+
+def register(logical: str, backend: str, substrate: str, fn: Callable, *,
+             prep: Callable | None = None) -> KernelEntry:
+    """Register (or replace) the physical implementation of a logical kernel."""
+    if logical not in MATMUL_KERNELS:
+        raise ValueError(f"unknown logical kernel {logical!r}; "
+                         f"expected one of {MATMUL_KERNELS}")
+    if substrate not in SUBSTRATES:
+        raise ValueError(f"unknown substrate {substrate!r}; "
+                         f"expected one of {SUBSTRATES}")
+    entry = KernelEntry(logical, backend, substrate, fn, prep)
+    _REGISTRY[(logical, backend)] = entry
+    return entry
+
+
+def _ensure_backend_loaded(backend: str) -> None:
+    mod = _LAZY_BACKENDS.get(backend)
+    if mod is not None:
+        importlib.import_module(mod)
+
+
+def resolve(logical: str, backend: str) -> KernelEntry:
+    """Look up the physical kernel for (logical, backend)."""
+    _ensure_backend_loaded(backend)
+    try:
+        return _REGISTRY[(logical, backend)]
+    except KeyError:
+        raise KeyError(
+            f"no kernel registered for (logical={logical!r}, backend={backend!r}); "
+            f"registered: {sorted(_REGISTRY)}") from None
+
+
+def available(backend: str | None = None) -> tuple[KernelEntry, ...]:
+    """All registered entries, optionally filtered by backend."""
+    for b in ((backend,) if backend is not None else tuple(_LAZY_BACKENDS)):
+        _ensure_backend_loaded(b)
+    return tuple(e for e in _REGISTRY.values()
+                 if backend is None or e.backend == backend)
+
+
+# ---------------------------------------------------------------------------
+# scoped backend override (the facade's ``use_backend``)
+# ---------------------------------------------------------------------------
+
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def backend_scope(backend: str | None):
+    """Make ``backend`` the default for every ``plan()`` / ``sparse()`` in
+    the dynamic extent that names none.  ``None`` is a no-op scope."""
+    stack = getattr(_SCOPE, "stack", None)
+    if stack is None:
+        stack = _SCOPE.stack = []
+    if backend is not None:
+        stack.append(backend)
+    try:
+        yield
+    finally:
+        if backend is not None:
+            stack.pop()
+
+
+def scoped_backend() -> str | None:
+    """Innermost ``backend_scope`` override, or None."""
+    stack = getattr(_SCOPE, "stack", None)
+    return stack[-1] if stack else None
+
+
+def default_backend(device) -> str:
+    """The scoped override inside ``backend_scope``; otherwise the Hopper
+    kernels for data on a CUDA device and the plain lowerings for data on
+    the CPU."""
+    scoped = scoped_backend()
+    if scoped is not None:
+        return scoped
+    return "hopper" if torch.device(device).type == "cuda" else "torch"

@@ -1,0 +1,135 @@
+"""The paper's 2x2 implementation space as plain PyTorch — the ``"torch"``
+backend; counterpart of the matmul half of ``repro.core.spmm``.
+
+These lowerings are the CPU path and the oracle the Hopper kernels are held
+to.  RS = row-split, NB = nnz-balanced (workload balancing); SR = sequential
+reduction, PR = parallel reduction.
+
+  rs_sr  CSR-Scalar / RowSplit   (ELL, a loop over the width)
+  rs_pr  CSR-Vector              (ELL, materialise + tree sum, width slabs)
+  nb_sr  MergePath-style         (BalancedCOO, slabs of tiles in sequence)
+  nb_pr  VSR, paper §2.1.1       (BalancedCOO, one flat segment sum)
+
+Padding rows (``rows == M``) of the balanced substrate land in an extra
+output row that is cut off, exactly as ``segment_sum(num_segments=M+1)``
+drops them in the reference.  Sums run in f32 when either operand is bf16 or
+f16, and the result is cast back to ``x.dtype``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import registry
+from .formats import ELL, BalancedCOO
+
+
+def _as_2d(x: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    if x.ndim == 1:
+        return x[:, None], True
+    return x, False
+
+
+def _acc_dtype(a: torch.dtype, b: torch.dtype) -> torch.dtype:
+    p = torch.promote_types(a, b)
+    if p in (torch.bfloat16, torch.float16):
+        return torch.promote_types(p, torch.float32)
+    return p
+
+
+def _finish(out: torch.Tensor, x2: torch.Tensor, squeeze: bool) -> torch.Tensor:
+    out = out.to(x2.dtype)
+    return out[:, 0] if squeeze else out
+
+
+#: element budget of the partial products one reduction step materialises
+#: (rs_pr's (M, width_slab, N) and nb_sr's (slab_nnz, N)); 64 MiB at f32
+RS_PR_SLAB_ELEMS = 1 << 24
+
+
+# ---------------------------------------------------------------------------
+# RS (row-split) kernels on ELL
+# ---------------------------------------------------------------------------
+
+def spmm_rs_sr(ell: ELL, x: torch.Tensor) -> torch.Tensor:
+    """Row-split + sequential reduction: one gathered column slab of the ELL
+    per step, added into a running (M, N) sum."""
+    x2, squeeze = _as_2d(x)
+    m = ell.shape[0]
+    acc = _acc_dtype(ell.vals.dtype, x2.dtype)
+    out = torch.zeros((m, x2.shape[1]), dtype=acc, device=x2.device)
+    for j in range(ell.width):
+        xg = x2.index_select(0, ell.cols[:, j])
+        out += ell.vals[:, j, None].to(acc) * xg.to(acc)
+    return _finish(out, x2, squeeze)
+
+
+def spmm_rs_pr(ell: ELL, x: torch.Tensor, *,
+               slab_elems: int | None = None) -> torch.Tensor:
+    """Row-split + parallel reduction: all (M, width, N) partial products
+    tree-summed over the width — or, above ``slab_elems`` elements, width
+    slabs summed in turn (memory bounded by the budget)."""
+    x2, squeeze = _as_2d(x)
+    m, w = ell.cols.shape
+    n = x2.shape[1]
+    acc = _acc_dtype(ell.vals.dtype, x2.dtype)
+    budget = RS_PR_SLAB_ELEMS if slab_elems is None else slab_elems
+    ws = w if m * w * n <= budget else max(1, budget // max(m * n, 1))
+    out = torch.zeros((m, n), dtype=acc, device=x2.device)
+    for s in range(0, w, ws):
+        cols = ell.cols[:, s:s + ws]
+        xg = x2.index_select(0, cols.reshape(-1)).reshape(m, cols.shape[1], n)
+        out += (ell.vals[:, s:s + ws, None].to(acc) * xg.to(acc)).sum(dim=1)
+    return _finish(out, x2, squeeze)
+
+
+# ---------------------------------------------------------------------------
+# NB (nnz-balanced) kernels on BalancedCOO
+# ---------------------------------------------------------------------------
+
+def spmm_nb_pr(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
+    """nnz-balanced + parallel reduction — the VSR algorithm (paper §2.1.1):
+    every partial product of the stream reduced by one segment sum keyed on
+    row ids (``index_add_``)."""
+    x2, squeeze = _as_2d(x)
+    m = bal.shape[0]
+    acc = _acc_dtype(bal.vals.dtype, x2.dtype)
+    p = (bal.vals.reshape(-1, 1).to(acc)
+         * x2.index_select(0, bal.cols.reshape(-1)).to(acc))
+    out = torch.zeros((m + 1, x2.shape[1]), dtype=acc, device=x2.device)
+    out.index_add_(0, bal.rows.reshape(-1), p)
+    return _finish(out[:m], x2, squeeze)
+
+
+def spmm_nb_sr(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
+    """nnz-balanced + sequential reduction (MergePath-flavoured): slabs of
+    whole tiles are walked in order, each scatter-added into the running
+    output, so the partial products never exceed ``RS_PR_SLAB_ELEMS``."""
+    x2, squeeze = _as_2d(x)
+    m = bal.shape[0]
+    n = x2.shape[1]
+    acc = _acc_dtype(bal.vals.dtype, x2.dtype)
+    out = torch.zeros((m + 1, n), dtype=acc, device=x2.device)
+    step = max(1, RS_PR_SLAB_ELEMS // max(bal.tile * n, 1))
+    for t0 in range(0, bal.n_tiles, step):
+        cols = bal.cols[t0:t0 + step].reshape(-1)
+        p = (bal.vals[t0:t0 + step].reshape(-1, 1).to(acc)
+             * x2.index_select(0, cols).to(acc))
+        out.index_add_(0, bal.rows[t0:t0 + step].reshape(-1), p)
+    return _finish(out[:m], x2, squeeze)
+
+
+def spmm_as_n_spmv(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
+    """Paper §2.1.2 baseline: N column-by-column SpMVs, each re-gathering the
+    sparse stream — the redundant loads VDL removes."""
+    x2, squeeze = _as_2d(x)
+    cols = [spmm_nb_pr(bal, x2[:, j]) for j in range(x2.shape[1])]
+    out = (torch.stack(cols, dim=1) if cols
+           else x2.new_zeros((bal.shape[0], 0)))
+    return out[:, 0] if squeeze else out
+
+
+for _name, _fn, _sub in (("rs_sr", spmm_rs_sr, "ell"),
+                         ("rs_pr", spmm_rs_pr, "ell"),
+                         ("nb_sr", spmm_nb_sr, "balanced"),
+                         ("nb_pr", spmm_nb_pr, "balanced")):
+    registry.register(_name, "torch", _sub, _fn)
