@@ -19,11 +19,21 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              the selector's pick, the launch counter of the kernel it maps
              to, agreement with the plain "torch" backend, a cache hit with
              new values, and a small graph against a dense float64 product;
+             then a GAT attention layer on both graphs,
+             ``repro_torch.sparse_chain(csr, a, b, x, alpha=0.125)`` with a,
+             b of width d = 64 and N = 1, 32, 128, and
+             ``repro_torch.sddmm(csr, a, b)``: K6, K7 and K8 launched,
+             agreement with the "torch" backend, empty rows exactly 0, and
+             one call with the fuse gate shut (K6, K7, K1);
 5. times   — per (graph, N): the kernel, its plain version and
              ``torch.sparse.mm`` (cuSPARSE, the paper's baseline) by CUDA
              events, median of 20 runs after a warm-up, beside the bound:
              max(bytes / 3.35 TB/s, 2·nnz·N / 67 TFLOP/s) with bytes =
-             12·nnz (8·nnz for ELL) + 4·K·N + 4·M·N;
+             12·nnz (8·nnz for ELL) + 4·K·N + 4·M·N; per (graph, transform,
+             N) of the chain: K6, K7 and K8 alone, the fused call, the
+             unfused pair and the plain version, beside each kernel's bound
+             (each input read once, each output written once) and, for K6,
+             ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM);
 6. summary — one JSON line of the kernels, the card line, then the result.
 
 Without a CUDA device it prints no result and exits 2.  ``--scale`` below 20
@@ -33,6 +43,7 @@ the slice are checked at scale 20 only.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -64,10 +75,26 @@ KERNELS = {
                  "replaces": "src/repro/kernels/spmv.py:131"},
     "csc_spmm": {"route": "cuda", "source": "src/repro_torch/csrc/csc.cu",
                  "replaces": "src/repro/kernels/csc.py:36"},
+    "sddmm": {"route": "cuda", "source": "src/repro_torch/csrc/sddmm.cu",
+              "replaces": "src/repro/kernels/fused_chain.py:81"},
+    "chain_stats": {"route": "cuda", "source": "src/repro_torch/csrc/chain.cu",
+                    "replaces": "src/repro/kernels/fused_chain.py:123"},
+    "chain": {"route": "cuda", "source": "src/repro_torch/csrc/chain.cu",
+              "replaces": "src/repro/kernels/fused_chain.py:196"},
 }
 #: the (graph, N) whose times stand for each kernel in the summary line
 SUMMARY_SHAPE = {"vsr_spmm": ("g500", 128), "vsr_spmv": ("g500", 1),
                  "csc_spmm": ("unif", 128)}
+#: a GAT attention layer: feature width d of the scores, alpha = 1/sqrt(d)
+CHAIN_D = 64
+CHAIN_ALPHA = 0.125
+CHAIN_NS = (1, 32, 128)
+#: (graph, transform, N) of the chain's kernel checks and times
+CHAIN_CASES = (("g500", "softmax", 1), ("g500", "softmax", 32),
+               ("g500", "softmax", 128), ("g500", "identity", 32),
+               ("g500", "scale", 32), ("unif", "softmax", 128))
+#: the chain case whose times stand for K8 in the summary line
+CHAIN_SUMMARY = ("g500", "softmax", 128)
 
 
 def fail(msg: str) -> None:
@@ -94,8 +121,14 @@ def main() -> int:
     import repro_torch
     from repro_torch.core import formats, stats
     from repro_torch.core.rmat import rmat
-    from repro_torch.kernels import (_build, csc, launch_counts,
+    from repro_torch.kernels import (_build, csc, fused_chain, launch_counts,
                                      reset_launch_counts, spmv, vsr)
+
+    t_start = time.perf_counter()
+
+    def phase(name):
+        print(f"[phase] {name} at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
 
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -122,6 +155,7 @@ def main() -> int:
         return statistics.median(times)
 
     # -- 1. card ------------------------------------------------------------
+    phase("card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -129,6 +163,7 @@ def main() -> int:
           flush=True)
 
     # -- 2. build -----------------------------------------------------------
+    phase("build")
     built = _build.build()
     _build.lib()
     print(f"[build] {built.path.name}: {built.seconds:.1f} s")
@@ -138,6 +173,7 @@ def main() -> int:
     sys.stdout.flush()
 
     # -- the graphs ---------------------------------------------------------
+    phase("graphs")
     graphs = {}
     for name, (a, b, c) in GRAPHS.items():
         t0 = time.perf_counter()
@@ -156,6 +192,7 @@ def main() -> int:
         graphs[name] = csr
 
     # -- 3. kernels against their plain versions ------------------------------
+    phase("kernels")
     max_abs = {k: 0.0 for k in KERNELS}     # over the float32 checks
 
     def hold(kernel, label, got, want, dtype):
@@ -186,18 +223,50 @@ def main() -> int:
         x = randn(k_dim, n)
         hold("csc_spmm", f"unif N={n}", csc.spmm_csc(unif_ell, x),
              csc.spmm_csc_plain(unif_ell, x), "float32")
+
+    # the chain's kernels: a GAT layer's scores A·Bᵀ, A and B (2^20, 64)
+    feats = {name: (0.3 * randn(csr.shape[0], CHAIN_D),
+                    0.3 * randn(csr.shape[1], CHAIN_D))
+             for name, csr in graphs.items()}
+    bals = {"g500": g500_bal, "unif": unif_bal}
+    for name, bal in bals.items():
+        pat = (bal.rows, bal.cols, *feats[name])
+        hold("sddmm", name, fused_chain.sddmm_fused(*pat, shape=bal.shape),
+             fused_chain.sddmm_plain(*pat, shape=bal.shape), "float32")
+    pat = (g500_bal.rows, g500_bal.cols, *feats["g500"])
+    rm, rs = fused_chain.chain_stats_fused(*pat, shape=g500_bal.shape,
+                                           alpha=CHAIN_ALPHA)
+    pm, ps = fused_chain.chain_stats_plain(*pat, shape=g500_bal.shape,
+                                           alpha=CHAIN_ALPHA)
+    empty = torch.diff(graphs["g500"].indptr) == 0
+    if not ((rm[empty] == -1e30).all() and (rs[empty] == 0).all()):
+        fail("chain_stats: empty rows of g500 are not exactly (-1e30, 0)")
+    hold("chain_stats", "g500 row max", rm[~empty], pm[~empty], "float32")
+    hold("chain_stats", "g500 row sum", rs, ps, "float32")
+    del rm, rs, pm, ps
+    for name, transform, n, dtype in (
+            [case + (torch.float32,) for case in CHAIN_CASES]
+            + [("g500", "softmax", 32, torch.bfloat16)]):
+        x = randn(k_dim, n, dtype=dtype) if n > 1 else randn(k_dim)
+        bal = bals[name]
+        kw = dict(shape=bal.shape, transform=transform, alpha=CHAIN_ALPHA)
+        pat = (bal.rows, bal.cols, *feats[name], x)
+        hold("chain", f"{name} {transform} N={n}",
+             fused_chain.chain_fused(*pat, **kw),
+             fused_chain.chain_plain(*pat, **kw), str(dtype).split(".")[1])
     torch.cuda.synchronize()
-    del g500_bal, unif_bal, unif_ell
+    del g500_bal, unif_bal, unif_ell, bals, pat
     torch.cuda.empty_cache()
 
     # -- 4. the main path through the facade -----------------------------------
+    phase("main")
     launches = {k: 0 for k in KERNELS}
 
-    def drive(A, x):
+    def drive(call):
         """One user call, with the launch counts set to 0 just before and
         read just after."""
         reset_launch_counts()
-        y = A @ x
+        y = call()
         torch.cuda.synchronize()
         counts = launch_counts()
         for k, v in counts.items():
@@ -211,7 +280,7 @@ def main() -> int:
             A = repro_torch.sparse(csr)
             t1 = time.perf_counter()
             pick = A.plan.select(n)
-            y, counts = drive(A, x)
+            y, counts = drive(lambda: A @ x)
             t2 = time.perf_counter()
             kernel = kernel_of(pick, n)
             if A.backend != "hopper":
@@ -229,7 +298,7 @@ def main() -> int:
             hits = repro_torch.cache_stats()["hits"]
             B = repro_torch.sparse(formats.CSR(csr.indptr, csr.indices,
                                                randn(csr.nnz), csr.shape))
-            y2, counts2 = drive(B, x)
+            y2, counts2 = drive(lambda: B @ x)
             rel2, _ = errors(y2, B.matmul(x, backend="torch"))
             hit = repro_torch.cache_stats()["hits"] == hits + 1 and B.plan is A.plan
             print(f"[main] {name} N={n}: pick={pick} kernel={kernel} "
@@ -245,18 +314,67 @@ def main() -> int:
         small = rmat(10, 8, a, b, c, seed=args.seed, device=dev)
         for n in NS:
             x = randn(small.shape[1], n) if n > 1 else randn(small.shape[1])
-            y, _ = drive(repro_torch.sparse(small), x)
+            y, _ = drive(lambda: repro_torch.sparse(small) @ x)
             want = small.to_dense().double() @ x.double()
             rel, _ = errors(y, want)
             print(f"[main] {name}_s10_e8 N={n}: rel_err_vs_dense_f64={rel:.3e}")
             if rel > RTOL["float32"]:
                 fail(f"{name}_s10_e8 N={n}: disagrees with the dense product")
+    # the GAT layer: sparse_chain (K7 + K8) and sddmm (K6) through the facade
+    for name, csr in graphs.items():
+        a, b = feats[name]
+        empty = torch.diff(csr.indptr) == 0
+        for n in CHAIN_NS:
+            x = randn(csr.shape[1], n) if n > 1 else randn(csr.shape[1])
+            t0 = time.perf_counter()
+            y, counts = drive(lambda: repro_torch.sparse_chain(
+                csr, a, b, x, transform="softmax", alpha=CHAIN_ALPHA))
+            t1 = time.perf_counter()
+            A = repro_torch.sparse(csr, chain_op="softmax")
+            if A.backend != "hopper":
+                fail(f"chain {name} N={n}: backend {A.backend!r}")
+            if counts["chain_stats"] < 1 or counts["chain"] < 1:
+                fail(f"chain {name} N={n}: K7/K8 were not launched ({counts})")
+            if y.shape != ((csr.shape[0], n) if n > 1 else (csr.shape[0],)) \
+                    or not torch.isfinite(y).all():
+                fail(f"chain {name} N={n}: output of shape {tuple(y.shape)} "
+                     "is not finite or has the wrong shape")
+            if name == "g500" and not (y[empty] == 0).all():
+                fail(f"chain {name} N={n}: empty rows are not exactly 0")
+            rel, _ = errors(y, A.chain(a, b, x, alpha=CHAIN_ALPHA,
+                                       backend="torch"))
+            print(f"[main] chain {name} softmax N={n}: launches={counts} "
+                  f"rel_err_vs_torch={rel:.3e} call_s={t1 - t0:.3f} "
+                  "(host clock, plan included)", flush=True)
+            if rel > RTOL["float32"]:
+                fail(f"chain {name} N={n}: disagrees with the torch backend")
+        e, counts = drive(lambda: repro_torch.sddmm(csr, a, b))
+        rel, _ = errors(e, repro_torch.sparse(csr).sddmm(a, b, backend="torch"))
+        print(f"[main] sddmm {name}: launches={counts} shape={tuple(e.shape)} "
+              f"rel_err_vs_torch={rel:.3e}", flush=True)
+        if counts["sddmm"] < 1 or e.shape != (csr.nnz,) or rel > RTOL["float32"]:
+            fail(f"sddmm {name}: not launched, misshapen or wrong")
+    # the fuse gate shut: the unfused pair of the port's own kernels
+    csr = graphs["g500"]
+    a, b = feats["g500"]
+    x = randn(csr.shape[1], 32)
+    shut = dataclasses.replace(repro_torch.SelectorThresholds(),
+                               chain_fuse_min_n=1 << 30)
+    y, counts = drive(lambda: repro_torch.sparse_chain(
+        csr, a, b, x, alpha=CHAIN_ALPHA, thresholds=shut))
+    rel, _ = errors(y, repro_torch.sparse_chain(csr, a, b, x, alpha=CHAIN_ALPHA))
+    print(f"[main] chain g500 softmax N=32, fuse gate shut: launches={counts} "
+          f"rel_err_vs_fused={rel:.3e}", flush=True)
+    if (counts["sddmm"], counts["chain_stats"], counts["vsr_spmm"],
+            counts["chain"]) != (1, 1, 1, 0) or rel > RTOL["float32"]:
+        fail("the shut fuse gate did not run K6, K7 and K1 alone, or disagrees")
     for k, v in launches.items():
         if v < 1:
             fail(f"{k} was never launched on the main path")
     print(f"[main] launches on the main path: {launches}", flush=True)
 
     # -- 5. times ---------------------------------------------------------------
+    phase("times")
     rows = {}
     for name, csr in graphs.items():
         m, k_dim = csr.shape
@@ -293,17 +411,94 @@ def main() -> int:
         del lib_a
         torch.cuda.empty_cache()
 
+    # the chain: K6, K7, K8 alone, the fused call, the unfused pair, plain
+    def bound(nbytes, flops):
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOP_PER_S
+        return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    chain_summary = {}
+    for name, csr in graphs.items():
+        m, k_dim = csr.shape
+        a, b = feats[name]
+        A = repro_torch.sparse(csr, chain_op="softmax")
+        bal = A.plan.substrate("balanced")
+        slots = bal.rows.numel()
+        pat = (bal.rows, bal.cols, a, b)
+        feat_bytes = (m + k_dim) * CHAIN_D * a.element_size()
+        lib_a = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
+                                        size=csr.shape, check_invariants=False)
+        b_t = b.t()
+        sd_bound = bound(8 * slots + feat_bytes + 4 * slots,
+                         2 * csr.nnz * CHAIN_D)
+        st_bound = bound(8 * slots + feat_bytes + 8 * m, 2 * csr.nnz * CHAIN_D)
+        sddmm_row = {
+            "kernel_ms": time_ms(lambda: fused_chain.sddmm_fused(*pat, shape=csr.shape)),
+            "plain_ms": time_ms(lambda: fused_chain.sddmm_plain(*pat, shape=csr.shape)),
+            "library_ms": time_ms(lambda: torch.sparse.sampled_addmm(
+                lib_a, a, b_t, beta=0.0)),
+            "bound_ms": sd_bound[0], "bound_by": sd_bound[1]}
+        stats_row = {
+            "kernel_ms": time_ms(lambda: fused_chain.chain_stats_fused(
+                *pat, shape=csr.shape, alpha=CHAIN_ALPHA)),
+            "plain_ms": time_ms(lambda: fused_chain.chain_stats_plain(
+                *pat, shape=csr.shape, alpha=CHAIN_ALPHA)),
+            "library_ms": None, "bound_ms": st_bound[0], "bound_by": st_bound[1]}
+        for label, row in (("sddmm", sddmm_row), ("chain_stats", stats_row)):
+            print(f"[time] {label} {name}_s{args.scale}_e16 d={CHAIN_D} "
+                  + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+        if name == CHAIN_SUMMARY[0]:
+            chain_summary["sddmm"] = (sddmm_row, f"{name}_s{args.scale}_e16 d={CHAIN_D}")
+            chain_summary["chain_stats"] = (stats_row, f"{name}_s{args.scale}_e16 d={CHAIN_D}")
+        del lib_a, b_t
+        stats = fused_chain.chain_stats_fused(*pat, shape=csr.shape, alpha=CHAIN_ALPHA)
+        for cname, transform, n in CHAIN_CASES:
+            if cname != name:
+                continue
+            x = randn(k_dim, n) if n > 1 else randn(k_dim)
+            kw = dict(shape=csr.shape, transform=transform, alpha=CHAIN_ALPHA)
+            if transform == "softmax":
+                kw["stats"] = stats
+            stats_in = 8 * m if transform == "softmax" else 0
+            ch_bound = bound(8 * slots + feat_bytes + stats_in
+                             + (k_dim + m) * n * x.element_size(),
+                             2 * csr.nnz * (CHAIN_D + n))
+            row = {
+                "kernel_ms": time_ms(lambda: fused_chain.chain_fused(*pat, x, **kw)),
+                "plain_ms": time_ms(lambda: fused_chain.chain_plain(*pat, x, **kw)),
+                "library_ms": None,
+                "bound_ms": ch_bound[0], "bound_by": ch_bound[1],
+                "fused_call_ms": time_ms(lambda: A.chain(
+                    a, b, x, transform=transform, alpha=CHAIN_ALPHA)),
+                "unfused_pair_ms": time_ms(lambda: fused_chain.chain_unfused(
+                    *pat, x, shape=csr.shape, transform=transform,
+                    alpha=CHAIN_ALPHA)),
+                "plain_call_ms": time_ms(lambda: A.chain(
+                    a, b, x, transform=transform, alpha=CHAIN_ALPHA,
+                    backend="torch")),
+            }
+            print(f"[time] chain {name}_s{args.scale}_e16 {transform} N={n} "
+                  + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+            if (name, transform, n) == CHAIN_SUMMARY:
+                chain_summary["chain"] = (row, f"{name}_s{args.scale}_e16 "
+                                               f"{transform} N={n} d={CHAIN_D}")
+        del stats
+        torch.cuda.empty_cache()
+
     # -- 6. summary ---------------------------------------------------------------
+    phase("summary")
     summary = []
     for kernel, meta in KERNELS.items():
-        name, n = SUMMARY_SHAPE[kernel]
-        row = rows[(name, n)]
+        if kernel in SUMMARY_SHAPE:
+            name, n = SUMMARY_SHAPE[kernel]
+            row = rows[(name, n)]
+            shape = f"{name}_s{args.scale}_e16 N={n}"
+        else:
+            row, shape = chain_summary[kernel]
         summary.append({"name": kernel, **meta, "launches": launches[kernel],
                         "max_abs_err": max_abs[kernel], "ms": row["kernel_ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"],
-                        "shape": f"{name}_s{args.scale}_e16 N={n}"})
+                        "library_ms": row["library_ms"], "shape": shape})
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@
     with api.use_backend("torch"):       # scoped backend, no kwarg threading
         y = api.sparse(csr) @ x
 
+    e = A.sddmm(q, k)                    # (q @ k.T) at the edges, CSR order
+    y = api.sparse_chain(adj, q, k, v, alpha=0.125)   # graph attention:
+                                         # softmax_rows(mask(α·q kᵀ)) @ v
+
 ``sparse()`` runs on the card unless the caller passes ``device="cpu"``: by
 default the data go to CUDA and the ``"hopper"`` backend runs, and without a
 CUDA device the call raises instead of carrying on on the CPU.
@@ -22,14 +26,16 @@ import torch
 from .core.cache import (DEFAULT_CACHE, PlanCache, cached_plan,
                                     pattern_fingerprint)
 from .core.formats import CSR, csr_from_dense
-from .core.plan import PlanBuilder, execute, plan
+from .core.plan import (PlanBuilder, execute, execute_chain, execute_sddmm,
+                        plan)
 from .core.registry import backend_scope, default_backend
 from .core.selector import (SelectorThresholds, TileGeometry,
                                        default_thresholds)
 from .core.stats import MatrixStats
 
-__all__ = ["SparseMatrix", "sparse", "use_backend", "cache_stats",
-           "clear_cache", "PlanCache", "SelectorThresholds", "TileGeometry"]
+__all__ = ["SparseMatrix", "sparse", "sddmm", "sparse_chain", "use_backend",
+           "cache_stats", "clear_cache", "PlanCache", "SelectorThresholds",
+           "TileGeometry"]
 
 use_backend = backend_scope
 
@@ -88,18 +94,43 @@ class SparseMatrix:
         return (f"SparseMatrix({m}x{k}, nnz={self.nnz}, backend="
                 f"{self.backend!r}, device={self.device}, values={live})")
 
+    def _on_device(self, **operands: torch.Tensor) -> None:
+        for name, t in operands.items():
+            if t.device != self.device:
+                raise ValueError(f"{name} lies on {t.device}, the matrix on "
+                                 f"{self.device}")
+
     def matmul(self, x: torch.Tensor, *, impl: str | None = None,
                backend: str | None = None) -> torch.Tensor:
         """``A @ x`` with per-call overrides: ``impl`` forces a logical
         kernel, ``backend`` another backend for this call.  ``x`` must lie
         on the matrix's device."""
-        if x.device != self.device:
-            raise ValueError(f"x lies on {x.device}, the matrix on {self.device}")
+        self._on_device(x=x)
         return execute(self._plan, x, vals=self._values, impl=impl,
                        backend=backend)
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         return self.matmul(x)
+
+    def sddmm(self, a: torch.Tensor, b: torch.Tensor, *,
+              backend: str | None = None) -> torch.Tensor:
+        """Sample ``a @ b.T`` at this operand's nonzero positions: the
+        ``(nnz,)`` CSR-ordered f32 score stream (feed it to ``with_values``
+        for an attention-weighted operand).  Only the pattern is read."""
+        self._on_device(a=a, b=b)
+        return execute_sddmm(self._plan, a, b, backend=backend)
+
+    def chain(self, a: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
+              transform: str = "softmax", alpha: float | None = None,
+              backend: str | None = None) -> torch.Tensor:
+        """The SDDMM→SpMM chain: score ``a @ b.T`` at the nonzero positions,
+        transform per row (``identity`` / ``scale`` / masked ``softmax``
+        of ``alpha`` times the scores) and aggregate ``x``.  On the card the
+        edge scores stay on chip (kernels K7 and K8).  Only the pattern is
+        read."""
+        self._on_device(a=a, b=b, x=x)
+        return execute_chain(self._plan, a, b, x, transform=transform,
+                             alpha=alpha, backend=backend)
 
     def with_values(self, stream: torch.Tensor) -> "SparseMatrix":
         """Same pattern and plan, new CSR-ordered nonzero values."""
@@ -132,6 +163,7 @@ def sparse(a, *, device=None, backend: str | None = None,
            thresholds: SelectorThresholds | None = None,
            tile: int | None = None, n_hint: int | None = None,
            geometry: TileGeometry | None = None,
+           chain_op: str | None = None,
            cache: "PlanCache | bool | None" = True) -> SparseMatrix:
     """Build a sparse operand from a CSR, a SparseMatrix or a dense 2-D
     array.
@@ -143,7 +175,9 @@ def sparse(a, *, device=None, backend: str | None = None,
     to re-plan): a hit whose baked values differ from ``a``'s returns a
     handle that streams its own values, so reuse is always value-correct.
     ``geometry=None`` resolves the thresholds' geometry table here, with
-    ``n_hint``, so the cache keys on the resolved geometry."""
+    ``n_hint``, so the cache keys on the resolved geometry.  ``chain_op``
+    tags the plan with the chain transform it serves, so chained and plain
+    plans over one pattern are distinct cache entries."""
     device = _resolve_device(device)
     csr, values = _as_csr(a, device)
     resolved_backend = backend or default_backend(device)
@@ -158,7 +192,7 @@ def sparse(a, *, device=None, backend: str | None = None,
     else:
         cache_obj = cache
     kw = dict(backend=resolved_backend, thresholds=th, tile=tile,
-              geometry=geometry)
+              geometry=geometry, chain_op=chain_op)
     p = (plan(csr, **kw) if cache_obj is None
          else cached_plan(csr, cache=cache_obj, **kw))
     if values is None and p.csr is not csr and not torch.equal(p.csr.data, csr.data):
@@ -167,6 +201,33 @@ def sparse(a, *, device=None, backend: str | None = None,
     if n_hint is not None:
         p.kernel_opts(p.entry(p.select(n_hint)))
     return SparseMatrix(p, values=values, cache=cache_obj)
+
+
+def sddmm(pattern, a: torch.Tensor, b: torch.Tensor, *,
+          backend: str | None = None, **sparse_kw) -> torch.Tensor:
+    """``(a @ b.T)`` at ``pattern``'s nonzero positions, as the ``(nnz,)``
+    CSR-ordered stream.  ``pattern`` is anything ``sparse()`` takes (its
+    keywords pass through, ``device=`` among them) or a SparseMatrix."""
+    A = pattern if isinstance(pattern, SparseMatrix) else (
+        sparse(pattern, backend=backend, **sparse_kw))
+    return A.sddmm(a, b, backend=backend)
+
+
+def sparse_chain(pattern, a: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                 *, transform: str = "softmax", alpha: float | None = None,
+                 backend: str | None = None, **sparse_kw) -> torch.Tensor:
+    """The SDDMM→(transform)→SpMM chain over ``pattern``'s nonzeros:
+
+        ``y[i] = sum_j t(a[i] · b[j]) * x[j]``   for (i, j) in the pattern
+
+    with ``t`` = ``identity``, ``scale`` (times ``alpha``) or the masked row
+    ``softmax`` of ``alpha`` times the scores (graph attention).  Plans are
+    cached per (topology, transform): the ``chain_op`` key segment."""
+    if isinstance(pattern, SparseMatrix):
+        A = pattern
+    else:
+        A = sparse(pattern, backend=backend, chain_op=transform, **sparse_kw)
+    return A.chain(a, b, x, transform=transform, alpha=alpha, backend=backend)
 
 
 def cache_stats(cache: PlanCache | None = None) -> dict:

@@ -9,18 +9,27 @@
 * ``execute(plan, x)`` is the online step: select the logical kernel from
   (stats, N), resolve it through the registry, run it.  ``vals=`` streams a
   CSR-ordered value vector in place of the values baked into the plan.
+* ``execute_sddmm`` / ``execute_chain`` run the SDDMM and the SDDMM→SpMM
+  chain (DESIGN.md §9) over the plan's pattern.
+
+None of them is differentiable yet: with grad mode on, an operand that
+requires grad raises ``NotImplementedError`` (the VJP slice, ROADMAP queue
+1), so the CPU and the card refuse alike instead of the card silently
+returning an output without ``grad_fn``.
 
 Two rules of the reference do not carry over.  Its plans demote
 ``pallas`` to ``xla`` when a tile spans more rows than ``max_win`` — a TPU
 spill-window limit; the Hopper kernels size nothing by a tile's row span,
 so a ``"hopper"`` plan keeps its backend.  Its dispatch reroutes a failing
 kernel to ``xla``; here a kernel that fails to build or launch raises.
-Frozen artifacts, sharding, quantization, chains and sentinels are not
-ported yet: ``plan()`` raises ``NotImplementedError`` on their arguments.
+Frozen artifacts, sharding, quantization, validation, sentinels and BSR
+are not ported yet: ``plan()`` raises ``NotImplementedError`` on their
+arguments.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
 from typing import Any
 
@@ -31,6 +40,7 @@ from . import registry
 from .formats import CSR, BalancedCOO, csr_to_balanced, csr_to_ell, host
 from .selector import (SelectorThresholds, TileGeometry, default_thresholds,
                        select_kernel)
+from .spmm import CHAIN_TRANSFORMS
 from .stats import MatrixStats, matrix_stats
 
 #: plan-context kwargs a prep hook may opt into by declaring them
@@ -41,7 +51,7 @@ _PREP_KWARGS: dict = {}
 
 #: plan() arguments of reference paths not yet ported
 _UNPORTED = ("mesh", "shard_axis", "shard_kind", "inner_backend", "quant",
-             "chain_op", "validate", "sentinel", "bsr_block")
+             "validate", "sentinel", "bsr_block")
 
 
 def _prep_context_kwargs(prep, ctx: dict) -> dict:
@@ -76,6 +86,7 @@ class PlanBuilder:
     backend: str
     tile: int = 512
     geometry: TileGeometry | None = None
+    chain_op: str | None = None      # chain transform the plan was keyed for
     _substrates: dict = dataclasses.field(default_factory=dict, repr=False)
     _opts: dict = dataclasses.field(default_factory=dict, repr=False)
     _ell_lens: Any = dataclasses.field(default=None, repr=False)
@@ -151,7 +162,8 @@ class PlanBuilder:
 def plan(csr: CSR, *, n_hint: int | None = None,
          thresholds: SelectorThresholds | None = None,
          backend: str | None = None, tile: int | None = None,
-         geometry: TileGeometry | None = None, **unported) -> PlanBuilder:
+         geometry: TileGeometry | None = None, chain_op: str | None = None,
+         **unported) -> PlanBuilder:
     """Offline planning front door.
 
     ``n_hint`` (the expected N) builds the substrate and prep of the kernel
@@ -160,7 +172,10 @@ def plan(csr: CSR, *, n_hint: int | None = None,
     takes the ``use_backend`` scope, else ``"hopper"`` for a CSR on a CUDA
     device and ``"torch"`` on the CPU.  ``geometry=None`` consults the
     thresholds' geometry table for (pattern, ``n_hint``, backend);
-    ``tile=None`` takes the geometry's quota (default 512)."""
+    ``tile=None`` takes the geometry's quota (default 512).  ``chain_op``
+    tags the plan with the chain transform it will serve: a cache key
+    segment, not a switch (``execute_chain`` takes the transform per
+    call)."""
     given = sorted(k for k, v in unported.items() if v is not None)
     unknown = sorted(k for k in unported if k not in _UNPORTED)
     if unknown:
@@ -168,6 +183,9 @@ def plan(csr: CSR, *, n_hint: int | None = None,
     if given:
         raise NotImplementedError(f"plan() arguments {given} belong to paths "
                                   "of the reference not yet ported")
+    if chain_op is not None and chain_op not in CHAIN_TRANSFORMS:
+        raise ValueError(f"unknown chain_op {chain_op!r}; expected one of "
+                         f"{CHAIN_TRANSFORMS}")
     if backend is None:
         backend = registry.default_backend(csr.device)
     th = thresholds if thresholds is not None else default_thresholds()
@@ -178,7 +196,7 @@ def plan(csr: CSR, *, n_hint: int | None = None,
     if tile is None:
         tile = geometry.tile if geometry is not None else 512
     p = PlanBuilder(csr=csr, stats=stats, thresholds=th, backend=backend,
-                    tile=int(tile), geometry=geometry)
+                    tile=int(tile), geometry=geometry, chain_op=chain_op)
     if n_hint is not None:
         p.kernel_opts(p.entry(p.select(n_hint)))
     return p
@@ -193,12 +211,29 @@ def _stream_to_balanced(stream: torch.Tensor, bal: BalancedCOO) -> torch.Tensor:
         bal.rows.shape)
 
 
+def _refuse_grad(op: str, *tensors) -> None:
+    """Raise while grad mode is on and an operand requires grad: the port
+    has no backward yet, and a kernel launched through ctypes would return
+    an output without ``grad_fn`` on the card only."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise NotImplementedError(
+            f"{op}: an operand requires grad, and the port has no backward "
+            "yet (the VJP slice, ROADMAP.md queue 1: core/vjp.py as "
+            "torch.autograd.Function); run it under torch.no_grad() or "
+            "detach the operands")
+
+
 def execute(p: PlanBuilder, x: torch.Tensor, *,
             vals: torch.Tensor | None = None, impl: str | None = None,
             backend: str | None = None) -> torch.Tensor:
     """``y = A @ x``.  ``vals`` is a live CSR-ordered value stream in place
     of the plan's baked values; ``impl`` forces a logical kernel (oracle /
     ablation mode); ``backend`` overrides the plan's for this call."""
+    _refuse_grad("execute", x, vals, p.csr.data)
+    if impl is not None and impl not in registry.MATMUL_KERNELS:
+        raise ValueError(f"impl {impl!r} is not a matmul kernel; expected "
+                         f"one of {registry.MATMUL_KERNELS}")
     if vals is not None and vals.numel() != p.csr.nnz:
         raise ValueError(f"vals stream has {vals.numel()} entries but the "
                          f"matrix has {p.csr.nnz} nonzeros")
@@ -224,3 +259,77 @@ def execute(p: PlanBuilder, x: torch.Tensor, *,
                 v = torch.where(valid, gathered, 0).to(sub.vals.dtype)
             sub = dataclasses.replace(sub, vals=v)
     return entry.fn(sub, x, **p.kernel_opts(entry))
+
+
+# ---------------------------------------------------------------------------
+# SDDMM and the fused chain (DESIGN.md §9), single device
+# ---------------------------------------------------------------------------
+
+def _chain_pattern(p: PlanBuilder) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``(rows, cols)`` pattern the chain entries take: the balanced
+    slab's arrays, whose row-major tiling keeps CSR order."""
+    bal = p.substrate("balanced")
+    return bal.rows, bal.cols
+
+
+def _chain_bound(p: PlanBuilder, entry: registry.KernelEntry,
+                 extra: dict):
+    """The entry with the matrix shape, the per-call statics (transform,
+    alpha) and the prep opts bound."""
+    return functools.partial(entry.fn, shape=tuple(p.csr.shape), **extra,
+                             **p.kernel_opts(entry))
+
+
+def _check_chain_operands(op: str, p: PlanBuilder, a, b) -> None:
+    m, k = p.csr.shape
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1]:
+        raise ValueError(f"{op} needs A (m, d) and B (k, d); got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if a.shape[0] != m or b.shape[0] != k:
+        raise ValueError(f"operand rows {a.shape[0]}/{b.shape[0]} do not "
+                         f"match the pattern shape {(m, k)}")
+
+
+def execute_sddmm(p: PlanBuilder, a: torch.Tensor, b: torch.Tensor, *,
+                  backend: str | None = None) -> torch.Tensor:
+    """Sampled dense-dense matmul over the plan's pattern:
+    ``e[i] = <A[row_i], B[col_i]>`` for every nonzero, returned as the
+    CSR-ordered ``(nnz,)`` f32 edge-score stream."""
+    _refuse_grad("execute_sddmm", a, b)
+    _check_chain_operands("sddmm", p, a, b)
+    entry = p.entry("sddmm", backend)
+    rows, cols = _chain_pattern(p)
+    slab = _chain_bound(p, entry, {})(rows, cols, a, b)
+    # the balanced tiling is row-major over the CSR stream: flatten and trim
+    return slab.reshape(-1)[:p.csr.nnz]
+
+
+def execute_chain(p: PlanBuilder, a: torch.Tensor, b: torch.Tensor,
+                  x: torch.Tensor, *, transform: str = "identity",
+                  alpha=None, backend: str | None = None) -> torch.Tensor:
+    """SDDMM→``transform``→SpMM over the plan's pattern:
+    ``y = T(mask(A @ Bᵀ)) @ X`` with ``T`` identity, ``alpha``-scale or the
+    masked row softmax of ``alpha`` times the scores.
+
+    Fuse gate (``thresholds.chain_fuse_min_n``): at N below it the reference
+    runs the unfused xla pair.  A ``"hopper"`` plan there runs the unfused
+    pair made of the port's own kernels (SDDMM scores, softmax statistics,
+    then the nnz-balanced SpMM on the edge stream), so the plain version
+    never takes the card's path."""
+    if transform not in CHAIN_TRANSFORMS:
+        raise ValueError(f"unknown chain transform {transform!r}; expected "
+                         f"one of {CHAIN_TRANSFORMS}")
+    _refuse_grad("execute_chain", a, b, x)
+    _check_chain_operands("chain", p, a, b)
+    k = p.csr.shape[1]
+    if x.ndim not in (1, 2) or x.shape[0] != k:
+        raise ValueError(f"chain needs X (k,) or (k, n) with k={k}; got "
+                         f"{tuple(x.shape)}")
+    n = 1 if x.ndim == 1 else x.shape[1]
+    entry = p.entry("chain", backend)
+    extra: dict = {"transform": transform,
+                   "alpha": None if alpha is None else float(alpha)}
+    if entry.backend == "hopper" and n < p.thresholds.chain_fuse_min_n:
+        extra["fuse"] = False
+    rows, cols = _chain_pattern(p)
+    return _chain_bound(p, entry, extra)(rows, cols, a, b, x)

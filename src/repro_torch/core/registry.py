@@ -9,9 +9,10 @@ parallel reduction) gives four logical kernels.  The registry maps
 * ``"hopper"`` — the hand-written CUDA kernels in ``repro_torch.kernels``.
 
 Backend modules register their entries when imported, and are imported on
-first resolve.  An entry's ``fn`` has the signature ``fn(substrate, x,
-**opts)``, where ``opts`` come from the entry's optional host-side ``prep``
-hook, run once per plan.
+first resolve.  A matmul entry's ``fn`` has the signature ``fn(substrate, x,
+**opts)``; the ``"sddmm"`` and ``"chain"`` entries take the balanced slab's
+pattern, ``fn(rows, cols, a, b[, x], *, shape, **opts)``.  ``opts`` come from
+the entry's optional host-side ``prep`` hook, run once per plan.
 
 There is no demotion ladder: a kernel that fails raises.
 """
@@ -28,16 +29,20 @@ import torch
 #: the paper's 2x2 SpMM space — the kernels ``execute`` dispatches between
 MATMUL_KERNELS: tuple[str, ...] = ("rs_sr", "rs_pr", "nb_sr", "nb_pr")
 
+#: every logical kernel an entry may implement: the SpMM space plus the
+#: SDDMM and the fused SDDMM→SpMM chain (DESIGN.md §9)
+LOGICAL_KERNELS: tuple[str, ...] = MATMUL_KERNELS + ("sddmm", "chain")
+
 #: substrate format each entry consumes
 SUBSTRATES: tuple[str, ...] = ("ell", "balanced")
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelEntry:
-    logical: str                      # one of MATMUL_KERNELS
+    logical: str                      # one of LOGICAL_KERNELS
     backend: str                      # "torch" | "hopper" | ...
     substrate: str                    # one of SUBSTRATES
-    fn: Callable                      # fn(substrate, x, **opts)
+    fn: Callable                      # see the module docstring
     prep: Optional[Callable] = None   # prep(substrate, **ctx) -> opts dict
 
 
@@ -53,9 +58,9 @@ _LAZY_BACKENDS: dict[str, str] = {
 def register(logical: str, backend: str, substrate: str, fn: Callable, *,
              prep: Callable | None = None) -> KernelEntry:
     """Register (or replace) the physical implementation of a logical kernel."""
-    if logical not in MATMUL_KERNELS:
+    if logical not in LOGICAL_KERNELS:
         raise ValueError(f"unknown logical kernel {logical!r}; "
-                         f"expected one of {MATMUL_KERNELS}")
+                         f"expected one of {LOGICAL_KERNELS}")
     if substrate not in SUBSTRATES:
         raise ValueError(f"unknown substrate {substrate!r}; "
                          f"expected one of {SUBSTRATES}")

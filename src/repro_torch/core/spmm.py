@@ -1,5 +1,5 @@
-"""The paper's 2x2 implementation space as plain PyTorch — the ``"torch"``
-backend; counterpart of the matmul half of ``repro.core.spmm``.
+"""The paper's 2x2 implementation space and the SDDMM→SpMM chain as plain
+PyTorch — the ``"torch"`` backend; counterpart of ``repro.core.spmm``.
 
 These lowerings are the CPU path and the oracle the Hopper kernels are held
 to.  RS = row-split, NB = nnz-balanced (workload balancing); SR = sequential
@@ -14,6 +14,11 @@ Padding rows (``rows == M``) of the balanced substrate land in an extra
 output row that is cut off, exactly as ``segment_sum(num_segments=M+1)``
 drops them in the reference.  Sums run in f32 when either operand is bf16 or
 f16, and the result is cast back to ``x.dtype``.
+
+The chain half (DESIGN.md §9) samples ``A @ Bᵀ`` at the pattern's nonzeros
+(SDDMM), transforms the edge scores per row (identity / scale / masked
+softmax) and feeds them to ``spmm_nb_pr`` over the same pattern; these
+lowerings materialise the edge stream, as the reference's xla ones do.
 """
 from __future__ import annotations
 
@@ -128,8 +133,101 @@ def spmm_as_n_spmv(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
     return out[:, 0] if squeeze else out
 
 
+# ---------------------------------------------------------------------------
+# SDDMM and the unfused chain: the GNN pair on the balanced slab's pattern
+# ---------------------------------------------------------------------------
+
+#: per-row transforms the chain supports between its SDDMM and SpMM halves
+CHAIN_TRANSFORMS: tuple[str, ...] = ("identity", "scale", "softmax")
+
+#: masked-softmax sentinel: a finite stand-in for -inf, so an empty row's
+#: max stays finite and no ``inf - inf`` NaN can arise
+SOFTMAX_NEG = -1e30
+
+#: row-sum floor of the masked-softmax divide: an empty row (sum 0) gives
+#: zero weights, not NaN
+SOFTMAX_EPS = 1e-30
+
+
+def _sddmm_flat(r, c, a, b, valid):
+    """Flat edge scores ``e[i] = <A[r[i]], B[c[i]]>`` in f32, 0 at padding
+    (whose row id ``M`` is never used as an index)."""
+    ag = a.index_select(0, torch.where(valid, r, 0)).float()
+    bg = b.index_select(0, torch.where(valid, c, 0)).float()
+    return torch.where(valid, (ag * bg).sum(dim=-1), 0.0)
+
+
+def _softmax_stats(z, r, valid, m):
+    """Per-row (max, sum of exp) of masked scores, each ``(m + 1,)``.  Empty
+    rows keep ``(SOFTMAX_NEG, 0)``; padding slots land in row ``m``."""
+    rr = torch.where(valid, r, m).long()
+    zm = torch.where(valid, z, SOFTMAX_NEG)
+    rm = torch.full((m + 1,), SOFTMAX_NEG, dtype=torch.float32, device=z.device)
+    rm = rm.scatter_reduce(0, rr, zm, reduce="amax", include_self=True)
+    p = torch.where(valid, torch.exp(z - rm[rr]), 0.0)
+    rs = torch.zeros(m + 1, dtype=torch.float32, device=z.device).index_add_(0, rr, p)
+    return rm, rs
+
+
+def chain_weights(e, r, valid, m, transform: str, alpha, stats=None):
+    """The chain's per-row transform of flat f32 edge scores: ``identity``,
+    ``scale`` (times ``alpha``) or ``softmax``, the masked row softmax of
+    ``alpha * e`` (empty rows give all-zero weights).  ``stats`` replaces the
+    local ``(row_max, row_sum)`` statistics, each indexable by row id."""
+    al = 1.0 if alpha is None else float(alpha)
+    if transform == "identity":
+        return torch.where(valid, e, 0.0)
+    if transform == "scale":
+        return torch.where(valid, al * e, 0.0)
+    if transform == "softmax":
+        z = al * e
+        rr = torch.where(valid, r, 0).long()
+        rm, rs = _softmax_stats(z, r, valid, m) if stats is None else stats
+        p = torch.where(valid, torch.exp(z - rm[rr]), 0.0)
+        return p / torch.clamp(rs[rr], min=SOFTMAX_EPS)
+    raise ValueError(f"unknown chain transform {transform!r}; expected one "
+                     f"of {CHAIN_TRANSFORMS}")
+
+
+def _flat_pattern(rows, m):
+    r = rows.reshape(-1)
+    return r, r < m
+
+
+def sddmm_torch(rows, cols, a, b, *, shape, **_opts) -> torch.Tensor:
+    """SDDMM over a balanced-layout pattern: f32 scores shaped like
+    ``rows``, 0 at padding slots.  ``execute_sddmm`` flattens to the
+    CSR-ordered ``(nnz,)`` stream."""
+    r, valid = _flat_pattern(rows, int(shape[0]))
+    return _sddmm_flat(r, cols.reshape(-1), a, b, valid).reshape(rows.shape)
+
+
+def chain_stats_torch(rows, cols, a, b, *, shape, alpha=None, **_opts):
+    """Per-row softmax statistics of ``alpha`` times the edge scores, each
+    ``(m + 1,)`` — the reference's ``chain_stats_xla``."""
+    m = int(shape[0])
+    r, valid = _flat_pattern(rows, m)
+    e = _sddmm_flat(r, cols.reshape(-1), a, b, valid)
+    al = 1.0 if alpha is None else float(alpha)
+    return _softmax_stats(al * e, r, valid, m)
+
+
+def chain_torch(rows, cols, a, b, x, *, shape, transform: str = "identity",
+                alpha=None, stats=None, **_opts) -> torch.Tensor:
+    """Unfused SDDMM → transform → SpMM: the edge stream is materialised and
+    fed to ``spmm_nb_pr``.  ``stats`` replaces the softmax statistics."""
+    m = int(shape[0])
+    r, valid = _flat_pattern(rows, m)
+    e = _sddmm_flat(r, cols.reshape(-1), a, b, valid)
+    w = chain_weights(e, r, valid, m, transform, alpha, stats=stats)
+    return spmm_nb_pr(BalancedCOO(rows, cols, w.reshape(rows.shape),
+                                  tuple(shape)), x)
+
+
 for _name, _fn, _sub in (("rs_sr", spmm_rs_sr, "ell"),
                          ("rs_pr", spmm_rs_pr, "ell"),
                          ("nb_sr", spmm_nb_sr, "balanced"),
                          ("nb_pr", spmm_nb_pr, "balanced")):
     registry.register(_name, "torch", _sub, _fn)
+registry.register("sddmm", "torch", "balanced", sddmm_torch)
+registry.register("chain", "torch", "balanced", chain_torch)

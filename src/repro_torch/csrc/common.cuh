@@ -1,6 +1,6 @@
 // Shared helpers of the port's sparse kernels: element loads that widen
-// f32 / bf16 to f32, the dtype dispatch of the plain-C entry points, and the
-// lane layout the SpMM kernels share.
+// f32 / bf16 to f32, the dtype dispatch of the plain-C entry points, the
+// lane layout the SpMM kernels share and their tile accumulation.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,6 +22,63 @@ inline int lanes_per_row(int n) {
 // Dense columns each lane owns (registers of its accumulator): 1, 2 or 4,
 // so one CTA covers up to 128 columns of X per pass.
 inline int columns_per_lane(int n) { return n <= 32 ? 1 : (n <= 64 ? 2 : 4); }
+
+// The nnz-balanced accumulation of one tile staged in shared memory (K1, and
+// K8 on its edge weights): Y[r, :] += v · X[c, :] over the tile's slots,
+// padding (r >= m) dropped.  Each warp splits into lane groups of `vec`
+// lanes; a group walks a contiguous run of slots while its lanes own dense
+// columns (column block blockIdx.y, CPL columns a lane), so one X row load is
+// one coalesced transaction across the group.  A group carries its running
+// row sum in registers and flushes it with atomicAdd when the row id changes.
+// Y must be zeroed by the caller.
+template <typename TX, int CPL>
+__device__ __forceinline__ void accumulate_tile(
+    const int* s_rows, const int* s_cols, const float* s_vals,
+    const TX* __restrict__ x, float* __restrict__ y, int tile, int m, int n,
+    int vec) {
+  const int lane = threadIdx.x & 31;
+  const int groups_per_warp = 32 / vec;
+  const int group = (threadIdx.x >> 5) * groups_per_warp + lane / vec;
+  const int n_groups = (blockDim.x >> 5) * groups_per_warp;
+  const int chunk = (tile + n_groups - 1) / n_groups;
+  const int start = group * chunk;
+  const int end = min(start + chunk, tile);
+  const int col0 = blockIdx.y * (vec * CPL) + lane % vec;
+
+  float acc[CPL];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
+  int cur = -1;
+  for (int i = start; i < end; ++i) {
+    const int r = s_rows[i];
+    if (r >= m) continue;  // padding sentinel
+    if (r != cur) {
+      if (cur >= 0) {
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          const int c = col0 + j * vec;
+          if (c < n) atomicAdd(&y[static_cast<long long>(cur) * n + c], acc[j]);
+          acc[j] = 0.f;
+        }
+      }
+      cur = r;
+    }
+    const float v = s_vals[i];
+    const TX* xr = x + static_cast<long long>(s_cols[i]) * n;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const int c = col0 + j * vec;
+      if (c < n) acc[j] += v * to_f32(xr[c]);
+    }
+  }
+  if (cur >= 0) {
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const int c = col0 + j * vec;
+      if (c < n) atomicAdd(&y[static_cast<long long>(cur) * n + c], acc[j]);
+    }
+  }
+}
 
 }  // namespace repro_torch
 

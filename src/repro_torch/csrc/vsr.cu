@@ -44,48 +44,7 @@ vsr_spmm_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int groups_per_warp = 32 / vec;
-  const int group = (threadIdx.x >> 5) * groups_per_warp + lane / vec;
-  const int n_groups = (blockDim.x >> 5) * groups_per_warp;
-  const int chunk = (tile + n_groups - 1) / n_groups;
-  const int start = group * chunk;
-  const int end = min(start + chunk, tile);
-  const int col0 = blockIdx.y * (vec * CPL) + lane % vec;
-
-  float acc[CPL];
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
-  int cur = -1;
-  for (int i = start; i < end; ++i) {
-    const int r = s_rows[i];
-    if (r >= m) continue;  // padding sentinel
-    if (r != cur) {
-      if (cur >= 0) {
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) {
-          const int c = col0 + j * vec;
-          if (c < n) atomicAdd(&y[static_cast<long long>(cur) * n + c], acc[j]);
-          acc[j] = 0.f;
-        }
-      }
-      cur = r;
-    }
-    const float v = s_vals[i];
-    const TX* xr = x + static_cast<long long>(s_cols[i]) * n;
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int c = col0 + j * vec;
-      if (c < n) acc[j] += v * to_f32(xr[c]);
-    }
-  }
-  if (cur >= 0) {
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int c = col0 + j * vec;
-      if (c < n) atomicAdd(&y[static_cast<long long>(cur) * n + c], acc[j]);
-    }
-  }
+  accumulate_tile<TX, CPL>(s_rows, s_cols, s_vals, x, y, tile, m, n, vec);
 }
 
 template <typename TV, typename TX>

@@ -1,24 +1,29 @@
-"""The port's hand-written Hopper kernels (K1-K3) and the oracles.
+"""The port's hand-written Hopper kernels (K1-K3, K6-K8) and the oracles.
 
 Importing this package registers the ``"hopper"`` backend in
 ``repro_torch.core.registry``; the registry imports it on first resolve of
 that backend.  The kernels are built and loaded at their first launch
 (``_build.lib``), never at import.
 """
-from . import csc, spmv, vsr
+from . import csc, fused_chain, spmv, vsr
 from .csc import spmm_csc, spmm_csc_plain
+from .fused_chain import (chain_fused, chain_plain, chain_stats_fused,
+                          chain_stats_plain, chain_unfused, sddmm_fused,
+                          sddmm_plain)
 from .spmv import spmv_vsr_fused, spmv_vsr_plain
 from .vsr import plan_visits, plan_windows, spmm_vsr_fused, spmm_vsr_plain
 
-#: kernel name -> module holding its wrapper and launch counter
-KERNEL_MODULES = {"vsr_spmm": vsr, "vsr_spmv": spmv, "csc_spmm": csc}
+#: kernel name -> module whose ``LAUNCHES`` dict counts its launches
+KERNEL_MODULES = {"vsr_spmm": vsr, "vsr_spmv": spmv, "csc_spmm": csc,
+                  "sddmm": fused_chain, "chain_stats": fused_chain,
+                  "chain": fused_chain}
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since process start or the last reset."""
-    return {name: mod.LAUNCHES for name, mod in KERNEL_MODULES.items()}
+    return {name: mod.LAUNCHES[name] for name, mod in KERNEL_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.LAUNCHES = 0
+    for name, mod in KERNEL_MODULES.items():
+        mod.LAUNCHES[name] = 0

@@ -27,19 +27,24 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("vsr.cu", "spmv.cu", "csc.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("vsr.cu", "spmv.cu", "csc.cu", "sddmm.cu", "chain.cu")
+HEADERS = ("common.cuh", "score.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: argument types of every exported entry point (pointers and the stream as
 #: c_void_p so ctypes does not cut them to 32 bits)
 SIGNATURES = {
     "repro_vsr_spmm": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
     "repro_vsr_spmv": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P),
     "repro_csc_spmm": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _P),
+    "repro_sddmm": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
+    "repro_chain_stats": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _P),
+    "repro_chain": (_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                    _I, _F, _P),
 }
 
 

@@ -24,7 +24,7 @@ from ..core.formats import ELL
 from . import _build, _common
 
 #: launches of the K3 kernel since process start (or the last reset)
-LAUNCHES = 0
+LAUNCHES = {"csc_spmm": 0}
 
 
 def spmm_csc_plain(ell: ELL, x: torch.Tensor) -> torch.Tensor:
@@ -42,7 +42,6 @@ def spmm_csc_plain(ell: ELL, x: torch.Tensor) -> torch.Tensor:
 def spmm_csc(ell: ELL, x: torch.Tensor) -> torch.Tensor:
     """K3: ``Y = A·X`` on the ELL substrate.  CPU operands take the plain
     version; CUDA operands launch the kernel or raise."""
-    global LAUNCHES
     if _common.on_cpu("csc_spmm", ell.cols, ell.vals, x):
         return spmm_csc_plain(ell, x)
     x2 = x[:, None] if x.ndim == 1 else x
@@ -60,7 +59,7 @@ def spmm_csc(ell: ELL, x: torch.Tensor) -> torch.Tensor:
             x2.data_ptr(), _common.is_bf16(x2), y.data_ptr(), m, ell.width, n,
             _common.stream_of(x2))
         _build.check(err, "csc_spmm")
-        LAUNCHES += 1
+        LAUNCHES["csc_spmm"] += 1
     y = y.to(x2.dtype)
     return y[:, 0] if x.ndim == 1 else y
 

@@ -21,7 +21,7 @@ from ..core.formats import BalancedCOO
 from . import _build, _common
 
 #: launches of the K2 kernel since process start (or the last reset)
-LAUNCHES = 0
+LAUNCHES = {"vsr_spmv": 0}
 
 
 def spmv_vsr_plain(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
@@ -36,7 +36,6 @@ def spmv_vsr_plain(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
 def spmv_vsr_fused(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
     """K2: ``y = A·x`` for ``x`` of shape (K,).  CPU operands take the plain
     version; CUDA operands launch the kernel or raise."""
-    global LAUNCHES
     if x.ndim != 1:
         raise ValueError(f"vsr_spmv is the N=1 path; x has shape {tuple(x.shape)}")
     if _common.on_cpu("vsr_spmv", bal.rows, bal.cols, bal.vals, x):
@@ -52,5 +51,5 @@ def spmv_vsr_fused(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
             _common.is_bf16(bal.vals), x.data_ptr(), _common.is_bf16(x),
             y.data_ptr(), bal.n_tiles, bal.tile, m, _common.stream_of(x))
         _build.check(err, "vsr_spmv")
-        LAUNCHES += 1
+        LAUNCHES["vsr_spmv"] += 1
     return y.to(x.dtype)

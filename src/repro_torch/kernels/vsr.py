@@ -33,7 +33,7 @@ from ..core.selector import HOPPER_MAX_TILE, TileGeometry
 from . import _build, _common
 
 #: launches of the K1 kernel since process start (or the last reset)
-LAUNCHES = 0
+LAUNCHES = {"vsr_spmm": 0}
 
 
 def plan_windows(bal: BalancedCOO, *, max_win: int | None = None
@@ -110,7 +110,6 @@ def spmm_vsr_plain(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
 def spmm_vsr_fused(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
     """K1: ``Y = A·X`` over the BalancedCOO slabs.  CPU operands take the
     plain version; CUDA operands launch the kernel or raise."""
-    global LAUNCHES
     if _common.on_cpu("vsr_spmm", bal.rows, bal.cols, bal.vals, x):
         return spmm_vsr_plain(bal, x)
     x2 = x[:, None] if x.ndim == 1 else x
@@ -131,7 +130,7 @@ def spmm_vsr_fused(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
             _common.is_bf16(bal.vals), x2.data_ptr(), _common.is_bf16(x2),
             y.data_ptr(), bal.n_tiles, bal.tile, m, n, _common.stream_of(x2))
         _build.check(err, "vsr_spmm")
-        LAUNCHES += 1
+        LAUNCHES["vsr_spmm"] += 1
     y = y.to(x2.dtype)
     return y[:, 0] if x.ndim == 1 else y
 

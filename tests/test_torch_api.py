@@ -125,7 +125,7 @@ def test_sparse_without_cuda_raises(monkeypatch):
 
 def test_unported_arguments_raise():
     csr = _port(SUITE["rmat_s8_e4_uniform"])
-    for kw in ({"mesh": object()}, {"quant": "int8"}, {"chain_op": "softmax"},
+    for kw in ({"mesh": object()}, {"quant": "int8"}, {"bsr_block": (8, 128)},
                {"sentinel": "raise"}, {"validate": "repair"}):
         with pytest.raises(NotImplementedError):
             plan_mod.plan(csr, **kw)

@@ -1,5 +1,5 @@
-"""Each CUDA kernel of the port against its plain PyTorch version, on the
-card.  Marked ``gpu``: they skip without a CUDA device (the kernels have no
+"""Each CUDA kernel of the port (K1-K3, K6-K8) against its plain PyTorch
+version, on the card.  Marked ``gpu``: they skip without a CUDA device (the kernels have no
 CPU mode).  This file imports neither JAX nor the reference package, so it
 runs on a machine that has only PyTorch:
 
@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.core import formats
 from repro_torch.core.rmat import rmat
-from repro_torch.kernels import csc, launch_counts, reset_launch_counts, spmv, vsr
+from repro_torch.kernels import (csc, fused_chain, launch_counts,
+                                 reset_launch_counts, spmv, vsr)
 
 
 @pytest.fixture
@@ -75,7 +76,9 @@ def test_cuda_kernels_count_launches_and_reject(cuda):
     vsr.spmm_vsr_fused(bal, torch.randn(csr.shape[1], 8, device=cuda))
     spmv.spmv_vsr_fused(bal, torch.randn(csr.shape[1], device=cuda))
     csc.spmm_csc(formats.csr_to_ell(csr), torch.randn(csr.shape[1], 8, device=cuda))
-    assert launch_counts() == {"vsr_spmm": 1, "vsr_spmv": 1, "csc_spmm": 1}
+    one_each = {"vsr_spmm": 1, "vsr_spmv": 1, "csc_spmm": 1, "sddmm": 0,
+                "chain_stats": 0, "chain": 0}
+    assert launch_counts() == one_each
     with pytest.raises(ValueError):          # no float64 kernel
         vsr.spmm_vsr_fused(bal, torch.randn(csr.shape[1], 8, device=cuda,
                                             dtype=torch.float64))
@@ -86,7 +89,7 @@ def test_cuda_kernels_count_launches_and_reject(cuda):
                            torch.randn(csr.shape[1], 8, device=cuda))
     with pytest.raises(ValueError):          # operands on two devices
         vsr.spmm_vsr_fused(bal, torch.randn(csr.shape[1], 8))
-    assert launch_counts() == {"vsr_spmm": 1, "vsr_spmv": 1, "csc_spmm": 1}
+    assert launch_counts() == one_each
 
 
 @pytest.mark.gpu
@@ -102,3 +105,108 @@ def test_cuda_facade_main_path(cuda):
             y = A @ x
             assert sum(launch_counts().values()) == 1
             assert _rel(y, A.matmul(x, backend="torch")) < 1e-4, (name, n)
+
+
+def _chain_operands(csr, d, n, dtype=torch.float32, xdtype=torch.float32):
+    m, k = csr.shape
+    a = (0.3 * torch.randn(m, d, device=csr.device)).to(dtype)
+    b = (0.3 * torch.randn(k, d, device=csr.device)).to(dtype)
+    x = torch.randn(k, n, device=csr.device).to(xdtype)
+    return a, b, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 6, 16, 64, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sddmm_and_stats_match_plain(cuda, d, dtype):
+    for name, csr in _graphs(cuda).items():
+        a, b, _ = _chain_operands(csr, d, 1, dtype)
+        for tile in (32, 100, 512):
+            bal = formats.csr_to_balanced(csr, tile)
+            args = (bal.rows, bal.cols, a, b)
+            e = fused_chain.sddmm_fused(*args, shape=csr.shape)
+            assert _rel(e, fused_chain.sddmm_plain(*args, shape=csr.shape)) < 1e-4, name
+            assert (e.reshape(-1)[csr.nnz:] == 0).all()
+            rm, rs = fused_chain.chain_stats_fused(*args, shape=csr.shape, alpha=0.7)
+            pm, ps = fused_chain.chain_stats_plain(*args, shape=csr.shape, alpha=0.7)
+            empty = torch.diff(csr.indptr) == 0
+            assert (rm[empty] == -1e30).all() and (rs[empty] == 0).all(), name
+            assert _rel(rm[~empty], pm[~empty]) < 1e-4, name
+            assert _rel(rs, ps) < 1e-4, name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 32, 128, 200])
+@pytest.mark.parametrize("transform,alpha", [("identity", None), ("scale", 0.5),
+                                             ("softmax", None), ("softmax", 0.7)])
+def test_cuda_chain_matches_plain(cuda, n, transform, alpha):
+    for name, csr in _graphs(cuda).items():
+        a, b, x = _chain_operands(csr, 16, n)
+        empty = torch.diff(csr.indptr) == 0
+        for tile in (32, 512):
+            bal = formats.csr_to_balanced(csr, tile)
+            args = (bal.rows, bal.cols, a, b, x)
+            kw = dict(shape=csr.shape, transform=transform, alpha=alpha)
+            y = fused_chain.chain_fused(*args, **kw)
+            assert _rel(y, fused_chain.chain_plain(*args, **kw)) < 1e-4, name
+            assert (y[empty] == 0).all(), name
+            y1 = fused_chain.chain_fused(*args[:4], x[:, 0].contiguous(), **kw)
+            assert y1.shape == (csr.shape[0],)
+            assert _rel(y1, y[:, 0]) < 1e-4, name
+            yu = fused_chain.chain_unfused(*args, **kw)
+            assert _rel(yu, y) < 1e-4, name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_chain_bf16_and_external_stats(cuda):
+    csr = _graphs(cuda)["skewed"]
+    bal = formats.csr_to_balanced(csr, 256)
+    a, b, x = _chain_operands(csr, 64, 32, torch.bfloat16, torch.bfloat16)
+    kw = dict(shape=csr.shape, transform="softmax", alpha=0.125)
+    y = fused_chain.chain_fused(bal.rows, bal.cols, a, b, x, **kw)
+    assert y.dtype == torch.bfloat16
+    assert _rel(y, fused_chain.chain_plain(bal.rows, bal.cols, a, b, x, **kw)) < 2e-2
+    stats = fused_chain.chain_stats_fused(bal.rows, bal.cols, a, b,
+                                          shape=csr.shape, alpha=0.125)
+    reset_launch_counts()
+    ys = fused_chain.chain_fused(bal.rows, bal.cols, a, b, x, stats=stats, **kw)
+    assert launch_counts()["chain_stats"] == 0 and launch_counts()["chain"] == 1
+    assert torch.equal(ys, y) or _rel(ys, y) < 1e-6
+    with pytest.raises(ValueError):          # A and B of two types
+        fused_chain.sddmm_fused(bal.rows, bal.cols, a, b.float(), shape=csr.shape)
+    with pytest.raises(ValueError):          # B of the wrong height
+        fused_chain.sddmm_fused(bal.rows, bal.cols, a, b[1:], shape=csr.shape)
+    with pytest.raises(ValueError):
+        fused_chain.chain_fused(bal.rows, bal.cols, a, b, x, shape=csr.shape,
+                                transform="sigmoid")
+
+
+@pytest.mark.gpu
+def test_cuda_chain_facade_main_path(cuda):
+    import dataclasses
+    import repro_torch
+    for name, csr in _graphs(cuda).items():
+        a, b, x = _chain_operands(csr, 64, 32)
+        A = repro_torch.sparse(csr, cache=False, chain_op="softmax")
+        assert A.backend == "hopper"
+        reset_launch_counts()
+        y = A.chain(a, b, x, alpha=0.125)
+        assert launch_counts()["chain_stats"] == 1 and launch_counts()["chain"] == 1
+        assert _rel(y, A.chain(a, b, x, alpha=0.125, backend="torch")) < 1e-4, name
+        e = repro_torch.sddmm(csr, a, b)
+        assert e.shape == (csr.nnz,)
+        assert _rel(e, A.sddmm(a, b, backend="torch")) < 1e-4, name
+        th = dataclasses.replace(repro_torch.SelectorThresholds(),
+                                 chain_fuse_min_n=1 << 30)
+        reset_launch_counts()
+        yu = repro_torch.sparse_chain(csr, a, b, x, alpha=0.125, thresholds=th,
+                                      cache=False)
+        counts = launch_counts()
+        assert (counts["sddmm"], counts["chain_stats"], counts["vsr_spmm"],
+                counts["chain"]) == (1, 1, 1, 0), counts
+        assert _rel(yu, y) < 1e-4, name
+        with pytest.raises(NotImplementedError):
+            A.chain(a, b, x.requires_grad_())
+

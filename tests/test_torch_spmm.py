@@ -157,7 +157,7 @@ def test_oracles_match_reference(n):
 
 
 def test_registry_rules():
-    assert {e.logical for e in registry.available("torch")} == set(KERNELS)
+    assert {e.logical for e in registry.available("torch")} == set(registry.LOGICAL_KERNELS)
     with pytest.raises(ValueError):
         registry.register("nope", "torch", "ell", spmm.spmm_rs_sr)
     with pytest.raises(KeyError):
