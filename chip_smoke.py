@@ -24,7 +24,22 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              b of width d = 64 and N = 1, 32, 128, and
              ``repro_torch.sddmm(csr, a, b)``: K6, K7 and K8 launched,
              agreement with the "torch" backend, empty rows exactly 0, and
-             one call with the fuse gate shut (K6, K7, K1);
+             one call with the fuse gate shut (K6, K7, K1); then block-sparse
+             attention at full model widths, random Q/K/V from the seed:
+             (a) Gemma-3-12B's local layer (``configs/gemma3_12b.py`` with
+             ``attn_pattern="block_sparse"``: 16 query heads, 8 KV heads,
+             head_dim 256, window 1024 → a causal band of 16 blocks of 64)
+             at batch 1, seq 8192, through the model's
+             ``_block_sparse_attention`` (no bias: 16 launches each of K7
+             and K8); (b) the same layer through
+             ``repro_torch.sparse_attention`` with an ALiBi bias
+             −2⁻⁶·(i − j) (16 launches each of K9 and K10); (c) a BigBird
+             encoder, ``bigbird(4096, 1, 2, 3, block=64)``, 12 heads of
+             d = 64 with the bias (K9's merge of the 8-tile global rows);
+             each against the "torch" backend on one head, a block mask
+             with an empty block row giving rows of exactly 0, and one
+             call with ``attn_fuse_min_seq`` above the sequence (K6, K9,
+             K1, and no plain version);
 5. times   — per (graph, N): the kernel, its plain version and
              ``torch.sparse.mm`` (cuSPARSE, the paper's baseline) by CUDA
              events, median of 20 runs after a warm-up, beside the bound:
@@ -33,7 +48,12 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              N) of the chain: K6, K7 and K8 alone, the fused call, the
              unfused pair and the plain version, beside each kernel's bound
              (each input read once, each output written once) and, for K6,
-             ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM);
+             ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM); per attention
+             case, one head: K9 (K7) and K10 (K8) alone, the fused call,
+             the unfused pair, the plain version and
+             ``scaled_dot_product_attention`` with a dense (S, S) mask
+             (boolean, or float holding −inf and the bias), and the whole
+             layer's call beside SDPA over all heads;
 6. summary — one JSON line of the kernels, the card line, then the result.
 
 Without a CUDA device it prints no result and exits 2.  ``--scale`` below 20
@@ -95,6 +115,24 @@ CHAIN_CASES = (("g500", "softmax", 1), ("g500", "softmax", 32),
                ("g500", "scale", 32), ("unif", "softmax", 128))
 #: the chain case whose times stand for K8 in the summary line
 CHAIN_SUMMARY = ("g500", "softmax", 128)
+KERNELS.update({
+    "attn_stats": {"route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
+                   "replaces": "src/repro/kernels/attention.py:43"},
+    "attn_chain": {"route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
+                   "replaces": "src/repro/kernels/attention.py:112"},
+})
+#: block-sparse attention: Gemma-3-12B's local layer at prefill, and a
+#: BigBird encoder at BigBird-RoBERTa-base widths (12 heads of 64)
+ATTN_SEQ = 8192
+BIGBIRD = dict(seq=4096, window=1, n_global=2, n_random=3, block=64, seed=0)
+BIGBIRD_HEADS, BIGBIRD_D = 12, 64
+#: ALiBi slope of the per-edge bias stream (one stream for all heads)
+ALIBI_SLOPE = 2.0 ** -6
+#: the patterns' shapes at these sizes, from the reference's build_mask
+ATTN_STATS = {"gemma": {"nnz": 8097792, "tiles": 15816, "max_row": 1088},
+              "bigbird": {"nnz": 2547712, "tiles": 4976, "max_row": 4096}}
+#: the head whose output is held against the "torch" backend
+CHECK_HEAD = 5
 
 
 def fail(msg: str) -> None:
@@ -119,10 +157,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     import repro_torch
-    from repro_torch.core import formats, stats
+    from repro_torch import interop
+    from repro_torch.attention import patterns
+    from repro_torch.configs import gemma3_12b
+    from repro_torch.core import formats, registry, stats
+    from repro_torch.core.plan import _stream_to_balanced, execute_attention
     from repro_torch.core.rmat import rmat
-    from repro_torch.kernels import (_build, csc, fused_chain, launch_counts,
-                                     reset_launch_counts, spmv, vsr)
+    from repro_torch.kernels import (_build, attention, csc, fused_chain,
+                                     launch_counts, reset_launch_counts, spmv,
+                                     vsr)
+    from repro_torch.models import transformer
 
     t_start = time.perf_counter()
 
@@ -258,6 +302,56 @@ def main() -> int:
     del g500_bal, unif_bal, unif_ell, bals, pat
     torch.cuda.empty_cache()
 
+    # block-sparse attention: the patterns, a bias stream each, and K9/K10
+    # (K7/K8 at d = 256 too) on one head, freed before the next
+    gemma = dataclasses.replace(gemma3_12b.CONFIG, attn_pattern="block_sparse")
+    attn = {}
+    for name, spec in (("gemma", transformer._block_sparse_spec(
+                            gemma, ATTN_SEQ, True)),
+                       ("bigbird", patterns.bigbird(**BIGBIRD))):
+        t0 = time.perf_counter()
+        csr = patterns.build_mask(spec).csr
+        got = {"nnz": csr.nnz, "tiles": -(-csr.nnz // 512),
+               "max_row": int(torch.diff(csr.indptr).max())}
+        print(f"[pattern] {name}: {spec} {got} "
+              f"({time.perf_counter() - t0:.2f} s on the host)", flush=True)
+        if got != ATTN_STATS[name]:
+            fail(f"{name}: pattern shape {got} != {ATTN_STATS[name]}")
+        csr = csr.to(dev)
+        bal = formats.csr_to_balanced(csr, 512)
+        bias = torch.from_numpy(interop.alibi_bias(csr, ALIBI_SLOPE)).to(dev)
+        attn[name] = {"spec": spec, "csr": csr, "bal": bal, "bias": bias,
+                      "slab": _stream_to_balanced(bias, bal)}
+    for name, d, dtype in (("gemma", 256, torch.float32),
+                           ("gemma", 256, torch.bfloat16),
+                           ("bigbird", BIGBIRD_D, torch.float32)):
+        a = attn[name]
+        dt = str(dtype).split(".")[1]
+        q, k, v = (randn(a["spec"].seq, d, dtype=dtype) for _ in range(3))
+        pat = (a["bal"].rows, a["bal"].cols, q, k)
+        kw = dict(shape=a["csr"].shape, scale=d ** -0.5)
+        rm, rs = attention.attn_stats_fused(*pat, a["slab"], **kw)
+        pm, ps = attention.attn_stats_plain(*pat, a["slab"], **kw)
+        hold("attn_stats", f"{name} d={d} row max", rm, pm, dt)
+        hold("attn_stats", f"{name} d={d} row sum", rs, ps, dt)
+        kw["stats"] = (pm, ps)
+        hold("attn_chain", f"{name} d=N={d}",
+             attention.attn_chain_fused(*pat, a["slab"], v, **kw),
+             attention.attn_chain_plain(*pat, a["slab"], v, **kw), dt)
+        if name == "gemma":        # K7 and K8 at the new width d = N = 256
+            ckw = dict(shape=a["csr"].shape, alpha=d ** -0.5)
+            rm, rs = fused_chain.chain_stats_fused(*pat, **ckw)
+            pm, ps = fused_chain.chain_stats_plain(*pat, **ckw)
+            hold("chain_stats", f"{name} d={d} row max", rm, pm, dt)
+            hold("chain_stats", f"{name} d={d} row sum", rs, ps, dt)
+            ckw.update(transform="softmax", stats=(pm, ps))
+            hold("chain", f"{name} softmax d=N={d}",
+                 fused_chain.chain_fused(*pat, v, **ckw),
+                 fused_chain.chain_plain(*pat, v, **ckw), dt)
+        del q, k, v, pat, kw, rm, rs, pm, ps
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
     # -- 4. the main path through the facade -----------------------------------
     phase("main")
     launches = {k: 0 for k in KERNELS}
@@ -368,6 +462,99 @@ def main() -> int:
     if (counts["sddmm"], counts["chain_stats"], counts["vsr_spmm"],
             counts["chain"]) != (1, 1, 1, 0) or rel > RTOL["float32"]:
         fail("the shut fuse gate did not run K6, K7 and K1 alone, or disagrees")
+    # block-sparse attention at full model widths, through the entry points
+    # a model and a user call
+    rep = gemma.num_heads // gemma.num_kv_heads
+    gq = randn(1, gemma.num_heads, ATTN_SEQ, gemma.head_dim)
+    gk, gv = (randn(1, gemma.num_kv_heads, ATTN_SEQ, gemma.head_dim)
+              for _ in range(2))
+    gkr, gvr = gk.repeat_interleave(rep, dim=1), gv.repeat_interleave(rep, dim=1)
+    bq, bk, bv = (randn(1, BIGBIRD_HEADS, BIGBIRD["seq"], BIGBIRD_D)
+                  for _ in range(3))
+    g, bb = attn["gemma"], attn["bigbird"]
+    #: name -> (the call, pattern, per-head q/k/v, bias, the kernels it runs)
+    attn_cases = {
+        "gemma_local": (
+            lambda: transformer._block_sparse_attention(gq, gk, gv, gemma, True),
+            g, (gq, gkr, gvr), None, ("chain_stats", "chain")),
+        "gemma_local_alibi": (
+            lambda: repro_torch.sparse_attention(g["spec"], gq, gkr, gvr,
+                                                 bias=g["bias"]),
+            g, (gq, gkr, gvr), g["bias"], ("attn_stats", "attn_chain")),
+        "bigbird_alibi": (
+            lambda: repro_torch.sparse_attention(bb["spec"], bq, bk, bv,
+                                                 bias=bb["bias"]),
+            bb, (bq, bk, bv), bb["bias"], ("attn_stats", "attn_chain")),
+    }
+    h = CHECK_HEAD
+    for cname, (call, a, (q, k, v), bias, kernels) in attn_cases.items():
+        t0 = time.perf_counter()
+        y, counts = drive(call)
+        t1 = time.perf_counter()
+        want = {kk: (q.shape[1] if kk in kernels else 0) for kk in counts}
+        if counts != want:
+            fail(f"attention {cname}: launches {counts}, expected {want}")
+        if y.shape != q.shape or not torch.isfinite(y).all():
+            fail(f"attention {cname}: output of shape {tuple(y.shape)} is "
+                 "not finite or has the wrong shape")
+        ref = repro_torch.sparse_attention(a["spec"], q[0, h], k[0, h],
+                                           v[0, h], bias=bias, backend="torch")
+        rel, _ = errors(y[0, h], ref)
+        print(f"[main] attention {cname}: shape={tuple(y.shape)} "
+              f"launches={ {kk: counts[kk] for kk in kernels} } "
+              f"rel_err_vs_torch(head {h})={rel:.3e} call_s={t1 - t0:.3f} "
+              "(host clock, plan included)", flush=True)
+        if rel > RTOL["float32"]:
+            fail(f"attention {cname}: disagrees with the torch backend")
+        del y, ref
+        torch.cuda.empty_cache()
+    # a block mask with an empty block row: those rows exactly 0
+    bm = patterns.build_mask(g["spec"]).block_mask.copy()
+    bm[5, :] = False
+    espec = patterns.from_block_mask(bm, ATTN_SEQ, block=64, causal=True)
+    ecsr = patterns.build_mask(espec).csr
+    empty = (torch.diff(ecsr.indptr) == 0).to(dev)
+    ebias = torch.from_numpy(interop.alibi_bias(ecsr, ALIBI_SLOPE)).to(dev)
+    q1, k1, v1 = gq[0, h], gkr[0, h], gvr[0, h]
+    for b in (None, ebias):
+        y, counts = drive(lambda: repro_torch.sparse_attention(espec, q1, k1, v1,
+                                                               bias=b))
+        rel, _ = errors(y, repro_torch.sparse_attention(espec, q1, k1, v1, bias=b,
+                                                        backend="torch"))
+        zero = bool((y[empty] == 0).all())
+        print(f"[main] attention empty block row, bias={b is not None}: "
+              f"{int(empty.sum())} empty rows exactly 0: {zero}; "
+              f"rel_err_vs_torch={rel:.3e}", flush=True)
+        if not zero or not torch.isfinite(y).all() or rel > RTOL["float32"]:
+            fail("attention: an empty block row is not exactly 0, or wrong")
+    # the fuse gate shut: K6 → K9 → K1, and never the plain version
+    shut = dataclasses.replace(repro_torch.SelectorThresholds(),
+                               attn_fuse_min_seq=1 << 30)
+    plain_entry = registry.resolve("attn_chain", "torch")
+    plain_calls = []
+
+    def counted_plain(*args, **kw):
+        plain_calls.append(1)
+        return plain_entry.fn(*args, **kw)
+    registry.register("attn_chain", "torch", "balanced", counted_plain)
+    try:
+        y, counts = drive(lambda: repro_torch.sparse_attention(
+            g["spec"], q1, k1, v1, bias=g["bias"], thresholds=shut))
+    finally:
+        registry.register("attn_chain", "torch", "balanced", plain_entry.fn)
+    rel, _ = errors(y, repro_torch.sparse_attention(g["spec"], q1, k1, v1,
+                                                    bias=g["bias"]))
+    ran = {kk: counts[kk] for kk in ("sddmm", "attn_stats", "vsr_spmm",
+                                     "attn_chain", "chain_stats", "chain")}
+    print(f"[main] attention gemma_local_alibi head {h}, fuse gate shut: "
+          f"launches={ran} plain_calls={len(plain_calls)} "
+          f"rel_err_vs_fused={rel:.3e}", flush=True)
+    if list(ran.values()) != [1, 1, 1, 0, 0, 0] or plain_calls \
+            or rel > RTOL["float32"]:
+        fail("the shut attention gate did not run K6, K9 and K1 alone, or "
+             "disagrees")
+    del y, empty
+    torch.cuda.empty_cache()
     for k, v in launches.items():
         if v < 1:
             fail(f"{k} was never launched on the main path")
@@ -482,6 +669,95 @@ def main() -> int:
                 chain_summary["chain"] = (row, f"{name}_s{args.scale}_e16 "
                                                f"{transform} N={n} d={CHAIN_D}")
         del stats
+        torch.cuda.empty_cache()
+
+    # block-sparse attention, one head of each case: K9 (K7) and K10 (K8)
+    # alone, the fused call, the unfused pair, the plain version and SDPA on
+    # a dense mask; then the whole layer's call beside SDPA over all heads
+    def dense_mask(csr, bias):
+        m = csr.shape[0]
+        r = torch.repeat_interleave(torch.arange(m, device=dev),
+                                    torch.diff(csr.indptr.long()))
+        c = csr.indices.long()
+        if bias is None:
+            mask = torch.zeros((m, m), dtype=torch.bool, device=dev)
+            mask[r, c] = True
+        else:
+            mask = torch.full((m, m), float("-inf"), device=dev)
+            mask[r, c] = bias
+        return mask
+
+    def sdpa_ms(q, k, v, mask, reps=20):
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        try:
+            return time_ms(lambda: sdpa(q, k, v, attn_mask=mask), reps)
+        except (RuntimeError, torch.OutOfMemoryError) as err:
+            print(f"[time] sdpa failed: {err}", flush=True)
+            return None
+
+    for cname, (call, a, (q, k, v), bias, kernels) in attn_cases.items():
+        q1, k1, v1 = q[0, h], k[0, h], v[0, h]
+        csr, bal = a["csr"], a["bal"]
+        m, d, n = csr.shape[0], q1.shape[1], v1.shape[1]
+        slots = bal.rows.numel()
+        sc = d ** -0.5
+        pat = (bal.rows, bal.cols, q1, k1)
+        kw = dict(shape=csr.shape)
+        if bias is None:
+            kw.update(alpha=sc)
+            stats_fn = lambda: fused_chain.chain_stats_fused(*pat, **kw)
+            stats_plain = lambda: fused_chain.chain_stats_plain(*pat, **kw)
+            st = stats_fn()
+            ckw = dict(kw, transform="softmax")
+            k10 = lambda: fused_chain.chain_fused(*pat, v1, stats=st, **ckw)
+            k10_plain = lambda: fused_chain.chain_plain(*pat, v1, stats=st, **ckw)
+            unfused = lambda: fused_chain.chain_unfused(*pat, v1, **ckw)
+            bias_bytes = 0
+        else:
+            kw.update(scale=sc)
+            pat = pat + (a["slab"],)
+            stats_fn = lambda: attention.attn_stats_fused(*pat, **kw)
+            stats_plain = lambda: attention.attn_stats_plain(*pat, **kw)
+            st = stats_fn()
+            k10 = lambda: attention.attn_chain_fused(*pat, v1, stats=st, **kw)
+            k10_plain = lambda: attention.attn_chain_plain(*pat, v1, stats=st,
+                                                           **kw)
+            unfused = lambda: attention.attn_unfused(*pat, v1, **kw)
+            bias_bytes = 4 * slots
+        p = repro_torch.attention_plan(a["spec"])
+        base_bytes = 8 * slots + bias_bytes + 2 * m * d * 4 + 8 * m
+        b9 = bound(base_bytes, 2 * csr.nnz * d)
+        b10 = bound(base_bytes + 2 * m * n * 4, 2 * csr.nnz * (d + n))
+        mask = dense_mask(csr, bias)
+        head = lambda t: t[0, h][None, None]
+        y1 = execute_attention(p, q1, k1, v1, bias=bias)
+        sd = torch.nn.functional.scaled_dot_product_attention(
+            head(q), head(k), head(v), attn_mask=mask)[0, 0]
+        sdpa_rel, _ = errors(sd, y1)
+        del y1, sd
+        row9 = {"kernel_ms": time_ms(stats_fn),
+                "plain_ms": time_ms(stats_plain, reps=3), "library_ms": None,
+                "bound_ms": b9[0], "bound_by": b9[1]}
+        row10 = {"kernel_ms": time_ms(k10),
+                 "plain_ms": time_ms(k10_plain, reps=3),
+                 "library_ms": sdpa_ms(head(q), head(k), head(v), mask),
+                 "bound_ms": b10[0], "bound_by": b10[1],
+                 "fused_call_ms": time_ms(lambda: execute_attention(
+                     p, q1, k1, v1, bias=bias)),
+                 "unfused_pair_ms": time_ms(unfused),
+                 "plain_call_ms": time_ms(lambda: execute_attention(
+                     p, q1, k1, v1, bias=bias, backend="torch"), reps=3),
+                 "sdpa_rel_err": sdpa_rel,
+                 "layer_call_ms": time_ms(call, reps=3),
+                 "layer_sdpa_ms": sdpa_ms(q, k, v, mask, reps=3)}
+        shape = (f"{cname} seq={m} d=N={d} head {h} of {q.shape[1]}")
+        for label, row in ((kernels[0], row9), (kernels[1], row10)):
+            print(f"[time] {label} {shape} "
+                  + " ".join(f"{kk}={vv}" for kk, vv in row.items()), flush=True)
+        if cname == "gemma_local_alibi":
+            chain_summary["attn_stats"] = (row9, shape)
+            chain_summary["attn_chain"] = (row10, shape)
+        del st, mask, p
         torch.cuda.empty_cache()
 
     # -- 6. summary ---------------------------------------------------------------

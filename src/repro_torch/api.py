@@ -14,6 +14,10 @@
     y = api.sparse_chain(adj, q, k, v, alpha=0.125)   # graph attention:
                                          # softmax_rows(mask(α·q kᵀ)) @ v
 
+    spec = api.sliding_window(8192, 16, block=64, causal=True)
+    y = api.sparse_attention(spec, q, k, v, bias=b)   # (..., seq, d) heads:
+                                         # softmax_mask(q kᵀ/√d + b) @ v
+
 ``sparse()`` runs on the card unless the caller passes ``device="cpu"``: by
 default the data go to CUDA and the ``"hopper"`` backend runs, and without a
 CUDA device the call raises instead of carrying on on the CPU.
@@ -23,34 +27,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .attention import (AttentionMask, AttentionSpec, SparseAttention,
+                        attention_plan, bigbird, build_mask, dense_attention,
+                        from_block_mask, scoped_plan_cache, sliding_window,
+                        sparse_attention)
 from .core.cache import (DEFAULT_CACHE, PlanCache, cached_plan,
                                     pattern_fingerprint)
 from .core.formats import CSR, csr_from_dense
 from .core.plan import (PlanBuilder, execute, execute_chain, execute_sddmm,
                         plan)
-from .core.registry import backend_scope, default_backend
+from .core.registry import backend_scope, default_backend, resolve_device
 from .core.selector import (SelectorThresholds, TileGeometry,
                                        default_thresholds)
 from .core.stats import MatrixStats
 
 __all__ = ["SparseMatrix", "sparse", "sddmm", "sparse_chain", "use_backend",
            "cache_stats", "clear_cache", "PlanCache", "SelectorThresholds",
-           "TileGeometry"]
+           "TileGeometry",
+           # block-sparse attention (DESIGN.md §10)
+           "AttentionMask", "AttentionSpec", "SparseAttention",
+           "attention_plan", "bigbird", "build_mask", "dense_attention",
+           "from_block_mask", "scoped_plan_cache", "sliding_window",
+           "sparse_attention"]
 
 use_backend = backend_scope
-
-
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch.sparse() runs on a CUDA device and none is "
-                "available; pass device='cpu' for the plain 'torch' backend")
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 class SparseMatrix:
@@ -178,7 +178,7 @@ def sparse(a, *, device=None, backend: str | None = None,
     ``n_hint``, so the cache keys on the resolved geometry.  ``chain_op``
     tags the plan with the chain transform it serves, so chained and plain
     plans over one pattern are distinct cache entries."""
-    device = _resolve_device(device)
+    device = resolve_device(device)
     csr, values = _as_csr(a, device)
     resolved_backend = backend or default_backend(device)
     th = thresholds if thresholds is not None else default_thresholds()

@@ -10,7 +10,8 @@
   (stats, N), resolve it through the registry, run it.  ``vals=`` streams a
   CSR-ordered value vector in place of the values baked into the plan.
 * ``execute_sddmm`` / ``execute_chain`` run the SDDMM and the SDDMM→SpMM
-  chain (DESIGN.md §9) over the plan's pattern.
+  chain (DESIGN.md §9) over the plan's pattern; ``execute_attention`` runs
+  block-sparse attention over it (DESIGN.md §10).
 
 None of them is differentiable yet: with grad mode on, an operand that
 requires grad raises ``NotImplementedError`` (the VJP slice, ROADMAP queue
@@ -48,6 +49,10 @@ _PREP_CONTEXT_NAMES = ("geometry", "max_win")
 
 #: accepted-keyword cache of prep hooks (see ``_prep_context_kwargs``)
 _PREP_KWARGS: dict = {}
+
+#: chain_op tags a plan accepts: the chain transforms, and "attn" for the
+#: plans of block-sparse attention
+CHAIN_OPS: tuple[str, ...] = CHAIN_TRANSFORMS + ("attn",)
 
 #: plan() arguments of reference paths not yet ported
 _UNPORTED = ("mesh", "shard_axis", "shard_kind", "inner_backend", "quant",
@@ -173,9 +178,9 @@ def plan(csr: CSR, *, n_hint: int | None = None,
     device and ``"torch"`` on the CPU.  ``geometry=None`` consults the
     thresholds' geometry table for (pattern, ``n_hint``, backend);
     ``tile=None`` takes the geometry's quota (default 512).  ``chain_op``
-    tags the plan with the chain transform it will serve: a cache key
-    segment, not a switch (``execute_chain`` takes the transform per
-    call)."""
+    tags the plan with the chain transform it will serve (``"attn"`` for
+    attention): a cache key segment, not a switch (``execute_chain`` takes
+    the transform per call)."""
     given = sorted(k for k, v in unported.items() if v is not None)
     unknown = sorted(k for k in unported if k not in _UNPORTED)
     if unknown:
@@ -183,9 +188,9 @@ def plan(csr: CSR, *, n_hint: int | None = None,
     if given:
         raise NotImplementedError(f"plan() arguments {given} belong to paths "
                                   "of the reference not yet ported")
-    if chain_op is not None and chain_op not in CHAIN_TRANSFORMS:
+    if chain_op is not None and chain_op not in CHAIN_OPS:
         raise ValueError(f"unknown chain_op {chain_op!r}; expected one of "
-                         f"{CHAIN_TRANSFORMS}")
+                         f"{CHAIN_OPS}")
     if backend is None:
         backend = registry.default_backend(csr.device)
     th = thresholds if thresholds is not None else default_thresholds()
@@ -333,3 +338,49 @@ def execute_chain(p: PlanBuilder, a: torch.Tensor, b: torch.Tensor,
         extra["fuse"] = False
     rows, cols = _chain_pattern(p)
     return _chain_bound(p, entry, extra)(rows, cols, a, b, x)
+
+
+def execute_attention(p: PlanBuilder, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, *, scale: float | None = None,
+                      bias: torch.Tensor | None = None,
+                      backend: str | None = None) -> torch.Tensor:
+    """Block-sparse attention over the plan's pattern (DESIGN.md §10):
+    ``y = softmax_mask(scale * Q Kᵀ + bias) @ V``, the mask being the
+    sparsity pattern.  ``scale`` defaults to ``head_dim**-0.5``; ``bias`` is
+    an optional additive per-edge stream in CSR nonzero order, ``(nnz,)``
+    (relative-position / ALiBi hooks).  Without a bias this is the softmax
+    chain and rides the ``chain`` entries (K7, K8 on the card); with one it
+    runs the ``attn_chain`` entries (K9, K10).  Rows the mask leaves empty
+    give exactly-zero output rows.
+
+    Fuse gate (``thresholds.attn_fuse_min_seq``): below it the reference
+    runs its unfused xla pair.  A ``"hopper"`` plan there runs the port's
+    own unfused kernels — ``chain_unfused`` without a bias, K6 → K9 → the
+    weights by tensor ops → K1 with one — never the plain version."""
+    _refuse_grad("execute_attention", q, k, v, bias)
+    m, kdim = (int(s) for s in p.csr.shape)
+    if q.ndim != 2 or k.ndim != 2 or q.shape[1] != k.shape[1]:
+        raise ValueError(f"attention needs Q (m, d) and K (k, d); got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    if q.shape[0] != m or k.shape[0] != kdim:
+        raise ValueError(f"operand rows {q.shape[0]}/{k.shape[0]} do not "
+                         f"match the pattern shape {(m, kdim)}")
+    if v.ndim not in (1, 2) or v.shape[0] != kdim:
+        raise ValueError(f"attention needs V (k,) or (k, n) with k={kdim}; "
+                         f"got {tuple(v.shape)}")
+    sc = float(q.shape[1]) ** -0.5 if scale is None else float(scale)
+    extra: dict = {}
+    if (backend or p.backend) == "hopper" and m < p.thresholds.attn_fuse_min_seq:
+        extra["fuse"] = False
+    rows, cols = _chain_pattern(p)
+    if bias is None:
+        entry = p.entry("chain", backend)
+        return _chain_bound(p, entry, dict(extra, transform="softmax",
+                                           alpha=sc))(rows, cols, q, k, v)
+    if bias.ndim != 1 or bias.shape[0] != p.csr.nnz:
+        raise ValueError(f"bias must be a flat ({p.csr.nnz},) per-edge "
+                         f"stream in CSR order; got {tuple(bias.shape)}")
+    slab = _stream_to_balanced(bias.float(), p.substrate("balanced"))
+    entry = p.entry("attn_chain", backend)
+    return _chain_bound(p, entry, dict(extra, scale=sc))(rows, cols, q, k,
+                                                         slab, v)

@@ -11,7 +11,9 @@ parallel reduction) gives four logical kernels.  The registry maps
 Backend modules register their entries when imported, and are imported on
 first resolve.  A matmul entry's ``fn`` has the signature ``fn(substrate, x,
 **opts)``; the ``"sddmm"`` and ``"chain"`` entries take the balanced slab's
-pattern, ``fn(rows, cols, a, b[, x], *, shape, **opts)``.  ``opts`` come from
+pattern, ``fn(rows, cols, a, b[, x], *, shape, **opts)``, and the
+``"attn_chain"`` entries ``fn(rows, cols, q, k, bias, v, *, shape, scale,
+**opts)`` with ``bias`` a slab shaped like ``rows``.  ``opts`` come from
 the entry's optional host-side ``prep`` hook, run once per plan.
 
 There is no demotion ladder: a kernel that fails raises.
@@ -30,8 +32,11 @@ import torch
 MATMUL_KERNELS: tuple[str, ...] = ("rs_sr", "rs_pr", "nb_sr", "nb_pr")
 
 #: every logical kernel an entry may implement: the SpMM space plus the
-#: SDDMM and the fused SDDMM→SpMM chain (DESIGN.md §9)
-LOGICAL_KERNELS: tuple[str, ...] = MATMUL_KERNELS + ("sddmm", "chain")
+#: SDDMM and the fused SDDMM→SpMM chain (DESIGN.md §9); ``attn_chain`` is
+#: the chain's attention sibling, softmax with an additive per-edge bias
+#: (DESIGN.md §10)
+LOGICAL_KERNELS: tuple[str, ...] = MATMUL_KERNELS + ("sddmm", "chain",
+                                                     "attn_chain")
 
 #: substrate format each entry consumes
 SUBSTRATES: tuple[str, ...] = ("ell", "balanced")
@@ -121,6 +126,21 @@ def scoped_backend() -> str | None:
     """Innermost ``backend_scope`` override, or None."""
     stack = getattr(_SCOPE, "stack", None)
     return stack[-1] if stack else None
+
+
+def resolve_device(device) -> torch.device:
+    """The device a front door plans on: CUDA (the current card) for
+    ``None``, raising when there is none — the CPU only when asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device and none is available; "
+                "pass device='cpu' for the plain 'torch' backend")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def default_backend(device) -> str:

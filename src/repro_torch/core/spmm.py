@@ -19,6 +19,9 @@ The chain half (DESIGN.md §9) samples ``A @ Bᵀ`` at the pattern's nonzeros
 (SDDMM), transforms the edge scores per row (identity / scale / masked
 softmax) and feeds them to ``spmm_nb_pr`` over the same pattern; these
 lowerings materialise the edge stream, as the reference's xla ones do.
+Block-sparse attention (DESIGN.md §10) is the softmax chain with
+``alpha = scale`` plus an additive per-edge bias: ``attn_stats_torch`` and
+``attn_chain_torch``.
 """
 from __future__ import annotations
 
@@ -180,13 +183,21 @@ def chain_weights(e, r, valid, m, transform: str, alpha, stats=None):
     if transform == "scale":
         return torch.where(valid, al * e, 0.0)
     if transform == "softmax":
-        z = al * e
-        rr = torch.where(valid, r, 0).long()
-        rm, rs = _softmax_stats(z, r, valid, m) if stats is None else stats
-        p = torch.where(valid, torch.exp(z - rm[rr]), 0.0)
-        return p / torch.clamp(rs[rr], min=SOFTMAX_EPS)
+        return attn_weights(e, 0.0, r, valid, m, al, stats=stats)
     raise ValueError(f"unknown chain transform {transform!r}; expected one "
                      f"of {CHAIN_TRANSFORMS}")
+
+
+def attn_weights(e, bias, r, valid, m, scale, stats=None):
+    """Masked row softmax of ``scale * e + bias``, the attention chain's
+    transform (DESIGN.md §10).  ``bias`` is the flat per-edge additive bias;
+    ``stats`` replaces the local ``(row_max, row_sum)``, each indexable by
+    row id, as in :func:`chain_weights`."""
+    z = float(scale) * e + bias
+    rr = torch.where(valid, r, 0).long()
+    rm, rs = _softmax_stats(z, r, valid, m) if stats is None else stats
+    p = torch.where(valid, torch.exp(z - rm[rr]), 0.0)
+    return p / torch.clamp(rs[rr], min=SOFTMAX_EPS)
 
 
 def _flat_pattern(rows, m):
@@ -224,6 +235,31 @@ def chain_torch(rows, cols, a, b, x, *, shape, transform: str = "identity",
                                   tuple(shape)), x)
 
 
+def attn_stats_torch(rows, cols, q, k, bias, *, shape, scale=1.0, **_opts):
+    """Per-row softmax statistics of ``scale * QKᵀ + bias`` at the pattern,
+    each ``(m + 1,)`` — the reference's ``attn_stats_xla``.  ``bias`` is a
+    slab shaped like ``rows``."""
+    m = int(shape[0])
+    r, valid = _flat_pattern(rows, m)
+    e = _sddmm_flat(r, cols.reshape(-1), q, k, valid)
+    z = float(scale) * e + bias.reshape(-1).float()
+    return _softmax_stats(z, r, valid, m)
+
+
+def attn_chain_torch(rows, cols, q, k, bias, v, *, shape, scale=1.0,
+                     stats=None, **_opts) -> torch.Tensor:
+    """Unfused attention: SDDMM QKᵀ → masked softmax of ``scale * e +
+    bias`` → SpMM against V, the edge stream materialised (the reference's
+    ``attn_chain_xla``).  ``stats`` replaces the softmax statistics."""
+    m = int(shape[0])
+    r, valid = _flat_pattern(rows, m)
+    e = _sddmm_flat(r, cols.reshape(-1), q, k, valid)
+    w = attn_weights(e, bias.reshape(-1).float(), r, valid, m, scale,
+                     stats=stats)
+    return spmm_nb_pr(BalancedCOO(rows, cols, w.reshape(rows.shape),
+                                  tuple(shape)), v)
+
+
 for _name, _fn, _sub in (("rs_sr", spmm_rs_sr, "ell"),
                          ("rs_pr", spmm_rs_pr, "ell"),
                          ("nb_sr", spmm_nb_sr, "balanced"),
@@ -231,3 +267,4 @@ for _name, _fn, _sub in (("rs_sr", spmm_rs_sr, "ell"),
     registry.register(_name, "torch", _sub, _fn)
 registry.register("sddmm", "torch", "balanced", sddmm_torch)
 registry.register("chain", "torch", "balanced", chain_torch)
+registry.register("attn_chain", "torch", "balanced", attn_chain_torch)

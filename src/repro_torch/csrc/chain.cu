@@ -46,27 +46,6 @@
 
 namespace repro_torch {
 
-constexpr float kSoftmaxEps = 1e-30f;
-
-__device__ __forceinline__ unsigned long long pack_stats(float m, float s) {
-  return (static_cast<unsigned long long>(__float_as_uint(s)) << 32) |
-         __float_as_uint(m);
-}
-
-// Online-softmax merge of a partial (mt, st) into the packed (rm, rs) pair.
-__device__ __forceinline__ void merge_stats(unsigned long long* p, float mt,
-                                            float st) {
-  unsigned long long old = *p, assumed;
-  do {
-    assumed = old;
-    const float m0 = __uint_as_float(static_cast<unsigned>(assumed));
-    const float s0 = __uint_as_float(static_cast<unsigned>(assumed >> 32));
-    const float mn = fmaxf(m0, mt);
-    const float sn = s0 * expf(m0 - mn) + st * expf(mt - mn);
-    old = atomicCAS(p, assumed, pack_stats(mn, sn));
-  } while (old != assumed);
-}
-
 template <typename TA>
 __global__ void __launch_bounds__(kChainThreads)
 chain_stats_kernel(const int* __restrict__ rows, const int* __restrict__ cols,

@@ -1,5 +1,6 @@
-// Edge scores of the SDDMM family (K6, K7, K8): e = <A[row], B[col]> for
-// every slot of a balanced tile, in f32, computed by lane groups.
+// Edge scores of the SDDMM family (K6-K10): e = <A[row], B[col]> for every
+// slot of a balanced tile, in f32, computed by lane groups; and the packed
+// softmax row statistics that K7 and K9 write and K8 and K10 read.
 //
 // A lane group of `g` lanes owns one slot and splits the feature dimension d:
 // with `vec` set, each lane makes 16-byte loads (4 f32 or 8 bf16 a load) of
@@ -14,6 +15,33 @@
 namespace repro_torch {
 
 constexpr int kChainThreads = 256;
+
+// Masked-softmax sentinel (a finite stand-in for -inf) and row-sum floor,
+// core/spmm.py's SOFTMAX_NEG and SOFTMAX_EPS.
+constexpr float kSoftmaxNeg = -1e30f;
+constexpr float kSoftmaxEps = 1e-30f;
+
+// One row's softmax statistics packed in 64 bits: the max in the low word,
+// the sum of exp(z - max) in the high word.
+__device__ __forceinline__ unsigned long long pack_stats(float m, float s) {
+  return (static_cast<unsigned long long>(__float_as_uint(s)) << 32) |
+         __float_as_uint(m);
+}
+
+// Online-softmax merge of a partial (mt, st) into the packed (rm, rs) pair,
+// for a row whose slots lie in several CTAs.
+__device__ __forceinline__ void merge_stats(unsigned long long* p, float mt,
+                                            float st) {
+  unsigned long long old = *p, assumed;
+  do {
+    assumed = old;
+    const float m0 = __uint_as_float(static_cast<unsigned>(assumed));
+    const float s0 = __uint_as_float(static_cast<unsigned>(assumed >> 32));
+    const float mn = fmaxf(m0, mt);
+    const float sn = s0 * expf(m0 - mn) + st * expf(mt - mn);
+    old = atomicCAS(p, assumed, pack_stats(mn, sn));
+  } while (old != assumed);
+}
 
 __device__ __forceinline__ float dot16(const float* a, const float* b) {
   const float4 x = *reinterpret_cast<const float4*>(a);

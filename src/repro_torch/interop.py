@@ -1,17 +1,24 @@
 """Carry the reference package's state into the port.
 
-The reference's "weights" are its CSR and its calibrated thresholds.  This
-module turns a reference CSR's arrays — numpy ``indptr``, ``indices``,
-``data`` and ``shape``, e.g. ``np.asarray(csr.indptr)`` — and a thresholds
-JSON into the port's objects.  It imports nothing of the reference: only
-arrays and text cross over.
+The reference's "weights" are its CSR, its calibrated thresholds, its
+attention specs and its model configs.  This module turns a reference CSR's
+arrays — numpy ``indptr``, ``indices``, ``data`` and ``shape``, e.g.
+``np.asarray(csr.indptr)`` —, a thresholds JSON and the fields of the
+reference's dataclasses (``dataclasses.asdict``) into the port's objects.
+It imports nothing of the reference: only arrays, text and plain fields
+cross over.  ``alibi_bias`` builds the per-edge bias stream both packages'
+attention takes.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from .core.formats import CSR, _csr
+from .attention.patterns import AttentionSpec
+from .core.formats import CSR, _csr, row_ids_from_indptr
 from .core.selector import SelectorThresholds
+from .models.config import (ModelConfig, MoEConfig, SparseFFNConfig,
+                            SSMConfig)
 
 
 def csr_from_arrays(indptr, indices, data, shape, *, device="cpu") -> CSR:
@@ -28,3 +35,39 @@ def csr_from_arrays(indptr, indices, data, shape, *, device="cpu") -> CSR:
 def thresholds_from_json(text: str) -> SelectorThresholds:
     """The port's thresholds from a reference thresholds JSON (v1-v5)."""
     return SelectorThresholds.from_json(text)
+
+
+def attention_spec_from_fields(**fields) -> AttentionSpec:
+    """The port's ``AttentionSpec`` from a reference spec's fields; an
+    explicit block mask becomes a tuple of tuples of bools again."""
+    if "block_mask" in fields:
+        fields["block_mask"] = tuple(tuple(bool(x) for x in row)
+                                     for row in fields["block_mask"])
+    return AttentionSpec(**fields)
+
+
+def model_config_from_fields(**fields) -> ModelConfig:
+    """The port's ``ModelConfig`` from a reference config's fields, nested
+    MoE / SSM / sparse-FFN configs given as dicts."""
+    for name, cls in (("moe", MoEConfig), ("ssm", SSMConfig),
+                      ("sparse_ffn", SparseFFNConfig)):
+        if isinstance(fields.get(name), dict):
+            fields[name] = cls(**fields[name])
+    if "mrope_sections" in fields:
+        fields["mrope_sections"] = tuple(fields["mrope_sections"])
+    return ModelConfig(**fields)
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def alibi_bias(csr, slope: float) -> np.ndarray:
+    """ALiBi's per-edge bias ``−slope·|i − j|`` for query ``i`` and key
+    ``j``, as the ``(nnz,)`` float32 stream in ``csr``'s nonzero order
+    (``−slope·(i − j)`` on a causal pattern).  ``csr`` is either package's
+    CSR: its index arrays are read as numpy."""
+    indptr, indices = _host(csr.indptr), _host(csr.indices)
+    rows = row_ids_from_indptr(indptr, len(indices)).astype(np.int64)
+    dist = np.abs(rows - indices.astype(np.int64))
+    return (-float(slope) * dist).astype(np.float32)

@@ -1,11 +1,13 @@
-"""The port's hand-written Hopper kernels (K1-K3, K6-K8) and the oracles.
+"""The port's hand-written Hopper kernels (K1-K3, K6-K10) and the oracles.
 
 Importing this package registers the ``"hopper"`` backend in
 ``repro_torch.core.registry``; the registry imports it on first resolve of
 that backend.  The kernels are built and loaded at their first launch
 (``_build.lib``), never at import.
 """
-from . import csc, fused_chain, spmv, vsr
+from . import attention, csc, fused_chain, spmv, vsr
+from .attention import (attn_chain_fused, attn_chain_plain, attn_stats_fused,
+                        attn_stats_plain, attn_unfused)
 from .csc import spmm_csc, spmm_csc_plain
 from .fused_chain import (chain_fused, chain_plain, chain_stats_fused,
                           chain_stats_plain, chain_unfused, sddmm_fused,
@@ -16,7 +18,8 @@ from .vsr import plan_visits, plan_windows, spmm_vsr_fused, spmm_vsr_plain
 #: kernel name -> module whose ``LAUNCHES`` dict counts its launches
 KERNEL_MODULES = {"vsr_spmm": vsr, "vsr_spmv": spmv, "csc_spmm": csc,
                   "sddmm": fused_chain, "chain_stats": fused_chain,
-                  "chain": fused_chain}
+                  "chain": fused_chain, "attn_stats": attention,
+                  "attn_chain": attention}
 
 
 def launch_counts() -> dict[str, int]:

@@ -27,7 +27,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("vsr.cu", "spmv.cu", "csc.cu", "sddmm.cu", "chain.cu")
+SOURCES = ("vsr.cu", "spmv.cu", "csc.cu", "sddmm.cu", "chain.cu",
+           "attention.cu")
 HEADERS = ("common.cuh", "score.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +46,9 @@ SIGNATURES = {
     "repro_chain_stats": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _P),
     "repro_chain": (_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                     _I, _F, _P),
+    "repro_attn_stats": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P),
+    "repro_attn": (_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                   _I, _F, _P),
 }
 
 

@@ -48,6 +48,23 @@ def check_operands(kernel: str, index: tuple, vals: torch.Tensor,
             raise ValueError(f"{kernel}: an operand exceeds int32 indexing")
 
 
+def check_dense(kernel: str, x: torch.Tensor, k: int) -> torch.Tensor:
+    """The dense operand a chain kernel aggregates, as ``(K, N)``: raise
+    ``ValueError`` unless ``x`` is ``(K,)`` or ``(K, N)``, contiguous
+    float32 or bfloat16, with ``N`` within the launch grid (128 columns a
+    CTA)."""
+    x2 = x[:, None] if x.ndim == 1 else x
+    if x2.ndim != 2 or x2.shape[0] != k:
+        raise ValueError(f"{kernel}: operand of shape {tuple(x.shape)} does "
+                         f"not match K={k}")
+    if x2.dtype not in FLOAT_TYPES or not x2.is_contiguous():
+        raise ValueError(f"{kernel}: the dense operand must be contiguous "
+                         f"float32 or bfloat16, got {x2.dtype}")
+    if -(-x2.shape[1] // 128) > 65535:
+        raise ValueError(f"{kernel}: N={x2.shape[1]} exceeds the launch grid")
+    return x2
+
+
 def is_bf16(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
 

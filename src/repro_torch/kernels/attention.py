@@ -1,0 +1,171 @@
+"""K9, K10 — block-sparse attention on Hopper; counterpart of
+``repro.kernels.attention``.
+
+Per (batch, head), block-sparse attention is the softmax chain of
+``fused_chain`` with ``alpha = scale``; what earns it its own logical kernel
+(``attn_chain``) is the additive per-edge bias, ``z = scale·e + bias``,
+which rides the balanced slab layout of the pattern.  The wrappers take the
+slab's pattern ``(rows, cols)`` (padding ``rows == M``), Q ``(M, d)``,
+K ``(K, d)``, the f32 bias slab shaped like ``rows`` and ``shape``; their
+CUDA source is ``repro_torch/csrc/attention.cu``, whose note gives each
+kernel's bound and design:
+
+* ``attn_stats_fused`` (K9) replaces ``_attn_stats_kernel``: the softmax's
+  row max and sum of ``exp(z − max)``, each ``(M,)`` (the TPU kernel's
+  ``(mb, wb)`` blocks, flattened), empty rows at ``(SOFTMAX_NEG, 0)``;
+* ``attn_chain_fused`` (K10, with K9 first unless ``stats`` are given)
+  replaces ``_attn_kernel``: ``Y = softmax(z) · V`` with f32 sums, cast to
+  ``v.dtype``.
+
+Each has a plain PyTorch version beside it (``*_plain``, the ``"torch"``
+backend's functions) with the same contract.  ``attn_unfused`` is what a
+``"hopper"`` plan runs below the fuse gate (``attn_fuse_min_seq``): K6
+scores, K9 statistics, the weights by elementwise tensor ops, then K1/K2.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import registry
+from ..core.formats import BalancedCOO
+from ..core.spmm import (SOFTMAX_NEG, attn_chain_torch, attn_stats_torch,
+                         attn_weights)
+
+from . import _build, _common, fused_chain
+from .vsr import _prep_windows
+
+__all__ = ["attn_stats_fused", "attn_stats_plain", "attn_chain_fused",
+           "attn_chain_plain", "attn_unfused"]
+
+#: launches of K9 and K10 since process start (or the last reset)
+LAUNCHES = {"attn_stats": 0, "attn_chain": 0}
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def attn_stats_plain(rows, cols, q, k, bias, *, shape, scale=1.0
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K9's plain version: the ``"torch"`` backend's statistics without
+    their padding row, ``(row_max, row_sum)`` each ``(M,)`` f32."""
+    m = int(shape[0])
+    rm, rs = attn_stats_torch(rows, cols, q, k, bias, shape=shape,
+                              scale=scale)
+    return rm[:m], rs[:m]
+
+
+def attn_chain_plain(rows, cols, q, k, bias, v, *, shape, scale=1.0,
+                     stats=None) -> torch.Tensor:
+    """K10's plain version (K9 included): the ``"torch"`` backend's
+    unfused attention."""
+    return attn_chain_torch(rows, cols, q, k, bias, v, shape=shape,
+                            scale=scale, stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def _check_bias(kernel: str, rows, bias) -> None:
+    if bias.dtype != torch.float32 or bias.shape != rows.shape \
+            or not bias.is_contiguous():
+        raise ValueError(f"{kernel}: the bias must be a contiguous float32 "
+                         f"slab of the pattern's shape {tuple(rows.shape)}; "
+                         f"got {bias.dtype} {tuple(bias.shape)}")
+
+
+def _stats_packed(rows, cols, q, k, bias, m: int, scale) -> torch.Tensor:
+    """Launch K9 into an ``(M, 2)`` f32 buffer of ``(row_max, row_sum)``
+    pairs, filled with ``(SOFTMAX_NEG, 0)`` first."""
+    stats = torch.zeros((m, 2), dtype=torch.float32, device=rows.device)
+    stats[:, 0] = SOFTMAX_NEG
+    if m and rows.numel():
+        err = _build.lib().repro_attn_stats(
+            rows.data_ptr(), cols.data_ptr(), q.data_ptr(), k.data_ptr(),
+            _common.is_bf16(q), bias.data_ptr(), stats.data_ptr(),
+            rows.shape[0], rows.shape[1], m, q.shape[1], float(scale),
+            _common.stream_of(q))
+        _build.check(err, "attn_stats")
+        LAUNCHES["attn_stats"] += 1
+    return stats
+
+
+def attn_stats_fused(rows, cols, q, k, bias, *, shape, scale=1.0
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K9: ``(row_max, row_sum)`` of the masked softmax of ``scale·QKᵀ +
+    bias``, each ``(M,)`` f32.  CPU operands take the plain version; CUDA
+    operands launch the kernel or raise."""
+    if _common.on_cpu("attn_stats", rows, cols, q, k, bias):
+        return attn_stats_plain(rows, cols, q, k, bias, shape=shape,
+                                scale=scale)
+    fused_chain._check_pattern("attn_stats", rows, cols, q, k, shape)
+    _check_bias("attn_stats", rows, bias)
+    stats = _stats_packed(rows, cols, q, k, bias, int(shape[0]), scale)
+    return stats[:, 0].contiguous(), stats[:, 1].contiguous()
+
+
+def attn_chain_fused(rows, cols, q, k, bias, v, *, shape, scale=1.0,
+                     stats=None) -> torch.Tensor:
+    """K10: ``Y = softmax_mask(scale·QKᵀ + bias) · V`` in one pass over the
+    pattern, the weights kept on chip; runs K9 first unless ``stats`` (row
+    max and row sum, indexable by row id) are given.  CPU operands take the
+    plain version; CUDA operands launch the kernels or raise."""
+    given = () if stats is None else tuple(stats)
+    if _common.on_cpu("attn_chain", rows, cols, q, k, bias, v, *given):
+        return attn_chain_plain(rows, cols, q, k, bias, v, shape=shape,
+                                scale=scale, stats=stats)
+    fused_chain._check_pattern("attn_chain", rows, cols, q, k, shape)
+    _check_bias("attn_chain", rows, bias)
+    m = int(shape[0])
+    v2 = _common.check_dense("attn_chain", v, int(shape[1]))
+    n = v2.shape[1]
+    packed = (_stats_packed(rows, cols, q, k, bias, m, scale) if stats is None
+              else torch.stack([s[:m].float() for s in given], dim=1)
+              .contiguous())
+    y = torch.zeros((m, n), dtype=torch.float32, device=v2.device)
+    if y.numel() and rows.numel():
+        err = _build.lib().repro_attn(
+            rows.data_ptr(), cols.data_ptr(), q.data_ptr(), k.data_ptr(),
+            _common.is_bf16(q), bias.data_ptr(), packed.data_ptr(),
+            v2.data_ptr(), _common.is_bf16(v2), y.data_ptr(), rows.shape[0],
+            rows.shape[1], m, n, q.shape[1], float(scale),
+            _common.stream_of(v2))
+        _build.check(err, "attn_chain")
+        LAUNCHES["attn_chain"] += 1
+    y = y.to(v2.dtype)
+    return y[:, 0] if v.ndim == 1 else y
+
+
+def attn_unfused(rows, cols, q, k, bias, v, *, shape, scale=1.0,
+                 stats=None) -> torch.Tensor:
+    """Attention as separate kernels, the edge stream materialised: K6
+    scores, K9 statistics, the weights by elementwise tensor ops (the
+    reference does that step outside any kernel too), then the nnz-balanced
+    SpMM of the ``"hopper"`` backend (K1, or K2 for 1-D v) on
+    ``BalancedCOO(rows, cols, w)``."""
+    m = int(shape[0])
+    e = fused_chain.sddmm_fused(rows, cols, q, k, shape=shape)
+    if stats is None:
+        stats = attn_stats_fused(rows, cols, q, k, bias, shape=shape,
+                                 scale=scale)
+    r = rows.reshape(-1)
+    w = attn_weights(e.reshape(-1), bias.reshape(-1).float(), r, r < m, m,
+                     scale, stats=stats)
+    bal = BalancedCOO(rows, cols, w.reshape(rows.shape), tuple(shape))
+    return registry.resolve("nb_pr", "hopper").fn(bal, v)
+
+
+# ---------------------------------------------------------------------------
+# registry: the Hopper entry of attention with a bias.  Its prep hook is the
+# NB entries' geometry check; no visit schedule is needed.
+# ---------------------------------------------------------------------------
+
+def _hopper_attn(rows, cols, q, k, bias, v, *, fuse: bool = True, **kw):
+    run = attn_chain_fused if fuse else attn_unfused
+    return run(rows, cols, q.contiguous(), k.contiguous(), bias.contiguous(),
+               v.contiguous(), **kw)
+
+
+registry.register("attn_chain", "hopper", "balanced", _hopper_attn,
+                  prep=_prep_windows)

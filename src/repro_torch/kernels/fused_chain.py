@@ -168,17 +168,9 @@ def chain_fused(rows, cols, a, b, x, *, shape, transform: str = "identity",
         return chain_plain(rows, cols, a, b, x, shape=shape,
                            transform=transform, alpha=alpha, stats=stats)
     _check_pattern("chain", rows, cols, a, b, shape)
-    x2 = x[:, None] if x.ndim == 1 else x
-    m, k = (int(s) for s in shape)
-    if x2.ndim != 2 or x2.shape[0] != k:
-        raise ValueError(f"chain: x of shape {tuple(x.shape)} does not match "
-                         f"K={k}")
-    if x2.dtype not in _common.FLOAT_TYPES or not x2.is_contiguous():
-        raise ValueError(f"chain: x must be contiguous float32 or bfloat16, "
-                         f"got {x2.dtype}")
+    m = int(shape[0])
+    x2 = _common.check_dense("chain", x, int(shape[1]))
     n = x2.shape[1]
-    if -(-n // 128) > 65535:
-        raise ValueError(f"chain: N={n} exceeds the launch grid")
     packed = None
     if transform == "softmax":
         packed = (_stats_packed(rows, cols, a, b, m, alpha) if stats is None

@@ -352,11 +352,14 @@ def test_plan_refuses_unknown_chain_op_and_unported_arguments():
     for op in spmm.CHAIN_TRANSFORMS:
         assert plan_mod.plan(pc, chain_op=op).chain_op == op
     assert fused_chain.CHAIN_TRANSFORMS == ref_chain.CHAIN_TRANSFORMS
-    for op in ("sigmoid", "attn"):                    # attn comes with K9/K10
-        with pytest.raises(ValueError):
-            plan_mod.plan(pc, chain_op=op)
-        with pytest.raises(ValueError):
-            repro_torch.sparse(pc, device="cpu", chain_op=op, cache=False)
+    # "attn" tags the plans of block-sparse attention; "sigmoid" is no op
+    assert plan_mod.plan(pc, chain_op="attn").chain_op == "attn"
+    assert repro_torch.sparse(pc, device="cpu", chain_op="attn",
+                              cache=False).plan.chain_op == "attn"
+    with pytest.raises(ValueError):
+        plan_mod.plan(pc, chain_op="sigmoid")
+    with pytest.raises(ValueError):
+        repro_torch.sparse(pc, device="cpu", chain_op="sigmoid", cache=False)
     for kw in ({"mesh": object()}, {"quant": "int8"}, {"sentinel": "raise"},
                {"bsr_block": (8, 128)}, {"validate": "repair"},
                {"inner_backend": "torch"}):

@@ -1,4 +1,4 @@
-"""Each CUDA kernel of the port (K1-K3, K6-K8) against its plain PyTorch
+"""Each CUDA kernel of the port (K1-K3, K6-K10) against its plain PyTorch
 version, on the card.  Marked ``gpu``: they skip without a CUDA device (the kernels have no
 CPU mode).  This file imports neither JAX nor the reference package, so it
 runs on a machine that has only PyTorch:
@@ -11,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import interop
+from repro_torch.attention import patterns
 from repro_torch.core import formats
+from repro_torch.core.plan import _stream_to_balanced
 from repro_torch.core.rmat import rmat
-from repro_torch.kernels import (csc, fused_chain, launch_counts,
+from repro_torch.kernels import (attention, csc, fused_chain, launch_counts,
                                  reset_launch_counts, spmv, vsr)
 
 
@@ -77,7 +80,8 @@ def test_cuda_kernels_count_launches_and_reject(cuda):
     spmv.spmv_vsr_fused(bal, torch.randn(csr.shape[1], device=cuda))
     csc.spmm_csc(formats.csr_to_ell(csr), torch.randn(csr.shape[1], 8, device=cuda))
     one_each = {"vsr_spmm": 1, "vsr_spmv": 1, "csc_spmm": 1, "sddmm": 0,
-                "chain_stats": 0, "chain": 0}
+                "chain_stats": 0, "chain": 0, "attn_stats": 0,
+                "attn_chain": 0}
     assert launch_counts() == one_each
     with pytest.raises(ValueError):          # no float64 kernel
         vsr.spmm_vsr_fused(bal, torch.randn(csr.shape[1], 8, device=cuda,
@@ -210,3 +214,105 @@ def test_cuda_chain_facade_main_path(cuda):
         with pytest.raises(NotImplementedError):
             A.chain(a, b, x.requires_grad_())
 
+
+
+def _attention_specs():
+    """A causal window (rows of 2-3 blocks), a BigBird encoder whose global
+    rows span several 512-slot tiles, and a block mask with an empty block
+    row."""
+    bm = np.tril(np.ones((8, 8), bool))
+    bm[3, :] = False
+    return {"window": patterns.sliding_window(512, 2, block=64, causal=True),
+            "bigbird": patterns.bigbird(512, 1, 1, 2, block=32, seed=0),
+            "empty_row": patterns.from_block_mask(bm, 256, block=32,
+                                                  causal=True)}
+
+
+def _attention_operands(spec, d, dtype, device):
+    csr = patterns.build_mask(spec).csr.to(device)
+    s = spec.seq
+    q = (0.3 * torch.randn(s, d, device=device)).to(dtype)
+    k = (0.3 * torch.randn(s, d, device=device)).to(dtype)
+    v = torch.randn(s, d, device=device).to(dtype)
+    bias = torch.from_numpy(interop.alibi_bias(csr, 0.05)).to(device)
+    return csr, q, k, v, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_kernels_match_plain(cuda, d, dtype):
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, spec in _attention_specs().items():
+        csr, q, k, v, bias = _attention_operands(spec, d, dtype, cuda)
+        empty = torch.diff(csr.indptr) == 0
+        for tile in (32, 100, 512):
+            bal = formats.csr_to_balanced(csr, tile)
+            slab = _stream_to_balanced(bias, bal)
+            args = (bal.rows, bal.cols, q, k, slab)
+            kw = dict(shape=csr.shape, scale=d ** -0.5)
+            reset_launch_counts()
+            rm, rs = attention.attn_stats_fused(*args, **kw)
+            pm, ps = attention.attn_stats_plain(*args, **kw)
+            assert (rm[empty] == -1e30).all() and (rs[empty] == 0).all(), name
+            assert _rel(rm[~empty], pm[~empty]) < 1e-4, name
+            assert _rel(rs, ps) < 1e-4, name
+            y = attention.attn_chain_fused(*args, v, **kw)
+            counts = launch_counts()
+            assert (counts["attn_stats"], counts["attn_chain"]) == (2, 1), counts
+            assert y.dtype == dtype and (y[empty] == 0).all(), name
+            assert _rel(y, attention.attn_chain_plain(*args, v, **kw)) < tol, name
+            assert _rel(attention.attn_unfused(*args, v, **kw), y) < tol, name
+            # given K9's statistics: the same up to the atomics' order
+            ys = attention.attn_chain_fused(*args, v, stats=(rm, rs), **kw)
+            assert _rel(ys, y) < tol, name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_attention_rejects_bad_operands(cuda):
+    csr, q, k, v, bias = _attention_operands(_attention_specs()["window"], 64,
+                                             torch.float32, cuda)
+    bal = formats.csr_to_balanced(csr, 512)
+    slab = _stream_to_balanced(bias, bal)
+    kw = dict(shape=csr.shape, scale=0.125)
+    reset_launch_counts()
+    with pytest.raises(ValueError):          # a bias slab of another shape
+        attention.attn_stats_fused(bal.rows, bal.cols, q, k, slab[:, 1:], **kw)
+    with pytest.raises(ValueError):          # a bfloat16 bias
+        attention.attn_chain_fused(bal.rows, bal.cols, q, k, slab.bfloat16(),
+                                   v, **kw)
+    with pytest.raises(ValueError):          # V of the wrong height
+        attention.attn_chain_fused(bal.rows, bal.cols, q, k, slab, v[1:], **kw)
+    assert sum(launch_counts().values()) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_sparse_attention_main_path(cuda):
+    import dataclasses
+    import repro_torch
+    spec = _attention_specs()["window"]
+    csr, q, k, v, bias = _attention_operands(spec, 64, torch.float32, cuda)
+    qh, kh, vh = (t.expand(2, 3, *t.shape).contiguous() for t in (q, k, v))
+    cases = ((None, ("chain_stats", "chain")),
+             (bias, ("attn_stats", "attn_chain")))
+    for b, kernels in cases:
+        reset_launch_counts()
+        y = repro_torch.sparse_attention(spec, qh, kh, vh, bias=b, cache=False)
+        counts = launch_counts()
+        assert {kk: counts[kk] for kk in kernels} == dict.fromkeys(kernels, 6)
+        want = repro_torch.sparse_attention(spec, q, k, v, bias=b,
+                                            backend="torch", cache=False)
+        assert y.shape == (2, 3, spec.seq, 64)
+        assert _rel(y[1, 2], want) < 1e-4
+    shut = dataclasses.replace(repro_torch.SelectorThresholds(),
+                               attn_fuse_min_seq=spec.seq + 1)
+    reset_launch_counts()
+    yu = repro_torch.sparse_attention(spec, q, k, v, bias=bias,
+                                      thresholds=shut, cache=False)
+    counts = launch_counts()
+    assert (counts["sddmm"], counts["attn_stats"], counts["vsr_spmm"],
+            counts["attn_chain"]) == (1, 1, 1, 0), counts
+    assert _rel(yu, y[0, 0]) < 1e-4          # y: the last case, with bias
+    with pytest.raises(NotImplementedError):
+        repro_torch.sparse_attention(spec, q, k, v.requires_grad_(), cache=False)

@@ -1,0 +1,45 @@
+"""The port stands alone: every module of ``repro_torch`` imports in a
+fresh interpreter in which ``jax`` and the reference package ``repro``
+cannot be imported (a ``sys.meta_path`` finder refuses them)."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+
+_PROBE = r'''
+import importlib.abc, pkgutil, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                     "repro_torch."))
+for name in names:
+    __import__(name)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+print("\n".join(names))
+'''
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    for module in ("repro_torch.api", "repro_torch.interop",
+                   "repro_torch.attention.module",
+                   "repro_torch.attention.patterns",
+                   "repro_torch.kernels.attention",
+                   "repro_torch.models.transformer",
+                   "repro_torch.configs.gemma3_12b"):
+        assert module in names, (module, sorted(names))

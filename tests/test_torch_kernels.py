@@ -118,7 +118,8 @@ def test_cpu_wrappers_do_not_count_launches():
     spmv.spmv_vsr_fused(formats.csr_to_balanced(csr, 32), x[:, 0].contiguous())
     csc.spmm_csc(formats.csr_to_ell(csr), x)
     assert launch_counts() == {"vsr_spmm": 0, "vsr_spmv": 0, "csc_spmm": 0,
-                               "sddmm": 0, "chain_stats": 0, "chain": 0}
+                               "sddmm": 0, "chain_stats": 0, "chain": 0,
+                               "attn_stats": 0, "attn_chain": 0}
 
 
 def test_wrappers_reject_bad_operands():
