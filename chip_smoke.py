@@ -39,7 +39,19 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              each against the "torch" backend on one head, a block mask
              with an empty block row giving rows of exactly 0, and one
              call with ``attn_fuse_min_seq`` above the sequence (K6, K9,
-             K1, and no plain version);
+             K1, and no plain version); then the block-granule backend on a
+             block-pruned Gemma-3-12B FFN up-projection — W of shape
+             (d_ff 15360, d_model 3840), (8, 128) blocks each kept with
+             probability 0.25 (numpy ``default_rng(seed)``), kept values
+             N(0, 1/3840) — as ``repro_torch.sparse(w, backend="bsr") @ x``
+             for X (3840, N) at N = 1, 4, 32, 128 (one K11 launch a call,
+             agreement with the "torch" backend, the default "hopper" plan
+             and a dense float64 product, a cache hit with new values, a
+             second plan at ``bsr_block=(16, 64)``); then the spill path of
+             the uniform graph (``spill=True`` in the ``nb_pr`` opts: K5 at
+             N = 1, K4 above) against the fused K1/K2, the same opt on the
+             Graph500 graph refused (its window is past ``max_win``), and
+             ``spmm_as_n_spmv_hopper`` at N = 4 (four K2 launches);
 5. times   — per (graph, N): the kernel, its plain version and
              ``torch.sparse.mm`` (cuSPARSE, the paper's baseline) by CUDA
              events, median of 20 runs after a warm-up, beside the bound:
@@ -53,7 +65,16 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              the unfused pair, the plain version and
              ``scaled_dot_product_attention`` with a dense (S, S) mask
              (boolean, or float holding −inf and the bias), and the whole
-             layer's call beside SDPA over all heads;
+             layer's call beside SDPA over all heads; per N of the pruned
+             FFN weight: K11, its plain version, the facade's call,
+             ``torch.sparse.mm`` on the CSR, ``to_sparse_bsr((8, 128)) @ x``
+             where PyTorch takes it, and the dense ``torch.matmul`` of W,
+             beside K11's bound: max(bytes / 3.35 TB/s, 2·nblocks·bm·bk·N /
+             67 TFLOP/s) with bytes = 4·nblocks·bm·bk + 4·nblocks + 4·(Mb+1)
+             + 4·K·N + 4·M·N; per N of the uniform graph's spill path: K4
+             (K5) alone, the ``index_add_`` combine, the spill call, the
+             fused K1 (K2), the plain version and ``torch.sparse.mm``, each
+             bound counting the partials written;
 6. summary — one JSON line of the kernels, the card line, then the result.
 
 Without a CUDA device it prints no result and exits 2.  ``--scale`` below 20
@@ -71,11 +92,14 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOP_PER_S = 67e12     # float32 outside the tensor cores
+H100_BF16_FLOP_PER_S = 989e12   # bfloat16 on the tensor cores (dense)
 RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 NS = (1, 4, 32, 128)
 GRAPHS = {"g500": (0.57, 0.19, 0.19), "unif": (0.25, 0.25, 0.25)}
@@ -133,6 +157,38 @@ ATTN_STATS = {"gemma": {"nnz": 8097792, "tiles": 15816, "max_row": 1088},
               "bigbird": {"nnz": 2547712, "tiles": 4976, "max_row": 4096}}
 #: the head whose output is held against the "torch" backend
 CHECK_HEAD = 5
+KERNELS.update({
+    "bsr_spmm": {"route": "cuda", "source": "src/repro_torch/csrc/bsr.cu",
+                 "replaces": "src/repro/kernels/bsr.py:48"},
+    "vsr_spmm_spill": {"route": "cuda", "source": "src/repro_torch/csrc/vsr.cu",
+                       "replaces": "src/repro/kernels/vsr.py:225"},
+    "vsr_spmv_spill": {"route": "cuda", "source": "src/repro_torch/csrc/spmv.cu",
+                       "replaces": "src/repro/kernels/spmv.py:35"},
+})
+#: the block-pruned FFN weight of the "bsr" backend: Gemma-3-12B's
+#: up-projection at the default bsr_block, a quarter of the blocks kept
+BSR_BLOCK = (8, 128)
+BSR_KEEP = 0.25
+#: the second plan's block shape, and the small ragged matrix's
+BSR_BLOCK_ALT = (16, 64)
+#: the N whose times stand for each new kernel in the summary line
+BSR_SUMMARY_N, SPILL_SUMMARY_N = 128, {"vsr_spmm_spill": 128, "vsr_spmv_spill": 1}
+
+
+def pruned_ffn_weight(d_ff: int, d_model: int, seed: int):
+    """A block-pruned FFN up-projection W (d_ff, d_model), dense float32:
+    each ``BSR_BLOCK`` block kept with probability ``BSR_KEEP``, kept values
+    N(0, 1/d_model), all drawn from ``numpy.random.default_rng(seed)``.
+    Returns W and the number of kept blocks."""
+    bm, bk = BSR_BLOCK
+    rng = np.random.default_rng(seed)
+    mb, kb = d_ff // bm, d_model // bk
+    kept = rng.random((mb, kb)) < BSR_KEEP
+    bi, bj = np.nonzero(kept)
+    vals = rng.standard_normal((len(bi), bm, bk)) * d_model ** -0.5
+    w = np.zeros((mb, bm, kb, bk), np.float32)
+    w[bi, :, bj, :] = vals.astype(np.float32)
+    return w.reshape(d_ff, d_model), len(bi)
 
 
 def fail(msg: str) -> None:
@@ -163,7 +219,7 @@ def main() -> int:
     from repro_torch.core import formats, registry, stats
     from repro_torch.core.plan import _stream_to_balanced, execute_attention
     from repro_torch.core.rmat import rmat
-    from repro_torch.kernels import (_build, attention, csc, fused_chain,
+    from repro_torch.kernels import (_build, attention, bsr, csc, fused_chain,
                                      launch_counts, reset_launch_counts, spmv,
                                      vsr)
     from repro_torch.models import transformer
@@ -250,6 +306,7 @@ def main() -> int:
         if not ok:
             fail(f"{kernel} {label} {dtype} disagrees with its plain version")
 
+    default_th = repro_torch.SelectorThresholds()
     g500_bal = formats.csr_to_balanced(graphs["g500"], 512)
     unif_bal = formats.csr_to_balanced(graphs["unif"], 512)
     unif_ell = formats.csr_to_ell(graphs["unif"])
@@ -267,6 +324,31 @@ def main() -> int:
         x = randn(k_dim, n)
         hold("csc_spmm", f"unif N={n}", csc.spmm_csc(unif_ell, x),
              csc.spmm_csc_plain(unif_ell, x), "float32")
+    # the spill path on the uniform graph's windows: K5 at N = 1, K4 above,
+    # their partials and the combined product
+    base, win = vsr.SpillWindows(default_th.max_win)(unif_bal)
+    print(f"[check] spill windows unif: n_tiles={unif_bal.n_tiles} win={win}",
+          flush=True)
+    for n, dtype in ((1, torch.float32), (4, torch.float32),
+                     (32, torch.float32), (128, torch.float32),
+                     (32, torch.bfloat16)):
+        dt = str(dtype).split(".")[1]
+        kw = dict(row_base=base, win=win)
+        if n == 1:
+            x = randn(k_dim, dtype=dtype)
+            hold("vsr_spmv_spill", f"unif N=1 partials",
+                 spmv.spmv_vsr_partials(unif_bal, x, base, win),
+                 vsr.spill_partials_plain(unif_bal, x[:, None], base, win)[..., 0], dt)
+            hold("vsr_spmv_spill", "unif N=1", spmv.spmv_vsr(unif_bal, x, **kw),
+                 spmv.spmv_vsr_spill_plain(unif_bal, x, **kw), dt)
+        else:
+            x = randn(k_dim, n, dtype=dtype)
+            hold("vsr_spmm_spill", f"unif N={n} partials",
+                 vsr.spmm_vsr_partials(unif_bal, x, base, win),
+                 vsr.spill_partials_plain(unif_bal, x, base, win), dt)
+            hold("vsr_spmm_spill", f"unif N={n}", vsr.spmm_vsr(unif_bal, x, **kw),
+                 vsr.spmm_vsr_spill_plain(unif_bal, x, **kw), dt)
+        torch.cuda.empty_cache()
 
     # the chain's kernels: a GAT layer's scores A·Bᵀ, A and B (2^20, 64)
     feats = {name: (0.3 * randn(csr.shape[0], CHAIN_D),
@@ -351,6 +433,58 @@ def main() -> int:
         del q, k, v, pat, kw, rm, rs, pm, ps
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+
+    # K11 on a block-pruned Gemma-3-12B FFN up-projection W (d_ff, d_model),
+    # the activations X (d_model, N) as models/layers.py::sparse_matmul
+    # computes W·Xᵀ; and on a small ragged matrix with an empty block row
+    t0 = time.perf_counter()
+    w_dense, w_kept = pruned_ffn_weight(gemma3_12b.CONFIG.d_ff,
+                                        gemma3_12b.CONFIG.d_model, args.seed)
+    rows_w, cols_w = np.nonzero(w_dense)
+    indptr_w = np.zeros(w_dense.shape[0] + 1, np.int64)
+    np.cumsum(np.bincount(rows_w, minlength=w_dense.shape[0]), out=indptr_w[1:])
+    w_csr = interop.csr_from_arrays(indptr_w, cols_w, w_dense[rows_w, cols_w],
+                                    w_dense.shape, device=dev)
+    t_w = time.perf_counter() - t0
+    del rows_w, cols_w, indptr_w
+    t0 = time.perf_counter()
+    w_bsr = formats.csr_to_bsr(w_csr, *BSR_BLOCK)
+    torch.cuda.synchronize()
+    t_bsr = time.perf_counter() - t0
+    d_ff, d_model = w_dense.shape
+    max_row_blocks = int(torch.diff(w_bsr.indptr).max())
+    print(f"[bsr] gemma3-12b ffn_up W {d_ff}x{d_model} block {BSR_BLOCK}: "
+          f"kept {w_kept} of {(d_ff // BSR_BLOCK[0]) * (d_model // BSR_BLOCK[1])} "
+          f"blocks, nnz={w_csr.nnz}, up to {max_row_blocks} blocks a block "
+          f"row, {w_bsr.blocks.numel() * 4 / 1e6:.1f} MB of f32 blocks; "
+          f"W and its CSR {t_w:.2f} s, csr_to_bsr {t_bsr:.3f} s (host clock)",
+          flush=True)
+    if w_bsr.nblocks != w_kept or w_csr.nnz != w_kept * BSR_BLOCK[0] * BSR_BLOCK[1]:
+        fail(f"bsr: {w_bsr.nblocks} blocks and {w_csr.nnz} nonzeros for "
+             f"{w_kept} kept blocks")
+    w_bsr16 = formats.BSR(w_bsr.indptr, w_bsr.indices, w_bsr.blocks.bfloat16(),
+                          w_bsr.shape, w_bsr.block_shape)
+    for dtype, wb in ((torch.float32, w_bsr), (torch.bfloat16, w_bsr16)):
+        dt = str(dtype).split(".")[1]
+        for n in NS:
+            x = randn(d_model, n, dtype=dtype) if n > 1 else randn(d_model, dtype=dtype)
+            hold("bsr_spmm", f"gemma ffn_up N={n}", bsr.spmm_bsr(wb, x),
+                 bsr.spmm_bsr_plain(wb, x), dt)
+    del w_bsr16
+    rng = np.random.default_rng(args.seed)
+    ragged = ((rng.random((203, 333)) < 0.05)
+              * rng.standard_normal((203, 333))).astype(np.float32)
+    ragged[16:48] = 0.0                 # block rows 1 and 2 of (16, 64) empty
+    ragged_bsr = formats.csr_to_bsr(formats.csr_from_dense(ragged, device=dev),
+                                    *BSR_BLOCK_ALT)
+    for n in (1, 37):
+        x = randn(333, n) if n > 1 else randn(333)
+        y = bsr.spmm_bsr(ragged_bsr, x)
+        if not (y[16:48] == 0).all():
+            fail("bsr_spmm: the empty block rows of the ragged matrix are not 0")
+        hold("bsr_spmm", f"ragged 203x333 {BSR_BLOCK_ALT} N={n}", y,
+             bsr.spmm_bsr_plain(ragged_bsr, x), "float32")
+    torch.cuda.synchronize()
 
     # -- 4. the main path through the facade -----------------------------------
     phase("main")
@@ -555,6 +689,108 @@ def main() -> int:
              "disagrees")
     del y, empty
     torch.cuda.empty_cache()
+
+    # the block-granule backend: the pruned FFN weight times N activations
+    w_gpu = torch.from_numpy(w_dense).to(dev)
+    only_k11 = {kk: int(kk == "bsr_spmm") for kk in KERNELS}
+    for n in NS:
+        x = randn(d_model, n) if n > 1 else randn(d_model)
+        t0 = time.perf_counter()
+        W = repro_torch.sparse(w_csr, backend="bsr")
+        t1 = time.perf_counter()
+        y, counts = drive(lambda: W @ x)
+        t2 = time.perf_counter()
+        if W.backend != "bsr" or W.plan.bsr_block != BSR_BLOCK:
+            fail(f"bsr N={n}: plan {W.backend!r} {W.plan.bsr_block}")
+        if counts != only_k11:
+            fail(f"bsr N={n}: launches {counts}, expected one of K11 alone")
+        if y.shape != ((d_ff, n) if n > 1 else (d_ff,)) or not torch.isfinite(y).all():
+            fail(f"bsr N={n}: output of shape {tuple(y.shape)} is not finite "
+                 "or has the wrong shape")
+        rel_t, _ = errors(y, W.matmul(x, backend="torch"))
+        rel_h, _ = errors(y, repro_torch.sparse(w_csr) @ x)
+        rel_d, _ = errors(y, w_gpu.double() @ x.double())
+        print(f"[main] bsr gemma ffn_up N={n}: launches={counts['bsr_spmm']} "
+              f"rel_err_vs_torch={rel_t:.3e} vs_hopper_plan={rel_h:.3e} "
+              f"vs_dense_f64={rel_d:.3e} sparse_s={t1 - t0:.3f} "
+              f"call_s={t2 - t1:.3f} (host clock; the first call builds the "
+              "BSR substrate)", flush=True)
+        if max(rel_t, rel_h, rel_d) > RTOL["float32"]:
+            fail(f"bsr N={n}: disagrees with the torch backend, the hopper "
+                 "plan or the dense product")
+    hits = repro_torch.cache_stats()["hits"]
+    W2 = repro_torch.sparse(formats.CSR(w_csr.indptr, w_csr.indices,
+                                        randn(w_csr.nnz), w_csr.shape),
+                            backend="bsr")
+    y2, counts = drive(lambda: W2 @ x)
+    rel2, _ = errors(y2, W2.matmul(x, backend="torch"))
+    hit = repro_torch.cache_stats()["hits"] == hits + 1 and W2.plan is W.plan
+    W3 = repro_torch.sparse(w_csr, backend="bsr", bsr_block=BSR_BLOCK_ALT)
+    y3, counts3 = drive(lambda: W3 @ x)
+    rel3, _ = errors(y3, y)
+    print(f"[main] bsr new values: cache_hit={hit} launches={counts['bsr_spmm']} "
+          f"rel_err_vs_torch={rel2:.3e} | bsr_block={BSR_BLOCK_ALT}: second "
+          f"plan={W3.plan is not W.plan} nblocks="
+          f"{W3.plan.substrate('bsr').nblocks} launches={counts3['bsr_spmm']} "
+          f"rel_err_vs_{BSR_BLOCK}={rel3:.3e}", flush=True)
+    if not hit or counts != only_k11 or rel2 > RTOL["float32"]:
+        fail("bsr: new values missed the plan cache or K11, or disagree")
+    if W3.plan is W.plan or counts3 != only_k11 or rel3 > RTOL["float32"]:
+        fail(f"bsr: bsr_block={BSR_BLOCK_ALT} did not give its own plan, or "
+             "disagrees")
+    del y, y2, y3, W2, W3
+    torch.cuda.empty_cache()
+    # the spill path (the fused path's parity reference) on the uniform graph
+    unif = graphs["unif"]
+    S = repro_torch.sparse(unif, cache=False)
+    spill_opts = S.plan.kernel_opts(S.plan.entry("nb_pr"))
+    spill_opts["spill"] = True
+    F = repro_torch.sparse(unif)
+    for n in NS:
+        x = randn(unif.shape[1], n) if n > 1 else randn(unif.shape[1])
+        kernel = "vsr_spmv_spill" if n == 1 else "vsr_spmm_spill"
+        y, counts = drive(lambda: S.matmul(x, impl="nb_pr"))
+        rel, _ = errors(y, F.matmul(x, impl="nb_pr"))
+        print(f"[main] spill unif N={n}: launches={counts} "
+              f"rel_err_vs_fused={rel:.3e}", flush=True)
+        if counts != {kk: int(kk == kernel) for kk in KERNELS}:
+            fail(f"spill unif N={n}: launches {counts}, expected one {kernel}")
+        if y.shape != ((unif.shape[0], n) if n > 1 else (unif.shape[0],)) \
+                or not torch.isfinite(y).all() or rel > RTOL["float32"]:
+            fail(f"spill unif N={n}: misshapen, not finite or disagrees with "
+                 "the fused kernels")
+    spill_base, spill_win = spill_opts["windows"](S.plan.substrate("balanced"))
+    # g500's empty-row gaps: at scale 20 a tile spans 6,453 rows, a window
+    # past max_win, and the spill call must refuse it
+    g_win = -(-stats.balanced_tile_span(graphs["g500"], 512) // 8) * 8
+    if g_win > default_th.max_win:
+        G = repro_torch.sparse(graphs["g500"], cache=False)
+        G.plan.kernel_opts(G.plan.entry("nb_pr"))["spill"] = True
+        reset_launch_counts()
+        refusal = None
+        try:
+            G.matmul(randn(graphs["g500"].shape[1], 4), impl="nb_pr")
+        except ValueError as err:
+            refusal = str(err)
+        if refusal is None or sum(launch_counts().values()):
+            fail(f"spill g500: window {g_win} > max_win was not refused, or "
+                 f"launched {launch_counts()}")
+        print(f"[main] spill g500 refused: {refusal}", flush=True)
+        del G
+    else:
+        print(f"[main] spill g500: window {g_win} <= max_win at scale "
+              f"{args.scale}; no refusal to check", flush=True)
+    x4 = randn(unif.shape[1], 4)
+    y, counts = drive(lambda: vsr.spmm_as_n_spmv_hopper(
+        F.plan.substrate("balanced"), x4))
+    rel, _ = errors(y, F.matmul(x4, impl="nb_pr"))
+    print(f"[main] spmm_as_n_spmv_hopper unif N=4: launches={counts} "
+          f"rel_err_vs_fused={rel:.3e}", flush=True)
+    if counts != {kk: 4 * int(kk == "vsr_spmv") for kk in KERNELS} \
+            or rel > RTOL["float32"]:
+        fail("spmm_as_n_spmv_hopper did not run K2 four times, or disagrees")
+    del y
+    torch.cuda.empty_cache()
     for k, v in launches.items():
         if v < 1:
             fail(f"{k} was never launched on the main path")
@@ -599,11 +835,12 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # the chain: K6, K7, K8 alone, the fused call, the unfused pair, plain
-    def bound(nbytes, flops):
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOP_PER_S
+    def bound(nbytes, flops, flop_rate=H100_F32_FLOP_PER_S):
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / flop_rate
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
-    chain_summary = {}
+    #: kernel -> (the timed row that stands for it in the summary, its shape)
+    summary_rows = {}
     for name, csr in graphs.items():
         m, k_dim = csr.shape
         a, b = feats[name]
@@ -634,8 +871,8 @@ def main() -> int:
             print(f"[time] {label} {name}_s{args.scale}_e16 d={CHAIN_D} "
                   + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
         if name == CHAIN_SUMMARY[0]:
-            chain_summary["sddmm"] = (sddmm_row, f"{name}_s{args.scale}_e16 d={CHAIN_D}")
-            chain_summary["chain_stats"] = (stats_row, f"{name}_s{args.scale}_e16 d={CHAIN_D}")
+            summary_rows["sddmm"] = (sddmm_row, f"{name}_s{args.scale}_e16 d={CHAIN_D}")
+            summary_rows["chain_stats"] = (stats_row, f"{name}_s{args.scale}_e16 d={CHAIN_D}")
         del lib_a, b_t
         stats = fused_chain.chain_stats_fused(*pat, shape=csr.shape, alpha=CHAIN_ALPHA)
         for cname, transform, n in CHAIN_CASES:
@@ -666,7 +903,7 @@ def main() -> int:
             print(f"[time] chain {name}_s{args.scale}_e16 {transform} N={n} "
                   + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
             if (name, transform, n) == CHAIN_SUMMARY:
-                chain_summary["chain"] = (row, f"{name}_s{args.scale}_e16 "
+                summary_rows["chain"] = (row, f"{name}_s{args.scale}_e16 "
                                                f"{transform} N={n} d={CHAIN_D}")
         del stats
         torch.cuda.empty_cache()
@@ -755,10 +992,115 @@ def main() -> int:
             print(f"[time] {label} {shape} "
                   + " ".join(f"{kk}={vv}" for kk, vv in row.items()), flush=True)
         if cname == "gemma_local_alibi":
-            chain_summary["attn_stats"] = (row9, shape)
-            chain_summary["attn_chain"] = (row10, shape)
+            summary_rows["attn_stats"] = (row9, shape)
+            summary_rows["attn_chain"] = (row10, shape)
         del st, mask, p
         torch.cuda.empty_cache()
+
+    # K11 on the pruned FFN weight, beside the library calls the port never
+    # makes: cuSPARSE on the CSR, PyTorch's BSR where it takes the block, and
+    # the dense product of W
+    def try_ms(label, fn, reps=20):
+        try:
+            return time_ms(fn, reps)
+        except (RuntimeError, NotImplementedError, TypeError) as err:
+            print(f"[time] {label} refused: {type(err).__name__}: "
+                  f"{str(err).splitlines()[0][:200]}", flush=True)
+            return None
+
+    bm, bk = BSR_BLOCK
+    mb = w_bsr.indptr.shape[0] - 1
+    lib_w = torch.sparse_csr_tensor(w_csr.indptr, w_csr.indices, w_csr.data,
+                                    size=w_csr.shape, check_invariants=False)
+    try:
+        lib_wb = w_gpu.to_sparse_bsr(BSR_BLOCK)
+    except (RuntimeError, NotImplementedError) as err:
+        lib_wb = None
+        print(f"[time] to_sparse_bsr{BSR_BLOCK} refused: {err}", flush=True)
+    W = repro_torch.sparse(w_csr, backend="bsr")
+    for n in NS:
+        x = randn(d_model, n)
+        blk_bound = bound(4 * w_bsr.blocks.numel() + 4 * w_bsr.nblocks
+                          + 4 * (mb + 1) + 4 * d_model * n + 4 * d_ff * n,
+                          2 * w_bsr.blocks.numel() * n)
+        row = {"kernel_ms": time_ms(lambda: bsr.spmm_bsr(w_bsr, x)),
+               "plain_ms": time_ms(lambda: bsr.spmm_bsr_plain(w_bsr, x), reps=5),
+               "library_ms": time_ms(lambda: lib_w @ x),
+               "bound_ms": blk_bound[0], "bound_by": blk_bound[1],
+               "e2e_ms": time_ms(lambda: W @ x),
+               "bsr_library_ms": (None if lib_wb is None else
+                                  try_ms("to_sparse_bsr @ x", lambda: lib_wb @ x)),
+               "dense_ms": time_ms(lambda: w_gpu @ x)}
+        print(f"[time] bsr_spmm gemma ffn_up {d_ff}x{d_model} N={n} "
+              + " ".join(f"{kk}={vv}" for kk, vv in row.items()), flush=True)
+        if n == BSR_SUMMARY_N:
+            summary_rows["bsr_spmm"] = (row, f"gemma3-12b ffn_up {d_ff}x"
+                                         f"{d_model} {BSR_BLOCK} N={n}")
+    # K11 with bf16 blocks and activations (bound at the bf16 tensor-core
+    # rate), and on the second plan's (16, 64) blocks of the same W
+    w_alt = formats.csr_to_bsr(w_csr, *BSR_BLOCK_ALT)
+    for label, wb, dtype in (
+            ("bf16", formats.BSR(w_bsr.indptr, w_bsr.indices,
+                                 w_bsr.blocks.bfloat16(), w_bsr.shape,
+                                 w_bsr.block_shape), torch.bfloat16),
+            (f"f32 {BSR_BLOCK_ALT}", w_alt, torch.float32)):
+        wmb = wb.indptr.shape[0] - 1
+        rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else H100_F32_FLOP_PER_S
+        for n in NS:
+            x = randn(d_model, n, dtype=dtype)
+            el = x.element_size()
+            b = bound(wb.blocks.element_size() * wb.blocks.numel()
+                      + 4 * wb.nblocks + 4 * (wmb + 1) + el * (d_model + d_ff) * n,
+                      2 * wb.blocks.numel() * n, rate)
+            row = {"kernel_ms": time_ms(lambda: bsr.spmm_bsr(wb, x)),
+                   "plain_ms": time_ms(lambda: bsr.spmm_bsr_plain(wb, x), reps=5),
+                   "bound_ms": b[0], "bound_by": b[1],
+                   "nblocks": wb.nblocks}
+            print(f"[time] bsr_spmm gemma ffn_up {label} N={n} "
+                  + " ".join(f"{kk}={vv}" for kk, vv in row.items()), flush=True)
+    del lib_w, lib_wb, W, w_alt, wb
+    torch.cuda.empty_cache()
+
+    # the spill path on the uniform graph: K4 (K5) alone, the combine, the
+    # spill call, the fused kernel, the plain version, cuSPARSE
+    m, k_dim = unif.shape
+    sbal = S.plan.substrate("balanced")
+    lib_a = torch.sparse_csr_tensor(unif.indptr, unif.indices, unif.data,
+                                    size=unif.shape, check_invariants=False)
+    n_tiles = sbal.n_tiles
+    for n in NS:
+        x = randn(k_dim, n) if n > 1 else randn(k_dim)
+        x2 = x if n > 1 else x[:, None]
+        if n == 1:
+            kernel = "vsr_spmv_spill"
+            run = lambda: spmv.spmv_vsr_partials(sbal, x, spill_base, spill_win)
+            fused = lambda: spmv.spmv_vsr_fused(sbal, x)
+        else:
+            kernel = "vsr_spmm_spill"
+            run = lambda: vsr.spmm_vsr_partials(sbal, x, spill_base, spill_win)
+            fused = lambda: vsr.spmm_vsr_fused(sbal, x)
+        part = run()
+        part_bytes = 4 * n_tiles * spill_win * n
+        k_bound = bound(12 * unif.nnz + 4 * n_tiles + 4 * k_dim * n + part_bytes,
+                        2 * unif.nnz * n)
+        c_bound = bound(part_bytes + 4 * n_tiles + 4 * m * n, n_tiles * spill_win * n)
+        row = {"kernel_ms": time_ms(run),
+               "plain_ms": time_ms(lambda: vsr.spill_partials_plain(
+                   sbal, x2, spill_base, spill_win), reps=5),
+               "library_ms": time_ms(lambda: lib_a @ x2),
+               "bound_ms": k_bound[0], "bound_by": k_bound[1],
+               "combine_ms": time_ms(lambda: vsr.spill_combine(part, spill_base, m)),
+               "combine_bound_ms": c_bound[0],
+               "spill_call_ms": time_ms(lambda: S.matmul(x, impl="nb_pr")),
+               "fused_kernel_ms": time_ms(fused)}
+        print(f"[time] {kernel} unif_s{args.scale}_e16 N={n} win={spill_win} "
+              + " ".join(f"{kk}={vv}" for kk, vv in row.items()), flush=True)
+        if n == SPILL_SUMMARY_N[kernel]:
+            summary_rows[kernel] = (row, f"unif_s{args.scale}_e16 N={n} "
+                                          f"win={spill_win}")
+        del part
+    del lib_a
+    torch.cuda.empty_cache()
 
     # -- 6. summary ---------------------------------------------------------------
     phase("summary")
@@ -769,7 +1111,7 @@ def main() -> int:
             row = rows[(name, n)]
             shape = f"{name}_s{args.scale}_e16 N={n}"
         else:
-            row, shape = chain_summary[kernel]
+            row, shape = summary_rows[kernel]
         summary.append({"name": kernel, **meta, "launches": launches[kernel],
                         "max_abs_err": max_abs[kernel], "ms": row["kernel_ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -7,6 +7,8 @@
     y = A.with_values(stream) @ x    # same plan, live value stream
 
     A = api.sparse(csr, device="cpu")    # plain "torch" backend on the CPU
+    W = api.sparse(w_csr, backend="bsr", bsr_block=(8, 128))
+                                         # block-sparse weight: K11 on BSR
     with api.use_backend("torch"):       # scoped backend, no kwarg threading
         y = api.sparse(csr) @ x
 
@@ -163,7 +165,7 @@ def sparse(a, *, device=None, backend: str | None = None,
            thresholds: SelectorThresholds | None = None,
            tile: int | None = None, n_hint: int | None = None,
            geometry: TileGeometry | None = None,
-           chain_op: str | None = None,
+           chain_op: str | None = None, bsr_block: tuple = (8, 128),
            cache: "PlanCache | bool | None" = True) -> SparseMatrix:
     """Build a sparse operand from a CSR, a SparseMatrix or a dense 2-D
     array.
@@ -177,7 +179,9 @@ def sparse(a, *, device=None, backend: str | None = None,
     ``geometry=None`` resolves the thresholds' geometry table here, with
     ``n_hint``, so the cache keys on the resolved geometry.  ``chain_op``
     tags the plan with the chain transform it serves, so chained and plain
-    plans over one pattern are distinct cache entries."""
+    plans over one pattern are distinct cache entries.  ``bsr_block`` is the
+    (bm, bk) block of the ``"bsr"`` backend's substrate, also in the cache
+    key."""
     device = resolve_device(device)
     csr, values = _as_csr(a, device)
     resolved_backend = backend or default_backend(device)
@@ -192,7 +196,7 @@ def sparse(a, *, device=None, backend: str | None = None,
     else:
         cache_obj = cache
     kw = dict(backend=resolved_backend, thresholds=th, tile=tile,
-              geometry=geometry, chain_op=chain_op)
+              geometry=geometry, chain_op=chain_op, bsr_block=bsr_block)
     p = (plan(csr, **kw) if cache_obj is None
          else cached_plan(csr, cache=cache_obj, **kw))
     if values is None and p.csr is not csr and not torch.equal(p.csr.data, csr.data):

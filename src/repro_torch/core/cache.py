@@ -39,7 +39,8 @@ def thresholds_version(th: SelectorThresholds | None) -> tuple:
 
 def plan_key(csr: CSR, *, backend: str, device,
              thresholds: SelectorThresholds | None = None,
-             tile: int | None = None, extra: tuple = ()) -> tuple:
+             tile: int | None = None, bsr_block: tuple = (8, 128),
+             extra: tuple = ()) -> tuple:
     """The cache key of a ``plan()`` call.  ``tile=None`` keys as 512 (its
     resolution) when the thresholds carry no geometry table, else as
     ``"auto"`` (then the thresholds in the key fix the resolution)."""
@@ -47,7 +48,8 @@ def plan_key(csr: CSR, *, backend: str, device,
         tile = 512
     return ("plan", pattern_fingerprint(csr), tuple(csr.shape), backend,
             str(device), thresholds_version(thresholds),
-            "auto" if tile is None else int(tile), extra)
+            "auto" if tile is None else int(tile),
+            tuple(int(b) for b in bsr_block), extra)
 
 
 class PlanCache:
@@ -108,7 +110,8 @@ DEFAULT_CACHE = PlanCache()
 def cached_plan(csr: CSR, *, cache: PlanCache | None = None,
                 backend: str | None = None,
                 thresholds: SelectorThresholds | None = None,
-                tile: int | None = None, **plan_kwargs):
+                tile: int | None = None, bsr_block: tuple = (8, 128),
+                **plan_kwargs):
     """``plan()`` through a ``PlanCache``: the same topology, shape, backend,
     device and thresholds give the same ``PlanBuilder`` (and so share its
     lazily built substrates).  Values are not in the key: a hit may return a
@@ -124,7 +127,8 @@ def cached_plan(csr: CSR, *, cache: PlanCache | None = None,
     # spellings share a key
     plan_kwargs = {k: v for k, v in plan_kwargs.items() if v is not None}
     key = plan_key(csr, backend=resolved, device=csr.device, thresholds=th,
-                   tile=tile, extra=tuple(sorted(plan_kwargs.items())))
+                   tile=tile, bsr_block=bsr_block,
+                   extra=tuple(sorted(plan_kwargs.items())))
     return cache.get_or_build(
         key, lambda: build_plan(csr, thresholds=th, backend=resolved,
-                                tile=tile, **plan_kwargs))
+                                tile=tile, bsr_block=bsr_block, **plan_kwargs))

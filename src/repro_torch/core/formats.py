@@ -9,6 +9,8 @@ ELL          row-split padded storage — the substrate of the RS kernels.
 BalancedCOO  nnz-split tiled storage: exactly ``tile`` nonzeros per tile, the
              tail padded with ``row == M`` sentinels, zero values and column
              0.  Substrate of the NB kernels.
+BSR          block-sparse rows: every (bm, bk) block holding a nonzero stored
+             dense.  Substrate of the block-granule ``"bsr"`` backend.
 """
 from __future__ import annotations
 
@@ -90,9 +92,26 @@ class BalancedCOO:
         return int(self.rows.shape[1])
 
 
+@dataclasses.dataclass(frozen=True)
+class BSR:
+    """Block-sparse rows. indptr:(Mb+1,) indices:(nblocks,) block columns,
+    blocks:(nblocks, bm, bk) dense.  The last block row and column may run
+    past ``shape``; those entries are zero."""
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    blocks: torch.Tensor
+    shape: Tuple[int, int]
+    block_shape: Tuple[int, int]
+
+    @property
+    def nblocks(self) -> int:
+        return int(self.indices.shape[0])
+
+
 #: constructions per substrate since process start (or last reset); the plan
 #: layer promises to build only the substrate the selected kernel consumes.
-BUILD_COUNTS: dict[str, int] = {"ell": 0, "balanced": 0}
+BUILD_COUNTS: dict[str, int] = {"ell": 0, "balanced": 0, "bsr": 0}
 
 
 def reset_build_counts() -> dict[str, int]:
@@ -193,3 +212,57 @@ def csr_to_balanced(csr: CSR, tile: int = 512) -> BalancedCOO:
         torch.from_numpy(rows.reshape(n_tiles, tile)).to(dev),
         torch.from_numpy(cols.reshape(n_tiles, tile)).to(dev),
         vals.reshape(n_tiles, tile), csr.shape)
+
+
+def bsr_slots(csr: CSR, bm: int, bk: int
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where each CSR nonzero lands in ``csr_to_bsr``'s blocks: the sorted
+    unique block keys (block row · Kb + block column, int64) and the (3, nnz)
+    int64 scatter map (block id, row in the block, column in the block).
+    Computed on the CSR's device."""
+    m, k = csr.shape
+    kb = -(-k // bk)
+    dev = csr.device
+    rows = torch.repeat_interleave(
+        torch.arange(m, device=dev), torch.diff(csr.indptr.long()),
+        output_size=csr.nnz)
+    cols = csr.indices.long()
+    keys, inv = torch.unique(rows // bm * kb + cols // bk, sorted=True,
+                             return_inverse=True)
+    return keys, torch.stack([inv, rows % bm, cols % bk])
+
+
+def csr_to_bsr(csr: CSR, bm: int = 8, bk: int = 128) -> BSR:
+    """Coarsen to (bm, bk) dense blocks: every block holding a nonzero is
+    materialised, blocks in sorted (block row, block column) order and
+    duplicate nonzeros summed — the reference's ``csr_to_bsr`` element for
+    element, computed on the CSR's device."""
+    BUILD_COUNTS["bsr"] += 1
+    m, k = csr.shape
+    mb, kb = -(-m // bm), -(-k // bk)
+    keys, slots = bsr_slots(csr, bm, bk)
+    blocks = torch.zeros((keys.shape[0], bm, bk), dtype=csr.data.dtype,
+                         device=csr.device)
+    blocks.index_put_(tuple(slots), csr.data, accumulate=True)
+    counts = torch.bincount(keys // kb, minlength=mb)
+    indptr = torch.zeros(mb + 1, dtype=torch.int32, device=csr.device)
+    indptr[1:] = torch.cumsum(counts, 0)
+    return BSR(indptr, (keys % kb).int(), blocks, csr.shape, (bm, bk))
+
+
+def bsr_block_rows(bsr: BSR) -> torch.Tensor:
+    """(nblocks,) int64 block row of each stored block."""
+    mb = bsr.indptr.shape[0] - 1
+    return torch.repeat_interleave(
+        torch.arange(mb, device=bsr.indptr.device),
+        torch.diff(bsr.indptr.long()), output_size=bsr.nblocks)
+
+
+def bsr_to_dense(bsr: BSR) -> torch.Tensor:
+    """The dense (M, K) matrix of ``bsr`` (a test utility)."""
+    m, k = bsr.shape
+    bm, bk = bsr.block_shape
+    mb, kb = bsr.indptr.shape[0] - 1, -(-k // bk)
+    grid = bsr.blocks.new_zeros((mb, kb, bm, bk))
+    grid[bsr_block_rows(bsr), bsr.indices.long()] = bsr.blocks
+    return grid.permute(0, 2, 1, 3).reshape(mb * bm, kb * bk)[:m, :k]

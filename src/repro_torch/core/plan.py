@@ -20,12 +20,15 @@ returning an output without ``grad_fn``.
 
 Two rules of the reference do not carry over.  Its plans demote
 ``pallas`` to ``xla`` when a tile spans more rows than ``max_win`` — a TPU
-spill-window limit; the Hopper kernels size nothing by a tile's row span,
-so a ``"hopper"`` plan keeps its backend.  Its dispatch reroutes a failing
-kernel to ``xla``; here a kernel that fails to build or launch raises.
-Frozen artifacts, sharding, quantization, validation, sentinels and BSR
-are not ported yet: ``plan()`` raises ``NotImplementedError`` on their
-arguments.
+spill-window limit; the fused Hopper kernels size nothing by a tile's row
+span, so a ``"hopper"`` plan keeps its backend, and only the spill path
+(``spill=True`` in the NB kernel opts, the parity reference) refuses such a
+plan when it is called.  Its dispatch reroutes a failing kernel to ``xla``;
+here a kernel that fails to build or launch raises.  The block-granule
+``"bsr"`` backend builds its BSR substrate at ``bsr_block``; a ``"bsr"``
+plan is not demoted either.  Frozen artifacts, sharding, quantization,
+validation and sentinels are not ported yet: ``plan()`` raises
+``NotImplementedError`` on their arguments.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ import numpy as np
 import torch
 
 from . import registry
-from .formats import CSR, BalancedCOO, csr_to_balanced, csr_to_ell, host
+from .formats import (CSR, BalancedCOO, bsr_block_rows, bsr_slots,
+                      csr_to_balanced, csr_to_bsr, csr_to_ell, host)
 from .selector import (SelectorThresholds, TileGeometry, default_thresholds,
                        select_kernel)
 from .spmm import CHAIN_TRANSFORMS
@@ -56,7 +60,7 @@ CHAIN_OPS: tuple[str, ...] = CHAIN_TRANSFORMS + ("attn",)
 
 #: plan() arguments of reference paths not yet ported
 _UNPORTED = ("mesh", "shard_axis", "shard_kind", "inner_backend", "quant",
-             "validate", "sentinel", "bsr_block")
+             "validate", "sentinel")
 
 
 def _prep_context_kwargs(prep, ctx: dict) -> dict:
@@ -90,12 +94,15 @@ class PlanBuilder:
     thresholds: SelectorThresholds
     backend: str
     tile: int = 512
+    bsr_block: tuple = (8, 128)      # (bm, bk) of the BSR substrate
     geometry: TileGeometry | None = None
     chain_op: str | None = None      # chain transform the plan was keyed for
     _substrates: dict = dataclasses.field(default_factory=dict, repr=False)
     _opts: dict = dataclasses.field(default_factory=dict, repr=False)
     _ell_lens: Any = dataclasses.field(default=None, repr=False)
     _ell_src: Any = dataclasses.field(default=None, repr=False)
+    _bsr_map: Any = dataclasses.field(default=None, repr=False)
+    _bsr_brow: Any = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -111,6 +118,8 @@ class PlanBuilder:
                 sub = csr_to_ell(self.csr)
             elif kind == "balanced":
                 sub = csr_to_balanced(self.csr, tile=self.tile)
+            elif kind == "bsr":
+                sub = csr_to_bsr(self.csr, *self.bsr_block)
             else:
                 raise ValueError(f"unknown substrate {kind!r}")
             self._substrates[kind] = sub
@@ -163,12 +172,28 @@ class PlanBuilder:
             self._ell_src = torch.from_numpy(src.astype(np.int32)).to(self.device)
         return self._ell_src
 
+    # -- BSR live-value support -------------------------------------------------
+    def bsr_map(self) -> torch.Tensor:
+        """(3, nnz) scatter map from the CSR value stream into the BSR
+        blocks: (block id, row in the block, column in the block), in
+        ``csr_to_bsr``'s block order."""
+        if self._bsr_map is None:
+            self._bsr_map = bsr_slots(self.csr, *self.bsr_block)[1].int()
+        return self._bsr_map
+
+    def bsr_brow(self) -> torch.Tensor:
+        """(nblocks,) block row of each stored block (the block-level VJP's
+        row map, reference ``core/vjp.py::_exec_bsr``)."""
+        if self._bsr_brow is None:
+            self._bsr_brow = bsr_block_rows(self.substrate("bsr")).int()
+        return self._bsr_brow
+
 
 def plan(csr: CSR, *, n_hint: int | None = None,
          thresholds: SelectorThresholds | None = None,
          backend: str | None = None, tile: int | None = None,
          geometry: TileGeometry | None = None, chain_op: str | None = None,
-         **unported) -> PlanBuilder:
+         bsr_block: tuple = (8, 128), **unported) -> PlanBuilder:
     """Offline planning front door.
 
     ``n_hint`` (the expected N) builds the substrate and prep of the kernel
@@ -180,7 +205,8 @@ def plan(csr: CSR, *, n_hint: int | None = None,
     ``tile=None`` takes the geometry's quota (default 512).  ``chain_op``
     tags the plan with the chain transform it will serve (``"attn"`` for
     attention): a cache key segment, not a switch (``execute_chain`` takes
-    the transform per call)."""
+    the transform per call).  ``bsr_block`` is the (bm, bk) block of the
+    ``"bsr"`` backend's substrate."""
     given = sorted(k for k, v in unported.items() if v is not None)
     unknown = sorted(k for k in unported if k not in _UNPORTED)
     if unknown:
@@ -200,8 +226,12 @@ def plan(csr: CSR, *, n_hint: int | None = None,
         geometry = th.geometry_for(pattern_fingerprint(csr), n_hint, backend)
     if tile is None:
         tile = geometry.tile if geometry is not None else 512
+    bm, bk = (int(b) for b in bsr_block)
+    if bm < 1 or bk < 1:
+        raise ValueError(f"bsr_block must be two positive ints; got {bsr_block}")
     p = PlanBuilder(csr=csr, stats=stats, thresholds=th, backend=backend,
-                    tile=int(tile), geometry=geometry, chain_op=chain_op)
+                    tile=int(tile), bsr_block=(bm, bk), geometry=geometry,
+                    chain_op=chain_op)
     if n_hint is not None:
         p.kernel_opts(p.entry(p.select(n_hint)))
     return p
@@ -252,6 +282,11 @@ def execute(p: PlanBuilder, x: torch.Tensor, *,
         if entry.substrate == "balanced":
             sub = BalancedCOO(sub.rows, sub.cols,
                               _stream_to_balanced(vals, sub), sub.shape)
+        elif entry.substrate == "bsr":
+            blocks = torch.zeros_like(sub.blocks).index_put_(
+                tuple(p.bsr_map()), vals.reshape(-1).to(sub.blocks.dtype),
+                accumulate=True)
+            sub = dataclasses.replace(sub, blocks=blocks)
         else:
             if p.csr.nnz == 0:
                 v = torch.zeros_like(sub.vals)

@@ -6,7 +6,10 @@ parallel reduction) gives four logical kernels.  The registry maps
 
 * ``"torch"`` — the plain PyTorch lowerings in ``repro_torch.core.spmm``: the
   CPU path and the oracle the Hopper kernels are held to;
-* ``"hopper"`` — the hand-written CUDA kernels in ``repro_torch.kernels``.
+* ``"hopper"`` — the hand-written CUDA kernels in ``repro_torch.kernels``;
+* ``"bsr"`` — the block-granule backend: all four matmul kernels resolve to
+  the one block-sparse SpMM (K11, ``repro_torch.kernels.bsr``) on the BSR
+  substrate.
 
 Backend modules register their entries when imported, and are imported on
 first resolve.  A matmul entry's ``fn`` has the signature ``fn(substrate, x,
@@ -39,7 +42,7 @@ LOGICAL_KERNELS: tuple[str, ...] = MATMUL_KERNELS + ("sddmm", "chain",
                                                      "attn_chain")
 
 #: substrate format each entry consumes
-SUBSTRATES: tuple[str, ...] = ("ell", "balanced")
+SUBSTRATES: tuple[str, ...] = ("ell", "balanced", "bsr")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +60,7 @@ _REGISTRY: dict[tuple[str, str], KernelEntry] = {}
 _LAZY_BACKENDS: dict[str, str] = {
     "torch": "repro_torch.core.spmm",
     "hopper": "repro_torch.kernels",
+    "bsr": "repro_torch.kernels",
 }
 
 

@@ -260,11 +260,20 @@ def attn_chain_torch(rows, cols, q, k, bias, v, *, shape, scale=1.0,
                                   tuple(shape)), v)
 
 
+def _ignore_opts(fn):
+    """Registry signature of the plain matmul entries: the opts of other
+    backends' prep hooks and callers (``spill``, ...) are accepted and
+    ignored, as the reference's xla entries do."""
+    def entry(sub, x, **_opts):
+        return fn(sub, x)
+    return entry
+
+
 for _name, _fn, _sub in (("rs_sr", spmm_rs_sr, "ell"),
                          ("rs_pr", spmm_rs_pr, "ell"),
                          ("nb_sr", spmm_nb_sr, "balanced"),
                          ("nb_pr", spmm_nb_pr, "balanced")):
-    registry.register(_name, "torch", _sub, _fn)
+    registry.register(_name, "torch", _sub, _ignore_opts(_fn))
 registry.register("sddmm", "torch", "balanced", sddmm_torch)
 registry.register("chain", "torch", "balanced", chain_torch)
 registry.register("attn_chain", "torch", "balanced", attn_chain_torch)

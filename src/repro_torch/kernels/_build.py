@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("vsr.cu", "spmv.cu", "csc.cu", "sddmm.cu", "chain.cu",
-           "attention.cu")
+           "attention.cu", "bsr.cu")
 HEADERS = ("common.cuh", "score.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,6 +41,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "repro_vsr_spmm": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
     "repro_vsr_spmv": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P),
+    "repro_vsr_spmm_spill": (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
+                             _I, _P),
+    "repro_vsr_spmv_spill": (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
+                             _P),
+    "repro_bsr_spmm": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                       _P),
     "repro_csc_spmm": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _P),
     "repro_sddmm": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     "repro_chain_stats": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _P),

@@ -49,10 +49,10 @@ def check_operands(kernel: str, index: tuple, vals: torch.Tensor,
 
 
 def check_dense(kernel: str, x: torch.Tensor, k: int) -> torch.Tensor:
-    """The dense operand a chain kernel aggregates, as ``(K, N)``: raise
-    ``ValueError`` unless ``x`` is ``(K,)`` or ``(K, N)``, contiguous
-    float32 or bfloat16, with ``N`` within the launch grid (128 columns a
-    CTA)."""
+    """The dense operand a chain kernel aggregates (or K11 multiplies), as
+    ``(K, N)``: raise ``ValueError`` unless ``x`` is ``(K,)`` or ``(K, N)``,
+    contiguous float32 or bfloat16, with ``N`` within the launch grid (128
+    columns a CTA)."""
     x2 = x[:, None] if x.ndim == 1 else x
     if x2.ndim != 2 or x2.shape[0] != k:
         raise ValueError(f"{kernel}: operand of shape {tuple(x.shape)} does "

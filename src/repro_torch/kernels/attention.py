@@ -32,7 +32,7 @@ from ..core.spmm import (SOFTMAX_NEG, attn_chain_torch, attn_stats_torch,
                          attn_weights)
 
 from . import _build, _common, fused_chain
-from .vsr import _prep_windows
+from .vsr import _prep_geometry
 
 __all__ = ["attn_stats_fused", "attn_stats_plain", "attn_chain_fused",
            "attn_chain_plain", "attn_unfused"]
@@ -168,4 +168,4 @@ def _hopper_attn(rows, cols, q, k, bias, v, *, fuse: bool = True, **kw):
 
 
 registry.register("attn_chain", "hopper", "balanced", _hopper_attn,
-                  prep=_prep_windows)
+                  prep=_prep_geometry)

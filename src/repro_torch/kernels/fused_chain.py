@@ -35,7 +35,7 @@ from ..core.spmm import (CHAIN_TRANSFORMS, SOFTMAX_NEG, chain_stats_torch,
                          chain_torch, chain_weights, sddmm_torch)
 
 from . import _build, _common
-from .vsr import _prep_windows
+from .vsr import _prep_geometry
 
 __all__ = ["CHAIN_TRANSFORMS", "sddmm_fused", "sddmm_plain",
            "chain_stats_fused", "chain_stats_plain", "chain_fused",
@@ -225,6 +225,6 @@ def _hopper_chain(rows, cols, a, b, x, *, fuse: bool = True, **kw):
 
 
 registry.register("sddmm", "hopper", "balanced", _hopper_sddmm,
-                  prep=_prep_windows)
+                  prep=_prep_geometry)
 registry.register("chain", "hopper", "balanced", _hopper_chain,
-                  prep=_prep_windows)
+                  prep=_prep_geometry)

@@ -1,4 +1,5 @@
-"""K2 — VSR SpMV (N = 1) on Hopper; counterpart of ``repro.kernels.spmv``.
+"""K2 and K5 — VSR SpMV (N = 1) on Hopper; counterpart of
+``repro.kernels.spmv``.
 
 ``spmv_vsr_fused`` replaces the TPU kernel
 ``src/repro/kernels/spmv.py::_spmv_fused_kernel``: ``y = A·x`` over the
@@ -11,6 +12,13 @@ BalancedCOO slabs by the paper's segmented scan, sums in f32, result cast to
   chunk runs a ``__shfl_up_sync`` segmented inclusive scan keyed on row id
   (Fig. 2(e)); the run reaching lane 31 carries into the next chunk, and
   each run's end adds its sum into a zeroed y with ``atomicAdd``.
+
+``spmv_vsr`` is the spill-and-combine variant (the parity reference): K5
+replaces ``src/repro/kernels/spmv.py::_spmv_kernel`` (same source file).  It
+runs K2's scan and stores each run's sum, carry included, into the tile's
+``(WIN,)`` window of an ``(n_tiles, WIN)`` partials buffer at ``row -
+row_base`` — once, with a plain store; the combine is
+``vsr.spill_combine``.  Bound: K2's bytes plus 4·WIN B of partials a tile.
 """
 from __future__ import annotations
 
@@ -19,9 +27,10 @@ import torch
 from ..core.formats import BalancedCOO
 
 from . import _build, _common
+from .vsr import _given_or_planned, spill_combine, spill_partials_plain
 
-#: launches of the K2 kernel since process start (or the last reset)
-LAUNCHES = {"vsr_spmv": 0}
+#: launches of the K2 and K5 kernels since process start (or the last reset)
+LAUNCHES = {"vsr_spmv": 0, "vsr_spmv_spill": 0}
 
 
 def spmv_vsr_plain(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
@@ -53,3 +62,56 @@ def spmv_vsr_fused(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
         _build.check(err, "vsr_spmv")
         LAUNCHES["vsr_spmv"] += 1
     return y.to(x.dtype)
+
+
+def spmv_vsr_partials(bal: BalancedCOO, x: torch.Tensor,
+                      row_base: torch.Tensor, win: int) -> torch.Tensor:
+    """K5 alone: the (n_tiles, WIN) f32 partials of ``x`` (K,).  CPU
+    operands take the plain version; CUDA operands launch the kernel or
+    raise."""
+    if x.ndim != 1:
+        raise ValueError(f"vsr_spmv_spill is the N=1 path; x has shape "
+                         f"{tuple(x.shape)}")
+    if _common.on_cpu("vsr_spmv_spill", bal.rows, bal.cols, bal.vals, x,
+                      row_base):
+        return spill_partials_plain(bal, x[:, None], row_base, win)[..., 0]
+    _common.check_operands("vsr_spmv_spill", (bal.rows, bal.cols), bal.vals, x)
+    m, k = bal.shape
+    if x.shape[0] != k:
+        raise ValueError(f"vsr_spmv_spill: x has {x.shape[0]} rows, A has "
+                         f"{k} columns")
+    if (row_base.dtype != torch.int32 or row_base.shape != (bal.n_tiles,)
+            or not row_base.is_contiguous() or win < 1):
+        raise ValueError("vsr_spmv_spill: row_base must be contiguous int32 "
+                         f"({bal.n_tiles},) and win >= 1")
+    part = torch.empty((bal.n_tiles, win), dtype=torch.float32, device=x.device)
+    if part.numel():
+        err = _build.lib().repro_vsr_spmv_spill(
+            bal.rows.data_ptr(), bal.cols.data_ptr(), bal.vals.data_ptr(),
+            _common.is_bf16(bal.vals), x.data_ptr(), _common.is_bf16(x),
+            row_base.data_ptr(), part.data_ptr(), bal.n_tiles, bal.tile, m,
+            win, _common.stream_of(x))
+        _build.check(err, "vsr_spmv_spill")
+        LAUNCHES["vsr_spmv_spill"] += 1
+    return part
+
+
+def spmv_vsr_spill_plain(bal: BalancedCOO, x: torch.Tensor, *,
+                         row_base: torch.Tensor | None = None,
+                         win: int | None = None) -> torch.Tensor:
+    """The spill SpMV's plain PyTorch version: plain partials, then the
+    combine."""
+    row_base, win = _given_or_planned(bal, row_base, win)
+    part = spill_partials_plain(bal, x[:, None], row_base, win)[..., 0]
+    return spill_combine(part, row_base, bal.shape[0]).to(x.dtype)
+
+
+def spmv_vsr(bal: BalancedCOO, x: torch.Tensor, *,
+             row_base: torch.Tensor | None = None,
+             win: int | None = None) -> torch.Tensor:
+    """NB SpMV, spill and combine (the parity reference): K5's partials,
+    then ``vsr.spill_combine``.  ``row_base`` / ``win`` come from
+    ``plan_windows`` (computed here when not given)."""
+    row_base, win = _given_or_planned(bal, row_base, win)
+    return spill_combine(spmv_vsr_partials(bal, x, row_base, win), row_base,
+                         bal.shape[0]).to(x.dtype)

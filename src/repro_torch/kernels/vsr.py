@@ -1,5 +1,5 @@
-"""K1 — nnz-balanced (VSR) SpMM on Hopper, and the host-side prep of the
-reference's VSR kernels; counterpart of ``repro.kernels.vsr``.
+"""K1 and K4 — nnz-balanced (VSR) SpMM on Hopper, and the host-side prep of
+the reference's VSR kernels; counterpart of ``repro.kernels.vsr``.
 
 ``spmm_vsr_fused`` replaces the TPU kernel
 ``src/repro/kernels/vsr.py::_vsr_fused_kernel``: ``Y = A·X`` over the
@@ -15,9 +15,22 @@ cast to ``x.dtype``.  Its CUDA source is ``repro_torch/csrc/vsr.cu``:
   paper's boundary resolution.  The TPU's visit schedule and one-hot MXU
   matmul are not needed: CTAs run concurrently.
 
-``plan_windows`` / ``plan_visits`` are the reference's host-side prep of the
-spill and fused TPU paths (the spill kernels are still to be ported); they
-return the reference's arrays element for element.
+``spmm_vsr`` is the spill-and-combine variant, the fused path's parity
+reference: K4 replaces ``src/repro/kernels/vsr.py::_vsr_kernel`` (same
+source file) and writes each tile's row sums into its ``(WIN, N)`` window of
+an ``(n_tiles, WIN, N)`` partials buffer at ``row - row_base``; the combine
+is the reference's ``segment_sum`` outside the kernel, here an
+``index_add_``.  It runs when a plan's NB kernel opts hold ``spill=True``.
+
+* bound — bytes: K1's, plus the partials written (4·WIN·N B a tile);
+* design — a lane group owns a whole tile and walks it in order, lanes
+  owning dense columns; each (tile, row) run is closed once with a plain
+  store and skipped window rows get zeros, so every partial is written
+  once, without atomics.
+
+``plan_windows`` (the spill path's windows) and ``plan_visits`` (the TPU
+fused path's visit schedule, which the Hopper kernels do not need) are the
+reference's host-side prep; they return its arrays element for element.
 """
 from __future__ import annotations
 
@@ -32,8 +45,22 @@ from ..core.selector import HOPPER_MAX_TILE, TileGeometry
 
 from . import _build, _common
 
-#: launches of the K1 kernel since process start (or the last reset)
-LAUNCHES = {"vsr_spmm": 0}
+#: launches of the K1 and K4 kernels since process start (or the last reset)
+LAUNCHES = {"vsr_spmm": 0, "vsr_spmm_spill": 0}
+
+
+def _tile_spans(bal: BalancedCOO) -> tuple[np.ndarray, int, int]:
+    """Per-tile first row (``m`` for an all-padding tile), the largest
+    number of rows any tile spans (at least 1), and that span padded to a
+    multiple of 8 (the window ``WIN``)."""
+    rows = host(bal.rows)
+    m = bal.shape[0]
+    valid = rows < m
+    any_valid = valid.any(axis=1)
+    first = np.where(any_valid, rows[:, 0], m).astype(np.int32)
+    last = np.where(any_valid, np.where(valid, rows, -1).max(axis=1), 0)
+    span = int(np.maximum(last - first + 1, 1).max()) if len(rows) else 1
+    return first, span, -(-span // 8) * 8
 
 
 def plan_windows(bal: BalancedCOO, *, max_win: int | None = None
@@ -42,19 +69,37 @@ def plan_windows(bal: BalancedCOO, *, max_win: int | None = None
     any tile spans, padded to a multiple of 8 — the spill path's prep.
     Sentinel entries do not count; ``max_win`` warns on a pathological
     span."""
-    rows = host(bal.rows)
-    m = bal.shape[0]
-    valid = rows < m
-    any_valid = valid.any(axis=1)
-    first = np.where(any_valid, rows[:, 0], m).astype(np.int32)
-    last = np.where(any_valid, np.where(valid, rows, -1).max(axis=1), 0)
-    span = int(np.maximum(last - first + 1, 1).max()) if len(rows) else 1
-    win = -(-span // 8) * 8
+    first, span, win = _tile_spans(bal)
     if max_win is not None and win > max_win:
         warnings.warn(
             f"VSR spill window {win} exceeds max_win={max_win} (one tile "
             f"spans {span} rows — likely an empty-row gap)", stacklevel=2)
     return first, win
+
+
+class SpillWindows:
+    """The spill path's row windows of one plan: ``plan_windows`` run on the
+    plan's first spill call and kept, so the fused path never pays for the
+    scan.  A window wider than ``max_win`` raises ``ValueError``: the
+    reference never runs its spill kernel on such a plan (it demotes it to
+    xla), and the port does not run another kernel in its place."""
+
+    def __init__(self, max_win: int | None = None):
+        self.max_win = max_win
+        self._value: tuple[torch.Tensor, int] | None = None
+
+    def __call__(self, bal: BalancedCOO) -> tuple[torch.Tensor, int]:
+        """``(row_base, win)``: (n_tiles,) int32 on the substrate's device,
+        and the window height."""
+        if self._value is None:
+            first, span, win = _tile_spans(bal)
+            if self.max_win is not None and win > self.max_win:
+                raise ValueError(
+                    f"spill path: a tile of {bal.tile} nonzeros spans {span} "
+                    f"rows, a window of {win} > max_win={self.max_win} (an "
+                    "empty-row gap); the fused kernels take this plan")
+            self._value = (torch.from_numpy(first).to(bal.rows.device), win)
+        return self._value
 
 
 def plan_visits(bal: BalancedCOO, wb: int
@@ -135,24 +180,159 @@ def spmm_vsr_fused(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
     return y[:, 0] if x.ndim == 1 else y
 
 
+def spill_combine(partials: torch.Tensor, row_base: torch.Tensor,
+                  m: int) -> torch.Tensor:
+    """The spill path's combine (the reference's ``segment_sum``): window
+    row ``w`` of tile ``t`` holds a sum for row ``row_base[t] + w``; rows
+    that cross tiles add up.  ``partials`` (n_tiles, WIN[, N]) f32 →
+    (M[, N]) f32."""
+    win = partials.shape[1]
+    tail = tuple(partials.shape[2:])
+    idx = (row_base.long()[:, None]
+           + torch.arange(win, device=partials.device)[None, :]).reshape(-1)
+    y = partials.new_zeros((m + win + 1,) + tail)
+    y.index_add_(0, idx, partials.reshape((-1,) + tail))
+    return y[:m]
+
+
+def spill_partials_plain(bal: BalancedCOO, x2: torch.Tensor,
+                         row_base: torch.Tensor, win: int) -> torch.Tensor:
+    """K4's (and, at N = 1, K5's) plain PyTorch version: every product
+    summed in f32 into its tile's window at ``row - row_base`` (clamped to
+    the window, as the reference clamps), padding dropped."""
+    n_tiles, t = bal.rows.shape
+    n = x2.shape[1]
+    m = bal.shape[0]
+    valid = bal.rows < m
+    local = (bal.rows - row_base[:, None]).clamp(0, win - 1)
+    flat = (torch.arange(n_tiles, device=x2.device)[:, None] * win
+            + local).reshape(-1)
+    p = x2.index_select(0, bal.cols.reshape(-1)).float()
+    p.mul_(bal.vals.reshape(-1, 1).float())
+    p.masked_fill_(~valid.reshape(-1, 1), 0.0)
+    part = torch.zeros((n_tiles * win, n), dtype=torch.float32, device=x2.device)
+    part.index_add_(0, flat, p)
+    return part.reshape(n_tiles, win, n)
+
+
+def _given_or_planned(bal: BalancedCOO, row_base, win
+                      ) -> tuple[torch.Tensor, int]:
+    if row_base is None or win is None:
+        return SpillWindows()(bal)
+    return row_base, int(win)
+
+
+def spmm_vsr_partials(bal: BalancedCOO, x2: torch.Tensor,
+                      row_base: torch.Tensor, win: int) -> torch.Tensor:
+    """K4 alone: the (n_tiles, WIN, N) f32 partials of ``x2`` (K, N).  CPU
+    operands take the plain version; CUDA operands launch the kernel or
+    raise."""
+    if _common.on_cpu("vsr_spmm_spill", bal.rows, bal.cols, bal.vals, x2,
+                      row_base):
+        return spill_partials_plain(bal, x2, row_base, win)
+    _common.check_operands("vsr_spmm_spill", (bal.rows, bal.cols), bal.vals, x2)
+    m, k = bal.shape
+    n = x2.shape[1]
+    if x2.shape[0] != k:
+        raise ValueError(f"vsr_spmm_spill: x has {x2.shape[0]} rows, A has "
+                         f"{k} columns")
+    if (row_base.dtype != torch.int32 or row_base.shape != (bal.n_tiles,)
+            or not row_base.is_contiguous() or win < 1):
+        raise ValueError("vsr_spmm_spill: row_base must be contiguous int32 "
+                         f"({bal.n_tiles},) and win >= 1")
+    if -(-n // 128) > 65535:
+        raise ValueError(f"vsr_spmm_spill: N={n} exceeds the launch grid")
+    part = torch.empty((bal.n_tiles, win, n), dtype=torch.float32,
+                       device=x2.device)
+    if part.numel():
+        err = _build.lib().repro_vsr_spmm_spill(
+            bal.rows.data_ptr(), bal.cols.data_ptr(), bal.vals.data_ptr(),
+            _common.is_bf16(bal.vals), x2.data_ptr(), _common.is_bf16(x2),
+            row_base.data_ptr(), part.data_ptr(), bal.n_tiles, bal.tile, m, n,
+            win, _common.stream_of(x2))
+        _build.check(err, "vsr_spmm_spill")
+        LAUNCHES["vsr_spmm_spill"] += 1
+    return part
+
+
+def spmm_vsr_spill_plain(bal: BalancedCOO, x: torch.Tensor, *,
+                         row_base: torch.Tensor | None = None,
+                         win: int | None = None) -> torch.Tensor:
+    """The spill path's plain PyTorch version: plain partials, then the
+    combine."""
+    x2 = x[:, None] if x.ndim == 1 else x
+    row_base, win = _given_or_planned(bal, row_base, win)
+    y = spill_combine(spill_partials_plain(bal, x2, row_base, win), row_base,
+                      bal.shape[0]).to(x2.dtype)
+    return y[:, 0] if x.ndim == 1 else y
+
+
+def spmm_vsr(bal: BalancedCOO, x: torch.Tensor, *,
+             row_base: torch.Tensor | None = None,
+             win: int | None = None) -> torch.Tensor:
+    """NB SpMM, spill and combine (the fused path's parity reference): K4's
+    partials, then ``spill_combine``.  ``row_base`` / ``win`` come from
+    ``plan_windows`` (computed here when not given)."""
+    x2 = x[:, None] if x.ndim == 1 else x
+    row_base, win = _given_or_planned(bal, row_base, win)
+    y = spill_combine(spmm_vsr_partials(bal, x2, row_base, win), row_base,
+                      bal.shape[0]).to(x2.dtype)
+    return y[:, 0] if x.ndim == 1 else y
+
+
+def spmm_as_n_spmv_hopper(bal: BalancedCOO, x: torch.Tensor, *,
+                          row_base: torch.Tensor | None = None,
+                          win: int | None = None) -> torch.Tensor:
+    """Paper §2.1.2 strawman on the Hopper kernels (the reference's
+    ``spmm_as_n_spmv_pallas``): one SpMV a column, each re-reading the
+    sparse stream — K2 a column, or K5 when ``row_base`` / ``win`` are
+    given.  A composition of launches, not a kernel."""
+    from .spmv import spmv_vsr, spmv_vsr_fused
+    x2 = x[:, None] if x.ndim == 1 else x
+    if row_base is not None and win is not None:
+        one_col = lambda col: spmv_vsr(bal, col, row_base=row_base, win=win)
+    else:
+        one_col = lambda col: spmv_vsr_fused(bal, col)
+    cols = [one_col(x2[:, j].contiguous()) for j in range(x2.shape[1])]
+    out = (torch.stack(cols, dim=1) if cols
+           else x2.new_zeros((bal.shape[0], 0)))
+    return out[:, 0] if x.ndim == 1 else out
+
+
 # ---------------------------------------------------------------------------
 # registry: the Hopper kernels of the nnz-balanced logical pair.  nb_sr and
 # nb_pr share K1; x of shape (K,) takes K2, as in the reference's _pallas_nb.
+# ``spill=True`` in the kernel opts forces the spill path (K4, K5 at N = 1).
 # ---------------------------------------------------------------------------
 
-def _prep_windows(bal: BalancedCOO, *,
-                  geometry: TileGeometry | None = None) -> dict:
-    """Prep hook of the Hopper NB entries.  The reference's hook builds the
-    TPU row windows and visit schedule; the Hopper kernels need neither and
-    size nothing by a tile's row span (so ``max_win`` is not taken).  What
-    is left is to check the plan's geometry against the Hopper rules at plan
-    time; the kernels take no per-matrix opts."""
+def _prep_geometry(bal: BalancedCOO, *,
+                   geometry: TileGeometry | None = None) -> dict:
+    """Prep hook of the Hopper entries on the balanced slab: check the
+    plan's geometry against the Hopper rules at plan time.  The reference's
+    hook builds the TPU visit schedule, which the Hopper kernels do not
+    need."""
     (geometry or TileGeometry()).validate("hopper")
     return {}
 
 
-def _hopper_nb(bal: BalancedCOO, x: torch.Tensor):
+def _prep_windows(bal: BalancedCOO, *, geometry: TileGeometry | None = None,
+                  max_win: int | None = None) -> dict:
+    """Prep hook of the Hopper NB entries: ``_prep_geometry``, and an empty
+    ``SpillWindows`` that the spill path fills on its first call (the
+    reference builds its spill windows at plan time)."""
+    return dict(_prep_geometry(bal, geometry=geometry),
+                windows=SpillWindows(max_win))
+
+
+def _hopper_nb(bal: BalancedCOO, x: torch.Tensor, *, spill: bool = False,
+               windows: SpillWindows | None = None):
     x = x.contiguous()
+    if spill:
+        row_base, win = (windows or SpillWindows())(bal)
+        if x.ndim == 1:
+            from .spmv import spmv_vsr
+            return spmv_vsr(bal, x, row_base=row_base, win=win)
+        return spmm_vsr(bal, x, row_base=row_base, win=win)
     if x.ndim == 1:
         from .spmv import spmv_vsr_fused
         return spmv_vsr_fused(bal, x)

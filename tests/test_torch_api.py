@@ -125,7 +125,7 @@ def test_sparse_without_cuda_raises(monkeypatch):
 
 def test_unported_arguments_raise():
     csr = _port(SUITE["rmat_s8_e4_uniform"])
-    for kw in ({"mesh": object()}, {"quant": "int8"}, {"bsr_block": (8, 128)},
+    for kw in ({"mesh": object()}, {"quant": "int8"},
                {"sentinel": "raise"}, {"validate": "repair"}):
         with pytest.raises(NotImplementedError):
             plan_mod.plan(csr, **kw)
@@ -142,7 +142,7 @@ def test_lazy_substrates_and_n_hint():
     assert A.plan.built_substrates == ("ell",)
     B = repro_torch.sparse(csr, device="cpu", cache=False, n_hint=1)
     assert B.plan.built_substrates == ("balanced",)
-    assert formats.reset_build_counts() == {"ell": 1, "balanced": 1}
+    assert formats.reset_build_counts() == {"ell": 1, "balanced": 1, "bsr": 0}
 
 
 def test_impl_and_backend_overrides():

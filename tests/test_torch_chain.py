@@ -361,8 +361,7 @@ def test_plan_refuses_unknown_chain_op_and_unported_arguments():
     with pytest.raises(ValueError):
         repro_torch.sparse(pc, device="cpu", chain_op="sigmoid", cache=False)
     for kw in ({"mesh": object()}, {"quant": "int8"}, {"sentinel": "raise"},
-               {"bsr_block": (8, 128)}, {"validate": "repair"},
-               {"inner_backend": "torch"}):
+               {"validate": "repair"}, {"inner_backend": "torch"}):
         with pytest.raises(NotImplementedError):
             plan_mod.plan(pc, **kw)
 

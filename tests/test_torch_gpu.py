@@ -1,4 +1,4 @@
-"""Each CUDA kernel of the port (K1-K3, K6-K10) against its plain PyTorch
+"""Each CUDA kernel of the port (K1-K11) against its plain PyTorch
 version, on the card.  Marked ``gpu``: they skip without a CUDA device (the kernels have no
 CPU mode).  This file imports neither JAX nor the reference package, so it
 runs on a machine that has only PyTorch:
@@ -16,8 +16,8 @@ from repro_torch.attention import patterns
 from repro_torch.core import formats
 from repro_torch.core.plan import _stream_to_balanced
 from repro_torch.core.rmat import rmat
-from repro_torch.kernels import (attention, csc, fused_chain, launch_counts,
-                                 reset_launch_counts, spmv, vsr)
+from repro_torch.kernels import (attention, bsr, csc, fused_chain,
+                                 launch_counts, reset_launch_counts, spmv, vsr)
 
 
 @pytest.fixture
@@ -81,7 +81,8 @@ def test_cuda_kernels_count_launches_and_reject(cuda):
     csc.spmm_csc(formats.csr_to_ell(csr), torch.randn(csr.shape[1], 8, device=cuda))
     one_each = {"vsr_spmm": 1, "vsr_spmv": 1, "csc_spmm": 1, "sddmm": 0,
                 "chain_stats": 0, "chain": 0, "attn_stats": 0,
-                "attn_chain": 0}
+                "attn_chain": 0, "bsr_spmm": 0, "vsr_spmm_spill": 0,
+                "vsr_spmv_spill": 0}
     assert launch_counts() == one_each
     with pytest.raises(ValueError):          # no float64 kernel
         vsr.spmm_vsr_fused(bal, torch.randn(csr.shape[1], 8, device=cuda,
@@ -316,3 +317,124 @@ def test_cuda_sparse_attention_main_path(cuda):
     assert _rel(yu, y[0, 0]) < 1e-4          # y: the last case, with bias
     with pytest.raises(NotImplementedError):
         repro_torch.sparse_attention(spec, q, k, v.requires_grad_(), cache=False)
+
+
+def _block_matrices(device):
+    """Ragged M and K (neither a multiple of any block shape), an empty
+    block row (rows 16-47), and a matrix without nonzeros."""
+    rng = np.random.default_rng(1)
+    a = ((rng.random((203, 333)) < 0.05) * rng.standard_normal((203, 333))
+         ).astype(np.float32)
+    a[16:48] = 0.0
+    return {"ragged": formats.csr_from_dense(a, device=device),
+            "nnz0": formats.csr_from_dense(np.zeros((70, 90), np.float32),
+                                           device=device)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [(8, 16), (8, 128), (16, 64), (64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_bsr_matches_plain(cuda, block, dtype):
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, csr in _block_matrices(cuda).items():
+        csr = formats.CSR(csr.indptr, csr.indices, csr.data.to(dtype), csr.shape)
+        b = formats.csr_to_bsr(csr, *block)
+        for n in (1, 3, 32, 128, 200):
+            x = torch.randn(csr.shape[1], n, device=cuda).to(dtype)
+            x = x[:, 0].contiguous() if n == 1 else x
+            y = bsr.spmm_bsr(b, x)
+            want = bsr.spmm_bsr_plain(b, x)
+            assert y.dtype == dtype and y.shape == want.shape, (name, n)
+            if name == "nnz0":
+                assert b.nblocks == 0 and (y == 0).all()
+            else:
+                assert (y[16:48] == 0).all(), (name, n)
+                assert _rel(y, want) < tol, (name, block, n)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_bsr_facade_and_rejects(cuda):
+    import repro_torch
+    csr = _block_matrices(cuda)["ragged"]
+    x = torch.randn(csr.shape[1], 16, device=cuda)
+    A = repro_torch.sparse(csr, backend="bsr", bsr_block=(16, 64), cache=False)
+    want = A.matmul(x, backend="torch")
+    for impl in (None, "rs_sr", "nb_pr"):
+        reset_launch_counts()
+        y = A.matmul(x, impl=impl)
+        assert launch_counts()["bsr_spmm"] == 1
+        assert sum(launch_counts().values()) == 1
+        assert _rel(y, want) < 1e-4
+    new = torch.randn(csr.nnz, device=cuda)
+    reset_launch_counts()
+    y2 = A.with_values(new) @ x
+    assert launch_counts()["bsr_spmm"] == 1
+    assert _rel(y2, A.with_values(new).matmul(x, backend="torch")) < 1e-4
+    b = A.plan.substrate("bsr")
+    reset_launch_counts()
+    with pytest.raises(ValueError):          # over the registers' 64 rows
+        bsr.spmm_bsr(formats.csr_to_bsr(csr, 128, 8), x)
+    with pytest.raises(ValueError):          # x of the wrong height
+        bsr.spmm_bsr(b, x[1:])
+    with pytest.raises(ValueError):          # no float64 kernel
+        bsr.spmm_bsr(b, x.double())
+    assert launch_counts()["bsr_spmm"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 4, 32, 128, 200])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_cuda_spill_kernels_match_plain(cuda, n, xdtype):
+    tol = 1e-4 if xdtype == torch.float32 else 2e-2
+    for name, csr in _graphs(cuda).items():
+        x = torch.randn(csr.shape[1], n, device=cuda).to(xdtype)
+        for tile in (32, 100, 512):
+            bal = formats.csr_to_balanced(csr, tile)
+            base, win = vsr.SpillWindows()(bal)
+            kw = dict(row_base=base, win=win)
+            assert _rel(vsr.spmm_vsr_partials(bal, x, base, win),
+                        vsr.spill_partials_plain(bal, x, base, win)) < tol, name
+            assert _rel(vsr.spmm_vsr(bal, x, **kw),
+                        vsr.spmm_vsr_spill_plain(bal, x, **kw)) < tol, name
+            x1 = x[:, 0].contiguous()
+            assert _rel(spmv.spmv_vsr_partials(bal, x1, base, win),
+                        vsr.spill_partials_plain(bal, x1[:, None], base, win)[..., 0]
+                        ) < tol, name
+            assert _rel(spmv.spmv_vsr(bal, x1, **kw),
+                        spmv.spmv_vsr_spill_plain(bal, x1, **kw)) < tol, name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_spill_path_and_max_win(cuda):
+    import dataclasses
+    import repro_torch
+    for name, csr in _graphs(cuda).items():
+        A = repro_torch.sparse(csr, cache=False)
+        opts = A.plan.kernel_opts(A.plan.entry("nb_pr"))
+        opts["spill"] = True
+        for n, kernel in ((1, "vsr_spmv_spill"), (4, "vsr_spmm_spill"),
+                          (64, "vsr_spmm_spill")):
+            x = torch.randn(csr.shape[1], n, device=cuda)
+            x = x[:, 0].contiguous() if n == 1 else x
+            reset_launch_counts()
+            y = A.matmul(x, impl="nb_pr")
+            assert launch_counts()[kernel] == 1
+            assert sum(launch_counts().values()) == 1
+            assert _rel(y, A.matmul(x, impl="nb_pr", backend="torch")) < 1e-4
+        reset_launch_counts()
+        y4 = vsr.spmm_as_n_spmv_hopper(A.plan.substrate("balanced"),
+                                       torch.randn(csr.shape[1], 4, device=cuda))
+        assert launch_counts()["vsr_spmv"] == 4 and y4.shape == (csr.shape[0], 4)
+    # an empty band of rows inside one tile: its window is past max_win
+    a = np.zeros((600, 40), np.float32)
+    a[0, 3], a[500, 7], a[599, 1] = 1.0, 2.0, 3.0
+    th = dataclasses.replace(repro_torch.SelectorThresholds(), max_win=64)
+    A = repro_torch.sparse(formats.csr_from_dense(a, device=cuda),
+                           thresholds=th, cache=False)
+    A.plan.kernel_opts(A.plan.entry("nb_pr"))["spill"] = True
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="spans 600 rows"):
+        A.matmul(torch.randn(40, 8, device=cuda), impl="nb_pr")
+    assert sum(launch_counts().values()) == 0

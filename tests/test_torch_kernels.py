@@ -119,7 +119,9 @@ def test_cpu_wrappers_do_not_count_launches():
     csc.spmm_csc(formats.csr_to_ell(csr), x)
     assert launch_counts() == {"vsr_spmm": 0, "vsr_spmv": 0, "csc_spmm": 0,
                                "sddmm": 0, "chain_stats": 0, "chain": 0,
-                               "attn_stats": 0, "attn_chain": 0}
+                               "attn_stats": 0, "attn_chain": 0,
+                               "bsr_spmm": 0, "vsr_spmm_spill": 0,
+                               "vsr_spmv_spill": 0}
 
 
 def test_wrappers_reject_bad_operands():

@@ -144,8 +144,8 @@ def test_build_counts():
     formats.csr_to_ell(csr)
     formats.csr_to_balanced(csr)
     formats.csr_to_balanced(csr)
-    assert formats.reset_build_counts() == {"ell": 1, "balanced": 2}
-    assert formats.BUILD_COUNTS == {"ell": 0, "balanced": 0}
+    assert formats.reset_build_counts() == {"ell": 1, "balanced": 2, "bsr": 0}
+    assert formats.BUILD_COUNTS == {"ell": 0, "balanced": 0, "bsr": 0}
 
 
 def test_stats_and_span_equal(mats):
