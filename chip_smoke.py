@@ -36,10 +36,11 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              −2⁻⁶·(i − j) (16 launches each of K9 and K10); (c) a BigBird
              encoder, ``bigbird(4096, 1, 2, 3, block=64)``, 12 heads of
              d = 64 with the bias (K9's merge of the 8-tile global rows);
-             each against the "torch" backend on one head, a block mask
-             with an empty block row giving rows of exactly 0, and one
-             call with ``attn_fuse_min_seq`` above the sequence (K6, K9,
-             K1, and no plain version); then the block-granule backend on a
+             each against the "torch" backend on one head, Gemma and BigBird
+             through the block design of K9/K10 (the per-design counters),
+             a block mask with an empty block row giving rows of exactly 0,
+             and one call with ``attn_fuse_min_seq`` above the sequence
+             (K6, K9, K1, and no plain version); then the block-granule backend on a
              block-pruned Gemma-3-12B FFN up-projection — W of shape
              (d_ff 15360, d_model 3840), (8, 128) blocks each kept with
              probability 0.25 (numpy ``default_rng(seed)``), kept values
@@ -55,7 +56,7 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
 5. times   — per (graph, N): the kernel, its plain version and
              ``torch.sparse.mm`` (cuSPARSE, the paper's baseline) by CUDA
              events, median of 20 runs after a warm-up, beside the bound:
-             max(bytes / 3.35 TB/s, 2·nnz·N / 67 TFLOP/s) with bytes =
+             max(bytes / 3.35 TB/s, 2·nnz·N / 165 TFLOP/s) with bytes =
              12·nnz (8·nnz for ELL) + 4·K·N + 4·M·N; per (graph, transform,
              N) of the chain: K6, K7 and K8 alone, the fused call, the
              unfused pair and the plain version, beside each kernel's bound
@@ -65,12 +66,17 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              the unfused pair, the plain version and
              ``scaled_dot_product_attention`` with a dense (S, S) mask
              (boolean, or float holding −inf and the bias), and the whole
-             layer's call beside SDPA over all heads; per N of the pruned
+             layer's call beside SDPA over all heads; K9 and K10 in both
+             designs (block, slot-tile) at the Gemma head in float32 and
+             bfloat16 beside SDPA, each design's bound counting the pattern
+             bytes it reads (block: 12 B a (block, row) of masks and
+             starts, 4 B a block, 16 B a work chunk and 4 B of bias a kept
+             entry; slot-tile: 12 B a slab slot); per N of the pruned
              FFN weight: K11, its plain version, the facade's call,
              ``torch.sparse.mm`` on the CSR, ``to_sparse_bsr((8, 128)) @ x``
              where PyTorch takes it, and the dense ``torch.matmul`` of W,
              beside K11's bound: max(bytes / 3.35 TB/s, 2·nblocks·bm·bk·N /
-             67 TFLOP/s) with bytes = 4·nblocks·bm·bk + 4·nblocks + 4·(Mb+1)
+             165 TFLOP/s) with bytes = 4·nblocks·bm·bk + 4·nblocks + 4·(Mb+1)
              + 4·K·N + 4·M·N; per N of the uniform graph's spill path: K4
              (K5) alone, the ``index_add_`` combine, the spill call, the
              fused K1 (K2), the plain version and ``torch.sparse.mm``, each
@@ -98,7 +104,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA data sheet (SXM)
-H100_F32_FLOP_PER_S = 67e12     # float32 outside the tensor cores
+#: float32 flops at the 3×TF32 tensor-core rate (495 TFLOP/s TF32 over three
+#: products), the fastest route to f32 accuracy; 67 TFLOP/s outside the
+#: tensor cores would let a tensor-core kernel beat its "least time"
+H100_F32_FLOP_PER_S = 495e12 / 3
 H100_BF16_FLOP_PER_S = 989e12   # bfloat16 on the tensor cores (dense)
 RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 NS = (1, 4, 32, 128)
@@ -380,8 +389,34 @@ def main() -> int:
         hold("chain", f"{name} {transform} N={n}",
              fused_chain.chain_fused(*pat, **kw),
              fused_chain.chain_plain(*pat, **kw), str(dtype).split(".")[1])
+    # attention with a bias over the GAT graph: the slot-tile design of K9
+    # and K10 (the graph keeps ~1/4096 of each 64×64 block it touches, so
+    # the routing rule builds no block layout)
+    gslab = 0.1 * randn(*g500_bal.rows.shape)
+    xg = randn(k_dim, CHAIN_D)
+    pat = (g500_bal.rows, g500_bal.cols, *feats["g500"], gslab)
+    kw = dict(shape=g500_bal.shape, scale=CHAIN_ALPHA)
+    reset_launch_counts()
+    gblocks = attention.AttnBlocks()
+    rm, rs = attention.attn_stats_fused(*pat, blocks=gblocks, **kw)
+    pm, ps = attention.attn_stats_plain(*pat, **kw)
+    y = attention.attn_chain_fused(*pat, xg, stats=(pm, ps), blocks=gblocks,
+                                   **kw)
     torch.cuda.synchronize()
-    del g500_bal, unif_bal, unif_ell, bals, pat
+    ran = {kk: dict(vv) for kk, vv in attention.DESIGN_LAUNCHES.items()}
+    print(f"[check] attention g500 d={CHAIN_D}: designs={ran} "
+          f"layout={gblocks(g500_bal.rows, g500_bal.cols, g500_bal.shape)}",
+          flush=True)
+    if ran != {"attn_stats": {"block": 0, "slot": 1},
+               "attn_chain": {"block": 0, "slot": 1}}:
+        fail(f"attention over g500 did not take the slot-tile design: {ran}")
+    hold("attn_stats", f"g500 slot d={CHAIN_D} row max", rm[~empty], pm[~empty],
+         "float32")
+    hold("attn_stats", f"g500 slot d={CHAIN_D} row sum", rs, ps, "float32")
+    hold("attn_chain", f"g500 slot d=N={CHAIN_D}", y,
+         attention.attn_chain_plain(*pat, xg, stats=(pm, ps), **kw), "float32")
+    torch.cuda.synchronize()
+    del g500_bal, unif_bal, unif_ell, bals, pat, gslab, xg, y, rm, rs, pm, ps
     torch.cuda.empty_cache()
 
     # block-sparse attention: the patterns, a bias stream each, and K9/K10
@@ -403,7 +438,18 @@ def main() -> int:
         bal = formats.csr_to_balanced(csr, 512)
         bias = torch.from_numpy(interop.alibi_bias(csr, ALIBI_SLOPE)).to(dev)
         attn[name] = {"spec": spec, "csr": csr, "bal": bal, "bias": bias,
-                      "slab": _stream_to_balanced(bias, bal)}
+                      "slab": _stream_to_balanced(bias, bal),
+                      "blocks": attention.AttnBlocks()}
+        t0 = time.perf_counter()
+        layout = attn[name]["blocks"](bal.rows, bal.cols, csr.shape)
+        torch.cuda.synchronize()
+        split = int(layout.work[:, 3].sum())
+        print(f"[pattern] {name} block layout: {layout.n_blocks} blocks of "
+              f"64x64, fill {layout.fill:.4f}, {layout.work.shape[0]} chunks "
+              f"({split} of split row blocks), "
+              f"{(layout.masks.numel() + layout.starts.numel()) * 4 / 1e6:.2f}"
+              f" MB of masks and starts; built in "
+              f"{time.perf_counter() - t0:.3f} s (host clock)", flush=True)
     for name, d, dtype in (("gemma", 256, torch.float32),
                            ("gemma", 256, torch.bfloat16),
                            ("bigbird", BIGBIRD_D, torch.float32)):
@@ -412,14 +458,24 @@ def main() -> int:
         q, k, v = (randn(a["spec"].seq, d, dtype=dtype) for _ in range(3))
         pat = (a["bal"].rows, a["bal"].cols, q, k)
         kw = dict(shape=a["csr"].shape, scale=d ** -0.5)
-        rm, rs = attention.attn_stats_fused(*pat, a["slab"], **kw)
         pm, ps = attention.attn_stats_plain(*pat, a["slab"], **kw)
-        hold("attn_stats", f"{name} d={d} row max", rm, pm, dt)
-        hold("attn_stats", f"{name} d={d} row sum", rs, ps, dt)
-        kw["stats"] = (pm, ps)
-        hold("attn_chain", f"{name} d=N={d}",
-             attention.attn_chain_fused(*pat, a["slab"], v, **kw),
-             attention.attn_chain_plain(*pat, a["slab"], v, **kw), dt)
+        yp = attention.attn_chain_plain(*pat, a["slab"], v, stats=(pm, ps), **kw)
+        for design in ("block", "slot"):
+            dkw = dict(kw, blocks=a["blocks"])
+            reset_launch_counts()
+            rm, rs = attention._launch_stats(design, *pat, a["slab"], **dkw)
+            y = attention._launch_chain(design, *pat, a["slab"], v,
+                                        stats=(pm, ps), **dkw)
+            torch.cuda.synchronize()
+            if (attention.DESIGN_LAUNCHES["attn_stats"][design],
+                    attention.DESIGN_LAUNCHES["attn_chain"][design]) != (1, 1):
+                fail(f"{name}: the {design} design did not launch "
+                     f"({attention.DESIGN_LAUNCHES})")
+            hold("attn_stats", f"{name} {design} d={d} row max", rm, pm, dt)
+            hold("attn_stats", f"{name} {design} d={d} row sum", rs, ps, dt)
+            hold("attn_chain", f"{name} {design} d=N={d}", y, yp, dt)
+            del y
+        del yp
         if name == "gemma":        # K7 and K8 at the new width d = N = 256
             ckw = dict(shape=a["csr"].shape, alpha=d ** -0.5)
             rm, rs = fused_chain.chain_stats_fused(*pat, **ckw)
@@ -489,6 +545,8 @@ def main() -> int:
     # -- 4. the main path through the facade -----------------------------------
     phase("main")
     launches = {k: 0 for k in KERNELS}
+    #: K9/K10 launches by design on the main path
+    designs = {kk: {"block": 0, "slot": 0} for kk in attention.DESIGN_LAUNCHES}
 
     def drive(call):
         """One user call, with the launch counts set to 0 just before and
@@ -499,6 +557,9 @@ def main() -> int:
         counts = launch_counts()
         for k, v in counts.items():
             launches[k] += v
+        for k, by_design in attention.DESIGN_LAUNCHES.items():
+            for design, v in by_design.items():
+                designs[k][design] += v
         return y, counts
 
     for name, csr in graphs.items():
@@ -625,9 +686,16 @@ def main() -> int:
         t0 = time.perf_counter()
         y, counts = drive(call)
         t1 = time.perf_counter()
+        ran = {kk: dict(vv) for kk, vv in attention.DESIGN_LAUNCHES.items()}
         want = {kk: (q.shape[1] if kk in kernels else 0) for kk in counts}
         if counts != want:
             fail(f"attention {cname}: launches {counts}, expected {want}")
+        if bias is not None:
+            # Gemma's band and BigBird keep most of each 64x64 block they
+            # touch: both must take the block design
+            want_d = {kk: {"block": q.shape[1], "slot": 0} for kk in ran}
+            if ran != want_d:
+                fail(f"attention {cname}: designs {ran}, expected {want_d}")
         if y.shape != q.shape or not torch.isfinite(y).all():
             fail(f"attention {cname}: output of shape {tuple(y.shape)} is "
                  "not finite or has the wrong shape")
@@ -635,7 +703,7 @@ def main() -> int:
                                            v[0, h], bias=bias, backend="torch")
         rel, _ = errors(y[0, h], ref)
         print(f"[main] attention {cname}: shape={tuple(y.shape)} "
-              f"launches={ {kk: counts[kk] for kk in kernels} } "
+              f"launches={ {kk: counts[kk] for kk in kernels} } designs={ran} "
               f"rel_err_vs_torch(head {h})={rel:.3e} call_s={t1 - t0:.3f} "
               "(host clock, plan included)", flush=True)
         if rel > RTOL["float32"]:
@@ -794,7 +862,8 @@ def main() -> int:
     for k, v in launches.items():
         if v < 1:
             fail(f"{k} was never launched on the main path")
-    print(f"[main] launches on the main path: {launches}", flush=True)
+    print(f"[main] launches on the main path: {launches}; K9/K10 by design: "
+          f"{designs}", flush=True)
 
     # -- 5. times ---------------------------------------------------------------
     phase("times")
@@ -949,20 +1018,29 @@ def main() -> int:
             k10 = lambda: fused_chain.chain_fused(*pat, v1, stats=st, **ckw)
             k10_plain = lambda: fused_chain.chain_plain(*pat, v1, stats=st, **ckw)
             unfused = lambda: fused_chain.chain_unfused(*pat, v1, **ckw)
-            bias_bytes = 0
+            pattern_bytes, bias_bytes = 8 * slots, 0
         else:
             kw.update(scale=sc)
             pat = pat + (a["slab"],)
-            stats_fn = lambda: attention.attn_stats_fused(*pat, **kw)
+            fkw = dict(kw, blocks=a["blocks"])     # the layout built once
+            stats_fn = lambda: attention.attn_stats_fused(*pat, **fkw)
             stats_plain = lambda: attention.attn_stats_plain(*pat, **kw)
             st = stats_fn()
-            k10 = lambda: attention.attn_chain_fused(*pat, v1, stats=st, **kw)
+            k10 = lambda: attention.attn_chain_fused(*pat, v1, stats=st, **fkw)
             k10_plain = lambda: attention.attn_chain_plain(*pat, v1, stats=st,
                                                            **kw)
-            unfused = lambda: attention.attn_unfused(*pat, v1, **kw)
-            bias_bytes = 4 * slots
+            unfused = lambda: attention.attn_unfused(*pat, v1, **fkw)
+            # the block design reads the layout (a mask and a start per
+            # (block, row), each block's column, the work list), not the
+            # slab's (rows, cols), and the bias of the kept entries only
+            lay = a["blocks"](bal.rows, bal.cols, csr.shape)
+            pattern_bytes = (12 * attention.BLOCK * lay.n_blocks
+                             + 4 * lay.n_blocks + 16 * lay.work.shape[0])
+            bias_bytes = 4 * csr.nnz
+            # the slot-tile design reads the slab's pattern and bias
+            slot_bytes = 12 * slots - pattern_bytes - bias_bytes
         p = repro_torch.attention_plan(a["spec"])
-        base_bytes = 8 * slots + bias_bytes + 2 * m * d * 4 + 8 * m
+        base_bytes = pattern_bytes + bias_bytes + 2 * m * d * 4 + 8 * m
         b9 = bound(base_bytes, 2 * csr.nnz * d)
         b10 = bound(base_bytes + 2 * m * n * 4, 2 * csr.nnz * (d + n))
         mask = dense_mask(csr, bias)
@@ -972,10 +1050,19 @@ def main() -> int:
             head(q), head(k), head(v), attn_mask=mask)[0, 0]
         sdpa_rel, _ = errors(sd, y1)
         del y1, sd
-        row9 = {"kernel_ms": time_ms(stats_fn),
+        reset_launch_counts()
+        k9_ms, k10_ms = time_ms(stats_fn), time_ms(k10)
+        # the design the timed K9/K10 launches took
+        took = {kk: [dd for dd, nn in vv.items() if nn]
+                for kk, vv in attention.DESIGN_LAUNCHES.items()}
+        if bias is not None and took != {"attn_stats": ["block"],
+                                         "attn_chain": ["block"]}:
+            fail(f"attention {cname}: the timed K9/K10 took {took}, "
+                 "expected the block design")
+        row9 = {"kernel_ms": k9_ms,
                 "plain_ms": time_ms(stats_plain, reps=3), "library_ms": None,
                 "bound_ms": b9[0], "bound_by": b9[1]}
-        row10 = {"kernel_ms": time_ms(k10),
+        row10 = {"kernel_ms": k10_ms,
                  "plain_ms": time_ms(k10_plain, reps=3),
                  "library_ms": sdpa_ms(head(q), head(k), head(v), mask),
                  "bound_ms": b10[0], "bound_by": b10[1],
@@ -987,6 +1074,20 @@ def main() -> int:
                  "sdpa_rel_err": sdpa_rel,
                  "layer_call_ms": time_ms(call, reps=3),
                  "layer_sdpa_ms": sdpa_ms(q, k, v, mask, reps=3)}
+        if bias is not None:
+            # kernel_ms is the routed design's; the slot-tile design beside
+            # it, with its own bound
+            row9["design"], row10["design"] = (took["attn_stats"][0],
+                                               took["attn_chain"][0])
+            row9["slot_ms"] = time_ms(lambda: attention._launch_stats(
+                "slot", *pat, **fkw), reps=5)
+            row9["slot_bound_ms"] = bound(base_bytes + slot_bytes,
+                                          2 * csr.nnz * d)[0]
+            row10["slot_ms"] = time_ms(lambda: attention._launch_chain(
+                "slot", *pat, v1, stats=st, **fkw), reps=5)
+            row10["slot_bound_ms"] = bound(
+                base_bytes + slot_bytes + 2 * m * n * 4,
+                2 * csr.nnz * (d + n))[0]
         shape = (f"{cname} seq={m} d=N={d} head {h} of {q.shape[1]}")
         for label, row in ((kernels[0], row9), (kernels[1], row10)):
             print(f"[time] {label} {shape} "
@@ -994,6 +1095,33 @@ def main() -> int:
         if cname == "gemma_local_alibi":
             summary_rows["attn_stats"] = (row9, shape)
             summary_rows["attn_chain"] = (row10, shape)
+            # both designs in bfloat16 at the same head, beside SDPA on the
+            # bfloat16 operands and mask; bounds at the bf16 tensor-core rate
+            q16, k16, v16 = (t.to(torch.bfloat16) for t in (q1, k1, v1))
+            pat16 = (bal.rows, bal.cols, q16, k16, a["slab"])
+            st16 = attention.attn_stats_fused(*pat16, **fkw)
+            base16 = pattern_bytes + bias_bytes + 2 * m * d * 2 + 8 * m
+            runs16 = {
+                "attn_stats": (lambda dsg: attention._launch_stats(
+                    dsg, *pat16, **fkw), 0, 2 * csr.nnz * d),
+                "attn_chain": (lambda dsg: attention._launch_chain(
+                    dsg, *pat16, v16, stats=st16, **fkw), 2 * m * n * 2,
+                    2 * csr.nnz * (d + n))}
+            mask16 = mask.to(torch.bfloat16)
+            for label, (run16, yv_bytes, flops) in runs16.items():
+                b16 = bound(base16 + yv_bytes, flops, H100_BF16_FLOP_PER_S)
+                row = {"block_ms": time_ms(lambda: run16("block")),
+                       "slot_ms": time_ms(lambda: run16("slot"), reps=5),
+                       "bound_ms": b16[0], "bound_by": b16[1],
+                       "slot_bound_ms": bound(base16 + slot_bytes + yv_bytes,
+                                              flops, H100_BF16_FLOP_PER_S)[0],
+                       "library_ms": (sdpa_ms(q16[None, None], k16[None, None],
+                                              v16[None, None], mask16)
+                                      if label == "attn_chain" else None)}
+                print(f"[time] {label} {cname} bfloat16 seq={m} d=N={d} head "
+                      f"{h} " + " ".join(f"{kk}={vv}" for kk, vv in row.items()),
+                      flush=True)
+            del q16, k16, v16, pat16, st16, mask16
         del st, mask, p
         torch.cuda.empty_cache()
 
@@ -1117,6 +1245,10 @@ def main() -> int:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": shape})
+        if kernel in designs:
+            # the design each launch on the main path took
+            summary[-1]["design"] = {dd: nn for dd, nn in
+                                     designs[kernel].items() if nn}
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

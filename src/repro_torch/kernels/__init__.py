@@ -31,5 +31,9 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Set every launch count to 0; a module that keeps counts beyond
+    ``LAUNCHES`` resets them in its own ``reset_counts``."""
     for name, mod in KERNEL_MODULES.items():
         mod.LAUNCHES[name] = 0
+    for mod in set(KERNEL_MODULES.values()):
+        getattr(mod, "reset_counts", lambda: None)()

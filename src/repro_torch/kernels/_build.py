@@ -55,6 +55,10 @@ SIGNATURES = {
     "repro_attn_stats": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P),
     "repro_attn": (_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                    _I, _F, _P),
+    "repro_attn_stats_blocks": (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I,
+                                _I, _I, _F, _P),
+    "repro_attn_blocks": (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -319,6 +319,98 @@ def test_cuda_sparse_attention_main_path(cuda):
         repro_torch.sparse_attention(spec, q, k, v.requires_grad_(), cache=False)
 
 
+def _design_patterns():
+    """Patterns of the two designs' checks: a causal window ragged at seq
+    1000 (partial diagonal blocks), BigBird at seq 2048 (its two global row
+    blocks touch 32 blocks, over twice the mean, so their chunks merge
+    atomically), a block mask with an empty block row."""
+    bm = np.tril(np.ones((8, 8), bool))
+    bm[3, :] = False
+    return {"window": patterns.sliding_window(1000, 2, block=64, causal=True),
+            "bigbird": patterns.bigbird(2048, 1, 2, 3, block=64, seed=0),
+            "empty_row": patterns.from_block_mask(bm, 500, block=64,
+                                                  causal=True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", ["block", "slot"])
+@pytest.mark.parametrize("n", [1, 64, 256, 320])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_attention_designs_match_plain(cuda, d, dtype, n, design):
+    """Each design of K9 and K10 against the plain versions, a bias of −inf
+    at every 97th kept key: the output stays finite, empty rows exactly 0,
+    and the per-design counter names the design that ran."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, spec in _design_patterns().items():
+        csr = patterns.build_mask(spec).csr.to(cuda)
+        bal = formats.csr_to_balanced(csr, 512)
+        s = spec.seq
+        q, k = ((0.5 * torch.randn(s, d, device=cuda)).to(dtype)
+                for _ in range(2))
+        v = torch.randn(s, n, device=cuda).to(dtype)
+        v = v[:, 0].contiguous() if n == 1 else v
+        bias = torch.from_numpy(interop.alibi_bias(csr, 0.05)).to(cuda)
+        bias[1::97] = -float("inf")
+        slab = _stream_to_balanced(bias, bal)
+        args = (bal.rows, bal.cols, q, k, slab)
+        kw = dict(shape=csr.shape, scale=d ** -0.5)
+        blocks = attention.AttnBlocks()
+        empty = torch.diff(csr.indptr) == 0
+        reset_launch_counts()
+        rm, rs = attention._launch_stats(design, *args, blocks=blocks, **kw)
+        y = attention._launch_chain(design, *args, v, blocks=blocks, **kw)
+        torch.cuda.synchronize()
+        assert attention.DESIGN_LAUNCHES["attn_stats"][design] == 2, name
+        assert attention.DESIGN_LAUNCHES["attn_chain"][design] == 1, name
+        pm, ps = attention.attn_stats_plain(*args, **kw)
+        live = pm > -1e29
+        assert torch.equal(rm[~live], pm[~live]) and (rs[empty] == 0).all()
+        assert _rel(rm[live], pm[live]) < 1e-4, name
+        assert _rel(rs, ps) < 1e-4, name
+        assert y.dtype == dtype and torch.isfinite(y).all(), name
+        assert (y[empty] == 0).all(), name
+        assert _rel(y, attention.attn_chain_plain(*args, v, **kw)) < tol, name
+
+
+@pytest.mark.gpu
+def test_cuda_attention_routes_by_pattern_fill(cuda):
+    """A block-structured pattern takes the block design, a scattered graph
+    the slot-tile design (no layout is built for it), and the facade's plan
+    keeps one layout for all heads."""
+    import repro_torch
+    g = rmat(10, 8, seed=1, device=cuda)
+    gbal = formats.csr_to_balanced(g, 512)
+    a, b = (0.3 * torch.randn(g.shape[0], 64, device=cuda) for _ in range(2))
+    x = torch.randn(g.shape[1], 64, device=cuda)
+    gslab = 0.1 * torch.randn(gbal.rows.shape, device=cuda)
+    blocks = attention.AttnBlocks()
+    reset_launch_counts()
+    y = attention.attn_chain_fused(gbal.rows, gbal.cols, a, b, gslab, x,
+                                   shape=g.shape, scale=0.125, blocks=blocks)
+    assert blocks(gbal.rows, gbal.cols, g.shape) is None
+    assert attention.DESIGN_LAUNCHES == {
+        "attn_stats": {"block": 0, "slot": 1},
+        "attn_chain": {"block": 0, "slot": 1}}
+    assert _rel(y, attention.attn_chain_plain(
+        gbal.rows, gbal.cols, a, b, gslab, x, shape=g.shape,
+        scale=0.125)) < 1e-4
+    with pytest.raises(ValueError):
+        attention._launch_stats("block", gbal.rows, gbal.cols, a, b, gslab,
+                                shape=g.shape)
+    spec = _design_patterns()["bigbird"]
+    csr, q, k, v, bias = _attention_operands(spec, 64, torch.float32, cuda)
+    qh, kh, vh = (t.expand(1, 3, *t.shape).contiguous() for t in (q, k, v))
+    reset_launch_counts()
+    y = repro_torch.sparse_attention(spec, qh, kh, vh, bias=bias, cache=False)
+    assert attention.DESIGN_LAUNCHES == {
+        "attn_stats": {"block": 3, "slot": 0},
+        "attn_chain": {"block": 3, "slot": 0}}
+    want = repro_torch.sparse_attention(spec, q, k, v, bias=bias,
+                                        backend="torch", cache=False)
+    assert _rel(y[0, 2], want) < 1e-4
+
+
 def _block_matrices(device):
     """Ragged M and K (neither a multiple of any block shape), an empty
     block row (rows 16-47), and a matrix without nonzeros."""
