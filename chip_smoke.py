@@ -10,7 +10,8 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
 2. build   — compile the kernels from ``src/repro_torch/csrc`` (seconds and
              the ptxas register lines);
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
-             at the shapes of the main path: relative inf-norm error at most
+             at the shapes of the main path (K7-K10 at the Gemma head in
+             both designs, forced): relative inf-norm error at most
              1e-4 in float32 (hub rows of ~40k terms summed in another
              order, atomics in no fixed order) and 2e-2 in bfloat16;
 4. main    — ``repro_torch.sparse(csr) @ x`` for two Graph500-scale R-MAT
@@ -31,13 +32,14 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              head_dim 256, window 1024 → a causal band of 16 blocks of 64)
              at batch 1, seq 8192, through the model's
              ``_block_sparse_attention`` (no bias: 16 launches each of K7
-             and K8); (b) the same layer through
+             and K8, all in the block design); (b) the same layer through
              ``repro_torch.sparse_attention`` with an ALiBi bias
              −2⁻⁶·(i − j) (16 launches each of K9 and K10); (c) a BigBird
              encoder, ``bigbird(4096, 1, 2, 3, block=64)``, 12 heads of
              d = 64 with the bias (K9's merge of the 8-tile global rows);
              each against the "torch" backend on one head, Gemma and BigBird
-             through the block design of K9/K10 (the per-design counters),
+             through the block design of K7-K10 and the GAT chains through
+             the slot-tile design of K7/K8 (the per-design counters),
              a block mask with an empty block row giving rows of exactly 0,
              and one call with ``attn_fuse_min_seq`` above the sequence
              (K6, K9, K1, and no plain version); then the block-granule backend on a
@@ -66,12 +68,16 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              the unfused pair, the plain version and
              ``scaled_dot_product_attention`` with a dense (S, S) mask
              (boolean, or float holding −inf and the bias), and the whole
-             layer's call beside SDPA over all heads; K9 and K10 in both
-             designs (block, slot-tile) at the Gemma head in float32 and
-             bfloat16 beside SDPA, each design's bound counting the pattern
-             bytes it reads (block: 12 B a (block, row) of masks and
-             starts, 4 B a block, 16 B a work chunk and 4 B of bias a kept
-             entry; slot-tile: 12 B a slab slot); per N of the pruned
+             layer's call beside SDPA over all heads, split into its
+             kernels (heads × the pair) and the host work outside them; K7
+             and K8 (no bias) and K9 and K10 (ALiBi) in both designs
+             (block, slot-tile) at the Gemma head in float32 and bfloat16
+             beside SDPA, each design's bound counting the pattern bytes it
+             reads (block: 12 B a (block, row) of masks and starts, 4 B a
+             block, 16 B a work chunk and 4 B of bias a kept entry;
+             slot-tile: 8 B a slab slot, 12 B with the bias); the plan
+             key's ``pattern_fingerprint`` alone at Gemma's mask and a
+             cached ``attention_plan`` lookup (host clock); per N of the pruned
              FFN weight: K11, its plain version, the facade's call,
              ``torch.sparse.mm`` on the CSR, ``to_sparse_bsr((8, 128)) @ x``
              where PyTorch takes it, and the dense ``torch.matmul`` of W,
@@ -130,9 +136,15 @@ KERNELS = {
                  "replaces": "src/repro/kernels/csc.py:36"},
     "sddmm": {"route": "cuda", "source": "src/repro_torch/csrc/sddmm.cu",
               "replaces": "src/repro/kernels/fused_chain.py:81"},
-    "chain_stats": {"route": "cuda", "source": "src/repro_torch/csrc/chain.cu",
+    # K7/K8: the slot-tile design in chain.cu, the block design (attention
+    # patterns) in attention.cu with the bias compiled out
+    "chain_stats": {"route": "cuda",
+                    "source": "src/repro_torch/csrc/chain.cu + "
+                              "src/repro_torch/csrc/attention.cu",
                     "replaces": "src/repro/kernels/fused_chain.py:123"},
-    "chain": {"route": "cuda", "source": "src/repro_torch/csrc/chain.cu",
+    "chain": {"route": "cuda",
+              "source": "src/repro_torch/csrc/chain.cu + "
+                        "src/repro_torch/csrc/attention.cu",
               "replaces": "src/repro/kernels/fused_chain.py:196"},
 }
 #: the (graph, N) whose times stand for each kernel in the summary line
@@ -146,8 +158,9 @@ CHAIN_NS = (1, 32, 128)
 CHAIN_CASES = (("g500", "softmax", 1), ("g500", "softmax", 32),
                ("g500", "softmax", 128), ("g500", "identity", 32),
                ("g500", "scale", 32), ("unif", "softmax", 128))
-#: the chain case whose times stand for K8 in the summary line
-CHAIN_SUMMARY = ("g500", "softmax", 128)
+#: the graph whose times stand for K6 in the summary line (K7 and K8 stand
+#: for the Gemma head without a bias)
+SDDMM_SUMMARY = "g500"
 KERNELS.update({
     "attn_stats": {"route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
                    "replaces": "src/repro/kernels/attention.py:43"},
@@ -226,6 +239,7 @@ def main() -> int:
     from repro_torch.attention import patterns
     from repro_torch.configs import gemma3_12b
     from repro_torch.core import formats, registry, stats
+    from repro_torch.core.cache import pattern_fingerprint
     from repro_torch.core.plan import _stream_to_balanced, execute_attention
     from repro_torch.core.rmat import rmat
     from repro_torch.kernels import (_build, attention, bsr, csc, fused_chain,
@@ -476,16 +490,32 @@ def main() -> int:
             hold("attn_chain", f"{name} {design} d=N={d}", y, yp, dt)
             del y
         del yp
-        if name == "gemma":        # K7 and K8 at the new width d = N = 256
+        if name == "gemma":
+            # K7 and K8's softmax (no bias, alpha = 1/sqrt(d)) in both
+            # designs, forced, against the plain versions
             ckw = dict(shape=a["csr"].shape, alpha=d ** -0.5)
-            rm, rs = fused_chain.chain_stats_fused(*pat, **ckw)
             pm, ps = fused_chain.chain_stats_plain(*pat, **ckw)
-            hold("chain_stats", f"{name} d={d} row max", rm, pm, dt)
-            hold("chain_stats", f"{name} d={d} row sum", rs, ps, dt)
-            ckw.update(transform="softmax", stats=(pm, ps))
-            hold("chain", f"{name} softmax d=N={d}",
-                 fused_chain.chain_fused(*pat, v, **ckw),
-                 fused_chain.chain_plain(*pat, v, **ckw), dt)
+            yp = fused_chain.chain_plain(*pat, v, transform="softmax",
+                                         stats=(pm, ps), **ckw)
+            for design in ("block", "slot"):
+                dkw = dict(ckw, blocks=a["blocks"])
+                reset_launch_counts()
+                rm, rs = fused_chain._launch_stats(design, *pat, **dkw)
+                y = fused_chain._launch_chain(design, *pat, v,
+                                              transform="softmax",
+                                              stats=(pm, ps), **dkw)
+                torch.cuda.synchronize()
+                if (fused_chain.DESIGN_LAUNCHES["chain_stats"][design],
+                        fused_chain.DESIGN_LAUNCHES["chain"][design]) != (1, 1):
+                    fail(f"{name}: K7/K8's {design} design did not launch "
+                         f"({fused_chain.DESIGN_LAUNCHES})")
+                hold("chain_stats", f"{name} {design} d={d} row max", rm, pm,
+                     dt)
+                hold("chain_stats", f"{name} {design} d={d} row sum", rs, ps,
+                     dt)
+                hold("chain", f"{name} {design} softmax d=N={d}", y, yp, dt)
+                del y
+            del yp
         del q, k, v, pat, kw, rm, rs, pm, ps
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -545,8 +575,15 @@ def main() -> int:
     # -- 4. the main path through the facade -----------------------------------
     phase("main")
     launches = {k: 0 for k in KERNELS}
-    #: K9/K10 launches by design on the main path
-    designs = {kk: {"block": 0, "slot": 0} for kk in attention.DESIGN_LAUNCHES}
+    #: K7-K10 launches by design on the main path
+    design_counts = (fused_chain.DESIGN_LAUNCHES, attention.DESIGN_LAUNCHES)
+    designs = {kk: {"block": 0, "slot": 0}
+               for counts in design_counts for kk in counts}
+
+    def took():
+        """The designs of the K7-K10 launches since the last reset."""
+        return {kk: dict(vv) for counts in design_counts
+                for kk, vv in counts.items()}
 
     def drive(call):
         """One user call, with the launch counts set to 0 just before and
@@ -557,7 +594,7 @@ def main() -> int:
         counts = launch_counts()
         for k, v in counts.items():
             launches[k] += v
-        for k, by_design in attention.DESIGN_LAUNCHES.items():
+        for k, by_design in took().items():
             for design, v in by_design.items():
                 designs[k][design] += v
         return y, counts
@@ -624,6 +661,11 @@ def main() -> int:
                 fail(f"chain {name} N={n}: backend {A.backend!r}")
             if counts["chain_stats"] < 1 or counts["chain"] < 1:
                 fail(f"chain {name} N={n}: K7/K8 were not launched ({counts})")
+            ran = took()
+            if any(ran[kk]["block"] for kk in ("chain_stats", "chain")):
+                # a scattered graph keeps ~1/4096 of each 64x64 block
+                fail(f"chain {name} N={n}: K7/K8 left the slot-tile design "
+                     f"({ran})")
             if y.shape != ((csr.shape[0], n) if n > 1 else (csr.shape[0],)) \
                     or not torch.isfinite(y).all():
                 fail(f"chain {name} N={n}: output of shape {tuple(y.shape)} "
@@ -686,16 +728,15 @@ def main() -> int:
         t0 = time.perf_counter()
         y, counts = drive(call)
         t1 = time.perf_counter()
-        ran = {kk: dict(vv) for kk, vv in attention.DESIGN_LAUNCHES.items()}
+        ran = took()
         want = {kk: (q.shape[1] if kk in kernels else 0) for kk in counts}
         if counts != want:
             fail(f"attention {cname}: launches {counts}, expected {want}")
-        if bias is not None:
-            # Gemma's band and BigBird keep most of each 64x64 block they
-            # touch: both must take the block design
-            want_d = {kk: {"block": q.shape[1], "slot": 0} for kk in ran}
-            if ran != want_d:
-                fail(f"attention {cname}: designs {ran}, expected {want_d}")
+        # Gemma's band and BigBird keep most of each 64x64 block they touch:
+        # every K7-K10 launch must take the block design
+        want_d = {kk: {"block": want[kk], "slot": 0} for kk in ran}
+        if ran != want_d:
+            fail(f"attention {cname}: designs {ran}, expected {want_d}")
         if y.shape != q.shape or not torch.isfinite(y).all():
             fail(f"attention {cname}: output of shape {tuple(y.shape)} is "
                  "not finite or has the wrong shape")
@@ -862,7 +903,7 @@ def main() -> int:
     for k, v in launches.items():
         if v < 1:
             fail(f"{k} was never launched on the main path")
-    print(f"[main] launches on the main path: {launches}; K9/K10 by design: "
+    print(f"[main] launches on the main path: {launches}; K7-K10 by design: "
           f"{designs}", flush=True)
 
     # -- 5. times ---------------------------------------------------------------
@@ -915,6 +956,9 @@ def main() -> int:
         a, b = feats[name]
         A = repro_torch.sparse(csr, chain_op="softmax")
         bal = A.plan.substrate("balanced")
+        # the plan's layout cache: None for the graph (slot-tile design),
+        # found once rather than per timed call
+        gblocks = A.plan.kernel_opts(A.plan.entry("chain"))["blocks"]
         slots = bal.rows.numel()
         pat = (bal.rows, bal.cols, a, b)
         feat_bytes = (m + k_dim) * CHAIN_D * a.element_size()
@@ -932,18 +976,18 @@ def main() -> int:
             "bound_ms": sd_bound[0], "bound_by": sd_bound[1]}
         stats_row = {
             "kernel_ms": time_ms(lambda: fused_chain.chain_stats_fused(
-                *pat, shape=csr.shape, alpha=CHAIN_ALPHA)),
+                *pat, shape=csr.shape, alpha=CHAIN_ALPHA, blocks=gblocks)),
             "plain_ms": time_ms(lambda: fused_chain.chain_stats_plain(
                 *pat, shape=csr.shape, alpha=CHAIN_ALPHA)),
             "library_ms": None, "bound_ms": st_bound[0], "bound_by": st_bound[1]}
         for label, row in (("sddmm", sddmm_row), ("chain_stats", stats_row)):
             print(f"[time] {label} {name}_s{args.scale}_e16 d={CHAIN_D} "
                   + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
-        if name == CHAIN_SUMMARY[0]:
+        if name == SDDMM_SUMMARY:
             summary_rows["sddmm"] = (sddmm_row, f"{name}_s{args.scale}_e16 d={CHAIN_D}")
-            summary_rows["chain_stats"] = (stats_row, f"{name}_s{args.scale}_e16 d={CHAIN_D}")
         del lib_a, b_t
-        stats = fused_chain.chain_stats_fused(*pat, shape=csr.shape, alpha=CHAIN_ALPHA)
+        stats = fused_chain.chain_stats_fused(*pat, shape=csr.shape,
+                                              alpha=CHAIN_ALPHA, blocks=gblocks)
         for cname, transform, n in CHAIN_CASES:
             if cname != name:
                 continue
@@ -951,12 +995,13 @@ def main() -> int:
             kw = dict(shape=csr.shape, transform=transform, alpha=CHAIN_ALPHA)
             if transform == "softmax":
                 kw["stats"] = stats
+            fkw = dict(kw, blocks=gblocks)
             stats_in = 8 * m if transform == "softmax" else 0
             ch_bound = bound(8 * slots + feat_bytes + stats_in
                              + (k_dim + m) * n * x.element_size(),
                              2 * csr.nnz * (CHAIN_D + n))
             row = {
-                "kernel_ms": time_ms(lambda: fused_chain.chain_fused(*pat, x, **kw)),
+                "kernel_ms": time_ms(lambda: fused_chain.chain_fused(*pat, x, **fkw)),
                 "plain_ms": time_ms(lambda: fused_chain.chain_plain(*pat, x, **kw)),
                 "library_ms": None,
                 "bound_ms": ch_bound[0], "bound_by": ch_bound[1],
@@ -964,16 +1009,13 @@ def main() -> int:
                     a, b, x, transform=transform, alpha=CHAIN_ALPHA)),
                 "unfused_pair_ms": time_ms(lambda: fused_chain.chain_unfused(
                     *pat, x, shape=csr.shape, transform=transform,
-                    alpha=CHAIN_ALPHA)),
+                    alpha=CHAIN_ALPHA, blocks=gblocks)),
                 "plain_call_ms": time_ms(lambda: A.chain(
                     a, b, x, transform=transform, alpha=CHAIN_ALPHA,
                     backend="torch")),
             }
             print(f"[time] chain {name}_s{args.scale}_e16 {transform} N={n} "
                   + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
-            if (name, transform, n) == CHAIN_SUMMARY:
-                summary_rows["chain"] = (row, f"{name}_s{args.scale}_e16 "
-                                               f"{transform} N={n} d={CHAIN_D}")
         del stats
         torch.cuda.empty_cache()
 
@@ -1010,35 +1052,38 @@ def main() -> int:
         pat = (bal.rows, bal.cols, q1, k1)
         kw = dict(shape=csr.shape)
         if bias is None:
-            kw.update(alpha=sc)
-            stats_fn = lambda: fused_chain.chain_stats_fused(*pat, **kw)
+            # K7 and K8's softmax: the module, its forced-design launcher
+            mod, kw["alpha"] = fused_chain, sc
+            pat_b, ckw = pat, dict(transform="softmax")
             stats_plain = lambda: fused_chain.chain_stats_plain(*pat, **kw)
-            st = stats_fn()
-            ckw = dict(kw, transform="softmax")
-            k10 = lambda: fused_chain.chain_fused(*pat, v1, stats=st, **ckw)
-            k10_plain = lambda: fused_chain.chain_plain(*pat, v1, stats=st, **ckw)
-            unfused = lambda: fused_chain.chain_unfused(*pat, v1, **ckw)
-            pattern_bytes, bias_bytes = 8 * slots, 0
+            k10_plain = lambda: fused_chain.chain_plain(*pat, v1, stats=st,
+                                                        **kw, **ckw)
+            bias_bytes = 0
         else:
-            kw.update(scale=sc)
-            pat = pat + (a["slab"],)
-            fkw = dict(kw, blocks=a["blocks"])     # the layout built once
-            stats_fn = lambda: attention.attn_stats_fused(*pat, **fkw)
-            stats_plain = lambda: attention.attn_stats_plain(*pat, **kw)
-            st = stats_fn()
-            k10 = lambda: attention.attn_chain_fused(*pat, v1, stats=st, **fkw)
-            k10_plain = lambda: attention.attn_chain_plain(*pat, v1, stats=st,
-                                                           **kw)
-            unfused = lambda: attention.attn_unfused(*pat, v1, **fkw)
-            # the block design reads the layout (a mask and a start per
-            # (block, row), each block's column, the work list), not the
-            # slab's (rows, cols), and the bias of the kept entries only
-            lay = a["blocks"](bal.rows, bal.cols, csr.shape)
-            pattern_bytes = (12 * attention.BLOCK * lay.n_blocks
-                             + 4 * lay.n_blocks + 16 * lay.work.shape[0])
+            mod, kw["scale"] = attention, sc
+            pat_b, ckw = pat + (a["slab"],), {}
+            stats_plain = lambda: attention.attn_stats_plain(*pat_b, **kw)
+            k10_plain = lambda: attention.attn_chain_plain(*pat_b, v1,
+                                                           stats=st, **kw)
             bias_bytes = 4 * csr.nnz
-            # the slot-tile design reads the slab's pattern and bias
-            slot_bytes = 12 * slots - pattern_bytes - bias_bytes
+        fkw = dict(kw, blocks=a["blocks"])     # the layout built once
+        stats_fn = lambda: mod._launch_stats(None, *pat_b, **fkw)
+        st = stats_fn()
+        k10 = lambda: mod._launch_chain(None, *pat_b, v1, stats=st, **fkw,
+                                        **ckw)
+        unfused = lambda: (fused_chain.chain_unfused(*pat_b, v1, **fkw, **ckw)
+                           if bias is None else
+                           attention.attn_unfused(*pat_b, v1, **fkw))
+        # the block design reads the layout (a mask and a start per (block,
+        # row), each block's column, the work list), not the slab's (rows,
+        # cols), and the bias of the kept entries only; the slot-tile design
+        # reads the slab's pattern and bias (12 B, or 8 B without a bias, a
+        # slot)
+        lay = a["blocks"](bal.rows, bal.cols, csr.shape)
+        pattern_bytes = (12 * attention.BLOCK * lay.n_blocks
+                         + 4 * lay.n_blocks + 16 * lay.work.shape[0])
+        slot_bytes = ((8 if bias is None else 12) * slots - pattern_bytes
+                      - bias_bytes)
         p = repro_torch.attention_plan(a["spec"])
         base_bytes = pattern_bytes + bias_bytes + 2 * m * d * 4 + 8 * m
         b9 = bound(base_bytes, 2 * csr.nnz * d)
@@ -1052,62 +1097,60 @@ def main() -> int:
         del y1, sd
         reset_launch_counts()
         k9_ms, k10_ms = time_ms(stats_fn), time_ms(k10)
-        # the design the timed K9/K10 launches took
-        took = {kk: [dd for dd, nn in vv.items() if nn]
-                for kk, vv in attention.DESIGN_LAUNCHES.items()}
-        if bias is not None and took != {"attn_stats": ["block"],
-                                         "attn_chain": ["block"]}:
-            fail(f"attention {cname}: the timed K9/K10 took {took}, "
+        # the design the timed launches took: the block design
+        took_t = {kk: [dd for dd, nn in vv.items() if nn]
+                  for kk, vv in mod.DESIGN_LAUNCHES.items()}
+        if took_t != {kk: ["block"] for kk in kernels}:
+            fail(f"attention {cname}: the timed {kernels} took {took_t}, "
                  "expected the block design")
-        row9 = {"kernel_ms": k9_ms,
+        layer_ms = time_ms(call, reps=3)
+        row9 = {"kernel_ms": k9_ms, "design": took_t[kernels[0]][0],
                 "plain_ms": time_ms(stats_plain, reps=3), "library_ms": None,
-                "bound_ms": b9[0], "bound_by": b9[1]}
-        row10 = {"kernel_ms": k10_ms,
+                "bound_ms": b9[0], "bound_by": b9[1],
+                "slot_ms": time_ms(lambda: mod._launch_stats(
+                    "slot", *pat_b, **fkw), reps=5),
+                "slot_bound_ms": bound(base_bytes + slot_bytes,
+                                       2 * csr.nnz * d)[0]}
+        row10 = {"kernel_ms": k10_ms, "design": took_t[kernels[1]][0],
                  "plain_ms": time_ms(k10_plain, reps=3),
                  "library_ms": sdpa_ms(head(q), head(k), head(v), mask),
                  "bound_ms": b10[0], "bound_by": b10[1],
+                 "slot_ms": time_ms(lambda: mod._launch_chain(
+                     "slot", *pat_b, v1, stats=st, **fkw, **ckw), reps=5),
+                 "slot_bound_ms": bound(base_bytes + slot_bytes + 2 * m * n * 4,
+                                        2 * csr.nnz * (d + n))[0],
                  "fused_call_ms": time_ms(lambda: execute_attention(
                      p, q1, k1, v1, bias=bias)),
                  "unfused_pair_ms": time_ms(unfused),
                  "plain_call_ms": time_ms(lambda: execute_attention(
                      p, q1, k1, v1, bias=bias, backend="torch"), reps=3),
                  "sdpa_rel_err": sdpa_rel,
-                 "layer_call_ms": time_ms(call, reps=3),
+                 "layer_call_ms": layer_ms,
+                 # the layer's kernels (one K9/K7 and one K10/K8 a head)
+                 # and the host work around them
+                 "layer_kernels_ms": q.shape[1] * (k9_ms + k10_ms),
+                 "layer_outside_ms": layer_ms - q.shape[1] * (k9_ms + k10_ms),
                  "layer_sdpa_ms": sdpa_ms(q, k, v, mask, reps=3)}
-        if bias is not None:
-            # kernel_ms is the routed design's; the slot-tile design beside
-            # it, with its own bound
-            row9["design"], row10["design"] = (took["attn_stats"][0],
-                                               took["attn_chain"][0])
-            row9["slot_ms"] = time_ms(lambda: attention._launch_stats(
-                "slot", *pat, **fkw), reps=5)
-            row9["slot_bound_ms"] = bound(base_bytes + slot_bytes,
-                                          2 * csr.nnz * d)[0]
-            row10["slot_ms"] = time_ms(lambda: attention._launch_chain(
-                "slot", *pat, v1, stats=st, **fkw), reps=5)
-            row10["slot_bound_ms"] = bound(
-                base_bytes + slot_bytes + 2 * m * n * 4,
-                2 * csr.nnz * (d + n))[0]
         shape = (f"{cname} seq={m} d=N={d} head {h} of {q.shape[1]}")
         for label, row in ((kernels[0], row9), (kernels[1], row10)):
             print(f"[time] {label} {shape} "
                   + " ".join(f"{kk}={vv}" for kk, vv in row.items()), flush=True)
-        if cname == "gemma_local_alibi":
-            summary_rows["attn_stats"] = (row9, shape)
-            summary_rows["attn_chain"] = (row10, shape)
+        if cname in ("gemma_local", "gemma_local_alibi"):
+            summary_rows[kernels[0]] = (row9, shape)
+            summary_rows[kernels[1]] = (row10, shape)
             # both designs in bfloat16 at the same head, beside SDPA on the
             # bfloat16 operands and mask; bounds at the bf16 tensor-core rate
             q16, k16, v16 = (t.to(torch.bfloat16) for t in (q1, k1, v1))
-            pat16 = (bal.rows, bal.cols, q16, k16, a["slab"])
-            st16 = attention.attn_stats_fused(*pat16, **fkw)
+            pat16 = (bal.rows, bal.cols, q16, k16) + pat_b[4:]
+            st16 = mod._launch_stats(None, *pat16, **fkw)
             base16 = pattern_bytes + bias_bytes + 2 * m * d * 2 + 8 * m
             runs16 = {
-                "attn_stats": (lambda dsg: attention._launch_stats(
+                kernels[0]: (lambda dsg: mod._launch_stats(
                     dsg, *pat16, **fkw), 0, 2 * csr.nnz * d),
-                "attn_chain": (lambda dsg: attention._launch_chain(
-                    dsg, *pat16, v16, stats=st16, **fkw), 2 * m * n * 2,
+                kernels[1]: (lambda dsg: mod._launch_chain(
+                    dsg, *pat16, v16, stats=st16, **fkw, **ckw), 2 * m * n * 2,
                     2 * csr.nnz * (d + n))}
-            mask16 = mask.to(torch.bfloat16)
+            mask16 = mask.to(torch.bfloat16) if bias is not None else mask
             for label, (run16, yv_bytes, flops) in runs16.items():
                 b16 = bound(base16 + yv_bytes, flops, H100_BF16_FLOP_PER_S)
                 row = {"block_ms": time_ms(lambda: run16("block")),
@@ -1117,11 +1160,28 @@ def main() -> int:
                                               flops, H100_BF16_FLOP_PER_S)[0],
                        "library_ms": (sdpa_ms(q16[None, None], k16[None, None],
                                               v16[None, None], mask16)
-                                      if label == "attn_chain" else None)}
+                                      if label == kernels[1] else None)}
                 print(f"[time] {label} {cname} bfloat16 seq={m} d=N={d} head "
                       f"{h} " + " ".join(f"{kk}={vv}" for kk, vv in row.items()),
                       flush=True)
             del q16, k16, v16, pat16, st16, mask16
+        if cname == "gemma_local":
+            # the plan key's fingerprint alone at this mask (host clock,
+            # median of 5): the host work each layer call repeats
+            t_fp = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                pattern_fingerprint(csr)
+                t_fp.append(1e3 * (time.perf_counter() - t0))
+            t_plan = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                repro_torch.attention_plan(a["spec"])
+                t_plan.append(1e3 * (time.perf_counter() - t0))
+            print(f"[time] pattern_fingerprint {cname} nnz={csr.nnz}: "
+                  f"ms={statistics.median(t_fp)} | attention_plan (a cache "
+                  f"hit): ms={statistics.median(t_plan)} (host clock, "
+                  "median of 5)", flush=True)
         del st, mask, p
         torch.cuda.empty_cache()
 

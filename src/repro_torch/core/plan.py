@@ -48,8 +48,10 @@ from .selector import (SelectorThresholds, TileGeometry, default_thresholds,
 from .spmm import CHAIN_TRANSFORMS
 from .stats import MatrixStats, matrix_stats
 
-#: plan-context kwargs a prep hook may opt into by declaring them
-_PREP_CONTEXT_NAMES = ("geometry", "max_win")
+#: plan-context kwargs a prep hook may opt into by declaring them; ``shared``
+#: is a dict of the plan that its entries' prep hooks share (the attention
+#: block layout, one per pattern)
+_PREP_CONTEXT_NAMES = ("geometry", "max_win", "shared")
 
 #: accepted-keyword cache of prep hooks (see ``_prep_context_kwargs``)
 _PREP_KWARGS: dict = {}
@@ -64,9 +66,9 @@ _UNPORTED = ("mesh", "shard_axis", "shard_kind", "inner_backend", "quant",
 
 
 def _prep_context_kwargs(prep, ctx: dict) -> dict:
-    """Filter the plan context (geometry, ``max_win``) down to the names
-    this prep hook declares, so hooks keep the minimal ``prep(substrate)``
-    signature unless they opt in."""
+    """Filter the plan context (geometry, ``max_win``, ``shared``) down to
+    the names this prep hook declares, so hooks keep the minimal
+    ``prep(substrate)`` signature unless they opt in."""
     accepted = _PREP_KWARGS.get(prep)
     if accepted is None:
         try:
@@ -99,6 +101,7 @@ class PlanBuilder:
     chain_op: str | None = None      # chain transform the plan was keyed for
     _substrates: dict = dataclasses.field(default_factory=dict, repr=False)
     _opts: dict = dataclasses.field(default_factory=dict, repr=False)
+    _shared: dict = dataclasses.field(default_factory=dict, repr=False)
     _ell_lens: Any = dataclasses.field(default=None, repr=False)
     _ell_src: Any = dataclasses.field(default=None, repr=False)
     _bsr_map: Any = dataclasses.field(default=None, repr=False)
@@ -148,7 +151,8 @@ class PlanBuilder:
             else:
                 ctx = _prep_context_kwargs(
                     entry.prep, {"geometry": self.geometry,
-                                 "max_win": self.thresholds.max_win})
+                                 "max_win": self.thresholds.max_win,
+                                 "shared": self._shared})
                 opts = dict(entry.prep(sub, **ctx))
             self._opts[key] = opts
         return opts

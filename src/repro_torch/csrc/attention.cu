@@ -24,11 +24,20 @@
 // is bound by operations, and so is K10 at N = 256 (2·(d + N) flops an
 // entry).  At d = N = 64 both are bound by bytes.
 //
-// Two designs, routed per call by kernels/attention.py: the block design
-// when the pattern keeps at least a quarter of the entries of the 64×64
-// blocks it touches (BLOCK_FILL_MIN), d ≤ 256, and Q, K, V share one type
-// whose rows take 16-byte loads; the slot-tile design otherwise (a
+// Two designs, routed per call by kernels/blocks.py::_route: the block
+// design when the pattern keeps at least a quarter of the entries of the
+// 64×64 blocks it touches (BLOCK_FILL_MIN), d ≤ 256, and Q, K, V share one
+// type whose rows take 16-byte loads; the slot-tile design otherwise (a
 // scattered graph, fill ≈ 1/4096).
+//
+// The block design also runs K7 and K8's softmax (the TPU kernels
+// src/repro/kernels/fused_chain.py::_chain_stats_kernel and _chain_kernel)
+// on attention patterns, the model's path without a bias: a NULL bias
+// instantiates both block kernels with HasBias = false, which drops the
+// bias gather and its 16 registers a thread, and z = alpha·s.  The same
+// bound holds without the 4·nnz bias bytes; at d = 256 it is set by
+// operations.  csrc/chain.cu keeps K7/K8's slot-tile design for scattered
+// graphs, identity and scale.
 //
 // ---------------------------------------------------------------------------
 // The slot-tile design, one balanced tile a CTA on the CUDA cores.  What it
@@ -92,7 +101,8 @@
 //
 // Masking.  z = scale·s + bias at the kept keys, the bias gathered at slot
 // start + popcount(mask & ((1 << c) − 1)) (the kept keys of a row in a
-// block are one run of slots in the CSR stream); masked keys get −inf.  Each
+// block are one run of slots in the CSR stream); masked keys get −inf, by
+// selection, so a non-finite K row at a masked key reaches no row.  Each
 // row's max starts from −1e30, so a bias of −inf gives weight 0, no NaN.
 // The gather is issued before the stage's products and each stage's masks
 // are read a stage ahead: with one CTA an SM no other warp hides a load's
@@ -116,6 +126,22 @@
 // chunks of a split one (given the statistics the partial sums add
 // linearly; their order varies from run to run).  A row with no kept key
 // gets exactly 0.
+//
+// One barrier a stage (both kernels): stage s + 1's copies are waited for
+// at the end of stage s, and one barrier publishes them and frees the
+// buffer stage s used.
+//
+// Non-finite V.  P·V over a whole tile would multiply a masked key's weight
+// 0 by its V row, and 0·inf or 0·NaN would reach rows that do not attend
+// the key; the 3×TF32 split of an inf is NaN as well (lo = inf − inf).  So
+// once a stage's V tile has landed, each thread zeroes the inf and NaN
+// entries among the elements it copied and marks their keys in a 32-bit
+// word in shared memory (when V is finite, a branch-free pass over its
+// 16-byte chunks; the stage's barrier is a __syncthreads_or that says
+// whether any thread found one).  Only then, for each marked key, the rows
+// that keep it add w·V[key][col] from device memory in f32 at the columns
+// where V is not finite: inf for w > 0, NaN for w = 0 or a NaN, as the
+// reference gives.
 #include "score.cuh"
 
 namespace repro_torch {
@@ -411,6 +437,72 @@ __device__ __forceinline__ void stage_tile(T* s, int ss, const T* g, int gs,
   }
 }
 
+// inf or NaN: an exponent field of all ones.
+__device__ __forceinline__ bool nonfinite(float x) {
+  return (__float_as_uint(x) & 0x7f800000u) == 0x7f800000u;
+}
+__device__ __forceinline__ bool nonfinite(__nv_bfloat16 x) {
+  return (__bfloat16_as_ushort(x) & 0x7f80u) == 0x7f80u;
+}
+// The top bit of each value in a 32-bit word of T values whose exponent
+// field is all ones (adding 1 to an all-ones field carries into it), the
+// other bits 0, branch-free.
+template <typename T>
+__device__ __forceinline__ unsigned nonfinite_bits(unsigned w) {
+  constexpr unsigned kExp = sizeof(T) == 4 ? 0x7f800000u : 0x7f807f80u;
+  constexpr unsigned kOne = sizeof(T) == 4 ? 0x00800000u : 0x00800080u;
+  constexpr unsigned kTop = sizeof(T) == 4 ? 0x80000000u : 0x80008000u;
+  return ((w & kExp) + kOne) & kTop;
+}
+
+// Zero the inf and NaN entries among the elements of a staged kStage × NC
+// tile that this thread wrote (stage_tile's assignment: its cp.async
+// chunks — the i-th 16-byte chunk of the tile, i = threadIdx.x + k·128 — or
+// its elements on the synchronous path), and set bit r of *bad for every
+// row r that held one.  The thread's own copies have landed once its
+// cp.async group is waited for, so no barrier is needed first; the
+// caller's barrier publishes the zeros and the bits.  Returns whether the
+// thread found any.  With 16-byte chunks, a branch-free pass over them
+// comes first, and the element walk runs only where it finds one.
+template <typename T, int NC>
+__device__ __forceinline__ bool clear_nonfinite(T* s, int ss, bool vec,
+                                                unsigned* bad) {
+  constexpr int E = elems16<T>(), kPerRow = NC / E;
+  constexpr int kChunks = kStage * kPerRow;
+  if (vec) {
+    // four chunks in flight: the accumulators of P·V are live here, and a
+    // fully unrolled pass (16 chunks at 256 f32 columns) pushed the kernel
+    // past 255 registers
+    unsigned any = 0;
+#pragma unroll 4
+    for (int i0 = 0; i0 < kChunks; i0 += kBlkThreads) {
+      const int i = i0 + threadIdx.x;
+      if (kChunks % kBlkThreads == 0 || i < kChunks) {
+        const uint4 w = *reinterpret_cast<const uint4*>(
+            s + (i / kPerRow) * ss + (i % kPerRow) * E);
+        any |= nonfinite_bits<T>(w.x) | nonfinite_bits<T>(w.y) |
+               nonfinite_bits<T>(w.z) | nonfinite_bits<T>(w.w);
+      }
+    }
+    if (!any) return false;
+  }
+  bool found = false;
+  const int n_el = vec ? E : 1;
+  for (int i = threadIdx.x; i < (vec ? kChunks : kStage * NC);
+       i += kBlkThreads) {
+    const int per = vec ? kPerRow : NC;
+    const int r = i / per;
+    T* x = s + r * ss + (i - r * per) * n_el;
+    for (int e = 0; e < n_el; ++e)
+      if (nonfinite(x[e])) {
+        x[e] = T(0.f);
+        found = true;
+        atomicOr(bad, 1u << r);
+      }
+  }
+  return found;
+}
+
 // One warp's scores S = Q·Kᵀ for its 16 query rows (sq) and the 32 staged
 // keys (sk), over the padded depth dp: acc[j] is the m16n8 C fragment of
 // keys 8j .. 8j + 7 (c0, c1: row g, keys 8j + 2t, +1; c2, c3: row g + 8).
@@ -567,8 +659,10 @@ __device__ __forceinline__ void stage_bias(const StageMask& sm,
     }
 }
 
-// z = scale·s + bias at the kept keys, −inf at the others, in place of the
-// scores' C fragments.
+// z = scale·s (+ bias) at the kept keys, −inf at the others, in place of
+// the scores' C fragments.  Masking selects, so a non-finite K row at a
+// masked key reaches no row.
+template <bool HasBias>
 __device__ __forceinline__ void stage_logits(const StageMask& sm,
                                              const float (&b)[4][4],
                                              float scale, float (&acc)[4][4]) {
@@ -578,12 +672,62 @@ __device__ __forceinline__ void stage_logits(const StageMask& sm,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = 8 * j + 2 * t + (e & 1);
-      acc[j][e] = (sm.keep[e >> 1] >> key) & 1u ? scale * acc[j][e] + b[j][e]
-                                                : -INFINITY;
+      float z = scale * acc[j][e];
+      if constexpr (HasBias) z += b[j][e];
+      acc[j][e] = (sm.keep[e >> 1] >> key) & 1u ? z : -INFINITY;
     }
 }
 
-template <typename T>
+// Add w·V[key][col] to the thread's accumulators for each key of the stage
+// whose V row held an inf or NaN in the CTA's columns (the bits of `bad`;
+// clear_nonfinite zeroed those entries in shared memory, so P·V sees
+// finite values), at the thread's rows that keep the key and its columns
+// where V is not finite, V read from device memory.  A masked key's inf or NaN so
+// reaches no row, and a kept key's gives inf (w > 0) or NaN (w = 0, or a
+// NaN in V), as the reference's w·V does; the 3×TF32 split would have made
+// NaN of every inf (lo = inf − inf).  p holds the weights in the scores' C
+// fragment layout: a key's weights come from the lane of the quad that
+// holds it.
+template <typename T, int NT>
+__device__ __forceinline__ void add_nonfinite(unsigned bad,
+                                              const StageMask& sm,
+                                              const float (&p)[4][4],
+                                              const T* __restrict__ v,
+                                              int key0, int n, int col0,
+                                              float (&o)[NT][4]) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  while (bad) {
+    const int key = __ffs(bad) - 1;
+    bad &= bad - 1;
+    float mine[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (8 * j + 2 * t + e == key) {
+          mine[0] = p[j][e];
+          mine[1] = p[j][2 + e];
+        }
+    const int src = (lane & ~3) | ((key & 7) >> 1);
+    const float w[2] = {__shfl_sync(0xffffffffu, mine[0], src),
+                        __shfl_sync(0xffffffffu, mine[1], src)};
+    const T* vr = v + static_cast<long long>(key0 + key) * n;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = col0 + 8 * nt + 2 * t + e;
+        if (col >= n) continue;
+        const float x = to_f32(vr[col]);
+        if (!nonfinite(x)) continue;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if ((sm.keep[i] >> key) & 1u) o[nt][2 * i + e] += w[i] * x;
+      }
+  }
+}
+
+template <typename T, bool HasBias>
 __global__ void __launch_bounds__(kBlkThreads, 1)
 attn_stats_blocks_kernel(const int4* __restrict__ work,
                          const int* __restrict__ block_col,
@@ -611,7 +755,11 @@ attn_stats_blocks_kernel(const int4* __restrict__ work,
   stage_tile(sq, ss, q, d, row0, m, 0, d, kBlk, dp, true);
   issue(0);
   cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 
+  // As in attn_blocks_kernel: stage s + 1 lands and is published by the one
+  // barrier at the end of stage s.
   float mx[2] = {kSoftmaxNeg, kSoftmaxNeg}, sm[2] = {0.f, 0.f};
   StageMask cur = stage_mask(masks, starts, w.first, 0, lr);
   for (int s = 0; s < n_stages; ++s) {
@@ -620,16 +768,12 @@ attn_stats_blocks_kernel(const int4* __restrict__ work,
     if (s + 1 < n_stages) {
       issue(s + 1);
       cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
     }
-    __syncthreads();
     if (__any_sync(0xffffffffu, cur.keep[0] | cur.keep[1])) {
       float b[4][4], z[4][4] = {};
-      stage_bias(cur, bias, b);
+      if constexpr (HasBias) stage_bias(cur, bias, b);
       warp_scores(sq + warp * 16 * ss, sk + (s & 1) * kStage * ss, ss, dp, z);
-      stage_logits(cur, b, scale, z);
+      stage_logits<HasBias>(cur, b, scale, z);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         float top = kSoftmaxNeg;
@@ -646,7 +790,10 @@ attn_stats_blocks_kernel(const int4* __restrict__ work,
       }
     }
     cur = next;
-    __syncthreads();
+    if (s + 1 < n_stages) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
   }
 
   // Fold the four lanes of each row, then store (a whole row block) or
@@ -671,7 +818,7 @@ attn_stats_blocks_kernel(const int4* __restrict__ work,
   }
 }
 
-template <typename T, int NT>
+template <typename T, int NT, bool HasBias>
 __global__ void __launch_bounds__(kBlkThreads, 1)
 attn_blocks_kernel(const int4* __restrict__ work,
                    const int* __restrict__ block_col,
@@ -682,6 +829,7 @@ attn_blocks_kernel(const int4* __restrict__ work,
                    float* __restrict__ y, int m, int kdim, int n, int d,
                    int dp, float scale, bool vec_v) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ unsigned s_bad[3];   // per stage mod 3: keys whose V is not finite
   constexpr int NC = 8 * NT;                    // output columns of a CTA
   const int ss = dp + kQkPad, vs = NC + v_pad<T>();
   T* sq = reinterpret_cast<T*>(smem_raw);
@@ -695,13 +843,17 @@ attn_blocks_kernel(const int4* __restrict__ work,
   const int g = lane >> 2, t = lane & 3;
   const int lr = warp * 16 + g;
 
+  auto stage_key0 = [&](int s) {
+    return block_col[w.first + (s >> 1)] * kBlk + (s & 1) * kStage;
+  };
   auto issue = [&](int s) {
-    const int key0 = block_col[w.first + (s >> 1)] * kBlk + (s & 1) * kStage;
+    const int key0 = stage_key0(s);
     stage_tile(sk + (s & 1) * kStage * ss, ss, k, d, key0, kdim, 0, d, kStage,
                dp, true);
     stage_tile(sv + (s & 1) * kStage * vs, vs, v, n, key0, kdim, col0, n,
                kStage, NC, vec_v);
   };
+  if (threadIdx.x == 0) s_bad[0] = s_bad[1] = s_bad[2] = 0u;
   stage_tile(sq, ss, q, d, row0, m, 0, d, kBlk, dp, true);
   issue(0);
   cp_async_commit();
@@ -721,6 +873,18 @@ attn_blocks_kernel(const int4* __restrict__ work,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
 
+  // A stage's tiles land, are checked and are published at the end of the
+  // stage before (stage 0's here): each thread waits for its own copies and
+  // clears the inf/NaN entries of V among them, then one barrier makes the
+  // tiles, the zeros and the marks visible and frees the other buffer, so a
+  // stage needs one barrier.  Marks of stage s go to s_bad[s % 3], which is
+  // read right after the barrier that publishes it and reset after the
+  // next one, two barriers before its next use.
+  __syncthreads();                              // s_bad zeroed
+  cp_async_wait<0>();
+  unsigned marked = __syncthreads_or(
+      clear_nonfinite<T, NC>(sv, vs, vec_v, &s_bad[0])) ? s_bad[0] : 0u;
+
   StageMask cur = stage_mask(masks, starts, w.first, 0, lr);
   for (int s = 0; s < n_stages; ++s) {
     const StageMask next =
@@ -728,24 +892,30 @@ attn_blocks_kernel(const int4* __restrict__ work,
     if (s + 1 < n_stages) {
       issue(s + 1);
       cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
     }
-    __syncthreads();
+    T* sv_s = sv + (s & 1) * kStage * vs;
     if (__any_sync(0xffffffffu, cur.keep[0] | cur.keep[1])) {
       float b[4][4], p[4][4] = {};
-      stage_bias(cur, bias, b);
+      if constexpr (HasBias) stage_bias(cur, bias, b);
       warp_scores(sq + warp * 16 * ss, sk + (s & 1) * kStage * ss, ss, dp, p);
-      stage_logits(cur, b, scale, p);
+      stage_logits<HasBias>(cur, b, scale, p);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) p[j][e] = expf(p[j][e] - rm[e >> 1]);
-      warp_pv<NT>(p, sv + (s & 1) * kStage * vs, vs, o);
+      warp_pv<NT>(p, sv_s, vs, o);
+      if (marked)
+        add_nonfinite<T, NT>(marked, cur, p, v, stage_key0(s), n, col0, o);
     }
     cur = next;
-    __syncthreads();
+    if (s + 1 < n_stages) {
+      cp_async_wait<0>();
+      const int t = (s + 1) % 3;
+      const bool bad = __syncthreads_or(clear_nonfinite<T, NC>(
+          sv + ((s + 1) & 1) * kStage * vs, vs, vec_v, &s_bad[t]));
+      if (marked && threadIdx.x == 0) s_bad[s % 3] = 0u;
+      marked = bad ? s_bad[t] : 0u;
+    }
   }
 
   // w = exp(z − rm) / max(rs, 1e-30): the division once, at the end.  A
@@ -795,14 +965,14 @@ inline int padded_depth(int d, int kstep) {
   return (d + kstep - 1) / kstep * kstep;
 }
 
-template <typename T>
-int launch_attn_stats_blocks(const int* work, int n_chunks,
-                             const int* block_col, const void* masks,
-                             const int* starts, const void* q, const void* k,
-                             const float* bias, float* stats, int m, int kdim,
-                             int d, float scale, cudaStream_t stream) {
+template <typename T, bool HasBias>
+int launch_stats_blocks_as(const int* work, int n_chunks, const int* block_col,
+                           const void* masks, const int* starts, const void* q,
+                           const void* k, const float* bias, float* stats,
+                           int m, int kdim, int d, float scale,
+                           cudaStream_t stream) {
   const int dp = padded_depth(d, mma_k<T>());
-  auto kernel = attn_stats_blocks_kernel<T>;
+  auto kernel = attn_stats_blocks_kernel<T, HasBias>;
   const size_t smem = stats_blocks_smem<T>(dp);
   if (const int err = allow_smem(kernel, smem)) return err;
   kernel<<<n_chunks, kBlkThreads, smem, stream>>>(
@@ -813,14 +983,31 @@ int launch_attn_stats_blocks(const int* work, int n_chunks,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NT>
+// bias == nullptr: the instantiation without a bias (K7's softmax).
+template <typename T>
+int launch_attn_stats_blocks(const int* work, int n_chunks,
+                             const int* block_col, const void* masks,
+                             const int* starts, const void* q, const void* k,
+                             const float* bias, float* stats, int m, int kdim,
+                             int d, float scale, cudaStream_t stream) {
+  return bias ? launch_stats_blocks_as<T, true>(work, n_chunks, block_col,
+                                                masks, starts, q, k, bias,
+                                                stats, m, kdim, d, scale,
+                                                stream)
+              : launch_stats_blocks_as<T, false>(work, n_chunks, block_col,
+                                                 masks, starts, q, k, bias,
+                                                 stats, m, kdim, d, scale,
+                                                 stream);
+}
+
+template <typename T, int NT, bool HasBias>
 int launch_attn_blocks_nt(const int* work, int n_chunks, const int* block_col,
                           const void* masks, const int* starts, const void* q,
                           const void* k, const float* bias, const float* stats,
                           const void* v, float* y, int m, int kdim, int n,
                           int d, float scale, cudaStream_t stream) {
   const int dp = padded_depth(d, mma_k<T>());
-  auto kernel = attn_blocks_kernel<T, NT>;
+  auto kernel = attn_blocks_kernel<T, NT, HasBias>;
   const size_t smem = chain_blocks_smem<T, NT>(dp);
   if (const int err = allow_smem(kernel, smem)) return err;
   constexpr int NC = 8 * NT;
@@ -836,21 +1023,39 @@ int launch_attn_blocks_nt(const int* work, int n_chunks, const int* block_col,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Output columns a CTA owns: 8, 64, 128 or 256 (then chunks of 256).
+// Output columns a CTA owns: 8, 64, 128 or 256 (then chunks of 256);
+// bias == nullptr takes the instantiation without a bias (K8's softmax).
+template <typename T, bool HasBias>
+int launch_attn_blocks_as(const int* work, int n_chunks, const int* block_col,
+                          const void* masks, const int* starts, const void* q,
+                          const void* k, const float* bias, const float* stats,
+                          const void* v, float* y, int m, int kdim, int n,
+                          int d, float scale, cudaStream_t stream) {
+#define REPRO_ATTN_BLOCKS(NT)                                                  \
+  launch_attn_blocks_nt<T, NT, HasBias>(work, n_chunks, block_col, masks,     \
+                                        starts, q, k, bias, stats, v, y, m,   \
+                                        kdim, n, d, scale, stream)
+  if (n <= 8) return REPRO_ATTN_BLOCKS(1);
+  if (n <= 64) return REPRO_ATTN_BLOCKS(8);
+  if (n <= 128) return REPRO_ATTN_BLOCKS(16);
+  return REPRO_ATTN_BLOCKS(32);
+#undef REPRO_ATTN_BLOCKS
+}
+
 template <typename T>
 int launch_attn_blocks(const int* work, int n_chunks, const int* block_col,
                        const void* masks, const int* starts, const void* q,
                        const void* k, const float* bias, const float* stats,
                        const void* v, float* y, int m, int kdim, int n, int d,
                        float scale, cudaStream_t stream) {
-#define REPRO_ATTN_BLOCKS(NT)                                                  \
-  launch_attn_blocks_nt<T, NT>(work, n_chunks, block_col, masks, starts, q, k, \
-                               bias, stats, v, y, m, kdim, n, d, scale, stream)
-  if (n <= 8) return REPRO_ATTN_BLOCKS(1);
-  if (n <= 64) return REPRO_ATTN_BLOCKS(8);
-  if (n <= 128) return REPRO_ATTN_BLOCKS(16);
-  return REPRO_ATTN_BLOCKS(32);
-#undef REPRO_ATTN_BLOCKS
+  return bias ? launch_attn_blocks_as<T, true>(work, n_chunks, block_col,
+                                               masks, starts, q, k, bias,
+                                               stats, v, y, m, kdim, n, d,
+                                               scale, stream)
+              : launch_attn_blocks_as<T, false>(work, n_chunks, block_col,
+                                                masks, starts, q, k, bias,
+                                                stats, v, y, m, kdim, n, d,
+                                                scale, stream);
 }
 
 }  // namespace repro_torch
@@ -887,8 +1092,9 @@ extern "C" int repro_attn(const int* rows, const int* cols, const void* q,
 // count, split); block_col: (nb,) int32; masks: (nb·64) 64-bit kept-key
 // masks; starts: (nb·64,) int32 slots of the first kept keys; q (m, d), k
 // (kdim, d) of one type (0 = f32, 1 = bf16), d ≤ 256 and a multiple of the
-// 16-byte load, rows 16-byte aligned; bias: the f32 slab; stats: (m, 2) f32
-// filled with (-1e30, 0) by the caller.
+// 16-byte load, rows 16-byte aligned; bias: the f32 slab, or NULL for the
+// softmax chain without a bias (K7, K8); stats: (m, 2) f32 filled with
+// (-1e30, 0) by the caller.
 extern "C" int repro_attn_stats_blocks(const int* work, int n_chunks,
                                        const int* block_col, const void* masks,
                                        const int* starts, const void* q,

@@ -7,8 +7,10 @@ aggregates ``X`` over the same edges.  Run as separate kernels, the edge
 stream makes a round trip through device memory; the fused chain keeps it on
 chip.  The wrappers take the balanced slab's pattern ``(rows, cols)``
 (padding ``rows == M``) and ``shape``; their CUDA sources are
-``repro_torch/csrc/sddmm.cu`` (K6) and ``repro_torch/csrc/chain.cu`` (K7,
-K8), whose notes give each kernel's bound and design:
+``repro_torch/csrc/sddmm.cu`` (K6), ``repro_torch/csrc/chain.cu`` (K7 and
+K8, the slot-tile design) and ``repro_torch/csrc/attention.cu`` (K7 and K8's
+softmax in the block design, the bias compiled out), whose notes give each
+kernel's bound and design:
 
 * ``sddmm_fused`` (K6) replaces ``_sddmm_kernel``: f32 scores shaped like
   ``rows``, 0 at padding slots;
@@ -17,6 +19,13 @@ K8), whose notes give each kernel's bound and design:
   ``(mb, wb)`` blocks, flattened), empty rows at ``(SOFTMAX_NEG, 0)``;
 * ``chain_fused`` (K8, with K7 for softmax) replaces ``_chain_kernel``:
   ``Y = T(e) · X`` with f32 sums, cast to ``x.dtype``.
+
+K7 and K8's softmax route each call as attention does (``blocks._route``):
+an attention pattern — a band, BigBird — takes the block design of
+``kernels/blocks.py`` (64 query rows a CTA, the tensor cores) with ``scale
+= alpha``; a scattered graph, mixed types or d > 256 take the slot-tile
+design (a CTA per balanced tile, the CUDA cores), as identity and scale
+always do.  ``DESIGN_LAUNCHES`` counts the launches of each design.
 
 Each has a plain PyTorch version beside it (``*_plain``) with the same
 contract: what the CPU takes and what the kernels are held to on the card.
@@ -30,11 +39,11 @@ import torch
 
 from ..core import registry
 from ..core.formats import BalancedCOO
-from ..core.selector import HOPPER_MAX_TILE
-from ..core.spmm import (CHAIN_TRANSFORMS, SOFTMAX_NEG, chain_stats_torch,
-                         chain_torch, chain_weights, sddmm_torch)
+from ..core.selector import HOPPER_MAX_TILE, TileGeometry
+from ..core.spmm import (CHAIN_TRANSFORMS, chain_stats_torch, chain_torch,
+                         chain_weights, sddmm_torch)
 
-from . import _build, _common
+from . import _build, _common, blocks as _blocks
 from .vsr import _prep_geometry
 
 __all__ = ["CHAIN_TRANSFORMS", "sddmm_fused", "sddmm_plain",
@@ -43,6 +52,10 @@ __all__ = ["CHAIN_TRANSFORMS", "sddmm_fused", "sddmm_plain",
 
 #: launches of K6, K7 and K8 since process start (or the last reset)
 LAUNCHES = {"sddmm": 0, "chain_stats": 0, "chain": 0}
+#: K7's and K8's launches by design: "block" (the tensor-core kernels of
+#: ``csrc/attention.cu`` with the bias compiled out) or "slot" (``chain.cu``)
+DESIGN_LAUNCHES = {kernel: {"block": 0, "slot": 0}
+                   for kernel in ("chain_stats", "chain")}
 
 #: transform codes of the ``repro_chain`` entry point
 _TRANSFORM_CODES = {"identity": 0, "scale": 1, "softmax": 2}
@@ -129,55 +142,116 @@ def sddmm_fused(rows, cols, a, b, *, shape) -> torch.Tensor:
     return out
 
 
-def _stats_packed(rows, cols, a, b, m: int, alpha) -> torch.Tensor:
-    """Launch K7 into an ``(M, 2)`` f32 buffer of ``(row_max, row_sum)``
-    pairs, filled with ``(SOFTMAX_NEG, 0)`` first."""
-    stats = torch.zeros((m, 2), dtype=torch.float32, device=rows.device)
-    stats[:, 0] = SOFTMAX_NEG
-    if m and rows.numel():
+def _count(kernel: str, design: str) -> None:
+    LAUNCHES[kernel] += 1
+    DESIGN_LAUNCHES[kernel][design] += 1
+
+
+def reset_counts() -> None:
+    """Set ``DESIGN_LAUNCHES`` to 0 (``reset_launch_counts`` calls it)."""
+    for counts in DESIGN_LAUNCHES.values():
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def _stats_packed(rows, cols, a, b, m: int, alpha, design, layout
+                  ) -> torch.Tensor:
+    """Launch K7 in ``design`` into an ``(M, 2)`` f32 buffer of
+    ``(row_max, row_sum)`` pairs, filled with ``(SOFTMAX_NEG, 0)`` first."""
+    stats = _blocks.new_stats(m, rows.device)
+    if design == "block":
+        if _blocks.launch_stats("chain_stats", layout, a, b, None, stats,
+                                _alpha(alpha)):
+            _count("chain_stats", design)
+    elif m and rows.numel():
         err = _build.lib().repro_chain_stats(
             rows.data_ptr(), cols.data_ptr(), a.data_ptr(), b.data_ptr(),
             _common.is_bf16(a), stats.data_ptr(), rows.shape[0],
             rows.shape[1], m, a.shape[1], _alpha(alpha), _common.stream_of(a))
         _build.check(err, "chain_stats")
-        LAUNCHES["chain_stats"] += 1
+        _count("chain_stats", design)
     return stats
 
 
-def chain_stats_fused(rows, cols, a, b, *, shape, alpha=None
+def chain_stats_fused(rows, cols, a, b, *, shape, alpha=None,
+                      blocks: _blocks.AttnBlocks | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """K7: ``(row_max, row_sum)`` of the masked softmax of ``alpha`` times
     the edge scores, each ``(M,)`` f32.  CPU operands take the plain version;
-    CUDA operands launch the kernel or raise."""
+    CUDA operands launch the kernel of the routed design (``blocks._route``)
+    or raise.  ``blocks`` caches the pattern's block layout (built per call
+    without it)."""
     if _common.on_cpu("chain_stats", rows, cols, a, b):
         return chain_stats_plain(rows, cols, a, b, shape=shape, alpha=alpha)
+    return _launch_stats(None, rows, cols, a, b, shape=shape, alpha=alpha,
+                         blocks=blocks)
+
+
+def _launch_stats(design, rows, cols, a, b, *, shape, alpha=None,
+                  blocks=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7 on CUDA operands in ``design``: ``None`` routes by the rule,
+    ``"block"`` or ``"slot"`` forces one (for tests and timings)."""
     _check_pattern("chain_stats", rows, cols, a, b, shape)
-    stats = _stats_packed(rows, cols, a, b, int(shape[0]), alpha)
+    route, layout = _blocks._route("chain_stats", design, blocks, rows, cols,
+                                   shape, a, b)
+    stats = _stats_packed(rows, cols, a, b, int(shape[0]), alpha, route,
+                          layout)
     return stats[:, 0].contiguous(), stats[:, 1].contiguous()
 
 
 def chain_fused(rows, cols, a, b, x, *, shape, transform: str = "identity",
-                alpha=None, stats=None) -> torch.Tensor:
+                alpha=None, stats=None,
+                blocks: _blocks.AttnBlocks | None = None) -> torch.Tensor:
     """K8: ``Y = T(mask(A·Bᵀ)) · X`` in one pass over the pattern, the edge
-    scores kept on chip; softmax first runs K7 unless ``stats`` (row max and
-    row sum, indexable by row id) are given.  CPU operands take the plain
-    version; CUDA operands launch the kernels or raise."""
+    scores kept on chip; softmax first runs K7 (in the same design) unless
+    ``stats`` (row max and row sum, indexable by row id) are given.  CPU
+    operands take the plain version; CUDA operands launch the kernels or
+    raise.  Softmax routes by the rule, as ``chain_stats_fused`` (``blocks``
+    as there); identity and scale take the slot-tile design."""
     _check_transform(transform)
     given = () if stats is None else tuple(stats)
     if _common.on_cpu("chain", rows, cols, a, b, x, *given):
         return chain_plain(rows, cols, a, b, x, shape=shape,
                            transform=transform, alpha=alpha, stats=stats)
+    return _launch_chain(None, rows, cols, a, b, x, shape=shape,
+                         transform=transform, alpha=alpha, stats=stats,
+                         blocks=blocks)
+
+
+def _route(design, transform: str, blocks, rows, cols, shape, a, b, x):
+    """K8's design, ``("block", layout)`` or ``("slot", None)``: softmax by
+    ``blocks._route`` (X must share A's type too), identity and scale on
+    the slot-tile design (forcing ``"block"`` on them raises)."""
+    if transform == "softmax":
+        return _blocks._route("chain", design, blocks, rows, cols, shape, a,
+                              b, x)
+    if design == "block":
+        raise ValueError(f"chain: the block design runs softmax only; got "
+                         f"{transform!r}")
+    return _blocks._route("chain", "slot", blocks, rows, cols, shape, a, b)
+
+
+def _launch_chain(design, rows, cols, a, b, x, *, shape,
+                  transform: str = "identity", alpha=None, stats=None,
+                  blocks=None) -> torch.Tensor:
+    """K8 (K7 first for softmax without ``stats``) on CUDA operands in
+    ``design``, as for ``_launch_stats``; only softmax has a block design."""
+    _check_transform(transform)
     _check_pattern("chain", rows, cols, a, b, shape)
     m = int(shape[0])
     x2 = _common.check_dense("chain", x, int(shape[1]))
     n = x2.shape[1]
+    route, layout = _route(design, transform, blocks, rows, cols, shape, a,
+                           b, x2)
     packed = None
     if transform == "softmax":
-        packed = (_stats_packed(rows, cols, a, b, m, alpha) if stats is None
-                  else torch.stack([s[:m].float() for s in given], dim=1)
-                  .contiguous())
+        packed = (_stats_packed(rows, cols, a, b, m, alpha, route, layout)
+                  if stats is None else _blocks.pack_stats(stats, m))
     y = torch.zeros((m, n), dtype=torch.float32, device=x2.device)
-    if y.numel() and rows.numel():
+    if route == "block":
+        if _blocks.launch_chain("chain", layout, a, b, None, packed, x2, y,
+                                _alpha(alpha)):
+            _count("chain", route)
+    elif y.numel() and rows.numel():
         err = _build.lib().repro_chain(
             rows.data_ptr(), cols.data_ptr(), a.data_ptr(), b.data_ptr(),
             _common.is_bf16(a), None if packed is None else packed.data_ptr(),
@@ -185,23 +259,26 @@ def chain_fused(rows, cols, a, b, x, *, shape, transform: str = "identity",
             rows.shape[1], m, n, a.shape[1], _TRANSFORM_CODES[transform],
             _alpha(alpha), _common.stream_of(x2))
         _build.check(err, "chain")
-        LAUNCHES["chain"] += 1
+        _count("chain", route)
     y = y.to(x2.dtype)
     return y[:, 0] if x.ndim == 1 else y
 
 
 def chain_unfused(rows, cols, a, b, x, *, shape, transform: str = "identity",
-                  alpha=None, stats=None) -> torch.Tensor:
+                  alpha=None, stats=None,
+                  blocks: _blocks.AttnBlocks | None = None) -> torch.Tensor:
     """The chain as separate kernels, the edge stream materialised: K6
     scores, K7 statistics for softmax, the weights by elementwise tensor ops
     (the reference does that step outside any kernel too), then the
     nnz-balanced SpMM of the ``"hopper"`` backend (K1, or K2 for 1-D x) on
-    ``BalancedCOO(rows, cols, w)``."""
+    ``BalancedCOO(rows, cols, w)``.  ``blocks`` as for
+    ``chain_stats_fused``."""
     _check_transform(transform)
     m = int(shape[0])
     e = sddmm_fused(rows, cols, a, b, shape=shape)
     if transform == "softmax" and stats is None:
-        stats = chain_stats_fused(rows, cols, a, b, shape=shape, alpha=alpha)
+        stats = chain_stats_fused(rows, cols, a, b, shape=shape, alpha=alpha,
+                                  blocks=blocks)
     r = rows.reshape(-1)
     w = chain_weights(e.reshape(-1), r, r < m, m, transform, alpha,
                       stats=stats)
@@ -211,8 +288,16 @@ def chain_unfused(rows, cols, a, b, x, *, shape, transform: str = "identity",
 
 # ---------------------------------------------------------------------------
 # registry: the Hopper entries of the chain family.  Their prep hook is the
-# NB entries' geometry check; no visit schedule is needed.
+# NB entries' geometry check (no visit schedule is needed); the chain's adds
+# the plan's ``AttnBlocks`` (shared with the ``attn_chain`` entry), filled on
+# its first softmax call.
 # ---------------------------------------------------------------------------
+
+def _prep_chain(bal: BalancedCOO, *, geometry: TileGeometry | None = None,
+                shared: dict) -> dict:
+    return dict(_prep_geometry(bal, geometry=geometry),
+                blocks=_blocks.plan_blocks(shared))
+
 
 def _hopper_sddmm(rows, cols, a, b, **kw):
     return sddmm_fused(rows, cols, a.contiguous(), b.contiguous(), **kw)
@@ -227,4 +312,4 @@ def _hopper_chain(rows, cols, a, b, x, *, fuse: bool = True, **kw):
 registry.register("sddmm", "hopper", "balanced", _hopper_sddmm,
                   prep=_prep_geometry)
 registry.register("chain", "hopper", "balanced", _hopper_chain,
-                  prep=_prep_geometry)
+                  prep=_prep_chain)

@@ -189,6 +189,8 @@ def test_plan_prep_caches_one_layout_per_plan():
     blocks = opts["blocks"]
     assert isinstance(blocks, attention.AttnBlocks)
     assert p.kernel_opts(p.entry("attn_chain"))["blocks"] is blocks
+    # the chain entry (attention without a bias) reads the same layout
+    assert p.kernel_opts(p.entry("chain"))["blocks"] is blocks
     bal = p.substrate("balanced")
     first = blocks(bal.rows, bal.cols, p.csr.shape)
     assert first is not None and blocks(bal.rows, bal.cols, p.csr.shape) is first

@@ -411,6 +411,217 @@ def test_cuda_attention_routes_by_pattern_fill(cuda):
     assert _rel(y[0, 2], want) < 1e-4
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 8, 256, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 256])
+def test_cuda_chain_block_design_matches_plain(cuda, d, dtype, n):
+    """K7 and K8's softmax in the block design (no bias, ``scale = alpha``)
+    against the plain versions, with computed and with given statistics; the
+    BigBird pattern's global row blocks are split over CTAs.  The routed
+    calls take the block design."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, spec in _design_patterns().items():
+        csr = patterns.build_mask(spec).csr.to(cuda)
+        bal = formats.csr_to_balanced(csr, 512)
+        s = spec.seq
+        a, b = ((0.5 * torch.randn(s, d, device=cuda)).to(dtype)
+                for _ in range(2))
+        x = torch.randn(s, n, device=cuda).to(dtype)
+        x = x[:, 0].contiguous() if n == 1 else x
+        args = (bal.rows, bal.cols, a, b)
+        kw = dict(shape=csr.shape, alpha=0.7 * d ** -0.5)
+        cache = attention.AttnBlocks()
+        empty = torch.diff(csr.indptr) == 0
+        reset_launch_counts()
+        rm, rs = fused_chain.chain_stats_fused(*args, blocks=cache, **kw)
+        y = fused_chain.chain_fused(*args, x, transform="softmax",
+                                    blocks=cache, **kw)
+        ys = fused_chain._launch_chain("block", *args, x, transform="softmax",
+                                       stats=(rm, rs), blocks=cache, **kw)
+        torch.cuda.synchronize()
+        assert fused_chain.DESIGN_LAUNCHES == {
+            "chain_stats": {"block": 2, "slot": 0},
+            "chain": {"block": 2, "slot": 0}}, name
+        pm, ps = fused_chain.chain_stats_plain(*args, **kw)
+        live = pm > -1e29
+        assert torch.equal(rm[~live], pm[~live]) and (rs[empty] == 0).all()
+        assert _rel(rm[live], pm[live]) < 1e-4, name
+        assert _rel(rs, ps) < 1e-4, name
+        want = fused_chain.chain_plain(*args, x, transform="softmax", **kw)
+        for got in (y, ys):
+            assert got.dtype == dtype and got.shape == want.shape, name
+            assert torch.isfinite(got).all() and (got[empty] == 0).all(), name
+            assert _rel(got, want) < tol, name
+
+
+@pytest.mark.gpu
+def test_cuda_chain_routes_by_pattern_and_operands(cuda):
+    """The chain's softmax on a band takes the block design; a scattered
+    graph, identity and scale, X of another type and d > 256 take the
+    slot-tile design; the facade's attention without a bias and the GAT
+    chain show the same in ``DESIGN_LAUNCHES``."""
+    import repro_torch
+    spec = patterns.sliding_window(512, 2, block=64, causal=True)
+    csr = patterns.build_mask(spec).csr.to(cuda)
+    bal = formats.csr_to_balanced(csr, 512)
+    g = rmat(10, 8, seed=1, device=cuda)
+    gbal = formats.csr_to_balanced(g, 512)
+
+    def route(pat, shape, d, transform="softmax", xdtype=torch.float32):
+        a, b = (0.3 * torch.randn(shape[0], d, device=cuda) for _ in range(2))
+        x = torch.randn(shape[1], 16, device=cuda).to(xdtype)
+        reset_launch_counts()
+        y = fused_chain.chain_fused(pat.rows, pat.cols, a, b, x, shape=shape,
+                                    transform=transform, alpha=0.25)
+        want = fused_chain.chain_plain(pat.rows, pat.cols, a, b, x,
+                                       shape=shape, transform=transform,
+                                       alpha=0.25)
+        assert _rel(y, want) < (1e-4 if xdtype == torch.float32 else 2e-2)
+        return {kk: [dd for dd, nn in vv.items() if nn]
+                for kk, vv in fused_chain.DESIGN_LAUNCHES.items()}
+
+    both = {"chain_stats": ["block"], "chain": ["block"]}
+    slot = {"chain_stats": ["slot"], "chain": ["slot"]}
+    assert route(bal, csr.shape, 64) == both
+    assert route(gbal, g.shape, 64) == slot
+    assert route(bal, csr.shape, 264) == slot
+    assert route(bal, csr.shape, 64, xdtype=torch.bfloat16) == slot
+    for transform in ("identity", "scale"):
+        assert route(bal, csr.shape, 64, transform) == {"chain_stats": [],
+                                                        "chain": ["slot"]}
+    with pytest.raises(ValueError):
+        fused_chain._launch_chain("block", bal.rows, bal.cols,
+                                  *(torch.zeros(512, 64, device=cuda),) * 3,
+                                  shape=csr.shape, transform="identity")
+    q, k, v = (torch.randn(1, 2, 512, 64, device=cuda) for _ in range(3))
+    reset_launch_counts()
+    y = repro_torch.sparse_attention(spec, q, k, v, cache=False)
+    assert fused_chain.DESIGN_LAUNCHES == {
+        "chain_stats": {"block": 2, "slot": 0},
+        "chain": {"block": 2, "slot": 0}}
+    assert attention.DESIGN_LAUNCHES == {
+        "attn_stats": {"block": 0, "slot": 0},
+        "attn_chain": {"block": 0, "slot": 0}}
+    want = repro_torch.sparse_attention(spec, q[0, 1], k[0, 1], v[0, 1],
+                                        backend="torch", cache=False)
+    assert _rel(y[0, 1], want) < 1e-4
+    a, b = (0.3 * torch.randn(g.shape[0], 64, device=cuda) for _ in range(2))
+    reset_launch_counts()
+    repro_torch.sparse_chain(g, a, b, torch.randn(g.shape[1], 32, device=cuda),
+                             alpha=0.125, cache=False)
+    assert fused_chain.DESIGN_LAUNCHES == {
+        "chain_stats": {"block": 0, "slot": 1},
+        "chain": {"block": 0, "slot": 1}}
+
+
+def _fault_operands(cuda, dtype, n):
+    """The causal band of 4 blocks at d = 64 (rows 64-69 do not keep key 70,
+    rows 70-127 do), Q, K, V from seed 0."""
+    spec = patterns.sliding_window(256, 1, block=64, causal=True)
+    csr = patterns.build_mask(spec).csr.to(cuda)
+    bal = formats.csr_to_balanced(csr, 512)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k = (torch.randn(256, 64, device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    v = torch.randn(256, n, device=cuda, generator=gen).to(dtype)
+    rows = torch.repeat_interleave(torch.arange(256, device=cuda),
+                                   torch.diff(csr.indptr))
+    keeps = torch.zeros(256, dtype=torch.bool, device=cuda)
+    keeps[rows[csr.indices == 70]] = True
+    return csr, bal, q, k, v, keeps
+
+
+def _same_class(got, want, tol):
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    assert _rel(got[fin], want[fin]) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value", [float("nan"), float("inf")])
+@pytest.mark.parametrize("n", [1, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [False, True], ids=["chain", "attention"])
+def test_cuda_block_design_nonfinite_v_at_masked_keys(cuda, bias, dtype, n,
+                                                      value):
+    """A non-finite V row reaches only the rows that keep its key, in the
+    block K8 (no bias) and K10 (zero bias): rows 64-69 stay finite and equal
+    the plain version's, rows that keep key 70 are NaN or inf as there.  A
+    NaN K row at the masked key changes none of rows 64-69."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    csr, bal, q, k, v, keeps = _fault_operands(cuda, dtype, n)
+    v[70] = value
+    cache = attention.AttnBlocks()
+    slab = torch.zeros(bal.rows.shape, device=cuda)
+
+    def run(design, kk, vv):
+        if bias:
+            return attention._launch_chain(design, bal.rows, bal.cols, q, kk,
+                                           slab, vv, shape=csr.shape,
+                                           scale=0.125, blocks=cache)
+        return fused_chain._launch_chain(design, bal.rows, bal.cols, q, kk,
+                                         vv, shape=csr.shape,
+                                         transform="softmax", alpha=0.125,
+                                         blocks=cache)
+
+    if bias:
+        want = attention.attn_chain_plain(bal.rows, bal.cols, q, k, slab, v,
+                                          shape=csr.shape, scale=0.125)
+    else:
+        want = fused_chain.chain_plain(bal.rows, bal.cols, q, k, v,
+                                       shape=csr.shape, transform="softmax",
+                                       alpha=0.125)
+    want2 = want if n > 1 else want[:, None]
+    assert torch.isfinite(want2[64:70]).all()
+    assert not torch.isfinite(want2[keeps]).any()
+    y = run("block", k, v)
+    torch.cuda.synchronize()
+    y2 = y if n > 1 else y[:, None]
+    assert torch.isfinite(y2[64:70]).all() and torch.isfinite(y2[~keeps]).all()
+    _same_class(y, want, tol)
+    _same_class(y, run("slot", k, v), tol)
+    k_nan = k.clone()
+    k_nan[70] = float("nan")
+    v[70] = 0.0
+    y_fin, y_k = run("block", k, v), run("block", k_nan, v)
+    torch.cuda.synchronize()
+    yk2 = y_k if n > 1 else y_k[:, None]
+    assert torch.isfinite(yk2[64:70]).all()
+    assert torch.equal(y_k[64:70], y_fin[64:70])
+
+
+@pytest.mark.gpu
+def test_cuda_block_design_after_a_nonfinite_call(cuda):
+    """A block K10 call on all-NaN V, then a call at seq < 64 (one ragged
+    block, whose rows past K must read as zeros) with finite V: the second
+    result is finite and equals the plain version.  Shared memory need not
+    keep the first call's NaNs, so a pass proves less than a fail would."""
+    spec = patterns.bigbird(2048, 1, 2, 3, block=64, seed=0)
+    csr = patterns.build_mask(spec).csr.to(cuda)
+    bal = formats.csr_to_balanced(csr, 512)
+    q, k = (torch.randn(2048, 64, device=cuda) for _ in range(2))
+    v = torch.full((2048, 64), float("nan"), device=cuda)
+    slab = torch.zeros(bal.rows.shape, device=cuda)
+    y = attention._launch_chain("block", bal.rows, bal.cols, q, k, slab, v,
+                                shape=csr.shape, scale=0.125)
+    small = patterns.build_mask(patterns.dense_attention(40, block=8)).csr
+    small = small.to(cuda)
+    sbal = formats.csr_to_balanced(small, 512)
+    q, k, v = (torch.randn(40, 64, device=cuda) for _ in range(3))
+    sslab = torch.zeros(sbal.rows.shape, device=cuda)
+    ys = attention._launch_chain("block", sbal.rows, sbal.cols, q, k, sslab,
+                                 v, shape=small.shape, scale=0.125)
+    torch.cuda.synchronize()
+    assert torch.isnan(y).all()
+    assert torch.isfinite(ys).all()
+    assert _rel(ys, attention.attn_chain_plain(
+        sbal.rows, sbal.cols, q, k, sslab, v, shape=small.shape,
+        scale=0.125)) < 1e-4
+
+
 def _block_matrices(device):
     """Ragged M and K (neither a multiple of any block shape), an empty
     block row (rows 16-47), and a matrix without nonzeros."""

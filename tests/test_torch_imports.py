@@ -40,6 +40,7 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.attention.module",
                    "repro_torch.attention.patterns",
                    "repro_torch.kernels.attention",
+                   "repro_torch.kernels.blocks",
                    "repro_torch.kernels.bsr",
                    "repro_torch.models.transformer",
                    "repro_torch.configs.gemma3_12b"):
