@@ -11,7 +11,9 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              the ptxas register lines);
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
              at the shapes of the main path (K7-K10 at the Gemma head in
-             both designs, forced): relative inf-norm error at most
+             both designs, forced; K11 routed and in both designs, forced,
+             at the Gemma weight in float32 and bfloat16 and at (16, 64),
+             and on a ragged matrix): relative inf-norm error at most
              1e-4 in float32 (hub rows of ~40k terms summed in another
              order, atomics in no fixed order) and 2e-2 in bfloat16;
 4. main    — ``repro_torch.sparse(csr) @ x`` for two Graph500-scale R-MAT
@@ -47,8 +49,10 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              (d_ff 15360, d_model 3840), (8, 128) blocks each kept with
              probability 0.25 (numpy ``default_rng(seed)``), kept values
              N(0, 1/3840) — as ``repro_torch.sparse(w, backend="bsr") @ x``
-             for X (3840, N) at N = 1, 4, 32, 128 (one K11 launch a call,
-             agreement with the "torch" backend, the default "hopper" plan
+             for X (3840, N) at N = 1, 4, 32, 128 (one K11 launch a call:
+             the tensor-core design at N = 32 and 128, the fma design at 1
+             and 4, by ``bsr.DESIGN_LAUNCHES``; agreement with the "torch"
+             backend, the default "hopper" plan
              and a dense float64 product, a cache hit with new values, a
              second plan at ``bsr_block=(16, 64)``); then the spill path of
              the uniform graph (``spill=True`` in the ``nb_pr`` opts: K5 at
@@ -78,12 +82,19 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              slot-tile: 8 B a slab slot, 12 B with the bias); the plan
              key's ``pattern_fingerprint`` alone at Gemma's mask and a
              cached ``attention_plan`` lookup (host clock); per N of the pruned
-             FFN weight: K11, its plain version, the facade's call,
-             ``torch.sparse.mm`` on the CSR, ``to_sparse_bsr((8, 128)) @ x``
-             where PyTorch takes it, and the dense ``torch.matmul`` of W,
-             beside K11's bound: max(bytes / 3.35 TB/s, 2·nblocks·bm·bk·N /
-             165 TFLOP/s) with bytes = 4·nblocks·bm·bk + 4·nblocks + 4·(Mb+1)
-             + 4·K·N + 4·M·N; per N of the uniform graph's spill path: K4
+             FFN weight: K11 with its group layout prebuilt (the layout's
+             build time on the host clock and the tensor-core kernel's
+             ``-Xptxas -v`` lines printed first), each design forced, its
+             plain version, the facade's call, ``torch.sparse.mm`` on the
+             CSR, ``to_sparse_bsr((8, 128)) @ x`` where PyTorch takes it, and
+             the dense ``torch.matmul`` of W, beside K11's bound:
+             max(bytes / 3.35 TB/s, 2·nblocks·bm·bk·N / 165 TFLOP/s) with
+             bytes = 4·nblocks·bm·bk + the pattern the routed design reads
+             (fma: 4·nblocks + 4·(Mb+1); tensor cores: 4·(groups+1) + 36 B
+             an entry of the layout) + 4·K·N + 4·M·N; the same in bfloat16
+             (at 989 TFLOP/s) and at (16, 64), beside the dense product in
+             that type and ``sparse.mm`` where it takes it; per N of the
+             uniform graph's spill path: K4
              (K5) alone, the ``index_add_`` combine, the spill call, the
              fused K1 (K2), the plain version and ``torch.sparse.mm``, each
              bound counting the partials written;
@@ -550,38 +561,60 @@ def main() -> int:
              f"{w_kept} kept blocks")
     w_bsr16 = formats.BSR(w_bsr.indptr, w_bsr.indices, w_bsr.blocks.bfloat16(),
                           w_bsr.shape, w_bsr.block_shape)
-    for dtype, wb in ((torch.float32, w_bsr), (torch.bfloat16, w_bsr16)):
+    w_alt = formats.csr_to_bsr(w_csr, *BSR_BLOCK_ALT)
+    # both designs of K11, forced, each against the plain version: the
+    # tensor-core design reads the group layout, built once a weight
+    for label, wb, dtype in (("", w_bsr, torch.float32),
+                             ("", w_bsr16, torch.bfloat16),
+                             (f" {BSR_BLOCK_ALT}", w_alt, torch.float32)):
         dt = str(dtype).split(".")[1]
+        layout = bsr.build_groups(wb)
         for n in NS:
             x = randn(d_model, n, dtype=dtype) if n > 1 else randn(d_model, dtype=dtype)
-            hold("bsr_spmm", f"gemma ffn_up N={n}", bsr.spmm_bsr(wb, x),
-                 bsr.spmm_bsr_plain(wb, x), dt)
-    del w_bsr16
+            want = bsr.spmm_bsr_plain(wb, x)
+            hold("bsr_spmm", f"gemma ffn_up{label} N={n} routed",
+                 bsr.spmm_bsr(wb, x, layout=layout), want, dt)
+            x2 = x if n > 1 else x[:, None]
+            want2 = want if n > 1 else want[:, None]
+            for design in bsr.DESIGN_LAUNCHES["bsr_spmm"]:
+                hold("bsr_spmm", f"gemma ffn_up{label} N={n} {design}",
+                     bsr._launch(design, wb, x2, layout), want2, dt)
+    del w_bsr16, w_alt, layout
     rng = np.random.default_rng(args.seed)
     ragged = ((rng.random((203, 333)) < 0.05)
               * rng.standard_normal((203, 333))).astype(np.float32)
     ragged[16:48] = 0.0                 # block rows 1 and 2 of (16, 64) empty
     ragged_bsr = formats.csr_to_bsr(formats.csr_from_dense(ragged, device=dev),
                                     *BSR_BLOCK_ALT)
+    ragged_layout = bsr.build_groups(ragged_bsr)
     for n in (1, 37):
         x = randn(333, n) if n > 1 else randn(333)
-        y = bsr.spmm_bsr(ragged_bsr, x)
-        if not (y[16:48] == 0).all():
-            fail("bsr_spmm: the empty block rows of the ragged matrix are not 0")
-        hold("bsr_spmm", f"ragged 203x333 {BSR_BLOCK_ALT} N={n}", y,
-             bsr.spmm_bsr_plain(ragged_bsr, x), "float32")
+        x2 = x if n > 1 else x[:, None]
+        for design in (None, *bsr.DESIGN_LAUNCHES["bsr_spmm"]):
+            if design is None:
+                y = bsr.spmm_bsr(ragged_bsr, x)
+                want = bsr.spmm_bsr_plain(ragged_bsr, x)
+            else:
+                y = bsr._launch(design, ragged_bsr, x2, ragged_layout)
+                want = bsr.spmm_bsr_plain(ragged_bsr, x2)
+            if not (y[16:48] == 0).all():
+                fail("bsr_spmm: the empty block rows of the ragged matrix "
+                     f"are not 0 ({design or 'routed'})")
+            hold("bsr_spmm", f"ragged 203x333 {BSR_BLOCK_ALT} N={n} "
+                 f"{design or 'routed'}", y, want, "float32")
     torch.cuda.synchronize()
 
     # -- 4. the main path through the facade -----------------------------------
     phase("main")
     launches = {k: 0 for k in KERNELS}
     #: K7-K10 launches by design on the main path
-    design_counts = (fused_chain.DESIGN_LAUNCHES, attention.DESIGN_LAUNCHES)
-    designs = {kk: {"block": 0, "slot": 0}
-               for counts in design_counts for kk in counts}
+    design_counts = (fused_chain.DESIGN_LAUNCHES, attention.DESIGN_LAUNCHES,
+                     bsr.DESIGN_LAUNCHES)
+    designs = {kk: dict.fromkeys(vv, 0)
+               for counts in design_counts for kk, vv in counts.items()}
 
     def took():
-        """The designs of the K7-K10 launches since the last reset."""
+        """The designs of the K7-K11 launches since the last reset."""
         return {kk: dict(vv) for counts in design_counts
                 for kk, vv in counts.items()}
 
@@ -728,7 +761,7 @@ def main() -> int:
         t0 = time.perf_counter()
         y, counts = drive(call)
         t1 = time.perf_counter()
-        ran = took()
+        ran = {kk: vv for kk, vv in took().items() if kk != "bsr_spmm"}
         want = {kk: (q.shape[1] if kk in kernels else 0) for kk in counts}
         if counts != want:
             fail(f"attention {cname}: launches {counts}, expected {want}")
@@ -813,6 +846,12 @@ def main() -> int:
             fail(f"bsr N={n}: plan {W.backend!r} {W.plan.bsr_block}")
         if counts != only_k11:
             fail(f"bsr N={n}: launches {counts}, expected one of K11 alone")
+        # the tensor-core design from TC_MIN_N on, the fma design below
+        ran_k11 = took()["bsr_spmm"]
+        want_design = "tc" if n >= bsr.TC_MIN_N else "fma"
+        if ran_k11 != {dd: int(dd == want_design) for dd in ran_k11}:
+            fail(f"bsr N={n}: K11 took the designs {ran_k11}, expected "
+                 f"{want_design}")
         if y.shape != ((d_ff, n) if n > 1 else (d_ff,)) or not torch.isfinite(y).all():
             fail(f"bsr N={n}: output of shape {tuple(y.shape)} is not finite "
                  "or has the wrong shape")
@@ -820,6 +859,7 @@ def main() -> int:
         rel_h, _ = errors(y, repro_torch.sparse(w_csr) @ x)
         rel_d, _ = errors(y, w_gpu.double() @ x.double())
         print(f"[main] bsr gemma ffn_up N={n}: launches={counts['bsr_spmm']} "
+              f"design={want_design} "
               f"rel_err_vs_torch={rel_t:.3e} vs_hopper_plan={rel_h:.3e} "
               f"vs_dense_f64={rel_d:.3e} sparse_s={t1 - t0:.3f} "
               f"call_s={t2 - t1:.3f} (host clock; the first call builds the "
@@ -832,16 +872,22 @@ def main() -> int:
                                         randn(w_csr.nnz), w_csr.shape),
                             backend="bsr")
     y2, counts = drive(lambda: W2 @ x)
+    ran2 = took()["bsr_spmm"]
     rel2, _ = errors(y2, W2.matmul(x, backend="torch"))
     hit = repro_torch.cache_stats()["hits"] == hits + 1 and W2.plan is W.plan
     W3 = repro_torch.sparse(w_csr, backend="bsr", bsr_block=BSR_BLOCK_ALT)
     y3, counts3 = drive(lambda: W3 @ x)
+    ran3 = took()["bsr_spmm"]
     rel3, _ = errors(y3, y)
     print(f"[main] bsr new values: cache_hit={hit} launches={counts['bsr_spmm']} "
           f"rel_err_vs_torch={rel2:.3e} | bsr_block={BSR_BLOCK_ALT}: second "
           f"plan={W3.plan is not W.plan} nblocks="
           f"{W3.plan.substrate('bsr').nblocks} launches={counts3['bsr_spmm']} "
-          f"rel_err_vs_{BSR_BLOCK}={rel3:.3e}", flush=True)
+          f"rel_err_vs_{BSR_BLOCK}={rel3:.3e} designs {ran2} / {ran3}",
+          flush=True)
+    if ran2["tc"] != 1 or ran3["tc"] != 1:
+        fail(f"bsr N={n}: the new values or the {BSR_BLOCK_ALT} plan did not "
+             "take the tensor-core design")
     if not hit or counts != only_k11 or rel2 > RTOL["float32"]:
         fail("bsr: new values missed the plan cache or K11, or disagree")
     if W3.plan is W.plan or counts3 != only_k11 or rel3 > RTOL["float32"]:
@@ -1206,12 +1252,43 @@ def main() -> int:
         lib_wb = None
         print(f"[time] to_sparse_bsr{BSR_BLOCK} refused: {err}", flush=True)
     W = repro_torch.sparse(w_csr, backend="bsr")
+    # the group layout of the tensor-core design, built as the plan's prep
+    # hook builds it (host clock): the timed calls get it prebuilt, as W @ x
+    # does
+    t0 = time.perf_counter()
+    layout = bsr.build_groups(w_bsr)
+    torch.cuda.synchronize()
+    print(f"[time] bsr_spmm group layout {BSR_BLOCK}: {layout.n_groups} groups "
+          f"of {layout.group_blocks} block rows, {layout.cols.shape[0]} "
+          f"(group, column) entries, built in "
+          f"{1e3 * (time.perf_counter() - t0):.3f} ms (host clock)", flush=True)
+    print("[time] bsr_spmm tensor-core design, -Xptxas -v:", flush=True)
+    fn_name = None
+    for line in built.log.splitlines():
+        if "Compiling entry function" in line:
+            fn_name = line.split("'")[1] if "'" in line else line
+        elif fn_name and "bsr_tc_kernel" in fn_name and (
+                "registers" in line or "spill" in line):
+            print(f"[time]   {fn_name}: {line.strip()}", flush=True)
+
+    def k11_bound(wb, n, rate=H100_F32_FLOP_PER_S, design="fma", lay=None):
+        """K11's bound for the design: the blocks once, the pattern it
+        reads (indptr and indices, or the group layout: its pointers,
+        columns and eight tile rows an entry), X and Y once."""
+        el = wb.blocks.element_size()
+        wmb = wb.indptr.shape[0] - 1
+        pattern = (4 * (lay.n_groups + 1) + 36 * lay.cols.shape[0]
+                   if design == "tc" else 4 * wb.nblocks + 4 * (wmb + 1))
+        return bound(el * wb.blocks.numel() + pattern
+                     + el * (wb.shape[1] + wb.shape[0]) * n,
+                     2 * wb.blocks.numel() * n, rate)
+
     for n in NS:
         x = randn(d_model, n)
-        blk_bound = bound(4 * w_bsr.blocks.numel() + 4 * w_bsr.nblocks
-                          + 4 * (mb + 1) + 4 * d_model * n + 4 * d_ff * n,
-                          2 * w_bsr.blocks.numel() * n)
-        row = {"kernel_ms": time_ms(lambda: bsr.spmm_bsr(w_bsr, x)),
+        design = "tc" if n >= bsr.TC_MIN_N else "fma"
+        blk_bound = k11_bound(w_bsr, n, design=design, lay=layout)
+        row = {"kernel_ms": time_ms(lambda: bsr.spmm_bsr(w_bsr, x, layout=layout)),
+               "design": design,
                "plain_ms": time_ms(lambda: bsr.spmm_bsr_plain(w_bsr, x), reps=5),
                "library_ms": time_ms(lambda: lib_w @ x),
                "bound_ms": blk_bound[0], "bound_by": blk_bound[1],
@@ -1219,33 +1296,46 @@ def main() -> int:
                "bsr_library_ms": (None if lib_wb is None else
                                   try_ms("to_sparse_bsr @ x", lambda: lib_wb @ x)),
                "dense_ms": time_ms(lambda: w_gpu @ x)}
+        # both designs, forced (the routed one's time is kernel_ms)
+        for dd in bsr.DESIGN_LAUNCHES["bsr_spmm"]:
+            row[f"{dd}_ms"] = time_ms(lambda: bsr._launch(dd, w_bsr, x, layout))
         print(f"[time] bsr_spmm gemma ffn_up {d_ff}x{d_model} N={n} "
               + " ".join(f"{kk}={vv}" for kk, vv in row.items()), flush=True)
         if n == BSR_SUMMARY_N:
             summary_rows["bsr_spmm"] = (row, f"gemma3-12b ffn_up {d_ff}x"
                                          f"{d_model} {BSR_BLOCK} N={n}")
     # K11 with bf16 blocks and activations (bound at the bf16 tensor-core
-    # rate), and on the second plan's (16, 64) blocks of the same W
+    # rate), and on the second plan's (16, 64) blocks of the same W, each
+    # beside the dense product of W in its type and PyTorch's sparse.mm
+    # where it takes the type
     w_alt = formats.csr_to_bsr(w_csr, *BSR_BLOCK_ALT)
-    for label, wb, dtype in (
+    w16 = w_gpu.bfloat16()
+    lib_w16 = torch.sparse_csr_tensor(w_csr.indptr, w_csr.indices,
+                                      w_csr.data.bfloat16(), size=w_csr.shape,
+                                      check_invariants=False)
+    for label, wb, dtype, dense_w, lib in (
             ("bf16", formats.BSR(w_bsr.indptr, w_bsr.indices,
                                  w_bsr.blocks.bfloat16(), w_bsr.shape,
-                                 w_bsr.block_shape), torch.bfloat16),
-            (f"f32 {BSR_BLOCK_ALT}", w_alt, torch.float32)):
-        wmb = wb.indptr.shape[0] - 1
+                                 w_bsr.block_shape), torch.bfloat16, w16, lib_w16),
+            (f"f32 {BSR_BLOCK_ALT}", w_alt, torch.float32, w_gpu, lib_w)):
         rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else H100_F32_FLOP_PER_S
+        wlay = bsr.build_groups(wb)
         for n in NS:
             x = randn(d_model, n, dtype=dtype)
-            el = x.element_size()
-            b = bound(wb.blocks.element_size() * wb.blocks.numel()
-                      + 4 * wb.nblocks + 4 * (wmb + 1) + el * (d_model + d_ff) * n,
-                      2 * wb.blocks.numel() * n, rate)
-            row = {"kernel_ms": time_ms(lambda: bsr.spmm_bsr(wb, x)),
+            design = "tc" if n >= bsr.TC_MIN_N else "fma"
+            b = k11_bound(wb, n, rate, design, wlay)
+            row = {"kernel_ms": time_ms(lambda: bsr.spmm_bsr(wb, x, layout=wlay)),
+                   "design": design,
                    "plain_ms": time_ms(lambda: bsr.spmm_bsr_plain(wb, x), reps=5),
                    "bound_ms": b[0], "bound_by": b[1],
+                   "dense_ms": time_ms(lambda: dense_w @ x),
+                   "library_ms": try_ms(f"sparse.mm {label}", lambda: lib @ x),
                    "nblocks": wb.nblocks}
+            for dd in bsr.DESIGN_LAUNCHES["bsr_spmm"]:
+                row[f"{dd}_ms"] = time_ms(lambda: bsr._launch(dd, wb, x, wlay))
             print(f"[time] bsr_spmm gemma ffn_up {label} N={n} "
                   + " ".join(f"{kk}={vv}" for kk, vv in row.items()), flush=True)
+    del w16, lib_w16, wlay, layout
     del lib_w, lib_wb, W, w_alt, wb
     torch.cuda.empty_cache()
 

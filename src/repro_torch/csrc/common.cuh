@@ -11,6 +11,12 @@ namespace repro_torch {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// Elements of one 16-byte load.
+template <typename T>
+__host__ __device__ constexpr int elems16() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
 // Lanes of a warp that share one nonzero and split its dense row: the
 // smallest power of two >= min(n, 32).
 inline int lanes_per_row(int n) {

@@ -65,12 +65,6 @@ __device__ __forceinline__ float dot16(const __nv_bfloat16* a,
   return s;
 }
 
-// Elements of one 16-byte load.
-template <typename T>
-__host__ __device__ constexpr int elems16() {
-  return 16 / static_cast<int>(sizeof(T));
-}
-
 // Lanes per slot for feature width d: the smallest power of two >= the
 // number of loads a row takes, at most 32.
 template <typename T>

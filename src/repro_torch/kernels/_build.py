@@ -29,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("vsr.cu", "spmv.cu", "csc.cu", "sddmm.cu", "chain.cu",
            "attention.cu", "bsr.cu")
-HEADERS = ("common.cuh", "score.cuh")
+HEADERS = ("common.cuh", "score.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,6 +47,8 @@ SIGNATURES = {
                              _P),
     "repro_bsr_spmm": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                        _P),
+    "repro_bsr_spmm_tc": (_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I,
+                          _I, _I, _P),
     "repro_csc_spmm": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _P),
     "repro_sddmm": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     "repro_chain_stats": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _P),

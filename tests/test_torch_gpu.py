@@ -685,6 +685,118 @@ def test_cuda_bsr_facade_and_rejects(cuda):
     assert launch_counts()["bsr_spmm"] == 0
 
 
+def _padded_x(cuda, k, n, dtype):
+    """X (k, n) as the head of a larger buffer whose rows past k are NaN: a
+    kernel that read X's rows past K (the ragged last block column) instead
+    of zero-filling them would carry NaN into its sums."""
+    buf = torch.full((k + 64, n), float("nan"), device=cuda, dtype=dtype)
+    buf[:k] = torch.randn(k, n, device=cuda).to(dtype)
+    return buf[:k]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [(8, 16), (8, 128), (16, 64), (64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [16, 32, 128, 200])
+def test_cuda_bsr_tc_design_matches_plain(cuda, block, dtype, n):
+    """The tensor-core design, forced and routed, at every column tile: N
+    tiles that are ragged (200), ragged M and K, empty block rows, nnz = 0."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, csr in _block_matrices(cuda).items():
+        csr = formats.CSR(csr.indptr, csr.indices, csr.data.to(dtype), csr.shape)
+        b = formats.csr_to_bsr(csr, *block)
+        layout = bsr.build_groups(b)
+        x = _padded_x(cuda, csr.shape[1], n, dtype)
+        want = bsr.spmm_bsr_plain(b, x)
+        for cols in (32, 64, 128):
+            y = bsr._launch("tc", b, x, layout, ncols=cols)
+            assert y.shape == want.shape and torch.isfinite(y).all(), (name, cols)
+            if name == "nnz0":
+                assert b.nblocks == 0 and (y == 0).all()
+            else:
+                assert (y[16:48] == 0).all(), (name, cols)
+                assert _rel(y, want) < tol, (name, cols)
+        reset_launch_counts()
+        y = bsr.spmm_bsr(b, x, layout=layout)
+        assert bsr.DESIGN_LAUNCHES["bsr_spmm"] == {
+            "tc": int(b.shape[0] > 0), "fma": 0}
+        assert y.dtype == dtype and _rel(y, want) < tol
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_bsr_routes_by_rule(cuda):
+    """``DESIGN_LAUNCHES`` shows the design each call took: the tensor-core
+    design from ``TC_MIN_N`` on for bm a multiple of 8, bk of the MMA's depth
+    and one operand type; the fma design otherwise."""
+    csr = _block_matrices(cuda)["ragged"]
+    f32 = formats.csr_to_bsr(csr, 8, 16)
+    b16 = formats.BSR(f32.indptr, f32.indices, f32.blocks.bfloat16(),
+                      f32.shape, f32.block_shape)
+    b12 = formats.csr_to_bsr(csr, 12, 16)
+    buf = torch.empty(f32.blocks.numel() + 1, device=cuda)
+    buf[1:] = f32.blocks.reshape(-1)             # blocks 4 bytes past 16
+    unaligned = formats.BSR(f32.indptr, f32.indices,
+                            buf[1:].view(f32.blocks.shape), f32.shape,
+                            f32.block_shape)
+    bf16_k8 = formats.csr_to_bsr(formats.CSR(csr.indptr, csr.indices,
+                                             csr.data.bfloat16(), csr.shape),
+                                 8, 8)
+    cases = [(f32, torch.float32, 1, "fma"), (f32, torch.float32, 4, "fma"),
+             (f32, torch.float32, bsr.TC_MIN_N - 1, "fma"),
+             (f32, torch.float32, bsr.TC_MIN_N, "tc"),
+             (f32, torch.float32, 128, "tc"), (b16, torch.bfloat16, 32, "tc"),
+             (b16, torch.float32, 32, "fma"), (f32, torch.bfloat16, 32, "fma"),
+             (b12, torch.float32, 32, "fma"), (bf16_k8, torch.bfloat16, 32, "fma"),
+             (unaligned, torch.float32, 32, "fma")]
+    for b, xdtype, n, design in cases:
+        x = torch.randn(csr.shape[1], n, device=cuda).to(xdtype)
+        x = x[:, 0].contiguous() if n == 1 else x
+        reset_launch_counts()
+        y = bsr.spmm_bsr(b, x)
+        assert bsr.DESIGN_LAUNCHES["bsr_spmm"] == {
+            dd: int(dd == design) for dd in ("tc", "fma")}, (b.block_shape, n)
+        assert launch_counts()["bsr_spmm"] == 1
+        tol = 1e-4 if (b.blocks.dtype, xdtype) == (torch.float32,) * 2 else 2e-2
+        assert _rel(y, bsr.spmm_bsr_plain(b, x)) < tol
+    with pytest.raises(ValueError):          # forced onto a design that refuses
+        bsr._launch("tc", b12, torch.randn(csr.shape[1], 32, device=cuda),
+                    bsr.build_groups(b12))
+    with pytest.raises(ValueError):          # a layout of another pattern
+        bsr._launch("tc", f32, torch.randn(csr.shape[1], 32, device=cuda),
+                    bsr.build_groups(formats.csr_to_bsr(
+                        _block_matrices(cuda)["nnz0"], 8, 16)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", ["tc", "fma"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [16, 128])
+def test_cuda_bsr_nonfinite_x_stays_in_its_rows(cuda, design, dtype, n):
+    """NaN and inf in X's block column 0: block rows with no block there
+    stay finite (the sum of their own blocks), rows that hold one give what
+    the plain version gives, inf and NaN alike."""
+    rng = np.random.default_rng(4)
+    a = (rng.random((96, 64)) < 0.5) * rng.standard_normal((96, 64))
+    a[:, :16] *= (np.arange(96) // 8 % 2 == 0)[:, None]    # odd block rows: none
+    w = formats.csr_to_bsr(formats.csr_from_dense(a.astype(np.float32),
+                                                  device=cuda), 8, 16)
+    w = formats.BSR(w.indptr, w.indices, w.blocks.to(dtype), w.shape,
+                    w.block_shape)
+    x = torch.randn(64, n, device=cuda).to(dtype)
+    x[3, 0], x[5, 1], x[7, 2] = float("nan"), float("inf"), float("-inf")
+    y = bsr._launch(design, w, x, bsr.build_groups(w))
+    want = bsr.spmm_bsr_plain(w, x).float()
+    odd = (torch.arange(96, device=cuda) // 8) % 2 == 1
+    assert torch.isfinite(y[odd]).all()
+    assert torch.equal(y.isnan(), want.isnan())
+    assert torch.equal(y.isinf(), want.isinf())
+    fin = torch.isfinite(want)
+    assert torch.equal(y[~fin & ~want.isnan()], want[~fin & ~want.isnan()])
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _rel(torch.where(fin, y, 0), torch.where(fin, want, 0)) < tol
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 3, 4, 32, 128, 200])
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
