@@ -10,7 +10,8 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
 2. build   — compile the kernels from ``src/repro_torch/csrc`` (seconds and
              the ptxas register lines);
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
-             at the shapes of the main path (K7-K10 at the Gemma head in
+             at the shapes of the main path (K3 in both designs, forced: sr
+             at N = 32 and 128, pr at N = 1 and 4; K7-K10 at the Gemma head in
              both designs, forced; K11 routed and in both designs, forced,
              at the Gemma weight in float32 and bfloat16 and at (16, 64),
              and on a ragged matrix): relative inf-norm error at most
@@ -63,7 +64,13 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              ``torch.sparse.mm`` (cuSPARSE, the paper's baseline) by CUDA
              events, median of 20 runs after a warm-up, beside the bound:
              max(bytes / 3.35 TB/s, 2·nnz·N / 165 TFLOP/s) with bytes =
-             12·nnz (8·nnz for ELL) + 4·K·N + 4·M·N; per (graph, transform,
+             12·nnz (K3: 8·nnz + 4·M, the stored entries and the row
+             lengths) + 4·K·N + 4·M·N, K3's row with its design, its lanes a
+             row and the X rows it gathers (nnz·N·4 B); on the uniform
+             graph K3's pr design forced at N = 1 and 4 beside the pick
+             (K2, K1) and ``sparse.mm``, and at N = 32 and 128 the sr
+             design in one pass beside its routed column-slab order and K1
+             forced (the selector's other side of sr_cv); per (graph, transform,
              N) of the chain: K6, K7 and K8 alone, the fused call, the
              unfused pair and the plain version, beside each kernel's bound
              (each input read once, each output written once) and, for K6,
@@ -354,10 +361,14 @@ def main() -> int:
         x = randn(k_dim)
         hold("vsr_spmv", f"{name} N=1", spmv.spmv_vsr_fused(bal, x),
              spmv.spmv_vsr_plain(bal, x), "float32")
-    for n in (32, 128):
-        x = randn(k_dim, n)
-        hold("csc_spmm", f"unif N={n}", csc.spmm_csc(unif_ell, x),
-             csc.spmm_csc_plain(unif_ell, x), "float32")
+    # K3's two designs at the main path's N (sr, the pick at 32 and 128)
+    # and at N = 1 and 4 (pr, forced: the selector picks K2/K1 there)
+    for design, n, dtype in (("sr", 32, torch.float32), ("sr", 128, torch.float32),
+                             ("pr", 1, torch.float32), ("pr", 4, torch.float32),
+                             ("sr", 32, torch.bfloat16), ("pr", 4, torch.bfloat16)):
+        x = randn(k_dim, n, dtype=dtype)
+        hold("csc_spmm", f"unif N={n} {design}", csc.spmm_csc(unif_ell, x, design),
+             csc.spmm_csc_plain(unif_ell, x), str(dtype).split(".")[1])
     # the spill path on the uniform graph's windows: K5 at N = 1, K4 above,
     # their partials and the combined product
     base, win = vsr.SpillWindows(default_th.max_win)(unif_bal)
@@ -607,14 +618,14 @@ def main() -> int:
     # -- 4. the main path through the facade -----------------------------------
     phase("main")
     launches = {k: 0 for k in KERNELS}
-    #: K7-K10 launches by design on the main path
-    design_counts = (fused_chain.DESIGN_LAUNCHES, attention.DESIGN_LAUNCHES,
-                     bsr.DESIGN_LAUNCHES)
+    #: K3 and K7-K11 launches by design on the main path
+    design_counts = (csc.DESIGN_LAUNCHES, fused_chain.DESIGN_LAUNCHES,
+                     attention.DESIGN_LAUNCHES, bsr.DESIGN_LAUNCHES)
     designs = {kk: dict.fromkeys(vv, 0)
                for counts in design_counts for kk, vv in counts.items()}
 
     def took():
-        """The designs of the K7-K11 launches since the last reset."""
+        """The designs of the K3 and K7-K11 launches since the last reset."""
         return {kk: dict(vv) for counts in design_counts
                 for kk, vv in counts.items()}
 
@@ -648,6 +659,10 @@ def main() -> int:
                 fail(f"{name} N={n}: selector picked {pick}, expected {PICKS[name][n]}")
             if counts[kernel] < 1:
                 fail(f"{name} N={n}: {kernel} was not launched ({counts})")
+            k3_design = took()["csc_spmm"]
+            if kernel == "csc_spmm" and k3_design[pick[3:]] < 1:
+                fail(f"{name} N={n}: {pick} did not take K3's {pick[3:]} "
+                     f"design ({k3_design})")
             if y.shape != ((csr.shape[0], n) if n > 1 else (csr.shape[0],)) \
                     or not torch.isfinite(y).all():
                 fail(f"{name} N={n}: output of shape {tuple(y.shape)} is not "
@@ -761,7 +776,8 @@ def main() -> int:
         t0 = time.perf_counter()
         y, counts = drive(call)
         t1 = time.perf_counter()
-        ran = {kk: vv for kk, vv in took().items() if kk != "bsr_spmm"}
+        ran = {kk: vv for kk, vv in took().items()
+               if kk not in ("bsr_spmm", "csc_spmm")}
         want = {kk: (q.shape[1] if kk in kernels else 0) for kk in counts}
         if counts != want:
             fail(f"attention {cname}: launches {counts}, expected {want}")
@@ -949,7 +965,7 @@ def main() -> int:
     for k, v in launches.items():
         if v < 1:
             fail(f"{k} was never launched on the main path")
-    print(f"[main] launches on the main path: {launches}; K7-K10 by design: "
+    print(f"[main] launches on the main path: {launches}; K3, K7-K11 by design: "
           f"{designs}", flush=True)
 
     # -- 5. times ---------------------------------------------------------------
@@ -967,7 +983,8 @@ def main() -> int:
             if kernel == "csc_spmm":
                 sub = A.plan.substrate("ell")
                 run, plain = csc.spmm_csc, csc.spmm_csc_plain
-                sub_bytes = 8 * csr.nnz
+                # K3 reads each stored entry (8 B) and each row's length
+                sub_bytes = 8 * csr.nnz + 4 * m
             else:
                 sub = A.plan.substrate("balanced")
                 run = vsr.spmm_vsr_fused if n > 1 else spmv.spmv_vsr_fused
@@ -984,11 +1001,63 @@ def main() -> int:
                 "bound_ms": 1e3 * max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             }
+            if kernel == "csc_spmm":
+                row["design"] = pick[3:]
+                row["lanes"] = csc.sr_lanes(n, k_dim, x.element_size())
+                # X rows a one-pass kernel gathers, one per stored entry:
+                # the floor of any one-pass design once X outgrows L2
+                row["gather_bytes"] = csr.nnz * n * x.element_size()
             rows[(name, n)] = row
             print(f"[time] {name}_s{args.scale}_e16 N={n} "
                   + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
         del lib_a
         torch.cuda.empty_cache()
+
+    # K3 off the main path's picks, on the uniform graph: the pr design
+    # forced at N = 1 and 4 (the selector takes K2 and K1 there), the sr
+    # design in one pass beside the routed column-slab order, and K1 forced
+    # at N = 32 and 128 (the selector's alternative, on the other side of
+    # sr_cv)
+    ucsr = graphs["unif"]
+    m, k_dim = ucsr.shape
+    U = repro_torch.sparse(ucsr)
+    uell, ubal = U.plan.substrate("ell"), U.plan.substrate("balanced")
+    group = U.plan.kernel_opts(U.plan.entry("rs_pr"))["group"]
+    lib_a = torch.sparse_csr_tensor(ucsr.indptr, ucsr.indices, ucsr.data,
+                                    size=ucsr.shape, check_invariants=False)
+    k3_bytes = 8 * ucsr.nnz + 4 * m
+    for n in (1, 4):
+        x = randn(k_dim, n) if n > 1 else randn(k_dim)
+        t_bytes = (k3_bytes + 4 * k_dim * n + 4 * m * n) / H100_BYTES_PER_S
+        t_ops = 2 * ucsr.nnz * n / H100_F32_FLOP_PER_S
+        row = {"kernel_ms": time_ms(lambda: csc.spmm_csc(uell, x, "pr",
+                                                          group=group)),
+               "group": group,
+               "pick": rows[("unif", n)]["pick"],
+               "pick_kernel": rows[("unif", n)]["kernel"],
+               "pick_kernel_ms": rows[("unif", n)]["kernel_ms"],
+               "library_ms": time_ms(lambda: lib_a @ x),
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"[time] csc_spmm pr forced unif_s{args.scale}_e16 N={n} "
+              + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+    for n in (32, 128):
+        x = randn(k_dim, n)
+        one_pass = csc.sr_lanes(n)
+        t_bytes = (12 * ucsr.nnz + 4 * k_dim * n + 4 * m * n) / H100_BYTES_PER_S
+        row = {"k3_ms": rows[("unif", n)]["kernel_ms"],
+               "k3_lanes": rows[("unif", n)]["lanes"],
+               "k3_one_pass_ms": time_ms(lambda: csc._launch(
+                   "sr", uell, x, lanes=one_pass)),
+               "k3_one_pass_lanes": one_pass,
+               "k1_nb_sr_ms": time_ms(lambda: vsr.spmm_vsr_fused(ubal, x)),
+               "k1_bound_ms": 1e3 * max(t_bytes, 2 * ucsr.nnz * n
+                                        / H100_F32_FLOP_PER_S),
+               "library_ms": rows[("unif", n)]["library_ms"]}
+        print(f"[time] csc_spmm sr vs K1 unif_s{args.scale}_e16 N={n} "
+              + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+    del lib_a, x, U
+    torch.cuda.empty_cache()
 
     # the chain: K6, K7, K8 alone, the fused call, the unfused pair, plain
     def bound(nbytes, flops, flop_rate=H100_F32_FLOP_PER_S):

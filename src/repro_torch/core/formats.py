@@ -5,7 +5,8 @@ the paper's static-profiling usage), then ``.to(device)``: every container is
 a frozen dataclass of tensors on one device.  Index arrays are int32.
 
 CSR          canonical row-compressed storage (the paper's input format).
-ELL          row-split padded storage — the substrate of the RS kernels.
+ELL          row-split padded storage — the substrate of the RS kernels —
+             with each row's count of stored entries.
 BalancedCOO  nnz-split tiled storage: exactly ``tile`` nonzeros per tile, the
              tail padded with ``row == M`` sentinels, zero values and column
              0.  Substrate of the NB kernels.
@@ -62,11 +63,14 @@ class CSR:
 @dataclasses.dataclass(frozen=True)
 class ELL:
     """Row-split padded format. cols/vals: (M, width); padding has vals==0
-    and cols==0, so gathers stay in bounds."""
+    and cols==0, so gathers stay in bounds.  lens: (M,) int32, the stored
+    entries of each row (slots ``[0, lens[i])``; an explicit zero is stored),
+    from the pattern and never from the values."""
 
     cols: torch.Tensor
     vals: torch.Tensor
     shape: Tuple[int, int]
+    lens: torch.Tensor
 
     @property
     def width(self) -> int:
@@ -190,7 +194,8 @@ def csr_to_ell(csr: CSR, width: int | None = None) -> ELL:
     vals = torch.zeros(m * w, dtype=csr.data.dtype, device=dev)
     vals[torch.from_numpy(slot).to(dev)] = csr.data[torch.from_numpy(keep).to(dev)]
     return ELL(torch.from_numpy(cols.reshape(m, w)).to(dev), vals.reshape(m, w),
-               csr.shape)
+               csr.shape,
+               torch.from_numpy(np.minimum(lens, w).astype(np.int32)).to(dev))
 
 
 def csr_to_balanced(csr: CSR, tile: int = 512) -> BalancedCOO:

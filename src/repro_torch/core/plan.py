@@ -102,7 +102,6 @@ class PlanBuilder:
     _substrates: dict = dataclasses.field(default_factory=dict, repr=False)
     _opts: dict = dataclasses.field(default_factory=dict, repr=False)
     _shared: dict = dataclasses.field(default_factory=dict, repr=False)
-    _ell_lens: Any = dataclasses.field(default=None, repr=False)
     _ell_src: Any = dataclasses.field(default=None, repr=False)
     _bsr_map: Any = dataclasses.field(default=None, repr=False)
     _bsr_brow: Any = dataclasses.field(default=None, repr=False)
@@ -160,10 +159,7 @@ class PlanBuilder:
     # -- ELL live-value support -----------------------------------------------
     def ell_lens(self) -> torch.Tensor:
         """(M,) stored entries per row — the ELL padding mask."""
-        if self._ell_lens is None:
-            lens = np.diff(host(self.csr.indptr)).astype(np.int32)
-            self._ell_lens = torch.from_numpy(lens).to(self.device)
-        return self._ell_lens
+        return self.substrate("ell").lens
 
     def ell_src(self) -> torch.Tensor:
         """(M, width) gather map from the CSR value stream into the ELL slab:

@@ -9,7 +9,7 @@ from . import attention, bsr, csc, fused_chain, spmv, vsr
 from .attention import (attn_chain_fused, attn_chain_plain, attn_stats_fused,
                         attn_stats_plain, attn_unfused)
 from .bsr import spmm_bsr, spmm_bsr_plain
-from .csc import spmm_csc, spmm_csc_plain
+from .csc import spmm_csc, spmm_csc_plain, spmm_csc_stored_plain
 from .fused_chain import (chain_fused, chain_plain, chain_stats_fused,
                           chain_stats_plain, chain_unfused, sddmm_fused,
                           sddmm_plain)

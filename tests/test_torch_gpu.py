@@ -7,6 +7,8 @@ runs on a machine that has only PyTorch:
 
 Tolerance: relative inf-norm error 1e-4 in float32 (sums in another order,
 atomics in no fixed order), 2e-2 with a bfloat16 x."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -537,7 +539,7 @@ def _same_class(got, want, tol):
     assert torch.equal(torch.isposinf(got), torch.isposinf(want))
     assert torch.equal(torch.isneginf(got), torch.isneginf(want))
     fin = torch.isfinite(want)
-    assert _rel(got[fin], want[fin]) < tol
+    assert not fin.any() or _rel(got[fin], want[fin]) < tol
 
 
 @pytest.mark.gpu
@@ -853,3 +855,186 @@ def test_cuda_spill_path_and_max_win(cuda):
     with pytest.raises(ValueError, match="spans 600 rows"):
         A.matmul(torch.randn(40, 8, device=cuda), impl="nb_pr")
     assert sum(launch_counts().values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# K3: the sr and pr designs of the row-split SpMM
+# ---------------------------------------------------------------------------
+
+CSC_NS = [1, 3, 4, 5, 8, 20, 32, 127, 128, 200]
+
+
+def _csc_kinds(device, vdtype=torch.float32):
+    """Rows of every kind: empty, one entry at column 0, one entry away
+    from it, two rows as wide as the matrix (the ELL's full width), eight
+    entries without column 0, random rows."""
+    rng = np.random.default_rng(18)
+    a = (rng.random((70, 64)) < 0.15) * rng.standard_normal((70, 64))
+    a[[0, 1, 2, 5, 40]] = 0.0
+    a[1, 0], a[2, 5] = 1.5, -2.0
+    a[3] = rng.standard_normal(64)
+    a[17] = rng.standard_normal(64)
+    a[5, 9:17] = rng.standard_normal(8)
+    csr = formats.csr_from_dense(a.astype(np.float32), device=device)
+    return formats.CSR(csr.indptr, csr.indices, csr.data.to(vdtype), csr.shape)
+
+
+def _csc_ells(device, vdtype=torch.float32):
+    """(name, ELL) pairs: the test graphs and the row kinds, at their full
+    width and cut to 3 slots (lens clipped)."""
+    mats = dict(_graphs(device), kinds=_csc_kinds(device))
+    for name, csr in mats.items():
+        csr = formats.CSR(csr.indptr, csr.indices, csr.data.to(vdtype), csr.shape)
+        yield name, formats.csr_to_ell(csr)
+        yield f"{name}_w3", formats.csr_to_ell(csr, width=3)
+
+
+def _csc_x(k, n, xdtype, device):
+    x = torch.randn(k, n, device=device).to(xdtype)
+    return x[:, 0].contiguous() if n == 1 else x
+
+
+def _same_nonfinite(got, want, tol):
+    got, want = got.float(), want.float()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    assert not fin.any() or _rel(got[fin], want[fin]) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", ["sr", "pr"])
+@pytest.mark.parametrize("n", CSC_NS)
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
+def test_cuda_csc_designs_match_plain(cuda, design, n, xdtype, vdtype):
+    tol = 1e-4 if xdtype == torch.float32 else 2e-2
+    for name, ell in _csc_ells(cuda, vdtype):
+        x = _csc_x(ell.shape[1], n, xdtype, cuda)
+        y = csc.spmm_csc(ell, x, design)
+        want = csc.spmm_csc_plain(ell, x)
+        assert y.shape == want.shape and y.dtype == xdtype, name
+        assert _rel(y, want) < tol, (name, design, n)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", ["sr", "pr"])
+@pytest.mark.parametrize("n", [4, 32, 128])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_cuda_csc_unaligned_x(cuda, design, n, xdtype):
+    """X one element past a 16-byte boundary: the narrower path, no read
+    past a row."""
+    tol = 1e-4 if xdtype == torch.float32 else 2e-2
+    for name, ell in _csc_ells(cuda):
+        k = ell.shape[1]
+        buf = torch.randn(k * n + 1, device=cuda).to(xdtype)
+        x = buf[1:].view(k, n)
+        assert x.data_ptr() % 16 != 0
+        y = csc.spmm_csc(ell, x, design)
+        assert _rel(y, csc.spmm_csc_plain(ell, x.clone())) < tol, (name, design)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", ["sr", "pr"])
+@pytest.mark.parametrize("n", [1, 4, 5, 32, 128])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_cuda_csc_nonfinite_x(cuda, design, n, xdtype):
+    """inf and NaN in X's row 0 (which every padded row sees through its
+    padding slots) and elsewhere: the plain version's pattern exactly."""
+    tol = 1e-4 if xdtype == torch.float32 else 2e-2
+    for name, ell in _csc_ells(cuda):
+        k = ell.shape[1]
+        x = torch.randn(k, n, device=cuda)
+        x[0, 0] = float("nan")
+        if n > 1:
+            x[0, 1] = float("inf")
+        if n > 2:
+            x[0, 2] = -float("inf")
+        x[7, n - 1] = float("inf")
+        x[9, 0] = float("nan")
+        x = x.to(xdtype)
+        x = x[:, 0].contiguous() if n == 1 else x
+        _same_nonfinite(csc.spmm_csc(ell, x, design),
+                        csc.spmm_csc_plain(ell, x), tol)
+    # the 3x4 case: the row as wide as the ELL gives (nan, inf), the padded
+    # rows NaN
+    a = np.array([[1, 2, 0, 0], [0, 0, 3, 0], [0, 0, 0, 0]], np.float32)
+    ell = formats.csr_to_ell(formats.csr_from_dense(a, device=cuda))
+    x = torch.ones(4, 2, device=cuda)
+    x[0] = torch.tensor([float("nan"), float("inf")])
+    y = csc.spmm_csc(ell, x.to(xdtype), design).float()
+    assert torch.isnan(y[0, 0]) and torch.isposinf(y[0, 1])
+    assert torch.isnan(y[1:]).all()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", ["sr", "pr"])
+def test_cuda_csc_empty_rows_are_zero(cuda, design):
+    for name, ell in _csc_ells(cuda):
+        empty = ell.lens == 0
+        for n in (1, 4, 32, 128):
+            y = csc.spmm_csc(ell, _csc_x(ell.shape[1], n, torch.float32, cuda),
+                             design)
+            assert (y[empty] == 0).all(), (name, n)
+    ell = formats.csr_to_ell(formats.csr_from_dense(np.zeros((9, 6), np.float32),
+                                                    device=cuda))
+    assert (csc.spmm_csc(ell, torch.randn(6, 8, device=cuda), design) == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("n", [32, 128])
+def test_cuda_csc_sr_column_slabs(cuda, lanes, n):
+    """The sr design with fewer lanes than N needs: narrower column slabs,
+    the slab the grid's slow dimension."""
+    for name, ell in _csc_ells(cuda):
+        x = torch.randn(ell.shape[1], n, device=cuda)
+        y = csc._launch("sr", ell, csc._check(ell, x), lanes=lanes)
+        assert _rel(y, csc.spmm_csc_plain(ell, x)) < 1e-4, (name, lanes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", [8, 16, 32])
+@pytest.mark.parametrize("n", [1, 3, 4, 9])
+def test_cuda_csc_pr_groups(cuda, group, n):
+    for name, ell in _csc_ells(cuda):
+        x = _csc_x(ell.shape[1], n, torch.float32, cuda)
+        y = csc.spmm_csc(ell, x, "pr", group=group)
+        assert _rel(y, csc.spmm_csc_plain(ell, x)) < 1e-4, (name, group)
+
+
+@pytest.mark.gpu
+def test_cuda_csc_design_launches(cuda):
+    import repro_torch
+    csr = _graphs(cuda)["uniform"]
+    ell = formats.csr_to_ell(csr)
+    for n, design in ((1, "pr"), (4, "pr"), (5, "sr"), (128, "sr")):
+        reset_launch_counts()
+        csc.spmm_csc(ell, _csc_x(csr.shape[1], n, torch.float32, cuda))
+        assert csc.DESIGN_LAUNCHES["csc_spmm"] == {"sr": int(design == "sr"),
+                                                   "pr": int(design == "pr")}
+        assert launch_counts()["csc_spmm"] == 1
+    A = repro_torch.sparse(csr, cache=False)
+    assert A.plan.kernel_opts(A.plan.entry("rs_pr"))["group"] == csc.pr_group(ell)
+    reset_launch_counts()
+    for logical in ("rs_sr", "rs_pr", "rs_pr"):
+        for n in (1, 32):
+            y = A.matmul(_csc_x(csr.shape[1], n, torch.float32, cuda),
+                         impl=logical)
+            assert y.shape[0] == csr.shape[0]
+    assert csc.DESIGN_LAUNCHES["csc_spmm"] == {"sr": 2, "pr": 4}
+    assert launch_counts()["csc_spmm"] == 6
+    x = torch.randn(csr.shape[1], 8, device=cuda)
+    with pytest.raises(ValueError):          # lens of the wrong type
+        csc.spmm_csc(dataclasses.replace(ell, lens=ell.lens.long()), x)
+    with pytest.raises(ValueError):
+        csc.spmm_csc(ell, x, "tc")
+    with pytest.raises(ValueError):          # lens on the host
+        csc.spmm_csc(dataclasses.replace(ell, lens=ell.lens.cpu()), x)
+    assert launch_counts()["csc_spmm"] == 6
+    with pytest.raises(RuntimeError):        # a group the kernel refuses
+        csc.spmm_csc(ell, x, "pr", group=12)
