@@ -14,7 +14,9 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              at N = 32 and 128, pr at N = 1 and 4; K7-K10 at the Gemma head in
              both designs, forced; K11 routed and in both designs, forced,
              at the Gemma weight in float32 and bfloat16 and at (16, 64),
-             and on a ragged matrix): relative inf-norm error at most
+             and on a ragged matrix; the slot-tile K7 in full and edge mode
+             and K8 alone on the edge statistics on both graphs): relative
+             inf-norm error at most
              1e-4 in float32 (hub rows of ~40k terms summed in another
              order, atomics in no fixed order) and 2e-2 in bfloat16;
 4. main    — ``repro_torch.sparse(csr) @ x`` for two Graph500-scale R-MAT
@@ -26,9 +28,10 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              then a GAT attention layer on both graphs,
              ``repro_torch.sparse_chain(csr, a, b, x, alpha=0.125)`` with a,
              b of width d = 64 and N = 1, 32, 128, and
-             ``repro_torch.sddmm(csr, a, b)``: K6, K7 and K8 launched,
-             agreement with the "torch" backend, empty rows exactly 0, and
-             one call with the fuse gate shut (K6, K7, K1); then block-sparse
+             ``repro_torch.sddmm(csr, a, b)``: K6, K7 and K8 launched (K7 in
+             edge mode alone, ``fused_chain.STATS_MODES``), agreement with
+             the "torch" backend, empty rows exactly 0, and one call with the
+             fuse gate shut (K6, K7 in full mode, K1); then block-sparse
              attention at full model widths, random Q/K/V from the seed:
              (a) Gemma-3-12B's local layer (``configs/gemma3_12b.py`` with
              ``attn_pattern="block_sparse"``: 16 query heads, 8 KV heads,
@@ -71,8 +74,11 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              (K2, K1) and ``sparse.mm``, and at N = 32 and 128 the sr
              design in one pass beside its routed column-slab order and K1
              forced (the selector's other side of sr_cv); per (graph, transform,
-             N) of the chain: K6, K7 and K8 alone, the fused call, the
-             unfused pair and the plain version, beside each kernel's bound
+             N) of the chain: K6, K7 in full mode (and its ratio to K6) and
+             in edge mode (with the share of slots in the tiles' first and
+             last runs), K8 alone on the edge statistics (and on every row's),
+             the fused call, the unfused pair and the plain version, beside
+             each kernel's bound
              (each input read once, each output written once) and, for K6,
              ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM); per attention
              case, one head: K9 (K7) and K10 (K8) alone, the fused call,
@@ -404,17 +410,48 @@ def main() -> int:
         pat = (bal.rows, bal.cols, *feats[name])
         hold("sddmm", name, fused_chain.sddmm_fused(*pat, shape=bal.shape),
              fused_chain.sddmm_plain(*pat, shape=bal.shape), "float32")
-    pat = (g500_bal.rows, g500_bal.cols, *feats["g500"])
-    rm, rs = fused_chain.chain_stats_fused(*pat, shape=g500_bal.shape,
-                                           alpha=CHAIN_ALPHA)
-    pm, ps = fused_chain.chain_stats_plain(*pat, shape=g500_bal.shape,
-                                           alpha=CHAIN_ALPHA)
+    # K7 (slot-tile) in its two modes: full (every row, what
+    # chain_stats_fused launches) and edge (the rows of each tile's first
+    # and last runs, what the fused chain launches; every other row stays
+    # exactly (-1e30, 0)); then K8 alone on the edge statistics, folding
+    # every other row itself
+    for name, bal in bals.items():
+        pat = (bal.rows, bal.cols, *feats[name])
+        skw = dict(shape=bal.shape, alpha=CHAIN_ALPHA)
+        reset_launch_counts()
+        rm, rs = fused_chain.chain_stats_fused(*pat, **skw)
+        em, es = fused_chain._launch_stats("slot", *pat, edge=True, **skw)
+        if fused_chain.STATS_MODES != {"full": 1, "edge": 1}:
+            fail(f"chain_stats {name}: modes {fused_chain.STATS_MODES}, "
+                 "expected one full and one edge launch")
+        pm, ps = fused_chain.chain_stats_plain(*pat, **skw)
+        empty = torch.diff(graphs[name].indptr) == 0
+        if not ((rm[empty] == -1e30).all() and (rs[empty] == 0).all()):
+            fail(f"chain_stats: empty rows of {name} are not exactly (-1e30, 0)")
+        hold("chain_stats", f"{name} full row max", rm[~empty], pm[~empty],
+             "float32")
+        hold("chain_stats", f"{name} full row sum", rs, ps, "float32")
+        edge_rows = torch.zeros(bal.shape[0], dtype=torch.bool, device=dev)
+        edge_rows[bal.rows[fused_chain.edge_slots(bal.rows, bal.shape[0])]
+                  .long()] = True
+        pe_m, pe_s = fused_chain.chain_stats_edge_plain(*pat, **skw)
+        if not ((em[~edge_rows] == -1e30).all() and (es[~edge_rows] == 0).all()
+                and (pe_s[~edge_rows] == 0).all()):
+            fail(f"chain_stats {name}: edge mode wrote a row outside the "
+                 "tiles' edge runs")
+        hold("chain_stats", f"{name} edge row max ({int(edge_rows.sum())} "
+             "rows)", em[edge_rows], pe_m[edge_rows], "float32")
+        hold("chain_stats", f"{name} edge row sum", es[edge_rows],
+             pe_s[edge_rows], "float32")
+        for n in (1, 32, 128):
+            x = randn(k_dim, n) if n > 1 else randn(k_dim)
+            ckw = dict(shape=bal.shape, transform="softmax", alpha=CHAIN_ALPHA)
+            hold("chain", f"{name} softmax N={n} on edge stats",
+                 fused_chain._launch_chain(None, *pat, x, stats=(em, es),
+                                           edge_stats=True, **ckw),
+                 fused_chain.chain_tiles_plain(*pat, x, **ckw), "float32")
+        del rm, rs, em, es, pm, ps, pe_m, pe_s, x
     empty = torch.diff(graphs["g500"].indptr) == 0
-    if not ((rm[empty] == -1e30).all() and (rs[empty] == 0).all()):
-        fail("chain_stats: empty rows of g500 are not exactly (-1e30, 0)")
-    hold("chain_stats", "g500 row max", rm[~empty], pm[~empty], "float32")
-    hold("chain_stats", "g500 row sum", rs, ps, "float32")
-    del rm, rs, pm, ps
     for name, transform, n, dtype in (
             [case + (torch.float32,) for case in CHAIN_CASES]
             + [("g500", "softmax", 32, torch.bfloat16)]):
@@ -695,6 +732,7 @@ def main() -> int:
             if rel > RTOL["float32"]:
                 fail(f"{name}_s10_e8 N={n}: disagrees with the dense product")
     # the GAT layer: sparse_chain (K7 + K8) and sddmm (K6) through the facade
+    stats_modes = {"full": 0, "edge": 0}    # K7's launches on the main path
     for name, csr in graphs.items():
         a, b = feats[name]
         empty = torch.diff(csr.indptr) == 0
@@ -704,11 +742,17 @@ def main() -> int:
             y, counts = drive(lambda: repro_torch.sparse_chain(
                 csr, a, b, x, transform="softmax", alpha=CHAIN_ALPHA))
             t1 = time.perf_counter()
+            modes = dict(fused_chain.STATS_MODES)
             A = repro_torch.sparse(csr, chain_op="softmax")
             if A.backend != "hopper":
                 fail(f"chain {name} N={n}: backend {A.backend!r}")
             if counts["chain_stats"] < 1 or counts["chain"] < 1:
                 fail(f"chain {name} N={n}: K7/K8 were not launched ({counts})")
+            if modes != {"full": 0, "edge": counts["chain_stats"]}:
+                # the fused chain computes the tiles' edge runs alone
+                fail(f"chain {name} N={n}: K7 ran in modes {modes}, expected "
+                     "edge mode alone")
+            stats_modes["edge"] += modes["edge"]
             ran = took()
             if any(ran[kk]["block"] for kk in ("chain_stats", "chain")):
                 # a scattered graph keeps ~1/4096 of each 64x64 block
@@ -723,6 +767,7 @@ def main() -> int:
             rel, _ = errors(y, A.chain(a, b, x, alpha=CHAIN_ALPHA,
                                        backend="torch"))
             print(f"[main] chain {name} softmax N={n}: launches={counts} "
+                  f"k7_modes={modes} "
                   f"rel_err_vs_torch={rel:.3e} call_s={t1 - t0:.3f} "
                   "(host clock, plan included)", flush=True)
             if rel > RTOL["float32"]:
@@ -741,12 +786,16 @@ def main() -> int:
                                chain_fuse_min_n=1 << 30)
     y, counts = drive(lambda: repro_torch.sparse_chain(
         csr, a, b, x, alpha=CHAIN_ALPHA, thresholds=shut))
+    modes = dict(fused_chain.STATS_MODES)
+    stats_modes["full"] += modes["full"]
     rel, _ = errors(y, repro_torch.sparse_chain(csr, a, b, x, alpha=CHAIN_ALPHA))
     print(f"[main] chain g500 softmax N=32, fuse gate shut: launches={counts} "
-          f"rel_err_vs_fused={rel:.3e}", flush=True)
+          f"k7_modes={modes} rel_err_vs_fused={rel:.3e}", flush=True)
     if (counts["sddmm"], counts["chain_stats"], counts["vsr_spmm"],
             counts["chain"]) != (1, 1, 1, 0) or rel > RTOL["float32"]:
         fail("the shut fuse gate did not run K6, K7 and K1 alone, or disagrees")
+    if modes != {"full": 1, "edge": 0}:
+        fail(f"the shut fuse gate ran K7 in modes {modes}, expected full mode")
     # block-sparse attention at full model widths, through the entry points
     # a model and a user call
     rep = gemma.num_heads // gemma.num_kv_heads
@@ -966,7 +1015,7 @@ def main() -> int:
         if v < 1:
             fail(f"{k} was never launched on the main path")
     print(f"[main] launches on the main path: {launches}; K3, K7-K11 by design: "
-          f"{designs}", flush=True)
+          f"{designs}; the slot-tile K7 by mode: {stats_modes}", flush=True)
 
     # -- 5. times ---------------------------------------------------------------
     phase("times")
@@ -1095,7 +1144,28 @@ def main() -> int:
             "plain_ms": time_ms(lambda: fused_chain.chain_stats_plain(
                 *pat, shape=csr.shape, alpha=CHAIN_ALPHA)),
             "library_ms": None, "bound_ms": st_bound[0], "bound_by": st_bound[1]}
-        for label, row in (("sddmm", sddmm_row), ("chain_stats", stats_row)):
+        stats_row["k6_ratio"] = stats_row["kernel_ms"] / sddmm_row["kernel_ms"]
+        # K7's edge mode: the slots of each tile's first and last runs; its
+        # bound reads the rows of the whole slab, the columns, A rows and B
+        # rows of those slots, and writes the stats of their rows
+        eslots = fused_chain.edge_slots(bal.rows, m)
+        n_edge = int(eslots.sum())
+        e_rows = torch.unique(bal.rows[eslots]).numel()
+        e_cols = torch.unique(bal.cols[eslots]).numel()
+        ed_bound = bound(4 * slots + 4 * n_edge
+                         + (e_rows + e_cols) * CHAIN_D * a.element_size()
+                         + 8 * e_rows, 2 * n_edge * CHAIN_D)
+        edge_row = {
+            "kernel_ms": time_ms(lambda: fused_chain._launch_stats(
+                "slot", *pat, shape=csr.shape, alpha=CHAIN_ALPHA, edge=True)),
+            "plain_ms": time_ms(lambda: fused_chain.chain_stats_edge_plain(
+                *pat, shape=csr.shape, alpha=CHAIN_ALPHA)),
+            "library_ms": None, "bound_ms": ed_bound[0],
+            "bound_by": ed_bound[1], "edge_slot_share": n_edge / csr.nnz,
+            "edge_rows": e_rows}
+        edge_row["full_ratio"] = edge_row["kernel_ms"] / stats_row["kernel_ms"]
+        for label, row in (("sddmm", sddmm_row), ("chain_stats", stats_row),
+                           ("chain_stats edge", edge_row)):
             print(f"[time] {label} {name}_s{args.scale}_e16 d={CHAIN_D} "
                   + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
         if name == SDDMM_SUMMARY:
@@ -1103,20 +1173,28 @@ def main() -> int:
         del lib_a, b_t
         stats = fused_chain.chain_stats_fused(*pat, shape=csr.shape,
                                               alpha=CHAIN_ALPHA, blocks=gblocks)
+        edge_stats = fused_chain._launch_stats("slot", *pat, shape=csr.shape,
+                                               alpha=CHAIN_ALPHA, edge=True)
         for cname, transform, n in CHAIN_CASES:
             if cname != name:
                 continue
             x = randn(k_dim, n) if n > 1 else randn(k_dim)
             kw = dict(shape=csr.shape, transform=transform, alpha=CHAIN_ALPHA)
+            gkw = dict(kw, blocks=gblocks)
             if transform == "softmax":
                 kw["stats"] = stats
-            fkw = dict(kw, blocks=gblocks)
-            stats_in = 8 * m if transform == "softmax" else 0
+                # K8 alone as the fused chain runs it: on K7's edge
+                # statistics, which it reads for the edge rows alone
+                fkw = dict(gkw, stats=edge_stats, edge_stats=True)
+            else:
+                fkw = gkw
+            stats_in = 8 * e_rows if transform == "softmax" else 0
             ch_bound = bound(8 * slots + feat_bytes + stats_in
                              + (k_dim + m) * n * x.element_size(),
                              2 * csr.nnz * (CHAIN_D + n))
             row = {
-                "kernel_ms": time_ms(lambda: fused_chain.chain_fused(*pat, x, **fkw)),
+                "kernel_ms": time_ms(lambda: fused_chain._launch_chain(
+                    None, *pat, x, **fkw)),
                 "plain_ms": time_ms(lambda: fused_chain.chain_plain(*pat, x, **kw)),
                 "library_ms": None,
                 "bound_ms": ch_bound[0], "bound_by": ch_bound[1],
@@ -1129,9 +1207,15 @@ def main() -> int:
                     a, b, x, transform=transform, alpha=CHAIN_ALPHA,
                     backend="torch")),
             }
+            if transform == "softmax":
+                # K8 on every row's statistics (the sharded merge's input)
+                row["given_stats_ms"] = time_ms(lambda: fused_chain.chain_fused(
+                    *pat, x, **kw, blocks=gblocks))
+                row["fused_vs_unfused"] = (row["fused_call_ms"]
+                                           / row["unfused_pair_ms"])
             print(f"[time] chain {name}_s{args.scale}_e16 {transform} N={n} "
                   + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
-        del stats
+        del stats, edge_stats
         torch.cuda.empty_cache()
 
     # block-sparse attention, one head of each case: K9 (K7) and K10 (K8)

@@ -48,24 +48,19 @@
 // Design, K9: one CTA per balanced tile.  The CTA computes its tile's z once
 // (score.cuh) into shared memory.  Every row of an attention pattern spans
 // whole tiles (Gemma's local layer at 8,192 tokens: 1,088 keys a row, 2–3
-// rows a tile), so K7's walk of each run by one thread would leave 255 of
-// 256 threads idle.  Instead each warp takes 32 consecutive slots and runs
-// a segmented inclusive scan of the online-softmax pair (m, s) with
-// __shfl_up_sync, a lane combining with the lane `off` below it when both
-// hold the same row (rows are sorted within a tile, so equal rows are one
-// run).  A segment that touches neither end of its 32 slots is a whole row
-// and is stored.  The segments at the ends of each 32-slot chunk go to
-// shared memory, and one thread folds those ≤ 2·ceil(T/32) pieces in order:
-// a run that holds neither the tile's first nor its last slot is stored,
-// the others may continue in a neighbouring tile and are merged into the
-// row's packed 64-bit (rm, rs) by atomicCAS (score.cuh::merge_stats), as K7
-// does.  Each slot starts from (max(z, −1e30), exp(z − that)), which is the
-// reference's scatter-max with a −1e30 floor, so a bias of −inf gives a
-// weight of 0 and no NaN.
+// rows a tile), so a walk of each run by one thread would leave 255 of 256
+// threads idle.  Instead the tile's runs are folded by the segmented
+// shuffle scan of the online-softmax pair (m, s) that K7 and K8 share
+// (score.cuh::scan_runs): a run that holds neither the tile's first nor its
+// last slot is stored, the others may continue in a neighbouring tile and
+// are merged into the row's packed 64-bit (rm, rs) by atomicCAS
+// (score.cuh::merge_stats).  Each slot starts from (max(z, −1e30),
+// exp(z − that)), which is the reference's scatter-max with a −1e30 floor,
+// so a bias of −inf gives a weight of 0 and no NaN.
 //
-// Design, K10: K8's, with the bias: one CTA per (tile, column block of up
-// to 128 columns of V); step 1 computes w for the tile's slots into shared
-// memory, step 2 is K1's accumulation (common.cuh::accumulate_tile).  At
+// Design, K10: one CTA per (tile, column block of up to 128 columns of V);
+// step 1 computes w for the tile's slots into shared memory, step 2 is K1's
+// accumulation (common.cuh::accumulate_tile).  At
 // N = 256 each of the two column blocks recomputes the scores.  An empty row
 // receives nothing and stays exactly 0.
 //
@@ -155,12 +150,10 @@ attn_stats_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
                   unsigned long long* __restrict__ stats, int tile, int m,
                   int d, int g, bool vec, float scale) {
   extern __shared__ int smem[];
-  const int n_chunks = (tile + 31) / 32;
-  int* s_rows = smem;                                         // tile
-  float* s_z = reinterpret_cast<float*>(s_rows + tile);       // tile
-  int* p_row = reinterpret_cast<int*>(s_z + tile);            // 2·n_chunks
-  float* p_m = reinterpret_cast<float*>(p_row + 2 * n_chunks);
-  float* p_s = p_m + 2 * n_chunks;
+  const ScanPieces<SoftmaxOp> pieces(smem, (tile + 31) / 32);
+  int* s_rows = reinterpret_cast<int*>(reinterpret_cast<char*>(smem) +
+                                       scan_pieces_bytes(tile));
+  float* s_z = reinterpret_cast<float*>(s_rows + tile);
   const long long base = static_cast<long long>(blockIdx.x) * tile;
   for_each_score<TA>(rows, cols, q, k, base, tile, m, d, g, vec,
                      [&](int slot, int r, int, bool valid, float e) {
@@ -168,77 +161,18 @@ attn_stats_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
                        s_z[slot] = valid ? scale * e + bias[base + slot] : 0.f;
                      });
   __syncthreads();
-
-  // Segmented scan of each 32-slot chunk.  Lanes past the tile's end get
-  // distinct negative rows, so they join no segment.
-  const int lane = threadIdx.x & 31;
-  for (int c = threadIdx.x >> 5; c < n_chunks; c += blockDim.x >> 5) {
-    const int slot = c * 32 + lane;
-    const int last = min(31, tile - 1 - c * 32);
-    const bool in = lane <= last;
-    const int r = in ? s_rows[slot] : -1 - lane;
-    const float z = in ? s_z[slot] : 0.f;
-    float mx = fmaxf(z, kSoftmaxNeg);
-    float sm = in ? expf(z - mx) : 0.f;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float om = __shfl_up_sync(0xffffffffu, mx, off);
-      const float os = __shfl_up_sync(0xffffffffu, sm, off);
-      const int orow = __shfl_up_sync(0xffffffffu, r, off);
-      if (lane >= off && orow == r) {
-        const float mn = fmaxf(mx, om);
-        sm = sm * expf(mx - mn) + os * expf(om - mn);
-        mx = mn;
-      }
-    }
-    const int next = __shfl_down_sync(0xffffffffu, r, 1);
-    const int first = __shfl_sync(0xffffffffu, r, 0);
-    const bool at_end = lane == last;
-    if (!in || (!at_end && next == r)) continue;  // not a segment's end
-    const bool at_start = r == first;
-    if (at_start) {
-      p_row[2 * c] = r;
-      p_m[2 * c] = mx;
-      p_s[2 * c] = sm;
-      if (at_end) p_row[2 * c + 1] = -1;  // the chunk is one segment
-    } else if (at_end) {
-      p_row[2 * c + 1] = r;
-      p_m[2 * c + 1] = mx;
-      p_s[2 * c + 1] = sm;
-    } else if (r < m) {
-      stats[r] = pack_stats(mx, sm);
-    }
-  }
-  __syncthreads();
-
-  // Fold the chunks' end pieces in slot order; the tile's first and last
-  // runs may continue in another tile and are merged, the others stored.
-  if (threadIdx.x == 0) {
-    int cur = p_row[0];
-    float cm = p_m[0], cs = p_s[0];
-    bool head = true;
-    for (int i = 1; i < 2 * n_chunks; ++i) {
-      const int r = p_row[i];
-      if (r < 0) continue;
-      if (r == cur) {
-        const float mn = fmaxf(cm, p_m[i]);
-        cs = cs * expf(cm - mn) + p_s[i] * expf(p_m[i] - mn);
-        cm = mn;
-        continue;
-      }
-      if (cur < m) {
-        if (head)
-          merge_stats(&stats[cur], cm, cs);
+  // the tile's first and last runs may continue in another tile and are
+  // merged, the others stored
+  const int n_chunks = (tile + 31) / 32;
+  scan_runs<SoftmaxOp, false>(
+      s_rows, tile, m, n_chunks, n_chunks, pieces, nullptr,
+      [&](int slot, int) { return SoftmaxOp::of(s_z[slot]); },
+      [&](int r, float2 v, bool edge) {
+        if (edge)
+          merge_stats(&stats[r], v.x, v.y);
         else
-          stats[cur] = pack_stats(cm, cs);
-      }
-      cur = r;
-      cm = p_m[i];
-      cs = p_s[i];
-      head = false;
-    }
-    if (cur < m) merge_stats(&stats[cur], cm, cs);
-  }
+          stats[r] = pack_stats(v.x, v.y);
+      });
 }
 
 template <typename TA, typename TX, int CPL>
@@ -277,9 +211,8 @@ int launch_attn_stats(const int* rows, const int* cols, const void* q,
                       cudaStream_t stream) {
   const bool vec = score_vec<TA>(q, k, d);
   const int g = score_lanes<TA>(d, vec);
-  const int n_chunks = (tile + 31) / 32;
-  const size_t smem = static_cast<size_t>(tile) * 2 * sizeof(int) +
-                      static_cast<size_t>(n_chunks) * 2 * 3 * sizeof(int);
+  const size_t smem = scan_pieces_bytes(tile) +
+                      static_cast<size_t>(tile) * 2 * sizeof(int);
   attn_stats_kernel<TA><<<n_tiles, kChainThreads, smem, stream>>>(
       rows, cols, static_cast<const TA*>(q), static_cast<const TA*>(k), bias,
       reinterpret_cast<unsigned long long*>(stats), tile, m, d, g, vec, scale);

@@ -1,10 +1,14 @@
 // Shared helpers of the port's sparse kernels: element loads that widen
-// f32 / bf16 to f32, the dtype dispatch of the plain-C entry points, the
-// lane layout the SpMM kernels share and their tile accumulation.
+// f32 / bf16 to f32 (one at a time, or four adjacent columns of an X row),
+// the dtype dispatch of the plain-C entry points, the lane layout the SpMM
+// kernels share and their tile accumulation.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace repro_torch {
 
@@ -29,8 +33,38 @@ inline int lanes_per_row(int n) {
 // so one CTA covers up to 128 columns of X per pass.
 inline int columns_per_lane(int n) { return n <= 32 ? 1 : (n <= 64 ? 2 : 4); }
 
+// out[0..3] = X[row, c .. c+3] as f32, zero past column n.  VEC: one
+// 16-byte (f32) or 8-byte (bf16) load; the caller guarantees c + 3 < n and
+// the alignment.
+template <typename TX, bool VEC>
+__device__ __forceinline__ void load4(const TX* __restrict__ xr, int c, int n,
+                                      float out[4]) {
+  if constexpr (VEC) {
+    if constexpr (std::is_same<TX, float>::value) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(xr + c));
+      out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+    } else {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(xr + c));
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      out[0] = lo.x; out[1] = lo.y; out[2] = hi.x; out[3] = hi.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = c + j < n ? to_f32(xr[c + j]) : 0.f;
+  }
+}
+
+// Whether X rows can be read 4 columns at a time: N % 4 == 0 and X and Y
+// aligned to one 4-column piece.
+template <typename TX>
+bool vector_rows(const void* x, const float* y, int n) {
+  return n % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % (4 * sizeof(TX)) == 0 &&
+         reinterpret_cast<std::uintptr_t>(y) % 16 == 0;
+}
+
 // The nnz-balanced accumulation of one tile staged in shared memory (K1, and
-// K8 on its edge weights): Y[r, :] += v · X[c, :] over the tile's slots,
+// the slot-tile K10 on its edge weights): Y[r, :] += v · X[c, :] over the tile's slots,
 // padding (r >= m) dropped.  Each warp splits into lane groups of `vec`
 // lanes; a group walks a contiguous run of slots while its lanes own dense
 // columns (column block blockIdx.y, CPL columns a lane), so one X row load is

@@ -38,9 +38,6 @@
 // X rows are read 16 (8) bytes at a time only where N % 4 == 0 and X and Y
 // are aligned for it; otherwise each lane reads its 4 columns one by one,
 // never past the row.
-#include <cstdint>
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace repro_torch {
@@ -53,28 +50,6 @@ constexpr int kStageSlots = 256;
 constexpr int kStagePitch = kStageSlots + 32;
 // stored entries a lane gathers back to back
 constexpr int kUnroll = 8;
-
-// out[0..3] = X[row, c .. c+3] as f32, zero past column n.  VEC: one
-// 16-byte (f32) or 8-byte (bf16) load; the caller guarantees c + 3 < n and
-// the alignment.
-template <typename TX, bool VEC>
-__device__ __forceinline__ void load4(const TX* __restrict__ xr, int c, int n,
-                                      float out[4]) {
-  if constexpr (VEC) {
-    if constexpr (std::is_same<TX, float>::value) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(xr + c));
-      out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-    } else {
-      const uint2 u = __ldg(reinterpret_cast<const uint2*>(xr + c));
-      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-      out[0] = lo.x; out[1] = lo.y; out[2] = hi.x; out[3] = hi.y;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[j] = c + j < n ? to_f32(xr[c + j]) : 0.f;
-  }
-}
 
 // Y[row, c .. c+3] = acc, after the 0·X[0, c .. c+3] term of a row shorter
 // than the width.
@@ -184,14 +159,6 @@ csc_pr_kernel(const int* __restrict__ cols, const TV* __restrict__ vals,
     for (int q = 0; q < 4; ++q) acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], off);
   }
   if (row < m && gl == 0) finish_row<TX, VEC>(x, y, acc, row, c, len, w, n);
-}
-
-// Whether X rows can be read 4 columns at a time: N % 4 == 0 and X and Y
-// aligned to one 4-column piece.
-template <typename TX>
-bool vector_rows(const void* x, const float* y, int n) {
-  return n % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % (4 * sizeof(TX)) == 0 &&
-         reinterpret_cast<std::uintptr_t>(y) % 16 == 0;
 }
 
 template <typename TV, typename TX>

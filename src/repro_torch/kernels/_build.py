@@ -52,9 +52,10 @@ SIGNATURES = {
     "repro_csc_sr": (_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     "repro_csc_pr": (_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     "repro_sddmm": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
-    "repro_chain_stats": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _P),
+    "repro_chain_stats": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I,
+                          _P),
     "repro_chain": (_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
-                    _I, _F, _P),
+                    _I, _I, _F, _P),
     "repro_attn_stats": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P),
     "repro_attn": (_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                    _I, _F, _P),

@@ -27,6 +27,14 @@ an attention pattern — a band, BigBird — takes the block design of
 design (a CTA per balanced tile, the CUDA cores), as identity and scale
 always do.  ``DESIGN_LAUNCHES`` counts the launches of each design.
 
+The slot-tile K7 has two modes (``STATS_MODES`` counts each): ``"full"``,
+every row's statistics (``chain_stats_fused``, the unfused pair), and
+``"edge"``, only the rows of each tile's first and last runs — the runs
+that may continue in a neighbouring tile — which the fused chain launches:
+K8 folds every other row itself, from the scores it already holds.
+``edge_slots``, ``chain_stats_edge_plain`` and ``chain_tiles_plain`` give
+that order of work in plain PyTorch.
+
 Each has a plain PyTorch version beside it (``*_plain``) with the same
 contract: what the CPU takes and what the kernels are held to on the card.
 ``chain_unfused`` is the pair a ``"hopper"`` plan runs below the fuse gate
@@ -40,15 +48,17 @@ import torch
 from ..core import registry
 from ..core.formats import BalancedCOO
 from ..core.selector import HOPPER_MAX_TILE, TileGeometry
-from ..core.spmm import (CHAIN_TRANSFORMS, chain_stats_torch, chain_torch,
-                         chain_weights, sddmm_torch)
+from ..core.spmm import (CHAIN_TRANSFORMS, SOFTMAX_EPS, SOFTMAX_NEG,
+                         chain_stats_torch, chain_torch, chain_weights,
+                         sddmm_torch)
 
 from . import _build, _common, blocks as _blocks
 from .vsr import _prep_geometry
 
 __all__ = ["CHAIN_TRANSFORMS", "sddmm_fused", "sddmm_plain",
            "chain_stats_fused", "chain_stats_plain", "chain_fused",
-           "chain_plain", "chain_unfused"]
+           "chain_plain", "chain_unfused", "edge_slots",
+           "chain_stats_edge_plain", "chain_tiles_plain"]
 
 #: launches of K6, K7 and K8 since process start (or the last reset)
 LAUNCHES = {"sddmm": 0, "chain_stats": 0, "chain": 0}
@@ -56,6 +66,9 @@ LAUNCHES = {"sddmm": 0, "chain_stats": 0, "chain": 0}
 #: ``csrc/attention.cu`` with the bias compiled out) or "slot" (``chain.cu``)
 DESIGN_LAUNCHES = {kernel: {"block": 0, "slot": 0}
                    for kernel in ("chain_stats", "chain")}
+#: the slot-tile K7's launches by mode: "full" (every row) or "edge" (the
+#: tiles' first and last runs alone)
+STATS_MODES = {"full": 0, "edge": 0}
 
 #: transform codes of the ``repro_chain`` entry point
 _TRANSFORM_CODES = {"identity": 0, "scale": 1, "softmax": 2}
@@ -95,6 +108,99 @@ def chain_plain(rows, cols, a, b, x, *, shape, transform: str = "identity",
     backend's unfused chain."""
     return chain_torch(rows, cols, a, b, x, shape=shape, transform=transform,
                        alpha=alpha, stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# the slot-tile kernels' order of work, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+def edge_slots(rows, m: int) -> torch.Tensor:
+    """The slots of each tile's edge runs, ``(n_tiles, tile)`` bool: those of
+    the tile's first row and of its last, padding (``rows >= m``) excluded.
+    Rows are sorted within a tile, so each row is one run; only an edge run
+    may continue in a neighbouring tile, and a row with an edge run in one
+    tile has one in each tile it touches."""
+    return ((rows == rows[:, :1]) | (rows == rows[:, -1:])) & (rows < m)
+
+
+def _tile_runs(rows, m: int):
+    """Each valid slot's run (a (tile, row) pair) in slot order: the valid
+    mask, each valid slot's run index, the runs' rows and whether each run
+    is an edge run."""
+    n_tiles, tile = rows.shape
+    valid = (rows < m).reshape(-1)
+    tiles = torch.arange(n_tiles, device=rows.device).repeat_interleave(tile)
+    key = tiles[valid] * (m + 1) + rows.reshape(-1)[valid].long()
+    runs, run_of = torch.unique_consecutive(key, return_inverse=True)
+    edge = torch.zeros(runs.shape, dtype=torch.bool, device=rows.device)
+    edge[run_of] = edge_slots(rows, m).reshape(-1)[valid]
+    return valid, run_of, runs % (m + 1), edge
+
+
+def _run_stats(z, run_of, n_runs: int):
+    """Each run's ``(max, sum of exp(z − max))``, the max floored at
+    ``SOFTMAX_NEG`` as every slot of the kernels' scan starts."""
+    rm = torch.full((n_runs,), SOFTMAX_NEG, dtype=torch.float32,
+                    device=z.device)
+    rm = rm.scatter_reduce(0, run_of, z, reduce="amax", include_self=True)
+    rs = torch.zeros(n_runs, dtype=torch.float32, device=z.device)
+    return rm, rs.index_add_(0, run_of, torch.exp(z - rm[run_of]))
+
+
+def _edge_stats(z, run_of, run_row, edge, m: int):
+    """``(row_max, row_sum)`` each ``(M,)`` of the rows of edge runs: each
+    run's pair merged across tiles by the online-softmax update, as K7's
+    edge mode merges them; every other row at ``(SOFTMAX_NEG, 0)``."""
+    t_m, t_s = _run_stats(z, run_of, run_row.shape[0])
+    er, em, es = run_row[edge], t_m[edge], t_s[edge]
+    rm = torch.full((m,), SOFTMAX_NEG, dtype=torch.float32, device=z.device)
+    rm = rm.scatter_reduce(0, er, em, reduce="amax", include_self=True)
+    rs = torch.zeros(m, dtype=torch.float32, device=z.device)
+    return rm, rs.index_add_(0, er, es * torch.exp(em - rm[er])), (t_m, t_s)
+
+
+def chain_stats_edge_plain(rows, cols, a, b, *, shape, alpha=None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's edge mode in plain PyTorch: ``(row_max, row_sum)`` each ``(M,)``
+    of the rows that hold an edge run of some tile (``edge_slots``), from
+    per-tile partials merged by the online-softmax update; every other row
+    left at ``(SOFTMAX_NEG, 0)``."""
+    m = int(shape[0])
+    valid, run_of, run_row, edge = _tile_runs(rows, m)
+    e = sddmm_torch(rows, cols, a, b, shape=shape).reshape(-1)[valid]
+    return _edge_stats(_alpha(alpha) * e, run_of, run_row, edge, m)[:2]
+
+
+def chain_tiles_plain(rows, cols, a, b, x, *, shape,
+                      transform: str = "identity", alpha=None, stats=None
+                      ) -> torch.Tensor:
+    """K8 in the slot-tile kernels' order of work: softmax without
+    ``stats`` takes each tile's interior runs' statistics from the tile
+    alone and its edge runs' from K7's edge mode (``chain_stats_edge_plain``),
+    as the fused chain does; given ``stats``, identity and scale, the
+    weights of ``chain_weights``.  Y sums in f32 and is cast to
+    ``x.dtype``."""
+    _check_transform(transform)
+    m = int(shape[0])
+    r = rows.reshape(-1)
+    valid = r < m
+    e = sddmm_torch(rows, cols, a, b, shape=shape).reshape(-1)
+    if transform == "softmax" and stats is None:
+        _, run_of, run_row, edge = _tile_runs(rows, m)
+        z = _alpha(alpha) * e[valid]
+        rm, rs, (t_m, t_s) = _edge_stats(z, run_of, run_row, edge, m)
+        s_m = torch.where(edge, rm[run_row], t_m)[run_of]
+        s_s = torch.where(edge, rs[run_row], t_s)[run_of]
+        w = torch.zeros_like(e)
+        w[valid] = torch.exp(z - s_m) / torch.clamp(s_s, min=SOFTMAX_EPS)
+    else:
+        w = chain_weights(e, r, valid, m, transform, alpha, stats=stats)
+    x2 = x[:, None] if x.ndim == 1 else x
+    y = torch.zeros((m, x2.shape[1]), dtype=torch.float32, device=x.device)
+    xg = x2.index_select(0, cols.reshape(-1)[valid].long()).float()
+    y.index_add_(0, r[valid].long(), w[valid, None] * xg)
+    y = y.to(x.dtype)
+    return y[:, 0] if x.ndim == 1 else y
 
 
 # ---------------------------------------------------------------------------
@@ -148,17 +254,22 @@ def _count(kernel: str, design: str) -> None:
 
 
 def reset_counts() -> None:
-    """Set ``DESIGN_LAUNCHES`` to 0 (``reset_launch_counts`` calls it)."""
+    """Set ``DESIGN_LAUNCHES`` and ``STATS_MODES`` to 0
+    (``reset_launch_counts`` calls it)."""
     for counts in DESIGN_LAUNCHES.values():
         counts.update(dict.fromkeys(counts, 0))
+    STATS_MODES.update(dict.fromkeys(STATS_MODES, 0))
 
 
-def _stats_packed(rows, cols, a, b, m: int, alpha, design, layout
-                  ) -> torch.Tensor:
+def _stats_packed(rows, cols, a, b, m: int, alpha, design, layout,
+                  edge: bool = False) -> torch.Tensor:
     """Launch K7 in ``design`` into an ``(M, 2)`` f32 buffer of
-    ``(row_max, row_sum)`` pairs, filled with ``(SOFTMAX_NEG, 0)`` first."""
+    ``(row_max, row_sum)`` pairs, filled with ``(SOFTMAX_NEG, 0)`` first;
+    ``edge`` takes the slot-tile design's edge mode."""
     stats = _blocks.new_stats(m, rows.device)
     if design == "block":
+        if edge:
+            raise ValueError("chain_stats: the block design has no edge mode")
         if _blocks.launch_stats("chain_stats", layout, a, b, None, stats,
                                 _alpha(alpha)):
             _count("chain_stats", design)
@@ -166,9 +277,11 @@ def _stats_packed(rows, cols, a, b, m: int, alpha, design, layout
         err = _build.lib().repro_chain_stats(
             rows.data_ptr(), cols.data_ptr(), a.data_ptr(), b.data_ptr(),
             _common.is_bf16(a), stats.data_ptr(), rows.shape[0],
-            rows.shape[1], m, a.shape[1], _alpha(alpha), _common.stream_of(a))
+            rows.shape[1], m, a.shape[1], _alpha(alpha), int(edge),
+            _common.stream_of(a))
         _build.check(err, "chain_stats")
         _count("chain_stats", design)
+        STATS_MODES["edge" if edge else "full"] += 1
     return stats
 
 
@@ -187,14 +300,16 @@ def chain_stats_fused(rows, cols, a, b, *, shape, alpha=None,
 
 
 def _launch_stats(design, rows, cols, a, b, *, shape, alpha=None,
-                  blocks=None) -> tuple[torch.Tensor, torch.Tensor]:
+                  blocks=None, edge: bool = False
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """K7 on CUDA operands in ``design``: ``None`` routes by the rule,
-    ``"block"`` or ``"slot"`` forces one (for tests and timings)."""
+    ``"block"`` or ``"slot"`` forces one (for tests and timings); ``edge``
+    takes the slot-tile design's edge mode (what the fused chain runs)."""
     _check_pattern("chain_stats", rows, cols, a, b, shape)
     route, layout = _blocks._route("chain_stats", design, blocks, rows, cols,
                                    shape, a, b)
     stats = _stats_packed(rows, cols, a, b, int(shape[0]), alpha, route,
-                          layout)
+                          layout, edge)
     return stats[:, 0].contiguous(), stats[:, 1].contiguous()
 
 
@@ -232,9 +347,13 @@ def _route(design, transform: str, blocks, rows, cols, shape, a, b, x):
 
 def _launch_chain(design, rows, cols, a, b, x, *, shape,
                   transform: str = "identity", alpha=None, stats=None,
-                  blocks=None) -> torch.Tensor:
+                  blocks=None, edge_stats: bool = False) -> torch.Tensor:
     """K8 (K7 first for softmax without ``stats``) on CUDA operands in
-    ``design``, as for ``_launch_stats``; only softmax has a block design."""
+    ``design``, as for ``_launch_stats``; only softmax has a block design.
+    ``edge_stats`` says that the given ``stats`` hold the rows of the
+    tiles' edge runs alone (K7's edge mode, ``_launch_stats(edge=True)``):
+    the slot-tile K8 then folds every other row itself, as in the fused
+    chain (for tests and timings of K8 alone)."""
     _check_transform(transform)
     _check_pattern("chain", rows, cols, a, b, shape)
     m = int(shape[0])
@@ -242,9 +361,17 @@ def _launch_chain(design, rows, cols, a, b, x, *, shape,
     n = x2.shape[1]
     route, layout = _route(design, transform, blocks, rows, cols, shape, a,
                            b, x2)
+    # the slot-tile K8 folds every run that lies inside its tile itself: K7
+    # computes the tiles' edge runs alone
     packed = None
+    edge = transform == "softmax" and route == "slot" and (
+        stats is None or edge_stats)
+    if edge_stats and not edge:
+        raise ValueError("chain: edge statistics need the slot-tile design's "
+                         "softmax with given stats")
     if transform == "softmax":
-        packed = (_stats_packed(rows, cols, a, b, m, alpha, route, layout)
+        packed = (_stats_packed(rows, cols, a, b, m, alpha, route, layout,
+                                edge)
                   if stats is None else _blocks.pack_stats(stats, m))
     y = torch.zeros((m, n), dtype=torch.float32, device=x2.device)
     if route == "block":
@@ -257,7 +384,7 @@ def _launch_chain(design, rows, cols, a, b, x, *, shape,
             _common.is_bf16(a), None if packed is None else packed.data_ptr(),
             x2.data_ptr(), _common.is_bf16(x2), y.data_ptr(), rows.shape[0],
             rows.shape[1], m, n, a.shape[1], _TRANSFORM_CODES[transform],
-            _alpha(alpha), _common.stream_of(x2))
+            int(edge), _alpha(alpha), _common.stream_of(x2))
         _build.check(err, "chain")
         _count("chain", route)
     y = y.to(x2.dtype)

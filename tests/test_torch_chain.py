@@ -204,6 +204,72 @@ def test_chain_bf16_x_and_external_stats():
            ref_spmm.chain_xla(rb.rows, rb.cols, ja, jb, jnp.asarray(x), **kw))
 
 
+def _fault_33(inf_nan: bool):
+    """Fault 3.3's input: every score of row 10 is −inf (A[10] = (−inf, 0,
+    ...), B[:, 0] = 1, alpha > 0), and row 10 lies inside one 512-slot tile,
+    neither its first run nor its last.  With ``inf_nan``, row 20 scores
+    +inf and row 25 NaN as well."""
+    rng = np.random.default_rng(7)
+    m, k, d = 40, 30, 8
+    dense = ((rng.random((m, k)) < 0.3)
+             * rng.standard_normal((m, k))).astype(np.float32)
+    dense[10] = 0.0
+    dense[10, [3, 7, 20]] = 1.0
+    a = (rng.standard_normal((m, d)) * 0.3).astype(np.float32)
+    b = (rng.standard_normal((k, d)) * 0.3).astype(np.float32)
+    b[:, 0] = 1.0
+    a[10] = 0.0
+    a[10, 0] = -np.inf
+    if inf_nan:
+        a[20] = 0.0
+        a[20, 0] = np.inf
+        a[25, 3] = np.nan
+    return dense, a, b, rng.standard_normal((k, 5)).astype(np.float32)
+
+
+@pytest.mark.parametrize("inf_nan", [False, True], ids=["minus_inf", "inf_nan"])
+def test_minus_inf_row_inside_a_tile_gives_zero(inf_nan):
+    """Fault 3.3: a run inside a tile starts from the floored pair (max(z,
+    −1e30), exp(z − that)), so a row of −inf scores has statistics (−1e30,
+    0), weights 0 and Y exactly 0, as the reference gives; +inf and NaN
+    scores give the reference's NaN rows.  (The reference's Pallas K8 is
+    held on the −inf row alone: its one-hot MXU reduction multiplies a NaN
+    weight by 0 for every other row of the block, so it returns NaN in
+    rows whose scores are finite.)"""
+    dense, a, b, x = _fault_33(inf_nan)
+    rb, pb, csr, _ = _slabs(dense)
+    m = csr.shape[0]
+    assert pb.rows.shape[0] == 1 and pb.rows[0, 0] < 10 < pb.rows[0, -1]
+    ja, jb, jx = jnp.asarray(a), jnp.asarray(b), jnp.asarray(x)
+    ta, tb, tx = _t(a, b, x)
+    skw = dict(shape=csr.shape, alpha=0.7)
+    kw = dict(skw, transform="softmax")
+    xm, xs = ref_spmm.chain_stats_xla(rb.rows, rb.cols, ja, jb, **skw)
+    wb = 8
+    vt, vb, vs = map(jnp.asarray, ref_vsr.plan_visits(rb, wb))
+    pm, ps = ref_chain.chain_stats_pallas(
+        rb.rows, rb.cols, ja, jb, wb=wb, visit_tile=vt, visit_block=vb,
+        visit_start=vs, interpret=True, **skw)
+    rm, rs = fused_chain.chain_stats_plain(pb.rows, pb.cols, ta, tb, **skw)
+    assert rm[10] == spmm.SOFTMAX_NEG and rs[10] == 0.0
+    for wm, ws in ((xm, xs), (pm, ps)):
+        np.testing.assert_allclose(rm.numpy(), np.asarray(wm).reshape(-1)[:m],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(rs.numpy(), np.asarray(ws).reshape(-1)[:m],
+                                   rtol=1e-5, atol=1e-6)
+    wants = [np.asarray(ref_spmm.chain_xla(rb.rows, rb.cols, ja, jb, jx, **kw))]
+    if not inf_nan:
+        wants.append(np.asarray(ref_chain.chain_pallas(
+            rb.rows, rb.cols, ja, jb, jx, interpret=True, **kw)))
+    for fn in (fused_chain.chain_plain, fused_chain.chain_tiles_plain):
+        got = fn(pb.rows, pb.cols, ta, tb, tx, **kw).numpy()
+        assert (got[10] == 0).all(), fn.__name__
+        for want in wants:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    if inf_nan:
+        assert np.isnan(wants[0][[20, 25]]).all()
+
+
 def test_cpu_chain_wrappers_count_no_launches():
     dense, a, b, x = PROBLEMS["small"]()
     _, pb, csr, _ = _slabs(dense)

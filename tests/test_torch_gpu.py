@@ -219,6 +219,294 @@ def test_cuda_chain_facade_main_path(cuda):
 
 
 
+def _fault_33(device, inf_nan=True):
+    """Fault 3.3's input: every score of row 10 is −inf (A[10] = (−inf, 0,
+    ...), B[:, 0] = 1, alpha > 0); in a 512-slot tile row 10 is neither
+    the first run nor the last.  With ``inf_nan``, row 20 scores +inf and
+    row 25 NaN."""
+    rng = np.random.default_rng(7)
+    m, k, d = 40, 30, 8
+    dense = ((rng.random((m, k)) < 0.3)
+             * rng.standard_normal((m, k))).astype(np.float32)
+    dense[10] = 0.0
+    dense[10, [3, 7, 20]] = 1.0
+    a = (rng.standard_normal((m, d)) * 0.3).astype(np.float32)
+    b = (rng.standard_normal((k, d)) * 0.3).astype(np.float32)
+    b[:, 0] = 1.0
+    a[10] = 0.0
+    a[10, 0] = -np.inf
+    if inf_nan:
+        a[20] = 0.0
+        a[20, 0] = np.inf
+        a[25, 3] = np.nan
+    x = rng.standard_normal((k, 5)).astype(np.float32)
+    csr = formats.csr_from_dense(dense, device=device)
+    return csr, *(torch.from_numpy(t).to(device) for t in (a, b, x))
+
+
+def _same_stats(got, want):
+    """K7's statistics against the plain version's: the same NaN and inf
+    pattern of the sums, and the maxima of the rows whose sum is a number
+    (where a NaN or +inf score makes the sum NaN, the max is not compared:
+    the kernel's floored max drops a NaN)."""
+    (rm, rs), (pm, ps) = got, want
+    _same_nonfinite(rs, ps, 1e-4)
+    keep = ~torch.isnan(ps)
+    _same_nonfinite(rm[keep], pm[keep], 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [8, 16, 512])
+@pytest.mark.parametrize("inf_nan", [False, True], ids=["minus_inf", "inf_nan"])
+def test_cuda_chain_fault_33_public_calls(cuda, tile, inf_nan):
+    """Fault 3.3 through the public wrappers (K7 full mode, the fused chain):
+    the −inf row has statistics (−1e30, 0) and Y exactly 0."""
+    csr, a, b, x = _fault_33(cuda, inf_nan)
+    bal = formats.csr_to_balanced(csr, tile)
+    args = (bal.rows, bal.cols, a, b)
+    kw = dict(shape=csr.shape, alpha=0.7)
+    rm, rs = fused_chain.chain_stats_fused(*args, **kw)
+    assert rm[10] == -1e30 and rs[10] == 0
+    _same_stats((rm, rs), fused_chain.chain_stats_plain(*args, **kw))
+    for xx in (x, x[:, 0].contiguous()):
+        y = fused_chain.chain_fused(*args, xx, transform="softmax", **kw)
+        assert (y[10] == 0).all()
+        _same_nonfinite(y, fused_chain.chain_plain(*args, xx, transform="softmax",
+                                                   **kw), 1e-4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [8, 16, 512])
+def test_cuda_chain_fault_33_both_modes(cuda, tile):
+    """Fault 3.3 in K7's full and edge modes and in K8 on edge statistics
+    and on given statistics."""
+    csr, a, b, x = _fault_33(cuda)
+    bal = formats.csr_to_balanced(csr, tile)
+    args = (bal.rows, bal.cols, a, b)
+    kw = dict(shape=csr.shape, alpha=0.7)
+    full = fused_chain._launch_stats("slot", *args, **kw)
+    _same_stats(full, fused_chain.chain_stats_plain(*args, **kw))
+    edge = fused_chain._launch_stats("slot", *args, edge=True, **kw)
+    _same_stats(edge, fused_chain.chain_stats_edge_plain(*args, **kw))
+    ck = dict(kw, transform="softmax")
+    want = fused_chain.chain_plain(*args, x, **ck)
+    for n in (1, 4, 5):
+        xx = x[:, :n].contiguous()
+        w = want[:, :n]
+        for y in (fused_chain.chain_fused(*args, xx, **ck),
+                  fused_chain.chain_fused(*args, xx, stats=full, **ck)):
+            assert (y[10] == 0).all()
+            _same_nonfinite(y, w, 1e-4)
+    torch.cuda.synchronize()
+
+
+class _Shape:
+    """A stand-in with the ``shape`` and ``device`` of a CSR, for
+    ``_chain_operands``."""
+
+    def __init__(self, shape, device):
+        self.shape, self.device = shape, device
+
+
+def _slot_patterns(device):
+    """(name, BalancedCOO) of the slot-tile chain's cases: the test graphs
+    at tiles 32 and 512, a hub row that covers whole tiles (one-run tiles)
+    with short rows around it, runs that end at a tile's end, and the
+    skewed graph with an all-padding tile appended."""
+    rng = np.random.default_rng(11)
+    hub = np.zeros((50, 3000), np.float32)
+    hub[:20] = (rng.random((20, 3000)) < 0.004)
+    hub[20] = 1.0
+    hub[21:] = (rng.random((29, 3000)) < 0.004)
+    ends = np.zeros((13, 40), np.float32)
+    for i, n in enumerate([16, 10, 6, 5, 11, 3, 3, 3, 3, 4, 0, 16, 2]):
+        ends[i, rng.choice(40, n, replace=False)] = 1.0
+    graphs = _graphs(device)
+    for name, csr in graphs.items():
+        for tile in (32, 512):
+            yield f"{name}_t{tile}", formats.csr_to_balanced(csr, tile)
+    for tile in (64, 512):
+        yield f"hub_t{tile}", formats.csr_to_balanced(
+            formats.csr_from_dense(hub, device=device), tile)
+    yield "tile_ends_t16", formats.csr_to_balanced(
+        formats.csr_from_dense(ends, device=device), 16)
+    bal = formats.csr_to_balanced(graphs["skewed"], 100)
+    m = bal.shape[0]
+    pad = lambda t, v: torch.cat([t, torch.full_like(t[:1], v)])
+    yield "padding_tile_t100", formats.BalancedCOO(
+        pad(bal.rows, m), pad(bal.cols, 0), pad(bal.vals, 0), bal.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_chain_stats_modes_match_plain(cuda, dtype):
+    """K7's full mode (every row) and edge mode (the rows of each tile's
+    first and last runs; every other row exactly (−1e30, 0))."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, bal in _slot_patterns(cuda):
+        m = bal.shape[0]
+        for d in (16, 64):
+            a, b, _ = _chain_operands(_Shape(bal.shape, cuda), d, 1, dtype)
+            args = (bal.rows, bal.cols, a, b)
+            kw = dict(shape=bal.shape, alpha=0.7)
+            pm, ps = fused_chain.chain_stats_plain(*args, **kw)
+            reset_launch_counts()
+            rm, rs = fused_chain._launch_stats("slot", *args, **kw)
+            em, es = fused_chain._launch_stats("slot", *args, edge=True, **kw)
+            assert fused_chain.STATS_MODES == {"full": 1, "edge": 1}, name
+            held = ps > 0
+            assert _rel(rm[held], pm[held]) < tol and _rel(rs, ps) < tol, name
+            assert (rm[~held] == -1e30).all() and (rs[~held] == 0).all(), name
+            edge_rows = torch.zeros(m, dtype=torch.bool, device=cuda)
+            edge_rows[bal.rows[fused_chain.edge_slots(bal.rows, m)].long()] = True
+            assert _rel(em[edge_rows], pm[edge_rows]) < tol, name
+            assert _rel(es[edge_rows], ps[edge_rows]) < tol, name
+            assert (em[~edge_rows] == -1e30).all(), name
+            assert (es[~edge_rows] == 0).all(), name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 4, 32, 128, 200])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+def test_cuda_chain_slot_k8_matches_plain(cuda, n, xdtype, aligned):
+    """The slot-tile K8 on K7's edge statistics (the fused chain), and on
+    given statistics, identity and scale: N = 1 through the sum scan, N > 1
+    by 4-column gathers (16-byte where N % 4 == 0 and X is aligned)."""
+    tol = 1e-4 if xdtype == torch.float32 else 2e-2
+    for name, bal in _slot_patterns(cuda):
+        m, k = bal.shape
+        a, b, _ = _chain_operands(_Shape(bal.shape, cuda), 16, 1)
+        buf = torch.randn(k * n + 1, device=cuda).to(xdtype)
+        x = (buf[:-1] if aligned else buf[1:]).view(k, n)
+        x = x[:, 0] if n == 1 else x
+        args = (bal.rows, bal.cols, a, b, x)
+        empty = torch.ones(m, dtype=torch.bool, device=cuda)
+        empty[bal.rows[bal.rows < m].long()] = False
+        for transform, alpha in (("softmax", 0.7), ("identity", None),
+                                 ("scale", 0.5)):
+            kw = dict(shape=bal.shape, transform=transform, alpha=alpha)
+            reset_launch_counts()
+            y = fused_chain._launch_chain("slot", *args, **kw)
+            assert fused_chain.STATS_MODES == {
+                "full": 0, "edge": int(transform == "softmax")}, name
+            assert y.dtype == xdtype and y.shape == ((m, n) if n > 1 else (m,))
+            want = fused_chain.chain_plain(*args, **kw)
+            assert _rel(y, want) < tol, (name, transform)
+            assert _rel(y, fused_chain.chain_tiles_plain(*args, **kw)) < tol, name
+            assert (y[empty] == 0).all(), (name, transform)
+        stats = fused_chain.chain_stats_plain(*args[:4], shape=bal.shape,
+                                              alpha=0.7)
+        reset_launch_counts()
+        y = fused_chain._launch_chain("slot", *args, shape=bal.shape,
+                                      transform="softmax", alpha=0.7,
+                                      stats=stats)
+        assert launch_counts()["chain_stats"] == 0
+        assert fused_chain.STATS_MODES == {"full": 0, "edge": 0}
+        assert _rel(y, fused_chain.chain_plain(*args, shape=bal.shape,
+                                               transform="softmax", alpha=0.7,
+                                               stats=stats)) < tol, name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [2048, 4096])
+def test_cuda_chain_slot_large_tiles(cuda, tile):
+    """Tiles past 48 KB of K8's shared memory (its per-slot run statistics
+    at 4,096 slots): K7 in both modes and K8 at N = 1 and 128."""
+    for name, bal in _slot_patterns(cuda):
+        if not name.startswith(("hub_t512", "skewed_t512")):
+            continue
+        rows = bal.rows.reshape(-1)
+        cols = bal.cols.reshape(-1)
+        pad = (-rows.numel()) % tile
+        m = bal.shape[0]
+        rows = torch.cat([rows, rows.new_full((pad,), m)]).view(-1, tile)
+        cols = torch.cat([cols, cols.new_zeros(pad)]).view(-1, tile)
+        a, b, _ = _chain_operands(_Shape(bal.shape, cuda), 64, 1)
+        kw = dict(shape=bal.shape, alpha=0.7)
+        args = (rows, cols, a, b)
+        pm, ps = fused_chain.chain_stats_plain(*args, **kw)
+        rm, rs = fused_chain._launch_stats("slot", *args, **kw)
+        assert _rel(rs, ps) < 1e-4, name
+        em, es = fused_chain._launch_stats("slot", *args, edge=True, **kw)
+        wm, ws = fused_chain.chain_stats_edge_plain(*args, **kw)
+        assert _rel(es, ws) < 1e-4 and torch.equal(es == 0, ws == 0), name
+        for n in (1, 128):
+            x = torch.randn(bal.shape[1], n, device=cuda)
+            ck = dict(kw, transform="softmax")
+            y = fused_chain._launch_chain("slot", *args, x, **ck)
+            assert _rel(y, fused_chain.chain_plain(*args, x, **ck)) < 1e-4, name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_chain_bf16_features_on_edge_stats(cuda):
+    """bf16 A and B (and X) through the fused chain on the hub pattern."""
+    for name, bal in _slot_patterns(cuda):
+        if not name.startswith(("hub", "skewed")):
+            continue
+        a, b, x = _chain_operands(_Shape(bal.shape, cuda), 64, 32,
+                                  torch.bfloat16, torch.bfloat16)
+        kw = dict(shape=bal.shape, transform="softmax", alpha=0.125)
+        y = fused_chain.chain_fused(bal.rows, bal.cols, a, b, x, **kw)
+        want = fused_chain.chain_plain(bal.rows, bal.cols, a, b, x, **kw)
+        assert y.dtype == torch.bfloat16 and _rel(y, want) < 2e-2, name
+
+
+@pytest.mark.gpu
+def test_cuda_chain_stats_mode_counters(cuda):
+    """The fused chain's softmax launches K7 in edge mode; chain_stats_fused,
+    the unfused pair and the facade with the fuse gate shut launch it in full
+    mode; identity, scale, given statistics and the block design launch
+    neither."""
+    import repro_torch
+    csr = _graphs(cuda)["skewed"]
+    bal = formats.csr_to_balanced(csr, 512)
+    a, b, x = _chain_operands(csr, 64, 32)
+    args = (bal.rows, bal.cols, a, b)
+    kw = dict(shape=csr.shape, alpha=0.125)
+
+    def modes(call):
+        reset_launch_counts()
+        call()
+        torch.cuda.synchronize()
+        return dict(fused_chain.STATS_MODES)
+
+    assert modes(lambda: fused_chain.chain_fused(
+        *args, x, transform="softmax", **kw)) == {"full": 0, "edge": 1}
+    assert modes(lambda: fused_chain.chain_stats_fused(*args, **kw)) == {
+        "full": 1, "edge": 0}
+    assert modes(lambda: fused_chain.chain_unfused(
+        *args, x, transform="softmax", **kw)) == {"full": 1, "edge": 0}
+    for transform in ("identity", "scale"):
+        assert modes(lambda: fused_chain.chain_fused(
+            *args, x, transform=transform, **kw)) == {"full": 0, "edge": 0}
+    stats = fused_chain.chain_stats_plain(*args, **kw)
+    assert modes(lambda: fused_chain.chain_fused(
+        *args, x, transform="softmax", stats=stats, **kw)) == {"full": 0,
+                                                                "edge": 0}
+    assert modes(lambda: repro_torch.sparse_chain(
+        csr, a, b, x, alpha=0.125, cache=False)) == {"full": 0, "edge": 1}
+    shut = dataclasses.replace(repro_torch.SelectorThresholds(),
+                               chain_fuse_min_n=1 << 30)
+    assert modes(lambda: repro_torch.sparse_chain(
+        csr, a, b, x, alpha=0.125, thresholds=shut, cache=False)) == {
+            "full": 1, "edge": 0}
+    spec = patterns.sliding_window(512, 2, block=64, causal=True)
+    band = formats.csr_to_balanced(patterns.build_mask(spec).csr.to(cuda), 512)
+    q, kk = (0.3 * torch.randn(512, 64, device=cuda) for _ in range(2))
+    assert modes(lambda: fused_chain.chain_fused(
+        band.rows, band.cols, q, kk, torch.randn(512, 64, device=cuda),
+        shape=(512, 512), transform="softmax", alpha=0.125)) == {"full": 0,
+                                                                 "edge": 0}
+    assert fused_chain.DESIGN_LAUNCHES["chain"] == {"block": 1, "slot": 0}
+    with pytest.raises(ValueError):           # the block design has no edge mode
+        fused_chain._launch_stats("block", band.rows, band.cols, q, kk,
+                                  shape=(512, 512), edge=True)
+
 def _attention_specs():
     """A causal window (rows of 2-3 blocks), a BigBird encoder whose global
     rows span several 512-slot tiles, and a block mask with an empty block
