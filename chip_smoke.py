@@ -15,7 +15,9 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              both designs, forced; K11 routed and in both designs, forced,
              at the Gemma weight in float32 and bfloat16 and at (16, 64),
              and on a ragged matrix; the slot-tile K7 in full and edge mode
-             and K8 alone on the edge statistics on both graphs): relative
+             and K8 alone on the edge statistics on both graphs; K4, K5
+             and the spill combine on the uniform graph's windows at N = 1,
+             4, 32, 128 and a bfloat16 X at N = 32): relative
              inf-norm error at most
              1e-4 in float32 (hub rows of ~40k terms summed in another
              order, atomics in no fixed order) and 2e-2 in bfloat16;
@@ -60,7 +62,8 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              and a dense float64 product, a cache hit with new values, a
              second plan at ``bsr_block=(16, 64)``); then the spill path of
              the uniform graph (``spill=True`` in the ``nb_pr`` opts: K5 at
-             N = 1, K4 above) against the fused K1/K2, the same opt on the
+             N = 1, K4 above, each call one launch of it and one of the
+             combine kernel) against the fused K1/K2, the same opt on the
              Graph500 graph refused (its window is past ``max_win``), and
              ``spmm_as_n_spmv_hopper`` at N = 4 (four K2 launches);
 5. times   — per (graph, N): the kernel, its plain version and
@@ -108,9 +111,11 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              (at 989 TFLOP/s) and at (16, 64), beside the dense product in
              that type and ``sparse.mm`` where it takes it; per N of the
              uniform graph's spill path: K4
-             (K5) alone, the ``index_add_`` combine, the spill call, the
-             fused K1 (K2), the plain version and ``torch.sparse.mm``, each
-             bound counting the partials written;
+             (K5) alone, the combine kernel beside its plain version and
+             one ``index_add_`` (its library call), the spill call and its
+             ratio to ``torch.sparse.mm``, the fused K1 (K2) and the plain
+             version, each bound counting the partials written (the
+             combine's: the partials read once, Y written once);
 6. summary — one JSON line of the kernels, the card line, then the result.
 
 Without a CUDA device it prints no result and exits 2.  ``--scale`` below 20
@@ -210,6 +215,9 @@ KERNELS.update({
                        "replaces": "src/repro/kernels/vsr.py:225"},
     "vsr_spmv_spill": {"route": "cuda", "source": "src/repro_torch/csrc/spmv.cu",
                        "replaces": "src/repro/kernels/spmv.py:35"},
+    # the segment sum outside the reference's spill kernels
+    "spill_combine": {"route": "cuda", "source": "src/repro_torch/csrc/vsr.cu",
+                      "replaces": "src/repro/kernels/vsr.py:285"},
 })
 #: the block-pruned FFN weight of the "bsr" backend: Gemma-3-12B's
 #: up-projection at the default bsr_block, a quarter of the blocks kept
@@ -218,7 +226,8 @@ BSR_KEEP = 0.25
 #: the second plan's block shape, and the small ragged matrix's
 BSR_BLOCK_ALT = (16, 64)
 #: the N whose times stand for each new kernel in the summary line
-BSR_SUMMARY_N, SPILL_SUMMARY_N = 128, {"vsr_spmm_spill": 128, "vsr_spmv_spill": 1}
+BSR_SUMMARY_N, SPILL_SUMMARY_N = 128, {"vsr_spmm_spill": 128, "vsr_spmv_spill": 1,
+                                      "spill_combine": 128}
 
 
 def pruned_ffn_weight(d_ff: int, d_model: int, seed: int):
@@ -387,18 +396,23 @@ def main() -> int:
         kw = dict(row_base=base, win=win)
         if n == 1:
             x = randn(k_dim, dtype=dtype)
-            hold("vsr_spmv_spill", f"unif N=1 partials",
-                 spmv.spmv_vsr_partials(unif_bal, x, base, win),
+            part = spmv.spmv_vsr_partials(unif_bal, x, base, win)
+            hold("vsr_spmv_spill", f"unif N=1 partials", part,
                  vsr.spill_partials_plain(unif_bal, x[:, None], base, win)[..., 0], dt)
             hold("vsr_spmv_spill", "unif N=1", spmv.spmv_vsr(unif_bal, x, **kw),
                  spmv.spmv_vsr_spill_plain(unif_bal, x, **kw), dt)
         else:
             x = randn(k_dim, n, dtype=dtype)
-            hold("vsr_spmm_spill", f"unif N={n} partials",
-                 vsr.spmm_vsr_partials(unif_bal, x, base, win),
+            part = vsr.spmm_vsr_partials(unif_bal, x, base, win)
+            hold("vsr_spmm_spill", f"unif N={n} partials", part,
                  vsr.spill_partials_plain(unif_bal, x, base, win), dt)
             hold("vsr_spmm_spill", f"unif N={n}", vsr.spmm_vsr(unif_bal, x, **kw),
                  vsr.spmm_vsr_spill_plain(unif_bal, x, **kw), dt)
+        # the combine on the kernel's partials (float32 whatever X is)
+        hold("spill_combine", f"unif N={n} ({dt} X)",
+             vsr.spill_combine(part, base, unif_bal.shape[0]),
+             vsr.spill_combine_plain(part, base, unif_bal.shape[0]), "float32")
+        del part
         torch.cuda.empty_cache()
 
     # the chain's kernels: a GAT layer's scores A·Bᵀ, A and B (2^20, 64)
@@ -973,8 +987,9 @@ def main() -> int:
         rel, _ = errors(y, F.matmul(x, impl="nb_pr"))
         print(f"[main] spill unif N={n}: launches={counts} "
               f"rel_err_vs_fused={rel:.3e}", flush=True)
-        if counts != {kk: int(kk == kernel) for kk in KERNELS}:
-            fail(f"spill unif N={n}: launches {counts}, expected one {kernel}")
+        if counts != {kk: int(kk in (kernel, "spill_combine")) for kk in KERNELS}:
+            fail(f"spill unif N={n}: launches {counts}, expected one {kernel} "
+                 "and one spill_combine")
         if y.shape != ((unif.shape[0], n) if n > 1 else (unif.shape[0],)) \
                 or not torch.isfinite(y).all() or rel > RTOL["float32"]:
             fail(f"spill unif N={n}: misshapen, not finite or disagrees with "
@@ -1515,21 +1530,37 @@ def main() -> int:
         k_bound = bound(12 * unif.nnz + 4 * n_tiles + 4 * k_dim * n + part_bytes,
                         2 * unif.nnz * n)
         c_bound = bound(part_bytes + 4 * n_tiles + 4 * m * n, n_tiles * spill_win * n)
+        # the one PyTorch call that computes the combine: index_add_ on the
+        # window rows' indices, made beforehand
+        idx = (spill_base.long()[:, None] + torch.arange(
+            spill_win, device=dev)[None, :]).reshape(-1)
+        y_lib = part.new_zeros((m + spill_win + 1,) + tuple(part.shape[2:]))
+        part_flat = part.reshape((-1,) + tuple(part.shape[2:]))
         row = {"kernel_ms": time_ms(run),
                "plain_ms": time_ms(lambda: vsr.spill_partials_plain(
                    sbal, x2, spill_base, spill_win), reps=5),
                "library_ms": time_ms(lambda: lib_a @ x2),
                "bound_ms": k_bound[0], "bound_by": k_bound[1],
-               "combine_ms": time_ms(lambda: vsr.spill_combine(part, spill_base, m)),
+               "combine_ms": time_ms(lambda: vsr._combine(part, spill_base, m)),
                "combine_bound_ms": c_bound[0],
+               "combine_plain_ms": time_ms(lambda: vsr.spill_combine_plain(
+                   part, spill_base, m)),
+               "combine_library_ms": time_ms(lambda: y_lib.index_add_(
+                   0, idx, part_flat)),
                "spill_call_ms": time_ms(lambda: S.matmul(x, impl="nb_pr")),
                "fused_kernel_ms": time_ms(fused)}
+        row["call_vs_library"] = row["spill_call_ms"] / row["library_ms"]
         print(f"[time] {kernel} unif_s{args.scale}_e16 N={n} win={spill_win} "
               + " ".join(f"{kk}={vv}" for kk, vv in row.items()), flush=True)
+        shape = f"unif_s{args.scale}_e16 N={n} win={spill_win}"
         if n == SPILL_SUMMARY_N[kernel]:
-            summary_rows[kernel] = (row, f"unif_s{args.scale}_e16 N={n} "
-                                          f"win={spill_win}")
-        del part
+            summary_rows[kernel] = (row, shape)
+        if n == SPILL_SUMMARY_N["spill_combine"]:
+            summary_rows["spill_combine"] = (
+                {"kernel_ms": row["combine_ms"], "plain_ms": row["combine_plain_ms"],
+                 "bound_ms": c_bound[0], "bound_by": c_bound[1],
+                 "library_ms": row["combine_library_ms"]}, shape)
+        del part, idx, y_lib, part_flat
     del lib_a
     torch.cuda.empty_cache()
 

@@ -1,5 +1,6 @@
 """The port's hand-written Hopper kernels (K1-K11) and the oracles.
 
+K4 and K5's combine (``vsr.spill_combine``) is a kernel of its own.
 Importing this package registers the ``"hopper"`` backend (K1-K10) and the
 block-granule ``"bsr"`` backend (K11) in ``repro_torch.core.registry``; the
 registry imports it on first resolve of either.  The kernels are built and
@@ -22,7 +23,8 @@ KERNEL_MODULES = {"vsr_spmm": vsr, "vsr_spmv": spmv, "csc_spmm": csc,
                   "sddmm": fused_chain, "chain_stats": fused_chain,
                   "chain": fused_chain, "attn_stats": attention,
                   "attn_chain": attention, "bsr_spmm": bsr,
-                  "vsr_spmm_spill": vsr, "vsr_spmv_spill": spmv}
+                  "vsr_spmm_spill": vsr, "vsr_spmv_spill": spmv,
+                  "spill_combine": vsr}
 
 
 def launch_counts() -> dict[str, int]:

@@ -42,7 +42,8 @@ SIGNATURES = {
     "repro_vsr_spmm": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
     "repro_vsr_spmv": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P),
     "repro_vsr_spmm_spill": (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
-                             _I, _P),
+                             _I, _I, _P),
+    "repro_spill_combine": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_vsr_spmv_spill": (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                              _P),
     "repro_bsr_spmm": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,

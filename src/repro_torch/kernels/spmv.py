@@ -14,11 +14,15 @@ BalancedCOO slabs by the paper's segmented scan, sums in f32, result cast to
   each run's end adds its sum into a zeroed y with ``atomicAdd``.
 
 ``spmv_vsr`` is the spill-and-combine variant (the parity reference): K5
-replaces ``src/repro/kernels/spmv.py::_spmv_kernel`` (same source file).  It
-runs K2's scan and stores each run's sum, carry included, into the tile's
-``(WIN,)`` window of an ``(n_tiles, WIN)`` partials buffer at ``row -
-row_base`` — once, with a plain store; the combine is
+replaces ``src/repro/kernels/spmv.py::_spmv_kernel`` (same source file) and
+stores each run's sum into the tile's ``(WIN,)`` window of an ``(n_tiles,
+WIN)`` partials buffer at the clamped ``row - row_base``; the combine is
 ``vsr.spill_combine``.  Bound: K2's bytes plus 4·WIN B of partials a tile.
+Design: one warp a tile, a lane 4 adjacent slots of a 128-slot step by
+16-byte loads (the next step's issued first) and 4 gathers of x before any
+arithmetic; runs keyed on the clamped window row, summed in the lane and
+then by one ``__shfl_up_sync`` segmented scan across the warp; each window
+entry written once, untouched rows as 0.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import torch
 from ..core.formats import BalancedCOO
 
 from . import _build, _common
-from .vsr import _given_or_planned, spill_combine, spill_partials_plain
+from .vsr import (SpillWindows, _combine, _given_or_planned,
+                  spill_combine_plain, spill_partials_plain)
 
 #: launches of the K2 and K5 kernels since process start (or the last reset)
 LAUNCHES = {"vsr_spmv": 0, "vsr_spmv_spill": 0}
@@ -100,10 +105,18 @@ def spmv_vsr_spill_plain(bal: BalancedCOO, x: torch.Tensor, *,
                          row_base: torch.Tensor | None = None,
                          win: int | None = None) -> torch.Tensor:
     """The spill SpMV's plain PyTorch version: plain partials, then the
-    combine."""
-    row_base, win = _given_or_planned(bal, row_base, win)
+    plain combine."""
+    if row_base is None or win is None:
+        row_base, win = SpillWindows()(bal)
     part = spill_partials_plain(bal, x[:, None], row_base, win)[..., 0]
-    return spill_combine(part, row_base, bal.shape[0]).to(x.dtype)
+    return spill_combine_plain(part, row_base, bal.shape[0]).to(x.dtype)
+
+
+def _spill_spmv(bal: BalancedCOO, x: torch.Tensor, row_base: torch.Tensor,
+                win: int) -> torch.Tensor:
+    """K5, then the combine, on ordered windows."""
+    return _combine(spmv_vsr_partials(bal, x, row_base, win), row_base,
+                    bal.shape[0]).to(x.dtype)
 
 
 def spmv_vsr(bal: BalancedCOO, x: torch.Tensor, *,
@@ -111,7 +124,6 @@ def spmv_vsr(bal: BalancedCOO, x: torch.Tensor, *,
              win: int | None = None) -> torch.Tensor:
     """NB SpMV, spill and combine (the parity reference): K5's partials,
     then ``vsr.spill_combine``.  ``row_base`` / ``win`` come from
-    ``plan_windows`` (computed here when not given)."""
-    row_base, win = _given_or_planned(bal, row_base, win)
-    return spill_combine(spmv_vsr_partials(bal, x, row_base, win), row_base,
-                         bal.shape[0]).to(x.dtype)
+    ``plan_windows`` (computed here when not given; a given ``row_base`` on
+    the card must be non-decreasing)."""
+    return _spill_spmv(bal, x, *_given_or_planned(bal, row_base, win))

@@ -18,15 +18,23 @@ cast to ``x.dtype``.  Its CUDA source is ``repro_torch/csrc/vsr.cu``:
 ``spmm_vsr`` is the spill-and-combine variant, the fused path's parity
 reference: K4 replaces ``src/repro/kernels/vsr.py::_vsr_kernel`` (same
 source file) and writes each tile's row sums into its ``(WIN, N)`` window of
-an ``(n_tiles, WIN, N)`` partials buffer at ``row - row_base``; the combine
-is the reference's ``segment_sum`` outside the kernel, here an
-``index_add_``.  It runs when a plan's NB kernel opts hold ``spill=True``.
+an ``(n_tiles, WIN, N)`` partials buffer at ``row - row_base`` (clamped to
+the window); ``spill_combine`` — the reference's ``segment_sum`` outside the
+kernel — adds the windows, on the card by a kernel of its own.  The path
+runs when a plan's NB kernel opts hold ``spill=True``.
 
-* bound — bytes: K1's, plus the partials written (4·WIN·N B a tile);
-* design — a lane group owns a whole tile and walks it in order, lanes
-  owning dense columns; each (tile, row) run is closed once with a plain
-  store and skipped window rows get zeros, so every partial is written
-  once, without atomics.
+* K4's bound — bytes: K1's, plus the partials written (4·WIN·N B a tile);
+* K4's design — a CTA stages one tile (several at small N) in shared
+  memory; lane groups walk equal ranges of its slots, a lane 4 columns of X
+  by one 16-byte gather a slot, 8 gathers before their FMAs; runs keyed on
+  the clamped window row, a run inside a range stored once by its group, a
+  run across ranges merged through shared memory and stored once; window
+  rows the tile does not touch written as 0 by the group before them.
+  Every partial is written once, without atomics or a zeroing pass;
+* the combine's bound — bytes: the partials read once and Y written once;
+* its design — a row-parallel gather: the tiles that cover a row are one
+  range of the non-decreasing ``row_base`` (binary search), summed in
+  order into the row, written once.
 
 ``plan_windows`` (the spill path's windows) and ``plan_visits`` (the TPU
 fused path's visit schedule, which the Hopper kernels do not need) are the
@@ -45,8 +53,9 @@ from ..core.selector import HOPPER_MAX_TILE, TileGeometry
 
 from . import _build, _common
 
-#: launches of the K1 and K4 kernels since process start (or the last reset)
-LAUNCHES = {"vsr_spmm": 0, "vsr_spmm_spill": 0}
+#: launches of the K1 and K4 kernels and of the spill path's combine since
+#: process start (or the last reset)
+LAUNCHES = {"vsr_spmm": 0, "vsr_spmm_spill": 0, "spill_combine": 0}
 
 
 def _tile_spans(bal: BalancedCOO) -> tuple[np.ndarray, int, int]:
@@ -180,12 +189,11 @@ def spmm_vsr_fused(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
     return y[:, 0] if x.ndim == 1 else y
 
 
-def spill_combine(partials: torch.Tensor, row_base: torch.Tensor,
-                  m: int) -> torch.Tensor:
-    """The spill path's combine (the reference's ``segment_sum``): window
-    row ``w`` of tile ``t`` holds a sum for row ``row_base[t] + w``; rows
-    that cross tiles add up.  ``partials`` (n_tiles, WIN[, N]) f32 →
-    (M[, N]) f32."""
+def spill_combine_plain(partials: torch.Tensor, row_base: torch.Tensor,
+                        m: int) -> torch.Tensor:
+    """The combine's plain PyTorch version (the reference's
+    ``segment_sum``): one ``index_add_`` of every window row at
+    ``row_base[t] + w``, rows at or past ``m`` dropped; any ``row_base``."""
     win = partials.shape[1]
     tail = tuple(partials.shape[2:])
     idx = (row_base.long()[:, None]
@@ -193,6 +201,57 @@ def spill_combine(partials: torch.Tensor, row_base: torch.Tensor,
     y = partials.new_zeros((m + win + 1,) + tail)
     y.index_add_(0, idx, partials.reshape((-1,) + tail))
     return y[:m]
+
+
+def check_row_base(row_base: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless a caller's ``row_base`` on the card is
+    non-decreasing, as the combine kernel needs (``SpillWindows`` gives it
+    so).  One device sync."""
+    if not _common.on_cpu("spill_combine", row_base) and row_base.numel() > 1 \
+            and bool((row_base[1:] < row_base[:-1]).any()):
+        raise ValueError("spill path: row_base must be non-decreasing (the "
+                         "combine finds a row's tiles by binary search); "
+                         "plan_windows / SpillWindows give it so")
+
+
+def _combine(partials: torch.Tensor, row_base: torch.Tensor,
+             m: int) -> torch.Tensor:
+    """The combine on an ordered ``row_base``: the plain version for CPU
+    operands, the kernel for CUDA operands."""
+    if _common.on_cpu("spill_combine", partials, row_base):
+        return spill_combine_plain(partials, row_base, m)
+    n_tiles, win = partials.shape[:2]
+    if (partials.ndim not in (2, 3) or partials.dtype != torch.float32
+            or not partials.is_contiguous()
+            or row_base.dtype != torch.int32 or row_base.shape != (n_tiles,)
+            or not row_base.is_contiguous()):
+        raise ValueError("spill_combine: partials must be contiguous float32 "
+                         "(n_tiles, WIN[, N]) and row_base contiguous int32 "
+                         "(n_tiles,)")
+    n = partials.shape[2] if partials.ndim == 3 else 1
+    if partials.numel() > 2**31 - 1 or m * n > 2**31 - 1:
+        raise ValueError("spill_combine: an operand exceeds int32 indexing")
+    y = torch.empty((m,) + tuple(partials.shape[2:]), dtype=torch.float32,
+                    device=partials.device)
+    if y.numel():
+        err = _build.lib().repro_spill_combine(
+            partials.data_ptr(), row_base.data_ptr(), y.data_ptr(), n_tiles,
+            win, m, n, _common.stream_of(partials))
+        _build.check(err, "spill_combine")
+        LAUNCHES["spill_combine"] += 1
+    return y
+
+
+def spill_combine(partials: torch.Tensor, row_base: torch.Tensor,
+                  m: int) -> torch.Tensor:
+    """The spill path's combine (the reference's ``segment_sum``): window
+    row ``w`` of tile ``t`` holds a sum for row ``row_base[t] + w``; rows
+    that cross tiles add up, rows at or past ``m`` drop out.  ``partials``
+    (n_tiles, WIN[, N]) f32 → (M[, N]) f32.  CPU operands take the plain
+    version; CUDA operands launch the kernel, which needs ``row_base``
+    non-decreasing (checked: ``ValueError``), or raise."""
+    check_row_base(row_base)
+    return _combine(partials, row_base, m)
 
 
 def spill_partials_plain(bal: BalancedCOO, x2: torch.Tensor,
@@ -217,16 +276,33 @@ def spill_partials_plain(bal: BalancedCOO, x2: torch.Tensor,
 
 def _given_or_planned(bal: BalancedCOO, row_base, win
                       ) -> tuple[torch.Tensor, int]:
+    """The caller's windows, checked (``check_row_base``), or the planned
+    ones."""
     if row_base is None or win is None:
         return SpillWindows()(bal)
+    check_row_base(row_base)
     return row_base, int(win)
 
 
+def spill_lanes(n: int) -> int:
+    """Lanes of a K4 group: the power of two whose 4-column pieces cover N,
+    at most a warp (128 columns a column block).  Unlike K3's sr design, no
+    column slabs for an X far larger than L2: on the uniform scale-20
+    graph at N = 128 one pass measured 3.05 ms against 3.22 in 32-column
+    slabs (NVIDIA H100 80GB HBM3, ``tools/time_spill.py``): each slab
+    re-stages the tile, and 8-lane groups walk short ranges."""
+    g = 1
+    while g < 32 and 4 * g < n:
+        g *= 2
+    return g
+
+
 def spmm_vsr_partials(bal: BalancedCOO, x2: torch.Tensor,
-                      row_base: torch.Tensor, win: int) -> torch.Tensor:
+                      row_base: torch.Tensor, win: int, *,
+                      lanes: int | None = None) -> torch.Tensor:
     """K4 alone: the (n_tiles, WIN, N) f32 partials of ``x2`` (K, N).  CPU
     operands take the plain version; CUDA operands launch the kernel or
-    raise."""
+    raise.  ``lanes`` forces a group's lanes (default ``spill_lanes``)."""
     if _common.on_cpu("vsr_spmm_spill", bal.rows, bal.cols, bal.vals, x2,
                       row_base):
         return spill_partials_plain(bal, x2, row_base, win)
@@ -240,16 +316,22 @@ def spmm_vsr_partials(bal: BalancedCOO, x2: torch.Tensor,
             or not row_base.is_contiguous() or win < 1):
         raise ValueError("vsr_spmm_spill: row_base must be contiguous int32 "
                          f"({bal.n_tiles},) and win >= 1")
-    if -(-n // 128) > 65535:
+    if bal.tile > HOPPER_MAX_TILE:
+        raise ValueError(f"vsr_spmm_spill: tile {bal.tile} > {HOPPER_MAX_TILE} "
+                         "does not fit the kernel's shared-memory staging")
+    lanes = lanes or spill_lanes(n)
+    if -(-n // (4 * lanes)) > 65535:
         raise ValueError(f"vsr_spmm_spill: N={n} exceeds the launch grid")
     part = torch.empty((bal.n_tiles, win, n), dtype=torch.float32,
                        device=x2.device)
+    if part.numel() > 2**31 - 1:
+        raise ValueError("vsr_spmm_spill: the partials exceed int32 indexing")
     if part.numel():
         err = _build.lib().repro_vsr_spmm_spill(
             bal.rows.data_ptr(), bal.cols.data_ptr(), bal.vals.data_ptr(),
             _common.is_bf16(bal.vals), x2.data_ptr(), _common.is_bf16(x2),
             row_base.data_ptr(), part.data_ptr(), bal.n_tiles, bal.tile, m, n,
-            win, _common.stream_of(x2))
+            win, lanes, _common.stream_of(x2))
         _build.check(err, "vsr_spmm_spill")
         LAUNCHES["vsr_spmm_spill"] += 1
     return part
@@ -259,12 +341,20 @@ def spmm_vsr_spill_plain(bal: BalancedCOO, x: torch.Tensor, *,
                          row_base: torch.Tensor | None = None,
                          win: int | None = None) -> torch.Tensor:
     """The spill path's plain PyTorch version: plain partials, then the
-    combine."""
+    plain combine."""
     x2 = x[:, None] if x.ndim == 1 else x
-    row_base, win = _given_or_planned(bal, row_base, win)
-    y = spill_combine(spill_partials_plain(bal, x2, row_base, win), row_base,
-                      bal.shape[0]).to(x2.dtype)
+    if row_base is None or win is None:
+        row_base, win = SpillWindows()(bal)
+    y = spill_combine_plain(spill_partials_plain(bal, x2, row_base, win),
+                            row_base, bal.shape[0]).to(x2.dtype)
     return y[:, 0] if x.ndim == 1 else y
+
+
+def _spill_spmm(bal: BalancedCOO, x2: torch.Tensor, row_base: torch.Tensor,
+                win: int) -> torch.Tensor:
+    """K4, then the combine, on ordered windows."""
+    return _combine(spmm_vsr_partials(bal, x2, row_base, win), row_base,
+                    bal.shape[0]).to(x2.dtype)
 
 
 def spmm_vsr(bal: BalancedCOO, x: torch.Tensor, *,
@@ -272,11 +362,10 @@ def spmm_vsr(bal: BalancedCOO, x: torch.Tensor, *,
              win: int | None = None) -> torch.Tensor:
     """NB SpMM, spill and combine (the fused path's parity reference): K4's
     partials, then ``spill_combine``.  ``row_base`` / ``win`` come from
-    ``plan_windows`` (computed here when not given)."""
+    ``plan_windows`` (computed here when not given; a given ``row_base``
+    on the card must be non-decreasing)."""
     x2 = x[:, None] if x.ndim == 1 else x
-    row_base, win = _given_or_planned(bal, row_base, win)
-    y = spill_combine(spmm_vsr_partials(bal, x2, row_base, win), row_base,
-                      bal.shape[0]).to(x2.dtype)
+    y = _spill_spmm(bal, x2, *_given_or_planned(bal, row_base, win))
     return y[:, 0] if x.ndim == 1 else y
 
 
@@ -287,10 +376,11 @@ def spmm_as_n_spmv_hopper(bal: BalancedCOO, x: torch.Tensor, *,
     ``spmm_as_n_spmv_pallas``): one SpMV a column, each re-reading the
     sparse stream — K2 a column, or K5 when ``row_base`` / ``win`` are
     given.  A composition of launches, not a kernel."""
-    from .spmv import spmv_vsr, spmv_vsr_fused
+    from .spmv import _spill_spmv, spmv_vsr_fused
     x2 = x[:, None] if x.ndim == 1 else x
     if row_base is not None and win is not None:
-        one_col = lambda col: spmv_vsr(bal, col, row_base=row_base, win=win)
+        row_base, win = _given_or_planned(bal, row_base, win)
+        one_col = lambda col: _spill_spmv(bal, col, row_base, win)
     else:
         one_col = lambda col: spmv_vsr_fused(bal, col)
     cols = [one_col(x2[:, j].contiguous()) for j in range(x2.shape[1])]
@@ -330,9 +420,9 @@ def _hopper_nb(bal: BalancedCOO, x: torch.Tensor, *, spill: bool = False,
     if spill:
         row_base, win = (windows or SpillWindows())(bal)
         if x.ndim == 1:
-            from .spmv import spmv_vsr
-            return spmv_vsr(bal, x, row_base=row_base, win=win)
-        return spmm_vsr(bal, x, row_base=row_base, win=win)
+            from .spmv import _spill_spmv
+            return _spill_spmv(bal, x, row_base, win)
+        return _spill_spmm(bal, x, row_base, win)
     if x.ndim == 1:
         from .spmv import spmv_vsr_fused
         return spmv_vsr_fused(bal, x)

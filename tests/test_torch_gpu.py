@@ -84,7 +84,7 @@ def test_cuda_kernels_count_launches_and_reject(cuda):
     one_each = {"vsr_spmm": 1, "vsr_spmv": 1, "csc_spmm": 1, "sddmm": 0,
                 "chain_stats": 0, "chain": 0, "attn_stats": 0,
                 "attn_chain": 0, "bsr_spmm": 0, "vsr_spmm_spill": 0,
-                "vsr_spmv_spill": 0}
+                "vsr_spmv_spill": 0, "spill_combine": 0}
     assert launch_counts() == one_each
     with pytest.raises(ValueError):          # no float64 kernel
         vsr.spmm_vsr_fused(bal, torch.randn(csr.shape[1], 8, device=cuda,
@@ -1087,6 +1087,52 @@ def test_cuda_bsr_nonfinite_x_stays_in_its_rows(cuda, design, dtype, n):
     assert _rel(torch.where(fin, y, 0), torch.where(fin, want, 0)) < tol
 
 
+def _poison(*shapes, device):
+    """Hand the caching allocator blocks of these shapes filled with NaN,
+    so that the next ``torch.empty`` of each shape is likely to get one
+    back: an entry a kernel leaves unwritten then shows as NaN."""
+    blocks = [torch.full(s, float("nan"), device=device) for s in shapes]
+    del blocks
+
+
+def _hold_spill(bal, x, base, win, tol, label):
+    """K4 (x of shape (K, N)) or K5 (x of shape (K,)), the combine and the
+    spill call against their plain versions; every partial and every
+    output entry written (``_poison``)."""
+    shapes = ((bal.n_tiles, win) + tuple(x.shape[1:]),
+              (bal.shape[0],) + tuple(x.shape[1:]))
+    _poison(shapes[0], device=x.device)
+    if x.ndim == 1:
+        part = spmv.spmv_vsr_partials(bal, x, base, win)
+        want = vsr.spill_partials_plain(bal, x[:, None], base, win)[..., 0]
+        call, plain = spmv.spmv_vsr, spmv.spmv_vsr_spill_plain
+    else:
+        part = vsr.spmm_vsr_partials(bal, x, base, win)
+        want = vsr.spill_partials_plain(bal, x, base, win)
+        call, plain = vsr.spmm_vsr, vsr.spmm_vsr_spill_plain
+    assert part.shape == want.shape and torch.isfinite(part).all(), label
+    assert _rel(part, want) < tol, label
+    _poison(shapes[1], device=x.device)
+    y = vsr.spill_combine(part, base, bal.shape[0])
+    want_y = vsr.spill_combine_plain(part, base, bal.shape[0])
+    assert torch.isfinite(y).all() and _rel(y, want_y) < 1e-4, label
+    del part, want, y
+    _poison(*shapes, device=x.device)
+    y = call(bal, x, row_base=base, win=win)
+    want_y = plain(bal, x, row_base=base, win=win)
+    assert y.dtype == x.dtype and y.shape == want_y.shape, label
+    assert torch.isfinite(y).all() and _rel(y, want_y) < tol, label
+
+
+def _unaligned(x):
+    """The same values one element past an aligned start (no 16-byte
+    loads of X rows)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 3, 4, 32, 128, 200])
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
@@ -1094,21 +1140,142 @@ def test_cuda_spill_kernels_match_plain(cuda, n, xdtype):
     tol = 1e-4 if xdtype == torch.float32 else 2e-2
     for name, csr in _graphs(cuda).items():
         x = torch.randn(csr.shape[1], n, device=cuda).to(xdtype)
-        for tile in (32, 100, 512):
+        for tile in (32, 100, 512, 4096):
             bal = formats.csr_to_balanced(csr, tile)
             base, win = vsr.SpillWindows()(bal)
-            kw = dict(row_base=base, win=win)
-            assert _rel(vsr.spmm_vsr_partials(bal, x, base, win),
-                        vsr.spill_partials_plain(bal, x, base, win)) < tol, name
-            assert _rel(vsr.spmm_vsr(bal, x, **kw),
-                        vsr.spmm_vsr_spill_plain(bal, x, **kw)) < tol, name
-            x1 = x[:, 0].contiguous()
-            assert _rel(spmv.spmv_vsr_partials(bal, x1, base, win),
-                        vsr.spill_partials_plain(bal, x1[:, None], base, win)[..., 0]
-                        ) < tol, name
-            assert _rel(spmv.spmv_vsr(bal, x1, **kw),
-                        spmv.spmv_vsr_spill_plain(bal, x1, **kw)) < tol, name
+            _hold_spill(bal, x, base, win, tol, (name, tile))
+            _hold_spill(bal, x[:, 0].contiguous(), base, win, tol, (name, tile, 1))
+            if tile == 100:
+                _hold_spill(bal, _unaligned(x), base, win, tol, (name, "unaligned"))
+                _hold_spill(bal, _unaligned(x[:, 0].contiguous()), base, win,
+                            tol, (name, "unaligned", 1))
     torch.cuda.synchronize()
+
+
+def _narrow_cases(device):
+    """(label, bal, win) with a window narrower than a tile's span, so that
+    runs of several rows clamp onto the window's last row: the 12×6 matrix
+    of fault 3.4 (rows 0-7, one tile of 8, win 2), a random matrix of ~2
+    nonzeros a row at tile 32 and win 8, and the uniform R-MAT graph at
+    tile 512 and win 8."""
+    a = np.zeros((12, 6), np.float32)
+    for i in range(8):
+        a[i, i % 6] = 6.0 if i == 7 else 1.0
+    rng = np.random.default_rng(34)
+    b = ((rng.random((200, 60)) < 0.035) * rng.standard_normal((200, 60))
+         ).astype(np.float32)
+    return (("fault_34", formats.csr_to_balanced(
+                formats.csr_from_dense(a, device=device), 8), 2),
+            ("rand_t32", formats.csr_to_balanced(
+                formats.csr_from_dense(b, device=device), 32), 8),
+            ("uniform_t512", formats.csr_to_balanced(
+                _graphs(device)["uniform"], 512), 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4, 32, 128])
+def test_cuda_spill_narrow_window(cuda, n):
+    """Fault 3.4: with ``win`` below a tile's span, the runs clamped onto
+    window row ``win - 1`` add there (K5 stored them over each other)."""
+    for label, bal, win in _narrow_cases(cuda):
+        base, span_win = vsr.SpillWindows()(bal)
+        assert win < span_win, label
+        x = torch.randn(bal.shape[1], n, device=cuda)
+        if label == "fault_34":
+            x = torch.arange(6.0, device=cuda)[:, None].repeat(1, n)
+        _hold_spill(bal, x[:, 0].contiguous() if n == 1 else x, base, win,
+                    1e-4, label)
+        if label == "fault_34" and n == 1:
+            y = spmv.spmv_vsr(bal, x[:, 0].contiguous(), row_base=base, win=win)
+            assert y[1] == 21.0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_spill_nonfinite_x_stays_in_its_rows(cuda, n, dtype):
+    """A NaN or inf row of X reaches only the output rows that gather it
+    (the reference's "xla" semantics; its Pallas K4 spreads a NaN over the
+    tile's window)."""
+    csr = _graphs(cuda)["uniform"]
+    bal = formats.csr_to_balanced(csr, 512)
+    base, win = vsr.SpillWindows()(bal)
+    x = torch.randn(csr.shape[1], n, device=cuda).to(dtype)
+    x[3, 0], x[7] = float("nan"), float("inf")
+    x = x[:, 0].contiguous() if n == 1 else x
+    call = spmv.spmv_vsr if n == 1 else vsr.spmm_vsr
+    plain = spmv.spmv_vsr_spill_plain if n == 1 else vsr.spmm_vsr_spill_plain
+    y = call(bal, x, row_base=base, win=win)
+    want = plain(bal, x, row_base=base, win=win)
+    fin = torch.isfinite(want)
+    assert 0 < int((~fin).reshape(fin.shape[0], -1).any(1).sum()) < 64
+    assert torch.equal(y.isnan(), want.isnan())
+    assert torch.equal(y[~fin & ~want.isnan()], want[~fin & ~want.isnan()])
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _rel(torch.where(fin, y, 0), torch.where(fin, want, 0)) < tol
+
+
+def _pad_tile(bal):
+    """``bal`` with an all-padding tile appended (rows M, cols 0, vals 0)."""
+    m = bal.shape[0]
+    return formats.BalancedCOO(
+        torch.cat([bal.rows, torch.full_like(bal.rows[:1], m)]),
+        torch.cat([bal.cols, torch.zeros_like(bal.cols[:1])]),
+        torch.cat([bal.vals, torch.zeros_like(bal.vals[:1])]), bal.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4, 32, 128])
+def test_cuda_spill_windows_of_every_kind(cuda, n):
+    """A window near ``max_win`` (tiles of 512 spanning 4,089 rows: rows
+    with one nonzero every 8th row, win 4,096), a tile spanning ~1,000
+    rows, one row of 60 nonzeros over eight tiles of 8 (the combine adds
+    its windows), and an all-padding tile (row_base M, its window 0)."""
+    rng = np.random.default_rng(n)
+    sparse_rows = np.zeros((40000, 64), np.float32)
+    sparse_rows[::8, 5] = rng.standard_normal(5000)
+    long_row = ((rng.random((40, 64)) < 0.1) * rng.standard_normal((40, 64))
+                ).astype(np.float32)
+    long_row[20, 2:62] = rng.standard_normal(60)
+    cases = (("win_4096", formats.csr_from_dense(sparse_rows, device=cuda), 512),
+             ("span_1000", formats.csr_from_dense(sparse_rows[:8000], device=cuda), 125),
+             ("long_row", formats.csr_from_dense(long_row, device=cuda), 8))
+    for label, csr, tile in cases:
+        for bal in (formats.csr_to_balanced(csr, tile),
+                    _pad_tile(formats.csr_to_balanced(csr, tile))):
+            base, win = vsr.SpillWindows(4096)(bal)
+            x = torch.randn(csr.shape[1], n, device=cuda)
+            _hold_spill(bal, x[:, 0].contiguous() if n == 1 else x, base, win,
+                        1e-4, label)
+        assert int(base[-1]) == csr.shape[0]
+        if label == "win_4096":
+            assert win == 4096
+        if label == "long_row":
+            covering = (base <= 20) & (base + win > 20)
+            assert int(covering.sum()) >= 5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_spill_rejects_unsorted_row_base(cuda):
+    """The combine needs ``row_base`` non-decreasing; a caller's that is
+    not raises before anything is launched."""
+    bal = formats.csr_to_balanced(_graphs(cuda)["uniform"], 32)
+    base, win = vsr.SpillWindows()(bal)
+    bad = base.flip(0).contiguous()
+    x = torch.randn(bal.shape[1], 8, device=cuda)
+    reset_launch_counts()
+    for call in (lambda: vsr.spmm_vsr(bal, x, row_base=bad, win=win),
+                 lambda: spmv.spmv_vsr(bal, x[:, 0].contiguous(), row_base=bad,
+                                       win=win),
+                 lambda: vsr.spmm_as_n_spmv_hopper(bal, x, row_base=bad, win=win),
+                 lambda: vsr.spill_combine(
+                     torch.zeros(bal.n_tiles, win, 8, device=cuda), bad,
+                     bal.shape[0])):
+        with pytest.raises(ValueError, match="non-decreasing"):
+            call()
+    assert sum(launch_counts().values()) == 0
 
 
 @pytest.mark.gpu
@@ -1126,7 +1293,8 @@ def test_cuda_spill_path_and_max_win(cuda):
             reset_launch_counts()
             y = A.matmul(x, impl="nb_pr")
             assert launch_counts()[kernel] == 1
-            assert sum(launch_counts().values()) == 1
+            assert launch_counts()["spill_combine"] == 1
+            assert sum(launch_counts().values()) == 2
             assert _rel(y, A.matmul(x, impl="nb_pr", backend="torch")) < 1e-4
         reset_launch_counts()
         y4 = vsr.spmm_as_n_spmv_hopper(A.plan.substrate("balanced"),

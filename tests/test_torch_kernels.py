@@ -121,7 +121,7 @@ def test_cpu_wrappers_do_not_count_launches():
                                "sddmm": 0, "chain_stats": 0, "chain": 0,
                                "attn_stats": 0, "attn_chain": 0,
                                "bsr_spmm": 0, "vsr_spmm_spill": 0,
-                               "vsr_spmv_spill": 0}
+                               "vsr_spmv_spill": 0, "spill_combine": 0}
 
 
 def test_wrappers_reject_bad_operands():

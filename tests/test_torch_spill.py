@@ -226,3 +226,129 @@ def test_spill_refuses_grad():
     with torch.no_grad():
         y = A.matmul(torch.randn(80, 3, requires_grad=True), impl="nb_pr")
     assert not y.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# a window narrower than a tile's span (fault 3.4) and non-finite X
+# ---------------------------------------------------------------------------
+
+def _fault_34():
+    """12×6, one nonzero on each of rows 0-7 (column i % 6; value 1, row
+    7's 6), rows 8-11 empty: one tile of 8 slots spanning 8 rows."""
+    a = np.zeros((12, 6), np.float32)
+    for i in range(8):
+        a[i, i % 6] = 6.0 if i == 7 else 1.0
+    return ref_formats.csr_from_dense(a)
+
+
+def _narrow_cases():
+    """(name, csr, tile, win): the fault's matrix at win 2, and a random
+    matrix of ~2 nonzeros a row whose tiles of 32 span ~16 rows, at win 8."""
+    rng = np.random.default_rng(34)
+    rand = random_csr(rng, 200, 60, 0.035)[0]
+    return (("fault_34", _fault_34(), 8, 2), ("rand_t32", rand, 32, 8))
+
+
+def _clamped_windows(csr, tile, base, win):
+    """The partials in numpy: tile t's window row min(max(r - base[t], 0),
+    win - 1) holds the sum of its slots' v·X[c], runs clamped onto one
+    window row added."""
+    bal = ref_formats.csr_to_balanced(csr, tile=tile)
+    rows, cols, vals = (np.asarray(a) for a in (bal.rows, bal.cols, bal.vals))
+
+    def windows(x2):
+        part = np.zeros((rows.shape[0], win, x2.shape[1]), np.float64)
+        for t in range(rows.shape[0]):
+            for r, c, v in zip(rows[t], cols[t], vals[t]):
+                if r < csr.shape[0]:
+                    part[t, min(max(r - base[t], 0), win - 1)] += v * x2[c]
+        return part
+    return windows
+
+
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("case", _narrow_cases(), ids=lambda c: c[0])
+def test_plain_spill_narrow_window_matches_pallas(case, n):
+    """Runs of rows past the window clamp onto its last row and add there,
+    in the partials and in the product, as the reference's kernels sum
+    them (fault 3.4: the old K5 stored them over each other)."""
+    name, csr, tile, win = case
+    rng = np.random.default_rng(n)
+    bal_r = ref_formats.csr_to_balanced(csr, tile=tile)
+    bal_p = formats.csr_to_balanced(_port(csr), tile=tile)
+    base, span_win = ref_vsr.plan_windows(bal_r)
+    assert win < span_win
+    xs = (np.arange(6, dtype=np.float32)[:, None].repeat(n, 1)
+          if name == "fault_34"
+          else rng.standard_normal((csr.shape[1], n)).astype(np.float32))
+    kw_r = {"row_base": jnp.asarray(base), "win": win, "interpret": True}
+    kw_p = {"row_base": torch.from_numpy(base), "win": win}
+    want_part = _clamped_windows(csr, tile, base, win)(xs.astype(np.float64))
+    if n == 1:
+        x = xs[:, 0].copy()
+        want = ref_spmv.spmv_vsr(bal_r, jnp.asarray(x), **kw_r)
+        got = spmv.spmv_vsr(bal_p, torch.from_numpy(x), **kw_p)
+        part = spmv.spmv_vsr_partials(bal_p, torch.from_numpy(x), *kw_p.values())
+        _close(part, want_part[..., 0])
+    else:
+        x = xs
+        want = ref_vsr.spmm_vsr(bal_r, jnp.asarray(x), **kw_r)
+        got = vsr.spmm_vsr(bal_p, torch.from_numpy(x), **kw_p)
+        part = vsr.spmm_vsr_partials(bal_p, torch.from_numpy(x), *kw_p.values())
+        _close(part, want_part)
+    assert got.shape == tuple(want.shape)
+    _close(got, want)
+    _close(vsr.spill_combine(part, kw_p["row_base"], csr.shape[0]), want)
+    if name == "fault_34":
+        # row 1 of the window holds rows 1-7: 1 + 2 + 3 + 4 + 5 + 0 + 6·1
+        assert np.all(np.asarray(want)[1] == 21.0)
+
+
+def test_plain_spill_nonfinite_x_stays_in_its_rows():
+    """A NaN in X reaches only the rows that gather it, as the reference's
+    ``"xla"`` backend gives.  The reference's Pallas K4 reduces a tile by a
+    one-hot matrix product, so there the NaN reaches every row of the
+    tile's window (a caveat of the reference, kept as it is)."""
+    import repro.api as ref_api
+    csr = _fault_34()
+    x = np.ones((6, 4), np.float32)
+    x[2, 0] = np.nan
+    want = np.asarray(ref_api.sparse(csr, backend="xla") @ jnp.asarray(x))
+    assert np.isnan(want[:, 0]).tolist() == [i == 2 for i in range(12)]
+    bal_p = formats.csr_to_balanced(_port(csr), tile=8)
+    for got in (vsr.spmm_vsr(bal_p, torch.from_numpy(x)),
+                vsr.spmm_vsr_spill_plain(bal_p, torch.from_numpy(x)),
+                spmv.spmv_vsr(bal_p, torch.from_numpy(x[:, 0].copy()))[:, None]):
+        got = got.numpy()
+        assert np.array_equal(np.isnan(got), np.isnan(want[:, :got.shape[1]]))
+        fin = ~np.isnan(want[:, :got.shape[1]])
+        np.testing.assert_allclose(got[fin], want[:, :got.shape[1]][fin], rtol=1e-6)
+    pallas = np.asarray(ref_vsr.spmm_vsr(ref_formats.csr_to_balanced(csr, tile=8),
+                                         jnp.asarray(x), interpret=True))
+    assert np.isnan(pallas[:, 0]).tolist() == [i < 8 for i in range(12)]
+    assert not np.isnan(pallas[:, 1:]).any()
+
+
+def test_spill_lanes_cover_n_up_to_a_warp():
+    """K4's lane groups: 4 columns a lane, the smallest power of two that
+    covers N, at most 32 (a 128-column block; N = 200 takes two)."""
+    assert [vsr.spill_lanes(n) for n in (1, 3, 4, 5, 8, 9, 32, 33, 128, 200)] \
+        == [1, 1, 1, 2, 2, 4, 8, 16, 32, 32]
+
+
+def test_combine_plain_takes_any_row_base():
+    """The plain combine (the reference's segment_sum) adds window rows at
+    row_base + w whatever the order of row_base, dropping rows past M; a
+    caller's row_base is checked on the card only (the kernel's binary
+    search needs it non-decreasing)."""
+    rng = np.random.default_rng(5)
+    part = rng.standard_normal((5, 4, 3)).astype(np.float32)
+    base = np.array([6, 0, 3, 3, 9], np.int32)
+    want = np.zeros((10 + 4 + 1, 3), np.float64)
+    for t in range(5):
+        for w in range(4):
+            want[base[t] + w] += part[t, w]
+    got = vsr.spill_combine(torch.from_numpy(part), torch.from_numpy(base), 10)
+    assert got.shape == (10, 3) and got.dtype == torch.float32
+    _close(got, want[:10])
+    vsr.check_row_base(torch.from_numpy(base))          # the CPU: no check
