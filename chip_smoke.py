@@ -10,7 +10,10 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
 2. build   — compile the kernels from ``src/repro_torch/csrc`` (seconds and
              the ptxas register lines);
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
-             at the shapes of the main path (K3 in both designs, forced: sr
+             at the shapes of the main path (K1 in both designs, forced: sr
+             on the Graph500 graph at N = 32 and 128, pr at N = 4 on both
+             graphs, and each at the other's N, pr at 32 and sr at 4, empty
+             rows exactly 0; K2 on both graphs; K3 in both designs, forced: sr
              at N = 32 and 128, pr at N = 1 and 4; K7-K10 at the Gemma head in
              both designs, forced; K11 routed and in both designs, forced,
              at the Gemma weight in float32 and bfloat16 and at (16, 64),
@@ -25,7 +28,8 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              graphs (scale 20, edge factor 16: Graph500 Kronecker a,b,c =
              .57,.19,.19, and uniform .25,.25,.25) at N = 1, 4, 32, 128:
              the selector's pick, the launch counter of the kernel it maps
-             to, agreement with the plain "torch" backend, a cache hit with
+             to and the design it took (K1: sr for nb_sr, pr for nb_pr; K3:
+             sr for rs_sr), agreement with the plain "torch" backend, a cache hit with
              new values, and a small graph against a dense float64 product;
              then a GAT attention layer on both graphs,
              ``repro_torch.sparse_chain(csr, a, b, x, alpha=0.125)`` with a,
@@ -33,7 +37,7 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              ``repro_torch.sddmm(csr, a, b)``: K6, K7 and K8 launched (K7 in
              edge mode alone, ``fused_chain.STATS_MODES``), agreement with
              the "torch" backend, empty rows exactly 0, and one call with the
-             fuse gate shut (K6, K7 in full mode, K1); then block-sparse
+             fuse gate shut (K6, K7 in full mode, K1 in its sr design); then block-sparse
              attention at full model widths, random Q/K/V from the seed:
              (a) Gemma-3-12B's local layer (``configs/gemma3_12b.py`` with
              ``attn_pattern="block_sparse"``: 16 query heads, 8 KV heads,
@@ -50,7 +54,7 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              the slot-tile design of K7/K8 (the per-design counters),
              a block mask with an empty block row giving rows of exactly 0,
              and one call with ``attn_fuse_min_seq`` above the sequence
-             (K6, K9, K1, and no plain version); then the block-granule backend on a
+             (K6, K9, K1 in its sr design, and no plain version); then the block-granule backend on a
              block-pruned Gemma-3-12B FFN up-projection — W of shape
              (d_ff 15360, d_model 3840), (8, 128) blocks each kept with
              probability 0.25 (numpy ``default_rng(seed)``), kept values
@@ -71,7 +75,8 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              events, median of 20 runs after a warm-up, beside the bound:
              max(bytes / 3.35 TB/s, 2·nnz·N / 165 TFLOP/s) with bytes =
              12·nnz (K3: 8·nnz + 4·M, the stored entries and the row
-             lengths) + 4·K·N + 4·M·N, K3's row with its design, its lanes a
+             lengths) + 4·K·N + 4·M·N, K1's row with each design forced
+             beside the routed one, K3's row with its design, its lanes a
              row and the X rows it gathers (nnz·N·4 B); on the uniform
              graph K3's pr design forced at N = 1 and 4 beside the pick
              (K2, K1) and ``sparse.mm``, and at N = 32 and 128 the sr
@@ -157,7 +162,10 @@ STATS_S20 = {"g500": {"nnz": 16086387, "max_row": 39642, "empty_rows": 501549,
              "unif": {"nnz": 16777094, "max_row": 39, "empty_rows": 0,
                       "span": 39}}
 KERNELS = {
-    "vsr_spmm": {"route": "cuda", "source": "src/repro_torch/csrc/vsr.cu",
+    # K1: the sr design in vsr.cu, the pr design (K2's warp kernel) in spmv.cu
+    "vsr_spmm": {"route": "cuda",
+                 "source": "src/repro_torch/csrc/vsr.cu + "
+                           "src/repro_torch/csrc/spmv.cu",
                  "replaces": "src/repro/kernels/vsr.py:141"},
     "vsr_spmv": {"route": "cuda", "source": "src/repro_torch/csrc/spmv.cu",
                  "replaces": "src/repro/kernels/spmv.py:131"},
@@ -365,17 +373,34 @@ def main() -> int:
     default_th = repro_torch.SelectorThresholds()
     g500_bal = formats.csr_to_balanced(graphs["g500"], 512)
     unif_bal = formats.csr_to_balanced(graphs["unif"], 512)
+    bals = {"g500": g500_bal, "unif": unif_bal}
     unif_ell = formats.csr_to_ell(graphs["unif"])
     k_dim = graphs["g500"].shape[1]
-    for n, dtype in ((4, torch.float32), (32, torch.float32),
-                     (128, torch.float32), (32, torch.bfloat16)):
+    empties = {name: torch.diff(csr.indptr) == 0 for name, csr in graphs.items()}
+
+    def hold_empty(kernel, label, y):
+        """The rows of the graph with no nonzero: exactly 0."""
+        if not (y[empties[label.split()[0]]] == 0).all():
+            fail(f"{kernel} {label}: an empty row is not exactly 0")
+
+    # K1's two designs, forced: sr (nb_sr, the pick on g500 at N = 32 and
+    # 128) and pr (nb_pr, the pick at N = 4), and each at the other's N
+    for design, name, n, dtype in (
+            ("sr", "g500", 32, torch.float32), ("sr", "g500", 128, torch.float32),
+            ("pr", "g500", 4, torch.float32), ("pr", "unif", 4, torch.float32),
+            ("pr", "g500", 32, torch.float32), ("sr", "g500", 4, torch.float32),
+            ("sr", "g500", 32, torch.bfloat16), ("pr", "g500", 4, torch.bfloat16)):
         x = randn(k_dim, n, dtype=dtype)
-        hold("vsr_spmm", f"g500 N={n}", vsr.spmm_vsr_fused(g500_bal, x),
-             vsr.spmm_vsr_plain(g500_bal, x), str(dtype).split(".")[1])
-    for name, bal in (("g500", g500_bal), ("unif", unif_bal)):
+        y = vsr.spmm_vsr_fused(bals[name], x, design)
+        hold_empty("vsr_spmm", f"{name} N={n} {design}", y)
+        hold("vsr_spmm", f"{name} N={n} {design}", y,
+             vsr.spmm_vsr_plain(bals[name], x), str(dtype).split(".")[1])
+    for name, bal in bals.items():
         x = randn(k_dim)
-        hold("vsr_spmv", f"{name} N=1", spmv.spmv_vsr_fused(bal, x),
-             spmv.spmv_vsr_plain(bal, x), "float32")
+        y = spmv.spmv_vsr_fused(bal, x)
+        hold_empty("vsr_spmv", f"{name} N=1", y)
+        hold("vsr_spmv", f"{name} N=1", y, spmv.spmv_vsr_plain(bal, x), "float32")
+    del y
     # K3's two designs at the main path's N (sr, the pick at 32 and 128)
     # and at N = 1 and 4 (pr, forced: the selector picks K2/K1 there)
     for design, n, dtype in (("sr", 32, torch.float32), ("sr", 128, torch.float32),
@@ -419,7 +444,6 @@ def main() -> int:
     feats = {name: (0.3 * randn(csr.shape[0], CHAIN_D),
                     0.3 * randn(csr.shape[1], CHAIN_D))
              for name, csr in graphs.items()}
-    bals = {"g500": g500_bal, "unif": unif_bal}
     for name, bal in bals.items():
         pat = (bal.rows, bal.cols, *feats[name])
         hold("sddmm", name, fused_chain.sddmm_fused(*pat, shape=bal.shape),
@@ -669,14 +693,16 @@ def main() -> int:
     # -- 4. the main path through the facade -----------------------------------
     phase("main")
     launches = {k: 0 for k in KERNELS}
-    #: K3 and K7-K11 launches by design on the main path
-    design_counts = (csc.DESIGN_LAUNCHES, fused_chain.DESIGN_LAUNCHES,
-                     attention.DESIGN_LAUNCHES, bsr.DESIGN_LAUNCHES)
+    #: K1, K3 and K7-K11 launches by design on the main path
+    design_counts = (vsr.DESIGN_LAUNCHES, csc.DESIGN_LAUNCHES,
+                     fused_chain.DESIGN_LAUNCHES, attention.DESIGN_LAUNCHES,
+                     bsr.DESIGN_LAUNCHES)
     designs = {kk: dict.fromkeys(vv, 0)
                for counts in design_counts for kk, vv in counts.items()}
 
     def took():
-        """The designs of the K3 and K7-K11 launches since the last reset."""
+        """The designs of the K1, K3 and K7-K11 launches since the last
+        reset."""
         return {kk: dict(vv) for counts in design_counts
                 for kk, vv in counts.items()}
 
@@ -710,10 +736,12 @@ def main() -> int:
                 fail(f"{name} N={n}: selector picked {pick}, expected {PICKS[name][n]}")
             if counts[kernel] < 1:
                 fail(f"{name} N={n}: {kernel} was not launched ({counts})")
-            k3_design = took()["csc_spmm"]
-            if kernel == "csc_spmm" and k3_design[pick[3:]] < 1:
-                fail(f"{name} N={n}: {pick} did not take K3's {pick[3:]} "
-                     f"design ({k3_design})")
+            # rs_sr takes K3's sr design, nb_sr K1's sr and nb_pr K1's pr
+            # (K2 at N = 1)
+            design = took()[kernel] if kernel != "vsr_spmv" else None
+            if design is not None and design[pick[3:]] < 1:
+                fail(f"{name} N={n}: {pick} did not take {kernel}'s "
+                     f"{pick[3:]} design ({design})")
             if y.shape != ((csr.shape[0], n) if n > 1 else (csr.shape[0],)) \
                     or not torch.isfinite(y).all():
                 fail(f"{name} N={n}: output of shape {tuple(y.shape)} is not "
@@ -808,6 +836,9 @@ def main() -> int:
     if (counts["sddmm"], counts["chain_stats"], counts["vsr_spmm"],
             counts["chain"]) != (1, 1, 1, 0) or rel > RTOL["float32"]:
         fail("the shut fuse gate did not run K6, K7 and K1 alone, or disagrees")
+    if took()["vsr_spmm"] != {"sr": 1, "pr": 0}:
+        fail(f"the shut fuse gate at N=32 ran K1 in {took()['vsr_spmm']}, "
+             "expected its sr design")
     if modes != {"full": 1, "edge": 0}:
         fail(f"the shut fuse gate ran K7 in modes {modes}, expected full mode")
     # block-sparse attention at full model widths, through the entry points
@@ -840,7 +871,7 @@ def main() -> int:
         y, counts = drive(call)
         t1 = time.perf_counter()
         ran = {kk: vv for kk, vv in took().items()
-               if kk not in ("bsr_spmm", "csc_spmm")}
+               if kk not in ("vsr_spmm", "bsr_spmm", "csc_spmm")}
         want = {kk: (q.shape[1] if kk in kernels else 0) for kk in counts}
         if counts != want:
             fail(f"attention {cname}: launches {counts}, expected {want}")
@@ -908,6 +939,9 @@ def main() -> int:
             or rel > RTOL["float32"]:
         fail("the shut attention gate did not run K6, K9 and K1 alone, or "
              "disagrees")
+    if took()["vsr_spmm"] != {"sr": 1, "pr": 0}:
+        fail(f"the shut attention gate at d={q1.shape[1]} ran K1 in "
+             f"{took()['vsr_spmm']}, expected its sr design")
     del y, empty
     torch.cuda.empty_cache()
 
@@ -1029,7 +1063,7 @@ def main() -> int:
     for k, v in launches.items():
         if v < 1:
             fail(f"{k} was never launched on the main path")
-    print(f"[main] launches on the main path: {launches}; K3, K7-K11 by design: "
+    print(f"[main] launches on the main path: {launches}; K1, K3, K7-K11 by design: "
           f"{designs}; the slot-tile K7 by mode: {stats_modes}", flush=True)
 
     # -- 5. times ---------------------------------------------------------------
@@ -1065,6 +1099,11 @@ def main() -> int:
                 "bound_ms": 1e3 * max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             }
+            if kernel == "vsr_spmm":
+                # each design forced beside the routed one
+                row["design"] = pick[3:]
+                for dd in vsr.DESIGN_LAUNCHES["vsr_spmm"]:
+                    row[f"{dd}_ms"] = time_ms(lambda: vsr.spmm_vsr_fused(sub, x, dd))
             if kernel == "csc_spmm":
                 row["design"] = pick[3:]
                 row["lanes"] = csc.sr_lanes(n, k_dim, x.element_size())
@@ -1583,6 +1622,15 @@ def main() -> int:
             # the design each launch on the main path took
             summary[-1]["design"] = {dd: nn for dd, nn in
                                      designs[kernel].items() if nn}
+        if kernel == "vsr_spmm":
+            # each of K1's designs at the pick that routes to it
+            summary[-1]["designs"] = {
+                dd: {"shape": f"{name}_s{args.scale}_e16 N={nn}",
+                     "ms": rows[(name, nn)][f"{dd}_ms"],
+                     "bound_ms": rows[(name, nn)]["bound_ms"],
+                     "library_ms": rows[(name, nn)]["library_ms"]}
+                for dd, (name, nn) in (("sr", SUMMARY_SHAPE[kernel]),
+                                       ("pr", ("g500", 4)))}
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -59,8 +59,8 @@
 // so a bias of −inf gives a weight of 0 and no NaN.
 //
 // Design, K10: one CTA per (tile, column block of up to 128 columns of V);
-// step 1 computes w for the tile's slots into shared memory, step 2 is K1's
-// accumulation (common.cuh::accumulate_tile).  At
+// step 1 computes w for the tile's slots into shared memory, step 2 is the
+// tile accumulation of common.cuh::accumulate_tile.  At
 // N = 256 each of the two column blocks recomputes the scores.  An empty row
 // receives nothing and stays exactly 0.
 //

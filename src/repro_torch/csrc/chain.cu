@@ -152,12 +152,13 @@ chain_stats_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
 
 // K8's accumulation for N > 1: Y[r, c .. c+3] += w · X[col, c .. c+3] over
 // the tile's slots in shared memory.  Groups of `lanes` lanes each walk a
-// contiguous range of slots; a lane owns 4 adjacent columns of the column
-// block blockIdx.y.  A run is stored with a plain store when no other group
-// or CTA adds to its row: it is not one of the tile's edge runs and does not
-// cross its group's range.
+// contiguous range of slots (common.cuh::accumulate_runs, shared with K1's
+// sr design and K4); a lane owns 4 adjacent columns of the column block
+// blockIdx.y.  A run is stored with a plain store when no other group or CTA
+// adds to its row: it is not one of the tile's edge runs and does not cross
+// its group's range.
 template <typename TX, bool VEC>
-__device__ __forceinline__ void accumulate_runs(
+__device__ __forceinline__ void accumulate_chain(
     const int* s_rows, const int* s_cols, const float* s_w,
     const TX* __restrict__ x, float* __restrict__ y, int tile, int m, int n,
     int lanes) {
@@ -173,52 +174,16 @@ __device__ __forceinline__ void accumulate_runs(
   const int head = s_rows[0], tail = s_rows[tile - 1];
   const int split_lo = start > 0 && s_rows[start - 1] == s_rows[start] ? s_rows[start] : -1;
   const int split_hi = end < tile && s_rows[end] == s_rows[end - 1] ? s_rows[end - 1] : -1;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  const auto flush = [&](int r) {
-    if (r >= m) return;
-    float* yr = y + static_cast<long long>(r) * n + c;
-    if (r == head || r == tail || r == split_lo || r == split_hi) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c + j < n) atomicAdd(yr + j, acc[j]);
-    } else if constexpr (VEC) {
-      *reinterpret_cast<float4*>(yr) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c + j < n) yr[j] = acc[j];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[j] = 0.f;
-  };
-  int cur = s_rows[start];
-  for (int i = start; i < end; i += kChainGathers) {
-    // all gathers of the step first, then their FMAs
-    float xv[kChainGathers][4];
-    int rr[kChainGathers];
-#pragma unroll
-    for (int u = 0; u < kChainGathers; ++u) {
-      rr[u] = i + u < end ? s_rows[i + u] : m;
-      if (rr[u] < m) {
-        load4<TX, VEC>(x + static_cast<long long>(s_cols[i + u]) * n, c, n, xv[u]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) xv[u][j] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kChainGathers; ++u) {
-      if (rr[u] >= m) continue;         // padding, or past the range
-      if (rr[u] != cur) {
-        flush(cur);
-        cur = rr[u];
-      }
-      const float w = s_w[i + u];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] = fmaf(w, xv[u][j], acc[j]);
-    }
-  }
-  flush(cur);
+  accumulate_runs<TX, VEC, kChainGathers, false>(
+      s_rows + start, s_cols + start, s_w + start, end - start,
+      end < tile ? s_rows[end] : m, x, m, n, c,
+      [&](int r, const float (&acc)[4], int) {
+        float* at = y + static_cast<long long>(r) * n + c;
+        if (r == head || r == tail || r == split_lo || r == split_hi)
+          atomic_add4(at, c, n, acc);
+        else
+          store4<VEC>(at, c, n, acc);
+      });
 }
 
 // K8's accumulation paths, one instantiation each: N = 1 through the sum
@@ -307,8 +272,8 @@ chain_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
             y[r] = v;
         });
   } else {
-    accumulate_runs<TX, ACCUM == kAccumVec4>(s_rows, s_cols, s_w, x, y, tile,
-                                             m, n, lanes);
+    accumulate_chain<TX, ACCUM == kAccumVec4>(s_rows, s_cols, s_w, x, y, tile,
+                                              m, n, lanes);
   }
 }
 

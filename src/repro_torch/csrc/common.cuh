@@ -1,7 +1,8 @@
 // Shared helpers of the port's sparse kernels: element loads that widen
 // f32 / bf16 to f32 (one at a time, or four adjacent columns of an X row),
-// the dtype dispatch of the plain-C entry points, the lane layout the SpMM
-// kernels share and their tile accumulation.
+// the dtype dispatch of the plain-C entry points, the staging of a slab's
+// slots into shared memory, the lane layout the SpMM kernels share and their
+// accumulations of a tile's row runs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -63,9 +64,130 @@ bool vector_rows(const void* x, const float* y, int n) {
          reinterpret_cast<std::uintptr_t>(y) % 16 == 0;
 }
 
-// The nnz-balanced accumulation of one tile staged in shared memory (K1, and
-// the slot-tile K10 on its edge weights): Y[r, :] += v · X[c, :] over the tile's slots,
-// padding (r >= m) dropped.  Each warp splits into lane groups of `vec`
+// Y[r, c .. c+3] = a at `at` = &Y[r, c]: one 16-byte store where VEC (the
+// caller guarantees c + 3 < n and the alignment), else columns past n left
+// alone.
+template <bool VEC>
+__device__ __forceinline__ void store4(float* at, int c, int n, const float (&a)[4]) {
+  if constexpr (VEC) {
+    *reinterpret_cast<float4*>(at) = make_float4(a[0], a[1], a[2], a[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c + j < n) at[j] = a[j];
+  }
+}
+
+// Y[r, c .. c+3] += a at `at` = &Y[r, c] by atomicAdd, columns past n left
+// alone.
+__device__ __forceinline__ void atomic_add4(float* at, int c, int n, const float (&a)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (c + j < n) atomicAdd(at + j, a[j]);
+}
+
+// Hands the `cnt` slots of a (n_tiles, tile) slab from slot `base` on to
+// put(j, row, col, val), j = 0 .. cnt-1, each once, spread over the CTA's
+// THREADS threads.  VEC (cnt % 4 == 0 and rows, cols, vals aligned for it;
+// the caller checks): rows and cols by 16-byte loads, vals by 16- (f32) or
+// 8-byte (bf16) loads; every load evict-first, so that the slab leaves L2 to
+// the dense operand the kernel gathers.
+template <typename TV, int THREADS, typename Put>
+__device__ __forceinline__ void stage_slots(const int* __restrict__ rows,
+                                            const int* __restrict__ cols,
+                                            const TV* __restrict__ vals, long long base,
+                                            int cnt, bool vec, Put put) {
+  if (vec) {
+    for (int j = 4 * threadIdx.x; j < cnt; j += 4 * THREADS) {
+      const int4 rr = __ldcs(reinterpret_cast<const int4*>(rows + base + j));
+      const int4 cc = __ldcs(reinterpret_cast<const int4*>(cols + base + j));
+      float4 vv;
+      if constexpr (std::is_same<TV, float>::value) {
+        vv = __ldcs(reinterpret_cast<const float4*>(vals + base + j));
+      } else {
+        const uint2 u = __ldcs(reinterpret_cast<const uint2*>(vals + base + j));
+        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        vv = make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+      put(j, rr.x, cc.x, vv.x);
+      put(j + 1, rr.y, cc.y, vv.y);
+      put(j + 2, rr.z, cc.z, vv.z);
+      put(j + 3, rr.w, cc.w, vv.w);
+    }
+  } else {
+    for (int j = threadIdx.x; j < cnt; j += THREADS)
+      put(j, __ldcs(rows + base + j), __ldcs(cols + base + j), to_f32(vals[base + j]));
+  }
+}
+
+// Whether a slab can be staged 4 slots at a time (stage_slots' VEC).
+template <typename TV>
+bool vector_slots(const int* rows, const int* cols, const void* vals, int tile) {
+  return tile % 4 == 0 &&
+         (reinterpret_cast<std::uintptr_t>(rows) | reinterpret_cast<std::uintptr_t>(cols)) % 16 == 0 &&
+         reinterpret_cast<std::uintptr_t>(vals) % (4 * sizeof(TV)) == 0;
+}
+
+// The padded shared-memory layout of a tile split into equal ranges (K1's sr
+// design, K4): a range of `span` slots starts `stride` words after the last
+// one's, stride = (span + 1) | 1 odd, so that the lanes of a warp that read
+// their own ranges hit distinct banks.
+__host__ __device__ __forceinline__ int range_stride(int span) { return (span + 1) | 1; }
+
+// The row runs of one contiguous range of a tile's slots staged in shared
+// memory (K1's sr design, K4 on window keys, K8 at N > 1): Y[r, c .. c+3] += w · X[col, c ..
+// c+3] over slots [0, len) of rows / cols / w, rows non-decreasing, padding
+// (row >= m) dropped.  The lane owns the 4 adjacent columns from c, gathered
+// by one 16-byte load a slot (8 bytes for bf16 X) where VEC; GATHERS gathers
+// are issued back to back before the FMAs that use them, each one
+// unconditionally (a slot past the range repeats the range's last one, and
+// its product is dropped), as K3's sr design does.  Each run's sum goes once
+// to flush(row, sum, next_row), next_row being the row of the slot after
+// the run: `after` (the row of the slot past the range, or m at the tile's
+// end) for the range's last run.  The caller decides how a sum reaches Y.
+// EARLY_ROWS reads each slot's row beside its column, before the gathers,
+// else after them (measured on H100: K4 at N = 4 3% faster the first way,
+// K8 5-9% slower).
+template <typename TX, bool VEC, int GATHERS, bool EARLY_ROWS, typename Flush>
+__device__ __forceinline__ void accumulate_runs(const int* rows, const int* cols,
+                                                const float* w, int len, int after,
+                                                const TX* __restrict__ x, int m, int n,
+                                                int c, Flush flush) {
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  int cur = rows[0];
+  for (int i = 0; i < len; i += GATHERS) {
+    float xv[GATHERS][4];
+    int rr[GATHERS];
+#pragma unroll
+    for (int u = 0; u < GATHERS; ++u) {
+      const int s = min(i + u, len - 1);
+      if constexpr (EARLY_ROWS) rr[u] = rows[s];
+      load4<TX, VEC>(x + static_cast<long long>(cols[s]) * n, c, n, xv[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < GATHERS; ++u) {
+      if (i + u >= len) break;
+      const int r = EARLY_ROWS ? rr[u] : rows[i + u];
+      if (r != cur) {
+        if (cur < m) flush(cur, acc, r);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[j] = 0.f;
+        cur = r;
+      }
+      if (r < m) {
+        const float v = w[i + u];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[j] = fmaf(v, xv[u][j], acc[j]);
+      }
+    }
+  }
+  if (cur < m) flush(cur, acc, after);
+}
+
+// The slot-tile K10's accumulation of one tile staged in shared memory (its
+// edge weights): Y[r, :] += v · X[c, :] over the tile's slots, padding (r >=
+// m) dropped.  Each warp splits into lane groups of `vec`
 // lanes; a group walks a contiguous run of slots while its lanes own dense
 // columns (column block blockIdx.y, CPL columns a lane), so one X row load is
 // one coalesced transaction across the group.  A group carries its running

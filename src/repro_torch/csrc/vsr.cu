@@ -1,69 +1,200 @@
-// K1 — nnz-balanced (VSR) SpMM, Y = A·X, on the BalancedCOO substrate.
+// K1 — nnz-balanced (VSR) SpMM, Y = A·X, on the BalancedCOO substrate: the
+// paper's two nnz-balanced kernels, one for each logical kernel.
 //
 // Replaces the TPU kernel src/repro/kernels/vsr.py::_vsr_fused_kernel
-// (pallas_call in _vsr_fused_call).  What it computes is the same: for every
-// stored nonzero (row r, col c, value v) of the (n_tiles, tile) slabs,
-// Y[r, :] += v · X[c, :], padding entries (r == m) dropped, f32 accumulation.
+// (pallas_call in _vsr_fused_call), which serves nb_sr and nb_pr alike.  What
+// it computes is the same: for every stored nonzero (row r, col c, value v)
+// of the (n_tiles, tile) slabs, Y[r, :] += v · X[c, :], padding entries (r
+// == m) dropped, f32 accumulation.  The TPU's one-hot MXU reduction and
+// sequential-grid block revisit have no place here: CTAs run concurrently.
 //
-// Bound on H100: bytes.  Each nonzero reads 12 B of substrate and one dense
-// row of X (4·N B in f32, gathered); 2·N flops per nonzero is far below the
-// card's ~20 flop/B balance point, so the gather of X rows is the cost.
+// Bound on H100: bytes.  Each nonzero reads 12 B of substrate, against 2·N
+// flops; what a one-pass kernel really moves is one gathered row of X a
+// nonzero (4·N B in f32), which only L2 hits keep off device memory.
 //
-// Design (not the TPU's): one CTA per (tile, column block) — the paper's
-// equal-nonzeros-per-warp invariant, so Graph500 hub rows spread over many
-// CTAs instead of serialising in one.  The tile's rows/cols/vals are staged
-// once into shared memory with coalesced loads.  Each warp splits into lane
-// groups of `vec` lanes; a group walks a contiguous run of the tile's
-// nonzeros while its lanes own dense columns, so one X[c, :] row load is one
-// coalesced transaction across the group (the paper's VDL).  A group carries
-// its running row sum in registers and flushes it with atomicAdd when the row
-// id changes — the paper's own boundary resolution; the TPU's one-hot MXU
-// matmul and sequential-grid block revisit have no place on a GPU, whose CTAs
-// run concurrently.  Y must be zeroed by the caller; no allocation here.
+// Both designs rely on the slab's order: rows non-decreasing, so a row's
+// slots are contiguous and can continue only from one tile into the next.
+// A run that holds neither its tile's first slot nor the slot before a
+// padding slot or the tile's end is a whole row, which no other CTA adds to:
+// it is written with a plain store.  The tile's first and last runs (its
+// edge runs) add by atomicAdd into the zeroed Y, so an empty row stays 0.
+//
+// "sr" (nb_sr; the paper's vectorised loads of the sparse elements, cached
+// in shared memory, under a sequential reduction), vsr_sr_kernel below: a
+// CTA stages one tile (several at small N) in shared memory with 16-byte
+// evict-first loads, so that the substrate leaves L2 to X.  Lane groups of
+// `lanes` lanes walk equal contiguous ranges of a tile's slots, at least 16;
+// a lane owns 4 adjacent columns and gathers them by one 16-byte load a slot
+// (8 bytes for bf16 X) (common.cuh::accumulate_runs, shared with K8 and
+// K4), 4 gathers before their FMAs at 4 CTAs an SM: on the Graph500 graph, whose gathers mostly hit L2, more warps in
+// flight beat more gathers a warp.  A run that crosses ranges leaves its
+// part in shared memory, and the group where it ends adds the parts before
+// it and writes it once, as K4 does: measured on H100, 14% faster than an
+// atomicAdd a part on the uniform graph at N = 32.  The column block is the
+// grid's slow dimension.
+//
+// "pr" (nb_pr; the paper's workload balancing and parallel reduction joined
+// by a segmented reduction on shuffles) is csrc/spmv.cu's vsr_scan_kernel:
+// one warp a tile, K2's and K5's segmented scan on 4-column pieces of X
+// rows.
 #include "common.cuh"
 
 namespace repro_torch {
 
-constexpr int kVsrThreads = 256;
+constexpr int kRangeThreads = 256;
+// X rows a lane gathers back to back, and the CTAs an SM must hold (which
+// caps a thread's registers): K1's sr design, K4.  Measured on H100
+// (tools/time_nb.py): for K1, 4 gathers at 4 CTAs an SM (64 registers)
+// beat 8 at 2-3 by 14-20% on the Graph500 graph and matched them on the
+// uniform one; at 5 CTAs (48 registers) or with 8 gathers at 4 it lost.
+constexpr int kSrGathers = 4;
+constexpr int kSrMinCtas = 4;
+constexpr int kSpillGathers = 8;
 
-template <typename TV, typename TX, int CPL>
-__global__ void __launch_bounds__(kVsrThreads)
-vsr_spmm_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
-                const TV* __restrict__ vals, const TX* __restrict__ x,
-                float* __restrict__ y, int tile, int m, int n, int vec) {
-  extern __shared__ int smem[];
-  int* s_rows = smem;
-  int* s_cols = s_rows + tile;
-  float* s_vals = reinterpret_cast<float*>(s_cols + tile);
+// The CTA shape of K1's sr design and K4: groups a tile (a power of two,
+// ranges of at least 16 slots where the tile has them) and tiles a CTA (the
+// rest of its groups), fewer tiles where their shared memory — a 4-column
+// part of a crossing run for every thread, then the rows (keys), columns and
+// values of every range — would pass 56 KB.
+struct RangeLayout {
+  int tiles_per_cta;
+  size_t smem;
+};
 
-  const long long base = static_cast<long long>(blockIdx.x) * tile;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    s_rows[i] = rows[base + i];
-    s_cols[i] = cols[base + i];
-    s_vals[i] = to_f32(vals[base + i]);
+inline RangeLayout range_layout(int tile, int lanes) {
+  const int groups = kRangeThreads / lanes;
+  int gpt = 1;
+  while (gpt * 2 <= groups && gpt * 2 * 16 <= tile) gpt *= 2;
+  const auto smem_of = [&](int tpc) {
+    const int g = groups / tpc;
+    return kRangeThreads * sizeof(float4) +
+           static_cast<size_t>(tpc * g) * range_stride((tile + g - 1) / g) * 3 * sizeof(int);
+  };
+  int tpc = groups / gpt;
+  while (tpc > 1 && smem_of(tpc) > 56 * 1024) tpc /= 2;
+  return {tpc, smem_of(tpc)};
+}
+
+// Launches `kernel` with the layout's dynamic shared memory, raising the
+// kernel's limit past 48 KB where it needs it.
+template <typename Kernel, typename... Args>
+int launch_ranges(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  kernel<<<grid, kRangeThreads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TV, typename TX, bool VEC>
+__global__ void __launch_bounds__(kRangeThreads, kSrMinCtas)
+vsr_sr_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
+              const TV* __restrict__ vals, const TX* __restrict__ x,
+              float* __restrict__ y, int n_tiles, int tile, int m, int n,
+              int lanes, int tiles_per_cta, bool vec_slots) {
+  extern __shared__ __align__(16) unsigned char sr_smem[];
+  const int gpt = kRangeThreads / lanes / tiles_per_cta;  // groups a tile
+  const int span = (tile + gpt - 1) / gpt;                 // slots a group
+  const int stride = range_stride(span);
+  const int words = tiles_per_cta * gpt * stride;
+  float4* s_part = reinterpret_cast<float4*>(sr_smem);
+  int* s_row = reinterpret_cast<int*>(s_part + kRangeThreads);
+  int* s_col = s_row + words;
+  float* s_val = reinterpret_cast<float*>(s_col + words);
+  // where slot i of the CTA's tile tt lies in shared memory
+  const auto spos = [&](int tt, int i) { return (tt * gpt + i / span) * stride + i % span; };
+
+  const int t0 = blockIdx.x * tiles_per_cta;
+  const int n_here = min(tiles_per_cta, n_tiles - t0);
+  stage_slots<TV, kRangeThreads>(
+      rows, cols, vals, static_cast<long long>(t0) * tile, n_here * tile, vec_slots,
+      [&](int j, int r, int c, float v) {
+        const int tt = j / tile;
+        const int at = spos(tt, j - tt * tile);
+        s_row[at] = r;
+        s_col[at] = c;
+        s_val[at] = v;
+      });
   __syncthreads();
 
-  accumulate_tile<TX, CPL>(s_rows, s_cols, s_vals, x, y, tile, m, n, vec);
+  // this lane's group, its tile and its range of the tile's slots
+  const int group = threadIdx.x / lanes;
+  const int tt = group / gpt;
+  const int gi = group - tt * gpt;
+  const auto range_start = [&](int g) { return min(g * span, tile); };
+  const int start = range_start(gi);
+  const int end = min(start + span, tile);
+  const int c = 4 * (blockIdx.y * lanes + threadIdx.x % lanes);
+  const bool live = tt < n_here && start < end && c < n;
+  const auto row_at = [&](int i) { return s_row[spos(tt, i)]; };
+  // a run's sum into Y: by atomicAdd for an edge run of the tile, else
+  // stored
+  const auto put = [&](int r, const float (&a)[4], bool edge) {
+    float* at = y + static_cast<long long>(r) * n + c;
+    if (edge)
+      atomic_add4(at, c, n, a);
+    else
+      store4<VEC>(at, c, n, a);
+  };
+
+  float head[4] = {0.f, 0.f, 0.f, 0.f};  // the range's first run, if it crossed in
+  int head_row = m, head_next = m;       // its row, and the row after it
+  if (live) {
+    const int at0 = (tt * gpt + gi) * stride;
+    const int len = end - start;
+    const int first = s_row[at0], last = s_row[at0 + len - 1];
+    const bool cross_in = start > 0 && row_at(start - 1) == first && first < m;
+    const bool cross_out = end < tile && row_at(end) == last && last < m;
+    const int tile_first = row_at(0);
+    accumulate_runs<TX, VEC, kSrGathers, false>(
+        s_row + at0, s_col + at0, s_val + at0, len, end < tile ? row_at(end) : m, x, m, n, c,
+        [&](int r, const float (&a)[4], int next) {
+          if (r == last && cross_out) {  // goes on in the next range
+            s_part[threadIdx.x] = make_float4(a[0], a[1], a[2], a[3]);
+          } else if (r == first && cross_in) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) head[j] = a[j];
+            head_row = r;
+            head_next = next;
+          } else {
+            put(r, a, r == tile_first || next >= m);
+          }
+        });
+  }
+  __syncthreads();
+  // a run that crossed into this range and ends in it: add the parts of the
+  // ranges before it, back to the one where it started
+  if (live && head_row < m) {
+    for (int g = gi - 1;; --g) {
+      const float4 p = s_part[(tt * gpt + g) * lanes + threadIdx.x % lanes];
+      head[0] += p.x; head[1] += p.y; head[2] += p.z; head[3] += p.w;
+      const int s2 = range_start(g);
+      const int e2 = min(s2 + span, tile);
+      // range g is a pass-through: all of it is this run, crossing in too
+      if (!(s2 > 0 && row_at(s2 - 1) == head_row && row_at(e2 - 1) == head_row)) break;
+    }
+    put(head_row, head, head_row == row_at(0) || head_next >= m);
+  }
 }
 
 template <typename TV, typename TX>
-int launch_vsr_spmm(const int* rows, const int* cols, const void* vals,
-                    const void* x, float* y, int n_tiles, int tile, int m,
-                    int n, cudaStream_t stream) {
-  const int vec = lanes_per_row(n);
-  const int cpl = columns_per_lane(n);
-  const dim3 grid(n_tiles, (n + vec * cpl - 1) / (vec * cpl));
-  const size_t smem = static_cast<size_t>(tile) * 3 * sizeof(int);
+int launch_vsr_sr(const int* rows, const int* cols, const void* vals,
+                  const void* x, float* y, int n_tiles, int tile, int m, int n,
+                  int lanes, cudaStream_t stream) {
+  const RangeLayout lay = range_layout(tile, lanes);
+  const dim3 grid((n_tiles + lay.tiles_per_cta - 1) / lay.tiles_per_cta,
+                  (n + 4 * lanes - 1) / (4 * lanes));
   const TV* v = static_cast<const TV*>(vals);
   const TX* xx = static_cast<const TX*>(x);
-  if (cpl == 1)
-    vsr_spmm_kernel<TV, TX, 1><<<grid, kVsrThreads, smem, stream>>>(rows, cols, v, xx, y, tile, m, n, vec);
-  else if (cpl == 2)
-    vsr_spmm_kernel<TV, TX, 2><<<grid, kVsrThreads, smem, stream>>>(rows, cols, v, xx, y, tile, m, n, vec);
-  else
-    vsr_spmm_kernel<TV, TX, 4><<<grid, kVsrThreads, smem, stream>>>(rows, cols, v, xx, y, tile, m, n, vec);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec_slots = vector_slots<TV>(rows, cols, vals, tile);
+  const auto run = [&](auto kernel) {
+    return launch_ranges(kernel, grid, lay.smem, stream, rows, cols, v, xx, y, n_tiles,
+                         tile, m, n, lanes, lay.tiles_per_cta, vec_slots);
+  };
+  return vector_rows<TX>(x, y, n) ? run(vsr_sr_kernel<TV, TX, true>)
+                                   : run(vsr_sr_kernel<TV, TX, false>);
 }
 
 // K4 — the spill variant of K1, Y's per-tile partials: tile t's row sums go
@@ -79,64 +210,36 @@ int launch_vsr_spmm(const int* rows, const int* cols, const void* vals,
 // really moves is one gathered X row a nonzero: at N = 128, 8.6 GB on the
 // uniform scale-20 graph, more than L2 keeps.
 //
-// Design: a CTA per (tiles_per_cta tiles, column block of 4·lanes columns).
-// The CTA stages its tiles' window keys, columns and values in shared memory
-// with coalesced 16-byte loads, evict-first so that the substrate leaves L2
-// to X.  Lane groups of `lanes` lanes walk equal contiguous ranges of a
-// tile's slots, at least 16 (so at small N a CTA takes several tiles); a
-// lane owns 4 adjacent columns, gathered by one 16-byte load a slot (8 bytes
-// for bf16 X) where N % 4 == 0 and X is aligned, and 8 gathers are issued
-// before their FMAs (K3's sr design); registers are capped at 2 or 3 CTAs
-// an SM (at 4 the gathers' registers spill).  Runs are keyed on the clamped
-// window row, so rows clamped onto one window row add.  A run that lies
-// inside one group's range is stored there with a plain store.  A run that crosses
-// ranges leaves its part in shared memory (one 4-column sum a lane, 4 KB a
-// CTA, whatever win and tile are), and the group where it ends adds the
-// parts of the groups before it and stores it once.  Window rows the tile
-// does not touch are written as 0 by the group that stores the run before
-// them (rows are sorted within a tile, so the keys are non-decreasing and
-// the untouched rows are the gaps between consecutive keys), and by the
-// tile's first group before its first key: each entry is written exactly
-// once, with neither atomics nor a zeroing pass, and shared memory does not
-// grow with win.  A group's range starts an odd number of words after the
-// last one's, so the lanes of a warp that read their own ranges do not
-// share banks.  The column block is the grid's slow dimension: with fewer
-// lanes than N needs (a caller's choice), all tiles run against one column
-// slab of X before the next.  At N = 128 one warp a column block (no slabs)
-// measured faster than K3's 128-byte slabs: each slab re-stages the tile,
-// and 8-lane groups walk ranges of 16 slots.
-constexpr int kSpillThreads = 256;
-// X rows a lane gathers back to back
-constexpr int kSpillGathers = 8;
-
-// K4's shared-memory layout: a group's range of `span` slots starts
-// `stride` words after the last one's, stride = (span + 1) | 1 odd, so that
-// the lanes of a warp reading their groups' slots hit distinct banks.
-__host__ __device__ __forceinline__ int spill_stride(int span) { return (span + 1) | 1; }
-
-// K4's shared memory: a 4-column part of a crossing run for every thread,
-// then the keys, columns and values of `ranges` ranges.
-inline size_t spill_smem_bytes(int ranges, int span) {
-  return kSpillThreads * sizeof(float4) +
-         static_cast<size_t>(ranges) * spill_stride(span) * 3 * sizeof(int);
-}
-
-// MIN_CTAS: CTAs an SM must hold, which caps a thread's registers (the
-// launcher's choice by lanes; 4 would spill the 8 gathers' registers).
+// Design: K1's sr design (a CTA per (tiles_per_cta tiles, column block of
+// 4·lanes columns), its staging, lane groups and accumulation, with runs
+// keyed on the clamped window row, so rows clamped onto one window row add,
+// and its window written in place of Y.  A run that lies inside one group's
+// range is stored there with a plain store; a run that crosses ranges is
+// merged in shared memory (one 4-column sum a lane, 4 KB a CTA, whatever
+// win and tile are) and stored once.  Window rows the tile does not touch
+// are written as 0 by the group that stores the run before them (rows are
+// sorted within a tile, so the keys are non-decreasing and the untouched
+// rows are the gaps between consecutive keys), and by the tile's first group
+// before its first key: each entry is written exactly once, with neither
+// atomics nor a zeroing pass.  A lane issues 8 gathers before their FMAs,
+// and registers are capped at 2 or 3 CTAs an SM (at 4 the gathers'
+// registers spill).  At N = 128 one warp a column block (no
+// slabs) measured faster than K3's 128-byte slabs: each slab re-stages the
+// tile, and 8-lane groups walk ranges of 16 slots.
 template <typename TV, typename TX, bool VEC, int MIN_CTAS>
-__global__ void __launch_bounds__(kSpillThreads, MIN_CTAS)
+__global__ void __launch_bounds__(kRangeThreads, MIN_CTAS)
 vsr_spmm_spill_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
                       const TV* __restrict__ vals, const TX* __restrict__ x,
                       const int* __restrict__ row_base, float* __restrict__ part,
                       int n_tiles, int tile, int m, int n, int win, int lanes,
                       int tiles_per_cta, bool vec_slots) {
   extern __shared__ __align__(16) unsigned char spill_smem[];
-  const int gpt = kSpillThreads / lanes / tiles_per_cta;  // groups a tile
+  const int gpt = kRangeThreads / lanes / tiles_per_cta;  // groups a tile
   const int span = (tile + gpt - 1) / gpt;                 // slots a group
-  const int stride = spill_stride(span);
+  const int stride = range_stride(span);
   const int words = tiles_per_cta * gpt * stride;
   float4* s_part = reinterpret_cast<float4*>(spill_smem);
-  int* s_key = reinterpret_cast<int*>(s_part + kSpillThreads);
+  int* s_key = reinterpret_cast<int*>(s_part + kRangeThreads);
   int* s_col = s_key + words;
   float* s_val = reinterpret_cast<float*>(s_col + words);
   // where slot i of the CTA's tile tt lies in shared memory
@@ -145,37 +248,15 @@ vsr_spmm_spill_kernel(const int* __restrict__ rows, const int* __restrict__ cols
   // stage the CTA's tiles, rows turned into window keys (win for padding)
   const int t0 = blockIdx.x * tiles_per_cta;
   const int n_here = min(tiles_per_cta, n_tiles - t0);
-  const int cnt = n_here * tile;
-  const long long base = static_cast<long long>(t0) * tile;
-  const auto stage = [&](int j, int r, int c, float v) {
-    const int tt = j / tile;
-    const int at = spos(tt, j - tt * tile);
-    s_key[at] = r < m ? min(max(r - __ldg(row_base + t0 + tt), 0), win - 1) : win;
-    s_col[at] = c;
-    s_val[at] = v;
-  };
-  if (vec_slots) {  // tile % 4 == 0 and the operands aligned
-    for (int j = 4 * threadIdx.x; j < cnt; j += 4 * kSpillThreads) {
-      const int4 rr = __ldcs(reinterpret_cast<const int4*>(rows + base + j));
-      const int4 cc = __ldcs(reinterpret_cast<const int4*>(cols + base + j));
-      float4 vv;
-      if constexpr (std::is_same<TV, float>::value) {
-        vv = __ldcs(reinterpret_cast<const float4*>(vals + base + j));
-      } else {
-        const uint2 u = __ldcs(reinterpret_cast<const uint2*>(vals + base + j));
-        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-        vv = make_float4(lo.x, lo.y, hi.x, hi.y);
-      }
-      stage(j, rr.x, cc.x, vv.x);
-      stage(j + 1, rr.y, cc.y, vv.y);
-      stage(j + 2, rr.z, cc.z, vv.z);
-      stage(j + 3, rr.w, cc.w, vv.w);
-    }
-  } else {
-    for (int j = threadIdx.x; j < cnt; j += kSpillThreads)
-      stage(j, __ldcs(rows + base + j), __ldcs(cols + base + j), to_f32(vals[base + j]));
-  }
+  stage_slots<TV, kRangeThreads>(
+      rows, cols, vals, static_cast<long long>(t0) * tile, n_here * tile, vec_slots,
+      [&](int j, int r, int c, float v) {
+        const int tt = j / tile;
+        const int at = spos(tt, j - tt * tile);
+        s_key[at] = r < m ? min(max(r - __ldg(row_base + t0 + tt), 0), win - 1) : win;
+        s_col[at] = c;
+        s_val[at] = v;
+      });
   __syncthreads();
 
   // this lane's group, its tile and its range of the tile's slots
@@ -187,88 +268,44 @@ vsr_spmm_spill_kernel(const int* __restrict__ rows, const int* __restrict__ cols
   const int end = min(start + span, tile);
   const int c = 4 * (blockIdx.y * lanes + threadIdx.x % lanes);
   const bool live = tt < n_here && start < end && c < n;
-  // key_at: any slot of the tile; key, col, val: the range's slots from 0
   const auto key_at = [&](int i) { return s_key[spos(tt, i)]; };
-  const int at0 = (tt * gpt + gi) * stride;
-  const int* key = s_key + at0;
-  const int* col = s_col + at0;
-  const float* val = s_val + at0;
   float* out = part + static_cast<long long>(t0 + tt) * win * n + c;
-
-  const auto put = [&](int w, const float a[4]) {
-    float* o = out + static_cast<long long>(w) * n;
-    if constexpr (VEC) {
-      *reinterpret_cast<float4*>(o) = make_float4(a[0], a[1], a[2], a[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c + j < n) o[j] = a[j];
-    }
-  };
-  // window rows [from, min(to, win)) are untouched by the tile
-  const auto zeros = [&](int from, int to) {
+  // the run of window row w ends with sum a; the window rows up to the next
+  // key nk are untouched by the tile
+  const auto close = [&](int w, const float (&a)[4], int nk) {
+    store4<VEC>(out + static_cast<long long>(w) * n, c, n, a);
     const float z[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int w = from; w < min(to, win); ++w) put(w, z);
+    for (int u = w + 1; u < min(nk, win); ++u)
+      store4<VEC>(out + static_cast<long long>(u) * n, c, n, z);
   };
 
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
   float head[4] = {0.f, 0.f, 0.f, 0.f};  // the range's first run, if it crossed in
   int head_key = win, head_next = win;   // its key, and the key after it
   if (live) {
+    const int at0 = (tt * gpt + gi) * stride;
     const int len = end - start;
-    if (gi == 0) zeros(0, key[0]);
-    const int kf = key[0], kl = key[len - 1];
+    const int kf = s_key[at0], kl = s_key[at0 + len - 1];
+    if (gi == 0) {
+      const float z[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int u = 0; u < min(kf, win); ++u)
+        store4<VEC>(out + static_cast<long long>(u) * n, c, n, z);
+    }
     const bool cross_in = start > 0 && key_at(start - 1) == kf && kf < win;
     const bool cross_out = end < tile && key_at(end) == kl && kl < win;
-    bool first_run = true;
-    // the run of key k ends before a slot of key nk
-    const auto close = [&](int k, int nk) {
-      if (first_run && cross_in) {
+    accumulate_runs<TX, VEC, kSpillGathers, true>(
+        s_key + at0, s_col + at0, s_val + at0, len, end < tile ? key_at(end) : win, x, win,
+        n, c, [&](int k, const float (&a)[4], int nk) {
+          if (k == kl && cross_out) {  // goes on in the next range
+            s_part[threadIdx.x] = make_float4(a[0], a[1], a[2], a[3]);
+          } else if (k == kf && cross_in) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) head[j] = acc[j];
-        head_key = k;
-        head_next = nk;
-      } else if (k < win) {
-        put(k, acc);
-        zeros(k + 1, nk);
-      }
-      first_run = false;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] = 0.f;
-    };
-    int cur = kf;
-    for (int i = 0; i < len; i += kSpillGathers) {
-      // all gathers of the step first, then their FMAs
-      float xv[kSpillGathers][4];
-      int kk[kSpillGathers];
-#pragma unroll
-      for (int u = 0; u < kSpillGathers; ++u) {
-        kk[u] = i + u < len ? key[i + u] : win;
-        if (kk[u] < win) {
-          load4<TX, VEC>(x + static_cast<long long>(col[i + u]) * n, c, n, xv[u]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) xv[u][j] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kSpillGathers; ++u) {
-        if (i + u >= len) continue;
-        if (kk[u] != cur) {
-          close(cur, kk[u]);
-          cur = kk[u];
-        }
-        if (kk[u] < win) {
-          const float v = val[i + u];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[j] = fmaf(v, xv[u][j], acc[j]);
-        }
-      }
-    }
-    if (cross_out)  // the range's last run goes on in the next range
-      s_part[threadIdx.x] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    else
-      close(cur, end < tile ? key_at(end) : win);
+            for (int j = 0; j < 4; ++j) head[j] = a[j];
+            head_key = k;
+            head_next = nk;
+          } else {
+            close(k, a, nk);
+          }
+        });
   }
   __syncthreads();
   // a run that crossed into this range and ends in it: add the parts of
@@ -282,8 +319,7 @@ vsr_spmm_spill_kernel(const int* __restrict__ rows, const int* __restrict__ cols
       // range g is a pass-through: all of it is this run, crossing in too
       if (!(s2 > 0 && key_at(s2 - 1) == head_key && key_at(e2 - 1) == head_key)) break;
     }
-    put(head_key, head);
-    zeros(head_key + 1, head_next);
+    close(head_key, head, head_next);
   }
 }
 
@@ -292,35 +328,15 @@ int launch_vsr_spmm_spill(const int* rows, const int* cols, const void* vals,
                           const void* x, const int* row_base, float* part,
                           int n_tiles, int tile, int m, int n, int win,
                           int lanes, cudaStream_t stream) {
-  // groups a tile: a power of two, ranges of at least 16 slots where the
-  // tile has them; the CTA takes the tiles its other groups can walk
-  const int groups = kSpillThreads / lanes;
-  int gpt = 1;
-  while (gpt * 2 <= groups && gpt * 2 * 16 <= tile) gpt *= 2;
-  int tiles_per_cta = groups / gpt;
-  const auto smem_of = [&](int tpc) {
-    const int g = groups / tpc;
-    return spill_smem_bytes(tpc * g, (tile + g - 1) / g);
-  };
-  while (tiles_per_cta > 1 && smem_of(tiles_per_cta) > 56 * 1024) tiles_per_cta /= 2;
-  const size_t smem = smem_of(tiles_per_cta);
-  const dim3 grid((n_tiles + tiles_per_cta - 1) / tiles_per_cta,
+  const RangeLayout lay = range_layout(tile, lanes);
+  const dim3 grid((n_tiles + lay.tiles_per_cta - 1) / lay.tiles_per_cta,
                   (n + 4 * lanes - 1) / (4 * lanes));
   const TV* v = static_cast<const TV*>(vals);
   const TX* xx = static_cast<const TX*>(x);
-  const bool vec_slots = tile % 4 == 0 &&
-      (reinterpret_cast<std::uintptr_t>(rows) | reinterpret_cast<std::uintptr_t>(cols)) % 16 == 0 &&
-      reinterpret_cast<std::uintptr_t>(vals) % (4 * sizeof(TV)) == 0;
+  const bool vec_slots = vector_slots<TV>(rows, cols, vals, tile);
   const auto run = [&](auto kernel) {
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    kernel<<<grid, kSpillThreads, smem, stream>>>(rows, cols, v, xx, row_base, part, n_tiles,
-                                                  tile, m, n, win, lanes, tiles_per_cta,
-                                                  vec_slots);
-    return static_cast<int>(cudaGetLastError());
+    return launch_ranges(kernel, grid, lay.smem, stream, rows, cols, v, xx, row_base, part,
+                         n_tiles, tile, m, n, win, lanes, lay.tiles_per_cta, vec_slots);
   };
   // 3 CTAs an SM for groups of 4-16 lanes (short ranges: more warps keep
   // more gathers in flight), 2 otherwise (no spills); measured on H100
@@ -458,19 +474,22 @@ inline int launch_spill_combine(const float* part, const int* row_base, float* y
 
 }  // namespace repro_torch
 
-// rows/cols: (n_tiles, tile) int32; vals: (n_tiles, tile) f32 or bf16;
-// x: (K, n) row-major f32 or bf16; y: (m, n) f32, zeroed.  Returns the
-// cudaError_t of the launch.
-extern "C" int repro_vsr_spmm(const int* rows, const int* cols,
-                              const void* vals, int vals_bf16, const void* x,
-                              int x_bf16, float* y, int n_tiles, int tile,
-                              int m, int n, void* stream) {
-  return REPRO_DISPATCH_TYPES(vals_bf16, x_bf16, repro_torch::launch_vsr_spmm,
+// K1's sr design.  rows/cols: (n_tiles, tile) int32; vals: (n_tiles, tile)
+// f32 or bf16; x: (K, n) row-major f32 or bf16; y: (m, n) f32, zeroed.
+// lanes: lanes of a group (1, 2, ..., 32), which own 4·lanes columns of a
+// column block.  Returns the cudaError_t of the launch.
+extern "C" int repro_vsr_sr(const int* rows, const int* cols, const void* vals,
+                            int vals_bf16, const void* x, int x_bf16, float* y,
+                            int n_tiles, int tile, int m, int n, int lanes,
+                            void* stream) {
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return REPRO_DISPATCH_TYPES(vals_bf16, x_bf16, repro_torch::launch_vsr_sr,
                               rows, cols, vals, x, y, n_tiles, tile, m, n,
-                              static_cast<cudaStream_t>(stream));
+                              lanes, static_cast<cudaStream_t>(stream));
 }
 
-// K4.  rows/cols/vals and x as for repro_vsr_spmm; row_base: (n_tiles,)
+// K4.  rows/cols/vals and x as for repro_vsr_sr; row_base: (n_tiles,)
 // int32; part: (n_tiles, win, n) f32, fully written.  lanes: lanes of a
 // group (1, 2, ..., 32), which own 4·lanes columns of a column block.
 // Returns the launch's cudaError_t.

@@ -39,7 +39,8 @@ _F = ctypes.c_float
 #: argument types of every exported entry point (pointers and the stream as
 #: c_void_p so ctypes does not cut them to 32 bits)
 SIGNATURES = {
-    "repro_vsr_spmm": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
+    "repro_vsr_sr": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+    "repro_vsr_pr": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
     "repro_vsr_spmv": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P),
     "repro_vsr_spmm_spill": (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                              _I, _I, _P),

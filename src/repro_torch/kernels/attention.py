@@ -51,7 +51,7 @@ from .blocks import (BLOCK, BLOCK_FILL_MIN, BLOCK_MAX_D, AttnBlocks,  # noqa: F4
                      BlockLayout, _route,
                      attn_chain_blocks_plain, attn_stats_blocks_plain,
                      build_block_layout, chunk_row_blocks, layout_entries)
-from .vsr import _prep_geometry
+from .vsr import _prep_geometry, spmm_vsr_routed
 
 __all__ = ["BLOCK", "BLOCK_FILL_MIN", "BLOCK_MAX_D", "BlockLayout",
            "AttnBlocks", "build_block_layout", "chunk_row_blocks",
@@ -210,8 +210,8 @@ def attn_unfused(rows, cols, q, k, bias, v, *, shape, scale=1.0,
     """Attention as separate kernels, the edge stream materialised: K6
     scores, K9 statistics, the weights by elementwise tensor ops (the
     reference does that step outside any kernel too), then the nnz-balanced
-    SpMM of the ``"hopper"`` backend (K1, or K2 for 1-D v) on
-    ``BalancedCOO(rows, cols, w)``."""
+    SpMM routed by N (``vsr.spmm_vsr_routed``: K2 for 1-D v, else K1 in
+    its pr or sr design) on ``BalancedCOO(rows, cols, w)``."""
     m = int(shape[0])
     e = fused_chain.sddmm_fused(rows, cols, q, k, shape=shape)
     if stats is None:
@@ -221,7 +221,7 @@ def attn_unfused(rows, cols, q, k, bias, v, *, shape, scale=1.0,
     w = attn_weights(e.reshape(-1), bias.reshape(-1).float(), r, r < m, m,
                      scale, stats=stats)
     bal = BalancedCOO(rows, cols, w.reshape(rows.shape), tuple(shape))
-    return registry.resolve("nb_pr", "hopper").fn(bal, v)
+    return spmm_vsr_routed(bal, v)
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,7 @@ from ..core.spmm import (CHAIN_TRANSFORMS, SOFTMAX_EPS, SOFTMAX_NEG,
                          sddmm_torch)
 
 from . import _build, _common, blocks as _blocks
-from .vsr import _prep_geometry
+from .vsr import _prep_geometry, spmm_vsr_routed
 
 __all__ = ["CHAIN_TRANSFORMS", "sddmm_fused", "sddmm_plain",
            "chain_stats_fused", "chain_stats_plain", "chain_fused",
@@ -397,8 +397,8 @@ def chain_unfused(rows, cols, a, b, x, *, shape, transform: str = "identity",
     """The chain as separate kernels, the edge stream materialised: K6
     scores, K7 statistics for softmax, the weights by elementwise tensor ops
     (the reference does that step outside any kernel too), then the
-    nnz-balanced SpMM of the ``"hopper"`` backend (K1, or K2 for 1-D x) on
-    ``BalancedCOO(rows, cols, w)``.  ``blocks`` as for
+    nnz-balanced SpMM routed by N (``vsr.spmm_vsr_routed``: K2 for 1-D x,
+    else K1 in its pr or sr design) on ``BalancedCOO(rows, cols, w)``.  ``blocks`` as for
     ``chain_stats_fused``."""
     _check_transform(transform)
     m = int(shape[0])
@@ -410,7 +410,7 @@ def chain_unfused(rows, cols, a, b, x, *, shape, transform: str = "identity",
     w = chain_weights(e.reshape(-1), r, r < m, m, transform, alpha,
                       stats=stats)
     bal = BalancedCOO(rows, cols, w.reshape(rows.shape), tuple(shape))
-    return registry.resolve("nb_pr", "hopper").fn(bal, x)
+    return spmm_vsr_routed(bal, x)
 
 
 # ---------------------------------------------------------------------------

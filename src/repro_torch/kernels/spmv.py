@@ -4,24 +4,25 @@
 ``spmv_vsr_fused`` replaces the TPU kernel
 ``src/repro/kernels/spmv.py::_spmv_fused_kernel``: ``y = A·x`` over the
 BalancedCOO slabs by the paper's segmented scan, sums in f32, result cast to
-``x.dtype``.  Its CUDA source is ``repro_torch/csrc/spmv.cu``:
+``x.dtype``.  Its CUDA source is ``repro_torch/csrc/spmv.cu``, whose warp
+kernel also serves K1's pr design:
 
 * bound — bytes: 12 B of substrate and one gathered element of x per
   nonzero, against 2 flops;
-* design — one warp per tile (equal nonzeros per warp); each 32-nonzero
-  chunk runs a ``__shfl_up_sync`` segmented inclusive scan keyed on row id
-  (Fig. 2(e)); the run reaching lane 31 carries into the next chunk, and
-  each run's end adds its sum into a zeroed y with ``atomicAdd``.
+* design — one warp per tile (equal nonzeros per warp); a lane takes 4
+  adjacent slots of a 128-slot step by 16-byte loads (the next step's
+  issued first) and gathers x at its 4 columns before any arithmetic; runs
+  keyed on the row, summed in the lane and then by one ``__shfl_up_sync``
+  segmented scan across the warp (Fig. 2(e)); a run no other tile adds to
+  is stored, the tile's first and last runs add into a zeroed y by
+  ``atomicAdd`` (so the slab's rows must be non-decreasing).
 
 ``spmv_vsr`` is the spill-and-combine variant (the parity reference): K5
 replaces ``src/repro/kernels/spmv.py::_spmv_kernel`` (same source file) and
 stores each run's sum into the tile's ``(WIN,)`` window of an ``(n_tiles,
 WIN)`` partials buffer at the clamped ``row - row_base``; the combine is
 ``vsr.spill_combine``.  Bound: K2's bytes plus 4·WIN B of partials a tile.
-Design: one warp a tile, a lane 4 adjacent slots of a 128-slot step by
-16-byte loads (the next step's issued first) and 4 gathers of x before any
-arithmetic; runs keyed on the clamped window row, summed in the lane and
-then by one ``__shfl_up_sync`` segmented scan across the warp; each window
+Design: K2's, with runs keyed on the clamped window row and each window
 entry written once, untouched rows as 0.
 """
 from __future__ import annotations

@@ -4,16 +4,28 @@ the reference's VSR kernels; counterpart of ``repro.kernels.vsr``.
 ``spmm_vsr_fused`` replaces the TPU kernel
 ``src/repro/kernels/vsr.py::_vsr_fused_kernel``: ``Y = A·X`` over the
 BalancedCOO slabs, padding rows (``rows == M``) dropped, sums in f32, result
-cast to ``x.dtype``.  Its CUDA source is ``repro_torch/csrc/vsr.cu``:
+cast to ``x.dtype``.  On the TPU one binary served both nnz-balanced logical
+kernels; here each has its own design:
 
-* bound — bytes: per nonzero 12 B of substrate plus one gathered dense row of
-  X, against 2·N flops;
-* design — one CTA per (tile, column block), the paper's equal work per
-  warp; the tile is staged in shared memory; lane groups walk runs of
-  nonzeros while lanes own dense columns (one coalesced X-row load, the
-  paper's VDL); row sums flush with ``atomicAdd`` into a zeroed Y, the
-  paper's boundary resolution.  The TPU's visit schedule and one-hot MXU
-  matmul are not needed: CTAs run concurrently.
+* bound — bytes: per nonzero 12 B of substrate, against 2·N flops; a
+  one-pass kernel also gathers one row of X a nonzero, which only L2 hits
+  keep off device memory;
+* ``"sr"`` (``nb_sr``, ``repro_torch/csrc/vsr.cu``): a CTA stages a tile
+  (several at small N) in shared memory by 16-byte evict-first loads; lane
+  groups walk equal ranges of its slots, a lane 4 columns of X by one
+  16-byte gather a slot, 4 gathers before their FMAs, 4 CTAs an SM; a run
+  that crosses ranges is merged in shared memory;
+* ``"pr"`` (``nb_pr``, ``repro_torch/csrc/spmv.cu``): K2's warp kernel on
+  4-column pieces of X rows — one warp a tile, 4 slots a lane by 16-byte
+  loads, a segmented sum over the lane's slots and one shuffle scan across
+  the warp a 128-slot step; the column blocks of 4 are the grid's slow
+  dimension, so this is the fast path at N <= 4 only.  An X of one column
+  takes K2's kernel.
+
+Both write a run that no other tile adds to with a plain store and add a
+tile's first and last runs into a zeroed Y by ``atomicAdd``, so they need
+the slab's order (rows non-decreasing).  ``DESIGN_LAUNCHES`` counts each
+design's launches; a call that names no design is routed by N (``_design``).
 
 ``spmm_vsr`` is the spill-and-combine variant, the fused path's parity
 reference: K4 replaces ``src/repro/kernels/vsr.py::_vsr_kernel`` (same
@@ -24,13 +36,9 @@ kernel — adds the windows, on the card by a kernel of its own.  The path
 runs when a plan's NB kernel opts hold ``spill=True``.
 
 * K4's bound — bytes: K1's, plus the partials written (4·WIN·N B a tile);
-* K4's design — a CTA stages one tile (several at small N) in shared
-  memory; lane groups walk equal ranges of its slots, a lane 4 columns of X
-  by one 16-byte gather a slot, 8 gathers before their FMAs; runs keyed on
-  the clamped window row, a run inside a range stored once by its group, a
-  run across ranges merged through shared memory and stored once; window
-  rows the tile does not touch written as 0 by the group before them.
-  Every partial is written once, without atomics or a zeroing pass;
+* K4's design — K1's sr design with runs keyed on the clamped window row;
+  window rows the tile does not touch written as 0 by the group before
+  them.  Every partial is written once, without atomics or a zeroing pass;
 * the combine's bound — bytes: the partials read once and Y written once;
 * its design — a row-parallel gather: the tiles that cover a row are one
   range of the non-decreasing ``row_base`` (binary search), summed in
@@ -49,13 +57,16 @@ import torch
 
 from ..core import registry
 from ..core.formats import BalancedCOO, host
-from ..core.selector import HOPPER_MAX_TILE, TileGeometry
+from ..core.selector import HOPPER_MAX_TILE, SelectorThresholds, TileGeometry
 
 from . import _build, _common
 
 #: launches of the K1 and K4 kernels and of the spill path's combine since
 #: process start (or the last reset)
 LAUNCHES = {"vsr_spmm": 0, "vsr_spmm_spill": 0, "spill_combine": 0}
+#: K1's launches by design: "sr" (lane groups walk ranges of a staged tile)
+#: or "pr" (a warp a tile, shuffle scan)
+DESIGN_LAUNCHES = {"vsr_spmm": {"sr": 0, "pr": 0}}
 
 
 def _tile_spans(bal: BalancedCOO) -> tuple[np.ndarray, int, int]:
@@ -161,32 +172,80 @@ def spmm_vsr_plain(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
     return y[:, 0] if x.ndim == 1 else y
 
 
-def spmm_vsr_fused(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
-    """K1: ``Y = A·X`` over the BalancedCOO slabs.  CPU operands take the
-    plain version; CUDA operands launch the kernel or raise."""
-    if _common.on_cpu("vsr_spmm", bal.rows, bal.cols, bal.vals, x):
-        return spmm_vsr_plain(bal, x)
+def _design(n: int) -> str:
+    """The routing rule of a call that names no design: ``"pr"`` up to the
+    selector's default ``n_threshold``, as a plan would pick, else ``"sr"``."""
+    return "pr" if n <= SelectorThresholds.n_threshold else "sr"
+
+
+def _check(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
+    """Raise ``ValueError`` unless the K1 kernels take these operands;
+    returns X as ``(K, N)``."""
     x2 = x[:, None] if x.ndim == 1 else x
     _common.check_operands("vsr_spmm", (bal.rows, bal.cols), bal.vals, x2)
-    m, k = bal.shape
-    n = x2.shape[1]
+    k = bal.shape[1]
     if x2.shape[0] != k:
         raise ValueError(f"vsr_spmm: x has {x2.shape[0]} rows, A has {k} columns")
     if bal.tile > HOPPER_MAX_TILE:
         raise ValueError(f"vsr_spmm: tile {bal.tile} > {HOPPER_MAX_TILE} "
                          "does not fit the kernel's shared-memory staging")
-    if -(-n // 128) > 65535:
-        raise ValueError(f"vsr_spmm: N={n} exceeds the launch grid")
+    if -(-x2.shape[1] // 4) > 65535:
+        raise ValueError(f"vsr_spmm: N={x2.shape[1]} exceeds the launch grid")
+    return x2
+
+
+def _launch(design: str, bal: BalancedCOO, x2: torch.Tensor, *,
+            lanes: int | None = None) -> torch.Tensor:
+    """Launch ``design`` on checked operands into an ``(M, N)`` f32 ``Y``.
+    ``lanes`` forces the sr design's lanes a group (default
+    ``spill_lanes``); fewer lanes walk shorter ranges."""
+    if design not in DESIGN_LAUNCHES["vsr_spmm"]:
+        raise ValueError(f"vsr_spmm: unknown design {design!r}")
+    m, n = bal.shape[0], x2.shape[1]
     y = torch.zeros((m, n), dtype=torch.float32, device=x2.device)
-    if y.numel():
-        err = _build.lib().repro_vsr_spmm(
-            bal.rows.data_ptr(), bal.cols.data_ptr(), bal.vals.data_ptr(),
+    args = (bal.rows.data_ptr(), bal.cols.data_ptr(), bal.vals.data_ptr(),
             _common.is_bf16(bal.vals), x2.data_ptr(), _common.is_bf16(x2),
-            y.data_ptr(), bal.n_tiles, bal.tile, m, n, _common.stream_of(x2))
-        _build.check(err, "vsr_spmm")
+            y.data_ptr(), bal.n_tiles, bal.tile, m, n)
+    if design == "sr":
+        fn = _build.lib().repro_vsr_sr
+        args += (lanes or spill_lanes(n),)
+    else:
+        fn = _build.lib().repro_vsr_pr
+    if y.numel():
+        _build.check(fn(*args, _common.stream_of(x2)), "vsr_spmm")
         LAUNCHES["vsr_spmm"] += 1
-    y = y.to(x2.dtype)
+        DESIGN_LAUNCHES["vsr_spmm"][design] += 1
+    return y
+
+
+def reset_counts() -> None:
+    """Set ``DESIGN_LAUNCHES`` to 0 (``reset_launch_counts`` calls it)."""
+    for counts in DESIGN_LAUNCHES.values():
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def spmm_vsr_fused(bal: BalancedCOO, x: torch.Tensor,
+                   design: str | None = None) -> torch.Tensor:
+    """K1: ``Y = A·X`` over the BalancedCOO slabs.  CPU operands take the
+    plain version; CUDA operands launch ``design`` (``None``: by N, as the
+    selector would) or raise."""
+    if _common.on_cpu("vsr_spmm", bal.rows, bal.cols, bal.vals, x):
+        return spmm_vsr_plain(bal, x)
+    x2 = _check(bal, x)
+    design = _design(x2.shape[1]) if design is None else design
+    y = _launch(design, bal, x2).to(x2.dtype)
     return y[:, 0] if x.ndim == 1 else y
+
+
+def spmm_vsr_routed(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
+    """The nnz-balanced product of a call that names no logical kernel (the
+    unfused chain and attention pairs): K2 for ``x`` of shape (K,), else K1
+    in the design ``_design`` picks by N."""
+    x = x.contiguous()
+    if x.ndim == 1:
+        from .spmv import spmv_vsr_fused
+        return spmv_vsr_fused(bal, x)
+    return spmm_vsr_fused(bal, x)
 
 
 def spill_combine_plain(partials: torch.Tensor, row_base: torch.Tensor,
@@ -285,8 +344,9 @@ def _given_or_planned(bal: BalancedCOO, row_base, win
 
 
 def spill_lanes(n: int) -> int:
-    """Lanes of a K4 group: the power of two whose 4-column pieces cover N,
-    at most a warp (128 columns a column block).  Unlike K3's sr design, no
+    """Lanes of a group of K4 and of K1's sr design: the power of two whose
+    4-column pieces cover N, at most a warp (128 columns a column block).
+    Unlike K3's sr design, no
     column slabs for an X far larger than L2: on the uniform scale-20
     graph at N = 128 one pass measured 3.05 ms against 3.22 in 32-column
     slabs (NVIDIA H100 80GB HBM3, ``tools/time_spill.py``): each slab
@@ -390,9 +450,10 @@ def spmm_as_n_spmv_hopper(bal: BalancedCOO, x: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# registry: the Hopper kernels of the nnz-balanced logical pair.  nb_sr and
-# nb_pr share K1; x of shape (K,) takes K2, as in the reference's _pallas_nb.
-# ``spill=True`` in the kernel opts forces the spill path (K4, K5 at N = 1).
+# registry: the Hopper kernels of the nnz-balanced logical pair, each with its
+# own K1 design (nb_sr: "sr", nb_pr: "pr"); x of shape (K,) takes K2, as in
+# the reference's _pallas_nb.  ``spill=True`` in the kernel opts forces the
+# spill path (K4, K5 at N = 1).
 # ---------------------------------------------------------------------------
 
 def _prep_geometry(bal: BalancedCOO, *,
@@ -414,8 +475,8 @@ def _prep_windows(bal: BalancedCOO, *, geometry: TileGeometry | None = None,
                 windows=SpillWindows(max_win))
 
 
-def _hopper_nb(bal: BalancedCOO, x: torch.Tensor, *, spill: bool = False,
-               windows: SpillWindows | None = None):
+def _hopper_nb(design: str, bal: BalancedCOO, x: torch.Tensor, *,
+               spill: bool = False, windows: SpillWindows | None = None):
     x = x.contiguous()
     if spill:
         row_base, win = (windows or SpillWindows())(bal)
@@ -426,8 +487,16 @@ def _hopper_nb(bal: BalancedCOO, x: torch.Tensor, *, spill: bool = False,
     if x.ndim == 1:
         from .spmv import spmv_vsr_fused
         return spmv_vsr_fused(bal, x)
-    return spmm_vsr_fused(bal, x)
+    return spmm_vsr_fused(bal, x, design)
 
 
-registry.register("nb_pr", "hopper", "balanced", _hopper_nb, prep=_prep_windows)
-registry.register("nb_sr", "hopper", "balanced", _hopper_nb, prep=_prep_windows)
+def _hopper_nb_sr(bal: BalancedCOO, x: torch.Tensor, **opts):
+    return _hopper_nb("sr", bal, x, **opts)
+
+
+def _hopper_nb_pr(bal: BalancedCOO, x: torch.Tensor, **opts):
+    return _hopper_nb("pr", bal, x, **opts)
+
+
+registry.register("nb_pr", "hopper", "balanced", _hopper_nb_pr, prep=_prep_windows)
+registry.register("nb_sr", "hopper", "balanced", _hopper_nb_sr, prep=_prep_windows)

@@ -1494,3 +1494,201 @@ def test_cuda_csc_design_launches(cuda):
     assert launch_counts()["csc_spmm"] == 6
     with pytest.raises(RuntimeError):        # a group the kernel refuses
         csc.spmm_csc(ell, x, "pr", group=12)
+
+
+# ---------------------------------------------------------------------------
+# K1 in its sr and pr designs, and K2
+# ---------------------------------------------------------------------------
+
+NB_NS = [1, 2, 3, 4, 5, 8, 31, 32, 33, 64, 128, 200]
+NB_TILES = (1, 7, 32, 100, 512, 4096)
+
+
+def _nb_mats(device, vdtype=torch.float32):
+    """(name, CSR) of the K1/K2 checks: the test graphs, a hub row of 900
+    nonzeros (it spans many tiles at every tile size but 4096) between
+    short rows and empty ones, and a band of rows of ~30 nonzeros (runs
+    that cross the sr design's group ranges)."""
+    rng = np.random.default_rng(21)
+    hub = ((rng.random((400, 1000)) < 0.004) * rng.standard_normal((400, 1000))
+           ).astype(np.float32)
+    hub[[3, 50, 51, 52, 399]] = 0.0
+    hub[77, 50:950] = rng.standard_normal(900)
+    band = ((rng.random((300, 200)) < 0.15) * rng.standard_normal((300, 200))
+            ).astype(np.float32)
+    band[100:140] = 0.0
+    mats = dict(_graphs(device),
+                hub=formats.csr_from_dense(hub, device=device),
+                band=formats.csr_from_dense(band, device=device))
+    for name, csr in mats.items():
+        yield name, formats.CSR(csr.indptr, csr.indices, csr.data.to(vdtype),
+                                csr.shape)
+
+
+def _nb_x(k, n, xdtype, device, two_d=True):
+    x = torch.randn(k, n, device=device).to(xdtype)
+    return x if two_d or n > 1 else x[:, 0].contiguous()
+
+
+def _hold_nb(run, plain, bal, x, empty, tol, label):
+    """A K1/K2 call against its plain version: the type, the shape, the
+    error, and the empty rows exactly 0."""
+    y = run(bal, x)
+    want = plain(bal, x)
+    assert y.dtype == x.dtype and y.shape == want.shape, label
+    assert _rel(y, want) < tol, label
+    assert (y[empty] == 0).all(), label
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", ["sr", "pr"])
+@pytest.mark.parametrize("n", NB_NS)
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
+def test_cuda_nb_designs_match_plain(cuda, design, n, xdtype, vdtype):
+    """Each design of K1, forced, against the plain version at every tile
+    (tiles of 1 and 7 slots take scalar slot loads), with an all-padding
+    tile appended, and on an X whose data pointer is not 16-byte aligned;
+    N = 1 as a (K, 1) X."""
+    tol = 1e-4 if xdtype == torch.float32 else 2e-2
+    run = lambda bal, x: vsr.spmm_vsr_fused(bal, x, design)
+    for name, csr in _nb_mats(cuda, vdtype):
+        empty = torch.diff(csr.indptr) == 0
+        x = _nb_x(csr.shape[1], n, xdtype, cuda)
+        for tile in NB_TILES:
+            bal = formats.csr_to_balanced(csr, tile)
+            _hold_nb(run, vsr.spmm_vsr_plain, bal, x, empty, tol, (name, tile))
+        bal = _pad_tile(formats.csr_to_balanced(csr, 100))
+        _hold_nb(run, vsr.spmm_vsr_plain, bal, x, empty, tol, (name, "padded"))
+        ux = _unaligned(x)
+        assert ux.data_ptr() % 16 != 0
+        _hold_nb(run, vsr.spmm_vsr_plain, formats.csr_to_balanced(csr, 512),
+                 ux, empty, tol, (name, "unaligned"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
+def test_cuda_k2_matches_plain(cuda, xdtype, vdtype):
+    """K2 on the same patterns, tiles, padded tile and unaligned x; the
+    pr design's (K, 1) X runs K2's kernel and gives K2's result."""
+    tol = 1e-4 if xdtype == torch.float32 else 2e-2
+    for name, csr in _nb_mats(cuda, vdtype):
+        empty = torch.diff(csr.indptr) == 0
+        x = _nb_x(csr.shape[1], 1, xdtype, cuda, two_d=False)
+        bals = [formats.csr_to_balanced(csr, t) for t in NB_TILES]
+        bals.append(_pad_tile(formats.csr_to_balanced(csr, 100)))
+        for bal in bals:
+            _hold_nb(spmv.spmv_vsr_fused, spmv.spmv_vsr_plain, bal, x, empty,
+                     tol, (name, bal.tile))
+        _hold_nb(spmv.spmv_vsr_fused, spmv.spmv_vsr_plain, bals[4],
+                 _unaligned(x), empty, tol, (name, "unaligned"))
+        y2 = vsr.spmm_vsr_fused(bals[4], x[:, None], "pr")
+        assert _rel(y2[:, 0], spmv.spmv_vsr_fused(bals[4], x)) < tol, name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("n", [4, 32, 128])
+def test_cuda_nb_sr_lanes(cuda, lanes, n):
+    """The sr design with every group width: narrow groups walk short
+    ranges, so most runs cross them (merged in shared memory) and a CTA
+    takes several tiles; with fewer lanes than N needs the column blocks
+    are the grid's slow dimension."""
+    for name, csr in _nb_mats(cuda):
+        x = torch.randn(csr.shape[1], n, device=cuda)
+        for tile in (32, 512, 4096):
+            bal = formats.csr_to_balanced(csr, tile)
+            y = vsr._launch("sr", bal, vsr._check(bal, x), lanes=lanes)
+            assert _rel(y, vsr.spmm_vsr_plain(bal, x)) < 1e-4, (name, tile)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_nb_design_launches(cuda):
+    """``vsr.DESIGN_LAUNCHES`` shows the design each call took: routed by
+    N, forced, through the ``nb_sr`` / ``nb_pr`` entries, and from the
+    unfused chain and attention pairs, which route by N."""
+    import repro_torch
+    csr = _graphs(cuda)["skewed"]
+    bal = formats.csr_to_balanced(csr, 64)
+    k = csr.shape[1]
+
+    def took(call):
+        reset_launch_counts()
+        call()
+        return dict(vsr.DESIGN_LAUNCHES["vsr_spmm"]), launch_counts()["vsr_spmm"]
+
+    for n, design in ((2, "pr"), (4, "pr"), (5, "sr"), (128, "sr")):
+        x = torch.randn(k, n, device=cuda)
+        assert took(lambda: vsr.spmm_vsr_fused(bal, x)) == (
+            {"sr": int(design == "sr"), "pr": int(design == "pr")}, 1)
+        other = "pr" if design == "sr" else "sr"
+        assert took(lambda: vsr.spmm_vsr_fused(bal, x, other)) == (
+            {"sr": int(other == "sr"), "pr": int(other == "pr")}, 1)
+    A = repro_torch.sparse(csr, cache=False)
+    for logical, design in (("nb_sr", "sr"), ("nb_pr", "pr")):
+        for n in (2, 32):
+            x = torch.randn(k, n, device=cuda)
+            y = None
+
+            def call():
+                nonlocal y
+                y = A.matmul(x, impl=logical)
+            assert took(call) == ({"sr": int(design == "sr"),
+                                   "pr": int(design == "pr")}, 1)
+            assert _rel(y, A.matmul(x, impl=logical, backend="torch")) < 1e-4
+        reset_launch_counts()
+        A.matmul(torch.randn(k, device=cuda), impl=logical)
+        assert launch_counts()["vsr_spmv"] == 1
+        assert vsr.DESIGN_LAUNCHES["vsr_spmm"] == {"sr": 0, "pr": 0}
+    a, b, _ = _chain_operands(csr, 16, 1)
+    pat = (bal.rows, bal.cols, a, b)
+    for n, design in ((4, "pr"), (32, "sr"), (128, "sr")):
+        x = torch.randn(k, n, device=cuda)
+        assert took(lambda: fused_chain.chain_unfused(
+            *pat, x, shape=csr.shape, transform="softmax", alpha=0.5))[0] \
+            == {"sr": int(design == "sr"), "pr": int(design == "pr")}
+    # an attention head at d = 256 with the attention gate shut
+    spec = _attention_specs()["window"]
+    _, q, kq, v, bias = _attention_operands(spec, 256, torch.float32, cuda)
+    shut = dataclasses.replace(repro_torch.SelectorThresholds(),
+                               attn_fuse_min_seq=spec.seq + 1)
+    reset_launch_counts()
+    yu = repro_torch.sparse_attention(spec, q, kq, v, bias=bias,
+                                      thresholds=shut, cache=False)
+    assert vsr.DESIGN_LAUNCHES["vsr_spmm"] == {"sr": 1, "pr": 0}
+    assert _rel(yu, repro_torch.sparse_attention(
+        spec, q, kq, v, bias=bias, backend="torch", cache=False)) < 1e-4
+    with pytest.raises(ValueError):
+        vsr.spmm_vsr_fused(bal, torch.randn(k, 8, device=cuda), "tc")
+    with pytest.raises(RuntimeError):       # a group the kernel refuses
+        vsr._launch("sr", bal, torch.randn(k, 8, device=cuda), lanes=3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design,n", [(d, n) for d in ("sr", "pr")
+                                      for n in (1, 4, 32, 128)] + [("k2", 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_nb_nonfinite_x_stays_in_its_rows(cuda, design, n, dtype):
+    """NaN and inf rows of X reach only the output rows that gather them
+    (the reference's "xla" semantics; its Pallas K1 spreads a NaN over its
+    output block); padding slots, which read X's row 0, add nothing."""
+    for name, csr in _nb_mats(cuda):
+        x = torch.randn(csr.shape[1], n, device=cuda)
+        x[0] = float("nan")
+        x[3, 0], x[7] = float("nan"), float("inf")
+        x[9, n - 1] = -float("inf")
+        x = x.to(dtype)
+        for tile in (7, 100, 512):
+            bal = _pad_tile(formats.csr_to_balanced(csr, tile))
+            if design == "k2":
+                x1 = x[:, 0].contiguous()
+                y, want = spmv.spmv_vsr_fused(bal, x1), spmv.spmv_vsr_plain(bal, x1)
+            else:
+                y = vsr.spmm_vsr_fused(bal, x, design)
+                want = vsr.spmm_vsr_plain(bal, x)
+            _same_nonfinite(y, want, 1e-4 if dtype == torch.float32 else 2e-2)
+    torch.cuda.synchronize()

@@ -131,3 +131,97 @@ def test_wrappers_reject_bad_operands():
         vsr.spmm_vsr_fused(bal, torch.randn(80, 3, device="meta"))
     with pytest.raises(ValueError):
         spmv.spmv_vsr_fused(bal, torch.randn(80, 3))
+
+
+def test_vsr_routes_by_n():
+    """A K1 call that names no design takes the pr design up to the
+    selector's default ``n_threshold`` (4), the sr design above it."""
+    assert [vsr._design(n) for n in (1, 2, 3, 4, 5, 8, 32, 128, 200)] \
+        == ["pr"] * 4 + ["sr"] * 5
+
+
+def _record_designs(monkeypatch):
+    """Replace ``vsr.spmm_vsr_fused`` by a recorder of the design each call
+    names (``None``: routed by N) that runs the plain version."""
+    seen = []
+
+    def fake(bal, x, design=None):
+        seen.append(design)
+        return vsr.spmm_vsr_plain(bal, x)
+    monkeypatch.setattr(vsr, "spmm_vsr_fused", fake)
+    return seen
+
+
+def test_nb_registry_entries_name_their_design(monkeypatch):
+    """``nb_sr`` launches K1's sr design and ``nb_pr`` its pr design,
+    whatever N; an x of shape (K,) takes K2, as in the reference's
+    ``_pallas_nb``."""
+    from repro_torch.core import registry
+    seen = _record_designs(monkeypatch)
+    bal = formats.csr_to_balanced(_port(MATS["rand_100x80"]), 32)
+    rng = np.random.default_rng(7)
+    for logical, design in (("nb_sr", "sr"), ("nb_pr", "pr")):
+        fn = registry.resolve(logical, "hopper").fn
+        for n in (2, 4, 32):
+            x = torch.from_numpy(_x(rng, 80, n))
+            _close(fn(bal, x), vsr.spmm_vsr_plain(bal, x))
+            assert seen.pop() == design, (logical, n)
+        x1 = torch.from_numpy(_x(rng, 80, 0))
+        _close(fn(bal, x1), spmv.spmv_vsr_plain(bal, x1))
+        assert seen == [], logical
+
+
+@pytest.mark.parametrize("n", [1, 4, 32])
+def test_unfused_pairs_route_by_n(monkeypatch, n):
+    """The unfused chain and attention pairs call the nnz-balanced product
+    routed by N (a GAT layer at N = 32 and an attention head at d = 256
+    keep the sr design): K1 with no design named, K2 for an x of shape
+    (K,)."""
+    from repro_torch.kernels import attention, fused_chain
+    seen = _record_designs(monkeypatch)
+    csr = _port(MATS["skewed"])
+    bal = formats.csr_to_balanced(csr, 64)
+    rng = np.random.default_rng(n)
+    a, b = (torch.from_numpy(0.3 * _x(rng, k, 8)) for k in csr.shape)
+    x = torch.from_numpy(_x(rng, csr.shape[1], n if n > 1 else 0))
+    pat = (bal.rows, bal.cols, a, b)
+    for transform in ("identity", "softmax"):
+        kw = dict(shape=csr.shape, transform=transform, alpha=0.5)
+        _close(fused_chain.chain_unfused(*pat, x, **kw),
+               fused_chain.chain_plain(*pat, x, **kw))
+    bias = torch.from_numpy(_x(rng, bal.rows.numel(), 0)).reshape(bal.rows.shape)
+    _close(attention.attn_unfused(*pat, bias, x, shape=csr.shape, scale=0.5),
+           attention.attn_chain_plain(*pat, bias, x, shape=csr.shape, scale=0.5))
+    assert seen == ([] if n == 1 else [None] * 3)
+
+
+def test_plain_nb_nonfinite_x_stays_in_its_rows():
+    """inf and NaN rows of X reach only the output rows that gather them,
+    as the reference's ``"xla"`` backend gives, for K1 (both logical
+    kernels) and K2.  The reference's Pallas K1 reduces a tile by a
+    one-hot matrix product, so there a NaN reaches every row of its output
+    block (a caveat of the reference, kept as it is)."""
+    import repro.api as ref_api
+    csr = MATS["skewed"]
+    rng = np.random.default_rng(3)
+    x = _x(rng, csr.shape[1], 4)
+    x[5] = np.nan
+    x[9, 1:3] = np.inf
+    x[11, 0] = -np.inf
+    A = ref_api.sparse(csr, backend="xla")
+    bal = formats.csr_to_balanced(_port(csr), tile=128)
+    for impl in ("nb_sr", "nb_pr"):
+        for xs, got in ((x, vsr.spmm_vsr_fused(bal, torch.from_numpy(x))),
+                        (x[:, 0].copy(), spmv.spmv_vsr_fused(
+                            bal, torch.from_numpy(x[:, 0].copy())))):
+            want = np.asarray(A.matmul(jnp.asarray(xs), impl=impl))
+            got = got.numpy()
+            assert 0 < int(np.isnan(want).sum()) < want.size // 4
+            for test in (np.isnan, np.isposinf, np.isneginf):
+                assert np.array_equal(test(got), test(want)), (impl, test)
+            fin = np.isfinite(want)
+            _close(got[fin], want[fin])
+    pallas = np.asarray(ref_vsr.spmm_vsr_fused(
+        ref_formats.csr_to_balanced(csr, tile=128), jnp.asarray(x),
+        interpret=True))
+    assert np.isnan(pallas).sum() > np.isnan(np.asarray(A @ jnp.asarray(x))).sum()
