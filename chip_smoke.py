@@ -18,7 +18,10 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              both designs, forced; K11 routed and in both designs, forced,
              at the Gemma weight in float32 and bfloat16 and at (16, 64),
              and on a ragged matrix; the slot-tile K7 in full and edge mode
-             and K8 alone on the edge statistics on both graphs; K4, K5
+             and K8 alone on the edge statistics on both graphs; K6 in
+             both designs, forced, on both graphs: "seq" at d = 1 and 4,
+             "par" at d = 64 in float32 and bfloat16 and at d = 256 on
+             g500, padding slots exactly 0; K4, K5
              and the spill combine on the uniform graph's windows at N = 1,
              4, 32, 128 and a bfloat16 X at N = 32): relative
              inf-norm error at most
@@ -35,7 +38,8 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              ``repro_torch.sparse_chain(csr, a, b, x, alpha=0.125)`` with a,
              b of width d = 64 and N = 1, 32, 128, and
              ``repro_torch.sddmm(csr, a, b)``: K6, K7 and K8 launched (K7 in
-             edge mode alone, ``fused_chain.STATS_MODES``), agreement with
+             edge mode alone, ``fused_chain.STATS_MODES``; K6 in its "par"
+             design, ``fused_chain.DESIGN_LAUNCHES``), agreement with
              the "torch" backend, empty rows exactly 0, and one call with the
              fuse gate shut (K6, K7 in full mode, K1 in its sr design); then block-sparse
              attention at full model widths, random Q/K/V from the seed:
@@ -88,7 +92,10 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              the fused call, the unfused pair and the plain version, beside
              each kernel's bound
              (each input read once, each output written once) and, for K6,
-             ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM); per attention
+             ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM), its design and
+             the bytes it gathers (one B row a slot, one A row a run of a
+             tile), also at d = 1, 4 and 256 on g500 and at the Gemma head
+             (d = 256 on the band); per attention
              case, one head: K9 (K7) and K10 (K8) alone, the fused call,
              the unfused pair, the plain version and
              ``scaled_dot_product_attention`` with a dense (S, S) mask
@@ -198,6 +205,14 @@ CHAIN_CASES = (("g500", "softmax", 1), ("g500", "softmax", 32),
 #: the graph whose times stand for K6 in the summary line (K7 and K8 stand
 #: for the Gemma head without a bias)
 SDDMM_SUMMARY = "g500"
+#: K6's widths timed beside d = 64 on g500
+SDDMM_WIDTHS = (1, 4, 256)
+#: K6's designs forced in the kernels phase: (design, d, type, graphs)
+SDDMM_FORCED = (("seq", 1, "float32", ("g500", "unif")),
+                ("seq", 4, "float32", ("g500", "unif")),
+                ("par", 64, "float32", ("g500", "unif")),
+                ("par", 64, "bfloat16", ("g500", "unif")),
+                ("par", 256, "float32", ("g500",)))
 KERNELS.update({
     "attn_stats": {"route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
                    "replaces": "src/repro/kernels/attention.py:43"},
@@ -378,6 +393,14 @@ def main() -> int:
     k_dim = graphs["g500"].shape[1]
     empties = {name: torch.diff(csr.indptr) == 0 for name, csr in graphs.items()}
 
+    def sddmm_plain_chunked(rows, cols, a, b, shape, tiles=2048):
+        """K6's plain version, a chunk of tiles at a time (at d = 256 on g500
+        its gathers would hold 16 GB each)."""
+        return torch.cat([fused_chain.sddmm_plain(rows[i:i + tiles],
+                                                  cols[i:i + tiles], a, b,
+                                                  shape=shape)
+                          for i in range(0, rows.shape[0], tiles)])
+
     def hold_empty(kernel, label, y):
         """The rows of the graph with no nonzero: exactly 0."""
         if not (y[empties[label.split()[0]]] == 0).all():
@@ -448,6 +471,28 @@ def main() -> int:
         pat = (bal.rows, bal.cols, *feats[name])
         hold("sddmm", name, fused_chain.sddmm_fused(*pat, shape=bal.shape),
              fused_chain.sddmm_plain(*pat, shape=bal.shape), "float32")
+    # K6's two designs, forced: "seq" (a thread a slot) at d = 1 and 4 (the
+    # backward's dvals at N = 1 and 4), "par" (lane groups split d) at the
+    # GAT layer's d = 64 in float32 and bfloat16 and at d = 256 on g500;
+    # padding slots exactly 0
+    for design, d, dtype, names in SDDMM_FORCED:
+        for name in names:
+            bal = bals[name]
+            m_, k_ = bal.shape
+            a = 0.3 * randn(m_, d, dtype=getattr(torch, dtype))
+            b = 0.3 * randn(k_, d, dtype=getattr(torch, dtype))
+            reset_launch_counts()
+            e = fused_chain._launch_sddmm(design, bal.rows, bal.cols, a, b,
+                                          shape=bal.shape)
+            if fused_chain.DESIGN_LAUNCHES["sddmm"][design] != 1:
+                fail(f"sddmm {name} d={d}: {design} was not launched "
+                     f"({fused_chain.DESIGN_LAUNCHES['sddmm']})")
+            if not (e.reshape(-1)[graphs[name].nnz:] == 0).all():
+                fail(f"sddmm {name} d={d} {design}: a padding slot is not 0")
+            hold("sddmm", f"{name} d={d} {design}", e,
+                 sddmm_plain_chunked(bal.rows, bal.cols, a, b, bal.shape), dtype)
+            del a, b, e
+    torch.cuda.empty_cache()
     # K7 (slot-tile) in its two modes: full (every row, what
     # chain_stats_fused launches) and edge (the rows of each tile's first
     # and last runs, what the fused chain launches; every other row stays
@@ -816,10 +861,14 @@ def main() -> int:
                 fail(f"chain {name} N={n}: disagrees with the torch backend")
         e, counts = drive(lambda: repro_torch.sddmm(csr, a, b))
         rel, _ = errors(e, repro_torch.sparse(csr).sddmm(a, b, backend="torch"))
-        print(f"[main] sddmm {name}: launches={counts} shape={tuple(e.shape)} "
-              f"rel_err_vs_torch={rel:.3e}", flush=True)
+        ran = took()["sddmm"]
+        print(f"[main] sddmm {name}: launches={counts} design={ran} "
+              f"shape={tuple(e.shape)} rel_err_vs_torch={rel:.3e}", flush=True)
         if counts["sddmm"] < 1 or e.shape != (csr.nnz,) or rel > RTOL["float32"]:
             fail(f"sddmm {name}: not launched, misshapen or wrong")
+        if ran != {"seq": 0, "par": counts["sddmm"]}:
+            # d = 64 is 16 pieces of 16 bytes: lane groups split it
+            fail(f"sddmm {name} d={CHAIN_D}: designs {ran}, expected par")
     # the fuse gate shut: the unfused pair of the port's own kernels
     csr = graphs["g500"]
     a, b = feats["g500"]
@@ -841,6 +890,8 @@ def main() -> int:
              "expected its sr design")
     if modes != {"full": 1, "edge": 0}:
         fail(f"the shut fuse gate ran K7 in modes {modes}, expected full mode")
+    if took()["sddmm"] != {"seq": 0, "par": 1}:
+        fail(f"the shut fuse gate ran K6 in {took()['sddmm']}, expected par")
     # block-sparse attention at full model widths, through the entry points
     # a model and a user call
     rep = gemma.num_heads // gemma.num_kv_heads
@@ -871,7 +922,7 @@ def main() -> int:
         y, counts = drive(call)
         t1 = time.perf_counter()
         ran = {kk: vv for kk, vv in took().items()
-               if kk not in ("vsr_spmm", "bsr_spmm", "csc_spmm")}
+               if kk not in ("vsr_spmm", "bsr_spmm", "csc_spmm", "sddmm")}
         want = {kk: (q.shape[1] if kk in kernels else 0) for kk in counts}
         if counts != want:
             fail(f"attention {cname}: launches {counts}, expected {want}")
@@ -942,6 +993,9 @@ def main() -> int:
     if took()["vsr_spmm"] != {"sr": 1, "pr": 0}:
         fail(f"the shut attention gate at d={q1.shape[1]} ran K1 in "
              f"{took()['vsr_spmm']}, expected its sr design")
+    if took()["sddmm"] != {"seq": 0, "par": 1}:
+        fail(f"the shut attention gate at d={q1.shape[1]} ran K6 in "
+             f"{took()['sddmm']}, expected its par design")
     del y, empty
     torch.cuda.empty_cache()
 
@@ -1167,6 +1221,32 @@ def main() -> int:
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / flop_rate
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
+    def k6_row(csr, bal, a, b):
+        """K6 as routed, its plain version (a chunk of tiles at a time),
+        ``sampled_addmm``, the bound, the design and the bytes it gathers:
+        one B row a slot, one A row a run of equal rows in a tile."""
+        m, d = csr.shape[0], a.shape[1]
+        e = a.element_size()
+        new_run = torch.ones_like(bal.rows, dtype=torch.bool)
+        new_run[:, 1:] = bal.rows[:, 1:] != bal.rows[:, :-1]
+        n_runs = int((new_run & (bal.rows < m)).sum())
+        lib_a = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
+                                        size=csr.shape, check_invariants=False)
+        b_t = b.t()
+        pat = (bal.rows, bal.cols, a, b)
+        k_bound = bound(12 * bal.rows.numel() + sum(csr.shape) * d * e,
+                        2 * csr.nnz * d)
+        return {
+            "kernel_ms": time_ms(lambda: fused_chain.sddmm_fused(*pat, shape=csr.shape)),
+            "plain_ms": (time_ms(lambda: fused_chain.sddmm_plain(*pat, shape=csr.shape))
+                         if d <= CHAIN_D else
+                         time_ms(lambda: sddmm_plain_chunked(*pat, csr.shape), reps=5)),
+            "library_ms": time_ms(lambda: torch.sparse.sampled_addmm(
+                lib_a, a, b_t, beta=0.0)),
+            "bound_ms": k_bound[0], "bound_by": k_bound[1],
+            "design": fused_chain._sddmm_design(d, a.dtype),
+            "gather_bytes": (csr.nnz + n_runs) * d * e}
+
     #: kernel -> (the timed row that stands for it in the summary, its shape)
     summary_rows = {}
     for name, csr in graphs.items():
@@ -1180,18 +1260,8 @@ def main() -> int:
         slots = bal.rows.numel()
         pat = (bal.rows, bal.cols, a, b)
         feat_bytes = (m + k_dim) * CHAIN_D * a.element_size()
-        lib_a = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
-                                        size=csr.shape, check_invariants=False)
-        b_t = b.t()
-        sd_bound = bound(8 * slots + feat_bytes + 4 * slots,
-                         2 * csr.nnz * CHAIN_D)
         st_bound = bound(8 * slots + feat_bytes + 8 * m, 2 * csr.nnz * CHAIN_D)
-        sddmm_row = {
-            "kernel_ms": time_ms(lambda: fused_chain.sddmm_fused(*pat, shape=csr.shape)),
-            "plain_ms": time_ms(lambda: fused_chain.sddmm_plain(*pat, shape=csr.shape)),
-            "library_ms": time_ms(lambda: torch.sparse.sampled_addmm(
-                lib_a, a, b_t, beta=0.0)),
-            "bound_ms": sd_bound[0], "bound_by": sd_bound[1]}
+        sddmm_row = k6_row(csr, bal, a, b)
         stats_row = {
             "kernel_ms": time_ms(lambda: fused_chain.chain_stats_fused(
                 *pat, shape=csr.shape, alpha=CHAIN_ALPHA, blocks=gblocks)),
@@ -1224,7 +1294,12 @@ def main() -> int:
                   + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
         if name == SDDMM_SUMMARY:
             summary_rows["sddmm"] = (sddmm_row, f"{name}_s{args.scale}_e16 d={CHAIN_D}")
-        del lib_a, b_t
+            # K6's other widths: "seq" at d = 1 and 4 (the backward's dvals
+            # at N = 1 and 4), "par" at d = 256
+            for d in SDDMM_WIDTHS:
+                row = k6_row(csr, bal, 0.3 * randn(m, d), 0.3 * randn(k_dim, d))
+                print(f"[time] sddmm {name}_s{args.scale}_e16 d={d} "
+                      + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
         stats = fused_chain.chain_stats_fused(*pat, shape=csr.shape,
                                               alpha=CHAIN_ALPHA, blocks=gblocks)
         edge_stats = fused_chain._launch_stats("slot", *pat, shape=csr.shape,
@@ -1271,6 +1346,14 @@ def main() -> int:
                   + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
         del stats, edge_stats
         torch.cuda.empty_cache()
+
+    # K6 at the Gemma head (d = 256 on the band), as the shut attention gate
+    # runs it
+    ga = attn["gemma"]
+    row = k6_row(ga["csr"], ga["bal"],
+                 *(0.3 * randn(ATTN_SEQ, gemma.head_dim) for _ in range(2)))
+    print(f"[time] sddmm gemma_local head d={gemma.head_dim} "
+          + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
 
     # block-sparse attention, one head of each case: K9 (K7) and K10 (K8)
     # alone, the fused call, the unfused pair, the plain version and SDPA on
@@ -1351,8 +1434,8 @@ def main() -> int:
         reset_launch_counts()
         k9_ms, k10_ms = time_ms(stats_fn), time_ms(k10)
         # the design the timed launches took: the block design
-        took_t = {kk: [dd for dd, nn in vv.items() if nn]
-                  for kk, vv in mod.DESIGN_LAUNCHES.items()}
+        took_t = {kk: [dd for dd, nn in mod.DESIGN_LAUNCHES[kk].items() if nn]
+                  for kk in kernels}
         if took_t != {kk: ["block"] for kk in kernels}:
             fail(f"attention {cname}: the timed {kernels} took {took_t}, "
                  "expected the block design")

@@ -1,9 +1,12 @@
 // Edge scores of the SDDMM family (K6-K10): e = <A[row], B[col]> for every
-// slot of a balanced tile, in f32, computed by lane groups; the packed
-// softmax row statistics that K7 and K9 write and K8 and K10 read; and the
-// segmented scan over a tile's row runs that K7, K8 and K9 share.
+// slot of a balanced tile, in f32, computed by lane groups (K7-K10) or by
+// K6's run-aware passes over staged slots (score_range_par,
+// score_slots_seq); the packed softmax row statistics that K7 and K9 write
+// and K8 and K10 read; and the segmented scan over a tile's row runs that
+// K7, K8 and K9 share.
 //
-// A lane group of `g` lanes owns one slot and splits the feature dimension d:
+// For K7-K10, a lane group of `g` lanes owns one slot and splits the
+// feature dimension d:
 // with `vec` set, each lane makes 16-byte loads (4 f32 or 8 bf16 a load) of
 // both rows; otherwise one element a load.  The group reduces its partial
 // dots with __shfl_xor_sync.  A padding slot (row >= m) loads nothing: the
@@ -155,7 +158,7 @@ __device__ __forceinline__ float dot16_bits(uint4 x, uint4 y) {
 // product, so a group keeps U pairs of rows in flight.  K7 and K8 use it:
 // they fold the scores in shared memory after the loop, time in which the
 // CTA issues no loads, so each of their warps must keep more of them in
-// flight than K6's.
+// flight than the slot-tile K9's and K10's.
 template <typename TA, int U, typename Emit, typename SlotOf = SameSlot>
 __device__ __forceinline__ void for_each_score_unrolled(
     const int* __restrict__ rows, const int* __restrict__ cols,
@@ -210,6 +213,212 @@ __device__ __forceinline__ void for_each_score_unrolled(
       for (int off = g >> 1; off > 0; off >>= 1)
         s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
       if (in[u] && gl == 0) emit(slot[u], r[u], c[u], r[u] < m, s[u]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6's score passes, the paper's two reduction strategies on the SDDMM's
+// reduction axis d.  Each hands every slot's score to its caller once, 0 at
+// a padding slot (row >= m), which loads nothing.
+// ---------------------------------------------------------------------------
+
+// One piece of a feature row: 16 bytes (VEC: 4 f32 or 8 bf16 elements) or
+// one element, and the dot product of two pieces in f32.
+template <typename TA, bool VEC>
+struct Piece {
+  using T = uint4;
+  static constexpr int kElems = elems16<TA>();
+  __device__ static T zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  __device__ static T load(const TA* row, int p) { return load16<TA>(row + p * kElems); }
+  __device__ static float dot(T x, T y) { return dot16_bits<TA>(x, y); }
+};
+
+template <typename TA>
+struct Piece<TA, false> {
+  using T = float;
+  static constexpr int kElems = 1;
+  __device__ static T zero() { return 0.f; }
+  __device__ static T load(const TA* row, int p) { return to_f32(__ldg(row + p)); }
+  __device__ static float dot(T x, T y) { return x * y; }
+};
+
+// "par", the parallel reduction: a lane group of g lanes walks one
+// contiguous range of `len` slots (rows[0, len), cols[0, len)), a
+// lane owning pieces gl, gl + g, .. of each feature row (P of them, in
+// registers; P = 0: any number, in a loop, nothing kept), the group
+// reducing by __shfl_xor_sync.  It issues the gathers of U slots before
+// their products, and calls emit(i, score) once a slot, from the group's
+// first lane.  Rows are
+// sorted within a tile, so a range meets each row as one run: a slot whose
+// row is the previous slot's takes that slot's pieces of A[row] from
+// registers instead of loading them (measured on H100: 3-6% faster than
+// reloading them).  All lanes of a warp must
+// call it with the same `span` (>= len): each group runs ceil(span / U)
+// steps, so the shuffles see the whole warp.
+template <typename TA, bool VEC, int P, int U, typename Emit>
+__device__ __forceinline__ void score_range_par(const int* rows, const int* cols, int len,
+                                                int span, const TA* __restrict__ a,
+                                                const TA* __restrict__ b, int m, int d,
+                                                int g, Emit emit) {
+  using PC = Piece<TA, VEC>;
+  using T = typename PC::T;
+  constexpr int PR = P > 0 ? P : 1;
+  const int pieces = d / PC::kElems;
+  const int gl = threadIdx.x & (g - 1);
+  T acur[PR];          // the pieces of A[cur], the row of the last slot
+  int cur = m;
+#pragma unroll
+  for (int p = 0; p < PR; ++p) acur[p] = PC::zero();
+  for (int k = 0; k < span; k += U) {
+    int r[U], c[U];      // row m past the range
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool in = k + u < len;
+      r[u] = in ? rows[k + u] : m;
+      c[u] = in ? cols[k + u] : 0;
+    }
+    float s[U];
+    if constexpr (P > 0) {
+      T av[U][P], bv[U][P];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const TA* br = b + static_cast<long long>(c[u]) * d;
+        const TA* ar = a + static_cast<long long>(r[u]) * d;
+        const bool fresh = r[u] != (u ? r[u - 1] : cur);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const int q = gl + p * g;
+          const bool load = r[u] < m && q < pieces;
+          bv[u][p] = load ? PC::load(br, q) : PC::zero();
+          av[u][p] = load && fresh ? PC::load(ar, q) : (u ? av[u - 1][p] : acur[p]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u] = 0.f;
+#pragma unroll
+        for (int p = 0; p < P; ++p) s[u] += PC::dot(av[u][p], bv[u][p]);
+      }
+      cur = r[U - 1];
+#pragma unroll
+      for (int p = 0; p < P; ++p) acur[p] = av[U - 1][p];
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u] = 0.f;
+        if (r[u] >= m) continue;
+        const TA* ar = a + static_cast<long long>(r[u]) * d;
+        const TA* br = b + static_cast<long long>(c[u]) * d;
+        for (int q = gl; q < pieces; q += g) s[u] += PC::dot(PC::load(ar, q), PC::load(br, q));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      for (int off = g >> 1; off > 0; off >>= 1)
+        s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
+      if (gl == 0 && k + u < len) emit(k + u, r[u] < m ? s[u] : 0.f);
+    }
+  }
+}
+
+// One feature row of at most one 16-byte piece as f32 elements, 0 past d:
+// one 16-byte load (VEC: d is the piece) or d single elements.
+template <typename TA, bool VEC>
+__device__ __forceinline__ void load_short_row(const TA* row, int d,
+                                               float (&e)[elems16<TA>()]) {
+  constexpr int V = elems16<TA>();
+  if constexpr (VEC) {
+    const uint4 x = load16<TA>(row);
+    if constexpr (sizeof(TA) == 4) {
+      const float* f = reinterpret_cast<const float*>(&x);
+#pragma unroll
+      for (int j = 0; j < V; ++j) e[j] = f[j];
+    } else {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+      for (int j = 0; j < V / 2; ++j) {
+        const float2 f = __bfloat1622float2(h[j]);
+        e[2 * j] = f.x;
+        e[2 * j + 1] = f.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) e[j] = j < d ? to_f32(__ldg(row + j)) : 0.f;
+  }
+}
+
+// "seq", the sequential reduction: a thread owns a slot and loops over d
+// with no shuffle.  The threads of the CTA take consecutive slots of the
+// `cnt` ones at rows / cols (i, i + blockDim.x, ..), U slots a thread at a
+// time, all their gathers issued before the products; emit(i, score) is
+// called once a slot.  Where a row fits one piece (d <= 4 f32, <= 8 bf16) a
+// slot whose row is the thread's previous slot's takes A[row] from
+// registers; wider rows (a forced "seq") load both rows a piece
+// at a time.
+template <typename TA, bool VEC, int U, typename Emit>
+__device__ __forceinline__ void score_slots_seq(const int* rows, const int* cols, int cnt,
+                                                const TA* __restrict__ a,
+                                                const TA* __restrict__ b, int m, int d,
+                                                Emit emit) {
+  using PC = Piece<TA, VEC>;
+  constexpr int V = elems16<TA>();
+  float acur[V];       // A[cur], the row of the thread's last slot
+  int cur = m;
+#pragma unroll
+  for (int j = 0; j < V; ++j) acur[j] = 0.f;
+  for (int k = threadIdx.x; k < cnt; k += U * blockDim.x) {
+    int r[U], c[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = k + u * blockDim.x;
+      r[u] = i < cnt ? rows[i] : m;
+      c[u] = i < cnt ? cols[i] : 0;
+    }
+    float s[U];
+    if (d <= V) {
+      float av[U][V], bv[U][V];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const bool fresh = r[u] != (u ? r[u - 1] : cur);
+        if (r[u] < m) {
+          load_short_row<TA, VEC>(b + static_cast<long long>(c[u]) * d, d, bv[u]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) bv[u][j] = 0.f;
+        }
+        if (r[u] < m && fresh) {
+          load_short_row<TA, VEC>(a + static_cast<long long>(r[u]) * d, d, av[u]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) av[u][j] = u ? av[u - 1][j] : acur[j];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u] = 0.f;
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if (j < d) s[u] = fmaf(av[u][j], bv[u][j], s[u]);
+      }
+      cur = r[U - 1];
+#pragma unroll
+      for (int j = 0; j < V; ++j) acur[j] = av[U - 1][j];
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u] = 0.f;
+        if (r[u] >= m) continue;
+        const TA* ar = a + static_cast<long long>(r[u]) * d;
+        const TA* br = b + static_cast<long long>(c[u]) * d;
+        for (int q = 0; q < d / PC::kElems; ++q) s[u] += PC::dot(PC::load(ar, q), PC::load(br, q));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = k + u * blockDim.x;
+      if (i < cnt) emit(i, r[u] < m ? s[u] : 0.f);
     }
   }
 }

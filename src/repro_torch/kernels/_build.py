@@ -53,7 +53,7 @@ SIGNATURES = {
                           _I, _I, _P),
     "repro_csc_sr": (_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     "repro_csc_pr": (_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P),
-    "repro_sddmm": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
+    "repro_sddmm": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     "repro_chain_stats": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I,
                           _P),
     "repro_chain": (_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,

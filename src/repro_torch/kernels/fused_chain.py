@@ -20,6 +20,10 @@ kernel's bound and design:
 * ``chain_fused`` (K8, with K7 for softmax) replaces ``_chain_kernel``:
   ``Y = T(e) · X`` with f32 sums, cast to ``x.dtype``.
 
+K6 has two designs, the paper's two reductions on its reduction axis d,
+routed by ``_sddmm_design``: ``"seq"`` for a row of one 16-byte piece or
+less, ``"par"`` above it; ``DESIGN_LAUNCHES["sddmm"]`` counts each.
+
 K7 and K8's softmax route each call as attention does (``blocks._route``):
 an attention pattern — a band, BigBird — takes the block design of
 ``kernels/blocks.py`` (64 query rows a CTA, the tensor cores) with ``scale
@@ -62,10 +66,14 @@ __all__ = ["CHAIN_TRANSFORMS", "sddmm_fused", "sddmm_plain",
 
 #: launches of K6, K7 and K8 since process start (or the last reset)
 LAUNCHES = {"sddmm": 0, "chain_stats": 0, "chain": 0}
-#: K7's and K8's launches by design: "block" (the tensor-core kernels of
+#: launches by design: K6's "seq" or "par" (``csrc/sddmm.cu``, routed by d,
+#: ``_sddmm_design``); K7's and K8's "block" (the tensor-core kernels of
 #: ``csrc/attention.cu`` with the bias compiled out) or "slot" (``chain.cu``)
-DESIGN_LAUNCHES = {kernel: {"block": 0, "slot": 0}
-                   for kernel in ("chain_stats", "chain")}
+DESIGN_LAUNCHES = {"sddmm": {"seq": 0, "par": 0},
+                   **{kernel: {"block": 0, "slot": 0}
+                      for kernel in ("chain_stats", "chain")}}
+#: K6's design codes of the ``repro_sddmm`` entry point
+_SDDMM_DESIGNS = {"seq": 0, "par": 1}
 #: the slot-tile K7's launches by mode: "full" (every row) or "edge" (the
 #: tiles' first and last runs alone)
 STATS_MODES = {"full": 0, "edge": 0}
@@ -231,20 +239,38 @@ def _check_pattern(kernel: str, rows, cols, a, b, shape) -> None:
         raise ValueError(f"{kernel}: A and B must be contiguous")
 
 
+def _sddmm_design(d: int, dtype: torch.dtype) -> str:
+    """K6's routing rule: ``"seq"`` (a thread a slot, no shuffle) where a
+    feature row fits one 16-byte piece (d <= 4 f32, <= 8 bf16), else
+    ``"par"`` (lane groups split d)."""
+    return "seq" if d * torch.empty((), dtype=dtype).element_size() <= 16 else "par"
+
+
 def sddmm_fused(rows, cols, a, b, *, shape) -> torch.Tensor:
     """K6: f32 edge scores shaped like ``rows``.  CPU operands take the plain
-    version; CUDA operands launch the kernel or raise."""
+    version; CUDA operands launch the kernel of the design ``_sddmm_design``
+    routes d to, or raise."""
     if _common.on_cpu("sddmm", rows, cols, a, b):
         return sddmm_plain(rows, cols, a, b, shape=shape)
+    return _launch_sddmm(None, rows, cols, a, b, shape=shape)
+
+
+def _launch_sddmm(design, rows, cols, a, b, *, shape) -> torch.Tensor:
+    """K6 on CUDA operands in ``design``: ``None`` routes by d, ``"seq"`` or
+    ``"par"`` forces one (for tests and timings)."""
     _check_pattern("sddmm", rows, cols, a, b, shape)
+    design = design or _sddmm_design(a.shape[1], a.dtype)
+    if design not in _SDDMM_DESIGNS:
+        raise ValueError(f"sddmm: unknown design {design!r}")
     out = torch.empty(rows.shape, dtype=torch.float32, device=rows.device)
     if out.numel():
         err = _build.lib().repro_sddmm(
             rows.data_ptr(), cols.data_ptr(), a.data_ptr(), b.data_ptr(),
             _common.is_bf16(a), out.data_ptr(), rows.shape[0], rows.shape[1],
-            int(shape[0]), a.shape[1], _common.stream_of(a))
+            int(shape[0]), a.shape[1], _SDDMM_DESIGNS[design],
+            _common.stream_of(a))
         _build.check(err, "sddmm")
-        LAUNCHES["sddmm"] += 1
+        _count("sddmm", design)
     return out
 
 

@@ -49,15 +49,15 @@ def _problem(rng, m=37, k=29, d=16, n=24, density=0.15, empty_rows=(5, 30)):
     return dense, a, b, x
 
 
-def _spanning(rng):
+def _spanning(rng, d=8):
     """A row (3) whose 600 nonzeros span two 512-slot tiles, a strided row
     (7), and a 1-D x."""
     m, k = 40, 600
     dense = np.zeros((m, k), np.float32)
     dense[3, :] = rng.standard_normal(k).astype(np.float32)
     dense[7, ::5] = 1.0
-    a = (rng.standard_normal((m, 8)) * 0.3).astype(np.float32)
-    b = (rng.standard_normal((k, 8)) * 0.3).astype(np.float32)
+    a = (rng.standard_normal((m, d)) * 0.3).astype(np.float32)
+    b = (rng.standard_normal((k, d)) * 0.3).astype(np.float32)
     return dense, a, b, rng.standard_normal(k).astype(np.float32)
 
 
@@ -72,6 +72,16 @@ def _empty(rng):
 PROBLEMS = {"small": lambda: _problem(np.random.default_rng(0)),
             "spanning": lambda: _spanning(np.random.default_rng(1)),
             "empty": lambda: _empty(np.random.default_rng(2))}
+#: the problems of K6's feature-width sweep, by d: the same patterns (their
+#: draws come first), A and B of width d
+SIZED = {"small": lambda d: _problem(np.random.default_rng(0), d=d),
+         "spanning": lambda d: _spanning(np.random.default_rng(1), d=d)}
+#: K6's cases: every problem at its own width (small: d = 16), then K6's
+#: widths — "seq" (d <= 4 f32) and "par" — on the small and the spanning one
+SDDMM_CASES = ([pytest.param(p, None, id=p) for p in sorted(PROBLEMS)]
+               + [pytest.param("small", d, id=f"small-d{d}") for d in (1, 4, 64, 256)]
+               + [pytest.param("spanning", d, id=f"spanning-d{d}")
+                  for d in (1, 4, 16, 64, 256)])
 
 
 def _port_csr(csr):
@@ -117,9 +127,9 @@ def _close_stats(got, want, m):
 # the chain half of core/spmm.py and the plain versions against the reference
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("problem", sorted(PROBLEMS))
-def test_sddmm_matches_reference(problem):
-    dense, a, b, _ = PROBLEMS[problem]()
+@pytest.mark.parametrize("problem,d", SDDMM_CASES)
+def test_sddmm_matches_reference(problem, d):
+    dense, a, b, _ = PROBLEMS[problem]() if d is None else SIZED[problem](d)
     rb, pb, csr, _ = _slabs(dense)
     shape = csr.shape
     want_xla = ref_spmm.sddmm_xla(rb.rows, rb.cols, jnp.asarray(a), jnp.asarray(b),
@@ -134,6 +144,26 @@ def test_sddmm_matches_reference(problem):
         _close(got, want_xla)
         _close(got, want_pallas)
         assert (got.reshape(-1)[csr.nnz:] == 0).all()       # padding scores 0
+
+
+@pytest.mark.parametrize("dtype,widest_seq", [(torch.float32, 4), (torch.bfloat16, 8)])
+def test_sddmm_design_routes_by_d(dtype, widest_seq):
+    """K6's routing rule: "seq" while a feature row fits one 16-byte piece,
+    "par" above it; CPU operands take the plain version and count no launch,
+    and an unknown design raises before any launch."""
+    for d in range(0, 300):
+        want = "seq" if d <= widest_seq else "par"
+        assert fused_chain._sddmm_design(d, dtype) == want, d
+    dense, a, b, _ = PROBLEMS["small"]()
+    _, pb, csr, _ = _slabs(dense)
+    ta, tb = (t.to(dtype) for t in _t(a, b))
+    reset_launch_counts()
+    e = fused_chain.sddmm_fused(pb.rows, pb.cols, ta, tb, shape=csr.shape)
+    _close(e, fused_chain.sddmm_plain(pb.rows, pb.cols, ta, tb, shape=csr.shape))
+    assert fused_chain.DESIGN_LAUNCHES["sddmm"] == {"seq": 0, "par": 0}
+    assert launch_counts()["sddmm"] == 0
+    with pytest.raises(ValueError):
+        fused_chain._launch_sddmm("tc", pb.rows, pb.cols, ta, tb, shape=csr.shape)
 
 
 @pytest.mark.parametrize("problem", sorted(PROBLEMS))

@@ -228,7 +228,7 @@ def test_cpu_chain_wrappers_take_the_plain_version_with_blocks():
     yu = fused_chain.chain_unfused(bal.rows, bal.cols, a, b, x,
                                    transform="softmax", **kw)
     assert set(launch_counts().values()) == {0}
-    assert all(c == {"block": 0, "slot": 0}
+    assert all(set(c.values()) == {0}
                for c in fused_chain.DESIGN_LAUNCHES.values())
     want = fused_chain.chain_plain(bal.rows, bal.cols, a, b, x,
                                    shape=csr.shape, transform="softmax",

@@ -122,18 +122,56 @@ def _chain_operands(csr, d, n, dtype=torch.float32, xdtype=torch.float32):
     return a, b, x
 
 
+def _offset_view(t):
+    """``t``'s values in a contiguous view one element past an aligned
+    buffer's start: the kernels take their scalar loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [1, 6, 16, 64, 200])
+@pytest.mark.parametrize("d", [1, 3, 4, 6, 8, 16, 64, 128, 200, 256, 264])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_sddmm_and_stats_match_plain(cuda, d, dtype):
+    """K6 as routed by d and in each design, forced ("seq": a thread a
+    slot; "par": lane groups over ranges), against the plain version at
+    tiles of 32, 100, 512 and 4096 slots: a hub row longer than most tiles
+    and rows that cross a "par" group's range (``_nb_mats``), on aligned
+    operands and on A and B views offset by one element (scalar loads),
+    padding slots exactly 0, the design each launch took in
+    ``DESIGN_LAUNCHES["sddmm"]``; then K7 on the same operands."""
+    routed = fused_chain._sddmm_design(d, dtype)
+    assert routed == ("seq" if d <= 16 // torch.empty((), dtype=dtype).element_size()
+                      else "par")
+    for name, csr in _nb_mats(cuda):
+        a, b, _ = _chain_operands(csr, d, 1, dtype)
+        offset = tuple(_offset_view(t) for t in (a, b))
+        for tile in (32, 100, 512, 4096):
+            bal = formats.csr_to_balanced(csr, tile)
+            pat = (bal.rows, bal.cols)
+            want = fused_chain.sddmm_plain(*pat, a, b, shape=csr.shape)
+            for design in (None, "seq", "par"):
+                for ab in ((a, b), offset):
+                    reset_launch_counts()
+                    e = (fused_chain.sddmm_fused(*pat, *ab, shape=csr.shape)
+                         if design is None else fused_chain._launch_sddmm(
+                             design, *pat, *ab, shape=csr.shape))
+                    ran = design or routed
+                    label = (name, tile, design, ab is offset)
+                    assert fused_chain.DESIGN_LAUNCHES["sddmm"] == {
+                        "seq": int(ran == "seq"), "par": int(ran == "par")}, label
+                    assert launch_counts()["sddmm"] == 1, label
+                    assert e.dtype == torch.float32 and e.shape == bal.rows.shape
+                    assert _rel(e, want) < 1e-4, label
+                    assert (e.reshape(-1)[csr.nnz:] == 0).all(), label
+    with pytest.raises(ValueError):
+        fused_chain._launch_sddmm("tc", *pat, a, b, shape=csr.shape)
     for name, csr in _graphs(cuda).items():
         a, b, _ = _chain_operands(csr, d, 1, dtype)
         for tile in (32, 100, 512):
             bal = formats.csr_to_balanced(csr, tile)
             args = (bal.rows, bal.cols, a, b)
-            e = fused_chain.sddmm_fused(*args, shape=csr.shape)
-            assert _rel(e, fused_chain.sddmm_plain(*args, shape=csr.shape)) < 1e-4, name
-            assert (e.reshape(-1)[csr.nnz:] == 0).all()
             rm, rs = fused_chain.chain_stats_fused(*args, shape=csr.shape, alpha=0.7)
             pm, ps = fused_chain.chain_stats_plain(*args, shape=csr.shape, alpha=0.7)
             empty = torch.diff(csr.indptr) == 0
@@ -731,6 +769,7 @@ def test_cuda_chain_block_design_matches_plain(cuda, d, dtype, n):
                                        stats=(rm, rs), blocks=cache, **kw)
         torch.cuda.synchronize()
         assert fused_chain.DESIGN_LAUNCHES == {
+            "sddmm": {"seq": 0, "par": 0},
             "chain_stats": {"block": 2, "slot": 0},
             "chain": {"block": 2, "slot": 0}}, name
         pm, ps = fused_chain.chain_stats_plain(*args, **kw)
@@ -769,7 +808,8 @@ def test_cuda_chain_routes_by_pattern_and_operands(cuda):
                                        alpha=0.25)
         assert _rel(y, want) < (1e-4 if xdtype == torch.float32 else 2e-2)
         return {kk: [dd for dd, nn in vv.items() if nn]
-                for kk, vv in fused_chain.DESIGN_LAUNCHES.items()}
+                for kk, vv in fused_chain.DESIGN_LAUNCHES.items()
+                if kk != "sddmm"}
 
     both = {"chain_stats": ["block"], "chain": ["block"]}
     slot = {"chain_stats": ["slot"], "chain": ["slot"]}
@@ -788,6 +828,7 @@ def test_cuda_chain_routes_by_pattern_and_operands(cuda):
     reset_launch_counts()
     y = repro_torch.sparse_attention(spec, q, k, v, cache=False)
     assert fused_chain.DESIGN_LAUNCHES == {
+        "sddmm": {"seq": 0, "par": 0},
         "chain_stats": {"block": 2, "slot": 0},
         "chain": {"block": 2, "slot": 0}}
     assert attention.DESIGN_LAUNCHES == {
@@ -801,6 +842,7 @@ def test_cuda_chain_routes_by_pattern_and_operands(cuda):
     repro_torch.sparse_chain(g, a, b, torch.randn(g.shape[1], 32, device=cuda),
                              alpha=0.125, cache=False)
     assert fused_chain.DESIGN_LAUNCHES == {
+        "sddmm": {"seq": 0, "par": 0},
         "chain_stats": {"block": 0, "slot": 1},
         "chain": {"block": 0, "slot": 1}}
 
