@@ -128,7 +128,32 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              ratio to ``torch.sparse.mm``, the fused K1 (K2) and the plain
              version, each bound counting the partials written (the
              combine's: the partials read once, Y written once);
-6. summary — one JSON line of the kernels, the card line, then the result.
+6. backward — on both graphs at N = 1, 4, 32, 128, ``loss = (A.with_values(v)
+             @ x * gy).sum()`` and ``loss.backward()``: K6 launched once in
+             the design N routes to ("seq" at 1 and 4, "par" above) and
+             the kernel of the transposed plan's own pick (Aᵀ's statistics
+             and picks printed), ``v.grad`` and ``x.grad`` within 1e-4 of the
+             reference's ``_coo_bwd`` in plain PyTorch on the card's tensors
+             (``coo_bwd_plain``, chunked); times of the backward, K6 alone,
+             the SpMM of Aᵀ alone and the rest (glue), beside
+             ``sampled_addmm`` plus ``sparse.mm`` on Aᵀ and the sum of the
+             two kernels' bounds;
+7. train    — one ``SparseFFN`` at Gemma-3-12B's FFN widths (d_model 3840,
+             d_ff 15360, ``SparseFFNConfig()``: density 0.1, tile 512,
+             swiglu; ~5.9M nonzeros a matrix, patterns from the seed) on
+             batch 4 x seq 512 = 2,048 tokens, 5 AdamW steps through
+             ``make_train_step`` (lr 1e-3, warmup 2, MSE to a seeded
+             target): each step 3 K6 and 6 K1 pr launches, 3 per-pattern
+             prep builds over the 5 steps, a falling loss, the first step's
+             grads finite, nonzero and within 1e-4 of torch autograd of the
+             dense products (TF32 off); times of the step, its split (the
+             forward SpMMs, K6, the SpMMs of Aᵀ, the optimizer) and the
+             dense step; K1 pr at N = 2048 and K6 at d = 2048 on the gate
+             matrix against their plain versions, ``sparse.mm`` and
+             ``sampled_addmm``;
+8. summary — one JSON line of the kernels (``launches`` and ``design``:
+             the main path's; ``launches_by_path`` and ``design_by_path``:
+             main, backward and train), the card line, then the result.
 
 Without a CUDA device it prints no result and exits 2.  ``--scale`` below 20
 runs smaller graphs for a quick look; the graph statistics published with
@@ -253,6 +278,13 @@ BSR_SUMMARY_N, SPILL_SUMMARY_N = 128, {"vsr_spmm_spill": 128, "vsr_spmv_spill": 
                                       "spill_combine": 128}
 
 
+#: the sparse-FFN training steps: one Gemma-3-12B FFN layer at its widths
+#: (d_model 3840, d_ff 15360, ``SparseFFNConfig()``: density 0.1, tile 512,
+#: swiglu) on batch 4 x seq 512 tokens, five AdamW steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 5
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=5)
+
+
 def pruned_ffn_weight(d_ff: int, d_model: int, seed: int):
     """A block-pruned FFN up-projection W (d_ff, d_model), dense float32:
     each ``BSR_BLOCK`` block kept with probability ``BSR_KEEP``, kept values
@@ -296,12 +328,18 @@ def main() -> int:
     from repro_torch.configs import gemma3_12b
     from repro_torch.core import formats, registry, stats
     from repro_torch.core.cache import pattern_fingerprint
-    from repro_torch.core.plan import _stream_to_balanced, execute_attention
+    from repro_torch.core.plan import (PATTERN_PREP, _stream_to_balanced,
+                                       execute, execute_attention,
+                                       pattern_prep)
+    from repro_torch.core.vjp import _stream_to_ell, coo_bwd_plain
     from repro_torch.core.rmat import rmat
     from repro_torch.kernels import (_build, attention, bsr, csc, fused_chain,
                                      launch_counts, reset_launch_counts, spmv,
                                      vsr)
-    from repro_torch.models import transformer
+    from repro_torch.models import SparseFFN, rmsnorm, transformer
+    from repro_torch.models.config import SparseFFNConfig
+    from repro_torch.train import (OptConfig, TrainConfig, adamw_update,
+                                   init_state, make_train_step)
 
     t_start = time.perf_counter()
 
@@ -737,13 +775,10 @@ def main() -> int:
 
     # -- 4. the main path through the facade -----------------------------------
     phase("main")
-    launches = {k: 0 for k in KERNELS}
-    #: K1, K3 and K7-K11 launches by design on the main path
+    #: the counters of K1, K3 and K7-K11's launches by design
     design_counts = (vsr.DESIGN_LAUNCHES, csc.DESIGN_LAUNCHES,
                      fused_chain.DESIGN_LAUNCHES, attention.DESIGN_LAUNCHES,
                      bsr.DESIGN_LAUNCHES)
-    designs = {kk: dict.fromkeys(vv, 0)
-               for counts in design_counts for kk, vv in counts.items()}
 
     def took():
         """The designs of the K1, K3 and K7-K11 launches since the last
@@ -751,18 +786,28 @@ def main() -> int:
         return {kk: dict(vv) for counts in design_counts
                 for kk, vv in counts.items()}
 
-    def drive(call):
-        """One user call, with the launch counts set to 0 just before and
-        read just after."""
+    #: the launches of each path, and those of K1, K3 and K7-K11 by design:
+    #: the forward ("main"), the backward of A @ x ("backward") and the
+    #: sparse-FFN training steps ("train")
+    path_launches = {path: {k: 0 for k in KERNELS}
+                     for path in ("main", "backward", "train")}
+    path_designs = {path: {kk: dict.fromkeys(vv, 0) for counts in design_counts
+                           for kk, vv in counts.items()}
+                    for path in path_launches}
+    launches, designs = path_launches["main"], path_designs["main"]
+
+    def drive(call, path="main"):
+        """One user call of ``path``, with the launch counts set to 0 just
+        before and read just after."""
         reset_launch_counts()
         y = call()
         torch.cuda.synchronize()
         counts = launch_counts()
         for k, v in counts.items():
-            launches[k] += v
+            path_launches[path][k] += v
         for k, by_design in took().items():
             for design, v in by_design.items():
-                designs[k][design] += v
+                path_designs[path][k][design] += v
         return y, counts
 
     for name, csr in graphs.items():
@@ -1686,7 +1731,283 @@ def main() -> int:
     del lib_a
     torch.cuda.empty_cache()
 
-    # -- 6. summary ---------------------------------------------------------------
+    # -- 6. the backward of A @ x --------------------------------------------------
+    phase("backward")
+
+    def coo_bwd_chunked(csr, v, x, g, chunk=1 << 22):
+        """The reference's ``_coo_bwd`` (``coo_bwd_plain``) on the card's
+        tensors, a chunk of nonzeros at a time (at N = 128 its gathers would
+        hold 8 GB each)."""
+        r, c = (t.reshape(-1)[:csr.nnz] for t in formats.balanced_pattern(csr))
+        dvs, dx = [], torch.zeros(x.shape, dtype=torch.float32, device=dev)
+        for s0 in range(0, csr.nnz, chunk):
+            rr = r[s0:s0 + chunk]
+            dv, dxc = coo_bwd_plain(rr, c[s0:s0 + chunk], rr < csr.shape[0],
+                                    v[s0:s0 + chunk], x.float(), g.float(),
+                                    csr.shape)
+            dvs.append(dv)
+            dx += dxc
+        return torch.cat(dvs), dx
+
+    bwd_rows = {}
+    for name, csr in graphs.items():
+        m, k_dim = csr.shape
+        A = repro_torch.sparse(csr)
+        t0 = time.perf_counter()
+        pt = A.plan.transposed()
+        t_build = time.perf_counter() - t0
+        st = pt.stats
+        print(f"[backward] {name}: A^T M={st.m} K={st.k} nnz={st.nnz} "
+              f"avg_row={st.avg_row:.2f} cv={st.cv:.2f} max_row={st.max_row} "
+              f"empty_rows={st.empty_rows}; picks "
+              f"{ {n: pt.select(n) for n in NS} } (A: "
+              f"{ {n: A.plan.select(n) for n in NS} }); transposed plan "
+              f"{t_build:.3f} s on the host", flush=True)
+        lib_a = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
+                                        size=csr.shape, check_invariants=False)
+        lib_t = torch.sparse_csr_tensor(pt.csr.indptr, pt.csr.indices,
+                                        pt.csr.data, size=pt.csr.shape,
+                                        check_invariants=False)
+        prow, pcol = A.plan.pattern()
+        for n in NS:
+            v = randn(csr.nnz).requires_grad_()
+            x = (randn(k_dim, n) if n > 1 else randn(k_dim)).requires_grad_()
+            gy = randn(m, n) if n > 1 else randn(m)
+            pick, tpick = A.plan.select(n), pt.select(n)
+            k_fwd, k_bwd = kernel_of(pick, n), kernel_of(tpick, n)
+
+            def fwd_bwd():
+                (A.with_values(v) @ x * gy).sum().backward()
+
+            _, counts = drive(fwd_bwd, "backward")
+            k6_design = fused_chain._sddmm_design(n, torch.float32)
+            k6_took = took()["sddmm"]
+            print(f"[backward] {name} N={n}: forward {pick} ({k_fwd}), A^T "
+                  f"{tpick} ({k_bwd}), K6 {k6_took}; launches {counts}",
+                  flush=True)
+            if counts["sddmm"] != 1 or k6_took[k6_design] != 1:
+                fail(f"backward {name} N={n}: K6 did not run once in its "
+                     f"{k6_design} design ({counts}, {k6_took})")
+            if counts[k_bwd] < 1 + int(k_bwd == k_fwd):
+                fail(f"backward {name} N={n}: A^T's pick {tpick} did not "
+                     f"launch {k_bwd} ({counts})")
+            dv, dx = coo_bwd_chunked(csr, v.detach(), x.detach(), gy)
+            hold("sddmm", f"{name} backward dvals N={n}", v.grad, dv, "float32")
+            hold(k_bwd, f"{name} backward dx N={n} ({tpick} on A^T)", x.grad,
+                 dx, "float32")
+            # times: the whole backward, K6 alone, the SpMM of A^T alone, and
+            # the yardstick: sampled_addmm plus sparse.mm on A^T
+            y = A.with_values(v) @ x
+            g2, x2 = (gy[:, None] if n == 1 else gy), x.detach().reshape(k_dim, n)
+            entry = pt.entry(tpick)
+            sub_t, opts_t = pt.substrate(entry.substrate), pt.kernel_opts(entry)
+            t_sub = (8 * csr.nnz + 4 * k_dim if entry.substrate == "ell"
+                     else 12 * csr.nnz)
+            b_k6 = bound(12 * prow.numel() + 4 * (m + k_dim) * n, 2 * csr.nnz * n)
+            b_mm = bound(t_sub + 4 * (m + k_dim) * n, 2 * csr.nnz * n)
+            row = {
+                "bwd_ms": time_ms(lambda: torch.autograd.grad(
+                    y, (v, x), gy, retain_graph=True)),
+                "k6_ms": time_ms(lambda: fused_chain.sddmm_fused(
+                    prow, pcol, g2, x2, shape=csr.shape)),
+                "spmm_t_ms": time_ms(lambda: entry.fn(sub_t, gy, **opts_t)),
+                "library_ms": time_ms(lambda: (torch.sparse.sampled_addmm(
+                    lib_a, g2, x2.t(), beta=0.0), lib_t @ gy)),
+                "bound_ms": b_k6[0] + b_mm[0], "k6_bound_ms": b_k6[0],
+                "spmm_t_bound_ms": b_mm[0], "k6_design": k6_design,
+                "spmm_t": f"{tpick} ({k_bwd})"}
+            # the glue's device work: A^T's live stream, gathered by perm
+            # and laid into the pick's substrate
+            perm = A.plan.transposed_perm()
+            if entry.substrate == "ell":
+                lay = lambda: _stream_to_ell(v.detach().index_select(0, perm),  # noqa: E731
+                                             sub_t, pt.ell_src())
+            else:
+                lay = lambda: _stream_to_balanced(v.detach().index_select(0, perm),  # noqa: E731
+                                                  sub_t)
+            row["stream_t_ms"] = time_ms(lay)
+            row["glue_ms"] = row["bwd_ms"] - row["k6_ms"] - row["spmm_t_ms"]
+            bwd_rows[(name, n)] = row
+            print(f"[time] backward {name}_s{args.scale}_e16 N={n} "
+                  + " ".join(f"{k}={vv}" for k, vv in row.items()), flush=True)
+            del y, v, x, gy, dv, dx
+        del lib_a, lib_t
+        torch.cuda.empty_cache()
+
+    # -- 7. the sparse-FFN training step at Gemma-3-12B's FFN widths ----------------
+    phase("train")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gemma3_12b.CONFIG.scaled(sparse_ffn=SparseFFNConfig(),
+                                   param_dtype="float32",
+                                   compute_dtype="float32")
+    t0 = time.perf_counter()
+    ffn = SparseFFN(cfg, seed=args.seed)
+    pats = ffn.patterns
+    print(f"[train] SparseFFN d_model={cfg.d_model} d_ff={cfg.d_ff} "
+          f"{cfg.sparse_ffn} act={cfg.act}: nnz "
+          f"{ {k: int((p.rows < p.shape[0]).sum()) for k, p in pats.items()} } "
+          f"tiles { {k: p.n_tiles for k, p in pats.items()} }; patterns drawn "
+          f"in {time.perf_counter() - t0:.1f} s on the host", flush=True)
+    batch = {"x": randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model),
+             "y": randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model)}
+
+    def ffn_loss(p, b):
+        return torch.mean((ffn(b["x"], p) - b["y"]) ** 2), {}
+
+    tcfg = TrainConfig(opt=OptConfig(**TRAIN_OPT))
+    train_step = make_train_step(ffn_loss, tcfg)
+    state = init_state(ffn.params(), tcfg)
+    first = {k: p.clone() for k, p in state["params"].items()}
+    builds0, losses, step_s = PATTERN_PREP["builds"], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        (state, metrics), counts = drive(lambda: train_step(state, batch), "train")
+        step_s.append(time.perf_counter() - t0)
+        k1_took = took()["vsr_spmm"]
+        losses.append(float(metrics["loss"]))
+        print(f"[train] step {i + 1}: loss={losses[-1]:.7f} grad_norm="
+              f"{float(metrics['grad_norm']):.6e} lr={float(metrics['lr']):.3e} "
+              f"{step_s[-1]:.3f} s; launches {counts}, K1 {k1_took}",
+              flush=True)
+        if counts["sddmm"] != 3 or counts["vsr_spmm"] != 6 or k1_took["pr"] != 6:
+            fail(f"train step {i + 1}: expected 3 K6 and 6 K1 pr launches "
+                 f"(forward, A^T), got {counts}, K1 {k1_took}")
+    builds = PATTERN_PREP["builds"] - builds0
+    if builds != 3:
+        fail(f"train: {builds} per-pattern prep builds over {TRAIN_STEPS} "
+             "steps, expected 3")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall: {losses}")
+    # the first step's grads against torch autograd of the dense products
+    leaves = {k: p.clone().requires_grad_() for k, p in first.items()}
+    loss_s = ffn_loss(leaves, batch)[0]
+    grads = dict(zip(leaves, torch.autograd.grad(loss_s, list(leaves.values()))))
+    for k, g in grads.items():
+        if not torch.isfinite(g).all() or not g.abs().max() > 0:
+            fail(f"train: the grad of {k} is not finite or is all zero")
+    dense = {"w_" + k: p.to_dense(first["v_" + k]).requires_grad_()
+             for k, p in pats.items()}
+    ln = first["ln"].clone().requires_grad_()
+
+    def dense_ffn(w, xb):
+        xn = rmsnorm(xb, w["ln"], cfg.norm_eps)
+        h = (torch.nn.functional.silu(xn @ w["w_gate"].T) * (xn @ w["w_up"].T))
+        return xb + h @ w["w_down"].T
+
+    wd = dict(dense, ln=ln)
+    loss_d = torch.mean((dense_ffn(wd, batch["x"]) - batch["y"]) ** 2)
+    gd = dict(zip(wd, torch.autograd.grad(loss_d, list(wd.values()))))
+    loss_s, loss_d = loss_s.detach(), loss_d.detach()
+    rel_loss = abs(float(loss_s) - float(loss_d)) / abs(float(loss_d))
+    print(f"[train] first step: sparse loss {float(loss_s):.7f}, dense "
+          f"{float(loss_d):.7f} (rel {rel_loss:.2e})", flush=True)
+    for k in first:
+        if k == "ln":
+            want = gd["ln"]
+        else:
+            p = pats[k[2:]]
+            keep = p.rows < p.shape[0]
+            want = torch.zeros_like(first[k])
+            want[keep] = gd["w_" + k[2:]][p.rows[keep].long(), p.cols[keep].long()]
+        rel, diff = errors(grads[k], want)
+        print(f"[check] train grad {k} against the dense products' autograd: "
+              f"rel_inf_err={rel:.3e} max_abs_err={diff:.3e} "
+              f"tol={RTOL['float32']:g} {'ok' if rel <= RTOL['float32'] else 'MISS'}",
+              flush=True)
+        if rel > RTOL["float32"] or rel_loss > RTOL["float32"]:
+            fail(f"train: the grad of {k} or the loss disagrees with the "
+                 "dense products")
+    # times: the step (host clock, the steps after the first), its split
+    # into the kernels at the gate / up / down shapes and the optimizer, and
+    # the dense step of the same layer
+    xn = rmsnorm(batch["x"], first["ln"], cfg.norm_eps).reshape(-1, cfg.d_model)
+    xt = xn.T.contiguous()
+    ht = torch.randn(cfg.d_ff, TRAIN_BATCH * TRAIN_SEQ, device=dev, generator=gen)
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    split = {"fwd_spmm_ms": 0.0, "k6_ms": 0.0, "spmm_t_ms": 0.0}
+    for k, p in pats.items():
+        x_in = xt if k != "down" else ht
+        g_out = torch.randn(p.shape[0], n_tok, device=dev, generator=gen)
+        vals = first["v_" + k]
+        bal = formats.BalancedCOO(p.rows, p.cols, vals, p.shape)
+        bal_t, perm = pattern_prep(p.rows, p.cols, p.shape).transposed(
+            p.rows, p.cols)
+        bal_t = formats.BalancedCOO(bal_t.rows, bal_t.cols, _stream_to_balanced(
+            vals.reshape(-1)[perm.long()], bal_t), bal_t.shape)
+        split["fwd_spmm_ms"] += time_ms(lambda: vsr.spmm_vsr_fused(bal, x_in, "pr"), reps=5)
+        split["k6_ms"] += time_ms(lambda: fused_chain.sddmm_fused(
+            p.rows, p.cols, g_out, x_in, shape=p.shape), reps=5)
+        split["spmm_t_ms"] += time_ms(lambda: vsr.spmm_vsr_fused(bal_t, g_out, "pr"), reps=5)
+    split["opt_ms"] = time_ms(lambda: adamw_update(state["params"], grads,
+                                                   state["opt"], tcfg.opt), reps=5)
+    dense_p = {k: v.detach().clone() for k, v in wd.items()}
+    dense_step = make_train_step(
+        lambda w, b: (torch.mean((dense_ffn(w, b["x"]) - b["y"]) ** 2), {}), tcfg)
+    dstate = init_state(dense_p, tcfg)
+    dense_s = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        dstate, _ = dense_step(dstate, batch)
+        torch.cuda.synchronize()
+        dense_s.append(time.perf_counter() - t0)
+    train_row = {"step_ms": 1e3 * statistics.median(step_s[1:]),
+                 "first_step_ms": 1e3 * step_s[0], **split,
+                 "dense_step_ms": 1e3 * statistics.median(dense_s[1:]),
+                 "losses": losses}
+    print("[time] train step " + " ".join(f"{k}={vv}" for k, vv in train_row.items()),
+          flush=True)
+    # K1 pr at N = 2048 and K6 at d = 2048 on the gate pattern, beside their
+    # plain versions (a chunk of tiles at a time), the library calls and the
+    # bounds: the summary's "ffn" rows
+    p = pats["gate"]
+    vals = first["v_gate"]
+    bal = formats.BalancedCOO(p.rows, p.cols, vals, p.shape)
+    g_out = torch.randn(p.shape[0], n_tok, device=dev, generator=gen)
+    nnz_g = int((p.rows < p.shape[0]).sum())
+    lib_w = torch.sparse_coo_tensor(
+        torch.stack([p.rows.reshape(-1)[:nnz_g].long(), p.cols.reshape(-1)[:nnz_g].long()]),
+        vals.reshape(-1)[:nnz_g], p.shape).to_sparse_csr()
+
+    def k1_plain_chunked(tiles=256):
+        y = torch.zeros(p.shape[0], n_tok, device=dev)
+        for i in range(0, p.n_tiles, tiles):
+            y += vsr.spmm_vsr_plain(formats.BalancedCOO(
+                p.rows[i:i + tiles], p.cols[i:i + tiles], vals[i:i + tiles],
+                p.shape), xt)
+        return y
+
+    def k6_plain_chunked(tiles=256):
+        return torch.cat([fused_chain.sddmm_plain(
+            p.rows[i:i + tiles], p.cols[i:i + tiles], g_out, xt, shape=p.shape)
+            for i in range(0, p.n_tiles, tiles)])
+
+    hold("vsr_spmm", f"ffn gate N={n_tok} pr", vsr.spmm_vsr_fused(bal, xt, "pr"),
+         k1_plain_chunked(), "float32")
+    hold("sddmm", f"ffn gate d={n_tok} par", fused_chain.sddmm_fused(
+        p.rows, p.cols, g_out, xt, shape=p.shape), k6_plain_chunked(), "float32")
+    ffn_bound = bound(12 * p.rows.numel() + 4 * sum(p.shape) * n_tok,
+                      2 * nnz_g * n_tok)
+    ffn_rows = {
+        "vsr_spmm": {"shape": f"ffn gate {p.shape[0]}x{p.shape[1]} N={n_tok} pr",
+                     "ms": time_ms(lambda: vsr.spmm_vsr_fused(bal, xt, "pr"), reps=5),
+                     "sr_ms": time_ms(lambda: vsr.spmm_vsr_fused(bal, xt, "sr"), reps=5),
+                     "plain_ms": time_ms(k1_plain_chunked, reps=2),
+                     "library_ms": time_ms(lambda: lib_w @ xt, reps=5),
+                     "bound_ms": ffn_bound[0], "bound_by": ffn_bound[1]},
+        "sddmm": {"shape": f"ffn gate {p.shape[0]}x{p.shape[1]} d={n_tok} par",
+                  "ms": time_ms(lambda: fused_chain.sddmm_fused(
+                      p.rows, p.cols, g_out, xt, shape=p.shape), reps=5),
+                  "plain_ms": time_ms(k6_plain_chunked, reps=2),
+                  "library_ms": time_ms(lambda: torch.sparse.sampled_addmm(
+                      lib_w, g_out, xt.t(), beta=0.0), reps=5),
+                  "bound_ms": ffn_bound[0], "bound_by": ffn_bound[1]}}
+    for k, row in ffn_rows.items():
+        print(f"[time] {k} " + " ".join(f"{kk}={vv}" for kk, vv in row.items()),
+              flush=True)
+    del ffn, state, dstate, dense, wd, gd, grads, lib_w, bal, g_out, ht, xt
+    torch.cuda.empty_cache()
+
+    # -- 8. summary ---------------------------------------------------------------
     phase("summary")
     summary = []
     for kernel, meta in KERNELS.items():
@@ -1697,14 +2018,19 @@ def main() -> int:
         else:
             row, shape = summary_rows[kernel]
         summary.append({"name": kernel, **meta, "launches": launches[kernel],
+                        "launches_by_path": {path: counts[kernel] for path, counts
+                                             in path_launches.items()},
                         "max_abs_err": max_abs[kernel], "ms": row["kernel_ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": shape})
         if kernel in designs:
-            # the design each launch on the main path took
+            # the design each launch on the main path took, and on each path
             summary[-1]["design"] = {dd: nn for dd, nn in
                                      designs[kernel].items() if nn}
+            summary[-1]["design_by_path"] = {
+                path: {dd: nn for dd, nn in by_kernel[kernel].items() if nn}
+                for path, by_kernel in path_designs.items()}
         if kernel == "vsr_spmm":
             # each of K1's designs at the pick that routes to it
             summary[-1]["designs"] = {
@@ -1714,6 +2040,10 @@ def main() -> int:
                      "library_ms": rows[(name, nn)]["library_ms"]}
                 for dd, (name, nn) in (("sr", SUMMARY_SHAPE[kernel]),
                                        ("pr", ("g500", 4)))}
+        if kernel in ffn_rows:
+            # the new widths of the training step: K1 pr at N = 2048, K6 at
+            # d = 2048
+            summary[-1]["ffn"] = ffn_rows[kernel]
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,11 @@
 
     A = api.sparse(csr)              # plan once, on the card, cached by topology
     y = A @ x                        # adaptive SpMV / SpMM through the Hopper kernels
-    y = A.with_values(stream) @ x    # same plan, live value stream
+    y = A.with_values(stream) @ x    # same plan, live value stream;
+                                     # differentiable in stream and x
+    y = api.pattern_matmul(rows, cols, vals, shape, x)
+                                     # bare balanced pattern, live values:
+                                     # the sparse-weight training entry
 
     A = api.sparse(csr, device="cpu")    # plain "torch" backend on the CPU
     W = api.sparse(w_csr, backend="bsr", bsr_block=(8, 128))
@@ -36,14 +40,15 @@ from .attention import (AttentionMask, AttentionSpec, SparseAttention,
 from .core.cache import (DEFAULT_CACHE, PlanCache, cached_plan,
                                     pattern_fingerprint)
 from .core.formats import CSR, csr_from_dense
-from .core.plan import (PlanBuilder, execute, execute_chain, execute_sddmm,
-                        plan)
+from .core.plan import (PlanBuilder, execute, execute_chain, execute_pattern,
+                        execute_sddmm, plan)
 from .core.registry import backend_scope, default_backend, resolve_device
 from .core.selector import (SelectorThresholds, TileGeometry,
                                        default_thresholds)
 from .core.stats import MatrixStats
 
-__all__ = ["SparseMatrix", "sparse", "sddmm", "sparse_chain", "use_backend",
+__all__ = ["SparseMatrix", "sparse", "sddmm", "sparse_chain", "pattern_matmul",
+           "use_backend",
            "cache_stats", "clear_cache", "PlanCache", "SelectorThresholds",
            "TileGeometry",
            # block-sparse attention (DESIGN.md §10)
@@ -53,6 +58,10 @@ __all__ = ["SparseMatrix", "sparse", "sddmm", "sparse_chain", "use_backend",
            "sparse_attention"]
 
 use_backend = backend_scope
+
+#: the training entry of the facade: differentiable SpMM over a bare
+#: balanced pattern with live values (no CSR, no plan object)
+pattern_matmul = execute_pattern
 
 
 class SparseMatrix:
@@ -89,6 +98,15 @@ class SparseMatrix:
     @property
     def device(self) -> torch.device:
         return self._plan.device
+
+    @property
+    def values(self) -> torch.Tensor:
+        """The effective CSR-ordered nonzero value stream."""
+        return self._values if self._values is not None else self._plan.csr.data
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
 
     def __repr__(self) -> str:
         m, k = self.shape
@@ -135,7 +153,9 @@ class SparseMatrix:
                              alpha=alpha, backend=backend)
 
     def with_values(self, stream: torch.Tensor) -> "SparseMatrix":
-        """Same pattern and plan, new CSR-ordered nonzero values."""
+        """Same pattern and plan, new CSR-ordered nonzero values.  The
+        stream keeps its autograd graph: ``A.with_values(v) @ x`` is
+        differentiable in ``v``."""
         stream = torch.as_tensor(stream, device=self.device)
         if stream.numel() != self.nnz:
             raise ValueError(f"value stream has {stream.numel()} entries but "

@@ -1,8 +1,9 @@
 """Sparse-matrix formats of the port (counterpart of ``repro.core.formats``).
 
-Construction is host-side numpy (building a format is an offline step, as in
-the paper's static-profiling usage), then ``.to(device)``: every container is
-a frozen dataclass of tensors on one device.  Index arrays are int32.
+Construction is an offline step, as in the paper's static-profiling usage:
+host-side numpy then ``.to(device)`` (CSR, ELL), or torch on the CSR's device
+(the balanced slabs, the BSR and the transpose).  Every container is a frozen
+dataclass of tensors on one device.  Index arrays are int32.
 
 CSR          canonical row-compressed storage (the paper's input format).
 ELL          row-split padded storage — the substrate of the RS kernels —
@@ -174,6 +175,27 @@ def csr_from_dense(a, *, device="cpu") -> CSR:
                         device=device)
 
 
+def csr_transpose(csr: CSR) -> tuple[CSR, torch.Tensor]:
+    """The CSR of Aᵀ and ``perm`` (int32): ``perm[j]`` is the position in
+    A's nonzero stream of Aᵀ's j-th nonzero, so Aᵀ's values are
+    ``csr.data[perm]``.  A stable sort of ``indices`` on the CSR's device:
+    within a column of A, rows keep their order, so Aᵀ's rows are sorted
+    too; empty rows and columns give empty columns and rows of Aᵀ."""
+    m, k = csr.shape
+    perm = torch.sort(csr.indices, stable=True).indices
+    indptr = torch.zeros(k + 1, dtype=torch.int32, device=csr.device)
+    indptr[1:] = torch.cumsum(torch.bincount(csr.indices.long(), minlength=k), 0)
+    return (CSR(indptr, _row_ids(csr)[perm], csr.data[perm], (k, m)),
+            perm.to(torch.int32))
+
+
+def _row_ids(csr: CSR) -> torch.Tensor:
+    """(nnz,) int32 row of each nonzero, on the CSR's device."""
+    return torch.repeat_interleave(
+        torch.arange(csr.shape[0], dtype=torch.int32, device=csr.device),
+        torch.diff(csr.indptr.long()), output_size=csr.nnz)
+
+
 def csr_to_ell(csr: CSR, width: int | None = None) -> ELL:
     """Row-split padded copy of ``csr``; rows longer than ``width`` are cut.
     Vectorised: each kept nonzero lands at (its row, its rank in the row)."""
@@ -198,25 +220,50 @@ def csr_to_ell(csr: CSR, width: int | None = None) -> ELL:
                torch.from_numpy(np.minimum(lens, w).astype(np.int32)).to(dev))
 
 
+def _tiled(rows: torch.Tensor, cols: torch.Tensor, m: int, tile: int
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A flat (row, col) stream chopped into ``tile``-slot slabs, the tail
+    padded with ``row == m`` sentinels and column 0."""
+    n_tiles = max(1, -(-rows.numel() // tile))
+    pad = n_tiles * tile - rows.numel()
+    return (torch.nn.functional.pad(rows, (0, pad), value=m).reshape(n_tiles, tile),
+            torch.nn.functional.pad(cols, (0, pad)).reshape(n_tiles, tile))
+
+
+def balanced_pattern(csr: CSR, tile: int = 512
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``(rows, cols)`` slabs of ``csr_to_balanced``, without values,
+    built on the CSR's device."""
+    return _tiled(_row_ids(csr), csr.indices.to(torch.int32), csr.shape[0],
+                  tile)
+
+
 def csr_to_balanced(csr: CSR, tile: int = 512) -> BalancedCOO:
     """nnz-split: chop the row-major nonzero stream into fixed ``tile``
     quotas — the paper's workload-balancing step (Fig. 2(e))."""
     BUILD_COUNTS["balanced"] += 1
-    indptr = host(csr.indptr)
-    indices = host(csr.indices)
-    m, _ = csr.shape
-    nnz = csr.nnz
-    rows = row_ids_from_indptr(indptr, nnz)
-    n_tiles = max(1, -(-nnz // tile))
-    pad = n_tiles * tile - nnz
-    rows = np.concatenate([rows, np.full(pad, m, np.int32)])
-    cols = np.concatenate([indices, np.zeros(pad, np.int32)])
-    dev = csr.device
-    vals = torch.cat([csr.data, csr.data.new_zeros(pad)])
-    return BalancedCOO(
-        torch.from_numpy(rows.reshape(n_tiles, tile)).to(dev),
-        torch.from_numpy(cols.reshape(n_tiles, tile)).to(dev),
-        vals.reshape(n_tiles, tile), csr.shape)
+    rows, cols = balanced_pattern(csr, tile)
+    vals = torch.nn.functional.pad(csr.data, (0, rows.numel() - csr.nnz))
+    return BalancedCOO(rows, cols, vals.reshape(rows.shape), csr.shape)
+
+
+def balanced_transpose(rows: torch.Tensor, cols: torch.Tensor, shape
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The slabs of Aᵀ for a balanced pattern of A (``shape`` (M, K),
+    padding ``rows >= M`` anywhere): Aᵀ's ``(rows, cols)`` at the same tile,
+    its rows sorted (padding ``K``), and ``perm`` (int32), the flat slot of
+    A's slabs each of Aᵀ's nonzeros comes from.  A stable sort of the
+    columns on the pattern's device."""
+    m, k = (int(s) for s in shape)
+    r, c = rows.reshape(-1), cols.reshape(-1)
+    slots = torch.nonzero(r < m).squeeze(1)
+    c_live = c.index_select(0, slots)
+    order = torch.sort(c_live, stable=True).indices
+    perm = slots.index_select(0, order)
+    rows_t, cols_t = _tiled(c_live.index_select(0, order).to(torch.int32),
+                            r.index_select(0, perm).to(torch.int32), k,
+                            rows.shape[1])
+    return rows_t, cols_t, perm.to(torch.int32)
 
 
 def bsr_slots(csr: CSR, bm: int, bk: int

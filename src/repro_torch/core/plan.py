@@ -1,5 +1,4 @@
-"""Plan/execute for one device, forward only; counterpart of
-``repro.core.plan``.
+"""Plan/execute for one device; counterpart of ``repro.core.plan``.
 
 * ``plan(csr, ...)`` returns a ``PlanBuilder``, the host side of the
   offline/online split: the Fig. 4 statistics computed once, thresholds
@@ -9,14 +8,21 @@
 * ``execute(plan, x)`` is the online step: select the logical kernel from
   (stats, N), resolve it through the registry, run it.  ``vals=`` streams a
   CSR-ordered value vector in place of the values baked into the plan.
+* ``execute_pattern(rows, cols, vals, shape, x)`` is the training entry: an
+  SpMM over a bare balanced pattern with live values, no CSR and no plan.
 * ``execute_sddmm`` / ``execute_chain`` run the SDDMM and the SDDMM→SpMM
   chain (DESIGN.md §9) over the plan's pattern; ``execute_attention`` runs
   block-sparse attention over it (DESIGN.md §10).
 
-None of them is differentiable yet: with grad mode on, an operand that
-requires grad raises ``NotImplementedError`` (the VJP slice, ROADMAP queue
-1), so the CPU and the card refuse alike instead of the card silently
-returning an output without ``grad_fn``.
+``execute`` on the balanced and ELL families and ``execute_pattern`` are
+differentiable in ``x`` and the live stream (``core/vjp.py``): the backward
+runs the SDDMM entry for the values' gradient and the adaptive SpMM of Aᵀ
+(``PlanBuilder.transposed``, built once a plan) for ``x``'s.  A plan's baked
+values are constants, as in the reference.  The ``"bsr"`` family,
+``execute_sddmm``, ``execute_chain`` and ``execute_attention`` have no
+backward yet: with grad mode on, an operand that requires grad raises
+``NotImplementedError``, so the CPU and the card refuse alike instead of the
+card silently returning an output without ``grad_fn``.
 
 Two rules of the reference do not carry over.  Its plans demote
 ``pallas`` to ``xla`` when a tile spans more rows than ``max_win`` — a TPU
@@ -27,26 +33,29 @@ plan when it is called.  Its dispatch reroutes a failing kernel to ``xla``;
 here a kernel that fails to build or launch raises.  The block-granule
 ``"bsr"`` backend builds its BSR substrate at ``bsr_block``; a ``"bsr"``
 plan is not demoted either.  Frozen artifacts, sharding, quantization,
-validation and sentinels are not ported yet: ``plan()`` raises
-``NotImplementedError`` on their arguments.
+validation and sentinels are not ported yet: ``plan()`` and
+``execute_pattern`` raise ``NotImplementedError`` on their arguments.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import inspect
+import weakref
 from typing import Any
 
 import numpy as np
 import torch
 
 from . import registry
-from .formats import (CSR, BalancedCOO, bsr_block_rows, bsr_slots,
-                      csr_to_balanced, csr_to_bsr, csr_to_ell, host)
+from .formats import (CSR, BalancedCOO, balanced_pattern, balanced_transpose,
+                      bsr_block_rows, bsr_slots, csr_to_balanced, csr_to_bsr,
+                      csr_to_ell, csr_transpose, host)
 from .selector import (SelectorThresholds, TileGeometry, default_thresholds,
                        select_kernel)
 from .spmm import CHAIN_TRANSFORMS
 from .stats import MatrixStats, matrix_stats
+from .vjp import _stream_to_balanced, exec_balanced, exec_ell  # noqa: F401 (re-export)
 
 #: plan-context kwargs a prep hook may opt into by declaring them; ``shared``
 #: is a dict of the plan that its entries' prep hooks share (the attention
@@ -105,6 +114,9 @@ class PlanBuilder:
     _ell_src: Any = dataclasses.field(default=None, repr=False)
     _bsr_map: Any = dataclasses.field(default=None, repr=False)
     _bsr_brow: Any = dataclasses.field(default=None, repr=False)
+    _pattern: Any = dataclasses.field(default=None, repr=False)
+    _pattern_prep: Any = dataclasses.field(default=None, repr=False)
+    _transposed: Any = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -155,6 +167,43 @@ class PlanBuilder:
                 opts = dict(entry.prep(sub, **ctx))
             self._opts[key] = opts
         return opts
+
+    # -- the backward's plans ---------------------------------------------------
+    def pattern(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The balanced ``(rows, cols)`` slabs in CSR order: the balanced
+        substrate's when it is built, else built once without values (the
+        pattern an ELL plan's backward samples)."""
+        bal = self._substrates.get("balanced")
+        if bal is not None:
+            return bal.rows, bal.cols
+        if self._pattern is None:
+            self._pattern = balanced_pattern(self.csr, self.tile)
+        return self._pattern
+
+    def pattern_prep(self) -> "PatternPrep":
+        """The prep of ``pattern()``: the opts of the backward's SDDMM."""
+        if self._pattern_prep is None:
+            self._pattern_prep = PatternPrep(self.csr.shape)
+        return self._pattern_prep
+
+    def transposed(self) -> "PlanBuilder":
+        """The plan of Aᵀ, built once and held by this plan (never looked up
+        through a cache): Aᵀ's statistics, this plan's thresholds, backend,
+        tile and BSR block, its substrates built lazily.  Its values are
+        ``csr.data[transposed_perm()]``; the backward streams them live."""
+        if self._transposed is None:
+            csr_t, perm = csr_transpose(self.csr)
+            pt = PlanBuilder(csr=csr_t, stats=matrix_stats(csr_t),
+                             thresholds=self.thresholds, backend=self.backend,
+                             tile=self.tile, bsr_block=self.bsr_block)
+            self._transposed = (pt, perm)
+        return self._transposed[0]
+
+    def transposed_perm(self) -> torch.Tensor:
+        """(nnz,) int32: the position in this plan's stream of each of Aᵀ's
+        nonzeros, in Aᵀ's CSR order."""
+        self.transposed()
+        return self._transposed[1]
 
     # -- ELL live-value support -----------------------------------------------
     def ell_lens(self) -> torch.Tensor:
@@ -237,15 +286,6 @@ def plan(csr: CSR, *, n_hint: int | None = None,
     return p
 
 
-def _stream_to_balanced(stream: torch.Tensor, bal: BalancedCOO) -> torch.Tensor:
-    """Pad the CSR-ordered value stream to the tile grid (the balanced slabs
-    keep row-major order, so this is a pad and a reshape)."""
-    flat = stream.reshape(-1)
-    total = bal.n_tiles * bal.tile
-    return torch.nn.functional.pad(flat, (0, total - flat.shape[0])).reshape(
-        bal.rows.shape)
-
-
 def _refuse_grad(op: str, *tensors) -> None:
     """Raise while grad mode is on and an operand requires grad: the port
     has no backward yet, and a kernel launched through ctypes would return
@@ -259,13 +299,116 @@ def _refuse_grad(op: str, *tensors) -> None:
             "detach the operands")
 
 
+# ---------------------------------------------------------------------------
+# the backward of the balanced and ELL families
+# ---------------------------------------------------------------------------
+
+#: transposed-slab builds of ``PatternPrep`` since process start: one per
+#: pattern a training run differentiates, never one per step
+PATTERN_PREP = {"builds": 0}
+
+
+class PatternPrep:
+    """The prep of a balanced ``(rows, cols)`` pattern's products: each
+    entry's prep-hook opts, and Aᵀ's balanced slabs with ``perm`` (built on
+    the first backward of ``execute_pattern`` that needs ``dX``).  It holds
+    no reference to the pattern's own slabs, which each call passes."""
+
+    def __init__(self, shape):
+        self.shape = tuple(int(s) for s in shape)
+        self._opts: dict = {}
+        self._t = None
+
+    def transposed(self, rows, cols) -> tuple[BalancedCOO, torch.Tensor]:
+        """Aᵀ's values-free ``BalancedCOO`` and ``perm`` (int32, the flat
+        slot of A's slabs each of Aᵀ's nonzeros comes from)."""
+        if self._t is None:
+            PATTERN_PREP["builds"] += 1
+            rows_t, cols_t, perm = balanced_transpose(rows, cols, self.shape)
+            m, k = self.shape
+            self._t = (BalancedCOO(rows_t, cols_t, None, (k, m)), perm)
+        return self._t
+
+    def opts(self, entry: registry.KernelEntry, sub: BalancedCOO,
+             transposed: bool = False) -> dict:
+        """The entry's prep-hook opts on ``sub``, A's pattern or (with
+        ``transposed``) Aᵀ's, computed once (the reference's bound-kernel
+        cache)."""
+        key = (entry.logical, entry.backend, transposed)
+        opts = self._opts.get(key)
+        if opts is None:
+            opts = {} if entry.prep is None else dict(entry.prep(sub))
+            self._opts[key] = opts
+        return opts
+
+    def sample(self, rows, cols, g2: torch.Tensor, x2: torch.Tensor,
+               backend: str) -> torch.Tensor:
+        """``dvals``: the SDDMM entry of ``backend`` over the pattern,
+        ``<g2[row], x2[col]>`` a slot, shaped like the slabs."""
+        entry = registry.resolve("sddmm", backend)
+        return entry.fn(rows, cols, g2, x2, shape=self.shape,
+                        **self.opts(entry, BalancedCOO(rows, cols, None,
+                                                       self.shape)))
+
+
+#: ``id(rows)`` -> (weak references to rows and cols, PatternPrep); an
+#: entry goes when its rows tensor is freed, so a new tensor that reuses
+#: the id never finds the old prep
+_PATTERN_PREPS: dict = {}
+
+
+def pattern_prep(rows: torch.Tensor, cols: torch.Tensor, shape) -> PatternPrep:
+    """The prep of the pattern ``(rows, cols)``, memoised on the identity
+    of those tensors while ``rows`` lives: no hash of the slabs, no copy to
+    the host."""
+    key = id(rows)
+    hit = _PATTERN_PREPS.get(key)
+    if (hit is not None and hit[0]() is rows and hit[1]() is cols
+            and hit[2].shape == tuple(int(s) for s in shape)):
+        return hit[2]
+    prep = PatternPrep(shape)
+    _PATTERN_PREPS[key] = (weakref.ref(rows), weakref.ref(cols), prep)
+    weakref.finalize(rows, _PATTERN_PREPS.pop, key, None)
+    return prep
+
+
+class _PlanVJP:
+    """The backward products of one ``execute`` call: the SDDMM entry over
+    the plan's pattern for the values, the adaptive SpMM of the transposed
+    plan for ``x``, both on the call's backend."""
+
+    def __init__(self, p: PlanBuilder, backend: str | None):
+        self.p, self.backend = p, backend
+
+    def dvals(self, g2: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        p = self.p
+        return p.pattern_prep().sample(*p.pattern(), g2, x2,
+                                       self.backend or p.backend)
+
+    def dx(self, vals: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        p = self.p
+        return execute(p.transposed(), g,
+                       vals=vals.index_select(0, p.transposed_perm()),
+                       backend=self.backend)
+
+
 def execute(p: PlanBuilder, x: torch.Tensor, *,
             vals: torch.Tensor | None = None, impl: str | None = None,
             backend: str | None = None) -> torch.Tensor:
     """``y = A @ x``.  ``vals`` is a live CSR-ordered value stream in place
     of the plan's baked values; ``impl`` forces a logical kernel (oracle /
-    ablation mode); ``backend`` overrides the plan's for this call."""
-    _refuse_grad("execute", x, vals, p.csr.data)
+    ablation mode); ``backend`` overrides the plan's for this call.
+
+    Differentiable in ``x`` and ``vals`` on the balanced and ELL families
+    (``ExecBalanced`` / ``ExecEll``): the backward samples ``G·Xᵀ`` on the
+    pattern with the SDDMM entry and runs ``Aᵀ·G`` through the transposed
+    plan's own selector, whatever ``impl`` forced the forward to."""
+    if torch.is_grad_enabled() and p.csr.data.requires_grad:
+        raise NotImplementedError(
+            "execute: the plan's baked values require grad, but they are "
+            "constants of the plan, as in the reference; pass them as a "
+            "live stream (SparseMatrix.with_values or vals=) to "
+            "differentiate them")
     if impl is not None and impl not in registry.MATMUL_KERNELS:
         raise ValueError(f"impl {impl!r} is not a matmul kernel; expected "
                          f"one of {registry.MATMUL_KERNELS}")
@@ -278,27 +421,86 @@ def execute(p: PlanBuilder, x: torch.Tensor, *,
     n = 1 if x.ndim == 1 else x.shape[1]
     entry = p.entry(impl or p.select(n), backend)
     sub = p.substrate(entry.substrate)
-    if vals is not None:
-        if entry.substrate == "balanced":
-            sub = BalancedCOO(sub.rows, sub.cols,
-                              _stream_to_balanced(vals, sub), sub.shape)
-        elif entry.substrate == "bsr":
+    fn = functools.partial(entry.fn, **p.kernel_opts(entry))
+    if entry.substrate == "bsr":
+        _refuse_grad("execute", x, vals)
+        if vals is not None:
             blocks = torch.zeros_like(sub.blocks).index_put_(
                 tuple(p.bsr_map()), vals.reshape(-1).to(sub.blocks.dtype),
                 accumulate=True)
             sub = dataclasses.replace(sub, blocks=blocks)
-        else:
-            if p.csr.nnz == 0:
-                v = torch.zeros_like(sub.vals)
-            else:
-                lens = p.ell_lens()
-                valid = (torch.arange(sub.width, device=lens.device)[None, :]
-                         < lens[:, None])
-                gathered = vals.reshape(-1).index_select(
-                    0, p.ell_src().reshape(-1)).reshape(sub.vals.shape)
-                v = torch.where(valid, gathered, 0).to(sub.vals.dtype)
-            sub = dataclasses.replace(sub, vals=v)
-    return entry.fn(sub, x, **p.kernel_opts(entry))
+        return fn(sub, x)
+    baked = vals is None             # the substrate as built holds them
+    if baked and not (torch.is_grad_enabled() and x.requires_grad):
+        return fn(sub, x)
+    stream = (p.csr.data if baked else vals).reshape(-1)
+    vjp = _PlanVJP(p, backend)
+    if entry.substrate == "balanced":
+        return exec_balanced(fn, sub, vjp, stream, x, baked=baked)
+    return exec_ell(fn, sub, None if baked else p.ell_src(), vjp, stream, x,
+                    baked=baked)
+
+
+# ---------------------------------------------------------------------------
+# the training entry: a bare balanced pattern with live values
+# ---------------------------------------------------------------------------
+
+class _PatternVJP:
+    """The backward products of one ``execute_pattern`` call: the SDDMM
+    entry over the pattern, and the forward's kernel on Aᵀ's slabs."""
+
+    def __init__(self, rows, cols, prep: PatternPrep, entry, backend: str):
+        self.rows, self.cols, self.prep = rows, cols, prep
+        self.entry, self.backend = entry, backend
+
+    def dvals(self, g2: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        return self.prep.sample(self.rows, self.cols, g2, x2, self.backend)
+
+    def dx(self, vals: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        bal_t, perm = self.prep.transposed(self.rows, self.cols)
+        sub = BalancedCOO(bal_t.rows, bal_t.cols, _stream_to_balanced(
+            vals.index_select(0, perm), bal_t), bal_t.shape)
+        return self.entry.fn(sub, g, **self.prep.opts(self.entry, bal_t,
+                                                       transposed=True))
+
+
+def execute_pattern(rows: torch.Tensor, cols: torch.Tensor,
+                    vals: torch.Tensor, shape: tuple, x: torch.Tensor, *,
+                    impl: str = "nb_pr", backend: str | None = None,
+                    mesh: Any = None, shard_axis: str | None = None,
+                    quant: str | None = None) -> torch.Tensor:
+    """Differentiable SpMM over a bare balanced pattern — the training entry
+    for sparse-weight layers (no CSR, the values are live parameters):
+    ``rows`` / ``cols`` are ``(n_tiles, tile)`` int32 slabs, padding slots
+    ``rows >= M``, and ``vals`` holds one value a slot (any shape of that
+    size; its gradient is 0 at padding slots).
+
+    ``backend=None`` takes the ``use_backend`` scope, else the one of the
+    pattern's device.  The backward is ``ExecBalanced``: the SDDMM entry
+    for ``vals``, and ``impl`` on Aᵀ's slabs for ``x`` (a bare pattern has
+    no statistics to select by).  Those slabs are per-pattern prep, built
+    once: memoised on the identity of ``rows`` and ``cols``, never hashed.
+    ``mesh``, ``shard_axis`` and ``quant`` belong to paths of the reference
+    not yet ported."""
+    given = [name for name, v in (("mesh", mesh), ("shard_axis", shard_axis),
+                                  ("quant", quant)) if v is not None]
+    if given:
+        raise NotImplementedError(f"execute_pattern() arguments {given} "
+                                  "belong to paths of the reference not yet "
+                                  "ported")
+    backend = backend or registry.default_backend(rows.device)
+    entry = registry.resolve(impl, backend)
+    if entry.substrate != "balanced":
+        raise ValueError(f"execute_pattern needs a balanced-substrate kernel; "
+                         f"({impl!r}, {backend!r}) consumes {entry.substrate!r}")
+    if vals.numel() != rows.numel():
+        raise ValueError(f"vals has {vals.numel()} entries but the pattern "
+                         f"has {rows.numel()} slots")
+    prep = pattern_prep(rows, cols, shape)
+    bal = BalancedCOO(rows, cols, None, prep.shape)
+    fn = functools.partial(entry.fn, **prep.opts(entry, bal))
+    return exec_balanced(fn, bal, _PatternVJP(rows, cols, prep, entry, backend),
+                         vals, x)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Carry the reference package's state into the port.
 
 The reference's "weights" are its CSR, its calibrated thresholds, its
-attention specs and its model configs.  This module turns a reference CSR's
-arrays — numpy ``indptr``, ``indices``, ``data`` and ``shape``, e.g.
-``np.asarray(csr.indptr)`` —, a thresholds JSON and the fields of the
-reference's dataclasses (``dataclasses.asdict``) into the port's objects.
+attention specs, its model configs and its sparse-FFN patterns and
+parameters.  This module turns a reference CSR's arrays — numpy ``indptr``,
+``indices``, ``data`` and ``shape``, e.g. ``np.asarray(csr.indptr)`` —, a
+thresholds JSON, the fields of the reference's dataclasses
+(``dataclasses.asdict``) and a sparse FFN's pattern slabs and parameters
+(numpy) into the port's objects.
 It imports nothing of the reference: only arrays, text and plain fields
 cross over.  ``alibi_bias`` builds the per-edge bias stream both packages'
 attention takes.
@@ -16,9 +18,12 @@ import torch
 
 from .attention.patterns import AttentionSpec
 from .core.formats import CSR, _csr, row_ids_from_indptr
+from .core.registry import resolve_device
 from .core.selector import SelectorThresholds
 from .models.config import (ModelConfig, MoEConfig, SparseFFNConfig,
                             SSMConfig)
+from .models.layers import SparsePattern
+from .models.transformer import SparseFFN
 
 
 def csr_from_arrays(indptr, indices, data, shape, *, device="cpu") -> CSR:
@@ -56,6 +61,28 @@ def model_config_from_fields(**fields) -> ModelConfig:
     if "mrope_sections" in fields:
         fields["mrope_sections"] = tuple(fields["mrope_sections"])
     return ModelConfig(**fields)
+
+
+def sparse_ffn_from_arrays(cfg: ModelConfig, patterns: dict, params: dict, *,
+                           device=None) -> SparseFFN:
+    """The port's ``SparseFFN`` computing what the reference's ``ffn_apply``
+    computes with ``patterns`` and ``params``: ``patterns`` maps ``gate`` /
+    ``up`` / ``down`` to a reference ``SparsePattern``'s ``(rows, cols)``
+    slabs (numpy, one layer's), ``params`` maps ``ln`` / ``v_gate`` /
+    ``v_up`` / ``v_down`` to numpy arrays, whose type the parameters keep.
+    ``device=None`` is the card."""
+    dev = resolve_device(device)
+    shapes = {"gate": (cfg.d_ff, cfg.d_model), "up": (cfg.d_ff, cfg.d_model),
+              "down": (cfg.d_model, cfg.d_ff)}
+    pats = {name: SparsePattern.from_arrays(rows, cols, shapes[name],
+                                            device=dev)
+            for name, (rows, cols) in patterns.items()}
+    ffn = SparseFFN(cfg, patterns=pats)
+    with torch.no_grad():
+        for name, value in params.items():
+            t = torch.from_numpy(np.array(value))
+            setattr(ffn, name, torch.nn.Parameter(t.to(dev)))
+    return ffn
 
 
 def _host(a) -> np.ndarray:

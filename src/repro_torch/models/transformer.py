@@ -1,11 +1,109 @@
 """Transformer blocks; counterpart of ``repro.models.transformer``.  Ported
 so far: the block-sparse attention of the ``block_sparse`` pattern
-(DESIGN.md §10), ``_block_sparse_spec`` and ``_block_sparse_attention``."""
+(DESIGN.md §10), ``_block_sparse_spec`` and ``_block_sparse_attention``; and
+the sparse FFN — ``mlp_specs``' sparse branch as the module ``SparseFFN``,
+``sparse_patterns`` and the sparse branch of ``ffn_apply``."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .config import ModelConfig
+from .layers import SparsePattern, rmsnorm, sparse_mlp_apply
+
+#: the sparse FFN's matrices: (pattern name, value parameter, W is (d_ff,
+#: d_model) or (d_model, d_ff))
+_SPARSE_FFN = (("gate", "v_gate", "ff"), ("up", "v_up", "ff"),
+               ("down", "v_down", "model"))
+
+
+def _pattern_shape(cfg: ModelConfig, out: str) -> tuple[int, int]:
+    d, f = cfg.d_model, cfg.d_ff
+    return (f, d) if out == "ff" else (d, f)
+
+
+def sparse_patterns(cfg: ModelConfig, seed: int = 17, device=None):
+    """Static pruning patterns of the sparse FFN, one set a layer: ``{"gate":
+    [...], "up": [...], "down": [...]}`` with ``cfg.num_layers`` patterns
+    each, drawn from integer seeds that ``numpy.random.default_rng(seed)``
+    gives (the reference splits a JAX key).  None without ``sparse_ffn``."""
+    if cfg.sparse_ffn is None:
+        return None
+    sp = cfg.sparse_ffn
+    seeds = np.random.default_rng(seed).integers(0, 2**31 - 1,
+                                                 size=3 * cfg.num_layers)
+    pats = {name: [] for name, _, _ in _SPARSE_FFN}
+    for i in range(cfg.num_layers):
+        for j, (name, _, out) in enumerate(_SPARSE_FFN):
+            m, k = _pattern_shape(cfg, out)
+            pats[name].append(SparsePattern.random(
+                int(seeds[3 * i + j]), m, k, sp.density, sp.tile, device))
+    return pats
+
+
+def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, patterns=None):
+    """The FFN block with its residual: ``(x + mlp(rmsnorm(x)), aux)``.
+    Ported: the sparse branch (``cfg.sparse_ffn`` with ``patterns``)."""
+    if cfg.sparse_ffn is None or patterns is None or cfg.moe is not None:
+        raise NotImplementedError("ffn_apply: only the sparse FFN branch is "
+                                  "ported; the dense and MoE FFNs are not")
+    xn = rmsnorm(x, p["ln"], cfg.norm_eps)
+    return x + sparse_mlp_apply(patterns, p, xn, cfg.act), 0.0
+
+
+class SparseFFN(torch.nn.Module):
+    """One sparse-FFN layer, ``mlp_specs``' sparse branch: parameters ``ln``
+    (d_model, zeros) and the value streams ``v_gate`` / ``v_up`` /
+    ``v_down`` (n_tiles, tile), N(0, 0.02²) from ``seed``; the frozen
+    patterns as buffers (``<name>_rows`` / ``<name>_cols``).  ``patterns``
+    defaults to ``sparse_patterns(cfg, seed)``'s first layer; ``dtype``
+    to ``cfg.param_dtype``; ``device=None`` is the card."""
+
+    def __init__(self, cfg: ModelConfig, *, patterns: dict | None = None,
+                 seed: int = 17, dtype=None, device=None):
+        super().__init__()
+        if cfg.sparse_ffn is None:
+            raise ValueError("SparseFFN needs a config with sparse_ffn")
+        self.cfg = cfg
+        if patterns is None:
+            patterns = {k: v[0] for k, v in sparse_patterns(
+                cfg.scaled(num_layers=1), seed, device).items()}
+        dtype = dtype or getattr(torch, cfg.param_dtype)
+        dev = patterns["gate"].rows.device
+        gen = torch.Generator().manual_seed(seed)
+        self.ln = torch.nn.Parameter(torch.zeros(cfg.d_model, dtype=dtype,
+                                                 device=dev))
+        self._shapes = {}
+        for name, vname, out in _SPARSE_FFN:
+            pat = patterns[name]
+            if pat.shape != _pattern_shape(cfg, out):
+                raise ValueError(f"pattern {name!r} of shape {pat.shape}; "
+                                 f"expected {_pattern_shape(cfg, out)}")
+            self.register_buffer(f"{name}_rows", pat.rows)
+            self.register_buffer(f"{name}_cols", pat.cols)
+            v = torch.randn(pat.rows.shape, generator=gen) * 0.02
+            setattr(self, vname, torch.nn.Parameter(v.to(dev, dtype)))
+            self._shapes[name] = pat.shape
+
+    @property
+    def patterns(self) -> dict:
+        """The ``SparsePattern`` of each matrix over the current buffers
+        (their prep is memoised on the buffers, so it is rebuilt only after
+        they move)."""
+        return {name: SparsePattern(getattr(self, f"{name}_rows"),
+                                    getattr(self, f"{name}_cols"), shape)
+                for name, shape in self._shapes.items()}
+
+    def params(self) -> dict:
+        """The parameters as the dict ``ffn_apply`` and the train step take."""
+        return dict(self.named_parameters())
+
+    def forward(self, x: torch.Tensor, params: dict | None = None
+                ) -> torch.Tensor:
+        """``x + mlp(rmsnorm(x))`` with this module's parameters, or with
+        ``params`` (the functional form a train step differentiates)."""
+        return ffn_apply(self.params() if params is None else params, x,
+                         self.cfg, self.patterns)[0]
 
 
 def _block_sparse_spec(cfg: ModelConfig, seq: int, causal: bool):

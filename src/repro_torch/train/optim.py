@@ -1,0 +1,83 @@
+"""AdamW and its learning-rate schedule; counterpart of
+``repro.train.optim``.
+
+Functions on dicts of tensors, as the reference's are on pytrees: the
+global-norm clip in f32 whatever the gradients' type, linear warmup then
+cosine decay to ``min_lr_ratio``, and weight decay decoupled from the
+adaptive step.  Nothing is updated in place: each call returns new dicts.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    betas: tuple = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    moment_dtype: str = "float32"      # "bfloat16" halves the moments' memory
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_ratio: float = 0.1
+
+
+def schedule(cfg: OptConfig, step) -> torch.Tensor:
+    """The learning rate at ``step`` (an int or a 0-d tensor): linear warmup
+    to ``cfg.lr``, then cosine decay to ``lr · min_lr_ratio``."""
+    step = torch.as_tensor(step, dtype=torch.float32)
+    warm = step / max(cfg.warmup_steps, 1)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0, 1)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_opt_state(params: dict, cfg: OptConfig) -> dict:
+    """``{"step": 0, "m": zeros, "v": zeros}``, the moments in
+    ``cfg.moment_dtype`` on each parameter's device."""
+    mdt = getattr(torch, cfg.moment_dtype)
+    zeros = {k: torch.zeros(p.shape, dtype=mdt, device=p.device)
+             for k, p in params.items()}
+    return {"step": torch.zeros((), dtype=torch.int32),
+            "m": zeros, "v": {k: z.clone() for k, z in zeros.items()}}
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """The f32 2-norm of every tensor in ``tree`` together, on the device
+    of the first."""
+    sq = [torch.sum(torch.square(t.float())) for t in tree.values()]
+    if not sq:
+        return torch.zeros(())
+    return torch.sqrt(torch.stack([s.to(sq[0].device) for s in sq]).sum())
+
+
+@torch.no_grad()
+def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
+    """One AdamW step: ``(new_params, new_state, {"grad_norm", "lr"})``."""
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    lr = schedule(cfg, step)
+    b1, b2 = cfg.betas
+    stepf = step.float()
+    bc1, bc2 = 1 - b1 ** stepf, 1 - b2 ** stepf
+    mdt = getattr(torch, cfg.moment_dtype)
+    new_p, new_m, new_v = {}, {}, {}
+    for k, p in params.items():
+        dev = p.device
+        g32 = grads[k].float() * scale.to(dev)
+        m32 = b1 * state["m"][k].float() + (1 - b1) * g32
+        v32 = b2 * state["v"][k].float() + (1 - b2) * g32 * g32
+        mhat, vhat = m32 / bc1.to(dev), v32 / bc2.to(dev)
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
+        new_p[k] = (p.float() - lr.to(dev) * delta).to(p.dtype)
+        new_m[k], new_v[k] = m32.to(mdt), v32.to(mdt)
+    return new_p, {"step": step, "m": new_m, "v": new_v}, \
+        {"grad_norm": gnorm, "lr": lr}

@@ -1,0 +1,82 @@
+"""Train-step builder; counterpart of ``repro.train.step``: loss → grads →
+(optional microbatch accumulation) → clip → AdamW, one step a call over the
+state ``{"params": ..., "opt": ...}`` (dicts of tensors)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from ..core.registry import backend_scope
+from .optim import OptConfig, adamw_update, init_opt_state
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    opt: OptConfig = OptConfig()
+    microbatches: int = 1
+    accum_dtype: str = "float32"
+    #: scoped backend of the sparse layers' kernels for the whole step (the
+    #: facade's ``use_backend``); None keeps the default of the data's device
+    sparse_backend: str | None = None
+    #: the reference's skip-and-report guardrail; not ported (guardrails
+    #: come later), so True raises
+    skip_nonfinite: bool = False
+
+
+def make_train_step(loss_fn: Callable, tcfg: TrainConfig) -> Callable:
+    """``loss_fn(params, batch) -> (loss, metrics dict)``.
+
+    Returns ``train_step(state, batch) -> (state, metrics)``.  The batch is
+    a dict of tensors split along dim 0 into ``tcfg.microbatches`` equal
+    parts, whose gradients are summed in ``tcfg.accum_dtype`` and averaged;
+    ``tcfg.sparse_backend`` pins the sparse kernels' backend for the step
+    through ``use_backend``."""
+    if tcfg.skip_nonfinite:
+        raise NotImplementedError(
+            "TrainConfig.skip_nonfinite belongs to the guardrails, which are "
+            "not ported yet")
+
+    def grads_of(params: dict, batch: dict):
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        with backend_scope(tcfg.sparse_backend), torch.enable_grad():
+            loss, metrics = loss_fn(leaves, batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), metrics, dict(zip(leaves, grads))
+
+    def accumulate(params: dict, batch: dict):
+        mb = tcfg.microbatches
+        adt = getattr(torch, tcfg.accum_dtype)
+        acc = {k: torch.zeros(p.shape, dtype=adt, device=p.device)
+               for k, p in params.items()}
+        total = 0.0
+        for i in range(mb):
+            part = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])[i]
+                    for k, v in batch.items()}
+            loss, _, grads = grads_of(params, part)
+            for k, g in grads.items():
+                acc[k] += g.to(adt)
+            total = total + loss
+        return total / mb, {}, {k: (a / mb).to(adt) for k, a in acc.items()}
+
+    def train_step(state: dict, batch: dict):
+        params, opt = state["params"], state["opt"]
+        if tcfg.microbatches > 1:
+            loss, metrics, grads = accumulate(params, batch)
+        else:
+            loss, metrics, grads = grads_of(params, batch)
+        new_params, new_opt, opt_metrics = adamw_update(params, grads, opt,
+                                                        tcfg.opt)
+        out = {"loss": loss, **{k: v for k, v in metrics.items()
+                                if torch.as_tensor(v).ndim == 0},
+               **opt_metrics}
+        return {"params": new_params, "opt": new_opt}, out
+
+    return train_step
+
+
+def init_state(params: dict, tcfg: TrainConfig) -> dict:
+    """``{"params": detached copies, "opt": init_opt_state(...)}``."""
+    params = {k: p.detach().clone() for k, p in params.items()}
+    return {"params": params, "opt": init_opt_state(params, tcfg.opt)}

@@ -468,16 +468,15 @@ def test_plan_refuses_unknown_chain_op_and_unported_arguments():
 
 def test_operands_requiring_grad_are_refused():
     """Without a backward, a CUDA kernel's output would carry no grad_fn
-    while the CPU's plain version would: both refuse alike instead."""
+    while the CPU's plain version would: both refuse alike instead.  The
+    SDDMM and the chain have none yet (``A @ x`` has:
+    ``test_matmul_operands_requiring_grad_get_grads``)."""
     dense, a, b, x = PROBLEMS["small"]()
     pc = _port_csr(csr_from_dense(dense))
     ta, tb, tx = _t(a, b, x)
     for backend in ("torch", "hopper"):
         A = repro_torch.sparse(pc, device="cpu", backend=backend, cache=False)
-        live = A.with_values(torch.ones(A.nnz, requires_grad=True))
-        calls = (lambda: A @ tx.clone().requires_grad_(),
-                 lambda: live @ tx,
-                 lambda: A.sddmm(ta.clone().requires_grad_(), tb),
+        calls = (lambda: A.sddmm(ta.clone().requires_grad_(), tb),
                  lambda: A.chain(ta, tb.clone().requires_grad_(), tx),
                  lambda: A.chain(ta, tb, tx.clone().requires_grad_()),
                  lambda: repro_torch.sparse_chain(pc, ta, tb, tx.clone().requires_grad_(),
@@ -487,3 +486,21 @@ def test_operands_requiring_grad_are_refused():
                 call()
             with torch.no_grad():
                 assert not call().requires_grad
+
+
+def test_matmul_operands_requiring_grad_get_grads():
+    """``A @ x`` and ``live @ x`` (the calls the refusal test made before
+    the backward) give grads on both backends, those of the dense product."""
+    dense, _, _, x = PROBLEMS["small"]()
+    pc = _port_csr(csr_from_dense(dense))
+    nz = np.nonzero(dense)
+    for backend in ("torch", "hopper"):
+        A = repro_torch.sparse(pc, device="cpu", backend=backend, cache=False)
+        tx = torch.from_numpy(np.array(x)).requires_grad_()
+        (A @ tx).sum().backward()
+        want_x = dense.sum(axis=0)[:, None] * np.ones((1, x.shape[1]))
+        np.testing.assert_allclose(tx.grad.numpy(), want_x, rtol=1e-5, atol=1e-5)
+        v = torch.ones(A.nnz, requires_grad=True)
+        (A.with_values(v) @ torch.from_numpy(np.array(x))).sum().backward()
+        np.testing.assert_allclose(v.grad.numpy(), np.asarray(x).sum(axis=1)[nz[1]],
+                                   rtol=1e-5, atol=1e-5)

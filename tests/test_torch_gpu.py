@@ -1734,3 +1734,159 @@ def test_cuda_nb_nonfinite_x_stays_in_its_rows(cuda, design, n, dtype):
                 want = vsr.spmm_vsr_plain(bal, x)
             _same_nonfinite(y, want, 1e-4 if dtype == torch.float32 else 2e-2)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the backward of the main path: K6 for the values, the SpMM of Aᵀ for x
+# ---------------------------------------------------------------------------
+
+#: (impl forcing the forward, substrate family)
+_BWD_IMPLS = (("nb_pr", "balanced"), ("nb_sr", "balanced"),
+              ("rs_sr", "ell"), ("rs_pr", "ell"))
+
+
+def _kernel_of(pick: str, n: int) -> str:
+    if pick.startswith("rs_"):
+        return "csc_spmm"
+    return "vsr_spmv" if n == 1 else "vsr_spmm"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl,family", _BWD_IMPLS)
+@pytest.mark.parametrize("n", [1, 4, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_matches_coo_bwd_plain(cuda, impl, family, n, dtype):
+    """``(A.with_values(v) @ x * gy).sum()`` backward on the card against
+    the reference's ``_coo_bwd`` in plain PyTorch on the same tensors; K6
+    ran in the design N routes to, and the kernel of Aᵀ's pick ran."""
+    import repro_torch
+    from repro_torch.core.vjp import coo_bwd_plain
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, csr in _graphs(cuda).items():
+        A = repro_torch.sparse(csr, cache=False)
+        v = torch.randn(A.nnz, device=cuda).to(dtype).requires_grad_()
+        x = torch.randn(csr.shape[1], n, device=cuda).to(dtype)
+        x = (x[:, 0].contiguous() if n == 1 else x).requires_grad_()
+        gy = torch.randn(csr.shape[0], n, device=cuda).to(dtype)
+        gy = gy[:, 0].contiguous() if n == 1 else gy
+        y = A.with_values(v).matmul(x, impl=impl)
+        reset_launch_counts()
+        (y.float() * gy.float()).sum().backward()
+        counts = launch_counts()
+        pt = A.plan.transposed()
+        pick = pt.select(n)
+        assert counts["sddmm"] == 1, (name, counts)
+        design = fused_chain._sddmm_design(n, dtype)
+        assert fused_chain.DESIGN_LAUNCHES["sddmm"][design] == 1
+        assert counts[_kernel_of(pick, n)] >= 1, (name, pick, counts)
+        rows, cols = formats.balanced_pattern(csr, A.plan.tile)
+        r, c = rows.reshape(-1)[:A.nnz], cols.reshape(-1)[:A.nnz]
+        dv, dx = coo_bwd_plain(r, c, r < csr.shape[0], v.detach(), x.detach(),
+                               gy, csr.shape)
+        assert v.grad.dtype == dtype and x.grad.dtype == dtype
+        assert _rel(v.grad, dv) < tol, (name, family)
+        assert _rel(x.grad, dx) < tol, (name, family)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_backward_launches_only_what_is_asked(cuda):
+    """x constant: K6 alone; the stream baked: the SpMM of Aᵀ alone; and no
+    plain version on the card's path (every product is a launch)."""
+    import repro_torch
+    csr = _graphs(cuda)["skewed"]
+    A = repro_torch.sparse(csr, cache=False)
+    x = torch.randn(csr.shape[1], 8, device=cuda)
+    v = torch.randn(A.nnz, device=cuda, requires_grad=True)
+    spmms = ("vsr_spmm", "vsr_spmv", "csc_spmm")
+    y = A.with_values(v) @ x
+    reset_launch_counts()
+    y.sum().backward()
+    counts = launch_counts()
+    assert counts["sddmm"] == 1 and sum(counts[k] for k in spmms) == 0
+    assert A.plan._transposed is None
+    y = A @ x.clone().requires_grad_()
+    reset_launch_counts()
+    y.sum().backward()
+    counts = launch_counts()
+    assert counts["sddmm"] == 0 and sum(counts[k] for k in spmms) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k6_at_d2048(cuda, dtype):
+    """K6 at d = 2048 (the FFN backward's ``dvals`` at 2,048 tokens), "par"."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    csr = _graphs(cuda)["skewed"]
+    rows, cols = formats.balanced_pattern(csr, 512)
+    a = torch.randn(csr.shape[0], 2048, device=cuda).to(dtype)
+    b = torch.randn(csr.shape[1], 2048, device=cuda).to(dtype)
+    reset_launch_counts()
+    got = fused_chain.sddmm_fused(rows, cols, a, b, shape=csr.shape)
+    assert fused_chain.DESIGN_LAUNCHES["sddmm"]["par"] == 1
+    want = fused_chain.sddmm_plain(rows, cols, a, b, shape=csr.shape)
+    assert _rel(got, want) < tol
+    assert (got.reshape(-1)[csr.nnz:] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k1_pr_at_n2048(cuda, dtype):
+    """K1's pr design at N = 2048 (the FFN's ``nb_pr`` at 2,048 tokens)."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, csr in _graphs(cuda).items():
+        bal = formats.csr_to_balanced(csr, 512)
+        x = torch.randn(csr.shape[1], 2048, device=cuda).to(dtype)
+        got = vsr.spmm_vsr_fused(bal, x, "pr")
+        assert _rel(got, vsr.spmm_vsr_plain(bal, x)) < tol, name
+
+
+@pytest.mark.gpu
+def test_cuda_pattern_matmul_backward(cuda):
+    """``pattern_matmul`` on the card: grads against ``coo_bwd_plain``; K6
+    and K1 pr on Aᵀ's slabs launched; one prep build for the pattern."""
+    import repro_torch
+    from repro_torch.core.plan import PATTERN_PREP
+    from repro_torch.core.vjp import coo_bwd_plain
+    from repro_torch.models import SparsePattern
+    pat = SparsePattern.random(5, 300, 200, 0.1, 64)
+    vals = torch.randn(pat.rows.shape, device=cuda, requires_grad=True)
+    before = PATTERN_PREP["builds"]
+    for _ in range(2):
+        x = torch.randn(200, 40, device=cuda, requires_grad=True)
+        gy = torch.randn(300, 40, device=cuda)
+        y = repro_torch.pattern_matmul(pat.rows, pat.cols, vals, pat.shape, x)
+        vals.grad = None
+        reset_launch_counts()
+        (y * gy).sum().backward()
+        counts = launch_counts()
+        assert counts["sddmm"] == 1 and counts["vsr_spmm"] == 1
+        r, c = pat.rows.reshape(-1), pat.cols.reshape(-1)
+        dv, dx = coo_bwd_plain(r, c, r < 300, vals.detach().reshape(-1),
+                               x.detach(), gy, pat.shape)
+        assert _rel(vals.grad.reshape(-1), dv) < 1e-4
+        assert (vals.grad.reshape(-1)[r >= 300] == 0).all()
+        assert _rel(x.grad, dx) < 1e-4
+    assert PATTERN_PREP["builds"] == before + 1
+
+
+@pytest.mark.gpu
+def test_cuda_sparse_ffn_grads_match_the_cpu(cuda):
+    """One ``SparseFFN`` at SMOKE widths, tile 64: the card's loss and
+    grads against the same layer on the CPU (plain versions)."""
+    from repro_torch.configs import gemma3_12b
+    from repro_torch.models import SparseFFN, sparse_patterns
+    from repro_torch.models.config import SparseFFNConfig
+    cfg = gemma3_12b.SMOKE.scaled(sparse_ffn=SparseFFNConfig(tile=64))
+    pats = {k: v[0] for k, v in sparse_patterns(cfg.scaled(num_layers=1),
+                                                device="cpu").items()}
+    cpu = SparseFFN(cfg, patterns=pats)
+    card = SparseFFN(cfg, patterns={k: type(p)(p.rows.to(cuda), p.cols.to(cuda), p.shape)
+                                    for k, p in pats.items()})
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(4, 16, cfg.d_model)
+    for ffn, xx in ((cpu, x), (card, x.to(cuda))):
+        ffn.zero_grad()
+        ffn(xx).square().mean().backward()
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        assert _rel(q.grad.cpu(), p.grad) < 1e-4, name

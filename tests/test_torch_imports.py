@@ -43,5 +43,9 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.kernels.blocks",
                    "repro_torch.kernels.bsr",
                    "repro_torch.models.transformer",
+                   "repro_torch.models.layers",
+                   "repro_torch.core.vjp",
+                   "repro_torch.train.optim",
+                   "repro_torch.train.step",
                    "repro_torch.configs.gemma3_12b"):
         assert module in names, (module, sorted(names))

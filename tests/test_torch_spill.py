@@ -215,14 +215,25 @@ def test_spill_refuses_window_past_max_win():
 
 
 def test_spill_refuses_grad():
+    """Before the backward, the spill path refused operands that require
+    grad; it now gets the balanced family's backward (the spill forward,
+    then K6 and the transposed plan), as the reference's spill kernels sit
+    behind its ``_exec_balanced``: its grads are those of the "torch"
+    backend."""
     A = repro_torch.sparse(_port(MATS["rand_100x80"]), device="cpu",
                            backend="hopper", cache=False)
     A.plan.kernel_opts(A.plan.entry("nb_pr"))["spill"] = True
-    with pytest.raises(NotImplementedError, match="VJP"):
-        A.matmul(torch.randn(80, 3, requires_grad=True), impl="nb_pr")
-    with pytest.raises(NotImplementedError, match="VJP"):
-        A.with_values(torch.ones(A.nnz, requires_grad=True)).matmul(
-            torch.randn(80), impl="nb_pr")
+    T = repro_torch.sparse(_port(MATS["rand_100x80"]), device="cpu",
+                           backend="torch", cache=False)
+    x = torch.randn(80, 3)
+    grads = []
+    for M in (A, T):
+        xg = x.clone().requires_grad_()
+        v = torch.ones(M.nnz, requires_grad=True)
+        (M.with_values(v).matmul(xg, impl="nb_pr") ** 2).sum().backward()
+        grads.append((v.grad, xg.grad))
+    for got, want in zip(*grads):
+        _close(got, want.numpy())
     with torch.no_grad():
         y = A.matmul(torch.randn(80, 3, requires_grad=True), impl="nb_pr")
     assert not y.requires_grad
