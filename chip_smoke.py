@@ -143,17 +143,51 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              swiglu; ~5.9M nonzeros a matrix, patterns from the seed) on
              batch 4 x seq 512 = 2,048 tokens, 5 AdamW steps through
              ``make_train_step`` (lr 1e-3, warmup 2, MSE to a seeded
-             target): each step 3 K6 and 6 K1 pr launches, 3 per-pattern
+             target): each step 3 K6 and 6 K1 sr launches (``nb_sr``, the
+             pattern entry's route above N = 4), 3 per-pattern
              prep builds over the 5 steps, a falling loss, the first step's
              grads finite, nonzero and within 1e-4 of torch autograd of the
              dense products (TF32 off); times of the step, its split (the
              forward SpMMs, K6, the SpMMs of Aᵀ, the optimizer) and the
-             dense step; K1 pr at N = 2048 and K6 at d = 2048 on the gate
-             matrix against their plain versions, ``sparse.mm`` and
-             ``sampled_addmm``;
-8. summary — one JSON line of the kernels (``launches`` and ``design``:
+             dense step; K1 at N = 2048 in both designs and K6 at d = 2048
+             on the gate matrix against their plain versions, ``sparse.mm``
+             and ``sampled_addmm``;
+8. chain_backward — the GAT layer's backward on both graphs (A, B of width
+             64, α = 0.125; softmax at N = 1, 32, 128, identity and scale at
+             32): ``(A.chain(a, b, x) * gy).sum().backward()`` launches the
+             fused forward, K6 twice (the recompute, ``dW``), K7 in full mode
+             (softmax), the plan's SpMV for the row sum and three SpMMs (A,
+             Aᵀ twice); dA, dB, dX within 1e-4 of ``chain_bwd_plain`` on the
+             card's tensors (chunked); times of the backward on a kept graph,
+             median of 20, split into the recompute, ``dW``, the row sum,
+             dA, dB, dX and Aᵀ's two permuted streams, beside two
+             ``sampled_addmm`` plus three ``sparse.mm`` for the same products
+             and the sum of the products' bounds; K7's full mode alone;
+9. gat_train — ``repro_torch.examples.train_gat.train`` at scale 20, edge
+             factor 16, d_in = d_head = 64, 5 SGD steps: the loss falls;
+             the step time (median of steps 2-5, host clock with a sync)
+             and the launches a step;
+10. attention_backward — Gemma-3-12B's local layer at seq 8192 (16 heads
+             of 256, 8 KV heads, the causal band) through
+             ``_block_sparse_attention`` forward and backward: a head's K7
+             twice and K8 in the block design, K6 twice and 4 SpMMs; head 5's
+             dQ within 1e-4 of ``attn_bwd_plain``; one head through
+             ``execute_attention`` without and with the ALiBi bias (dQ, dK,
+             dV, dBias against the plain backward), its backward split as
+             the chain's, beside SDPA forward and backward on the dense mask;
+             the layer's backward and forward + backward beside SDPA's over
+             all heads;
+11. bsr_backward — ``W.with_values(v) @ x`` on the block-pruned Gemma FFN
+             up-projection at N = 1, 4, 32, 128, backward: K6 over the CSR
+             pattern and K11 on Aᵀ's BSR at (128, 8) (the block transpose,
+             as many blocks; the fma design in row chunks), grads within
+             1e-4 of ``bsr_bwd_plain``, K11 on Aᵀ against its plain
+             version; times split into K6, K11 on Aᵀ and Aᵀ's stream, beside
+             the dense ``matmul`` backward (TF32 off) and ``sparse.mm`` on
+             Aᵀ;
+12. summary — one JSON line of the kernels (``launches`` and ``design``:
              the main path's; ``launches_by_path`` and ``design_by_path``:
-             main, backward and train), the card line, then the result.
+             every path above), the card line, then the result.
 
 Without a CUDA device it prints no result and exits 2.  ``--scale`` below 20
 runs smaller graphs for a quick look; the graph statistics published with
@@ -283,6 +317,9 @@ BSR_SUMMARY_N, SPILL_SUMMARY_N = 128, {"vsr_spmm_spill": 128, "vsr_spmv_spill": 
 #: swiglu) on batch 4 x seq 512 tokens, five AdamW steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 5
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=5)
+#: the GAT training path (``examples/train_gat.py``) at the GAT cell's
+#: width: scale-20 R-MAT with self-loops, d_in = d_head = 64, SGD steps
+GAT_STEPS = 5
 
 
 def pruned_ffn_weight(d_ff: int, d_model: int, seed: int):
@@ -328,10 +365,13 @@ def main() -> int:
     from repro_torch.configs import gemma3_12b
     from repro_torch.core import formats, registry, stats
     from repro_torch.core.cache import pattern_fingerprint
-    from repro_torch.core.plan import (PATTERN_PREP, _stream_to_balanced,
-                                       execute, execute_attention,
-                                       pattern_prep)
-    from repro_torch.core.vjp import _stream_to_ell, coo_bwd_plain
+    from repro_torch.core.plan import (PATTERN_PREP, _ChainVJP,
+                                       _stream_to_balanced, execute,
+                                       execute_attention, pattern_prep)
+    from repro_torch.core.vjp import (_fill_bsr, _stream_to_ell, attn_bwd_plain,
+                                      bsr_bwd_plain, chain_bwd_plain,
+                                      coo_bwd_plain)
+    from repro_torch.examples import train_gat
     from repro_torch.core.rmat import rmat
     from repro_torch.kernels import (_build, attention, bsr, csc, fused_chain,
                                      launch_counts, reset_launch_counts, spmv,
@@ -787,10 +827,15 @@ def main() -> int:
                 for kk, vv in counts.items()}
 
     #: the launches of each path, and those of K1, K3 and K7-K11 by design:
-    #: the forward ("main"), the backward of A @ x ("backward") and the
-    #: sparse-FFN training steps ("train")
+    #: the forward ("main"), the backward of A @ x ("backward"), the
+    #: sparse-FFN training steps ("train"), the forward and backward of the
+    #: GAT chain ("chain_backward"), the GAT training steps ("gat_train"),
+    #: of block-sparse attention ("attention_backward") and of the block-
+    #: pruned weight ("bsr_backward")
     path_launches = {path: {k: 0 for k in KERNELS}
-                     for path in ("main", "backward", "train")}
+                     for path in ("main", "backward", "train", "chain_backward",
+                                  "gat_train", "attention_backward",
+                                  "bsr_backward")}
     path_designs = {path: {kk: dict.fromkeys(vv, 0) for counts in design_counts
                            for kk, vv in counts.items()}
                     for path in path_launches}
@@ -1869,9 +1914,10 @@ def main() -> int:
               f"{float(metrics['grad_norm']):.6e} lr={float(metrics['lr']):.3e} "
               f"{step_s[-1]:.3f} s; launches {counts}, K1 {k1_took}",
               flush=True)
-        if counts["sddmm"] != 3 or counts["vsr_spmm"] != 6 or k1_took["pr"] != 6:
-            fail(f"train step {i + 1}: expected 3 K6 and 6 K1 pr launches "
-                 f"(forward, A^T), got {counts}, K1 {k1_took}")
+        if counts["sddmm"] != 3 or counts["vsr_spmm"] != 6 or k1_took["sr"] != 6:
+            fail(f"train step {i + 1}: expected 3 K6 and 6 K1 sr launches "
+                 f"(forward, A^T: nb_sr, the pattern entry's route at N = "
+                 f"{TRAIN_BATCH * TRAIN_SEQ}), got {counts}, K1 {k1_took}")
     builds = PATTERN_PREP["builds"] - builds0
     if builds != 3:
         fail(f"train: {builds} per-pattern prep builds over {TRAIN_STEPS} "
@@ -1934,10 +1980,10 @@ def main() -> int:
             p.rows, p.cols)
         bal_t = formats.BalancedCOO(bal_t.rows, bal_t.cols, _stream_to_balanced(
             vals.reshape(-1)[perm.long()], bal_t), bal_t.shape)
-        split["fwd_spmm_ms"] += time_ms(lambda: vsr.spmm_vsr_fused(bal, x_in, "pr"), reps=5)
+        split["fwd_spmm_ms"] += time_ms(lambda: vsr.spmm_vsr_fused(bal, x_in, "sr"), reps=5)
         split["k6_ms"] += time_ms(lambda: fused_chain.sddmm_fused(
             p.rows, p.cols, g_out, x_in, shape=p.shape), reps=5)
-        split["spmm_t_ms"] += time_ms(lambda: vsr.spmm_vsr_fused(bal_t, g_out, "pr"), reps=5)
+        split["spmm_t_ms"] += time_ms(lambda: vsr.spmm_vsr_fused(bal_t, g_out, "sr"), reps=5)
     split["opt_ms"] = time_ms(lambda: adamw_update(state["params"], grads,
                                                    state["opt"], tcfg.opt), reps=5)
     dense_p = {k: v.detach().clone() for k, v in wd.items()}
@@ -1981,16 +2027,19 @@ def main() -> int:
             p.rows[i:i + tiles], p.cols[i:i + tiles], g_out, xt, shape=p.shape)
             for i in range(0, p.n_tiles, tiles)])
 
-    hold("vsr_spmm", f"ffn gate N={n_tok} pr", vsr.spmm_vsr_fused(bal, xt, "pr"),
-         k1_plain_chunked(), "float32")
+    want_k1 = k1_plain_chunked()
+    for design in ("sr", "pr"):
+        hold("vsr_spmm", f"ffn gate N={n_tok} {design}",
+             vsr.spmm_vsr_fused(bal, xt, design), want_k1, "float32")
+    del want_k1
     hold("sddmm", f"ffn gate d={n_tok} par", fused_chain.sddmm_fused(
         p.rows, p.cols, g_out, xt, shape=p.shape), k6_plain_chunked(), "float32")
     ffn_bound = bound(12 * p.rows.numel() + 4 * sum(p.shape) * n_tok,
                       2 * nnz_g * n_tok)
     ffn_rows = {
-        "vsr_spmm": {"shape": f"ffn gate {p.shape[0]}x{p.shape[1]} N={n_tok} pr",
-                     "ms": time_ms(lambda: vsr.spmm_vsr_fused(bal, xt, "pr"), reps=5),
-                     "sr_ms": time_ms(lambda: vsr.spmm_vsr_fused(bal, xt, "sr"), reps=5),
+        "vsr_spmm": {"shape": f"ffn gate {p.shape[0]}x{p.shape[1]} N={n_tok} sr",
+                     "ms": time_ms(lambda: vsr.spmm_vsr_fused(bal, xt, "sr"), reps=5),
+                     "pr_ms": time_ms(lambda: vsr.spmm_vsr_fused(bal, xt, "pr"), reps=5),
                      "plain_ms": time_ms(k1_plain_chunked, reps=2),
                      "library_ms": time_ms(lambda: lib_w @ xt, reps=5),
                      "bound_ms": ffn_bound[0], "bound_by": ffn_bound[1]},
@@ -2007,7 +2056,396 @@ def main() -> int:
     del ffn, state, dstate, dense, wd, gd, grads, lib_w, bal, g_out, ht, xt
     torch.cuda.empty_cache()
 
-    # -- 8. summary ---------------------------------------------------------------
+    # -- 8. the backward of the chain: a GAT layer on both graphs ----------------
+    phase("chain_backward")
+
+    def hold_grad(label, got, want):
+        """A gradient on the card against the plain backward's."""
+        rel, diff = errors(got, want)
+        ok = rel <= RTOL["float32"]
+        print(f"[check] {label}: rel_inf_err={rel:.3e} max_abs_err={diff:.3e} "
+              f"tol={RTOL['float32']:g} {'ok' if ok else 'MISS'}", flush=True)
+        if not ok:
+            fail(f"{label} disagrees with the plain backward")
+
+    spmms = ("vsr_spmm", "vsr_spmv", "csc_spmm")
+    from repro_torch.core import spmm as plain_spmm, vjp as vjp_mod
+
+    def no_plain(call, label):
+        """``call()`` with every plain version a backward could reach
+        counted — the ``"torch"`` registry entries, the flat SDDMM and the
+        local softmax statistics — failing if any ran on the card's path."""
+        ran = []
+        saved = {key: e for key, e in registry._REGISTRY.items()
+                 if key[1] == "torch"}
+        funcs = [(plain_spmm, "_sddmm_flat"), (vjp_mod, "_sddmm_flat"),
+                 (plain_spmm, "_softmax_stats")]
+        real = {(mod, nm): getattr(mod, nm) for mod, nm in funcs}
+
+        def counting(fn, nm):
+            def wrapped(*args, **kw):
+                ran.append(nm)
+                return fn(*args, **kw)
+            return wrapped
+        try:
+            for key, e in saved.items():
+                registry._REGISTRY[key] = dataclasses.replace(
+                    e, fn=counting(e.fn, key[0]))
+            for (mod, nm), fn in real.items():
+                setattr(mod, nm, counting(fn, nm))
+            out = call()
+        finally:
+            registry._REGISTRY.update(saved)
+            for (mod, nm), fn in real.items():
+                setattr(mod, nm, fn)
+        if ran:
+            fail(f"{label}: plain versions ran on the card's path: {ran}")
+        return out
+
+    def spmm_bound(p_, n, d_in=None):
+        """The SpMM's bound on ``p_``'s pick at N = n: its substrate's bytes
+        (ELL: 8·nnz + 4·M, balanced 12·nnz) + X read and Y written."""
+        m_, k_ = p_.csr.shape
+        sub = p_.entry(p_.select(n)).substrate
+        pb = 8 * p_.csr.nnz + 4 * m_ if sub == "ell" else 12 * p_.csr.nnz
+        return bound(pb + 4 * (m_ + k_) * n, 2 * p_.csr.nnz * n)[0]
+
+    chain_bwd_rows, k7_rows = {}, {}
+    for name, csr in graphs.items():
+        m, k_dim = csr.shape
+        plans = {tr: repro_torch.sparse(csr, chain_op=tr)
+                 for tr in ("softmax", "identity", "scale")}
+        lib_a = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
+                                        size=csr.shape, check_invariants=False)
+        for tr, n in (("softmax", 1), ("softmax", 32), ("softmax", 128),
+                      ("identity", 32), ("scale", 32)):
+            A = plans[tr]
+            p = A.plan
+            a = (0.3 * randn(m, CHAIN_D)).requires_grad_()
+            b = (0.3 * randn(k_dim, CHAIN_D)).requires_grad_()
+            x = (randn(k_dim, n) if n > 1 else randn(k_dim)).requires_grad_()
+            gy = randn(m, n) if n > 1 else randn(m)
+            soft = tr == "softmax"
+
+            def fwd_bwd():
+                (A.chain(a, b, x, transform=tr, alpha=CHAIN_ALPHA) * gy).sum().backward()
+
+            _, counts = no_plain(lambda: drive(fwd_bwd, "chain_backward"),
+                                 f"chain_backward {name} {tr} N={n}")
+            modes = dict(fused_chain.STATS_MODES)
+            k6_took = took()["sddmm"]
+            n_spmm = sum(counts[kk] for kk in spmms)
+            print(f"[chain_backward] {name} {tr} N={n}: launches {counts}, "
+                  f"K6 {k6_took}, K7 modes {modes}, A^T picks "
+                  f"{p.transposed().select(CHAIN_D)} (d) / "
+                  f"{p.transposed().select(n)} (N)", flush=True)
+            if (counts["sddmm"] != 2 or counts["chain"] != 1
+                    or counts["chain_stats"] != 2 * soft
+                    or (soft and modes != {"full": 1, "edge": 1})
+                    or n_spmm != 3 + soft):
+                fail(f"chain_backward {name} {tr} N={n}: launches {counts}, "
+                     f"K7 modes {modes}: expected the fused forward, K6 twice, "
+                     "K7 full for softmax and 3 SpMMs (+ the row sum)")
+            prow, pcol = p.pattern()
+            want = chain_bwd_plain(prow, pcol, a.detach(), b.detach(),
+                                   x.detach(), gy, csr.shape, tr, CHAIN_ALPHA,
+                                   chunk=1 << 20)
+            for label, got, w in (("dA", a.grad, want[0]), ("dB", b.grad, want[1]),
+                                  ("dX", x.grad, want[2])):
+                hold_grad(f"chain_backward {name} {tr} N={n} {label}", got, w)
+            del want
+            # times: the whole backward on a kept graph, and its split
+            ad, bd, xd = a.detach(), b.detach(), x.detach()
+            y = A.chain(a, b, x, transform=tr, alpha=CHAIN_ALPHA)
+            vjp = _ChainVJP(p, None, entry=p.entry("chain"), transform=tr,
+                            alpha=CHAIN_ALPHA)
+            with torch.no_grad():
+                w = vjp.weights(ad, bd)
+                dw = vjp.sample(gy, xd)
+                de = (CHAIN_ALPHA * w * (dw - vjp.rowsum(w * dw)[vjp.row_ids()])
+                      if soft else dw * (CHAIN_ALPHA if tr == "scale" else 1.0))
+                pt, perm = p.transposed(), p.transposed_perm()
+                de_t, w_t = de.index_select(0, perm), w.index_select(0, perm)
+                g2, x2 = gy.reshape(m, -1), xd.reshape(k_dim, -1)
+                row = {"bwd_ms": time_ms(lambda: torch.autograd.grad(
+                           y, (a, b, x), gy, retain_graph=True)),
+                       "recompute_ms": time_ms(lambda: vjp.weights(ad, bd)),
+                       "dw_ms": time_ms(lambda: vjp.sample(gy, xd)),
+                       "rowsum_ms": (time_ms(lambda: vjp.rowsum(w * dw))
+                                     if soft else 0.0),
+                       "da_ms": time_ms(lambda: vjp.spmm(de, bd)),
+                       "db_ms": time_ms(lambda: execute(pt, ad, vals=de_t)),
+                       "dx_ms": time_ms(lambda: execute(pt, gy, vals=w_t)),
+                       "streams_t_ms": 2 * time_ms(lambda: de.index_select(0, perm))}
+                lib_de = torch.sparse_csr_tensor(csr.indptr, csr.indices, de,
+                                                 size=csr.shape,
+                                                 check_invariants=False)
+                lib_t = [torch.sparse_csr_tensor(pt.csr.indptr, pt.csr.indices,
+                                                 vv, size=pt.csr.shape,
+                                                 check_invariants=False)
+                         for vv in (de_t, w_t)]
+                row["library_ms"] = time_ms(lambda: (
+                    torch.sparse.sampled_addmm(lib_a, ad, bd.t(), beta=0.0),
+                    torch.sparse.sampled_addmm(lib_a, g2, x2.t(), beta=0.0),
+                    lib_de @ bd, lib_t[0] @ ad, lib_t[1] @ gy))
+            slots = prow.numel()
+            nnz = csr.nnz
+            b_k6 = bound(12 * slots + 4 * (m + k_dim) * CHAIN_D, 2 * nnz * CHAIN_D)[0]
+            b_k7 = bound(8 * slots + 4 * (m + k_dim) * CHAIN_D + 8 * m,
+                         2 * nnz * CHAIN_D)[0] if soft else 0.0
+            b_dw = bound(12 * slots + 4 * (m + k_dim) * n, 2 * nnz * n)[0]
+            row["bound_ms"] = (b_k6 + b_k7 + b_dw + (spmm_bound(p, 1) if soft else 0.0)
+                               + spmm_bound(p, CHAIN_D) + spmm_bound(pt, CHAIN_D)
+                               + spmm_bound(pt, n))
+            row["rest_ms"] = row["bwd_ms"] - sum(
+                row[kk] for kk in ("recompute_ms", "dw_ms", "rowsum_ms", "da_ms",
+                                   "db_ms", "dx_ms", "streams_t_ms"))
+            row["picks"] = {"rowsum": p.select(1), "dA": p.select(CHAIN_D),
+                            "dB": pt.select(CHAIN_D), "dX": pt.select(n)}
+            if soft and n == 1:
+                # K7 in full mode, the recompute's statistics, alone: its
+                # bound and plain version (the kernel table's backward row)
+                b7 = bound(8 * slots + 4 * (m + k_dim) * CHAIN_D + 8 * m,
+                           2 * nnz * CHAIN_D)
+                k7_rows[name] = {
+                    "ms": time_ms(lambda: fused_chain.chain_stats_fused(
+                        prow, pcol, ad, bd, shape=csr.shape, alpha=CHAIN_ALPHA,
+                        blocks=p.kernel_opts(p.entry("chain"))["blocks"])),
+                    "plain_ms": time_ms(lambda: fused_chain.chain_stats_plain(
+                        prow, pcol, ad, bd, shape=csr.shape, alpha=CHAIN_ALPHA),
+                        reps=3),
+                    "bound_ms": b7[0], "bound_by": b7[1], "library_ms": None,
+                    "shape": f"{name}_s{args.scale}_e16 d={CHAIN_D} full mode "
+                             "(the chain's backward)"}
+            chain_bwd_rows[(name, tr, n)] = row
+            print(f"[time] chain_backward {name}_s{args.scale}_e16 {tr} d={CHAIN_D} "
+                  f"N={n} " + " ".join(f"{kk}={vv}" for kk, vv in row.items()),
+                  flush=True)
+            del y, w, dw, de, de_t, w_t, lib_de, lib_t, a, b, x, gy
+        del plans, lib_a
+        torch.cuda.empty_cache()
+
+    # -- 9. the GAT training path at the GAT cell's width -------------------------
+    phase("gat_train")
+    ends = []
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    gat_losses, counts = no_plain(lambda: drive(lambda: train_gat.train(
+        scale=args.scale, edge_factor=16, d_in=CHAIN_D, d_head=CHAIN_D,
+        steps=GAT_STEPS, seed=args.seed, on_step=on_step), "gat_train"),
+        "gat_train")
+    t_gat = time.perf_counter() - t0
+    steps_ms = [1e3 * (t1 - t0_) for t0_, t1 in zip(ends, ends[1:])]
+    gat_row = {"step_ms": statistics.median(steps_ms), "steps_ms": steps_ms,
+               "launches_a_step": {kk: vv / GAT_STEPS for kk, vv in counts.items() if vv},
+               "losses": gat_losses, "total_s": t_gat}
+    print("[time] gat_train " + " ".join(f"{kk}={vv}" for kk, vv in gat_row.items()),
+          flush=True)
+    if not all(np.isfinite(gat_losses)) or not gat_losses[-1] < gat_losses[0]:
+        fail(f"gat_train: the loss did not fall: {gat_losses}")
+    if (counts["chain"] != GAT_STEPS or counts["sddmm"] != 2 * GAT_STEPS
+            or counts["chain_stats"] != 2 * GAT_STEPS
+            or sum(counts[kk] for kk in spmms) != 4 * GAT_STEPS):
+        fail(f"gat_train: launches {counts}, expected a step the fused chain, "
+             "K6 twice, K7 twice and 4 SpMMs")
+    torch.cuda.empty_cache()
+
+    # -- 10. the backward of block-sparse attention: Gemma-3-12B's local layer ----
+    phase("attention_backward")
+    g = attn["gemma"]
+    p_att = repro_torch.attention_plan(g["spec"])
+    sc = gemma.head_dim ** -0.5
+    gcsr = g["csr"]
+    arows, acols = p_att.pattern()
+    rep = gemma.num_heads // gemma.num_kv_heads
+    qt, kt, vt = (t.detach().clone().requires_grad_() for t in (gq, gk, gv))
+    gyl = randn(*gq.shape)
+
+    def layer_fwd_bwd():
+        (transformer._block_sparse_attention(qt, kt, vt, gemma, True) * gyl).sum().backward()
+
+    _, counts = no_plain(lambda: drive(layer_fwd_bwd, "attention_backward"),
+                         "attention_backward layer")
+    att_took = took()
+    nh = gemma.num_heads
+    print(f"[attention_backward] gemma_local layer: launches {counts}, K7 "
+          f"{att_took['chain_stats']}, K8 {att_took['chain']}", flush=True)
+    if (counts["sddmm"] != 2 * nh or counts["chain_stats"] != 2 * nh
+            or counts["chain"] != nh or att_took["chain_stats"]["block"] != 2 * nh
+            or sum(counts[kk] for kk in spmms) != 4 * nh):
+        fail(f"attention_backward: launches {counts}, designs {att_took}: "
+             "expected a head the block K7 twice, K8, K6 twice and 4 SpMMs")
+    h = CHECK_HEAD
+    q1, k1, v1 = (gq[0, h].clone(), gk[0, h // rep].clone(), gv[0, h // rep].clone())
+    gy1 = gyl[0, h].contiguous()
+    zero_slab = torch.zeros(arows.shape, device=dev)
+    want = attn_bwd_plain(arows, acols, q1, k1, zero_slab, v1, gy1, gcsr.shape,
+                          sc, chunk=1 << 19)
+    hold_grad(f"attention_backward layer head {h} dQ", qt.grad[0, h], want[0])
+    # one head through execute_attention, without and with the ALiBi bias
+    att_rows = {}
+    for label, bias in (("gemma_local", None), ("gemma_local_alibi", g["bias"])):
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q1, k1, v1))
+        bl = None if bias is None else bias.clone().requires_grad_()
+        leaves = (ql, kl, vl) if bl is None else (ql, kl, vl, bl)
+
+        def head_fwd_bwd():
+            (execute_attention(p_att, ql, kl, vl, bias=bl) * gy1).sum().backward()
+
+        _, counts = no_plain(lambda: drive(head_fwd_bwd, "attention_backward"),
+                             f"attention_backward {label}")
+        slab = zero_slab if bias is None else _stream_to_balanced(bias, g["bal"])
+        want = attn_bwd_plain(arows, acols, q1, k1, slab, v1, gy1, gcsr.shape,
+                              sc, chunk=1 << 19)
+        for nm, got, w in (("dQ", ql.grad, want[0]), ("dK", kl.grad, want[1]),
+                           ("dV", vl.grad, want[3])):
+            hold_grad(f"attention_backward {label} head {h} {nm}", got, w)
+        if bl is not None:
+            hold_grad(f"attention_backward {label} head {h} dBias", bl.grad,
+                      want[2].reshape(-1)[:gcsr.nnz])
+        y1 = execute_attention(p_att, ql, kl, vl, bias=bl)
+        entry = p_att.entry("chain" if bl is None else "attn_chain")
+        vjp = _ChainVJP(p_att, None, entry=entry, transform="softmax", alpha=sc)
+        with torch.no_grad():
+            slab_d = None if bl is None else slab
+            w = vjp.weights(q1, k1, slab_d)
+            dw = vjp.sample(gy1, v1)
+            dz = w * (dw - vjp.rowsum(w * dw)[vjp.row_ids()])
+            pt, perm = p_att.transposed(), p_att.transposed_perm()
+            de_t, w_t = (sc * dz).index_select(0, perm), w.index_select(0, perm)
+            row = {"bwd_ms": time_ms(lambda: torch.autograd.grad(
+                       y1, leaves, gy1, retain_graph=True)),
+                   "recompute_ms": time_ms(lambda: vjp.weights(q1, k1, slab_d)),
+                   "dw_ms": time_ms(lambda: vjp.sample(gy1, v1)),
+                   "rowsum_ms": time_ms(lambda: vjp.rowsum(w * dw)),
+                   "dq_ms": time_ms(lambda: vjp.spmm(sc * dz, k1)),
+                   "dk_ms": time_ms(lambda: execute(pt, q1, vals=de_t)),
+                   "dv_ms": time_ms(lambda: execute(pt, gy1, vals=w_t)),
+                   "streams_t_ms": 2 * time_ms(lambda: dz.index_select(0, perm))}
+            mask = dense_mask(gcsr, bias)
+            qs, ks, vs = (t[None, None].clone().requires_grad_() for t in (q1, k1, v1))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            execute_attention(p_att, ql, kl, vl, bias=bl), leaves, gy1))
+        row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            sdpa(qs, ks, vs, attn_mask=mask), (qs, ks, vs), gy1[None, None]))
+        d_ = gemma.head_dim
+        m_ = gcsr.shape[0]
+        b_k6 = bound(12 * arows.numel() + 8 * m_ * d_, 2 * gcsr.nnz * d_)[0]
+        row["bound_ms"] = (3 * b_k6 + spmm_bound(p_att, 1) + spmm_bound(p_att, d_)
+                           + 2 * spmm_bound(pt, d_))
+        row["rest_ms"] = row["bwd_ms"] - sum(
+            row[kk] for kk in ("recompute_ms", "dw_ms", "rowsum_ms", "dq_ms",
+                               "dk_ms", "dv_ms", "streams_t_ms"))
+        att_rows[label] = row
+        print(f"[time] attention_backward {label} head {h} seq={m_} d=N={d_} "
+              + " ".join(f"{kk}={vv}" for kk, vv in row.items()), flush=True)
+        del y1, w, dw, dz, de_t, w_t, mask, qs, ks, vs
+    # the layer: its backward on a kept graph, beside SDPA forward and
+    # backward over all heads on the dense boolean mask
+    yl = transformer._block_sparse_attention(qt, kt, vt, gemma, True)
+    layer_row = {"layer_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                     yl, (qt, kt, vt), gyl, retain_graph=True), reps=3),
+                 "layer_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                     transformer._block_sparse_attention(qt, kt, vt, gemma, True),
+                     (qt, kt, vt), gyl), reps=3)}
+    del yl
+    mask = dense_mask(gcsr, None)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (gq, gkr, gvr))
+    try:
+        layer_row["sdpa_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            sdpa(qs, ks, vs, attn_mask=mask), (qs, ks, vs), gyl), reps=3)
+    except (RuntimeError, torch.OutOfMemoryError) as err:
+        layer_row["sdpa_fwd_bwd_ms"] = None
+        print(f"[time] sdpa backward failed: {err}", flush=True)
+    print(f"[time] attention_backward gemma_local layer {nh} heads seq={ATTN_SEQ} "
+          + " ".join(f"{kk}={vv}" for kk, vv in layer_row.items()), flush=True)
+    del mask, qs, ks, vs, qt, kt, vt, gyl, want, zero_slab
+    torch.cuda.empty_cache()
+
+    # -- 11. the backward of the block-pruned weight on the "bsr" backend ---------
+    phase("bsr_backward")
+    W = repro_torch.sparse(w_csr, backend="bsr")
+    t0 = time.perf_counter()
+    wpt = W.plan.transposed()
+    wsub_t = wpt.substrate("bsr")
+    torch.cuda.synchronize()
+    print(f"[bsr_backward] A^T {wpt.csr.shape} block {wsub_t.block_shape}: "
+          f"{wsub_t.nblocks} blocks (A: {w_bsr.nblocks}); transposed plan and "
+          f"its BSR {time.perf_counter() - t0:.3f} s (host clock)", flush=True)
+    if wsub_t.nblocks != w_bsr.nblocks or wsub_t.block_shape != BSR_BLOCK[::-1]:
+        fail("bsr_backward: A^T's BSR is not the block transpose of A's")
+    wperm = W.plan.transposed_perm()
+    lib_wt = torch.sparse_csr_tensor(wpt.csr.indptr, wpt.csr.indices,
+                                     wpt.csr.data, size=wpt.csr.shape,
+                                     check_invariants=False)
+    wrows, wcols = W.plan.pattern()
+    brow = W.plan.bsr_brow()
+    bsr_bwd_rows = {}
+    for n in NS:
+        v = w_csr.data.clone().requires_grad_()
+        x = (randn(d_model, n) if n > 1 else randn(d_model)).requires_grad_()
+        gy = randn(d_ff, n) if n > 1 else randn(d_ff)
+        g2, x2 = gy.reshape(d_ff, -1), x.detach().reshape(d_model, -1)
+
+        def fwd_bwd():
+            (W.with_values(v) @ x * gy).sum().backward()
+
+        _, counts = no_plain(lambda: drive(fwd_bwd, "bsr_backward"),
+                             f"bsr_backward N={n}")
+        k11_took = took()["bsr_spmm"]
+        t_design = bsr._design(wsub_t, g2)
+        print(f"[bsr_backward] N={n}: launches {counts}, K11 {k11_took} "
+              f"(A^T: {t_design})", flush=True)
+        if counts["sddmm"] != 1 or counts["bsr_spmm"] != 2 \
+                or sum(counts.values()) != 3 or k11_took[t_design] < 1:
+            fail(f"bsr_backward N={n}: launches {counts}, K11 {k11_took}: "
+                 "expected K11 forward, K6 and K11 on A^T")
+        dblocks, dx = bsr_bwd_plain(w_bsr, brow, x.detach(), gy)
+        hold_grad(f"bsr_backward N={n} dvals", v.grad,
+                  dblocks[tuple(W.plan.bsr_map().long())])
+        hold_grad(f"bsr_backward N={n} dX", x.grad, dx)
+        hold("bsr_spmm", f"gemma ffn_up A^T {wsub_t.block_shape} N={n} {t_design}",
+             bsr.spmm_bsr(wsub_t, gy), bsr.spmm_bsr_plain(wsub_t, gy), "float32")
+        del dblocks, dx
+        y = W.with_values(v) @ x
+        with torch.no_grad():
+            vt_ = v.detach().index_select(0, wperm)
+            live_t = _fill_bsr(wsub_t, wpt.bsr_map(), vt_, False)
+            t_layout = wpt.kernel_opts(wpt.entry("nb_pr"))["layout"]
+            row = {"bwd_ms": time_ms(lambda: torch.autograd.grad(
+                       y, (v, x), gy, retain_graph=True)),
+                   "k6_ms": time_ms(lambda: W.plan.pattern_prep().sample(
+                       wrows, wcols, g2, x2, "hopper")),
+                   "k11_t_ms": time_ms(lambda: bsr.spmm_bsr(live_t, gy,
+                                                            layout=t_layout)),
+                   "k11_t_design": t_design,
+                   "k11_t_plain_ms": time_ms(lambda: bsr.spmm_bsr_plain(live_t, gy),
+                                             reps=5),
+                   "stream_t_ms": time_ms(lambda: _fill_bsr(
+                       wsub_t, wpt.bsr_map(), v.detach().index_select(0, wperm),
+                       False)),
+                   "dense_ms": time_ms(lambda: (g2 @ x2.t(), w_gpu.t() @ g2)),
+                   "library_ms": time_ms(lambda: lib_wt @ gy)}
+        nbw = w_bsr.nblocks * BSR_BLOCK[0] * BSR_BLOCK[1]
+        b6 = bound(12 * wrows.numel() + 4 * (d_ff + d_model) * n, 2 * w_csr.nnz * n)
+        b11 = bound(4 * nbw + 4 * wsub_t.nblocks + 4 * (d_ff + d_model) * n,
+                    2 * nbw * n)
+        row.update({"bound_ms": b6[0] + b11[0], "k6_bound_ms": b6[0],
+                    "k11_t_bound_ms": b11[0], "k11_t_bound_by": b11[1]})
+        row["rest_ms"] = row["bwd_ms"] - row["k6_ms"] - row["k11_t_ms"] - row["stream_t_ms"]
+        bsr_bwd_rows[n] = row
+        print(f"[time] bsr_backward gemma ffn_up N={n} "
+              + " ".join(f"{kk}={vv}" for kk, vv in row.items()), flush=True)
+        del y, v, x, gy, live_t, vt_
+    del W, lib_wt
+    torch.cuda.empty_cache()
+
+    # -- 12. summary --------------------------------------------------------------
     phase("summary")
     summary = []
     for kernel, meta in KERNELS.items():
@@ -2041,9 +2479,20 @@ def main() -> int:
                 for dd, (name, nn) in (("sr", SUMMARY_SHAPE[kernel]),
                                        ("pr", ("g500", 4)))}
         if kernel in ffn_rows:
-            # the new widths of the training step: K1 pr at N = 2048, K6 at
+            # the new widths of the training step: K1 sr at N = 2048, K6 at
             # d = 2048
             summary[-1]["ffn"] = ffn_rows[kernel]
+        if kernel == "chain_stats":
+            # K7 in full mode, as the chain's backward recomputes it
+            summary[-1]["backward"] = k7_rows
+        if kernel == "bsr_spmm":
+            # K11 on A^T's blocks, the backward's dX, at N = 128
+            r = bsr_bwd_rows[BSR_SUMMARY_N]
+            summary[-1]["transposed"] = {
+                "shape": f"gemma ffn_up A^T {tuple(BSR_BLOCK[::-1])} N={BSR_SUMMARY_N}",
+                "ms": r["k11_t_ms"], "design": r["k11_t_design"],
+                "plain_ms": r["k11_t_plain_ms"], "bound_ms": r["k11_t_bound_ms"],
+                "bound_by": r["k11_t_bound_by"], "library_ms": r["library_ms"]}
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,15 +14,16 @@
   chain (DESIGN.md §9) over the plan's pattern; ``execute_attention`` runs
   block-sparse attention over it (DESIGN.md §10).
 
-``execute`` on the balanced and ELL families and ``execute_pattern`` are
-differentiable in ``x`` and the live stream (``core/vjp.py``): the backward
+Every entry is differentiable (``core/vjp.py``).  ``execute`` on all three
+families and ``execute_pattern`` in ``x`` and the live stream: the backward
 runs the SDDMM entry for the values' gradient and the adaptive SpMM of Aᵀ
-(``PlanBuilder.transposed``, built once a plan) for ``x``'s.  A plan's baked
-values are constants, as in the reference.  The ``"bsr"`` family,
-``execute_sddmm``, ``execute_chain`` and ``execute_attention`` have no
-backward yet: with grad mode on, an operand that requires grad raises
-``NotImplementedError``, so the CPU and the card refuse alike instead of the
-card silently returning an output without ``grad_fn``.
+(``PlanBuilder.transposed``, built once a plan; K11 on Aᵀ's BSR for the
+block family) for ``x``'s.  ``execute_sddmm``, ``execute_chain`` and
+``execute_attention`` in their dense operands (and the bias): the backward
+recomputes the edge weights with the forward's kernels and runs the pair of
+SDDMM and SpMMs over the pattern and its transpose (``_ChainVJP``).  A
+plan's baked values are constants, as in the reference.  No autograd node is
+made when nothing requires grad.
 
 Two rules of the reference do not carry over.  Its plans demote
 ``pallas`` to ``xla`` when a tile spans more rows than ``max_win`` — a TPU
@@ -55,7 +56,8 @@ from .selector import (SelectorThresholds, TileGeometry, default_thresholds,
                        select_kernel)
 from .spmm import CHAIN_TRANSFORMS
 from .stats import MatrixStats, matrix_stats
-from .vjp import _stream_to_balanced, exec_balanced, exec_ell  # noqa: F401 (re-export)
+from .vjp import (_as_2d, _stream_to_balanced, exec_attn,  # noqa: F401 (re-export)
+                  exec_balanced, exec_bsr, exec_chain, exec_ell, exec_sddmm)
 
 #: plan-context kwargs a prep hook may opt into by declaring them; ``shared``
 #: is a dict of the plan that its entries' prep hooks share (the attention
@@ -188,14 +190,17 @@ class PlanBuilder:
 
     def transposed(self) -> "PlanBuilder":
         """The plan of Aᵀ, built once and held by this plan (never looked up
-        through a cache): Aᵀ's statistics, this plan's thresholds, backend,
-        tile and BSR block, its substrates built lazily.  Its values are
+        through a cache): Aᵀ's statistics, this plan's thresholds, backend
+        and tile, its substrates built lazily.  Its BSR block is this plan's
+        transposed, ``(bk, bm)``, so Aᵀ's BSR is the block transpose of A's
+        (as many blocks, each as full).  Its values are
         ``csr.data[transposed_perm()]``; the backward streams them live."""
         if self._transposed is None:
             csr_t, perm = csr_transpose(self.csr)
+            bm, bk = self.bsr_block
             pt = PlanBuilder(csr=csr_t, stats=matrix_stats(csr_t),
                              thresholds=self.thresholds, backend=self.backend,
-                             tile=self.tile, bsr_block=self.bsr_block)
+                             tile=self.tile, bsr_block=(bk, bm))
             self._transposed = (pt, perm)
         return self._transposed[0]
 
@@ -286,21 +291,8 @@ def plan(csr: CSR, *, n_hint: int | None = None,
     return p
 
 
-def _refuse_grad(op: str, *tensors) -> None:
-    """Raise while grad mode is on and an operand requires grad: the port
-    has no backward yet, and a kernel launched through ctypes would return
-    an output without ``grad_fn`` on the card only."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in tensors):
-        raise NotImplementedError(
-            f"{op}: an operand requires grad, and the port has no backward "
-            "yet (the VJP slice, ROADMAP.md queue 1: core/vjp.py as "
-            "torch.autograd.Function); run it under torch.no_grad() or "
-            "detach the operands")
-
-
 # ---------------------------------------------------------------------------
-# the backward of the balanced and ELL families
+# the backward of the matmul families
 # ---------------------------------------------------------------------------
 
 #: transposed-slab builds of ``PatternPrep`` since process start: one per
@@ -372,18 +364,32 @@ def pattern_prep(rows: torch.Tensor, cols: torch.Tensor, shape) -> PatternPrep:
     return prep
 
 
+def _sddmm_backend(backend: str, t: torch.Tensor) -> str:
+    """The backend of the SDDMM entry a backward samples with: the call's,
+    or, for the block-granule ``"bsr"`` backend (which has no SDDMM), the
+    one of the operands' device (K6 on the card, the plain one on the
+    CPU)."""
+    if backend == "bsr":
+        return "hopper" if t.is_cuda else "torch"
+    return backend
+
+
 class _PlanVJP:
     """The backward products of one ``execute`` call: the SDDMM entry over
     the plan's pattern for the values, the adaptive SpMM of the transposed
-    plan for ``x``, both on the call's backend."""
+    plan for ``x``, both on the call's backend.  ``dtype`` rounds the value
+    gradient (the BSR blocks' type, as the reference rounds ``dblocks``)."""
 
-    def __init__(self, p: PlanBuilder, backend: str | None):
-        self.p, self.backend = p, backend
+    def __init__(self, p: PlanBuilder, backend: str | None,
+                 dtype: torch.dtype | None = None):
+        self.p, self.backend, self.dtype = p, backend, dtype
 
     def dvals(self, g2: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         p = self.p
-        return p.pattern_prep().sample(*p.pattern(), g2, x2,
-                                       self.backend or p.backend)
+        slab = p.pattern_prep().sample(
+            *p.pattern(), g2, x2,
+            _sddmm_backend(self.backend or p.backend, g2))
+        return slab if self.dtype is None else slab.to(self.dtype)
 
     def dx(self, vals: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         p = self.p
@@ -399,10 +405,11 @@ def execute(p: PlanBuilder, x: torch.Tensor, *,
     of the plan's baked values; ``impl`` forces a logical kernel (oracle /
     ablation mode); ``backend`` overrides the plan's for this call.
 
-    Differentiable in ``x`` and ``vals`` on the balanced and ELL families
-    (``ExecBalanced`` / ``ExecEll``): the backward samples ``G·Xᵀ`` on the
-    pattern with the SDDMM entry and runs ``Aᵀ·G`` through the transposed
-    plan's own selector, whatever ``impl`` forced the forward to."""
+    Differentiable in ``x`` and ``vals`` (``ExecBalanced`` / ``ExecEll`` /
+    ``ExecBsr``): the backward samples ``G·Xᵀ`` on the pattern with the
+    SDDMM entry and runs ``Aᵀ·G`` through the transposed plan's own
+    selector, whatever ``impl`` forced the forward to (on the ``"bsr"``
+    backend: K11 on Aᵀ's BSR)."""
     if torch.is_grad_enabled() and p.csr.data.requires_grad:
         raise NotImplementedError(
             "execute: the plan's baked values require grad, but they are "
@@ -422,18 +429,14 @@ def execute(p: PlanBuilder, x: torch.Tensor, *,
     entry = p.entry(impl or p.select(n), backend)
     sub = p.substrate(entry.substrate)
     fn = functools.partial(entry.fn, **p.kernel_opts(entry))
-    if entry.substrate == "bsr":
-        _refuse_grad("execute", x, vals)
-        if vals is not None:
-            blocks = torch.zeros_like(sub.blocks).index_put_(
-                tuple(p.bsr_map()), vals.reshape(-1).to(sub.blocks.dtype),
-                accumulate=True)
-            sub = dataclasses.replace(sub, blocks=blocks)
-        return fn(sub, x)
     baked = vals is None             # the substrate as built holds them
     if baked and not (torch.is_grad_enabled() and x.requires_grad):
         return fn(sub, x)
     stream = (p.csr.data if baked else vals).reshape(-1)
+    if entry.substrate == "bsr":
+        return exec_bsr(fn, sub, None if baked else p.bsr_map(),
+                        _PlanVJP(p, backend, sub.blocks.dtype), stream, x,
+                        baked=baked)
     vjp = _PlanVJP(p, backend)
     if entry.substrate == "balanced":
         return exec_balanced(fn, sub, vjp, stream, x, baked=baked)
@@ -464,9 +467,17 @@ class _PatternVJP:
                                                        transposed=True))
 
 
+def _pattern_impl(n: int) -> str:
+    """The logical kernel of a pattern call that names none: ``nb_pr`` up
+    to the selector's default ``n_threshold``, ``nb_sr`` above it (a bare
+    pattern has no statistics to select by; the rule of
+    ``kernels/vsr.py::_design``)."""
+    return "nb_pr" if n <= SelectorThresholds.n_threshold else "nb_sr"
+
+
 def execute_pattern(rows: torch.Tensor, cols: torch.Tensor,
                     vals: torch.Tensor, shape: tuple, x: torch.Tensor, *,
-                    impl: str = "nb_pr", backend: str | None = None,
+                    impl: str | None = None, backend: str | None = None,
                     mesh: Any = None, shard_axis: str | None = None,
                     quant: str | None = None) -> torch.Tensor:
     """Differentiable SpMM over a bare balanced pattern — the training entry
@@ -475,10 +486,12 @@ def execute_pattern(rows: torch.Tensor, cols: torch.Tensor,
     ``rows >= M``, and ``vals`` holds one value a slot (any shape of that
     size; its gradient is 0 at padding slots).
 
-    ``backend=None`` takes the ``use_backend`` scope, else the one of the
-    pattern's device.  The backward is ``ExecBalanced``: the SDDMM entry
-    for ``vals``, and ``impl`` on Aᵀ's slabs for ``x`` (a bare pattern has
-    no statistics to select by).  Those slabs are per-pattern prep, built
+    ``impl=None`` takes ``nb_pr`` at N up to the selector's default
+    ``n_threshold`` and ``nb_sr`` above it (``_pattern_impl``); a named
+    ``impl`` forces that kernel.  ``backend=None`` takes the
+    ``use_backend`` scope, else the one of the pattern's device.  The
+    backward is ``ExecBalanced``: the SDDMM entry for ``vals``, and the
+    forward's kernel on Aᵀ's slabs for ``x``.  Those slabs are per-pattern prep, built
     once: memoised on the identity of ``rows`` and ``cols``, never hashed.
     ``mesh``, ``shard_axis`` and ``quant`` belong to paths of the reference
     not yet ported."""
@@ -489,6 +502,8 @@ def execute_pattern(rows: torch.Tensor, cols: torch.Tensor,
                                   "belong to paths of the reference not yet "
                                   "ported")
     backend = backend or registry.default_backend(rows.device)
+    if impl is None:
+        impl = _pattern_impl(1 if x.ndim == 1 else x.shape[1])
     entry = registry.resolve(impl, backend)
     if entry.substrate != "balanced":
         raise ValueError(f"execute_pattern needs a balanced-substrate kernel; "
@@ -514,6 +529,79 @@ def _chain_pattern(p: PlanBuilder) -> tuple[torch.Tensor, torch.Tensor]:
     return bal.rows, bal.cols
 
 
+class _ChainVJP:
+    """The backward products of one ``execute_sddmm``, ``execute_chain`` or
+    ``execute_attention`` call, over the plan's pattern and on the call's
+    backend (``core/vjp.py``'s ``ExecSddmm`` / ``ExecChain`` /
+    ``ExecAttn`` read them).  Streams are CSR-ordered and f32.
+
+    * ``weights`` recomputes the edge weights as the unfused forward does:
+      on the card K6, then K7 (chain) or K9 (attention) in the design the
+      pattern routes to (the block design on an attention mask, through
+      the plan's ``AttnBlocks``), the weights by elementwise ops; on the
+      ``"torch"`` backend their plain versions;
+    * ``sample`` is the ``"sddmm"`` entry over (G, X) (K6);
+    * ``rowsum``, ``spmm`` and ``spmm_t`` are ``execute`` with a live
+      stream on the plan (against ones for the row sum: K2) and on the
+      transposed plan, each through its own selector."""
+
+    def __init__(self, p: PlanBuilder, backend: str | None, *,
+                 entry: registry.KernelEntry | None = None,
+                 transform: str = "identity", alpha=None):
+        self.p, self.backend, self.entry = p, backend, entry
+        self.transform, self.alpha = transform, alpha
+
+    def stream(self, slab: torch.Tensor) -> torch.Tensor:
+        """A slab shaped like the pattern as the CSR-ordered f32 stream."""
+        return slab.reshape(-1)[:self.p.csr.nnz].float()
+
+    def row_ids(self) -> torch.Tensor:
+        return _chain_pattern(self.p)[0].reshape(-1)[:self.p.csr.nnz].long()
+
+    def weights(self, a: torch.Tensor, b: torch.Tensor,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+        p, entry = self.p, self.entry
+        rows, cols = _chain_pattern(p)
+        kw: dict = {"shape": tuple(p.csr.shape)}
+        if entry.backend == "hopper":
+            from ..kernels import attention, fused_chain
+            kw["blocks"] = p.kernel_opts(entry).get("blocks")
+            chain_w, attn_w = (fused_chain.chain_edge_weights,
+                               attention.attn_edge_weights)
+            a, b = a.contiguous(), b.contiguous()
+        else:
+            from .spmm import attn_edge_weights as attn_w
+            from .spmm import chain_edge_weights as chain_w
+        if bias is None:
+            w = chain_w(rows, cols, a, b, transform=self.transform,
+                        alpha=self.alpha, **kw)
+        else:
+            w = attn_w(rows, cols, a, b, bias, scale=self.alpha, **kw)
+        return self.stream(w)
+
+    def sample(self, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        p = self.p
+        x2 = _as_2d(x).contiguous()
+        slab = p.pattern_prep().sample(*_chain_pattern(p),
+                                       _as_2d(g).to(x2.dtype).contiguous(), x2,
+                                       self.backend or p.backend)
+        return self.stream(slab)
+
+    def rowsum(self, vals: torch.Tensor) -> torch.Tensor:
+        ones = torch.ones(self.p.csr.shape[1], dtype=torch.float32,
+                          device=vals.device)
+        return self.spmm(vals, ones)
+
+    def spmm(self, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return execute(self.p, x.contiguous(), vals=vals, backend=self.backend)
+
+    def spmm_t(self, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        p = self.p
+        return execute(p.transposed(), x.contiguous(),
+                       vals=vals.index_select(0, p.transposed_perm()),
+                       backend=self.backend)
+
+
 def _chain_bound(p: PlanBuilder, entry: registry.KernelEntry,
                  extra: dict):
     """The entry with the matrix shape, the per-call statics (transform,
@@ -536,12 +624,14 @@ def execute_sddmm(p: PlanBuilder, a: torch.Tensor, b: torch.Tensor, *,
                   backend: str | None = None) -> torch.Tensor:
     """Sampled dense-dense matmul over the plan's pattern:
     ``e[i] = <A[row_i], B[col_i]>`` for every nonzero, returned as the
-    CSR-ordered ``(nnz,)`` f32 edge-score stream."""
-    _refuse_grad("execute_sddmm", a, b)
+    CSR-ordered ``(nnz,)`` f32 edge-score stream.  Differentiable in ``a``
+    and ``b`` (``ExecSddmm``: the SpMMs of A and Aᵀ with the score
+    gradient as their stream)."""
     _check_chain_operands("sddmm", p, a, b)
     entry = p.entry("sddmm", backend)
     rows, cols = _chain_pattern(p)
-    slab = _chain_bound(p, entry, {})(rows, cols, a, b)
+    slab = exec_sddmm(_chain_bound(p, entry, {}), rows, cols,
+                      _ChainVJP(p, backend), a, b)
     # the balanced tiling is row-major over the CSR stream: flatten and trim
     return slab.reshape(-1)[:p.csr.nnz]
 
@@ -557,11 +647,15 @@ def execute_chain(p: PlanBuilder, a: torch.Tensor, b: torch.Tensor,
     runs the unfused xla pair.  A ``"hopper"`` plan there runs the unfused
     pair made of the port's own kernels (SDDMM scores, softmax statistics,
     then the nnz-balanced SpMM on the edge stream), so the plain version
-    never takes the card's path."""
+    never takes the card's path.
+
+    Differentiable in ``a``, ``b`` and ``x`` (``ExecChain``): the backward
+    recomputes the weights, samples ``dW`` over (G, X), applies the
+    transform's jacobian (the softmax's row sum by the plan's SpMV) and
+    runs ``dA``, ``dB`` and ``dX`` as SpMMs of A and Aᵀ."""
     if transform not in CHAIN_TRANSFORMS:
         raise ValueError(f"unknown chain transform {transform!r}; expected "
                          f"one of {CHAIN_TRANSFORMS}")
-    _refuse_grad("execute_chain", a, b, x)
     _check_chain_operands("chain", p, a, b)
     k = p.csr.shape[1]
     if x.ndim not in (1, 2) or x.shape[0] != k:
@@ -574,7 +668,9 @@ def execute_chain(p: PlanBuilder, a: torch.Tensor, b: torch.Tensor,
     if entry.backend == "hopper" and n < p.thresholds.chain_fuse_min_n:
         extra["fuse"] = False
     rows, cols = _chain_pattern(p)
-    return _chain_bound(p, entry, extra)(rows, cols, a, b, x)
+    vjp = _ChainVJP(p, backend, entry=entry, transform=transform,
+                    alpha=extra["alpha"])
+    return exec_chain(_chain_bound(p, entry, extra), rows, cols, vjp, a, b, x)
 
 
 def execute_attention(p: PlanBuilder, q: torch.Tensor, k: torch.Tensor,
@@ -593,8 +689,11 @@ def execute_attention(p: PlanBuilder, q: torch.Tensor, k: torch.Tensor,
     Fuse gate (``thresholds.attn_fuse_min_seq``): below it the reference
     runs its unfused xla pair.  A ``"hopper"`` plan there runs the port's
     own unfused kernels — ``chain_unfused`` without a bias, K6 → K9 → the
-    weights by tensor ops → K1 with one — never the plain version."""
-    _refuse_grad("execute_attention", q, k, v, bias)
+    weights by tensor ops → K1 with one — never the plain version.
+
+    Differentiable in ``q``, ``k``, ``v`` and ``bias``: without a bias the
+    softmax chain's ``ExecChain``, with one ``ExecAttn`` (``dBias = dZ``,
+    carried back from the slab to the flat stream by autograd)."""
     m, kdim = (int(s) for s in p.csr.shape)
     if q.ndim != 2 or k.ndim != 2 or q.shape[1] != k.shape[1]:
         raise ValueError(f"attention needs Q (m, d) and K (k, d); got "
@@ -612,12 +711,14 @@ def execute_attention(p: PlanBuilder, q: torch.Tensor, k: torch.Tensor,
     rows, cols = _chain_pattern(p)
     if bias is None:
         entry = p.entry("chain", backend)
-        return _chain_bound(p, entry, dict(extra, transform="softmax",
-                                           alpha=sc))(rows, cols, q, k, v)
+        vjp = _ChainVJP(p, backend, entry=entry, transform="softmax", alpha=sc)
+        return exec_chain(_chain_bound(p, entry, dict(
+            extra, transform="softmax", alpha=sc)), rows, cols, vjp, q, k, v)
     if bias.ndim != 1 or bias.shape[0] != p.csr.nnz:
         raise ValueError(f"bias must be a flat ({p.csr.nnz},) per-edge "
                          f"stream in CSR order; got {tuple(bias.shape)}")
     slab = _stream_to_balanced(bias.float(), p.substrate("balanced"))
     entry = p.entry("attn_chain", backend)
-    return _chain_bound(p, entry, dict(extra, scale=sc))(rows, cols, q, k,
-                                                         slab, v)
+    vjp = _ChainVJP(p, backend, entry=entry, transform="softmax", alpha=sc)
+    return exec_attn(_chain_bound(p, entry, dict(extra, scale=sc)), rows,
+                     cols, vjp, q, k, slab, v)

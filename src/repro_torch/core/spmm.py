@@ -223,16 +223,26 @@ def chain_stats_torch(rows, cols, a, b, *, shape, alpha=None, **_opts):
     return _softmax_stats(al * e, r, valid, m)
 
 
+def chain_edge_weights(rows, cols, a, b, *, shape,
+                       transform: str = "identity", alpha=None, stats=None
+                       ) -> torch.Tensor:
+    """The chain's f32 edge weights ``T(e)`` shaped like ``rows``, 0 at
+    padding: the first half of ``chain_torch``, and the recompute of the
+    chain's backward on the ``"torch"`` backend."""
+    m = int(shape[0])
+    r, valid = _flat_pattern(rows, m)
+    e = _sddmm_flat(r, cols.reshape(-1), a, b, valid)
+    return chain_weights(e, r, valid, m, transform, alpha,
+                         stats=stats).reshape(rows.shape)
+
+
 def chain_torch(rows, cols, a, b, x, *, shape, transform: str = "identity",
                 alpha=None, stats=None, **_opts) -> torch.Tensor:
     """Unfused SDDMM → transform → SpMM: the edge stream is materialised and
     fed to ``spmm_nb_pr``.  ``stats`` replaces the softmax statistics."""
-    m = int(shape[0])
-    r, valid = _flat_pattern(rows, m)
-    e = _sddmm_flat(r, cols.reshape(-1), a, b, valid)
-    w = chain_weights(e, r, valid, m, transform, alpha, stats=stats)
-    return spmm_nb_pr(BalancedCOO(rows, cols, w.reshape(rows.shape),
-                                  tuple(shape)), x)
+    w = chain_edge_weights(rows, cols, a, b, shape=shape, transform=transform,
+                           alpha=alpha, stats=stats)
+    return spmm_nb_pr(BalancedCOO(rows, cols, w, tuple(shape)), x)
 
 
 def attn_stats_torch(rows, cols, q, k, bias, *, shape, scale=1.0, **_opts):
@@ -246,18 +256,27 @@ def attn_stats_torch(rows, cols, q, k, bias, *, shape, scale=1.0, **_opts):
     return _softmax_stats(z, r, valid, m)
 
 
+def attn_edge_weights(rows, cols, q, k, bias, *, shape, scale=1.0,
+                      stats=None) -> torch.Tensor:
+    """Attention's f32 edge weights, the masked softmax of ``scale * e +
+    bias`` shaped like ``rows``, 0 at padding: the first half of
+    ``attn_chain_torch``, and the recompute of attention's backward on the
+    ``"torch"`` backend."""
+    m = int(shape[0])
+    r, valid = _flat_pattern(rows, m)
+    e = _sddmm_flat(r, cols.reshape(-1), q, k, valid)
+    return attn_weights(e, bias.reshape(-1).float(), r, valid, m, scale,
+                        stats=stats).reshape(rows.shape)
+
+
 def attn_chain_torch(rows, cols, q, k, bias, v, *, shape, scale=1.0,
                      stats=None, **_opts) -> torch.Tensor:
     """Unfused attention: SDDMM QKᵀ → masked softmax of ``scale * e +
     bias`` → SpMM against V, the edge stream materialised (the reference's
     ``attn_chain_xla``).  ``stats`` replaces the softmax statistics."""
-    m = int(shape[0])
-    r, valid = _flat_pattern(rows, m)
-    e = _sddmm_flat(r, cols.reshape(-1), q, k, valid)
-    w = attn_weights(e, bias.reshape(-1).float(), r, valid, m, scale,
-                     stats=stats)
-    return spmm_nb_pr(BalancedCOO(rows, cols, w.reshape(rows.shape),
-                                  tuple(shape)), v)
+    w = attn_edge_weights(rows, cols, q, k, bias, shape=shape, scale=scale,
+                          stats=stats)
+    return spmm_nb_pr(BalancedCOO(rows, cols, w, tuple(shape)), v)
 
 
 def _ignore_opts(fn):

@@ -29,7 +29,10 @@
 // its bm row sums in registers (RMAX >= bm, so bm <= 64); at the end the
 // k-lanes reduce in shared memory and every output element is stored once,
 // without atomics.  Block entries are read from global memory: a warp's
-// threads of one k-lane read the same entry (a broadcast from L1).  Rows
+// threads of one k-lane read the same entry (a broadcast from L1).  A block
+// of more than 64 rows (Aᵀ's blocks in the backward of a (bm, bk) weight
+// with bk > 64: (bk, bm)) is cut into chunks of kBsrChunkRows rows, one a
+// CTA (the grid's z), each re-reading its X slab.  Rows
 // past M (the ragged last block row) and k-rows past K (the ragged last
 // block column) are masked; a block row without blocks stores zeros.  It
 // issues about one load per FMA and re-reads each block's X slab from L2
@@ -85,6 +88,8 @@
 namespace repro_torch {
 
 constexpr int kBsrThreads = 256;
+// rows of a block one CTA sums when the block has more than 64
+constexpr int kBsrChunkRows = 16;
 
 template <typename TV, typename TX, int RMAX>
 __global__ void __launch_bounds__(kBsrThreads)
@@ -99,6 +104,10 @@ bsr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
   const int col = blockIdx.y * cols + c_local;
   const bool col_ok = col < n;
   const int brow = blockIdx.x;
+  // this CTA's rows of the block: [r0, r0 + rn), all of them unless the
+  // block is cut into chunks (bm > 64)
+  const int r0 = blockIdx.z * RMAX;
+  const int rn = min(RMAX, bm - r0);
 
   float acc[RMAX];
 #pragma unroll
@@ -112,10 +121,10 @@ bsr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
     const int krow = indices[b] * bk + kk;
     if (krow < k && col_ok) {
       const float xv = to_f32(x[static_cast<long long>(krow) * n + col]);
-      const TV* blk = blocks + static_cast<long long>(b) * bm * bk + kk;
+      const TV* blk = blocks + (static_cast<long long>(b) * bm + r0) * bk + kk;
 #pragma unroll
       for (int j = 0; j < RMAX; ++j)
-        if (j < bm) acc[j] += to_f32(blk[j * bk]) * xv;
+        if (j < rn) acc[j] += to_f32(blk[j * bk]) * xv;
     }
     kk += n_lanes;
     if (kk >= bk) {
@@ -127,14 +136,14 @@ bsr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
   // reduce each row's sums over the k-lanes, one row at a time
 #pragma unroll
   for (int j = 0; j < RMAX; ++j) {
-    if (j < bm) {  // uniform across the CTA
+    if (j < rn) {  // uniform across the CTA
       red[threadIdx.x] = acc[j];
       __syncthreads();
       for (int s = n_lanes / 2; s > 0; s >>= 1) {
         if (lane_k < s) red[threadIdx.x] += red[threadIdx.x + s * cols];
         __syncthreads();
       }
-      const int row = brow * bm + j;
+      const int row = brow * bm + r0 + j;
       if (lane_k == 0 && col_ok && row < m)
         y[static_cast<long long>(row) * n + col] = red[c_local];
       __syncthreads();
@@ -148,19 +157,20 @@ int launch_bsr_spmm(const int* indptr, const int* indices, const void* blocks,
                     int k, int n, cudaStream_t stream) {
   int cols = 1;
   while (cols < n && cols < 128) cols <<= 1;
-  const dim3 grid(mb, (n + cols - 1) / cols);
+  const dim3 grid(mb, (n + cols - 1) / cols,
+                  bm <= 64 ? 1 : (bm + kBsrChunkRows - 1) / kBsrChunkRows);
   const TV* b = static_cast<const TV*>(blocks);
   const TX* xx = static_cast<const TX*>(x);
-  if (bm <= 8)
+  if (bm > 64)
+    bsr_spmm_kernel<TV, TX, kBsrChunkRows><<<grid, kBsrThreads, 0, stream>>>(indptr, indices, b, xx, y, bm, bk, m, k, n, cols);
+  else if (bm <= 8)
     bsr_spmm_kernel<TV, TX, 8><<<grid, kBsrThreads, 0, stream>>>(indptr, indices, b, xx, y, bm, bk, m, k, n, cols);
   else if (bm <= 16)
     bsr_spmm_kernel<TV, TX, 16><<<grid, kBsrThreads, 0, stream>>>(indptr, indices, b, xx, y, bm, bk, m, k, n, cols);
   else if (bm <= 32)
     bsr_spmm_kernel<TV, TX, 32><<<grid, kBsrThreads, 0, stream>>>(indptr, indices, b, xx, y, bm, bk, m, k, n, cols);
-  else if (bm <= 64)
-    bsr_spmm_kernel<TV, TX, 64><<<grid, kBsrThreads, 0, stream>>>(indptr, indices, b, xx, y, bm, bk, m, k, n, cols);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
+    bsr_spmm_kernel<TV, TX, 64><<<grid, kBsrThreads, 0, stream>>>(indptr, indices, b, xx, y, bm, bk, m, k, n, cols);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -499,8 +509,8 @@ int launch_bsr_tc(const int* gptr, const int* gcol, const int* gtile,
 
 // indptr: (mb+1,) int32; indices: (nblocks,) int32 block columns; blocks:
 // (nblocks, bm, bk) f32 or bf16; x: (k, n) row-major f32 or bf16; y: (m, n)
-// f32, fully written.  mb = ceil(m / bm), bm <= 64.  Returns the launch's
-// cudaError_t.
+// f32, fully written.  mb = ceil(m / bm); bm > 64 is cut into chunks of
+// kBsrChunkRows rows.  Returns the launch's cudaError_t.
 extern "C" int repro_bsr_spmm(const int* indptr, const int* indices,
                               const void* blocks, int blocks_bf16,
                               const void* x, int x_bf16, float* y, int mb,

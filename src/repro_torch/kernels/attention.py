@@ -57,7 +57,7 @@ __all__ = ["BLOCK", "BLOCK_FILL_MIN", "BLOCK_MAX_D", "BlockLayout",
            "AttnBlocks", "build_block_layout", "chunk_row_blocks",
            "layout_entries", "attn_stats_fused", "attn_stats_plain",
            "attn_stats_blocks_plain", "attn_chain_fused", "attn_chain_plain",
-           "attn_chain_blocks_plain", "attn_unfused"]
+           "attn_chain_blocks_plain", "attn_unfused", "attn_edge_weights"]
 
 #: launches of K9 and K10 since process start (or the last reset)
 LAUNCHES = {"attn_stats": 0, "attn_chain": 0}
@@ -204,24 +204,34 @@ def _launch_chain(design, rows, cols, q, k, bias, v, *, shape, scale=1.0,
     return y[:, 0] if v.ndim == 1 else y
 
 
-def attn_unfused(rows, cols, q, k, bias, v, *, shape, scale=1.0,
-                 stats=None, blocks: AttnBlocks | None = None
-                 ) -> torch.Tensor:
-    """Attention as separate kernels, the edge stream materialised: K6
-    scores, K9 statistics, the weights by elementwise tensor ops (the
-    reference does that step outside any kernel too), then the nnz-balanced
-    SpMM routed by N (``vsr.spmm_vsr_routed``: K2 for 1-D v, else K1 in
-    its pr or sr design) on ``BalancedCOO(rows, cols, w)``."""
+def attn_edge_weights(rows, cols, q, k, bias, *, shape, scale=1.0,
+                      stats=None, blocks: AttnBlocks | None = None
+                      ) -> torch.Tensor:
+    """Attention's f32 edge weights shaped like ``rows``, 0 at padding, by
+    the kernels: K6 scores, K9 statistics (the block design on an attention
+    mask), the weights by elementwise tensor ops (the reference does that
+    step outside any kernel too).  The first half of ``attn_unfused``, and
+    the recompute of attention's backward on the card."""
     m = int(shape[0])
     e = fused_chain.sddmm_fused(rows, cols, q, k, shape=shape)
     if stats is None:
         stats = attn_stats_fused(rows, cols, q, k, bias, shape=shape,
                                  scale=scale, blocks=blocks)
     r = rows.reshape(-1)
-    w = attn_weights(e.reshape(-1), bias.reshape(-1).float(), r, r < m, m,
-                     scale, stats=stats)
-    bal = BalancedCOO(rows, cols, w.reshape(rows.shape), tuple(shape))
-    return spmm_vsr_routed(bal, v)
+    return attn_weights(e.reshape(-1), bias.reshape(-1).float(), r, r < m, m,
+                        scale, stats=stats).reshape(rows.shape)
+
+
+def attn_unfused(rows, cols, q, k, bias, v, *, shape, scale=1.0,
+                 stats=None, blocks: AttnBlocks | None = None
+                 ) -> torch.Tensor:
+    """Attention as separate kernels, the edge stream materialised: the
+    weights of ``attn_edge_weights``, then the nnz-balanced SpMM routed by
+    N (``vsr.spmm_vsr_routed``: K2 for 1-D v, else K1 in its pr or sr
+    design) on ``BalancedCOO(rows, cols, w)``."""
+    w = attn_edge_weights(rows, cols, q, k, bias, shape=shape, scale=scale,
+                          stats=stats, blocks=blocks)
+    return spmm_vsr_routed(BalancedCOO(rows, cols, w, tuple(shape)), v)
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,10 @@ designs, routed per call by ``_design``:
   ``BsrGroups`` layout (``build_groups``), built once a plan by the entry's
   prep hook and reused by live value streams;
 * **the fma design** (``"fma"``) for every other call (N = 1 and 4 on the
-  default path): one CTA per (block row, ≤ 128 columns of X) on the CUDA
-  cores, straight from ``indptr``.
+  default path, and Aᵀ's ``(bk, bm)`` blocks in the backward when bk >
+  ``GROUP_ROWS``): one CTA per (block row, ≤ 128 columns of X, chunk of
+  ≤ ``MAX_BLOCK_ROWS`` rows of the block) on the CUDA cores, straight from
+  ``indptr``.
 
 ``DESIGN_LAUNCHES`` counts each design's launches.  ``spmm_bsr_plain`` is
 the oracle the kernels are held to; ``spmm_bsr_groups_plain`` evaluates the
@@ -46,7 +48,8 @@ LAUNCHES = {"bsr_spmm": 0}
 #: K11's launches by design: "tc" (tensor cores, the group layout) or "fma"
 DESIGN_LAUNCHES = {"bsr_spmm": {"tc": 0, "fma": 0}}
 
-#: block rows the fma design keeps as per-thread f32 sums (registers)
+#: block rows the fma design keeps as per-thread f32 sums (registers); a
+#: taller block is cut into chunks of 16 rows, a CTA each
 MAX_BLOCK_ROWS = 64
 #: output rows of a group in the tensor-core design (eight n8 MMA tiles)
 GROUP_ROWS = 64
@@ -329,10 +332,9 @@ def _run(design: str, bsr: BSR, x2: torch.Tensor, layout: BsrGroups | None,
             y.data_ptr(), bm, bk, m, k, n,
             tc_columns(n) if ncols is None else ncols, _common.stream_of(x2))
     else:
-        if bm > MAX_BLOCK_ROWS:
-            raise ValueError(f"bsr_spmm: block of {bm} rows > "
-                             f"{MAX_BLOCK_ROWS}, the sums a thread keeps in "
-                             "registers")
+        if -(-bm // 16) > 65535:
+            raise ValueError(f"bsr_spmm: a block of {bm} rows exceeds the "
+                             "launch grid")
         err = _build.lib().repro_bsr_spmm(
             bsr.indptr.data_ptr(), bsr.indices.data_ptr(),
             bsr.blocks.data_ptr(), _common.is_bf16(bsr.blocks), x2.data_ptr(),

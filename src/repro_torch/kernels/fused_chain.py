@@ -43,7 +43,9 @@ Each has a plain PyTorch version beside it (``*_plain``) with the same
 contract: what the CPU takes and what the kernels are held to on the card.
 ``chain_unfused`` is the pair a ``"hopper"`` plan runs below the fuse gate
 (``thresholds.chain_fuse_min_n``): K6 scores, K7 statistics, the weights by
-elementwise tensor ops, then K1/K2 on the materialised edge stream.
+elementwise tensor ops (``chain_edge_weights``, which the chain's backward
+runs to recompute the weights), then K1/K2 on the materialised edge
+stream.
 """
 from __future__ import annotations
 
@@ -61,7 +63,7 @@ from .vsr import _prep_geometry, spmm_vsr_routed
 
 __all__ = ["CHAIN_TRANSFORMS", "sddmm_fused", "sddmm_plain",
            "chain_stats_fused", "chain_stats_plain", "chain_fused",
-           "chain_plain", "chain_unfused", "edge_slots",
+           "chain_plain", "chain_unfused", "chain_edge_weights", "edge_slots",
            "chain_stats_edge_plain", "chain_tiles_plain"]
 
 #: launches of K6, K7 and K8 since process start (or the last reset)
@@ -417,14 +419,16 @@ def _launch_chain(design, rows, cols, a, b, x, *, shape,
     return y[:, 0] if x.ndim == 1 else y
 
 
-def chain_unfused(rows, cols, a, b, x, *, shape, transform: str = "identity",
-                  alpha=None, stats=None,
-                  blocks: _blocks.AttnBlocks | None = None) -> torch.Tensor:
-    """The chain as separate kernels, the edge stream materialised: K6
-    scores, K7 statistics for softmax, the weights by elementwise tensor ops
-    (the reference does that step outside any kernel too), then the
-    nnz-balanced SpMM routed by N (``vsr.spmm_vsr_routed``: K2 for 1-D x,
-    else K1 in its pr or sr design) on ``BalancedCOO(rows, cols, w)``.  ``blocks`` as for
+def chain_edge_weights(rows, cols, a, b, *, shape,
+                       transform: str = "identity", alpha=None, stats=None,
+                       blocks: _blocks.AttnBlocks | None = None
+                       ) -> torch.Tensor:
+    """The chain's f32 edge weights ``T(e)`` shaped like ``rows``, 0 at
+    padding, by the kernels: K6 scores, K7 statistics for softmax (full
+    mode, or the block design on an attention pattern), the weights by
+    elementwise tensor ops (the reference does that step outside any
+    kernel too).  The first half of ``chain_unfused``, and the recompute of
+    the chain's backward on the card.  ``blocks`` as for
     ``chain_stats_fused``."""
     _check_transform(transform)
     m = int(shape[0])
@@ -433,10 +437,21 @@ def chain_unfused(rows, cols, a, b, x, *, shape, transform: str = "identity",
         stats = chain_stats_fused(rows, cols, a, b, shape=shape, alpha=alpha,
                                   blocks=blocks)
     r = rows.reshape(-1)
-    w = chain_weights(e.reshape(-1), r, r < m, m, transform, alpha,
-                      stats=stats)
-    bal = BalancedCOO(rows, cols, w.reshape(rows.shape), tuple(shape))
-    return spmm_vsr_routed(bal, x)
+    return chain_weights(e.reshape(-1), r, r < m, m, transform, alpha,
+                         stats=stats).reshape(rows.shape)
+
+
+def chain_unfused(rows, cols, a, b, x, *, shape, transform: str = "identity",
+                  alpha=None, stats=None,
+                  blocks: _blocks.AttnBlocks | None = None) -> torch.Tensor:
+    """The chain as separate kernels, the edge stream materialised: the
+    weights of ``chain_edge_weights``, then the nnz-balanced SpMM routed by
+    N (``vsr.spmm_vsr_routed``: K2 for 1-D x, else K1 in its pr or sr
+    design) on ``BalancedCOO(rows, cols, w)``.  ``blocks`` as for
+    ``chain_stats_fused``."""
+    w = chain_edge_weights(rows, cols, a, b, shape=shape, transform=transform,
+                           alpha=alpha, stats=stats, blocks=blocks)
+    return spmm_vsr_routed(BalancedCOO(rows, cols, w, tuple(shape)), x)
 
 
 # ---------------------------------------------------------------------------

@@ -482,22 +482,39 @@ def test_plan_cache_segments_attention_from_chain():
     assert pc.stats()["builds"] == 2 and pc.stats()["hits"] == 1
 
 
-def test_operands_requiring_grad_are_refused():
-    spec = _port_spec(SPECS["window"])
-    q, k, v = _t(*_qkv(np.random.default_rng(10), spec.seq, 8))
+def test_operands_requiring_grad_get_grads():
+    """The calls the refusal made before attention's backward (q, v or the
+    bias requiring grad) carry a ``grad_fn`` on both backends, and their
+    grads are ``jax.grad`` of the reference's ``sparse_attention``; under
+    ``no_grad`` no output requires grad (``tests/test_torch_attention_
+    grads.py`` holds the whole backward)."""
+    import jax
+    ref_spec = SPECS["window"]
+    spec = _port_spec(ref_spec)
+    qn, kn, vn = _qkv(np.random.default_rng(10), spec.seq, 8)
+    q, k, v = _t(qn, kn, vn)
     bias = torch.zeros(patterns.build_mask(spec).csr.nnz)
+    jq, jk, jv = (jnp.asarray(t) for t in (qn, kn, vn))
+    jb = jnp.zeros(bias.shape[0])
+    att = lambda qq, kk, vv, bb=None: ref_api.sparse_attention(  # noqa: E731
+        ref_spec, qq, kk, vv, bias=bb, backend="xla", cache=False).sum()
+    want = (jax.grad(lambda qq: att(qq, jk, jv))(jq),
+            jax.grad(lambda vv: att(jq, jk, vv))(jv),
+            jax.grad(lambda bb: att(jq, jk, jv, bb))(jb))
     for backend in ("torch", "hopper"):
         run = dict(backend=backend, cache=False)
+        leaves = (q.clone().requires_grad_(), v.clone().requires_grad_(),
+                  bias.clone().requires_grad_())
         calls = (
-            lambda: repro_torch.sparse_attention(
-                spec, q.clone().requires_grad_(), k, v, **run),
-            lambda: repro_torch.sparse_attention(
-                spec, q, k, v.clone().requires_grad_(), **run),
-            lambda: repro_torch.sparse_attention(
-                spec, q, k, v, bias=bias.clone().requires_grad_(), **run))
-        for call in calls:
-            with pytest.raises(NotImplementedError, match="VJP"):
-                call()
+            lambda: repro_torch.sparse_attention(spec, leaves[0], k, v, **run),
+            lambda: repro_torch.sparse_attention(spec, q, k, leaves[1], **run),
+            lambda: repro_torch.sparse_attention(spec, q, k, v, bias=leaves[2],
+                                                 **run))
+        for call, leaf, w in zip(calls, leaves, want):
+            y = call()
+            assert y.grad_fn is not None
+            y.sum().backward()
+            _close(leaf.grad, w)
             with torch.no_grad():
                 assert not call().requires_grad
 

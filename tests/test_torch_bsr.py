@@ -227,17 +227,24 @@ def test_bsr_plan_cache():
     assert A.plan.built_substrates == ("bsr",)
 
 
-def test_bsr_cpu_does_not_count_launches_and_refuses_grad():
+def test_bsr_cpu_does_not_count_launches_and_gives_grads():
+    """No launch is counted on the CPU, forward or backward; the calls the
+    refusal made before the block family's backward (x or the live stream
+    requiring grad) give the dense product's grads
+    (``tests/test_torch_bsr_grads.py`` holds the whole backward)."""
     csr = _port(MATS["rand_100x80"])
     A = repro_torch.sparse(csr, device="cpu", backend="bsr", cache=False)
     reset_launch_counts()
     A @ torch.randn(80, 3)
+    dense = formats.bsr_to_dense(A.plan.substrate("bsr")).float()
+    x = torch.randn(80, 3, requires_grad=True)
+    v = torch.ones(A.nnz, requires_grad=True)
+    (A @ x).sum().backward()
+    torch.testing.assert_close(x.grad, dense.sum(0)[:, None].expand(80, 3))
+    xv = torch.randn(80, 3)
+    (A.with_values(v) @ xv).sum().backward()
+    torch.testing.assert_close(v.grad, xv.sum(1)[csr.indices.long()])
     assert launch_counts()["bsr_spmm"] == 0
-    for call in (lambda: A @ torch.randn(80, 3, requires_grad=True),
-                 lambda: A.with_values(torch.ones(A.nnz, requires_grad=True))
-                 @ torch.randn(80, 3)):
-        with pytest.raises(NotImplementedError, match="VJP"):
-            call()
     with pytest.raises(ValueError):          # operands on two devices
         bsr.spmm_bsr(A.plan.substrate("bsr"), torch.randn(80, 3, device="meta"))
     with pytest.raises(ValueError):

@@ -466,24 +466,40 @@ def test_plan_refuses_unknown_chain_op_and_unported_arguments():
 # no silent loss of gradients
 # ---------------------------------------------------------------------------
 
-def test_operands_requiring_grad_are_refused():
-    """Without a backward, a CUDA kernel's output would carry no grad_fn
-    while the CPU's plain version would: both refuse alike instead.  The
-    SDDMM and the chain have none yet (``A @ x`` has:
-    ``test_matmul_operands_requiring_grad_get_grads``)."""
+def test_operands_requiring_grad_get_grads():
+    """The calls the refusal made before the chain's backward (``A.sddmm``,
+    ``A.chain``, ``sparse_chain`` with one operand requiring grad) carry a
+    ``grad_fn`` on both backends, and their grads are ``jax.grad`` of the
+    reference's; under ``no_grad`` no output requires grad
+    (``tests/test_torch_chain_grads.py`` holds the whole backward)."""
+    import jax
     dense, a, b, x = PROBLEMS["small"]()
     pc = _port_csr(csr_from_dense(dense))
     ta, tb, tx = _t(a, b, x)
+    R = ref_api.sparse(dense, backend="xla", chain_op="softmax")
+    ge = np.random.default_rng(1).standard_normal(pc.nnz).astype(np.float32)
+    want = {"sddmm_a": jax.grad(lambda aa: (R.sddmm(aa, jnp.asarray(b)) * ge).sum())(
+                jnp.asarray(a)),
+            "chain_b": jax.grad(lambda bb: R.chain(jnp.asarray(a), bb,
+                                                   jnp.asarray(x)).sum())(jnp.asarray(b)),
+            "chain_x": jax.grad(lambda xx: R.chain(jnp.asarray(a), jnp.asarray(b),
+                                                   xx).sum())(jnp.asarray(x))}
     for backend in ("torch", "hopper"):
         A = repro_torch.sparse(pc, device="cpu", backend=backend, cache=False)
-        calls = (lambda: A.sddmm(ta.clone().requires_grad_(), tb),
-                 lambda: A.chain(ta, tb.clone().requires_grad_(), tx),
-                 lambda: A.chain(ta, tb, tx.clone().requires_grad_()),
-                 lambda: repro_torch.sparse_chain(pc, ta, tb, tx.clone().requires_grad_(),
-                                                  device="cpu", backend=backend))
-        for call in calls:
-            with pytest.raises(NotImplementedError, match="VJP"):
-                call()
+        leaf = {"sddmm_a": ta.clone().requires_grad_(),
+                "chain_b": tb.clone().requires_grad_(),
+                "chain_x": tx.clone().requires_grad_()}
+        calls = {"sddmm_a": lambda: (A.sddmm(leaf["sddmm_a"], tb)
+                                     * torch.from_numpy(ge)).sum(),
+                 "chain_b": lambda: A.chain(ta, leaf["chain_b"], tx).sum(),
+                 "chain_x": lambda: repro_torch.sparse_chain(
+                     pc, ta, tb, leaf["chain_x"], device="cpu",
+                     backend=backend).sum()}
+        for name, call in calls.items():
+            out = call()
+            assert out.grad_fn is not None
+            out.backward()
+            _close(leaf[name].grad, want[name])
             with torch.no_grad():
                 assert not call().requires_grad
 

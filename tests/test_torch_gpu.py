@@ -252,8 +252,19 @@ def test_cuda_chain_facade_main_path(cuda):
         assert (counts["sddmm"], counts["chain_stats"], counts["vsr_spmm"],
                 counts["chain"]) == (1, 1, 1, 0), counts
         assert _rel(yu, y) < 1e-4, name
-        with pytest.raises(NotImplementedError):
-            A.chain(a, b, x.requires_grad_())
+        # an operand requiring grad: the card's backward, x's alone (the
+        # recompute's K6 and K7, then Aᵀ's SpMM), against the plain one
+        from repro_torch.core.vjp import chain_bwd_plain
+        xg = x.clone().requires_grad_()
+        yg = A.chain(a, b, xg, alpha=0.125)
+        reset_launch_counts()
+        yg.sum().backward()
+        counts = launch_counts()
+        assert (counts["sddmm"], counts["chain_stats"]) == (1, 1), counts
+        rows, cols = formats.balanced_pattern(csr, A.plan.tile)
+        want = chain_bwd_plain(rows, cols, a, b, x, torch.ones_like(y), csr.shape,
+                               "softmax", 0.125)
+        assert _rel(xg.grad, want[2]) < 1e-4, name
 
 
 
@@ -643,8 +654,17 @@ def test_cuda_sparse_attention_main_path(cuda):
     assert (counts["sddmm"], counts["attn_stats"], counts["vsr_spmm"],
             counts["attn_chain"]) == (1, 1, 1, 0), counts
     assert _rel(yu, y[0, 0]) < 1e-4          # y: the last case, with bias
-    with pytest.raises(NotImplementedError):
-        repro_torch.sparse_attention(spec, q, k, v.requires_grad_(), cache=False)
+    # an operand requiring grad: the card's backward of V alone against the
+    # plain one
+    from repro_torch.core.vjp import attn_bwd_plain
+    vg = v.clone().requires_grad_()
+    yg = repro_torch.sparse_attention(spec, q, k, vg, cache=False)
+    assert yg.grad_fn is not None
+    yg.sum().backward()
+    rows, cols = formats.balanced_pattern(csr, 512)
+    want = attn_bwd_plain(rows, cols, q, k, torch.zeros(rows.shape, device=cuda),
+                          v, torch.ones_like(yg), csr.shape, 64 ** -0.5)
+    assert _rel(vg.grad, want[3]) < 1e-4
 
 
 def _design_patterns():
@@ -1007,9 +1027,13 @@ def test_cuda_bsr_facade_and_rejects(cuda):
     assert launch_counts()["bsr_spmm"] == 1
     assert _rel(y2, A.with_values(new).matmul(x, backend="torch")) < 1e-4
     b = A.plan.substrate("bsr")
+    # blocks over the registers' 64 rows run the fma design in row chunks
+    # (Aᵀ's blocks in the backward of an (8, 128) weight)
+    tall = formats.csr_to_bsr(csr, 128, 8)
     reset_launch_counts()
-    with pytest.raises(ValueError):          # over the registers' 64 rows
-        bsr.spmm_bsr(formats.csr_to_bsr(csr, 128, 8), x)
+    assert _rel(bsr.spmm_bsr(tall, x), bsr.spmm_bsr_plain(tall, x)) < 1e-4
+    assert bsr.DESIGN_LAUNCHES["bsr_spmm"]["fma"] == 1
+    reset_launch_counts()
     with pytest.raises(ValueError):          # x of the wrong height
         bsr.spmm_bsr(b, x[1:])
     with pytest.raises(ValueError):          # no float64 kernel
@@ -1890,3 +1914,309 @@ def test_cuda_sparse_ffn_grads_match_the_cpu(cuda):
         ffn(xx).square().mean().backward()
     for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
         assert _rel(q.grad.cpu(), p.grad) < 1e-4, name
+
+
+# ---------------------------------------------------------------------------
+# the backward of the SDDMM, the chain, attention and the block family: every
+# product a launch through the registry, no plain version on the card's path
+# ---------------------------------------------------------------------------
+
+#: selector thresholds that send every pick of a plan (and of its transposed
+#: plan) to one substrate family
+_FAMILY_THRESHOLDS = {"balanced": dict(pr_avg_row=1e9, sr_cv=-1.0),
+                      "ell": dict(pr_avg_row=0.0, sr_cv=1e9)}
+
+
+@pytest.fixture
+def no_plain(monkeypatch):
+    """Every plain version a backward could reach on the card, counted: the
+    ``"torch"`` registry entries, the flat SDDMM and the local softmax
+    statistics of ``core/spmm.py``.  A test asserts the list is empty right
+    after the card's forward and backward, and clears it after running a
+    plain oracle."""
+    from repro_torch.core import registry, spmm, vjp
+    calls = []
+    for entry in registry.available("torch"):
+        def counted(*args, _fn=entry.fn, _name=entry.logical, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setitem(registry._REGISTRY, (entry.logical, "torch"),
+                            dataclasses.replace(entry, fn=counted))
+    for mod, name in ((spmm, "_sddmm_flat"), (vjp, "_sddmm_flat"),
+                      (spmm, "_softmax_stats")):
+        real = getattr(mod, name)
+
+        def counted(*args, _fn=real, _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+def _family_plan(csr, family, **kw):
+    import repro_torch
+    th = dataclasses.replace(repro_torch.SelectorThresholds(),
+                             **_FAMILY_THRESHOLDS[family])
+    return repro_torch.sparse(csr, thresholds=th, cache=False, **kw)
+
+
+def _pattern_flat(csr, tile=512):
+    rows, cols = formats.balanced_pattern(csr, tile)
+    return rows, cols
+
+
+_SPMMS = ("vsr_spmm", "vsr_spmv", "csc_spmm")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["balanced", "ell"])
+@pytest.mark.parametrize("d", [4, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sddmm_backward_matches_plain(cuda, no_plain, family, d, dtype):
+    """``A.sddmm`` backward on the card: ``dA`` by the plan's SpMM and
+    ``dB`` by the transposed plan's, against ``sddmm_bwd_plain``."""
+    from repro_torch.core.vjp import sddmm_bwd_plain
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, csr in _graphs(cuda).items():
+        A = _family_plan(csr, family)
+        a = torch.randn(csr.shape[0], d, device=cuda).to(dtype).requires_grad_()
+        b = torch.randn(csr.shape[1], d, device=cuda).to(dtype).requires_grad_()
+        e = A.sddmm(a, b)
+        ge = torch.randn_like(e)
+        reset_launch_counts()
+        e.backward(ge)
+        counts = launch_counts()
+        assert no_plain == [], no_plain
+        assert sum(counts[k] for k in _SPMMS) == 2, (name, counts)
+        assert counts["sddmm"] == 0
+        rows, cols = _pattern_flat(csr, A.plan.tile)
+        gs = torch.zeros(rows.numel(), device=cuda)
+        gs[:csr.nnz] = ge
+        da, db = sddmm_bwd_plain(rows, cols, a.detach(), b.detach(),
+                                 gs.reshape(rows.shape), csr.shape)
+        assert a.grad.dtype == dtype
+        assert _rel(a.grad, da) < tol, name
+        assert _rel(b.grad, db) < tol, name
+        no_plain.clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transform", ["identity", "scale", "softmax"])
+@pytest.mark.parametrize("n", [1, 4, 32])
+@pytest.mark.parametrize("family", ["balanced", "ell"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_chain_backward_matches_plain(cuda, no_plain, transform, n,
+                                           family, dtype):
+    """``A.chain`` backward on the card against ``chain_bwd_plain``: K6
+    twice (the recompute, ``dW``), K7 in full mode for softmax with the
+    plan's SpMV for the row sum, and three SpMMs (A, Aᵀ twice), each the
+    kernel of its plan's pick."""
+    from repro_torch.core.vjp import chain_bwd_plain
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, csr in _graphs(cuda).items():
+        A = _family_plan(csr, family, chain_op=transform)
+        a = (torch.randn(csr.shape[0], 32, device=cuda) * 0.3).to(dtype).requires_grad_()
+        b = (torch.randn(csr.shape[1], 32, device=cuda) * 0.3).to(dtype).requires_grad_()
+        x = torch.randn(csr.shape[1], n, device=cuda).to(dtype)
+        x = (x[:, 0].contiguous() if n == 1 else x).requires_grad_()
+        y = A.chain(a, b, x, transform=transform, alpha=0.4)
+        gy = torch.randn_like(y)
+        reset_launch_counts()
+        y.backward(gy)
+        counts = launch_counts()
+        assert no_plain == [], no_plain
+        assert counts["sddmm"] == 2, (name, counts)
+        assert counts["chain_stats"] == int(transform == "softmax")
+        if transform == "softmax":
+            assert fused_chain.STATS_MODES["full"] == 1
+        assert sum(counts[k] for k in _SPMMS) == 3 + int(transform == "softmax")
+        rows, cols = _pattern_flat(csr, A.plan.tile)
+        want = chain_bwd_plain(rows, cols, a.detach(), b.detach(), x.detach(),
+                               gy, csr.shape, transform, 0.4)
+        for got, w in zip((a.grad, b.grad, x.grad), want):
+            assert got.dtype == dtype
+            assert _rel(got, w) < tol, (name, transform)
+        no_plain.clear()
+
+
+@pytest.mark.gpu
+def test_cuda_chain_backward_launches_only_what_is_asked(cuda, no_plain):
+    """x alone: the recompute (K6) and Aᵀ's SpMM, no ``dW`` and no row sum;
+    the K6 of a recompute at d = 4 in the "seq" design."""
+    csr = _graphs(cuda)["skewed"]
+    A = _family_plan(csr, "balanced", chain_op="softmax")
+    a = torch.randn(csr.shape[0], 4, device=cuda)
+    b = torch.randn(csr.shape[1], 4, device=cuda)
+    x = torch.randn(csr.shape[1], 8, device=cuda, requires_grad=True)
+    y = A.chain(a, b, x)
+    reset_launch_counts()
+    y.sum().backward()
+    counts = launch_counts()
+    assert counts["sddmm"] == 1 and fused_chain.DESIGN_LAUNCHES["sddmm"]["seq"] == 1
+    assert counts["chain_stats"] == 1
+    assert sum(counts[k] for k in _SPMMS) == 1
+    assert no_plain == []
+
+
+def _attention_cases(device):
+    """A causal band (the block design of K7-K10) and a scattered graph
+    (the slot-tile design), each with an ALiBi-like bias."""
+    spec = patterns.sliding_window(512, 2, block=64, causal=True)
+    return {"band": patterns.build_mask(spec).csr.to(device),
+            "graph": rmat(9, 8, seed=3, device=device)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_backward_matches_plain(cuda, no_plain, bias, dtype):
+    """``execute_attention`` backward on the card against
+    ``attn_bwd_plain``: the statistics recomputed in the design the
+    pattern routes to (block on the band, slot-tile on the graph), the
+    bias's own gradient."""
+    import repro_torch
+    from repro_torch.core.plan import _stream_to_balanced, execute_attention
+    from repro_torch.core.vjp import attn_bwd_plain
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, csr in _attention_cases(cuda).items():
+        A = repro_torch.sparse(csr, chain_op="attn", cache=False)
+        m = csr.shape[0]
+        q = (torch.randn(m, 64, device=cuda) * 0.3).to(dtype).requires_grad_()
+        k = (torch.randn(m, 64, device=cuda) * 0.3).to(dtype).requires_grad_()
+        v = torch.randn(m, 64, device=cuda).to(dtype).requires_grad_()
+        bf = (torch.randn(csr.nnz, device=cuda) * 0.5).requires_grad_() if bias else None
+        y = execute_attention(A.plan, q, k, v, bias=bf)
+        gy = torch.randn_like(y)
+        reset_launch_counts()
+        y.backward(gy)
+        counts = launch_counts()
+        assert no_plain == [], no_plain
+        stats = "attn_stats" if bias else "chain_stats"
+        design = "block" if name == "band" else "slot"
+        mod = attention if bias else fused_chain
+        assert counts["sddmm"] == 2 and counts[stats] == 1, (name, counts)
+        assert mod.DESIGN_LAUNCHES[stats][design] == 1, (name, mod.DESIGN_LAUNCHES)
+        rows, cols = _pattern_flat(csr, A.plan.tile)
+        slab = _stream_to_balanced(bf.detach() if bias else
+                                   torch.zeros(csr.nnz, device=cuda),
+                                   formats.csr_to_balanced(csr, A.plan.tile))
+        dq, dk, dbias, dv = attn_bwd_plain(rows, cols, q.detach(), k.detach(),
+                                           slab, v.detach(), gy, csr.shape,
+                                           64 ** -0.5)
+        for got, w in ((q.grad, dq), (k.grad, dk), (v.grad, dv)):
+            assert _rel(got, w) < tol, name
+        if bias:
+            assert _rel(bf.grad, dbias.reshape(-1)[:csr.nnz]) < 1e-4, name
+        no_plain.clear()
+
+
+@pytest.mark.gpu
+def test_cuda_block_sparse_attention_backward(cuda):
+    """The model's ``_block_sparse_attention`` (GQA, no bias) on the card:
+    grads of every head against the same call on the CPU (its plain
+    versions)."""
+    from repro_torch.configs import gemma3_12b
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(gemma3_12b.SMOKE, attn_pattern="block_sparse",
+                              attn_block=64)
+    b, s, h, hk, hd = 1, 256, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator().manual_seed(0)
+    ts = [torch.randn(b, hh, s, hd, generator=gen) * 0.3 for hh in (h, hk, hk)]
+    gy = torch.randn(b, h, s, hd, generator=gen)
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).clone().requires_grad_() for t in ts]
+        y = transformer._block_sparse_attention(*leaves, cfg, True)
+        y.backward(gy.to(dev))
+        grads.append([t.grad.cpu() for t in leaves])
+    for got, want in zip(grads[1], grads[0]):
+        assert _rel(got, want) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [(8, 128), (16, 16), (8, 32), (3, 5)])
+@pytest.mark.parametrize("n", [1, 4, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_bsr_backward_matches_plain(cuda, no_plain, block, n, dtype):
+    """``A.with_values(v) @ x`` on the ``"bsr"`` backend, backward on the
+    card: ``dvals`` by K6 over the CSR pattern (rounded through the blocks'
+    type), ``dX`` by K11 on Aᵀ's BSR at ``(bk, bm)`` in the design it
+    routes to (tensor cores where bk ≤ 64 and N ≥ 8, else fma), against
+    ``bsr_bwd_plain``."""
+    import repro_torch
+    from repro_torch.core.vjp import bsr_bwd_plain
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    csr = _block_matrices(cuda)["ragged"]
+    csr = formats.CSR(csr.indptr, csr.indices, csr.data.to(dtype), csr.shape)
+    A = repro_torch.sparse(csr, backend="bsr", bsr_block=block, cache=False)
+    v = csr.data.clone().requires_grad_()
+    x = torch.randn(csr.shape[1], n, device=cuda).to(dtype)
+    x = (x[:, 0].contiguous() if n == 1 else x).requires_grad_()
+    y = A.with_values(v) @ x
+    gy = torch.randn_like(y)
+    reset_launch_counts()
+    y.backward(gy)
+    counts = launch_counts()
+    assert no_plain == [], no_plain
+    assert counts["sddmm"] == 1 and counts["bsr_spmm"] == 1, counts
+    sub_t = A.plan.transposed().substrate("bsr")
+    assert sub_t.block_shape == block[::-1]
+    x2 = gy[:, None] if n == 1 else gy
+    assert bsr.DESIGN_LAUNCHES["bsr_spmm"][bsr._design(sub_t, x2)] == 1
+    sub = A.plan.substrate("bsr")
+    dblocks, dx = bsr_bwd_plain(sub, A.plan.bsr_brow(), x.detach(), gy)
+    assert v.grad.dtype == dtype and x.grad.dtype == dtype
+    assert _rel(v.grad, dblocks[tuple(A.plan.bsr_map().long())]) < tol
+    assert _rel(x.grad, dx) < tol
+
+
+@pytest.mark.gpu
+def test_cuda_backward_unaligned_operands(cuda, no_plain):
+    """Operands at an odd element offset (no 16-byte alignment) through the
+    chain's and the block family's backward."""
+    import repro_torch
+    from repro_torch.core.vjp import chain_bwd_plain
+
+    def odd(*shape):
+        flat = torch.randn(int(np.prod(shape)) + 1, device=cuda)
+        return flat[1:].view(*shape)
+    csr = _graphs(cuda)["skewed"]
+    A = repro_torch.sparse(csr, chain_op="softmax", cache=False)
+    a, b = odd(csr.shape[0], 16).requires_grad_(), odd(csr.shape[1], 16).requires_grad_()
+    x = odd(csr.shape[1], 12).requires_grad_()
+    y = A.chain(a, b, x, alpha=0.5)
+    gy = odd(*y.shape)
+    y.backward(gy)
+    assert no_plain == [], no_plain
+    rows, cols = _pattern_flat(csr, A.plan.tile)
+    want = chain_bwd_plain(rows, cols, a.detach(), b.detach(), x.detach(), gy,
+                           csr.shape, "softmax", 0.5)
+    for got, w in zip((a.grad, b.grad, x.grad), want):
+        assert _rel(got, w) < 1e-4
+    W = repro_torch.sparse(_block_matrices(cuda)["ragged"], backend="bsr",
+                           bsr_block=(8, 16), cache=False)
+    xw = odd(W.shape[1], 16).requires_grad_()
+    gw = odd(W.shape[0], 16)
+    no_plain.clear()
+    (W @ xw).backward(gw)
+    assert no_plain == [], no_plain
+    want_x = bsr.spmm_bsr_plain(W.plan.transposed().substrate("bsr"), gw)
+    assert _rel(xw.grad, want_x) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4, 32, 128])
+def test_cuda_bsr_tall_blocks_match_plain(cuda, n):
+    """K11's fma design on blocks over 64 rows (row chunks of 16 a CTA):
+    Aᵀ's (128, 8) blocks of a pruned (8, 128) weight, ragged M and K."""
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        csr = _block_matrices(cuda)["ragged"]
+        csr_t, _ = formats.csr_transpose(csr)
+        b = formats.csr_to_bsr(formats.CSR(csr_t.indptr, csr_t.indices,
+                                           csr_t.data.to(dtype), csr_t.shape),
+                               128, 8)
+        x = torch.randn(csr_t.shape[1], n, device=cuda).to(dtype)
+        reset_launch_counts()
+        y = bsr.spmm_bsr(b, x)
+        assert bsr.DESIGN_LAUNCHES["bsr_spmm"]["fma"] == 1
+        assert _rel(y, bsr.spmm_bsr_plain(b, x)) < tol

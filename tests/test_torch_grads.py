@@ -312,11 +312,10 @@ def test_refusals_and_unported_arguments(rng):
     with pytest.raises(ValueError, match="balanced"):
         execute_pattern(bal.rows, bal.cols, bal.vals, bal.shape, torch.randn(10),
                         impl="rs_sr")
-    # BSR plans still refuse: their VJP is the next slice
+    # BSR plans have their backward too: no refusal is left
     A = repro_torch.sparse(pc, device="cpu", backend="bsr", cache=False)
-    with pytest.raises(NotImplementedError, match="VJP"):
-        A @ torch.randn(10, requires_grad=True)
-    assert plan_mod._refuse_grad is not None
+    assert (A @ torch.randn(10, requires_grad=True)).grad_fn is not None
+    assert not hasattr(plan_mod, "_refuse_grad")
 
 
 @pytest.mark.parametrize("impl", MATMUL_KERNELS)

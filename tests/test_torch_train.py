@@ -265,3 +265,39 @@ def test_sparse_ffn_module_defaults():
     up = ffn.patterns["up"]
     assert up.rows is first.rows and ffn.v_up.dtype == torch.float64
     assert pattern_prep(up.rows, up.cols, up.shape) is prep
+
+
+@pytest.mark.parametrize("backend", ["torch", "hopper"])
+def test_pattern_entry_routes_its_kernel_by_n(monkeypatch, backend):
+    """A ``pattern_matmul`` call that names no ``impl`` takes ``nb_pr`` up
+    to the selector's default ``n_threshold`` (4) and ``nb_sr`` above it,
+    forward and backward alike (K1's pr design at N = 2,048 ran 2.8× its
+    sr design); a named ``impl`` still forces its kernel.  The result is
+    the dense product whichever runs."""
+    from repro_torch.core import registry
+    from repro_torch.core.plan import _pattern_impl, execute_pattern
+    from repro_torch.core.selector import SelectorThresholds
+    assert [_pattern_impl(n) for n in (1, 4, 5, 2048)] == \
+        ["nb_pr", "nb_pr", "nb_sr", "nb_sr"]
+    assert SelectorThresholds.n_threshold == 4
+    resolved = []
+    real = registry.resolve
+
+    def spy(logical, be):
+        resolved.append(logical)
+        return real(logical, be)
+    monkeypatch.setattr(registry, "resolve", spy)
+    rng = np.random.default_rng(3)
+    pat = SparsePattern.random(1, 30, 20, 0.3, 16, device="cpu")
+    vals = torch.from_numpy(rng.standard_normal(pat.rows.shape).astype(np.float32))
+    for n, impl, want in ((4, None, "nb_pr"), (5, None, "nb_sr"),
+                          (64, None, "nb_sr"), (64, "nb_pr", "nb_pr")):
+        x = torch.from_numpy(rng.standard_normal((20, n)).astype(np.float32))
+        resolved.clear()
+        v = vals.clone().requires_grad_()
+        y = execute_pattern(pat.rows, pat.cols, v, pat.shape, x.requires_grad_(),
+                            impl=impl, backend=backend)
+        y.sum().backward()
+        assert [r for r in resolved if r.startswith("nb")] == [want], (n, impl)
+        np.testing.assert_allclose(y.detach().numpy(), (pat.to_dense(vals) @ x).detach().numpy(),
+                                   rtol=1e-5, atol=1e-5)
