@@ -23,8 +23,14 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              "par" at d = 64 in float32 and bfloat16 and at d = 256 on
              g500, padding slots exactly 0; K4, K5
              and the spill combine on the uniform graph's windows at N = 1,
-             4, 32, 128 and a bfloat16 X at N = 32): relative
-             inf-norm error at most
+             4, 32, 128 and a bfloat16 X at N = 32; the int8 and fp8
+             variants of K1, K2, K4 and K5 — value slabs of codes, one f32
+             scale a tile — against their plain versions, which decode and
+             then run the float math: K1 sr on g500 at N = 32 and 128 and
+             at N = 4, where a CTA stages 8 tiles, each with its own scale,
+             K1 pr at N = 4 on both graphs, K2 on both graphs, K4 and K5 on
+             the uniform graph's windows, float32 and bfloat16 X, empty
+             rows exactly 0): relative inf-norm error at most
              1e-4 in float32 (hub rows of ~40k terms summed in another
              order, atomics in no fixed order) and 2e-2 in bfloat16;
 4. main    — ``repro_torch.sparse(csr) @ x`` for two Graph500-scale R-MAT
@@ -185,9 +191,33 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              version; times split into K6, K11 on Aᵀ and Aᵀ's stream, beside
              the dense ``matmul`` backward (TF32 off) and ``sparse.mm`` on
              Aᵀ;
-12. summary — one JSON line of the kernels (``launches`` and ``design``:
+12. quant  — quantized value streams: ``repro_torch.sparse(csr,
+             quant=m) @ x`` for m = int8 and fp8 on both scale-20 graphs
+             at N = 1, 4, 32, 128: an ``nb_*`` pick everywhere (K1 sr in
+             place of K3 on the uniform graph at N = 32 and 128), one coded
+             launch a call and no other (``vsr.VALUE_LAUNCHES`` /
+             ``spmv.VALUE_LAUNCHES``), no plain version, agreement with the
+             ``"torch"`` backend on the same plan, the codes and scales
+             made on the card bit-equal to those made on the CPU from the
+             same f32 slab; the spill opt on the quantized uniform plan (K4
+             / K5 on codes); a backward through the baked plan (the forward
+             coded, dX on Aᵀ's unquantized plan over the decoded stream,
+             within 1e-4 of the plain ``_coo_bwd`` on decoded values); and
+             ``pattern_matmul(..., quant="int8")`` on the Gemma-3-12B FFN
+             gate pattern (15,360 x 3,840, ``SparseFFNConfig()``) at 2,048
+             tokens, forward (coded K1 sr) and backward (straight through),
+             against the dense products.  Times (CUDA events, median of
+             20): the coded kernel and call beside the f32 kernel of the
+             same design, the float plan's call, the plain version and
+             ``torch.sparse.mm`` on the decoded f32 CSR, with the coded
+             bound: 9 B a nonzero (int32 row and column, one code) + 4 B a
+             tile + 4·K·N + 4·M·N, against 12 B a nonzero for f32;
+13. summary — one JSON line of the kernels (``launches`` and ``design``:
              the main path's; ``launches_by_path`` and ``design_by_path``:
-             every path above), the card line, then the result.
+             every path above; for K1, K2, K4 and K5 ``launches_by_value``,
+             and an entry of their own for each coded variant,
+             ``<kernel>:int8`` / ``<kernel>:fp8``, whose ``launches`` are
+             the quant path's), the card line, then the result.
 
 Without a CUDA device it prints no result and exits 2.  ``--scale`` below 20
 runs smaller graphs for a quick look; the graph statistics published with
@@ -320,6 +350,17 @@ TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=5)
 #: the GAT training path (``examples/train_gat.py``) at the GAT cell's
 #: width: scale-20 R-MAT with self-loops, d_in = d_head = 64, SGD steps
 GAT_STEPS = 5
+#: quantized value streams: the modes, and the kernels with coded variants
+#: with the TPU kernel each replaces and its quant branch
+QUANT_MODES = ("int8", "fp8")
+CODED = {"vsr_spmm": ("src/repro/kernels/vsr.py:141", "vsr.py:146-155"),
+         "vsr_spmv": ("src/repro/kernels/spmv.py:131", "spmv.py:134-143"),
+         "vsr_spmm_spill": ("src/repro/kernels/vsr.py:225", "vsr.py:229-237"),
+         "vsr_spmv_spill": ("src/repro/kernels/spmv.py:35", "spmv.py:38-46")}
+CODED_KEYS = tuple(f"{k}:{m}" for k in CODED for m in QUANT_MODES)
+#: the (graph, N) whose times stand for each coded variant in the summary
+CODED_SHAPE = {"vsr_spmm": ("g500", 128), "vsr_spmv": ("g500", 1),
+               "vsr_spmm_spill": ("unif", 128), "vsr_spmv_spill": ("unif", 1)}
 
 
 def pruned_ffn_weight(d_ff: int, d_model: int, seed: int):
@@ -363,7 +404,7 @@ def main() -> int:
     from repro_torch import interop
     from repro_torch.attention import patterns
     from repro_torch.configs import gemma3_12b
-    from repro_torch.core import formats, registry, stats
+    from repro_torch.core import formats, quant, registry, stats
     from repro_torch.core.cache import pattern_fingerprint
     from repro_torch.core.plan import (PATTERN_PREP, _ChainVJP,
                                        _stream_to_balanced, execute,
@@ -450,7 +491,8 @@ def main() -> int:
 
     # -- 3. kernels against their plain versions ------------------------------
     phase("kernels")
-    max_abs = {k: 0.0 for k in KERNELS}     # over the float32 checks
+    # over the float32 checks
+    max_abs = {k: 0.0 for k in (*KERNELS, *CODED_KEYS)}
 
     def hold(kernel, label, got, want, dtype):
         rel, diff = errors(got, want)
@@ -539,6 +581,63 @@ def main() -> int:
              vsr.spill_combine(part, base, unif_bal.shape[0]),
              vsr.spill_combine_plain(part, base, unif_bal.shape[0]), "float32")
         del part
+        torch.cuda.empty_cache()
+
+    # the coded variants of K1, K2, K4 and K5: int8 / fp8 codes with one f32
+    # scale a tile (the reference's quant branches), each against its plain
+    # version (decode, then the float math).  K1's sr design at N = 4 stages
+    # 8 tiles of 512 a CTA, each with its own scale
+    def dname(dtype):
+        return str(dtype).split(".")[1]
+
+    for mode in QUANT_MODES:
+        cbals = {}
+        for name, bal in bals.items():
+            q, sc = quant.quantize_stream(bal.vals, mode)
+            cbals[name] = (formats.BalancedCOO(bal.rows, bal.cols, q, bal.shape), sc)
+        key = f"vsr_spmm:{mode}"
+        for design, name, n, dtype in (
+                ("sr", "g500", 32, torch.float32), ("sr", "g500", 128, torch.float32),
+                ("sr", "g500", 4, torch.float32), ("pr", "g500", 4, torch.float32),
+                ("pr", "unif", 4, torch.float32), ("sr", "g500", 32, torch.bfloat16),
+                ("pr", "g500", 4, torch.bfloat16)):
+            cb, sc = cbals[name]
+            x = randn(k_dim, n, dtype=dtype)
+            y = vsr.spmm_vsr_fused(cb, x, design, scales=sc)
+            hold_empty(key, f"{name} N={n} {design}", y)
+            hold(key, f"{name} N={n} {design}", y, vsr.spmm_vsr_plain(cb, x, sc),
+                 dname(dtype))
+        key = f"vsr_spmv:{mode}"
+        for name, (cb, sc) in cbals.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                x = randn(k_dim, dtype=dtype)
+                y = spmv.spmv_vsr_fused(cb, x, scales=sc)
+                hold_empty(key, f"{name} N=1", y)
+                hold(key, f"{name} N=1", y, spmv.spmv_vsr_plain(cb, x, sc),
+                     dname(dtype))
+        cb, sc = cbals["unif"]
+        for n, dtype in ((1, torch.float32), (4, torch.float32),
+                         (32, torch.float32), (128, torch.float32),
+                         (32, torch.bfloat16)):
+            kw = dict(row_base=base, win=win, scales=sc)
+            if n == 1:
+                key = f"vsr_spmv_spill:{mode}"
+                x = randn(k_dim, dtype=dtype)
+                hold(key, "unif N=1 partials",
+                     spmv.spmv_vsr_partials(cb, x, base, win, scales=sc),
+                     vsr.spill_partials_plain(cb, x[:, None], base, win, sc)[..., 0],
+                     dname(dtype))
+                hold(key, "unif N=1", spmv.spmv_vsr(cb, x, **kw),
+                     spmv.spmv_vsr_spill_plain(cb, x, **kw), dname(dtype))
+            else:
+                key = f"vsr_spmm_spill:{mode}"
+                x = randn(k_dim, n, dtype=dtype)
+                hold(key, f"unif N={n} partials",
+                     vsr.spmm_vsr_partials(cb, x, base, win, scales=sc),
+                     vsr.spill_partials_plain(cb, x, base, win, sc), dname(dtype))
+                hold(key, f"unif N={n}", vsr.spmm_vsr(cb, x, **kw),
+                     vsr.spmm_vsr_spill_plain(cb, x, **kw), dname(dtype))
+        del cbals, cb, sc
         torch.cuda.empty_cache()
 
     # the chain's kernels: a GAT layer's scores A·Bᵀ, A and B (2^20, 64)
@@ -832,10 +931,15 @@ def main() -> int:
     #: GAT chain ("chain_backward"), the GAT training steps ("gat_train"),
     #: of block-sparse attention ("attention_backward") and of the block-
     #: pruned weight ("bsr_backward")
+    #: and the quantized value streams ("quant"); K1, K2, K4 and K5's
+    #: launches by value type (f32, bf16, int8, fp8) on each path
     path_launches = {path: {k: 0 for k in KERNELS}
                      for path in ("main", "backward", "train", "chain_backward",
                                   "gat_train", "attention_backward",
-                                  "bsr_backward")}
+                                  "bsr_backward", "quant")}
+    value_counts = {**vsr.VALUE_LAUNCHES, **spmv.VALUE_LAUNCHES}
+    path_values = {path: {k: dict.fromkeys(vv, 0) for k, vv in value_counts.items()}
+                   for path in path_launches}
     path_designs = {path: {kk: dict.fromkeys(vv, 0) for counts in design_counts
                            for kk, vv in counts.items()}
                     for path in path_launches}
@@ -853,6 +957,9 @@ def main() -> int:
         for k, by_design in took().items():
             for design, v in by_design.items():
                 path_designs[path][k][design] += v
+        for k, by_type in value_counts.items():
+            for vt, v in by_type.items():
+                path_values[path][k][vt] += v
         return y, counts
 
     for name, csr in graphs.items():
@@ -2445,7 +2552,224 @@ def main() -> int:
     del W, lib_wt
     torch.cuda.empty_cache()
 
-    # -- 12. summary --------------------------------------------------------------
+
+    # -- 12. quant ----------------------------------------------------------------
+    phase("quant")
+
+    def coded_launches():
+        return {k: {vt: nn for vt, nn in by_type.items() if nn}
+                for k, by_type in value_counts.items() if any(by_type.values())}
+
+    def coded_bound(nnz, n_tiles, m_, k_, n):
+        """The coded SpMM's least time: 9 B a nonzero (int32 row and column,
+        one code), 4 B a tile's scale, X read and Y written once (f32)."""
+        return bound(9 * nnz + 4 * n_tiles + 4 * k_ * n + 4 * m_ * n, 2 * nnz * n)
+
+    quant_rows, coded_rows = {}, {}
+    for mode in QUANT_MODES:
+        for name, csr in graphs.items():
+            m, k_dim = csr.shape
+            F = repro_torch.sparse(csr)                   # the float plan
+            fbal = F.plan.substrate("balanced")
+            t0 = time.perf_counter()
+            Q = repro_torch.sparse(csr, quant=mode, cache=False)
+            qbal, sc = Q.plan.substrate("balanced"), Q.plan.quant_scales()
+            plan_s = time.perf_counter() - t0
+            if Q.plan.quant != mode or qbal.vals.dtype != quant.quant_dtype(mode):
+                fail(f"quant {mode} {name}: the plan holds {qbal.vals.dtype} "
+                     f"(quant={Q.plan.quant!r})")
+            # the codes made on the card, bit-equal to those made on the CPU
+            q_cpu, sc_cpu = quant.quantize_stream(fbal.vals.cpu(), mode)
+            same = (torch.equal(qbal.vals.view(torch.uint8).cpu(),
+                                q_cpu.view(torch.uint8))
+                    and torch.equal(sc.cpu(), sc_cpu))
+            print(f"[quant] {mode} {name}: plan {plan_s:.1f} s, {qbal.n_tiles} "
+                  f"tiles, scales {float(sc.min()):.3e}..{float(sc.max()):.3e}, "
+                  f"codes bit-equal to the CPU's: {same}", flush=True)
+            if not same:
+                fail(f"quant {mode} {name}: the card's codes or scales differ "
+                     "from the CPU's")
+            del q_cpu, sc_cpu
+            decoded = quant.dequantize_stream(qbal.vals, sc).reshape(-1)[:csr.nnz]
+            lib_q = torch.sparse_csr_tensor(csr.indptr, csr.indices, decoded,
+                                            size=csr.shape, check_invariants=False)
+            for n in NS:
+                x = randn(k_dim, n) if n > 1 else randn(k_dim)
+                pick, fpick = Q.plan.select(n), F.plan.select(n)
+                if not pick.startswith("nb_") or pick[3:] != fpick[3:]:
+                    fail(f"quant {mode} {name} N={n}: picked {pick} (float "
+                         f"plan {fpick}); expected nb_{fpick[3:]}")
+                kernel = kernel_of(pick, n)
+                label = f"{name} N={n}"
+                y, counts = no_plain(lambda: drive(lambda: Q @ x, "quant"),
+                                     f"quant {mode} {label}")
+                took_q, coded = took(), coded_launches()
+                if counts != {kk: int(kk == kernel) for kk in KERNELS} \
+                        or coded != {kernel: {mode: 1}}:
+                    fail(f"quant {mode} {label}: launches {counts}, by value "
+                         f"{coded}; expected one coded {kernel}")
+                if kernel == "vsr_spmm" and took_q["vsr_spmm"][pick[3:]] != 1:
+                    fail(f"quant {mode} {label}: {pick} did not take K1's "
+                         f"{pick[3:]} design ({took_q['vsr_spmm']})")
+                key = f"{kernel}:{mode}"
+                hold_empty(key, label, y)
+                hold(key, f"{label} plan vs the torch backend", y,
+                     Q.matmul(x, backend="torch"), "float32")
+                if n > 1:
+                    run = lambda b, s_=None: vsr.spmm_vsr_fused(b, x, pick[3:], scales=s_)
+                    plain = lambda: vsr.spmm_vsr_plain(qbal, x, sc)
+                else:
+                    run = lambda b, s_=None: spmv.spmv_vsr_fused(b, x, scales=s_)
+                    plain = lambda: spmv.spmv_vsr_plain(qbal, x, sc)
+                b_ms, b_by = coded_bound(csr.nnz, qbal.n_tiles, m, k_dim, n)
+                f_ms, _ = bound(12 * csr.nnz + 4 * k_dim * n + 4 * m * n,
+                                2 * csr.nnz * n)
+                row = {"pick": pick, "kernel": kernel,
+                       "kernel_ms": time_ms(lambda: run(qbal, sc)),
+                       "call_ms": time_ms(lambda: Q @ x),
+                       "f32_kernel_ms": time_ms(lambda: run(fbal)),
+                       "f32_call_ms": time_ms(lambda: F @ x),
+                       "f32_pick": fpick,
+                       "plain_ms": time_ms(plain, reps=5),
+                       "library_ms": time_ms(lambda: lib_q @ x),
+                       "bound_ms": b_ms, "bound_by": b_by, "f32_bound_ms": f_ms}
+                quant_rows[(mode, name, n)] = row
+                if CODED_SHAPE[kernel] == (name, n):
+                    coded_rows[key] = dict(row, shape=f"{name}_s{args.scale}_e16 N={n}")
+                if (kernel, name, n) == ("vsr_spmm", "g500", 4):
+                    coded_rows[f"{key}:pr"] = dict(row, shape=f"{name}_s{args.scale}_e16 N={n}")
+                print(f"[time] quant {mode} {name}_s{args.scale}_e16 N={n} "
+                      + " ".join(f"{kk}={vv}" for kk, vv in row.items()), flush=True)
+            # the spill opt on the quantized uniform plan: K5 at N = 1, K4
+            # above, on the codes
+            if name == "unif":
+                sopts = Q.plan.kernel_opts(Q.plan.entry("nb_pr"))
+                sopts["spill"] = True
+                s_base, s_win = sopts["windows"](qbal)
+                for n in NS:
+                    x = randn(k_dim, n) if n > 1 else randn(k_dim)
+                    kernel = "vsr_spmv_spill" if n == 1 else "vsr_spmm_spill"
+                    label = f"{name} N={n} spill"
+                    y, counts = no_plain(lambda: drive(
+                        lambda: Q.matmul(x, impl="nb_pr"), "quant"),
+                        f"quant {mode} {label}")
+                    coded = coded_launches()
+                    if counts != {kk: int(kk in (kernel, "spill_combine"))
+                                  for kk in KERNELS} \
+                            or coded != {kernel: {mode: 1}}:
+                        fail(f"quant {mode} {label}: launches {counts}, by "
+                             f"value {coded}; expected one coded {kernel} and "
+                             "the combine")
+                    key = f"{kernel}:{mode}"
+                    hold(key, label, y, Q.matmul(x, impl="nb_pr", backend="torch"),
+                         "float32")
+                    x2 = x if n > 1 else x[:, None]
+                    if n > 1:
+                        run = lambda b, s_=None: vsr.spmm_vsr_partials(
+                            b, x, s_base, s_win, scales=s_)
+                    else:
+                        run = lambda b, s_=None: spmv.spmv_vsr_partials(
+                            b, x, s_base, s_win, scales=s_)
+                    part_bytes = 4 * qbal.n_tiles * s_win * n
+                    b_ms, b_by = bound(9 * csr.nnz + 4 * qbal.n_tiles + 4 * k_dim * n
+                                       + part_bytes, 2 * csr.nnz * n)
+                    f_ms, _ = bound(12 * csr.nnz + 4 * k_dim * n + part_bytes,
+                                    2 * csr.nnz * n)
+                    row = {"kernel": kernel, "win": s_win,
+                           "kernel_ms": time_ms(lambda: run(qbal, sc)),
+                           "call_ms": time_ms(lambda: Q.matmul(x, impl="nb_pr")),
+                           "f32_kernel_ms": time_ms(lambda: run(fbal)),
+                           "plain_ms": time_ms(lambda: vsr.spill_partials_plain(
+                               qbal, x2, s_base, s_win, sc), reps=5),
+                           "library_ms": time_ms(lambda: lib_q @ x),
+                           "bound_ms": b_ms, "bound_by": b_by, "f32_bound_ms": f_ms}
+                    if CODED_SHAPE[kernel] == (name, n):
+                        coded_rows[key] = dict(
+                            row, shape=f"{name}_s{args.scale}_e16 N={n} win={s_win}")
+                    print(f"[time] quant {mode} spill {name}_s{args.scale}_e16 N={n} "
+                          + " ".join(f"{kk}={vv}" for kk, vv in row.items()),
+                          flush=True)
+                sopts["spill"] = False
+            # a backward through the baked plan: the forward coded, dX on
+            # A^T's unquantized plan over the decoded stream
+            n = 32
+            xg = randn(k_dim, n).requires_grad_()
+            gy = randn(m, n)
+            _, counts = no_plain(lambda: drive(
+                lambda: (Q @ xg * gy).sum().backward(), "quant"),
+                f"quant {mode} {name} backward")
+            coded = coded_launches()
+            if coded.get("vsr_spmm", {}).get(mode) != 1 or sum(
+                    nn for k, by in coded.items() for vt, nn in by.items()
+                    if vt == mode) != 1:
+                fail(f"quant {mode} {name} backward: launches by value {coded}; "
+                     "expected one coded forward")
+            want_dx = coo_bwd_chunked(csr, decoded, xg.detach(), gy)[1]
+            hold_grad(f"quant {mode} {name} N={n} baked dX against the decoded "
+                      "A^T G", xg.grad, want_dx)
+            print(f"[quant] {mode} {name} backward N={n}: launches "
+                  f"{ {k: v for k, v in counts.items() if v} }, by value {coded}",
+                  flush=True)
+            del xg, gy, want_dx, lib_q, decoded, Q, F, qbal, sc, fbal
+            torch.cuda.empty_cache()
+
+    # pattern_matmul(quant="int8") on the Gemma-3-12B FFN gate pattern at
+    # 2,048 tokens: the live values quantized on the card, coded K1 sr; the
+    # backward straight through (K6 and K1 on W^T's slabs, f32)
+    gp, gv = pats["gate"], first["v_gate"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    xp = randn(gp.shape[1], tokens)
+    gyp = randn(gp.shape[0], tokens)
+    vq = gv.clone().requires_grad_()
+    xq = xp.clone().requires_grad_()
+    reset_launch_counts()
+    yq, counts = no_plain(lambda: drive(lambda: repro_torch.pattern_matmul(
+        gp.rows, gp.cols, vq, gp.shape, xq, quant="int8"), "quant"),
+        "quant pattern_matmul forward")
+    coded = coded_launches()
+    if counts["vsr_spmm"] != 1 or coded != {"vsr_spmm": {"int8": 1}}:
+        fail(f"quant pattern_matmul: launches {counts}, by value {coded}; "
+             "expected one int8 K1")
+    _, bcounts = no_plain(lambda: drive(lambda: (yq * gyp).sum().backward(),
+                                        "quant"), "quant pattern_matmul backward")
+    bcoded = coded_launches()
+    if bcounts["sddmm"] != 1 or bcounts["vsr_spmm"] != 1 or "int8" in str(bcoded):
+        fail(f"quant pattern_matmul backward: launches {bcounts}, by value "
+             f"{bcoded}; expected K6 and one f32 K1 on W^T")
+    q_g, sc_g = quant.quantize_stream(gv, "int8")
+    w_dec = gp.to_dense(quant.dequantize_stream(q_g, sc_g))
+    w_f = gp.to_dense(gv)
+    hold("vsr_spmm:int8", "gemma ffn_gate pattern_matmul N=2048", yq.detach(),
+         w_dec @ xp, "float32")
+    keep = gp.rows < gp.shape[0]
+    want_dv = torch.zeros_like(gv)
+    want_dv[keep] = (gyp @ xp.T)[gp.rows[keep].long(), gp.cols[keep].long()]
+    hold_grad("quant pattern_matmul dvals (straight through) against the dense "
+              "product", vq.grad, want_dv)
+    hold_grad("quant pattern_matmul dX (straight through) against W^T G",
+              xq.grad, w_f.T @ gyp)
+    lib_w = w_dec.to_sparse_csr()
+    nnz_g = int(keep.sum())
+    b_ms, b_by = coded_bound(nnz_g, gp.n_tiles, *gp.shape, tokens)
+    qb = formats.BalancedCOO(gp.rows, gp.cols, q_g, gp.shape)
+    fb = formats.BalancedCOO(gp.rows, gp.cols, gv, gp.shape)
+    pm_row = {"kernel_ms": time_ms(lambda: vsr.spmm_vsr_fused(qb, xp, "sr", scales=sc_g)),
+              "call_ms": time_ms(lambda: repro_torch.pattern_matmul(
+                  gp.rows, gp.cols, gv, gp.shape, xp, quant="int8")),
+              "f32_kernel_ms": time_ms(lambda: vsr.spmm_vsr_fused(fb, xp, "sr")),
+              "f32_call_ms": time_ms(lambda: repro_torch.pattern_matmul(
+                  gp.rows, gp.cols, gv, gp.shape, xp)),
+              "library_ms": time_ms(lambda: lib_w @ xp),
+              "dense_ms": time_ms(lambda: w_dec @ xp),
+              "bound_ms": b_ms, "bound_by": b_by,
+              "launches_fwd": {k: v for k, v in counts.items() if v},
+              "launches_bwd": {k: v for k, v in bcounts.items() if v}}
+    print("[time] quant pattern_matmul gemma ffn_gate int8 N=2048 "
+          + " ".join(f"{kk}={vv}" for kk, vv in pm_row.items()), flush=True)
+    del vq, xq, yq, xp, gyp, w_dec, w_f, lib_w, qb, fb, q_g, sc_g
+    torch.cuda.empty_cache()
+
+    # -- 13. summary --------------------------------------------------------------
     phase("summary")
     summary = []
     for kernel, meta in KERNELS.items():
@@ -2485,6 +2809,11 @@ def main() -> int:
         if kernel == "chain_stats":
             # K7 in full mode, as the chain's backward recomputes it
             summary[-1]["backward"] = k7_rows
+        if kernel in CODED:
+            # launches by the value type of the slab read, on each path
+            summary[-1]["launches_by_value"] = {
+                path: {vt: nn for vt, nn in by_kernel[kernel].items() if nn}
+                for path, by_kernel in path_values.items()}
         if kernel == "bsr_spmm":
             # K11 on A^T's blocks, the backward's dX, at N = 128
             r = bsr_bwd_rows[BSR_SUMMARY_N]
@@ -2493,6 +2822,32 @@ def main() -> int:
                 "ms": r["k11_t_ms"], "design": r["k11_t_design"],
                 "plain_ms": r["k11_t_plain_ms"], "bound_ms": r["k11_t_bound_ms"],
                 "bound_by": r["k11_t_bound_by"], "library_ms": r["library_ms"]}
+    # the coded variants of K1, K2, K4 and K5: launches on the quant path,
+    # times at the summary shape beside the f32 kernel of the same design
+    for kernel, (replaces, branch) in CODED.items():
+        for mode in QUANT_MODES:
+            key = f"{kernel}:{mode}"
+            row = coded_rows[key]
+            summary.append({
+                "name": key, "route": "cuda", "source": KERNELS[kernel]["source"],
+                "replaces": replaces, "quant_branch": branch,
+                "launches": path_values["quant"][kernel][mode],
+                "launches_by_path": {path: by_kernel[kernel][mode]
+                                     for path, by_kernel in path_values.items()},
+                "max_abs_err": max_abs[key], "ms": row["kernel_ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "f32_ms": row["f32_kernel_ms"], "f32_bound_ms": row["f32_bound_ms"],
+                "shape": row["shape"]})
+            if kernel == "vsr_spmm":
+                pr = coded_rows[f"{key}:pr"]
+                summary[-1]["designs"] = {
+                    "pr": {"shape": pr["shape"], "ms": pr["kernel_ms"],
+                           "f32_ms": pr["f32_kernel_ms"], "bound_ms": pr["bound_ms"],
+                           "library_ms": pr["library_ms"]}}
+                if mode == "int8":
+                    summary[-1]["pattern_matmul"] = dict(
+                        pm_row, shape="gemma ffn_gate 15360x3840 N=2048")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

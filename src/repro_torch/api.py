@@ -13,6 +13,9 @@
     A = api.sparse(csr, device="cpu")    # plain "torch" backend on the CPU
     W = api.sparse(w_csr, backend="bsr", bsr_block=(8, 128))
                                          # block-sparse weight: K11 on BSR
+    Q = api.sparse(csr, quant="int8")    # int8 (or "fp8") value codes, one
+                                         # f32 scale a tile, decoded in the
+                                         # NB kernels' registers
     with api.use_backend("torch"):       # scoped backend, no kwarg threading
         y = api.sparse(csr) @ x
 
@@ -155,7 +158,8 @@ class SparseMatrix:
     def with_values(self, stream: torch.Tensor) -> "SparseMatrix":
         """Same pattern and plan, new CSR-ordered nonzero values.  The
         stream keeps its autograd graph: ``A.with_values(v) @ x`` is
-        differentiable in ``v``."""
+        differentiable in ``v``.  On a quantized plan the stream is
+        quantized at each call (the gradient passes straight through)."""
         stream = torch.as_tensor(stream, device=self.device)
         if stream.numel() != self.nnz:
             raise ValueError(f"value stream has {stream.numel()} entries but "
@@ -186,6 +190,7 @@ def sparse(a, *, device=None, backend: str | None = None,
            tile: int | None = None, n_hint: int | None = None,
            geometry: TileGeometry | None = None,
            chain_op: str | None = None, bsr_block: tuple = (8, 128),
+           quant: str | None = None,
            cache: "PlanCache | bool | None" = True) -> SparseMatrix:
     """Build a sparse operand from a CSR, a SparseMatrix or a dense 2-D
     array.
@@ -201,11 +206,21 @@ def sparse(a, *, device=None, backend: str | None = None,
     tags the plan with the chain transform it serves, so chained and plain
     plans over one pattern are distinct cache entries.  ``bsr_block`` is the
     (bm, bk) block of the ``"bsr"`` backend's substrate, also in the cache
-    key."""
+    key.
+
+    ``quant`` (``"int8"`` or ``"fp8"``) stores the value stream as per-tile
+    codes with f32 scales, which the nnz-balanced kernels decode in
+    registers (the selector is pinned to them).  An ``n_hint`` below the
+    thresholds' ``quant_min_n`` drops it (checked here, before the cache);
+    a per-tile dynamic range that breaks the error bound falls back to the
+    float plan with a warning.  Quantized and float plans are distinct
+    cache entries."""
     device = resolve_device(device)
     csr, values = _as_csr(a, device)
     resolved_backend = backend or default_backend(device)
     th = thresholds if thresholds is not None else default_thresholds()
+    if quant is not None and n_hint is not None and n_hint < th.quant_min_n:
+        quant = None     # cached_plan never sees n_hint: gate here
     if geometry is None and th.geometries:
         geometry = th.geometry_for(pattern_fingerprint(csr), n_hint,
                                    resolved_backend)
@@ -216,7 +231,8 @@ def sparse(a, *, device=None, backend: str | None = None,
     else:
         cache_obj = cache
     kw = dict(backend=resolved_backend, thresholds=th, tile=tile,
-              geometry=geometry, chain_op=chain_op, bsr_block=bsr_block)
+              geometry=geometry, chain_op=chain_op, bsr_block=bsr_block,
+              quant=quant)
     p = (plan(csr, **kw) if cache_obj is None
          else cached_plan(csr, cache=cache_obj, **kw))
     if values is None and p.csr is not csr and not torch.equal(p.csr.data, csr.data):

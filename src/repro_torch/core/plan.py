@@ -33,21 +33,36 @@ span, so a ``"hopper"`` plan keeps its backend, and only the spill path
 plan when it is called.  Its dispatch reroutes a failing kernel to ``xla``;
 here a kernel that fails to build or launch raises.  The block-granule
 ``"bsr"`` backend builds its BSR substrate at ``bsr_block``; a ``"bsr"``
-plan is not demoted either.  Frozen artifacts, sharding, quantization,
-validation and sentinels are not ported yet: ``plan()`` and
-``execute_pattern`` raise ``NotImplementedError`` on their arguments.
+plan is not demoted either.  Frozen artifacts, sharding, validation and
+sentinels are not ported yet: ``plan()`` and ``execute_pattern`` raise
+``NotImplementedError`` on their arguments.
+
+Quantized value streams (DESIGN.md §8, ``core/quant.py``): ``plan(quant=
+"int8" | "fp8")`` stores the balanced substrate's values as per-tile codes
+with one f32 scale a tile (``quant_scales``), pins the selector to the NB
+family (``_quant_logical``: an ``rs_*`` pick would read the float ELL), and
+hands the NB entries the mode and the scales: on the card K1, K2, K4 and K5
+read the codes.  A slab whose per-tile dynamic range breaks the bound
+warns and keeps the float stream (``quant`` becomes None).  A live stream
+on a quantized plan, and ``execute_pattern(quant=)``, is quantized at each
+call.  The backward is straight through: dX of a baked coded plan is Aᵀ·G
+over the decoded stream, of a live one over the float stream, on the
+transposed plan, which is never quantized; the chains read the pattern
+alone.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import inspect
+import warnings
 import weakref
 from typing import Any
 
 import numpy as np
 import torch
 
+from . import quant as quant_mod
 from . import registry
 from .formats import (CSR, BalancedCOO, balanced_pattern, balanced_transpose,
                       bsr_block_rows, bsr_slots, csr_to_balanced, csr_to_bsr,
@@ -72,8 +87,33 @@ _PREP_KWARGS: dict = {}
 CHAIN_OPS: tuple[str, ...] = CHAIN_TRANSFORMS + ("attn",)
 
 #: plan() arguments of reference paths not yet ported
-_UNPORTED = ("mesh", "shard_axis", "shard_kind", "inner_backend", "quant",
+_UNPORTED = ("mesh", "shard_axis", "shard_kind", "inner_backend",
              "validate", "sentinel")
+
+
+def _quant_logical(name: str, quant: str | None) -> str:
+    """The selector's pick on a quantized plan: the coded stream lives in
+    the balanced substrate, which only the NB kernels read, so ``rs_sr`` /
+    ``rs_pr`` become ``nb_sr`` / ``nb_pr`` (the SR/PR choice kept)."""
+    if quant is None:
+        return name
+    return {"rs_sr": "nb_sr", "rs_pr": "nb_pr"}.get(name, name)
+
+
+def _check_quant(quant: str | None) -> str | None:
+    """Reject an unknown mode; demote fp8 to int8 where this PyTorch has
+    no ``float8_e4m3fn`` (the reference also bumps its ``demote:fp8_to_int8``
+    counter, which the port has not yet)."""
+    if quant is None:
+        return None
+    if quant not in quant_mod.QUANT_MODES:
+        raise ValueError(f"unknown quant mode {quant!r}; expected one of "
+                         f"{quant_mod.QUANT_MODES}")
+    if not quant_mod.supports(quant):
+        warnings.warn(f"quant={quant!r} is not supported by this PyTorch "
+                      "build; demoting to 'int8'", stacklevel=3)
+        return "int8"
+    return quant
 
 
 def _prep_context_kwargs(prep, ctx: dict) -> dict:
@@ -110,6 +150,7 @@ class PlanBuilder:
     bsr_block: tuple = (8, 128)      # (bm, bk) of the BSR substrate
     geometry: TileGeometry | None = None
     chain_op: str | None = None      # chain transform the plan was keyed for
+    quant: str | None = None         # value-stream mode ("int8" / "fp8")
     _substrates: dict = dataclasses.field(default_factory=dict, repr=False)
     _opts: dict = dataclasses.field(default_factory=dict, repr=False)
     _shared: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -119,6 +160,7 @@ class PlanBuilder:
     _pattern: Any = dataclasses.field(default=None, repr=False)
     _pattern_prep: Any = dataclasses.field(default=None, repr=False)
     _transposed: Any = dataclasses.field(default=None, repr=False)
+    _quant_scales: Any = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -134,6 +176,16 @@ class PlanBuilder:
                 sub = csr_to_ell(self.csr)
             elif kind == "balanced":
                 sub = csr_to_balanced(self.csr, tile=self.tile)
+                if self.quant is not None:
+                    # a tile whose range breaks the bound demotes the whole
+                    # plan to the float stream (the reference also bumps
+                    # its demote:quant_range counter)
+                    if quant_mod.check_tile_range(sub.vals):
+                        q, sc = quant_mod.quantize_stream(sub.vals, self.quant)
+                        sub = BalancedCOO(sub.rows, sub.cols, q, sub.shape)
+                        self._quant_scales = sc
+                    else:
+                        self.quant = None
             elif kind == "bsr":
                 sub = csr_to_bsr(self.csr, *self.bsr_block)
             else:
@@ -147,16 +199,25 @@ class PlanBuilder:
 
     # -- selection and resolution ---------------------------------------------
     def select(self, n: int) -> str:
-        return select_kernel(self.stats, n, self.thresholds)
+        return _quant_logical(select_kernel(self.stats, n, self.thresholds),
+                              self.quant)
+
+    def quant_scales(self) -> torch.Tensor | None:
+        """The (n_tiles,) f32 scales of the baked coded substrate (None
+        unless the plan quantized its balanced substrate)."""
+        if self.quant is not None:
+            self.substrate("balanced")
+        return self._quant_scales
 
     def entry(self, name: str, backend: str | None = None) -> registry.KernelEntry:
         return registry.resolve(name, backend or self.backend)
 
     def kernel_opts(self, entry: registry.KernelEntry) -> dict:
         """The entry's prep-hook opts for this matrix, computed once on the
-        built substrate."""
+        built substrate (which may demote ``quant`` first, so the key reads
+        it after).  A quantized plan's balanced entries get ``quant``."""
         sub = self.substrate(entry.substrate)
-        key = (entry.logical, entry.backend)
+        key = (entry.logical, entry.backend, self.quant)
         opts = self._opts.get(key)
         if opts is None:
             if entry.prep is None:
@@ -167,6 +228,8 @@ class PlanBuilder:
                                  "max_win": self.thresholds.max_win,
                                  "shared": self._shared})
                 opts = dict(entry.prep(sub, **ctx))
+            if self.quant is not None and entry.substrate == "balanced":
+                opts["quant"] = self.quant
             self._opts[key] = opts
         return opts
 
@@ -194,7 +257,9 @@ class PlanBuilder:
         and tile, its substrates built lazily.  Its BSR block is this plan's
         transposed, ``(bk, bm)``, so Aᵀ's BSR is the block transpose of A's
         (as many blocks, each as full).  Its values are
-        ``csr.data[transposed_perm()]``; the backward streams them live."""
+        ``csr.data[transposed_perm()]``; the backward streams them live.
+        It is never quantized: dX is f32 math on the forward's (decoded)
+        values, as in the reference."""
         if self._transposed is None:
             csr_t, perm = csr_transpose(self.csr)
             bm, bk = self.bsr_block
@@ -247,7 +312,8 @@ def plan(csr: CSR, *, n_hint: int | None = None,
          thresholds: SelectorThresholds | None = None,
          backend: str | None = None, tile: int | None = None,
          geometry: TileGeometry | None = None, chain_op: str | None = None,
-         bsr_block: tuple = (8, 128), **unported) -> PlanBuilder:
+         bsr_block: tuple = (8, 128), quant: str | None = None,
+         **unported) -> PlanBuilder:
     """Offline planning front door.
 
     ``n_hint`` (the expected N) builds the substrate and prep of the kernel
@@ -260,7 +326,13 @@ def plan(csr: CSR, *, n_hint: int | None = None,
     tags the plan with the chain transform it will serve (``"attn"`` for
     attention): a cache key segment, not a switch (``execute_chain`` takes
     the transform per call).  ``bsr_block`` is the (bm, bk) block of the
-    ``"bsr"`` backend's substrate."""
+    ``"bsr"`` backend's substrate.
+
+    ``quant`` (``"int8"`` / ``"fp8"``) stores the balanced substrate's
+    values as per-tile codes and scales that the NB kernels decode in
+    registers.  An ``n_hint`` below ``thresholds.quant_min_n`` drops it; a
+    per-tile dynamic range past ``quant.MAX_DYNAMIC_RANGE`` drops it with a
+    warning when the substrate is built."""
     given = sorted(k for k, v in unported.items() if v is not None)
     unknown = sorted(k for k in unported if k not in _UNPORTED)
     if unknown:
@@ -274,6 +346,9 @@ def plan(csr: CSR, *, n_hint: int | None = None,
     if backend is None:
         backend = registry.default_backend(csr.device)
     th = thresholds if thresholds is not None else default_thresholds()
+    quant = _check_quant(quant)
+    if quant is not None and n_hint is not None and n_hint < th.quant_min_n:
+        quant = None                 # below the crossover: not worth it
     stats = matrix_stats(csr)
     if geometry is None and th.geometries:
         from .cache import pattern_fingerprint
@@ -285,7 +360,7 @@ def plan(csr: CSR, *, n_hint: int | None = None,
         raise ValueError(f"bsr_block must be two positive ints; got {bsr_block}")
     p = PlanBuilder(csr=csr, stats=stats, thresholds=th, backend=backend,
                     tile=int(tile), bsr_block=(bm, bk), geometry=geometry,
-                    chain_op=chain_op)
+                    chain_op=chain_op, quant=quant)
     if n_hint is not None:
         p.kernel_opts(p.entry(p.select(n_hint)))
     return p
@@ -378,11 +453,14 @@ class _PlanVJP:
     """The backward products of one ``execute`` call: the SDDMM entry over
     the plan's pattern for the values, the adaptive SpMM of the transposed
     plan for ``x``, both on the call's backend.  ``dtype`` rounds the value
-    gradient (the BSR blocks' type, as the reference rounds ``dblocks``)."""
+    gradient (the BSR blocks' type, as the reference rounds ``dblocks``).
+    ``scales``: the stream is a baked slab's codes, which ``dx`` decodes."""
 
     def __init__(self, p: PlanBuilder, backend: str | None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None,
+                 scales: torch.Tensor | None = None):
         self.p, self.backend, self.dtype = p, backend, dtype
+        self.scales = scales
 
     def dvals(self, g2: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         p = self.p
@@ -393,6 +471,11 @@ class _PlanVJP:
 
     def dx(self, vals: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         p = self.p
+        if self.scales is not None:
+            # the codes decoded (slab order is CSR order, cut to nnz)
+            vals = quant_mod.dequantize_stream(
+                vals.reshape(self.scales.shape[0], -1),
+                self.scales).reshape(-1)[:p.csr.nnz]
         return execute(p.transposed(), g,
                        vals=vals.index_select(0, p.transposed_perm()),
                        backend=self.backend)
@@ -409,7 +492,16 @@ def execute(p: PlanBuilder, x: torch.Tensor, *,
     ``ExecBsr``): the backward samples ``G·Xᵀ`` on the pattern with the
     SDDMM entry and runs ``Aᵀ·G`` through the transposed plan's own
     selector, whatever ``impl`` forced the forward to (on the ``"bsr"``
-    backend: K11 on Aᵀ's BSR)."""
+    backend: K11 on Aᵀ's BSR).  On a quantized plan the NB kernels read the
+    baked codes (or quantize ``vals``); the backward is straight through."""
+    return _execute(p, x, vals, impl, backend)
+
+
+def _execute(p: PlanBuilder, x: torch.Tensor, vals, impl, backend, *,
+             coded: bool = True) -> torch.Tensor:
+    """``execute``; with ``coded=False`` a quantized plan runs its live
+    stream unquantized (the chains' backward products, f32 math as in the
+    reference)."""
     if torch.is_grad_enabled() and p.csr.data.requires_grad:
         raise NotImplementedError(
             "execute: the plan's baked values require grad, but they are "
@@ -428,16 +520,27 @@ def execute(p: PlanBuilder, x: torch.Tensor, *,
     n = 1 if x.ndim == 1 else x.shape[1]
     entry = p.entry(impl or p.select(n), backend)
     sub = p.substrate(entry.substrate)
-    fn = functools.partial(entry.fn, **p.kernel_opts(entry))
+    opts = p.kernel_opts(entry)
     baked = vals is None             # the substrate as built holds them
+    scales = None
+    if baked and entry.substrate == "balanced" and \
+            quant_mod.is_quantized_dtype(sub.vals.dtype):
+        scales = p.quant_scales()    # the kernels decode the baked codes
+        opts = dict(opts, scales=scales)
+    elif not coded:
+        opts = {k: v for k, v in opts.items() if k != "quant"}
+    fn = functools.partial(entry.fn, **opts)
     if baked and not (torch.is_grad_enabled() and x.requires_grad):
         return fn(sub, x)
-    stream = (p.csr.data if baked else vals).reshape(-1)
+    if scales is not None:
+        stream = sub.vals.reshape(-1)    # codes: dX decodes them
+    else:
+        stream = (p.csr.data if baked else vals).reshape(-1)
     if entry.substrate == "bsr":
         return exec_bsr(fn, sub, None if baked else p.bsr_map(),
                         _PlanVJP(p, backend, sub.blocks.dtype), stream, x,
                         baked=baked)
-    vjp = _PlanVJP(p, backend)
+    vjp = _PlanVJP(p, backend, scales=scales)
     if entry.substrate == "balanced":
         return exec_balanced(fn, sub, vjp, stream, x, baked=baked)
     return exec_ell(fn, sub, None if baked else p.ell_src(), vjp, stream, x,
@@ -493,17 +596,24 @@ def execute_pattern(rows: torch.Tensor, cols: torch.Tensor,
     backward is ``ExecBalanced``: the SDDMM entry for ``vals``, and the
     forward's kernel on Aᵀ's slabs for ``x``.  Those slabs are per-pattern prep, built
     once: memoised on the identity of ``rows`` and ``cols``, never hashed.
-    ``mesh``, ``shard_axis`` and ``quant`` belong to paths of the reference
-    not yet ported."""
-    given = [name for name, v in (("mesh", mesh), ("shard_axis", shard_axis),
-                                  ("quant", quant)) if v is not None]
+
+    ``quant`` (``"int8"`` / ``"fp8"``) quantizes the live values per tile
+    at each call, so only the coded stream reaches the kernel (K1 / K2 on
+    the card); an ``rs_*`` impl is pinned to its ``nb_*`` sibling.  The
+    backward is straight through: both products use the float values.
+    ``mesh`` and ``shard_axis`` belong to paths of the reference not yet
+    ported."""
+    given = [name for name, v in (("mesh", mesh), ("shard_axis", shard_axis))
+             if v is not None]
     if given:
         raise NotImplementedError(f"execute_pattern() arguments {given} "
                                   "belong to paths of the reference not yet "
                                   "ported")
+    quant = _check_quant(quant)
     backend = backend or registry.default_backend(rows.device)
     if impl is None:
         impl = _pattern_impl(1 if x.ndim == 1 else x.shape[1])
+    impl = _quant_logical(impl, quant)
     entry = registry.resolve(impl, backend)
     if entry.substrate != "balanced":
         raise ValueError(f"execute_pattern needs a balanced-substrate kernel; "
@@ -513,7 +623,9 @@ def execute_pattern(rows: torch.Tensor, cols: torch.Tensor,
                          f"has {rows.numel()} slots")
     prep = pattern_prep(rows, cols, shape)
     bal = BalancedCOO(rows, cols, None, prep.shape)
-    fn = functools.partial(entry.fn, **prep.opts(entry, bal))
+    opts = prep.opts(entry, bal)
+    fn = functools.partial(entry.fn, **(opts if quant is None
+                                        else dict(opts, quant=quant)))
     return exec_balanced(fn, bal, _PatternVJP(rows, cols, prep, entry, backend),
                          vals, x)
 
@@ -593,7 +705,10 @@ class _ChainVJP:
         return self.spmm(vals, ones)
 
     def spmm(self, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return execute(self.p, x.contiguous(), vals=vals, backend=self.backend)
+        # f32 streams, never quantized (a quantized plan's chain reads only
+        # its pattern)
+        return _execute(self.p, x.contiguous(), vals, None, self.backend,
+                        coded=False)
 
     def spmm_t(self, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         p = self.p
@@ -605,9 +720,11 @@ class _ChainVJP:
 def _chain_bound(p: PlanBuilder, entry: registry.KernelEntry,
                  extra: dict):
     """The entry with the matrix shape, the per-call statics (transform,
-    alpha) and the prep opts bound."""
+    alpha) and the prep opts bound.  A quantized plan's mode is dropped: a
+    chain reads the pattern, never the coded slab."""
+    opts = {k: v for k, v in p.kernel_opts(entry).items() if k != "quant"}
     return functools.partial(entry.fn, shape=tuple(p.csr.shape), **extra,
-                             **p.kernel_opts(entry))
+                             **opts)
 
 
 def _check_chain_operands(op: str, p: PlanBuilder, a, b) -> None:

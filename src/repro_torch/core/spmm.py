@@ -29,6 +29,7 @@ import torch
 
 from . import registry
 from .formats import ELL, BalancedCOO
+from .quant import dequantize_stream, is_quantized_dtype, quantize_stream
 
 
 def _as_2d(x: torch.Tensor) -> tuple[torch.Tensor, bool]:
@@ -288,11 +289,33 @@ def _ignore_opts(fn):
     return entry
 
 
-for _name, _fn, _sub in (("rs_sr", spmm_rs_sr, "ell"),
-                         ("rs_pr", spmm_rs_pr, "ell"),
-                         ("nb_sr", spmm_nb_sr, "balanced"),
-                         ("nb_pr", spmm_nb_pr, "balanced")):
-    registry.register(_name, "torch", _sub, _ignore_opts(_fn))
+def _quant_nb(fn):
+    """Registry signature of the plain nnz-balanced entries, aware of
+    quantized plans as the reference's ``_xla_nb`` is: a baked slab of codes
+    is decoded with its ``scales``; a live float stream on a quantized plan
+    (``quant``) goes through ``quantize_stream`` and ``dequantize_stream``,
+    so this backend sees the numbers the Hopper kernels see.  Other opts
+    are ignored."""
+    def entry(sub, x, *, scales=None, quant=None, **_opts):
+        if is_quantized_dtype(sub.vals.dtype):
+            if scales is None:
+                raise ValueError("a quantized value stream needs its per-tile "
+                                 "scales")
+            sub = BalancedCOO(sub.rows, sub.cols,
+                              dequantize_stream(sub.vals, scales), sub.shape)
+        elif quant is not None:
+            sub = BalancedCOO(sub.rows, sub.cols,
+                              dequantize_stream(*quantize_stream(sub.vals, quant)),
+                              sub.shape)
+        return fn(sub, x)
+    return entry
+
+
+for _name, _fn, _wrap, _sub in (("rs_sr", spmm_rs_sr, _ignore_opts, "ell"),
+                                ("rs_pr", spmm_rs_pr, _ignore_opts, "ell"),
+                                ("nb_sr", spmm_nb_sr, _quant_nb, "balanced"),
+                                ("nb_pr", spmm_nb_pr, _quant_nb, "balanced")):
+    registry.register(_name, "torch", _sub, _wrap(_fn))
 registry.register("sddmm", "torch", "balanced", sddmm_torch)
 registry.register("chain", "torch", "balanced", chain_torch)
 registry.register("attn_chain", "torch", "balanced", attn_chain_torch)

@@ -267,7 +267,8 @@ class ExecBalanced(torch.autograd.Function):
     """``fn(bal with vals, x)``, differentiable in ``vals`` (the stream in
     the slabs' order, any shape, padded to the grid) and ``x``.  With
     ``baked``, ``bal`` as built already holds ``vals``, which the backward
-    alone reads."""
+    alone reads (a quantized plan's codes, which its ``vjp.dx`` decodes:
+    integer codes take no gradient)."""
 
     @staticmethod
     def forward(ctx, fn, bal, vjp, baked, vals, x):

@@ -560,6 +560,9 @@ attn_stats_blocks_kernel(const int4* __restrict__ work,
   const int ss = dp + kQkPad;
   T* sq = reinterpret_cast<T*>(smem_raw);
   T* sk = sq + kBlk * ss;                       // 2 buffers of kStage rows
+#ifdef REPRO_POISON_STAGING
+  poison_staging(smem_raw, static_cast<size_t>(kBlk + 2 * kStage) * ss * sizeof(T));
+#endif
   const int4 w4 = work[blockIdx.x];
   const BlockWork w{w4.x, w4.y, w4.z, w4.w};
   const int row0 = w.rb * kBlk, n_stages = 2 * w.count;
@@ -654,6 +657,10 @@ attn_blocks_kernel(const int4* __restrict__ work,
   T* sq = reinterpret_cast<T*>(smem_raw);
   T* sk = sq + kBlk * ss;                       // 2 buffers of kStage rows
   T* sv = sk + 2 * kStage * ss;                 // 2 buffers of kStage rows
+#ifdef REPRO_POISON_STAGING
+  poison_staging(smem_raw, (static_cast<size_t>(kBlk + 2 * kStage) * ss +
+                            static_cast<size_t>(2 * kStage) * vs) * sizeof(T));
+#endif
   const int4 w4 = work[blockIdx.x];
   const BlockWork w{w4.x, w4.y, w4.z, w4.w};
   const int row0 = w.rb * kBlk, n_stages = 2 * w.count;

@@ -1,11 +1,13 @@
 // Shared helpers of the port's sparse kernels: element loads that widen
-// f32 / bf16 to f32 (one at a time, or four adjacent columns of an X row),
+// f32 / bf16 (and, for the value slabs of K1, K2, K4 and K5, int8 / fp8
+// e4m3 codes) to f32 (one at a time, or four adjacent columns of an X row),
 // the dtype dispatch of the plain-C entry points, the staging of a slab's
 // slots into shared memory, the lane layout the SpMM kernels share and their
 // accumulations of a tile's row runs.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -15,6 +17,47 @@ namespace repro_torch {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// The codes of a quantized value slab (core/quant.py): exact in f32 (an
+// e4m3 code goes through half, which holds it exactly).
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
+
+// Whether a value slab of TV holds codes that a per-tile f32 scale decodes
+// (int8, fp8 e4m3), not values.
+template <typename TV>
+__host__ __device__ constexpr bool is_coded() {
+  return std::is_same<TV, int8_t>::value || std::is_same<TV, __nv_fp8_e4m3>::value;
+}
+
+// Four adjacent elements of a value slab as f32 (codes not yet scaled), by
+// one evict-first load: 16 bytes (f32), 8 (bf16) or 4 (int8, fp8); the
+// caller guarantees the alignment.
+template <typename TV>
+__device__ __forceinline__ float4 load_vals4(const TV* __restrict__ p) {
+  if constexpr (std::is_same<TV, float>::value) {
+    return __ldcs(reinterpret_cast<const float4*>(p));
+  } else if constexpr (std::is_same<TV, __nv_bfloat16>::value) {
+    const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  } else {
+    const unsigned u = __ldcs(reinterpret_cast<const unsigned*>(p));
+    float f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned char b = static_cast<unsigned char>(u >> (8 * i));
+      if constexpr (std::is_same<TV, int8_t>::value) {
+        f[i] = static_cast<float>(static_cast<signed char>(b));
+      } else {
+        __nv_fp8_e4m3 c;
+        c.__x = b;
+        f[i] = static_cast<float>(c);
+      }
+    }
+    return make_float4(f[0], f[1], f[2], f[3]);
+  }
+}
 
 // Elements of one 16-byte load.
 template <typename T>
@@ -89,9 +132,10 @@ __device__ __forceinline__ void atomic_add4(float* at, int c, int n, const float
 // Hands the `cnt` slots of a (n_tiles, tile) slab from slot `base` on to
 // put(j, row, col, val), j = 0 .. cnt-1, each once, spread over the CTA's
 // THREADS threads.  VEC (cnt % 4 == 0 and rows, cols, vals aligned for it;
-// the caller checks): rows and cols by 16-byte loads, vals by 16- (f32) or
-// 8-byte (bf16) loads; every load evict-first, so that the slab leaves L2 to
-// the dense operand the kernel gathers.
+// the caller checks): rows and cols by 16-byte loads, vals by 16- (f32), 8-
+// (bf16) or 4-byte (int8, fp8 codes) loads; every load evict-first, so that
+// the slab leaves L2 to the dense operand the kernel gathers.  Codes reach
+// put unscaled: the caller multiplies by the slot's tile scale.
 template <typename TV, int THREADS, typename Put>
 __device__ __forceinline__ void stage_slots(const int* __restrict__ rows,
                                             const int* __restrict__ cols,
@@ -101,15 +145,7 @@ __device__ __forceinline__ void stage_slots(const int* __restrict__ rows,
     for (int j = 4 * threadIdx.x; j < cnt; j += 4 * THREADS) {
       const int4 rr = __ldcs(reinterpret_cast<const int4*>(rows + base + j));
       const int4 cc = __ldcs(reinterpret_cast<const int4*>(cols + base + j));
-      float4 vv;
-      if constexpr (std::is_same<TV, float>::value) {
-        vv = __ldcs(reinterpret_cast<const float4*>(vals + base + j));
-      } else {
-        const uint2 u = __ldcs(reinterpret_cast<const uint2*>(vals + base + j));
-        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-        vv = make_float4(lo.x, lo.y, hi.x, hi.y);
-      }
+      const float4 vv = load_vals4(vals + base + j);
       put(j, rr.x, cc.x, vv.x);
       put(j + 1, rr.y, cc.y, vv.y);
       put(j + 2, rr.z, cc.z, vv.z);
@@ -251,3 +287,18 @@ __device__ __forceinline__ void accumulate_tile(
                            : FN<__nv_bfloat16, float>(__VA_ARGS__))           \
                : ((X_BF16) ? FN<float, __nv_bfloat16>(__VA_ARGS__)            \
                            : FN<float, float>(__VA_ARGS__)))
+
+// FN<TV, TX>(args...) for the value types of K1, K2, K4 and K5, whose value
+// slabs may hold codes: VALS_TYPE 0 = float32, 1 = bfloat16, 2 = int8, 3 =
+// fp8 e4m3 (codes decoded by a per-tile f32 scale); X_BF16 as above.  Any
+// other VALS_TYPE gives cudaErrorInvalidValue.
+#define REPRO_DISPATCH_VALUE_TYPES(VALS_TYPE, X_BF16, FN, ...)                \
+  ((VALS_TYPE) == 0   ? REPRO_DISPATCH_X(float, X_BF16, FN, __VA_ARGS__)      \
+   : (VALS_TYPE) == 1 ? REPRO_DISPATCH_X(__nv_bfloat16, X_BF16, FN,            \
+                                         __VA_ARGS__)                          \
+   : (VALS_TYPE) == 2 ? REPRO_DISPATCH_X(int8_t, X_BF16, FN, __VA_ARGS__)     \
+   : (VALS_TYPE) == 3 ? REPRO_DISPATCH_X(__nv_fp8_e4m3, X_BF16, FN,            \
+                                         __VA_ARGS__)                          \
+                      : static_cast<int>(cudaErrorInvalidValue))
+#define REPRO_DISPATCH_X(TV, X_BF16, FN, ...)                                 \
+  ((X_BF16) ? FN<TV, __nv_bfloat16>(__VA_ARGS__) : FN<TV, float>(__VA_ARGS__))

@@ -131,6 +131,18 @@ __device__ __forceinline__ void stage_tile(T* s, int ss, const T* g, int gs,
   }
 }
 
+// Fill `bytes` of shared memory from s with NaN (all-ones words, a NaN in
+// f32 and in bf16), then wait for the CTA.  Only a test build
+// (-DREPRO_POISON_STAGING, kernels/_build.py's "poison_staging" variant)
+// calls it, at CTA entry of the block design's kernels: an entry that
+// stage_tile leaves unwritten (the zero fill of rows past the operand and
+// of the padded depth) then shows as NaN in the output.
+__device__ __forceinline__ void poison_staging(void* s, size_t bytes) {
+  unsigned* w = static_cast<unsigned*>(s);
+  for (size_t i = threadIdx.x; i < bytes / 4; i += blockDim.x) w[i] = 0xffffffffu;
+  __syncthreads();
+}
+
 // Allow a kernel the dynamic shared memory it asks for past 48 KB.
 template <typename K>
 int allow_smem(K kernel, size_t bytes) {

@@ -53,6 +53,14 @@
 // What K5 waits on is its x gathers: on H100 it takes as long as PyTorch's
 // index_select of x at the same columns, a third of that without them, and
 // 8 slots a lane or more warps an SM did not help.
+//
+// Quantized value slabs (the TPU kernels' quant branches, spmv.py:134-143
+// and :38-46): with TV = int8_t or __nv_fp8_e4m3 the slab holds codes and
+// `scales` one f32 scale a tile.  A lane reads its 4 codes by one 4-byte
+// load (load_slots) and multiplies each by the warp's tile scale in f32, so
+// the product is (code·scale)·x, as in the reference.  Bound: 9 B a nonzero
+// and 4 B a tile of substrate (12 B a nonzero for f32).  For f32 and bf16
+// slabs `scales` is not read.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -73,14 +81,15 @@ struct LaneSlots {
 
 // Slots i .. i+kLaneSlots-1 of the tile at `base`, each row r turned into
 // key(r); a slot past the tile has row m, column 0 and value 0.  VEC:
-// 16-byte loads of rows and cols and 16- (f32) or 8-byte (bf16) loads of
-// vals; the caller guarantees tile % 4 == 0 and the alignment, so i + 4q <
-// tile covers four.
+// 16-byte loads of rows and cols and 16- (f32), 8- (bf16) or 4-byte (int8,
+// fp8 codes) loads of vals; the caller guarantees tile % 4 == 0 and the
+// alignment, so i + 4q < tile covers four.  Codes are multiplied by the
+// tile's `scale` (not read for f32 and bf16 slabs).
 template <typename TV, bool VEC, typename Key>
 __device__ __forceinline__ LaneSlots load_slots(
     const int* __restrict__ rows, const int* __restrict__ cols,
     const TV* __restrict__ vals, long long base, int i, int tile, int m,
-    Key key) {
+    float scale, Key key) {
   LaneSlots s;
   int r[kLaneSlots];
 #pragma unroll
@@ -98,15 +107,8 @@ __device__ __forceinline__ LaneSlots load_slots(
         const int4 cc = __ldcs(reinterpret_cast<const int4*>(cols + at));
         r[q] = rr.x; r[q + 1] = rr.y; r[q + 2] = rr.z; r[q + 3] = rr.w;
         s.col[q] = cc.x; s.col[q + 1] = cc.y; s.col[q + 2] = cc.z; s.col[q + 3] = cc.w;
-        if constexpr (std::is_same<TV, float>::value) {
-          const float4 vv = __ldcs(reinterpret_cast<const float4*>(vals + at));
-          s.val[q] = vv.x; s.val[q + 1] = vv.y; s.val[q + 2] = vv.z; s.val[q + 3] = vv.w;
-        } else {
-          const uint2 u = __ldcs(reinterpret_cast<const uint2*>(vals + at));
-          const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-          const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-          s.val[q] = lo.x; s.val[q + 1] = lo.y; s.val[q + 2] = hi.x; s.val[q + 3] = hi.y;
-        }
+        const float4 vv = load_vals4(vals + at);
+        s.val[q] = vv.x; s.val[q + 1] = vv.y; s.val[q + 2] = vv.z; s.val[q + 3] = vv.w;
       }
     }
   } else {
@@ -121,6 +123,10 @@ __device__ __forceinline__ LaneSlots load_slots(
   }
 #pragma unroll
   for (int j = 0; j < kLaneSlots; ++j) s.key[j] = key(r[j]);
+  if constexpr (is_coded<TV>()) {
+#pragma unroll
+    for (int j = 0; j < kLaneSlots; ++j) s.val[j] *= scale;
+  }
   return s;
 }
 
@@ -217,8 +223,9 @@ __device__ __forceinline__ void scan_step(const int (&k)[kLaneSlots],
 template <typename TV, typename TX, int C, bool VEC, bool VEC_X>
 __global__ void __launch_bounds__(kSpmvThreads)
 vsr_scan_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
-                const TV* __restrict__ vals, const TX* __restrict__ x,
-                float* __restrict__ y, int n_tiles, int tile, int m, int n) {
+                const TV* __restrict__ vals, const float* __restrict__ scales,
+                const TX* __restrict__ x, float* __restrict__ y, int n_tiles,
+                int tile, int m, int n) {
   constexpr int L = kLaneSlots;
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -226,8 +233,9 @@ vsr_scan_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   const long long base = static_cast<long long>(warp) * tile;
   const int c0 = 4 * blockIdx.y;  // the column block (C = 4)
   const auto row = [](int r) { return r; };
+  const float scale = is_coded<TV>() ? __ldg(scales + warp) : 1.f;
 
-  LaneSlots cur = load_slots<TV, VEC>(rows, cols, vals, base, L * lane, tile, m, row);
+  LaneSlots cur = load_slots<TV, VEC>(rows, cols, vals, base, L * lane, tile, m, scale, row);
   const int first = __shfl_sync(kFullMask, cur.key[0], 0);  // the tile's first row
   // a run of row r ends with sum v before a slot of row nr (m: padding or
   // the tile's end): an edge run of the tile adds, any other is stored
@@ -249,7 +257,8 @@ vsr_scan_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   for (int c = 0; c < C; ++c) carry[c] = 0.f;
   for (int off = 0; off < tile; off += kWarpStep) {
     const LaneSlots nxt = load_slots<TV, VEC>(rows, cols, vals, base,
-                                              off + kWarpStep + L * lane, tile, m, row);
+                                              off + kWarpStep + L * lane, tile, m, scale,
+                                              row);
     float p[L][C];
     // the gathers first, all of them (a padding slot reads x's row 0)
 #pragma unroll
@@ -278,7 +287,8 @@ vsr_scan_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
 template <typename TV, typename TX, bool VEC>
 __global__ void __launch_bounds__(kSpmvThreads)
 vsr_spmv_spill_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
-                      const TV* __restrict__ vals, const TX* __restrict__ x,
+                      const TV* __restrict__ vals, const float* __restrict__ scales,
+                      const TX* __restrict__ x,
                       const int* __restrict__ row_base, float* __restrict__ part,
                       int n_tiles, int tile, int m, int win) {
   constexpr int L = kLaneSlots;
@@ -297,14 +307,16 @@ vsr_spmv_spill_kernel(const int* __restrict__ rows, const int* __restrict__ cols
     for (int w = k + 1; w < min(nk, win); ++w) out[w] = 0.f;
   };
 
-  LaneSlots cur = load_slots<TV, VEC>(rows, cols, vals, base, L * lane, tile, m, key);
+  const float scale = is_coded<TV>() ? __ldg(scales + warp) : 1.f;
+  LaneSlots cur = load_slots<TV, VEC>(rows, cols, vals, base, L * lane, tile, m, scale, key);
   if (lane == 0)
     for (int w = 0; w < min(cur.key[0], win); ++w) out[w] = 0.f;
   int carry_key = win;  // the run carried out of the last step
   float carry[1] = {0.f};
   for (int off = 0; off < tile; off += kWarpStep) {
     const LaneSlots nxt = load_slots<TV, VEC>(rows, cols, vals, base,
-                                              off + kWarpStep + L * lane, tile, m, key);
+                                              off + kWarpStep + L * lane, tile, m, scale,
+                                              key);
     float p[L][1];
     int k[L];
 #pragma unroll
@@ -324,14 +336,15 @@ vsr_spmv_spill_kernel(const int* __restrict__ rows, const int* __restrict__ cols
 // the column block.
 template <typename TV, typename TX, int C>
 int launch_vsr_scan(const int* rows, const int* cols, const void* vals,
-                    const void* x, float* y, int n_tiles, int tile, int m, int n,
-                    cudaStream_t stream) {
+                    const float* scales, const void* x, float* y, int n_tiles,
+                    int tile, int m, int n, cudaStream_t stream) {
   const int warps_per_cta = kSpmvThreads / 32;
   const dim3 grid((n_tiles + warps_per_cta - 1) / warps_per_cta, C == 1 ? 1 : (n + 3) / 4);
   const TV* v = static_cast<const TV*>(vals);
   const TX* xx = static_cast<const TX*>(x);
   const auto run = [&](auto kernel) {
-    kernel<<<grid, kSpmvThreads, 0, stream>>>(rows, cols, v, xx, y, n_tiles, tile, m, n);
+    kernel<<<grid, kSpmvThreads, 0, stream>>>(rows, cols, v, scales, xx, y, n_tiles, tile,
+                                              m, n);
     return static_cast<int>(cudaGetLastError());
   };
   const bool vec = vector_slots<TV>(rows, cols, vals, tile);
@@ -347,16 +360,19 @@ int launch_vsr_scan(const int* rows, const int* cols, const void* vals,
 // K1's pr design, and K2 (n = 1)
 template <typename TV, typename TX>
 int launch_vsr_pr(const int* rows, const int* cols, const void* vals,
-                  const void* x, float* y, int n_tiles, int tile, int m, int n,
-                  cudaStream_t stream) {
+                  const float* scales, const void* x, float* y, int n_tiles,
+                  int tile, int m, int n, cudaStream_t stream) {
   if (n == 1)
-    return launch_vsr_scan<TV, TX, 1>(rows, cols, vals, x, y, n_tiles, tile, m, 1, stream);
-  return launch_vsr_scan<TV, TX, 4>(rows, cols, vals, x, y, n_tiles, tile, m, n, stream);
+    return launch_vsr_scan<TV, TX, 1>(rows, cols, vals, scales, x, y, n_tiles, tile, m, 1,
+                                      stream);
+  return launch_vsr_scan<TV, TX, 4>(rows, cols, vals, scales, x, y, n_tiles, tile, m, n,
+                                    stream);
 }
 
 template <typename TV, typename TX>
 int launch_vsr_spmv_spill(const int* rows, const int* cols, const void* vals,
-                          const void* x, const int* row_base, float* part,
+                          const float* scales, const void* x,
+                          const int* row_base, float* part,
                           int n_tiles, int tile, int m, int win,
                           cudaStream_t stream) {
   const int warps_per_cta = kSpmvThreads / 32;
@@ -365,49 +381,55 @@ int launch_vsr_spmv_spill(const int* rows, const int* cols, const void* vals,
   const TX* xx = static_cast<const TX*>(x);
   if (vector_slots<TV>(rows, cols, vals, tile))
     vsr_spmv_spill_kernel<TV, TX, true><<<grid, kSpmvThreads, 0, stream>>>(
-        rows, cols, v, xx, row_base, part, n_tiles, tile, m, win);
+        rows, cols, v, scales, xx, row_base, part, n_tiles, tile, m, win);
   else
     vsr_spmv_spill_kernel<TV, TX, false><<<grid, kSpmvThreads, 0, stream>>>(
-        rows, cols, v, xx, row_base, part, n_tiles, tile, m, win);
+        rows, cols, v, scales, xx, row_base, part, n_tiles, tile, m, win);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace repro_torch
 
-// rows/cols: (n_tiles, tile) int32; vals: (n_tiles, tile) f32 or bf16;
-// x: (K,) f32 or bf16; y: (m,) f32, zeroed.  Returns the launch's
-// cudaError_t.
+// rows/cols: (n_tiles, tile) int32; vals: (n_tiles, tile) of vals_type (0
+// f32, 1 bf16, 2 int8 codes, 3 fp8 e4m3 codes); scales: (n_tiles,) f32, the
+// codes' scales (read for codes only, required there); x: (K,) f32 or bf16;
+// y: (m,) f32, zeroed.  Returns the launch's cudaError_t.
 extern "C" int repro_vsr_spmv(const int* rows, const int* cols,
-                              const void* vals, int vals_bf16, const void* x,
-                              int x_bf16, float* y, int n_tiles, int tile,
-                              int m, void* stream) {
-  return REPRO_DISPATCH_TYPES(vals_bf16, x_bf16, repro_torch::launch_vsr_pr,
-                              rows, cols, vals, x, y, n_tiles, tile, m, 1,
-                              static_cast<cudaStream_t>(stream));
+                              const void* vals, int vals_type,
+                              const float* scales, const void* x, int x_bf16,
+                              float* y, int n_tiles, int tile, int m,
+                              void* stream) {
+  if (vals_type >= 2 && !scales) return static_cast<int>(cudaErrorInvalidValue);
+  return REPRO_DISPATCH_VALUE_TYPES(vals_type, x_bf16, repro_torch::launch_vsr_pr,
+                                    rows, cols, vals, scales, x, y, n_tiles, tile,
+                                    m, 1, static_cast<cudaStream_t>(stream));
 }
 
-// K1's pr design.  rows/cols/vals as for repro_vsr_spmv; x: (K, n)
+// K1's pr design.  rows/cols/vals/scales as for repro_vsr_spmv; x: (K, n)
 // row-major f32 or bf16; y: (m, n) f32, zeroed.  Returns the launch's
 // cudaError_t.
 extern "C" int repro_vsr_pr(const int* rows, const int* cols, const void* vals,
-                            int vals_bf16, const void* x, int x_bf16, float* y,
-                            int n_tiles, int tile, int m, int n, void* stream) {
-  return REPRO_DISPATCH_TYPES(vals_bf16, x_bf16, repro_torch::launch_vsr_pr,
-                              rows, cols, vals, x, y, n_tiles, tile, m, n,
-                              static_cast<cudaStream_t>(stream));
+                            int vals_type, const float* scales, const void* x,
+                            int x_bf16, float* y, int n_tiles, int tile, int m,
+                            int n, void* stream) {
+  if (vals_type >= 2 && !scales) return static_cast<int>(cudaErrorInvalidValue);
+  return REPRO_DISPATCH_VALUE_TYPES(vals_type, x_bf16, repro_torch::launch_vsr_pr,
+                                    rows, cols, vals, scales, x, y, n_tiles, tile,
+                                    m, n, static_cast<cudaStream_t>(stream));
 }
 
-// K5.  rows/cols/vals and x as for repro_vsr_spmv; row_base: (n_tiles,)
-// int32; part: (n_tiles, win) f32, fully written.  Returns the launch's
-// cudaError_t.
+// K5.  rows/cols/vals/scales and x as for repro_vsr_spmv; row_base:
+// (n_tiles,) int32; part: (n_tiles, win) f32, fully written.  Returns the
+// launch's cudaError_t.
 extern "C" int repro_vsr_spmv_spill(const int* rows, const int* cols,
-                                    const void* vals, int vals_bf16,
-                                    const void* x, int x_bf16,
-                                    const int* row_base, float* part,
-                                    int n_tiles, int tile, int m, int win,
-                                    void* stream) {
-  return REPRO_DISPATCH_TYPES(vals_bf16, x_bf16,
-                              repro_torch::launch_vsr_spmv_spill, rows, cols,
-                              vals, x, row_base, part, n_tiles, tile, m, win,
-                              static_cast<cudaStream_t>(stream));
+                                    const void* vals, int vals_type,
+                                    const float* scales, const void* x,
+                                    int x_bf16, const int* row_base,
+                                    float* part, int n_tiles, int tile, int m,
+                                    int win, void* stream) {
+  if (vals_type >= 2 && !scales) return static_cast<int>(cudaErrorInvalidValue);
+  return REPRO_DISPATCH_VALUE_TYPES(vals_type, x_bf16,
+                                    repro_torch::launch_vsr_spmv_spill, rows, cols,
+                                    vals, scales, x, row_base, part, n_tiles, tile,
+                                    m, win, static_cast<cudaStream_t>(stream));
 }

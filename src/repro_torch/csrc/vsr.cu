@@ -37,6 +37,16 @@
 // by a segmented reduction on shuffles) is csrc/spmv.cu's vsr_scan_kernel:
 // one warp a tile, K2's and K5's segmented scan on 4-column pieces of X
 // rows.
+//
+// Quantized value slabs (the TPU kernel's quant branch, vsr.py:146-155, and
+// _vsr_kernel's, :229-237): with TV = int8_t or __nv_fp8_e4m3 the slab holds
+// codes and `scales` one f32 scale a tile (core/quant.py).  Both designs and
+// K4 read 4 codes by one 4-byte load where they read 4 f32 values by one
+// 16-byte load, and multiply each code by its tile's scale in f32 as it is
+// staged (tile t0 + tt of a CTA that stages several), so the product is
+// (code·scale)·x, as in the reference; nothing else changes.  Bound:
+// 9 B a nonzero and 4 B a tile of substrate, against 12 B a nonzero for
+// f32.  For f32 and bf16 slabs `scales` is not read.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -91,7 +101,8 @@ int launch_ranges(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Ar
 template <typename TV, typename TX, bool VEC>
 __global__ void __launch_bounds__(kRangeThreads, kSrMinCtas)
 vsr_sr_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
-              const TV* __restrict__ vals, const TX* __restrict__ x,
+              const TV* __restrict__ vals, const float* __restrict__ scales,
+              const TX* __restrict__ x,
               float* __restrict__ y, int n_tiles, int tile, int m, int n,
               int lanes, int tiles_per_cta, bool vec_slots) {
   extern __shared__ __align__(16) unsigned char sr_smem[];
@@ -113,6 +124,7 @@ vsr_sr_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
       [&](int j, int r, int c, float v) {
         const int tt = j / tile;
         const int at = spos(tt, j - tt * tile);
+        if constexpr (is_coded<TV>()) v *= __ldg(scales + t0 + tt);
         s_row[at] = r;
         s_col[at] = c;
         s_val[at] = v;
@@ -181,8 +193,8 @@ vsr_sr_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
 
 template <typename TV, typename TX>
 int launch_vsr_sr(const int* rows, const int* cols, const void* vals,
-                  const void* x, float* y, int n_tiles, int tile, int m, int n,
-                  int lanes, cudaStream_t stream) {
+                  const float* scales, const void* x, float* y, int n_tiles,
+                  int tile, int m, int n, int lanes, cudaStream_t stream) {
   const RangeLayout lay = range_layout(tile, lanes);
   const dim3 grid((n_tiles + lay.tiles_per_cta - 1) / lay.tiles_per_cta,
                   (n + 4 * lanes - 1) / (4 * lanes));
@@ -190,8 +202,8 @@ int launch_vsr_sr(const int* rows, const int* cols, const void* vals,
   const TX* xx = static_cast<const TX*>(x);
   const bool vec_slots = vector_slots<TV>(rows, cols, vals, tile);
   const auto run = [&](auto kernel) {
-    return launch_ranges(kernel, grid, lay.smem, stream, rows, cols, v, xx, y, n_tiles,
-                         tile, m, n, lanes, lay.tiles_per_cta, vec_slots);
+    return launch_ranges(kernel, grid, lay.smem, stream, rows, cols, v, scales, xx, y,
+                         n_tiles, tile, m, n, lanes, lay.tiles_per_cta, vec_slots);
   };
   return vector_rows<TX>(x, y, n) ? run(vsr_sr_kernel<TV, TX, true>)
                                    : run(vsr_sr_kernel<TV, TX, false>);
@@ -229,7 +241,8 @@ int launch_vsr_sr(const int* rows, const int* cols, const void* vals,
 template <typename TV, typename TX, bool VEC, int MIN_CTAS>
 __global__ void __launch_bounds__(kRangeThreads, MIN_CTAS)
 vsr_spmm_spill_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
-                      const TV* __restrict__ vals, const TX* __restrict__ x,
+                      const TV* __restrict__ vals, const float* __restrict__ scales,
+                      const TX* __restrict__ x,
                       const int* __restrict__ row_base, float* __restrict__ part,
                       int n_tiles, int tile, int m, int n, int win, int lanes,
                       int tiles_per_cta, bool vec_slots) {
@@ -253,6 +266,7 @@ vsr_spmm_spill_kernel(const int* __restrict__ rows, const int* __restrict__ cols
       [&](int j, int r, int c, float v) {
         const int tt = j / tile;
         const int at = spos(tt, j - tt * tile);
+        if constexpr (is_coded<TV>()) v *= __ldg(scales + t0 + tt);
         s_key[at] = r < m ? min(max(r - __ldg(row_base + t0 + tt), 0), win - 1) : win;
         s_col[at] = c;
         s_val[at] = v;
@@ -325,7 +339,8 @@ vsr_spmm_spill_kernel(const int* __restrict__ rows, const int* __restrict__ cols
 
 template <typename TV, typename TX>
 int launch_vsr_spmm_spill(const int* rows, const int* cols, const void* vals,
-                          const void* x, const int* row_base, float* part,
+                          const float* scales, const void* x,
+                          const int* row_base, float* part,
                           int n_tiles, int tile, int m, int n, int win,
                           int lanes, cudaStream_t stream) {
   const RangeLayout lay = range_layout(tile, lanes);
@@ -335,8 +350,9 @@ int launch_vsr_spmm_spill(const int* rows, const int* cols, const void* vals,
   const TX* xx = static_cast<const TX*>(x);
   const bool vec_slots = vector_slots<TV>(rows, cols, vals, tile);
   const auto run = [&](auto kernel) {
-    return launch_ranges(kernel, grid, lay.smem, stream, rows, cols, v, xx, row_base, part,
-                         n_tiles, tile, m, n, win, lanes, lay.tiles_per_cta, vec_slots);
+    return launch_ranges(kernel, grid, lay.smem, stream, rows, cols, v, scales, xx, row_base,
+                         part, n_tiles, tile, m, n, win, lanes, lay.tiles_per_cta,
+                         vec_slots);
   };
   // 3 CTAs an SM for groups of 4-16 lanes (short ranges: more warps keep
   // more gathers in flight), 2 otherwise (no spills); measured on H100
@@ -475,36 +491,38 @@ inline int launch_spill_combine(const float* part, const int* row_base, float* y
 }  // namespace repro_torch
 
 // K1's sr design.  rows/cols: (n_tiles, tile) int32; vals: (n_tiles, tile)
-// f32 or bf16; x: (K, n) row-major f32 or bf16; y: (m, n) f32, zeroed.
-// lanes: lanes of a group (1, 2, ..., 32), which own 4·lanes columns of a
-// column block.  Returns the cudaError_t of the launch.
+// of vals_type (0 f32, 1 bf16, 2 int8 codes, 3 fp8 e4m3 codes); scales:
+// (n_tiles,) f32, the codes' scales (read for codes only, required there);
+// x: (K, n) row-major f32 or bf16; y: (m, n) f32, zeroed.  lanes: lanes of
+// a group (1, 2, ..., 32), which own 4·lanes columns of a column block.
+// Returns the cudaError_t of the launch.
 extern "C" int repro_vsr_sr(const int* rows, const int* cols, const void* vals,
-                            int vals_bf16, const void* x, int x_bf16, float* y,
-                            int n_tiles, int tile, int m, int n, int lanes,
-                            void* stream) {
-  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)))
+                            int vals_type, const float* scales, const void* x,
+                            int x_bf16, float* y, int n_tiles, int tile, int m,
+                            int n, int lanes, void* stream) {
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) || (vals_type >= 2 && !scales))
     return static_cast<int>(cudaErrorInvalidValue);
-  return REPRO_DISPATCH_TYPES(vals_bf16, x_bf16, repro_torch::launch_vsr_sr,
-                              rows, cols, vals, x, y, n_tiles, tile, m, n,
-                              lanes, static_cast<cudaStream_t>(stream));
+  return REPRO_DISPATCH_VALUE_TYPES(vals_type, x_bf16, repro_torch::launch_vsr_sr,
+                                    rows, cols, vals, scales, x, y, n_tiles, tile,
+                                    m, n, lanes, static_cast<cudaStream_t>(stream));
 }
 
-// K4.  rows/cols/vals and x as for repro_vsr_sr; row_base: (n_tiles,)
-// int32; part: (n_tiles, win, n) f32, fully written.  lanes: lanes of a
-// group (1, 2, ..., 32), which own 4·lanes columns of a column block.
-// Returns the launch's cudaError_t.
+// K4.  rows/cols/vals/scales and x as for repro_vsr_sr; row_base:
+// (n_tiles,) int32; part: (n_tiles, win, n) f32, fully written.  lanes:
+// lanes of a group (1, 2, ..., 32), which own 4·lanes columns of a column
+// block.  Returns the launch's cudaError_t.
 extern "C" int repro_vsr_spmm_spill(const int* rows, const int* cols,
-                                    const void* vals, int vals_bf16,
-                                    const void* x, int x_bf16,
-                                    const int* row_base, float* part,
-                                    int n_tiles, int tile, int m, int n,
-                                    int win, int lanes, void* stream) {
-  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)))
+                                    const void* vals, int vals_type,
+                                    const float* scales, const void* x,
+                                    int x_bf16, const int* row_base,
+                                    float* part, int n_tiles, int tile, int m,
+                                    int n, int win, int lanes, void* stream) {
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) || (vals_type >= 2 && !scales))
     return static_cast<int>(cudaErrorInvalidValue);
-  return REPRO_DISPATCH_TYPES(vals_bf16, x_bf16,
-                              repro_torch::launch_vsr_spmm_spill, rows, cols,
-                              vals, x, row_base, part, n_tiles, tile, m, n,
-                              win, lanes, static_cast<cudaStream_t>(stream));
+  return REPRO_DISPATCH_VALUE_TYPES(vals_type, x_bf16,
+                                    repro_torch::launch_vsr_spmm_spill, rows, cols,
+                                    vals, scales, x, row_base, part, n_tiles, tile,
+                                    m, n, win, lanes, static_cast<cudaStream_t>(stream));
 }
 
 // The combine.  part: (n_tiles, win, n) f32; row_base: (n_tiles,) int32,

@@ -10,9 +10,17 @@ flags, so an edited source rebuilds and an unchanged tree reuses the build.
 The build directory is ``src/repro_torch/_build`` (listed in ``.gitignore``).
 Nothing here runs at import time: the CPU tests import every module, and
 this machine may have neither ``nvcc`` nor a card.
+
+A build *variant* compiles the same sources with extra defines into a
+directory of its own: ``"poison_staging"`` (``-DREPRO_POISON_STAGING``)
+fills the block design's shared-memory staging with NaN at CTA entry, so a
+test can show that every entry the kernels read was written.  ``with
+variant("poison_staging"):`` makes the wrappers launch from that library;
+outside it they launch from the default build.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -32,6 +40,8 @@ SOURCES = ("vsr.cu", "spmv.cu", "csc.cu", "sddmm.cu", "chain.cu",
 HEADERS = ("common.cuh", "score.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: build variants: name -> the extra nvcc flags ("" is the default build)
+VARIANTS = {"": (), "poison_staging": ("-DREPRO_POISON_STAGING",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,14 +49,14 @@ _F = ctypes.c_float
 #: argument types of every exported entry point (pointers and the stream as
 #: c_void_p so ctypes does not cut them to 32 bits)
 SIGNATURES = {
-    "repro_vsr_sr": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),
-    "repro_vsr_pr": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
-    "repro_vsr_spmv": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P),
-    "repro_vsr_spmm_spill": (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _P),
+    "repro_vsr_sr": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+    "repro_vsr_pr": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P),
+    "repro_vsr_spmv": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P),
+    "repro_vsr_spmm_spill": (_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _P),
     "repro_spill_combine": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "repro_vsr_spmv_spill": (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
-                             _P),
+    "repro_vsr_spmv_spill": (_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
+                             _I, _P),
     "repro_bsr_spmm": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                        _P),
     "repro_bsr_spmm_tc": (_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I,
@@ -77,6 +87,8 @@ class BuildResult:
 
 _LOCK = threading.Lock()
 _LOADED: dict = {}
+#: the variant ``lib()`` loads (``variant`` sets it)
+_ACTIVE = {"variant": ""}
 
 
 def _nvcc() -> str:
@@ -87,28 +99,38 @@ def _nvcc() -> str:
     return found
 
 
-def _digest() -> str:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+def _flags(variant: str) -> tuple:
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown build variant {variant!r}; expected one of "
+                         f"{sorted(VARIANTS)}")
+    return NVCC_FLAGS + VARIANTS[variant]
+
+
+def _digest(variant: str = "") -> str:
+    h = hashlib.sha1(" ".join(_flags(variant)).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> BuildResult:
-    """Compile the kernels into ``BUILD_DIR`` unless this exact tree was
-    built already.  Raises ``RuntimeError`` with the compiler's output when a
-    source does not compile."""
-    lib_path = BUILD_DIR / f"librepro_torch_{_digest()}.so"
+def build(variant: str = "") -> BuildResult:
+    """Compile the kernels (with ``variant``'s flags, into a directory of
+    its own) unless this exact tree was built already.  Raises
+    ``RuntimeError`` with the compiler's output when a source does not
+    compile."""
+    flags = _flags(variant)
+    out_dir = BUILD_DIR / variant if variant else BUILD_DIR
+    lib_path = out_dir / f"librepro_torch_{_digest(variant)}.so"
     if lib_path.exists():
         return BuildResult(lib_path, 0.0, "")
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [Path(tmp) / (Path(s).stem + ".o") for s in SOURCES]
         procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+            [nvcc, *flags, "-c", str(CSRC / src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(SOURCES, objs)]
         logs, failed = [], []
@@ -132,16 +154,31 @@ def build() -> BuildResult:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library of the active variant, built on first
+    use."""
     with _LOCK:
-        if "lib" not in _LOADED:
-            handle = ctypes.CDLL(str(build().path))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(handle, name)
+        name = _ACTIVE["variant"]
+        if name not in _LOADED:
+            handle = ctypes.CDLL(str(build(name).path))
+            for fn_name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, fn_name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _LOADED["lib"] = handle
-        return _LOADED["lib"]
+            _LOADED[name] = handle
+        return _LOADED[name]
+
+
+@contextlib.contextmanager
+def variant(name: str):
+    """Launch the kernels from build variant ``name`` inside the block
+    (built on its first launch)."""
+    _flags(name)
+    previous = _ACTIVE["variant"]
+    _ACTIVE["variant"] = name
+    try:
+        yield
+    finally:
+        _ACTIVE["variant"] = previous
 
 
 def check(err: int, kernel: str) -> None:

@@ -44,6 +44,17 @@ runs when a plan's NB kernel opts hold ``spill=True``.
   range of the non-decreasing ``row_base`` (binary search), summed in
   order into the row, written once.
 
+Quantized value slabs (the TPU kernels' quant branches, ``vsr.py:146-155``
+and ``:229-237``): K1 and K4 also take an ``(n_tiles, tile)`` slab of int8
+or ``float8_e4m3fn`` codes with ``scales``, one f32 scale a tile
+(``core/quant.py``), and multiply each code by its tile's scale in f32 as
+they stage it: 1 B a value read in place of 4, no f32 copy of the stream.
+The plain versions decode (``dequantize_stream``), then run the float math.
+``VALUE_LAUNCHES`` counts each kernel's launches by value type.  A plan's
+NB entries pass a baked slab's scales; a live float stream on a quantized
+plan (``quant=`` in the opts) is quantized on its device first, so the
+coded kernel runs.
+
 ``plan_windows`` (the spill path's windows) and ``plan_visits`` (the TPU
 fused path's visit schedule, which the Hopper kernels do not need) are the
 reference's host-side prep; they return its arrays element for element.
@@ -57,6 +68,7 @@ import torch
 
 from ..core import registry
 from ..core.formats import BalancedCOO, host
+from ..core.quant import dequantize_stream, is_quantized_dtype, quantize_stream
 from ..core.selector import HOPPER_MAX_TILE, SelectorThresholds, TileGeometry
 
 from . import _build, _common
@@ -67,6 +79,11 @@ LAUNCHES = {"vsr_spmm": 0, "vsr_spmm_spill": 0, "spill_combine": 0}
 #: K1's launches by design: "sr" (lane groups walk ranges of a staged tile)
 #: or "pr" (a warp a tile, shuffle scan)
 DESIGN_LAUNCHES = {"vsr_spmm": {"sr": 0, "pr": 0}}
+#: value types of the nnz-balanced kernels' slabs (``_common.value_type``)
+VALUE_KINDS = ("f32", "bf16", "int8", "fp8")
+#: K1's and K4's launches by the value type of the slab they read
+VALUE_LAUNCHES = {k: dict.fromkeys(VALUE_KINDS, 0)
+                  for k in ("vsr_spmm", "vsr_spmm_spill")}
 
 
 def _tile_spans(bal: BalancedCOO) -> tuple[np.ndarray, int, int]:
@@ -160,8 +177,23 @@ def plan_visits(bal: BalancedCOO, wb: int
     return vt, vb, vs
 
 
-def spmm_vsr_plain(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
-    """K1's plain PyTorch version: every product, one f32 segment sum."""
+def decoded(bal: BalancedCOO, scales: torch.Tensor | None) -> BalancedCOO:
+    """``bal`` with a coded slab decoded to f32 by ``scales`` (the plain
+    versions' first step); a float slab as it is."""
+    if not is_quantized_dtype(bal.vals.dtype):
+        return bal
+    if scales is None:
+        raise ValueError(f"a slab of {bal.vals.dtype} codes needs its per-tile "
+                         "scales")
+    return BalancedCOO(bal.rows, bal.cols, dequantize_stream(bal.vals, scales),
+                       bal.shape)
+
+
+def spmm_vsr_plain(bal: BalancedCOO, x: torch.Tensor,
+                   scales: torch.Tensor | None = None) -> torch.Tensor:
+    """K1's plain PyTorch version: every product, one f32 segment sum (a
+    coded slab decoded by ``scales`` first)."""
+    bal = decoded(bal, scales)
     x2 = x[:, None] if x.ndim == 1 else x
     m = bal.shape[0]
     p = (bal.vals.reshape(-1, 1).float()
@@ -178,11 +210,13 @@ def _design(n: int) -> str:
     return "pr" if n <= SelectorThresholds.n_threshold else "sr"
 
 
-def _check(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
+def _check(bal: BalancedCOO, x: torch.Tensor,
+           scales: torch.Tensor | None = None) -> torch.Tensor:
     """Raise ``ValueError`` unless the K1 kernels take these operands;
     returns X as ``(K, N)``."""
     x2 = x[:, None] if x.ndim == 1 else x
-    _common.check_operands("vsr_spmm", (bal.rows, bal.cols), bal.vals, x2)
+    _common.check_operands("vsr_spmm", (bal.rows, bal.cols), bal.vals, x2,
+                           coded=True, scales=scales)
     k = bal.shape[1]
     if x2.shape[0] != k:
         raise ValueError(f"vsr_spmm: x has {x2.shape[0]} rows, A has {k} columns")
@@ -195,17 +229,20 @@ def _check(bal: BalancedCOO, x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(design: str, bal: BalancedCOO, x2: torch.Tensor, *,
-            lanes: int | None = None) -> torch.Tensor:
+            lanes: int | None = None,
+            scales: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``design`` on checked operands into an ``(M, N)`` f32 ``Y``.
     ``lanes`` forces the sr design's lanes a group (default
-    ``spill_lanes``); fewer lanes walk shorter ranges."""
+    ``spill_lanes``); fewer lanes walk shorter ranges.  ``scales``: a coded
+    slab's, not read for a float one."""
     if design not in DESIGN_LAUNCHES["vsr_spmm"]:
         raise ValueError(f"vsr_spmm: unknown design {design!r}")
     m, n = bal.shape[0], x2.shape[1]
     y = torch.zeros((m, n), dtype=torch.float32, device=x2.device)
     args = (bal.rows.data_ptr(), bal.cols.data_ptr(), bal.vals.data_ptr(),
-            _common.is_bf16(bal.vals), x2.data_ptr(), _common.is_bf16(x2),
-            y.data_ptr(), bal.n_tiles, bal.tile, m, n)
+            _common.value_code(bal.vals),
+            _common.scales_ptr(bal.vals, scales), x2.data_ptr(),
+            _common.is_bf16(x2), y.data_ptr(), bal.n_tiles, bal.tile, m, n)
     if design == "sr":
         fn = _build.lib().repro_vsr_sr
         args += (lanes or spill_lanes(n),)
@@ -215,25 +252,29 @@ def _launch(design: str, bal: BalancedCOO, x2: torch.Tensor, *,
         _build.check(fn(*args, _common.stream_of(x2)), "vsr_spmm")
         LAUNCHES["vsr_spmm"] += 1
         DESIGN_LAUNCHES["vsr_spmm"][design] += 1
+        VALUE_LAUNCHES["vsr_spmm"][_common.value_type(bal.vals)] += 1
     return y
 
 
 def reset_counts() -> None:
-    """Set ``DESIGN_LAUNCHES`` to 0 (``reset_launch_counts`` calls it)."""
-    for counts in DESIGN_LAUNCHES.values():
+    """Set ``DESIGN_LAUNCHES`` and ``VALUE_LAUNCHES`` to 0
+    (``reset_launch_counts`` calls it)."""
+    for counts in (*DESIGN_LAUNCHES.values(), *VALUE_LAUNCHES.values()):
         counts.update(dict.fromkeys(counts, 0))
 
 
 def spmm_vsr_fused(bal: BalancedCOO, x: torch.Tensor,
-                   design: str | None = None) -> torch.Tensor:
-    """K1: ``Y = A·X`` over the BalancedCOO slabs.  CPU operands take the
+                   design: str | None = None, *,
+                   scales: torch.Tensor | None = None) -> torch.Tensor:
+    """K1: ``Y = A·X`` over the BalancedCOO slabs (int8 / fp8 codes with
+    their per-tile ``scales``, or f32 / bf16 values).  CPU operands take the
     plain version; CUDA operands launch ``design`` (``None``: by N, as the
     selector would) or raise."""
     if _common.on_cpu("vsr_spmm", bal.rows, bal.cols, bal.vals, x):
-        return spmm_vsr_plain(bal, x)
-    x2 = _check(bal, x)
+        return spmm_vsr_plain(bal, x, scales)
+    x2 = _check(bal, x, scales)
     design = _design(x2.shape[1]) if design is None else design
-    y = _launch(design, bal, x2).to(x2.dtype)
+    y = _launch(design, bal, x2, scales=scales).to(x2.dtype)
     return y[:, 0] if x.ndim == 1 else y
 
 
@@ -314,10 +355,13 @@ def spill_combine(partials: torch.Tensor, row_base: torch.Tensor,
 
 
 def spill_partials_plain(bal: BalancedCOO, x2: torch.Tensor,
-                         row_base: torch.Tensor, win: int) -> torch.Tensor:
+                         row_base: torch.Tensor, win: int,
+                         scales: torch.Tensor | None = None) -> torch.Tensor:
     """K4's (and, at N = 1, K5's) plain PyTorch version: every product
     summed in f32 into its tile's window at ``row - row_base`` (clamped to
-    the window, as the reference clamps), padding dropped."""
+    the window, as the reference clamps), padding dropped; a coded slab
+    decoded by ``scales`` first."""
+    bal = decoded(bal, scales)
     n_tiles, t = bal.rows.shape
     n = x2.shape[1]
     m = bal.shape[0]
@@ -359,14 +403,17 @@ def spill_lanes(n: int) -> int:
 
 def spmm_vsr_partials(bal: BalancedCOO, x2: torch.Tensor,
                       row_base: torch.Tensor, win: int, *,
-                      lanes: int | None = None) -> torch.Tensor:
-    """K4 alone: the (n_tiles, WIN, N) f32 partials of ``x2`` (K, N).  CPU
-    operands take the plain version; CUDA operands launch the kernel or
-    raise.  ``lanes`` forces a group's lanes (default ``spill_lanes``)."""
+                      lanes: int | None = None,
+                      scales: torch.Tensor | None = None) -> torch.Tensor:
+    """K4 alone: the (n_tiles, WIN, N) f32 partials of ``x2`` (K, N); a
+    slab of codes takes its per-tile ``scales``.  CPU operands take the
+    plain version; CUDA operands launch the kernel or raise.  ``lanes``
+    forces a group's lanes (default ``spill_lanes``)."""
     if _common.on_cpu("vsr_spmm_spill", bal.rows, bal.cols, bal.vals, x2,
                       row_base):
-        return spill_partials_plain(bal, x2, row_base, win)
-    _common.check_operands("vsr_spmm_spill", (bal.rows, bal.cols), bal.vals, x2)
+        return spill_partials_plain(bal, x2, row_base, win, scales)
+    _common.check_operands("vsr_spmm_spill", (bal.rows, bal.cols), bal.vals, x2,
+                           coded=True, scales=scales)
     m, k = bal.shape
     n = x2.shape[1]
     if x2.shape[0] != k:
@@ -389,43 +436,48 @@ def spmm_vsr_partials(bal: BalancedCOO, x2: torch.Tensor,
     if part.numel():
         err = _build.lib().repro_vsr_spmm_spill(
             bal.rows.data_ptr(), bal.cols.data_ptr(), bal.vals.data_ptr(),
-            _common.is_bf16(bal.vals), x2.data_ptr(), _common.is_bf16(x2),
-            row_base.data_ptr(), part.data_ptr(), bal.n_tiles, bal.tile, m, n,
-            win, lanes, _common.stream_of(x2))
+            _common.value_code(bal.vals),
+            _common.scales_ptr(bal.vals, scales), x2.data_ptr(),
+            _common.is_bf16(x2), row_base.data_ptr(), part.data_ptr(),
+            bal.n_tiles, bal.tile, m, n, win, lanes, _common.stream_of(x2))
         _build.check(err, "vsr_spmm_spill")
         LAUNCHES["vsr_spmm_spill"] += 1
+        VALUE_LAUNCHES["vsr_spmm_spill"][_common.value_type(bal.vals)] += 1
     return part
 
 
 def spmm_vsr_spill_plain(bal: BalancedCOO, x: torch.Tensor, *,
                          row_base: torch.Tensor | None = None,
-                         win: int | None = None) -> torch.Tensor:
+                         win: int | None = None,
+                         scales: torch.Tensor | None = None) -> torch.Tensor:
     """The spill path's plain PyTorch version: plain partials, then the
     plain combine."""
     x2 = x[:, None] if x.ndim == 1 else x
     if row_base is None or win is None:
         row_base, win = SpillWindows()(bal)
-    y = spill_combine_plain(spill_partials_plain(bal, x2, row_base, win),
+    y = spill_combine_plain(spill_partials_plain(bal, x2, row_base, win, scales),
                             row_base, bal.shape[0]).to(x2.dtype)
     return y[:, 0] if x.ndim == 1 else y
 
 
 def _spill_spmm(bal: BalancedCOO, x2: torch.Tensor, row_base: torch.Tensor,
-                win: int) -> torch.Tensor:
+                win: int, scales: torch.Tensor | None = None) -> torch.Tensor:
     """K4, then the combine, on ordered windows."""
-    return _combine(spmm_vsr_partials(bal, x2, row_base, win), row_base,
-                    bal.shape[0]).to(x2.dtype)
+    return _combine(spmm_vsr_partials(bal, x2, row_base, win, scales=scales),
+                    row_base, bal.shape[0]).to(x2.dtype)
 
 
 def spmm_vsr(bal: BalancedCOO, x: torch.Tensor, *,
              row_base: torch.Tensor | None = None,
-             win: int | None = None) -> torch.Tensor:
+             win: int | None = None,
+             scales: torch.Tensor | None = None) -> torch.Tensor:
     """NB SpMM, spill and combine (the fused path's parity reference): K4's
     partials, then ``spill_combine``.  ``row_base`` / ``win`` come from
     ``plan_windows`` (computed here when not given; a given ``row_base``
-    on the card must be non-decreasing)."""
+    on the card must be non-decreasing); ``scales`` decode a slab of
+    codes."""
     x2 = x[:, None] if x.ndim == 1 else x
-    y = _spill_spmm(bal, x2, *_given_or_planned(bal, row_base, win))
+    y = _spill_spmm(bal, x2, *_given_or_planned(bal, row_base, win), scales)
     return y[:, 0] if x.ndim == 1 else y
 
 
@@ -453,7 +505,9 @@ def spmm_as_n_spmv_hopper(bal: BalancedCOO, x: torch.Tensor, *,
 # registry: the Hopper kernels of the nnz-balanced logical pair, each with its
 # own K1 design (nb_sr: "sr", nb_pr: "pr"); x of shape (K,) takes K2, as in
 # the reference's _pallas_nb.  ``spill=True`` in the kernel opts forces the
-# spill path (K4, K5 at N = 1).
+# spill path (K4, K5 at N = 1).  A quantized plan's opts carry ``quant`` (a
+# float slab is quantized first) and, for its baked slab of codes,
+# ``scales`` (``coded``).
 # ---------------------------------------------------------------------------
 
 def _prep_geometry(bal: BalancedCOO, *,
@@ -475,19 +529,39 @@ def _prep_windows(bal: BalancedCOO, *, geometry: TileGeometry | None = None,
                 windows=SpillWindows(max_win))
 
 
+def coded(bal: BalancedCOO, quant: str | None,
+          scales: torch.Tensor | None
+          ) -> tuple[BalancedCOO, torch.Tensor | None]:
+    """The slab and scales an NB entry launches on: a baked slab of codes
+    with the plan's ``scales``; a float slab on a quantized plan (``quant``:
+    a live stream) quantized per tile on its own device, fresh scales; a
+    float slab otherwise, no scales."""
+    if is_quantized_dtype(bal.vals.dtype):
+        if scales is None:
+            raise ValueError(f"a slab of {bal.vals.dtype} codes needs its "
+                             "per-tile scales")
+        return bal, scales
+    if quant is None:
+        return bal, None
+    q, sc = quantize_stream(bal.vals, quant)
+    return BalancedCOO(bal.rows, bal.cols, q, bal.shape), sc
+
+
 def _hopper_nb(design: str, bal: BalancedCOO, x: torch.Tensor, *,
-               spill: bool = False, windows: SpillWindows | None = None):
+               spill: bool = False, windows: SpillWindows | None = None,
+               quant: str | None = None, scales: torch.Tensor | None = None):
     x = x.contiguous()
+    bal, scales = coded(bal, quant, scales)
     if spill:
         row_base, win = (windows or SpillWindows())(bal)
         if x.ndim == 1:
             from .spmv import _spill_spmv
-            return _spill_spmv(bal, x, row_base, win)
-        return _spill_spmm(bal, x, row_base, win)
+            return _spill_spmv(bal, x, row_base, win, scales)
+        return _spill_spmm(bal, x, row_base, win, scales)
     if x.ndim == 1:
         from .spmv import spmv_vsr_fused
-        return spmv_vsr_fused(bal, x)
-    return spmm_vsr_fused(bal, x, design)
+        return spmv_vsr_fused(bal, x, scales=scales)
+    return spmm_vsr_fused(bal, x, design, scales=scales)
 
 
 def _hopper_nb_sr(bal: BalancedCOO, x: torch.Tensor, **opts):

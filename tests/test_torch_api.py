@@ -125,10 +125,12 @@ def test_sparse_without_cuda_raises(monkeypatch):
 
 def test_unported_arguments_raise():
     csr = _port(SUITE["rmat_s8_e4_uniform"])
-    for kw in ({"mesh": object()}, {"quant": "int8"},
-               {"sentinel": "raise"}, {"validate": "repair"}):
+    for kw in ({"mesh": object()}, {"sentinel": "raise"},
+               {"validate": "repair"}):
         with pytest.raises(NotImplementedError):
             plan_mod.plan(csr, **kw)
+    # quantized value streams are ported (tests/test_torch_quant.py)
+    assert plan_mod.plan(csr, quant="int8").quant == "int8"
     with pytest.raises(TypeError):
         plan_mod.plan(csr, bogus=1)
 

@@ -456,10 +456,12 @@ def test_plan_refuses_unknown_chain_op_and_unported_arguments():
         plan_mod.plan(pc, chain_op="sigmoid")
     with pytest.raises(ValueError):
         repro_torch.sparse(pc, device="cpu", chain_op="sigmoid", cache=False)
-    for kw in ({"mesh": object()}, {"quant": "int8"}, {"sentinel": "raise"},
+    for kw in ({"mesh": object()}, {"sentinel": "raise"},
                {"validate": "repair"}, {"inner_backend": "torch"}):
         with pytest.raises(NotImplementedError):
             plan_mod.plan(pc, **kw)
+    # quantized value streams are ported (tests/test_torch_quant.py)
+    assert plan_mod.plan(pc, chain_op="softmax", quant="int8").quant == "int8"
 
 
 # ---------------------------------------------------------------------------

@@ -2220,3 +2220,259 @@ def test_cuda_bsr_tall_blocks_match_plain(cuda, n):
         y = bsr.spmm_bsr(b, x)
         assert bsr.DESIGN_LAUNCHES["bsr_spmm"]["fma"] == 1
         assert _rel(y, bsr.spmm_bsr_plain(b, x)) < tol
+
+
+# ---------------------------------------------------------------------------
+# quantized value slabs: K1 (both designs), K2, K4 and K5 on int8 / fp8 codes
+# ---------------------------------------------------------------------------
+
+QUANT_MODES = ("int8", "fp8")
+QUANT_TILES = (64, 510, 512)
+QUANT_NS = (1, 3, 4, 32, 128)
+
+
+def _coded(csr, tile, mode, spread=False):
+    """The balanced slab of ``csr`` as ``mode`` codes and its scales; with
+    ``spread`` every other tile's scale (and the decoded values) 100×
+    larger."""
+    from repro_torch.core import quant
+    bal = formats.csr_to_balanced(csr, tile)
+    q, sc = quant.quantize_stream(bal.vals, mode)
+    if spread:
+        sc = sc * torch.where(torch.arange(sc.numel(), device=sc.device) % 2 == 1,
+                              100.0, 1.0)
+    return formats.BalancedCOO(bal.rows, bal.cols, q, bal.shape), sc.contiguous()
+
+
+def _value_launches():
+    return {k: dict(v) for mod in (vsr, spmv) for k, v in mod.VALUE_LAUNCHES.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", QUANT_MODES)
+@pytest.mark.parametrize("tile", QUANT_TILES)
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_cuda_coded_kernels_match_plain(cuda, mode, tile, xdtype):
+    """Each coded variant against its plain version (which decodes, then
+    runs the float math): K1 sr and pr forced, K2, K4 and K5, at a tile of
+    64 (several tiles a CTA of the sr design at small N), 510 (no multiple
+    of 4: scalar code loads) and 512, with scales 100× apart between
+    neighbouring tiles, on an aligned and an unaligned X; empty rows exactly
+    0, and every launch counted under the mode."""
+    tol = 1e-4 if xdtype == torch.float32 else 2e-2
+    reset_launch_counts()
+    launches = 0
+    for name, csr in _nb_mats(cuda):
+        empty = torch.diff(csr.indptr) == 0
+        bal, sc = _coded(csr, tile, mode, spread=True)
+        row_base, win = vsr.SpillWindows()(bal)
+        for n in QUANT_NS:
+            x = torch.randn(csr.shape[1], n, device=cuda).to(xdtype)
+            for xx in (x, _unaligned(x)):
+                label = (name, n, xx.data_ptr() % 16)
+                if n == 1:
+                    x1 = xx[:, 0].contiguous() if xx is x else _unaligned(x[:, 0])
+                    y = spmv.spmv_vsr_fused(bal, x1, scales=sc)
+                    want = spmv.spmv_vsr_plain(bal, x1, sc)
+                    assert y.dtype == xdtype and _rel(y, want) < tol, label
+                    assert (y[empty] == 0).all(), label
+                    part = spmv.spmv_vsr_partials(bal, x1, row_base, win, scales=sc)
+                    want = vsr.spill_partials_plain(bal, x1[:, None], row_base,
+                                                    win, sc)[..., 0]
+                    assert _rel(part, want) < tol, label
+                    launches += 2
+                    continue
+                for design in ("sr", "pr"):
+                    y = vsr.spmm_vsr_fused(bal, xx, design, scales=sc)
+                    want = vsr.spmm_vsr_plain(bal, xx, sc)
+                    assert y.dtype == xdtype and _rel(y, want) < tol, (label, design)
+                    assert (y[empty] == 0).all(), (label, design)
+                part = vsr.spmm_vsr_partials(bal, xx, row_base, win, scales=sc)
+                want = vsr.spill_partials_plain(bal, xx, row_base, win, sc)
+                assert _rel(part, want) < tol, label
+                launches += 3
+    torch.cuda.synchronize()
+    counts = _value_launches()
+    assert sum(c[mode] for c in counts.values()) == launches
+    assert all(c[k] == 0 for c in counts.values() for k in c if k != mode)
+
+
+def _exact_coded_slab(mode, device):
+    """A (3, 64) slab of codes whose products and row sums are exact in
+    f32: tile 0 all zero (scale 1.0), tile 1 the mode's extreme codes ±qmax
+    at scale 0.5, tile 2 small codes at scale 2.0; rows of 8 slots, the
+    last tile's second half padding."""
+    from repro_torch.core import quant
+    qmax = quant.QMAX[mode]
+    codes = torch.zeros(3, 64)
+    codes[1] = torch.tensor([qmax, -qmax] * 32)
+    codes[2, :32] = torch.arange(32) % 7 - 3.0
+    rows = (torch.arange(3 * 64) // 8).reshape(3, 64).int()
+    m = 20
+    rows[2, 32:] = m
+    cols = (torch.arange(3 * 64) * 5 % 40).reshape(3, 64).int()
+    cols[2, 32:] = 0
+    bal = formats.BalancedCOO(rows.to(device), cols.to(device),
+                              codes.to(quant.quant_dtype(mode)).to(device),
+                              (m, 40))
+    return bal, torch.tensor([1.0, 0.5, 2.0], device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", QUANT_MODES)
+@pytest.mark.parametrize("n", [1, 4, 32])
+def test_cuda_coded_extremes_decode_exactly(cuda, mode, n):
+    """An all-zero tile and codes at ±127 (int8) / ±448 (fp8) decode exactly:
+    on integer X every product and sum is exact, so each kernel equals its
+    plain version bit for bit, and the all-zero tile's rows are 0."""
+    bal, sc = _exact_coded_slab(mode, cuda)
+    x = torch.randint(-3, 4, (40, n), device=cuda).float()
+    if n == 1:
+        x1 = x[:, 0].contiguous()
+        outs = [(spmv.spmv_vsr_fused(bal, x1, scales=sc),
+                 spmv.spmv_vsr_plain(bal, x1, sc))]
+    else:
+        outs = [(vsr.spmm_vsr_fused(bal, x, d, scales=sc),
+                 vsr.spmm_vsr_plain(bal, x, sc)) for d in ("sr", "pr")]
+    row_base, win = vsr.SpillWindows()(bal)
+    if n == 1:
+        outs.append((spmv.spmv_vsr(bal, x1, row_base=row_base, win=win,
+                                   scales=sc),
+                     spmv.spmv_vsr_spill_plain(bal, x1, scales=sc)))
+    else:
+        outs.append((vsr.spmm_vsr(bal, x, row_base=row_base, win=win,
+                                  scales=sc),
+                     vsr.spmm_vsr_spill_plain(bal, x, scales=sc)))
+    torch.cuda.synchronize()
+    for got, want in outs:
+        assert torch.equal(got.reshape(want.shape), want)
+        assert (got.reshape(20, -1)[:8] == 0).all()     # tile 0: zeros
+        assert got.abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_cuda_coded_values_rejected_without_scales_or_elsewhere(cuda):
+    """Codes without scales, scales of the wrong shape or type, and codes
+    sent to a kernel that takes no codes (K3) raise ``ValueError`` before
+    any launch."""
+    csr = _graphs(cuda)["skewed"]
+    bal, sc = _coded(csr, 64, "int8")
+    x = torch.randn(csr.shape[1], 8, device=cuda)
+    x1 = x[:, 0].contiguous()
+    row_base, win = vsr.SpillWindows()(bal)
+    reset_launch_counts()
+    calls = [lambda s: vsr.spmm_vsr_fused(bal, x, "sr", scales=s),
+             lambda s: vsr.spmm_vsr_fused(bal, x, "pr", scales=s),
+             lambda s: spmv.spmv_vsr_fused(bal, x1, scales=s),
+             lambda s: vsr.spmm_vsr_partials(bal, x, row_base, win, scales=s),
+             lambda s: spmv.spmv_vsr_partials(bal, x1, row_base, win, scales=s)]
+    for call in calls:
+        for bad in (None, sc[:-1].contiguous(), sc.double(), sc.cpu()):
+            with pytest.raises(ValueError):
+                call(bad)
+    ell = formats.csr_to_ell(csr)
+    with pytest.raises(ValueError):
+        csc.spmm_csc(dataclasses.replace(ell, vals=ell.vals.to(torch.int8)), x)
+    assert sum(launch_counts().values()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", QUANT_MODES)
+def test_cuda_quantized_plan_main_path(cuda, mode):
+    """``sparse(csr, quant=mode) @ x`` on the card: an ``nb_*`` pick on every
+    graph, only coded launches (no f32 kernel, no plain version), agreement
+    with the ``"torch"`` backend on the same plan, codes made on the card
+    bit-equal to the CPU's; a live stream quantized on the card; dX of the
+    baked plan equal to the decoded Aᵀ·G."""
+    import repro_torch
+    from repro_torch.core import quant
+    for name, csr in _graphs(cuda).items():
+        A = repro_torch.sparse(csr, quant=mode, cache=False)
+        bal = A.plan.substrate("balanced")
+        assert bal.vals.dtype == quant.quant_dtype(mode), name
+        cpu = repro_torch.sparse(csr.to("cpu"), device="cpu", quant=mode,
+                                 cache=False).plan
+        assert torch.equal(bal.vals.view(torch.uint8).cpu(),
+                           cpu.substrate("balanced").vals.view(torch.uint8))
+        assert torch.equal(A.plan.quant_scales().cpu(), cpu.quant_scales())
+        for n in (1, 4, 32, 128):
+            assert A.plan.select(n).startswith("nb_"), (name, n)
+            x = torch.randn(csr.shape[1], n, device=cuda)
+            x = x[:, 0].contiguous() if n == 1 else x
+            reset_launch_counts()
+            y = A @ x
+            torch.cuda.synchronize()
+            counts = _value_launches()
+            assert sum(c[mode] for c in counts.values()) == 1, (name, n)
+            assert sum(sum(c.values()) for c in counts.values()) == 1
+            assert _rel(y, A.matmul(x, backend="torch")) < 1e-4, (name, n)
+            v = csr.data * 1.5
+            reset_launch_counts()
+            yl = A.with_values(v) @ x
+            assert sum(c[mode] for c in _value_launches().values()) == 1
+            assert _rel(yl, A.with_values(v).matmul(x, backend="torch")) < 1e-4
+        x = torch.randn(csr.shape[1], 8, device=cuda, requires_grad=True)
+        g = torch.randn(csr.shape[0], 8, device=cuda)
+        (A @ x).backward(g)
+        dense = torch.zeros(csr.shape, device=cuda)
+        dec = quant.dequantize_stream(bal.vals, A.plan.quant_scales())
+        valid = bal.rows < csr.shape[0]
+        dense.index_put_((bal.rows[valid].long(), bal.cols[valid].long()),
+                         dec[valid], accumulate=True)
+        assert _rel(x.grad, dense.T @ g) < 1e-4, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq", [40, 100])
+def test_cuda_block_design_zero_fill_on_poisoned_staging(cuda, dtype, seq):
+    """Fault 3.2: the block design's kernels (K9 / K10, and K7 / K8 with the
+    bias compiled out), built with their shared-memory staging filled with
+    NaN at CTA entry (``_build.variant("poison_staging")``), at a ragged
+    sequence (key rows past K) and a ragged head (depth padded to the
+    MMA's), and at a head of 64: the outputs are finite and equal the plain
+    versions, so every staged entry the kernels read was written (the zero
+    fill of ``stage_tile``).  Without the fill the padded depth's NaN
+    reaches every score; a key row past K is masked and, in V, cleared by
+    fault 3.1's repair."""
+    from repro_torch.kernels import _build
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    spec = patterns.dense_attention(seq, block=8)
+    csr = patterns.build_mask(spec).csr.to(cuda)
+    bal = formats.csr_to_balanced(csr, 512)
+    empty = torch.diff(csr.indptr) == 0
+    for d in ((36 if dtype == torch.float32 else 40), 64):
+        q, k = ((0.5 * torch.randn(seq, d, device=cuda)).to(dtype)
+                for _ in range(2))
+        v = torch.randn(seq, 24, device=cuda).to(dtype)
+        slab = _stream_to_balanced(
+            torch.from_numpy(interop.alibi_bias(csr, 0.05)).to(cuda), bal)
+        args = (bal.rows, bal.cols, q, k)
+        with _build.variant("poison_staging"):
+            reset_launch_counts()
+            rm, rs = attention._launch_stats("block", *args, slab,
+                                             shape=csr.shape, scale=d ** -0.5)
+            y9 = attention._launch_chain("block", *args, slab, v,
+                                         shape=csr.shape, scale=d ** -0.5)
+            cm, cs = fused_chain._launch_stats("block", *args, shape=csr.shape,
+                                               alpha=d ** -0.5)
+            y7 = fused_chain._launch_chain("block", *args, v, shape=csr.shape,
+                                           transform="softmax", alpha=d ** -0.5)
+            torch.cuda.synchronize()
+        assert attention.DESIGN_LAUNCHES["attn_chain"]["block"] == 1
+        assert fused_chain.DESIGN_LAUNCHES["chain"]["block"] == 1
+        pm, ps = attention.attn_stats_plain(*args, slab, shape=csr.shape,
+                                            scale=d ** -0.5)
+        live = pm > -1e29
+        assert torch.isfinite(rs).all() and _rel(rs, ps) < 1e-4, d
+        assert _rel(rm[live], pm[live]) < 1e-4, d
+        want = attention.attn_chain_plain(*args, slab, v, shape=csr.shape,
+                                          scale=d ** -0.5)
+        assert torch.isfinite(y9).all() and _rel(y9, want) < tol, d
+        cpm, cps = fused_chain.chain_stats_plain(*args, shape=csr.shape,
+                                                 alpha=d ** -0.5)
+        assert torch.isfinite(cs).all() and _rel(cs, cps) < 1e-4, d
+        want = fused_chain.chain_plain(*args, v, shape=csr.shape,
+                                       transform="softmax", alpha=d ** -0.5)
+        assert torch.isfinite(y7).all() and _rel(y7, want) < tol, d
+        assert (y9[empty] == 0).all() and (y7[empty] == 0).all()

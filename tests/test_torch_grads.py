@@ -305,10 +305,13 @@ def test_refusals_and_unported_arguments(rng):
     with torch.no_grad():
         assert not execute(p, torch.randn(10)).requires_grad
     bal = formats.csr_to_balanced(pc, 8)
-    for kw in ({"mesh": object()}, {"shard_axis": "x"}, {"quant": "int8"}):
+    for kw in ({"mesh": object()}, {"shard_axis": "x"}):
         with pytest.raises(NotImplementedError):
             execute_pattern(bal.rows, bal.cols, bal.vals, bal.shape,
                             torch.randn(10), **kw)
+    # quantized value streams are ported (tests/test_torch_quant.py)
+    assert execute_pattern(bal.rows, bal.cols, bal.vals, bal.shape,
+                           torch.randn(10), quant="int8").shape == (10,)
     with pytest.raises(ValueError, match="balanced"):
         execute_pattern(bal.rows, bal.cols, bal.vals, bal.shape, torch.randn(10),
                         impl="rs_sr")

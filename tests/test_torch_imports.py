@@ -45,6 +45,8 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.models.transformer",
                    "repro_torch.models.layers",
                    "repro_torch.core.vjp",
+                   "repro_torch.core.quant",
+                   "repro_torch.train.compress",
                    "repro_torch.examples.train_gat",
                    "repro_torch.train.optim",
                    "repro_torch.train.step",

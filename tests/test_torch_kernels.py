@@ -145,9 +145,9 @@ def _record_designs(monkeypatch):
     names (``None``: routed by N) that runs the plain version."""
     seen = []
 
-    def fake(bal, x, design=None):
+    def fake(bal, x, design=None, *, scales=None):
         seen.append(design)
-        return vsr.spmm_vsr_plain(bal, x)
+        return vsr.spmm_vsr_plain(bal, x, scales)
     monkeypatch.setattr(vsr, "spmm_vsr_fused", fake)
     return seen
 
