@@ -212,7 +212,36 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              ``torch.sparse.mm`` on the decoded f32 CSR, with the coded
              bound: 9 B a nonzero (int32 row and column, one code) + 4 B a
              tile + 4·K·N + 4·M·N, against 12 B a nonzero for f32;
-13. summary — one JSON line of the kernels (``launches`` and ``design``:
+13. offline — the offline half of the split: (a) ``calibrate_backend`` on
+             ``"hopper"`` over the paper's 27 R-MAT matrices
+             (``rmat_suite()``: scales 10/12/14 x edge factors 4/16/64 x
+             three skews; each matrix's ELL bytes printed before it is
+             built) at N = 1, 4, 32, 128, each (matrix, N, kernel) the mean
+             of 10 calls by CUDA events after a warm-up, every time printed
+             with the oracle's, the defaults' and the winner's pick; the
+             winning thresholds, their geomean slowdown against the oracle
+             and that of the defaults (the paper's "5-12%"), the winner
+             saved and reloaded through ``$REPRO_THRESHOLDS``; then the same
+             grid search (``calibrate(times=)``) on device time alone: each
+             point's call from a full-coverage artifact captured in a CUDA
+             graph, the mean of 10 replays; (b) frozen
+             ``PlanArtifact``s at full size: ``finalize(n)`` on g500 at N =
+             1, 4, 32, 128 (K2, K1 pr, K1 sr) and on the uniform graph at
+             32 and 128 (K3 sr), a full-coverage ``finalize()`` on the
+             uniform graph (each of the four kernels at N = 32) and the
+             Gemma ffn_up's ``"bsr"`` artifact at N = 128 (K11): each
+             ``execute(art, x)`` one launch, with the sync guard set to
+             error and no substrate or pattern-prep build, bit-equal to
+             the builder's ``A @ x`` on every row that one or two tiles hold
+             (an NB kernel adds a row of three or more tiles by atomics in
+             no fixed order: there within 1e-6) and within 1e-4 of the
+             plain version; the call captured in a CUDA graph and replayed
+             20 times, each replay held the same way; the builder's call,
+             the artifact's call and the graph replay timed (median of 20);
+             grads through the artifact (g500 N = 32, the ``"bsr"``
+             artifact) within 1e-4 of the builder's, with no host build and
+             no sync; (c) ``repro_torch.examples.quickstart.main()``;
+14. summary — one JSON line of the kernels (``launches`` and ``design``:
              the main path's; ``launches_by_path`` and ``design_by_path``:
              every path above; for K1, K2, K4 and K5 ``launches_by_value``,
              and an entry of their own for each coded variant,
@@ -361,6 +390,21 @@ CODED_KEYS = tuple(f"{k}:{m}" for k in CODED for m in QUANT_MODES)
 #: the (graph, N) whose times stand for each coded variant in the summary
 CODED_SHAPE = {"vsr_spmm": ("g500", 128), "vsr_spmv": ("g500", 1),
                "vsr_spmm_spill": ("unif", 128), "vsr_spmv_spill": ("unif", 1)}
+
+
+#: the offline path: the selector's calibration over the paper's 27-matrix
+#: R-MAT suite at these N, each point the mean of CAL_REPEATS calls after a
+#: warm-up; the frozen artifacts at full size, (graph, N, impl) — g500 at
+#: the four N (K2, K1 pr, K1 sr), the uniform graph at N = 32 and 128 (K3
+#: sr) — then the uniform graph's full-coverage artifact (each kernel at
+#: FULL_N) and the Gemma ffn_up's "bsr" artifact at BSR_ARTIFACT_N (K11)
+CAL_NS = (1, 4, 32, 128)
+CAL_REPEATS = 10
+ARTIFACT_CASES = (("g500", 1), ("g500", 4), ("g500", 32), ("g500", 128),
+                  ("unif", 32), ("unif", 128))
+FULL_N = 32
+BSR_ARTIFACT_N = 128
+GRAPH_REPLAYS = 20
 
 
 def pruned_ffn_weight(d_ff: int, d_model: int, seed: int):
@@ -931,12 +975,14 @@ def main() -> int:
     #: GAT chain ("chain_backward"), the GAT training steps ("gat_train"),
     #: of block-sparse attention ("attention_backward") and of the block-
     #: pruned weight ("bsr_backward")
-    #: and the quantized value streams ("quant"); K1, K2, K4 and K5's
+    #: the quantized value streams ("quant") and the offline half (the
+    #: calibration, the frozen artifacts, the quickstart: "offline"); K1,
+    #: K2, K4 and K5's
     #: launches by value type (f32, bf16, int8, fp8) on each path
     path_launches = {path: {k: 0 for k in KERNELS}
                      for path in ("main", "backward", "train", "chain_backward",
                                   "gat_train", "attention_backward",
-                                  "bsr_backward", "quant")}
+                                  "bsr_backward", "quant", "offline")}
     value_counts = {**vsr.VALUE_LAUNCHES, **spmv.VALUE_LAUNCHES}
     path_values = {path: {k: dict.fromkeys(vv, 0) for k, vv in value_counts.items()}
                    for path in path_launches}
@@ -2769,7 +2815,295 @@ def main() -> int:
     del vq, xq, yq, xp, gyp, w_dec, w_f, lib_w, qb, fb, q_g, sc_g
     torch.cuda.empty_cache()
 
-    # -- 13. summary --------------------------------------------------------------
+    # -- 13. offline ----------------------------------------------------------------
+    phase("offline")
+    import os
+    import tempfile
+    from repro_torch.core.rmat import rmat_suite
+    from repro_torch.core.selector import (THRESHOLDS_ENV, default_thresholds,
+                                           select_kernel, slowdown_vs_oracle)
+    from repro_torch.core.stats import matrix_stats
+    from repro_torch.examples import quickstart
+
+    def multi_rows(csr, tile):
+        """Rows three or more tiles hold: the NB kernels add their partial
+        sums by atomics, in no fixed order (rows of one or two tiles have
+        one order)."""
+        ip = csr.indptr.long()
+        return (ip[1:] > ip[:-1]) & ((ip[1:] - 1) // tile - ip[:-1] // tile >= 2)
+
+    def agree(got, want, multi):
+        """``(bit_equal, ok, max_abs_diff)``: bit-equal on every row outside
+        ``multi``, within 1e-6 of the largest magnitude on ``multi``."""
+        diff = float((got - want).abs().max()) if got.numel() else 0.0
+        keep = ~multi if got.ndim == 1 else (~multi)[:, None].expand_as(got)
+        ok = torch.equal(got[keep], want[keep]) and \
+            diff <= 1e-6 * max(float(want.abs().max()), 1e-30)
+        return diff == 0.0, ok, diff
+
+    def host_builds():
+        return (dict(formats.BUILD_COUNTS), PATTERN_PREP["builds"])
+
+    def guarded(call):
+        """``call()`` with a device sync turned into an error."""
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def capture(call):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = guarded(call)
+        return graph, out
+
+    # (a) the selector's calibration over the paper's R-MAT suite
+    t0 = time.perf_counter()
+    suite = rmat_suite(seed=args.seed, device=dev)
+    suite_stats = {name: matrix_stats(c) for name, c in suite.items()}
+    print(f"[offline] rmat_suite: {len(suite)} matrices in "
+          f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
+    for name, st in suite_stats.items():
+        # the ELL the rs kernels need, reckoned before calibrate builds it
+        print(f"[offline] {name}: M={st.m} nnz={st.nnz} avg_row={st.avg_row:.2f} "
+              f"cv={st.cv:.2f} max_row={st.max_row} ell="
+              f"{st.m * max(st.max_row, 1) * 8 / 1e9:.3f} GB", flush=True)
+    t0 = time.perf_counter()
+    (best, report), cal_counts = drive(lambda: repro_torch.calibrate_backend(
+        matrices=suite, ns=CAL_NS, repeats=CAL_REPEATS, backend="hopper"),
+        "offline")
+    cal_s = time.perf_counter() - t0
+    cal_times = {}
+    for key, t in report["times"].items():
+        mname, n_s, kname = key.split("|")
+        cal_times[(mname, int(n_s[2:]), kname)] = t
+    if len(cal_times) != len(suite) * len(CAL_NS) * 4 or \
+            not all(np.isfinite(t) and t > 0 for t in cal_times.values()):
+        fail(f"offline: calibration times {len(cal_times)}, not all finite")
+    loss_default = slowdown_vs_oracle(suite_stats, CAL_NS, cal_times, default_th)
+    loss_best = report["geomean_slowdown_vs_oracle"]
+    for mname, st in suite_stats.items():
+        for n in CAL_NS:
+            ts = {k: 1e3 * cal_times[(mname, n, k)] for k in ("rs_sr", "rs_pr",
+                                                             "nb_sr", "nb_pr")}
+            print(f"[offline] cal {mname} N={n} "
+                  + " ".join(f"{k}={v:.4f}" for k, v in ts.items())
+                  + f" oracle={min(ts, key=ts.get)}"
+                  f" default={select_kernel(st, n, default_th)}"
+                  f" calibrated={select_kernel(st, n, best)}", flush=True)
+    cal_row = {"n_threshold": best.n_threshold, "pr_avg_row": best.pr_avg_row,
+               "sr_cv": best.sr_cv, "loss_calibrated": loss_best,
+               "loss_default": loss_default, "seconds": round(cal_s, 1),
+               "launches": {k: v for k, v in cal_counts.items() if v}}
+    print("[offline] calibration " + json.dumps(cal_row), flush=True)
+    if not loss_best <= loss_default:
+        fail(f"offline: the calibrated loss {loss_best} exceeds the "
+             f"defaults' {loss_default}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "thresholds.json")
+        save_to_env = os.environ.get(THRESHOLDS_ENV)
+        repro_torch.api.save_thresholds(best, path)
+        os.environ[THRESHOLDS_ENV] = path
+        try:
+            reloaded = default_thresholds()
+        finally:
+            if save_to_env is None:
+                os.environ.pop(THRESHOLDS_ENV)
+            else:
+                os.environ[THRESHOLDS_ENV] = save_to_env
+    if reloaded != best:
+        fail(f"offline: $REPRO_THRESHOLDS reloaded {reloaded}, not {best}")
+
+    # the same grid search on device time alone: each (matrix, N, kernel)
+    # from a full-coverage artifact, its call captured in a CUDA graph, the
+    # mean of CAL_REPEATS back-to-back replays (calibrate_backend's times
+    # hold the host's dispatch too, which a call of these sizes waits on)
+    def graph_times():
+        out = {}
+        for mname, c in suite.items():
+            art = repro_torch.sparse(c, cache=False).finalize()
+            for n in CAL_NS:
+                x = randn(c.shape[1], n) if n > 1 else randn(c.shape[1])
+                for kname in ("rs_sr", "rs_pr", "nb_sr", "nb_pr"):
+                    graph, _ = capture(
+                        lambda: repro_torch.execute(art, x, impl=kname))
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(CAL_REPEATS):
+                        graph.replay()
+                    end.record()
+                    end.synchronize()
+                    out[(mname, n, kname)] = (start.elapsed_time(end) / 1e3
+                                              / CAL_REPEATS)
+        return out
+    t0 = time.perf_counter()
+    g_times, g_counts = drive(graph_times, "offline")
+    g_best, g_report = repro_torch.calibrate(suite, CAL_NS, times=g_times)
+    for mname, st in suite_stats.items():
+        for n in CAL_NS:
+            ts = {k: 1e3 * g_times[(mname, n, k)] for k in ("rs_sr", "rs_pr",
+                                                           "nb_sr", "nb_pr")}
+            print(f"[offline] cal_graph {mname} N={n} "
+                  + " ".join(f"{k}={v:.4f}" for k, v in ts.items())
+                  + f" oracle={min(ts, key=ts.get)}"
+                  f" default={select_kernel(st, n, default_th)}"
+                  f" calibrated={select_kernel(st, n, g_best)}", flush=True)
+    graph_row = {"n_threshold": g_best.n_threshold,
+                 "pr_avg_row": g_best.pr_avg_row, "sr_cv": g_best.sr_cv,
+                 "loss_calibrated": g_report["geomean_slowdown_vs_oracle"],
+                 "loss_default": slowdown_vs_oracle(suite_stats, CAL_NS,
+                                                    g_times, default_th),
+                 "loss_eager_winner": slowdown_vs_oracle(suite_stats, CAL_NS,
+                                                         g_times, best),
+                 "seconds": round(time.perf_counter() - t0, 1),
+                 "launches": {k: v for k, v in g_counts.items() if v}}
+    print("[offline] calibration_graph " + json.dumps(graph_row), flush=True)
+    if not all(np.isfinite(t) and t > 0 for t in g_times.values()):
+        fail("offline: graph-replay calibration times not all finite")
+    del suite
+    torch.cuda.empty_cache()
+
+    # (b) the frozen artifacts at full size
+    offline_rows = {}
+
+    def artifact_case(label, A, art, n, impl, kernel, multi, bound_ms):
+        """One artifact call against the builder's: launches, host builds,
+        agreement, graph replays and the three times."""
+        m_, k_ = A.shape
+        x = randn(k_, n) if n > 1 else randn(k_)
+        y_b = A.matmul(x, impl=impl)
+        before = host_builds()
+        y_a, counts = drive(lambda: guarded(
+            lambda: repro_torch.execute(art, x, impl=impl)), "offline")
+        if host_builds() != before:
+            fail(f"offline {label}: execute(artifact) built on the host")
+        if counts[kernel] != 1 or sum(counts.values()) != 1:
+            fail(f"offline {label}: {counts}, not one launch of {kernel}")
+        bit, ok, diff = agree(y_a, y_b, multi)
+        rel_p, _ = errors(y_a, A.matmul(x, impl=impl, backend="torch"))
+        if not ok or rel_p > 1e-4:
+            fail(f"offline {label}: artifact against builder {diff} "
+                 f"(bit-equal {bit}), against the plain version {rel_p}")
+        graph, y_g = capture(lambda: repro_torch.execute(art, x, impl=impl))
+        replays = []
+        for _ in range(GRAPH_REPLAYS):
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(agree(y_g, y_a, multi))
+        if not all(r[1] for r in replays):
+            fail(f"offline {label}: graph replays {replays}")
+        row = {"kernel": kernel, "multi_rows": int(multi.sum()),
+               "bit_equal": bit, "max_abs_diff": diff, "rel_err_plain": rel_p,
+               "replays_bit_equal": sum(r[0] for r in replays),
+               "builder_ms": time_ms(lambda: A.matmul(x, impl=impl)),
+               "artifact_ms": time_ms(lambda: repro_torch.execute(art, x, impl=impl)),
+               "graph_ms": time_ms(graph.replay), "bound_ms": bound_ms}
+        offline_rows[label] = row
+        print(f"[offline] artifact {label} "
+              + " ".join(f"{kk}={vv}" for kk, vv in row.items()), flush=True)
+        del graph
+        return x
+
+    def grads_case(label, A, art, n, multi):
+        """Grads of ``sum(G ∘ execute(art, x, vals))`` in both against the
+        builder's; no host build in the forward and backward."""
+        x = randn(A.shape[1], n)
+        gy = randn(A.shape[0], n)
+
+        def grads(target):
+            v = A.values.detach().clone().requires_grad_()
+            xx = x.clone().requires_grad_()
+            y = repro_torch.execute(target, xx, vals=v)
+            return torch.autograd.grad((y * gy).sum(), [v, xx])
+        want = grads(A.plan)
+        before = host_builds()
+        got, counts = drive(lambda: guarded(lambda: grads(art)), "offline")
+        if host_builds() != before:
+            fail(f"offline {label}: the backward through the artifact built "
+                 "on the host")
+        rel = [errors(g, w)[0] for g, w in zip(got, want)]
+        row = {"rel_dvals": rel[0], "rel_dx": rel[1],
+               "launches": {k: v for k, v in counts.items() if v}}
+        print(f"[offline] grads {label} " + json.dumps(row), flush=True)
+        if max(rel) > 1e-4 or counts["sddmm"] != 1:
+            fail(f"offline {label}: grads {row}")
+        offline_rows[f"{label} grads"] = row
+
+    def nb_bound(csr, n):
+        return bound(12 * csr.nnz + 4 * csr.shape[1] * n + 4 * csr.shape[0] * n,
+                     2 * csr.nnz * n)[0]
+
+    def pick_case(csr, tile, pick, n):
+        """The rows an NB pick sums by atomics, and the pick's bound (§2:
+        12 B a nonzero for K1/K2, 8 B + 4 B a row for K3)."""
+        if pick.startswith("nb_"):
+            return multi_rows(csr, tile), nb_bound(csr, n)
+        return (torch.zeros(csr.shape[0], dtype=torch.bool, device=dev),
+                bound(8 * csr.nnz + 4 * csr.shape[0] + 4 * csr.shape[1] * n
+                      + 4 * csr.shape[0] * n, 2 * csr.nnz * n)[0])
+
+    for name, n in ARTIFACT_CASES:
+        csr = graphs[name]
+        A = repro_torch.sparse(csr)
+        t0 = time.perf_counter()
+        art = A.finalize(n)
+        fin_s = time.perf_counter() - t0
+        pick = art.select(n)
+        multi, b = pick_case(csr, A.plan.tile, pick, n)
+        print(f"[offline] finalize {name} N={n}: {pick}, {fin_s:.2f} s, "
+              f"substrates {sorted(art.substrates)}", flush=True)
+        artifact_case(f"{name} N={n}", A, art, n, None, kernel_of(pick, n),
+                      multi, b)
+        if (name, n) == ("g500", 32):
+            grads_case(f"{name} N={n}", A, art, n, multi)
+        del art
+    U = repro_torch.sparse(graphs["unif"])
+    t0 = time.perf_counter()
+    full = U.finalize()
+    print(f"[offline] finalize unif (full coverage): {time.perf_counter() - t0:.2f} s, "
+          f"substrates {sorted(full.substrates)}", flush=True)
+    for impl in ("rs_sr", "rs_pr", "nb_sr", "nb_pr"):
+        artifact_case(f"unif full {impl} N={FULL_N}", U, full, FULL_N, impl,
+                      kernel_of(impl, FULL_N),
+                      *pick_case(graphs["unif"], U.plan.tile, impl, FULL_N))
+    del full
+    W = repro_torch.sparse(w_csr, backend="bsr")
+    t0 = time.perf_counter()
+    w_art = W.finalize(BSR_ARTIFACT_N)
+    print(f"[offline] finalize gemma ffn_up bsr N={BSR_ARTIFACT_N}: "
+          f"{time.perf_counter() - t0:.2f} s, substrates {sorted(w_art.substrates)}",
+          flush=True)
+    nbw = w_bsr.nblocks * BSR_BLOCK[0] * BSR_BLOCK[1]
+    d_ff, d_model = w_csr.shape
+    no_multi = torch.zeros(d_ff, dtype=torch.bool, device=dev)
+    artifact_case(f"gemma ffn_up bsr N={BSR_ARTIFACT_N}", W, w_art,
+                  BSR_ARTIFACT_N, None, "bsr_spmm", no_multi,
+                  bound(4 * nbw + 4 * w_bsr.nblocks
+                        + 4 * (d_ff + d_model) * BSR_ARTIFACT_N,
+                        2 * nbw * BSR_ARTIFACT_N)[0])
+    grads_case(f"gemma ffn_up bsr N={BSR_ARTIFACT_N}", W, w_art,
+               BSR_ARTIFACT_N, no_multi)
+    del w_art
+    torch.cuda.empty_cache()
+
+    # (c) the quickstart example on the card
+    qs, qs_counts = drive(quickstart.main, "offline")
+    if not (qs["agree_n1"] and qs["agree_n4"] and qs["agree_n64"]) or \
+            max(qs[k] for k in ("hopper_nb_pr", "hopper_rs_sr", "hopper_spmv",
+                                 "artifact", "graph")) > 1e-3:
+        fail(f"offline: quickstart {qs}")
+    print("[offline] quickstart " + json.dumps(qs), flush=True)
+
+    # -- 14. summary --------------------------------------------------------------
     phase("summary")
     summary = []
     for kernel, meta in KERNELS.items():

@@ -8,11 +8,27 @@ the plain ``"torch"`` backend for ``device="cpu"``.  ``sddmm`` and
 ``sparse_attention`` block-sparse attention over a pattern spec.
 ``A @ x`` is differentiable in ``x`` and a ``with_values`` stream, and
 ``pattern_matmul`` is the sparse-weight training entry (``models.layers``,
-``train``).
+``train``).  The offline half of the paper's split: ``calibrate_backend``
+fits the selector's thresholds to measured kernel times, and
+``A.finalize(n)`` freezes a plan into a ``PlanArtifact`` whose ``execute``
+does no host work (a CUDA graph can capture it).
 """
-from .api import (AttentionMask, AttentionSpec, PlanCache, SelectorThresholds,
-                  SparseAttention, SparseMatrix, TileGeometry, __all__,
-                  attention_plan, bigbird, build_mask, cache_stats,
-                  clear_cache, dense_attention, from_block_mask,
-                  pattern_matmul, scoped_plan_cache, sddmm, sliding_window,
-                  sparse, sparse_attention, sparse_chain, use_backend)
+from . import api
+from .api import (AttentionMask, AttentionSpec, PlanArtifact, PlanBuilder,
+                  PlanCache, SelectorThresholds, SparseAttention, SparseMatrix,
+                  TileGeometry, attention_plan, bigbird, build_mask,
+                  cache_stats, calibrate, calibrate_backend, clear_cache,
+                  dense_attention, execute, from_block_mask, pattern_matmul,
+                  scoped_plan_cache, sddmm, sliding_window, sparse,
+                  sparse_attention, sparse_chain, use_backend)
+
+__all__ = [
+    "api", "sparse", "SparseMatrix", "pattern_matmul", "use_backend",
+    "calibrate", "calibrate_backend", "cache_stats", "clear_cache",
+    "PlanArtifact", "PlanBuilder", "PlanCache", "SelectorThresholds",
+    # beyond the reference's top level: the rest of the facade
+    "TileGeometry", "execute", "sddmm", "sparse_chain", "AttentionMask",
+    "AttentionSpec", "SparseAttention", "attention_plan", "bigbird",
+    "build_mask", "dense_attention", "from_block_mask", "scoped_plan_cache",
+    "sliding_window", "sparse_attention",
+]

@@ -27,11 +27,19 @@
     y = api.sparse_attention(spec, q, k, v, bias=b)   # (..., seq, d) heads:
                                          # softmax_mask(q kᵀ/√d + b) @ v
 
+    th, report = api.calibrate_backend("th.json")    # time the 2x2 space on
+                                         # this card, grid-search Fig. 4's
+                                         # thresholds (paper §2.2)
+    art = A.finalize(n=x.shape[1])       # frozen PlanArtifact, no host work
+    y = api.execute(art, x)              # left at call time: CUDA-graph safe
+
 ``sparse()`` runs on the card unless the caller passes ``device="cpu"``: by
 default the data go to CUDA and the ``"hopper"`` backend runs, and without a
 CUDA device the call raises instead of carrying on on the CPU.
 """
 from __future__ import annotations
+
+import time as _time
 
 import numpy as np
 import torch
@@ -43,17 +51,20 @@ from .attention import (AttentionMask, AttentionSpec, SparseAttention,
 from .core.cache import (DEFAULT_CACHE, PlanCache, cached_plan,
                                     pattern_fingerprint)
 from .core.formats import CSR, csr_from_dense
-from .core.plan import (PlanBuilder, execute, execute_chain, execute_pattern,
-                        execute_sddmm, plan)
+from .core.plan import (PlanArtifact, PlanBuilder, execute, execute_chain,
+                        execute_pattern, execute_sddmm, plan)
 from .core.registry import backend_scope, default_backend, resolve_device
 from .core.selector import (SelectorThresholds, TileGeometry,
-                                       default_thresholds)
+                            default_thresholds, load_thresholds,
+                            save_thresholds)
+from .core.selector import calibrate as calibrate  # noqa: F401 (re-export)
 from .core.stats import MatrixStats
 
 __all__ = ["SparseMatrix", "sparse", "sddmm", "sparse_chain", "pattern_matmul",
-           "use_backend",
-           "cache_stats", "clear_cache", "PlanCache", "SelectorThresholds",
-           "TileGeometry",
+           "use_backend", "calibrate", "calibrate_backend",
+           "cache_stats", "clear_cache", "PlanArtifact", "PlanBuilder",
+           "PlanCache", "SelectorThresholds", "TileGeometry", "execute",
+           "save_thresholds", "load_thresholds",
            # block-sparse attention (DESIGN.md §10)
            "AttentionMask", "AttentionSpec", "SparseAttention",
            "attention_plan", "bigbird", "build_mask", "dense_attention",
@@ -111,6 +122,9 @@ class SparseMatrix:
     def dtype(self) -> torch.dtype:
         return self.values.dtype
 
+    def topology_key(self) -> str:
+        return self._plan.topology_key()
+
     def __repr__(self) -> str:
         m, k = self.shape
         live = "live" if self._values is not None else "baked"
@@ -166,6 +180,25 @@ class SparseMatrix:
                              f"the pattern has {self.nnz} nonzeros")
         return SparseMatrix(self._plan, values=stream.reshape(-1),
                             cache=self._cache)
+
+    def with_thresholds(self, th: SelectorThresholds) -> "SparseMatrix":
+        return SparseMatrix(self._plan.with_thresholds(th),
+                            values=self._values, cache=self._cache)
+
+    def finalize(self, n: int | None = None, *, impl: str | None = None,
+                 kernels: tuple | None = None) -> PlanArtifact:
+        """Freeze into a ``PlanArtifact`` (``PlanBuilder.finalize``) that
+        bakes this handle's values: a live stream (a cache hit, a
+        ``with_values`` handle) is baked by re-planning, detached, off the
+        shared builder, so ``execute(art, x)`` needs no ``vals=``."""
+        p = self._plan
+        if self._values is not None:
+            csr = CSR(p.csr.indptr, p.csr.indices,
+                      self._values.detach().reshape(-1), p.csr.shape)
+            p = plan(csr, thresholds=p.thresholds, backend=p.backend,
+                     tile=p.tile, bsr_block=p.bsr_block, geometry=p.geometry,
+                     chain_op=p.chain_op, quant=p.quant)
+        return p.finalize(n, impl=impl, kernels=kernels)
 
 
 def _as_csr(a, device: torch.device) -> tuple[CSR, "torch.Tensor | None"]:
@@ -276,3 +309,85 @@ def cache_stats(cache: PlanCache | None = None) -> dict:
 
 def clear_cache(cache: PlanCache | None = None) -> None:
     (cache or DEFAULT_CACHE).clear()
+
+
+# ---------------------------------------------------------------------------
+# calibration against this backend (paper §2.2)
+# ---------------------------------------------------------------------------
+
+def _timer(device: torch.device, repeats: int):
+    """``time(f)``: seconds a call of ``f`` takes, the mean of ``repeats``
+    back-to-back calls after one warm-up call (which builds the substrate
+    and, on the card, the kernels): CUDA events on the card, the host clock
+    on the CPU."""
+    def time_on_card(f) -> float:
+        f()
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(repeats):
+            f()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3 / repeats
+
+    def time_on_host(f) -> float:
+        f()
+        t0 = _time.perf_counter()
+        for _ in range(repeats):
+            f()
+        return (_time.perf_counter() - t0) / repeats
+
+    return time_on_card if device.type == "cuda" else time_on_host
+
+
+def calibrate_backend(save_to: str | None = None, *,
+                      matrices: dict | None = None,
+                      ns: tuple = (1, 8), repeats: int = 2,
+                      backend: str | None = None, device=None,
+                      n_grid: tuple = (2, 4, 8, 1 << 30),
+                      avg_grid: tuple = (8.0, 16.0, 32.0, 64.0),
+                      cv_grid: tuple = (0.25, 0.5, 1.0, 2.0),
+                      tune_geometry: bool = False, overlap_mesh=None,
+                      tune_quant: bool = False):
+    """Time the 2x2 kernel space on this backend and grid-search the
+    selector's thresholds against the times (paper §2.2/§3.2,
+    ``calibrate``), persisting the winner to ``save_to`` for
+    ``$REPRO_THRESHOLDS``.  Returns ``(thresholds, report)``.
+
+    ``matrices`` (name -> CSR) default to the reference's two R-MAT
+    matrices of scale 8, one uniform and one skewed; ``rmat_suite()`` is the
+    paper's 27.  They are moved to ``device`` (``None``: the card, raising
+    without one) and planned on ``backend`` (``None``: the device's).  Each
+    (matrix, N, kernel) is timed after one warm-up call as the mean of
+    ``repeats`` calls: by CUDA events on the card, by the host clock on the
+    CPU.  ``tune_geometry``, ``overlap_mesh`` and ``tune_quant`` belong to
+    ``kernels/tune.py``, not ported yet: ``NotImplementedError``."""
+    given = [name for name, on in (("tune_geometry", tune_geometry),
+                                   ("overlap_mesh", overlap_mesh is not None),
+                                   ("tune_quant", tune_quant)) if on]
+    if given:
+        raise NotImplementedError(f"calibrate_backend() arguments {given} "
+                                  "belong to a path of the reference not yet "
+                                  "ported (kernels/tune.py)")
+    from .core.rmat import rmat
+    device = resolve_device(device)
+    if matrices is None:
+        matrices = {"uniform": rmat(8, 8, a=0.25, b=0.25, c=0.25, seed=0),
+                    "skewed": rmat(8, 8, seed=1)}
+    matrices = {k: v.to(device) for k, v in matrices.items()}
+    timed = _timer(device, repeats)
+
+    def time_fn(kernel: str, p: PlanBuilder, n: int) -> float:
+        k = p.csr.shape[1]
+        x = torch.ones((k, n) if n > 1 else (k,), dtype=torch.float32,
+                       device=device)
+        return timed(lambda: execute(p, x, impl=kernel, backend=backend))
+
+    with backend_scope(backend):
+        best, report = calibrate(matrices, ns, time_fn=time_fn, n_grid=n_grid,
+                                 avg_grid=avg_grid, cv_grid=cv_grid)
+    if save_to is not None:
+        save_thresholds(best, save_to)
+    return best, report

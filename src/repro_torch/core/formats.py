@@ -3,7 +3,9 @@
 Construction is an offline step, as in the paper's static-profiling usage:
 host-side numpy then ``.to(device)`` (CSR, ELL), or torch on the CSR's device
 (the balanced slabs, the BSR and the transpose).  Every container is a frozen
-dataclass of tensors on one device.  Index arrays are int32.
+dataclass of tensors on one device, registered with ``torch.utils._pytree``
+(its tensors are the leaves, shapes the static context), so a frozen
+``PlanArtifact`` flattens to exactly its tensors.  Index arrays are int32.
 
 CSR          canonical row-compressed storage (the paper's input format).
 ELL          row-split padded storage — the substrate of the RS kernels —
@@ -21,6 +23,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 
 def host(t: torch.Tensor) -> np.ndarray:
@@ -318,3 +321,33 @@ def bsr_to_dense(bsr: BSR) -> torch.Tensor:
     grid = bsr.blocks.new_zeros((mb, kb, bm, bk))
     grid[bsr_block_rows(bsr), bsr.indices.long()] = bsr.blocks
     return grid.permute(0, 2, 1, 3).reshape(mb * bm, kb * bk)[:m, :k]
+
+
+def _register_pytree(cls, tensor_fields: tuple[str, ...]) -> None:
+    """Register a container with ``torch.utils._pytree``: its tensor fields
+    that are not None are the children, the rest (shapes) the context."""
+    static_fields = tuple(f.name for f in dataclasses.fields(cls)
+                          if f.name not in tensor_fields)
+
+    def flatten(obj):
+        present = tuple(f for f in tensor_fields if getattr(obj, f) is not None)
+        static = tuple(getattr(obj, f) for f in static_fields)
+        return [getattr(obj, f) for f in present], (present, static)
+
+    def unflatten(values, context):
+        present, static = context
+        kw = dict.fromkeys(tensor_fields)
+        kw.update(zip(static_fields, static))
+        kw.update(zip(present, values))
+        return cls(**kw)
+
+    pytree.register_pytree_node(
+        cls, flatten, unflatten,
+        serialized_type_name=f"{cls.__module__}.{cls.__qualname__}")
+
+
+for _cls, _fields in ((CSR, ("indptr", "indices", "data")),
+                      (ELL, ("cols", "vals", "lens")),
+                      (BalancedCOO, ("rows", "cols", "vals")),
+                      (BSR, ("indptr", "indices", "blocks"))):
+    _register_pytree(_cls, _fields)

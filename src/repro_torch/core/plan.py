@@ -5,9 +5,14 @@
   fixed (``$REPRO_THRESHOLDS`` auto-loads), a backend chosen, and the
   substrates (ELL / BalancedCOO) built lazily — only the one the selected
   kernel consumes — with each registry entry's ``prep`` hook run once.
+* ``PlanBuilder.finalize(n)`` freezes it into a ``PlanArtifact``: every
+  host step done (substrates, maps, prep opts, the backward's plan of Aᵀ),
+  its tensors the leaves of a ``torch.utils._pytree`` node, its static half
+  a hashable ``PlanMeta`` keyed on ``topology_key()``.
 * ``execute(plan, x)`` is the online step: select the logical kernel from
   (stats, N), resolve it through the registry, run it.  ``vals=`` streams a
-  CSR-ordered value vector in place of the values baked into the plan.
+  CSR-ordered value vector in place of the values baked into the plan.  On
+  an artifact it does no host work, so a CUDA graph can capture it.
 * ``execute_pattern(rows, cols, vals, shape, x)`` is the training entry: an
   SpMM over a bare balanced pattern with live values, no CSR and no plan.
 * ``execute_sddmm`` / ``execute_chain`` run the SDDMM and the SDDMM→SpMM
@@ -33,9 +38,12 @@ span, so a ``"hopper"`` plan keeps its backend, and only the spill path
 plan when it is called.  Its dispatch reroutes a failing kernel to ``xla``;
 here a kernel that fails to build or launch raises.  The block-granule
 ``"bsr"`` backend builds its BSR substrate at ``bsr_block``; a ``"bsr"``
-plan is not demoted either.  Frozen artifacts, sharding, validation and
-sentinels are not ported yet: ``plan()`` and ``execute_pattern`` raise
-``NotImplementedError`` on their arguments.
+plan is not demoted either.  Sharding, validation and sentinels are not
+ported yet: ``plan()`` and ``execute_pattern`` raise
+``NotImplementedError`` on their arguments.  The reference's artifact rides
+``jax.jit`` and donation; here the counterpart of a jitted call is a CUDA
+graph of ``execute(artifact, x)``, and a sharded artifact awaits the sharded
+backend.
 
 Quantized value streams (DESIGN.md §8, ``core/quant.py``): ``plan(quant=
 "int8" | "fp8")`` stores the balanced substrate's values as per-tile codes
@@ -54,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import inspect
 import warnings
 import weakref
@@ -61,6 +70,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from . import quant as quant_mod
 from . import registry
@@ -137,6 +147,182 @@ def _prep_context_kwargs(prep, ctx: dict) -> dict:
     return {k: v for k, v in ctx.items() if k in accepted and v is not None}
 
 
+# ---------------------------------------------------------------------------
+# the frozen artifact
+# ---------------------------------------------------------------------------
+
+def _digest_value(h, v) -> None:
+    """Fold one prep-opt value into the hash: scalars by repr, containers
+    item by item, tensors by type, shape, device kind and bytes, any other
+    object (a group layout, spill windows) by its class and attributes."""
+    if isinstance(v, (bool, int, float, str, bytes, type(None))):
+        h.update(repr(v).encode())
+    elif isinstance(v, (tuple, list)):
+        h.update(b"(")
+        for item in v:
+            _digest_value(h, item)
+        h.update(b")")
+    elif isinstance(v, dict):
+        h.update(b"{")
+        for k in sorted(v, key=str):
+            h.update(str(k).encode())
+            _digest_value(h, v[k])
+        h.update(b"}")
+    elif isinstance(v, torch.Tensor):
+        h.update(f"{v.dtype}{tuple(v.shape)}{v.device.type}".encode())
+        h.update(v.detach().reshape(-1).cpu().view(torch.uint8).numpy().tobytes())
+    else:
+        h.update(type(v).__qualname__.encode())
+        _digest_value(h, vars(v))
+
+
+def _opts_digest(opts: dict) -> str:
+    h = hashlib.sha1()
+    _digest_value(h, opts)
+    return h.hexdigest()
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanMeta:
+    """Hashable static half of a ``PlanArtifact`` (its pytree context).
+    Equal metas mean equal pattern topology, layout knobs, statistics
+    (``MatrixStats`` reads only the pattern), thresholds and prep opts.
+    The reference's fields but ``shard_spec`` and ``mesh`` (the sharded
+    backend is not ported), and ``transposed``: the meta of the plan of Aᵀ
+    that the backward's ``dX`` runs on."""
+
+    shape: tuple
+    nnz: int
+    backend: str
+    stats: MatrixStats
+    thresholds: SelectorThresholds
+    tile: int
+    bsr_block: tuple
+    topology: str
+    prep: tuple = ()                 # ((logical, opts digest), ...)
+    inner_backend: str | None = None
+    geometry: Any = None             # TileGeometry, or None
+    quant: str | None = None         # value-stream mode ("int8" / "fp8")
+    chain_op: str | None = None      # chain transform the plan was keyed for
+    transposed: "PlanMeta | None" = None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PlanArtifact:
+    """The frozen plan (``PlanBuilder.finalize``): ``substrates`` and
+    ``aux`` are dicts of device tensors and formats, ``meta`` the static
+    half, ``opts`` each kernel's prep opts (a group layout, spill windows),
+    which ride along without being pytree leaves.  Keys ``"t:..."`` hold the
+    plan of Aᵀ for the backward: its substrates and maps, and
+    ``aux["transposed_perm"]``.  ``execute(artifact, x)`` does no host work:
+    no copy to the host, no substrate or prep build, no device sync — so it
+    can be captured in a CUDA graph (a live stream on a quantized artifact
+    too: it is quantized on the card at each call by tensor ops, with no
+    range check).  Registered with
+    ``torch.utils._pytree``: it flattens to exactly its tensors and
+    unflattens with the same meta and opts."""
+
+    substrates: dict
+    aux: dict
+    meta: PlanMeta
+    opts: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def shape(self) -> tuple:
+        return self.meta.shape
+
+    @property
+    def nnz(self) -> int:
+        return self.meta.nnz
+
+    @property
+    def backend(self) -> str:
+        return self.meta.backend
+
+    @property
+    def stats(self) -> MatrixStats:
+        return self.meta.stats
+
+    @property
+    def thresholds(self) -> SelectorThresholds:
+        return self.meta.thresholds
+
+    @property
+    def topology(self) -> str:
+        return self.meta.topology
+
+    def select(self, n: int) -> str:
+        return _quant_logical(
+            select_kernel(self.meta.stats, n, self.meta.thresholds),
+            self.meta.quant)
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return execute(self, x)
+
+    # -- the backward's products ----------------------------------------------
+    def _pattern(self) -> tuple[torch.Tensor, torch.Tensor]:
+        bal = self.substrates.get("balanced")
+        if bal is not None:
+            return bal.rows, bal.cols
+        return self.aux["pattern_rows"], self.aux["pattern_cols"]
+
+    def _sample(self, g2: torch.Tensor, x2: torch.Tensor,
+                backend: str | None) -> torch.Tensor:
+        """``dvals``: the SDDMM entry over the pattern with the opts that
+        ``finalize`` prepared (``backend``, a builder's per-call override,
+        is always None here: an artifact is frozen for its own)."""
+        entry = registry.resolve("sddmm", _sddmm_backend(self.meta.backend, g2))
+        return entry.fn(*self._pattern(), g2, x2, shape=self.meta.shape,
+                        **self.opts.get("sddmm", {}))
+
+    def _transposed(self) -> "PlanArtifact":
+        """The artifact of Aᵀ, a view of this one's ``"t:"`` keys."""
+        view = self.__dict__.get("_t")
+        if view is None:
+            if self.meta.transposed is None:
+                raise ValueError("this artifact carries no plan of Aᵀ; "
+                                 "finalize it from a PlanBuilder")
+            view = PlanArtifact(*(
+                {k[2:]: v for k, v in d.items() if k.startswith("t:")}
+                for d in (self.substrates, self.aux)),
+                self.meta.transposed,
+                {k[2:]: v for k, v in self.opts.items() if k.startswith("t:")})
+            object.__setattr__(self, "_t", view)
+        return view
+
+    def _transposed_matmul(self, vals: torch.Tensor, g: torch.Tensor,
+                           backend: str | None) -> torch.Tensor:
+        return _execute_artifact(
+            self._transposed(), g,
+            vals.index_select(0, self.aux["transposed_perm"]), None, None)
+
+
+class _ArtifactContext:
+    """A ``PlanArtifact``'s pytree context: its meta, which alone decides
+    equality (equal metas give equal tree specs), and its opts."""
+
+    __slots__ = ("meta", "opts")
+
+    def __init__(self, meta: PlanMeta, opts: dict):
+        self.meta, self.opts = meta, opts
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, _ArtifactContext) and other.meta == self.meta
+
+    def __hash__(self) -> int:
+        return hash(self.meta)
+
+    def __repr__(self) -> str:
+        return f"PlanArtifact(topology={self.meta.topology[:12]})"
+
+
+pytree.register_pytree_node(
+    PlanArtifact,
+    lambda a: ([a.substrates, a.aux], _ArtifactContext(a.meta, a.opts)),
+    lambda values, ctx: PlanArtifact(*values, ctx.meta, ctx.opts),
+    serialized_type_name=f"{__name__}.PlanArtifact")
+
+
 @dataclasses.dataclass
 class PlanBuilder:
     """Host-side plan: statistics, thresholds, backend, and caches of the
@@ -161,10 +347,15 @@ class PlanBuilder:
     _pattern_prep: Any = dataclasses.field(default=None, repr=False)
     _transposed: Any = dataclasses.field(default=None, repr=False)
     _quant_scales: Any = dataclasses.field(default=None, repr=False)
+    _topology: Any = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
         return self.csr.device
+
+    @property
+    def nnz(self) -> int:
+        return self.csr.nnz
 
     # -- substrates ---------------------------------------------------------
     def substrate(self, kind: str):
@@ -201,6 +392,29 @@ class PlanBuilder:
     def select(self, n: int) -> str:
         return _quant_logical(select_kernel(self.stats, n, self.thresholds),
                               self.quant)
+
+    def with_thresholds(self, th: SelectorThresholds) -> "PlanBuilder":
+        """The same matrix and substrates under other thresholds.  The prep
+        opts read thresholds (``max_win``) and the plan of Aᵀ carries this
+        plan's thresholds, so both caches start anew."""
+        if th == self.thresholds:
+            return self
+        return dataclasses.replace(self, thresholds=th, _opts={},
+                                   _transposed=None)
+
+    def topology_key(self) -> str:
+        """The pattern's fingerprint folded with the layout knobs (tile,
+        BSR block, geometry, quant mode), values excluded: byte for byte the
+        reference's, so artifacts and thresholds files agree across the
+        packages.  Recomputed when the range check demotes ``quant``."""
+        if self._topology is None or self._topology[0] != self.quant:
+            from .cache import pattern_fingerprint
+            digest = hashlib.sha1(
+                (pattern_fingerprint(self.csr)
+                 + repr((self.tile, tuple(self.bsr_block), self.geometry,
+                         self.quant))).encode()).hexdigest()
+            self._topology = (self.quant, digest)
+        return self._topology[1]
 
     def quant_scales(self) -> torch.Tensor | None:
         """The (n_tiles,) f32 scales of the baked coded substrate (None
@@ -275,6 +489,20 @@ class PlanBuilder:
         self.transposed()
         return self._transposed[1]
 
+    def _sample(self, g2: torch.Tensor, x2: torch.Tensor,
+                backend: str | None) -> torch.Tensor:
+        """``dvals``: the SDDMM entry of the call's backend over
+        ``pattern()``."""
+        return self.pattern_prep().sample(
+            *self.pattern(), g2, x2, _sddmm_backend(backend or self.backend, g2))
+
+    def _transposed_matmul(self, vals: torch.Tensor, g: torch.Tensor,
+                           backend: str | None) -> torch.Tensor:
+        """``dX = Aᵀ·G`` for the CSR-ordered stream ``vals``."""
+        return execute(self.transposed(), g,
+                       vals=vals.index_select(0, self.transposed_perm()),
+                       backend=backend)
+
     # -- ELL live-value support -----------------------------------------------
     def ell_lens(self) -> torch.Tensor:
         """(M,) stored entries per row — the ELL padding mask."""
@@ -306,6 +534,106 @@ class PlanBuilder:
         if self._bsr_brow is None:
             self._bsr_brow = bsr_block_rows(self.substrate("bsr")).int()
         return self._bsr_brow
+
+    # -- freezing -------------------------------------------------------------
+    def finalize(self, n: int | None = None, *, impl: str | None = None,
+                 kernels: tuple | None = None) -> PlanArtifact:
+        """Freeze the plan into a ``PlanArtifact``: freezing is the end of
+        the lazy phase, so every host step runs here.
+
+        The artifact carries the substrates, maps and prep opts of the
+        logical kernels named by ``kernels``, or of the one the selector
+        picks at ``n`` (forced by ``impl``); with none of the three, all
+        four.  It also carries what the backward needs: the baked stream,
+        the pattern and the SDDMM entry's opts for ``dvals``, and for ``dX``
+        the plan of Aᵀ — the substrate of the kernel Aᵀ's selector picks at
+        ``n`` (with ``impl`` or ``kernels`` and no ``n``, its picks on both
+        sides of ``n_threshold``; all four for a full-coverage artifact) —
+        and ``transposed_perm``.  A spill opt's row windows are computed
+        here.  The SDDMM and the chains are not matmul kernels and cannot be
+        frozen (``ValueError``)."""
+        full = kernels is None and impl is None and n is None
+        if kernels is None:
+            if impl is not None:
+                kernels = (impl,)
+            elif n is not None:
+                if self.quant is not None:
+                    self.substrate("balanced")   # settle the range check
+                kernels = (self.select(n),)
+            else:
+                kernels = registry.MATMUL_KERNELS
+        kernels = tuple(kernels)
+        for name in kernels:
+            if name in ("sddmm", "chain", "attn_chain"):
+                raise ValueError(
+                    f"{name!r} cannot be finalized into a PlanArtifact; use "
+                    "execute_sddmm/execute_chain/execute_attention on the "
+                    "PlanBuilder")
+            if name not in registry.MATMUL_KERNELS:
+                raise ValueError(f"{name!r} is not a matmul kernel; expected "
+                                 f"one of {registry.MATMUL_KERNELS}")
+        subs, aux, opts = self._freeze(kernels)
+        aux["vals"] = self.csr.data
+        if "balanced" in subs and self._quant_scales is not None:
+            aux["quant_scales"] = self._quant_scales
+        rows, cols = self.pattern()
+        if "balanced" not in subs:
+            aux["pattern_rows"], aux["pattern_cols"] = rows, cols
+        sampler = registry.resolve(
+            "sddmm", _sddmm_backend(self.backend, self.csr.data))
+        opts["sddmm"] = dict(self.pattern_prep().opts(
+            sampler, BalancedCOO(rows, cols, None, self.csr.shape)))
+        pt = self.transposed()
+        th = self.thresholds
+        if full:
+            t_kernels = registry.MATMUL_KERNELS
+        elif n is not None:
+            t_kernels = (pt.select(n),)
+        else:
+            t_kernels = tuple(dict.fromkeys(
+                (pt.select(1), pt.select(th.n_threshold + 1))))
+        t_subs, t_aux, t_opts = pt._freeze(t_kernels)
+        subs.update({f"t:{k}": v for k, v in t_subs.items()})
+        aux.update({f"t:{k}": v for k, v in t_aux.items()})
+        aux["transposed_perm"] = self.transposed_perm()
+        opts.update({f"t:{k}": v for k, v in t_opts.items()})
+        return PlanArtifact(subs, aux, self._meta(opts, pt._meta(t_opts)),
+                            opts)
+
+    def _freeze(self, kernels: tuple) -> tuple[dict, dict, dict]:
+        """The substrates, live-stream maps and prep opts (copied) of the
+        named kernels, each built now."""
+        subs: dict = {}
+        aux: dict = {}
+        opts: dict = {}
+        for name in kernels:
+            entry = self.entry(name)
+            sub = self.substrate(entry.substrate)
+            subs[entry.substrate] = sub
+            o = dict(self.kernel_opts(entry))
+            if o.get("spill"):
+                o["windows"](sub)        # the tile spans, scanned on the host
+            opts[entry.logical] = o
+            if entry.substrate == "ell":
+                aux["ell_src"] = self.ell_src()
+            elif entry.substrate == "bsr":
+                aux["bsr_map"] = self.bsr_map()
+                aux["bsr_brow"] = self.bsr_brow()
+        return subs, aux, opts
+
+    def _meta(self, opts: dict, transposed: PlanMeta | None = None) -> PlanMeta:
+        prep = tuple(sorted((k, _opts_digest(v)) for k, v in opts.items()
+                            if v and not k.startswith("t:")))
+        return PlanMeta(
+            shape=tuple(self.csr.shape), nnz=self.csr.nnz,
+            backend=self.backend, stats=self.stats, thresholds=self.thresholds,
+            tile=self.tile, bsr_block=tuple(self.bsr_block),
+            topology=self.topology_key(), prep=prep, geometry=self.geometry,
+            quant=self.quant, chain_op=self.chain_op, transposed=transposed)
+
+
+#: the builder's earlier name, kept as an alias (reference ``SparsePlan``)
+SparsePlan = PlanBuilder
 
 
 def plan(csr: CSR, *, n_hint: int | None = None,
@@ -418,24 +746,28 @@ class PatternPrep:
                                                        self.shape)))
 
 
-#: ``id(rows)`` -> (weak references to rows and cols, PatternPrep); an
-#: entry goes when its rows tensor is freed, so a new tensor that reuses
-#: the id never finds the old prep
+#: ``id(rows)`` -> (weak references to rows and cols, their versions,
+#: PatternPrep); an entry goes when its rows tensor is freed, so a new
+#: tensor that reuses the id never finds the old prep
 _PATTERN_PREPS: dict = {}
 
 
 def pattern_prep(rows: torch.Tensor, cols: torch.Tensor, shape) -> PatternPrep:
     """The prep of the pattern ``(rows, cols)``, memoised on the identity
-    of those tensors while ``rows`` lives: no hash of the slabs, no copy to
-    the host."""
+    of those tensors and on their version counters while ``rows`` lives: an
+    in-place write (``copy_``, ``load_state_dict``) bumps a version and
+    makes a new prep.  No hash of the slabs, no copy to the host."""
     key = id(rows)
+    version = (rows._version, cols._version)
     hit = _PATTERN_PREPS.get(key)
-    if (hit is not None and hit[0]() is rows and hit[1]() is cols
-            and hit[2].shape == tuple(int(s) for s in shape)):
-        return hit[2]
+    same = hit is not None and hit[0]() is rows and hit[1]() is cols
+    if same and hit[2] == version and \
+            hit[3].shape == tuple(int(s) for s in shape):
+        return hit[3]
     prep = PatternPrep(shape)
-    _PATTERN_PREPS[key] = (weakref.ref(rows), weakref.ref(cols), prep)
-    weakref.finalize(rows, _PATTERN_PREPS.pop, key, None)
+    _PATTERN_PREPS[key] = (weakref.ref(rows), weakref.ref(cols), version, prep)
+    if not same:
+        weakref.finalize(rows, _PATTERN_PREPS.pop, key, None)
     return prep
 
 
@@ -450,59 +782,59 @@ def _sddmm_backend(backend: str, t: torch.Tensor) -> str:
 
 
 class _PlanVJP:
-    """The backward products of one ``execute`` call: the SDDMM entry over
-    the plan's pattern for the values, the adaptive SpMM of the transposed
-    plan for ``x``, both on the call's backend.  ``dtype`` rounds the value
-    gradient (the BSR blocks' type, as the reference rounds ``dblocks``).
-    ``scales``: the stream is a baked slab's codes, which ``dx`` decodes."""
+    """The backward products of one ``execute`` call on a plan ``p``, a
+    ``PlanBuilder`` or a ``PlanArtifact``: the SDDMM entry over its pattern
+    for the values, the adaptive SpMM of its plan of Aᵀ for ``x``, both on
+    the call's backend.  ``dtype`` rounds the value gradient (the BSR
+    blocks' type, as the reference rounds ``dblocks``).  ``scales``: the
+    stream is a baked slab's codes, which ``dx`` decodes."""
 
-    def __init__(self, p: PlanBuilder, backend: str | None,
+    def __init__(self, p, backend: str | None,
                  dtype: torch.dtype | None = None,
                  scales: torch.Tensor | None = None):
         self.p, self.backend, self.dtype = p, backend, dtype
         self.scales = scales
 
     def dvals(self, g2: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        p = self.p
-        slab = p.pattern_prep().sample(
-            *p.pattern(), g2, x2,
-            _sddmm_backend(self.backend or p.backend, g2))
+        slab = self.p._sample(g2, x2, self.backend)
         return slab if self.dtype is None else slab.to(self.dtype)
 
     def dx(self, vals: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-        p = self.p
         if self.scales is not None:
             # the codes decoded (slab order is CSR order, cut to nnz)
             vals = quant_mod.dequantize_stream(
                 vals.reshape(self.scales.shape[0], -1),
-                self.scales).reshape(-1)[:p.csr.nnz]
-        return execute(p.transposed(), g,
-                       vals=vals.index_select(0, p.transposed_perm()),
-                       backend=self.backend)
+                self.scales).reshape(-1)[:self.p.nnz]
+        return self.p._transposed_matmul(vals, g, self.backend)
 
 
-def execute(p: PlanBuilder, x: torch.Tensor, *,
+def execute(p: "PlanBuilder | PlanArtifact", x: torch.Tensor, *,
             vals: torch.Tensor | None = None, impl: str | None = None,
             backend: str | None = None) -> torch.Tensor:
-    """``y = A @ x``.  ``vals`` is a live CSR-ordered value stream in place
-    of the plan's baked values; ``impl`` forces a logical kernel (oracle /
-    ablation mode); ``backend`` overrides the plan's for this call.
+    """``y = A @ x`` on a ``PlanBuilder`` or a frozen ``PlanArtifact``.
+    ``vals`` is a live CSR-ordered value stream in place of the plan's baked
+    values; ``impl`` forces a logical kernel (oracle / ablation mode);
+    ``backend`` overrides a builder's backend for this call (an artifact is
+    frozen for its own: another raises ``ValueError``).
 
     Differentiable in ``x`` and ``vals`` (``ExecBalanced`` / ``ExecEll`` /
     ``ExecBsr``): the backward samples ``G·Xᵀ`` on the pattern with the
     SDDMM entry and runs ``Aᵀ·G`` through the transposed plan's own
     selector, whatever ``impl`` forced the forward to (on the ``"bsr"``
     backend: K11 on Aᵀ's BSR).  On a quantized plan the NB kernels read the
-    baked codes (or quantize ``vals``); the backward is straight through."""
+    baked codes (or quantize ``vals``); the backward is straight through.
+    On an artifact the call, forward and backward, runs only what
+    ``finalize`` built: a kernel it does not cover raises ``ValueError``
+    naming ``finalize``."""
+    if isinstance(p, PlanArtifact):
+        return _execute_artifact(p, x, vals, impl, backend)
     return _execute(p, x, vals, impl, backend)
 
 
-def _execute(p: PlanBuilder, x: torch.Tensor, vals, impl, backend, *,
-             coded: bool = True) -> torch.Tensor:
-    """``execute``; with ``coded=False`` a quantized plan runs its live
-    stream unquantized (the chains' backward products, f32 math as in the
-    reference)."""
-    if torch.is_grad_enabled() and p.csr.data.requires_grad:
+def _check_call(shape, nnz: int, baked: torch.Tensor | None, x, vals,
+                impl) -> int:
+    """The checks of an ``execute`` call; returns N."""
+    if torch.is_grad_enabled() and baked is not None and baked.requires_grad:
         raise NotImplementedError(
             "execute: the plan's baked values require grad, but they are "
             "constants of the plan, as in the reference; pass them as a "
@@ -511,21 +843,65 @@ def _execute(p: PlanBuilder, x: torch.Tensor, vals, impl, backend, *,
     if impl is not None and impl not in registry.MATMUL_KERNELS:
         raise ValueError(f"impl {impl!r} is not a matmul kernel; expected "
                          f"one of {registry.MATMUL_KERNELS}")
-    if vals is not None and vals.numel() != p.csr.nnz:
+    if vals is not None and vals.numel() != nnz:
         raise ValueError(f"vals stream has {vals.numel()} entries but the "
-                         f"matrix has {p.csr.nnz} nonzeros")
-    if x.ndim not in (1, 2) or x.shape[0] != p.csr.shape[1]:
+                         f"matrix has {nnz} nonzeros")
+    if x.ndim not in (1, 2) or x.shape[0] != shape[1]:
         raise ValueError(f"x of shape {tuple(x.shape)} does not match A of "
-                         f"shape {p.csr.shape}")
-    n = 1 if x.ndim == 1 else x.shape[1]
+                         f"shape {tuple(shape)}")
+    return 1 if x.ndim == 1 else x.shape[1]
+
+
+def _execute(p: PlanBuilder, x: torch.Tensor, vals, impl, backend, *,
+             coded: bool = True) -> torch.Tensor:
+    """``execute`` on a builder; with ``coded=False`` a quantized plan runs
+    its live stream unquantized (the chains' backward products, f32 math as
+    in the reference)."""
+    n = _check_call(p.csr.shape, p.csr.nnz, p.csr.data, x, vals, impl)
     entry = p.entry(impl or p.select(n), backend)
     sub = p.substrate(entry.substrate)
     opts = p.kernel_opts(entry)
+    maps = {"vals": lambda: p.csr.data, "quant_scales": p.quant_scales,
+            "ell_src": p.ell_src, "bsr_map": p.bsr_map}
+    return _run_entry(entry, sub, opts, x, vals, lambda k: maps[k](),
+                      functools.partial(_PlanVJP, p, backend), coded=coded)
+
+
+def _execute_artifact(art: PlanArtifact, x: torch.Tensor, vals, impl,
+                      backend) -> torch.Tensor:
+    """``execute`` on a frozen artifact: the builder's dispatch over the
+    artifact's own tensors and opts, with no host work."""
+    meta = art.meta
+    if backend is not None and backend != meta.backend:
+        raise ValueError(
+            f"PlanArtifact is frozen for backend {meta.backend!r}; finalize "
+            f"a plan built with backend={backend!r} instead")
+    n = _check_call(meta.shape, meta.nnz, art.aux.get("vals"), x, vals, impl)
+    name = impl or art.select(n)
+    entry = registry.resolve(name, meta.backend)
+    sub = art.substrates.get(entry.substrate)
+    if sub is None:
+        raise ValueError(
+            f"artifact carries substrates {tuple(art.substrates)} but kernel "
+            f"{name!r} needs {entry.substrate!r}; finalize with n=/impl=/"
+            "kernels= covering it")
+    return _run_entry(entry, sub, art.opts.get(entry.logical, {}), x, vals,
+                      art.aux.__getitem__,
+                      functools.partial(_PlanVJP, art, None))
+
+
+def _run_entry(entry: registry.KernelEntry, sub, opts: dict, x: torch.Tensor,
+               vals, aux, vjp, *, coded: bool = True) -> torch.Tensor:
+    """The dispatch shared by builders and artifacts: the entry on its
+    substrate, through the family's autograd Function when an operand
+    requires grad.  ``aux(name)`` gives the baked stream and the maps
+    (``"vals"``, ``"quant_scales"``, ``"ell_src"``, ``"bsr_map"``);
+    ``vjp(dtype, scales)`` the backward's products."""
     baked = vals is None             # the substrate as built holds them
     scales = None
     if baked and entry.substrate == "balanced" and \
             quant_mod.is_quantized_dtype(sub.vals.dtype):
-        scales = p.quant_scales()    # the kernels decode the baked codes
+        scales = aux("quant_scales")     # the kernels decode the baked codes
         opts = dict(opts, scales=scales)
     elif not coded:
         opts = {k: v for k, v in opts.items() if k != "quant"}
@@ -535,16 +911,15 @@ def _execute(p: PlanBuilder, x: torch.Tensor, vals, impl, backend, *,
     if scales is not None:
         stream = sub.vals.reshape(-1)    # codes: dX decodes them
     else:
-        stream = (p.csr.data if baked else vals).reshape(-1)
+        stream = (aux("vals") if baked else vals).reshape(-1)
     if entry.substrate == "bsr":
-        return exec_bsr(fn, sub, None if baked else p.bsr_map(),
-                        _PlanVJP(p, backend, sub.blocks.dtype), stream, x,
-                        baked=baked)
-    vjp = _PlanVJP(p, backend, scales=scales)
+        return exec_bsr(fn, sub, None if baked else aux("bsr_map"),
+                        vjp(sub.blocks.dtype), stream, x, baked=baked)
     if entry.substrate == "balanced":
-        return exec_balanced(fn, sub, vjp, stream, x, baked=baked)
-    return exec_ell(fn, sub, None if baked else p.ell_src(), vjp, stream, x,
-                    baked=baked)
+        return exec_balanced(fn, sub, vjp(None, scales), stream, x,
+                             baked=baked)
+    return exec_ell(fn, sub, None if baked else aux("ell_src"), vjp(), stream,
+                    x, baked=baked)
 
 
 # ---------------------------------------------------------------------------

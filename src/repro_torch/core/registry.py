@@ -103,6 +103,13 @@ def available(backend: str | None = None) -> tuple[KernelEntry, ...]:
                  if backend is None or e.backend == backend)
 
 
+def backends_for(logical: str) -> tuple[str, ...]:
+    """The backends that implement ``logical`` (every lazy backend loaded)."""
+    for b in _LAZY_BACKENDS:
+        _ensure_backend_loaded(b)
+    return tuple(b for (name, b) in _REGISTRY if name == logical)
+
+
 # ---------------------------------------------------------------------------
 # scoped backend override (the facade's ``use_backend``)
 # ---------------------------------------------------------------------------

@@ -58,6 +58,23 @@ def rmat(
     return csr_from_coo(rows, cols, vals, (m, k), device=device)
 
 
+def rmat_suite(seed: int = 0, *, device="cpu") -> dict[str, CSR]:
+    """The paper's 27-matrix micro-benchmark (§2.1.2-§2.1.3): scales 10, 12
+    and 14 x edge factors 4, 16 and 64 x three skews, seeds counted up
+    from ``seed`` in the reference's order, so each matrix is the
+    reference's element for element."""
+    suite: dict[str, CSR] = {}
+    skews = {"uniform": (0.25, 0.25, 0.25), "mild": (0.45, 0.22, 0.22),
+             "skewed": (0.57, 0.19, 0.19)}
+    for scale in (10, 12, 14):
+        for ef in (4, 16, 64):
+            for skew_name, (a, b, c) in skews.items():
+                name = f"rmat_s{scale}_e{ef}_{skew_name}"
+                suite[name] = rmat(scale, ef, a, b, c, seed=seed, device=device)
+                seed += 1
+    return suite
+
+
 def rmat_suite_small(seed: int = 0, *, device="cpu") -> dict[str, CSR]:
     """Reduced R-MAT suite for CI-speed tests (2 scales x 2 edge factors x
     2 skews)."""

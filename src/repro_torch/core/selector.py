@@ -13,7 +13,11 @@ Decision tree from three low-cost statistics (avg_row, cv, N):
 Thresholds are data: the JSON schema (versions 1-5) is the reference
 package's, read and written unchanged, so one calibration file serves both
 packages.  Its geometry table is keyed by backend, and each entry is
-validated under the rules of the backend its key names.
+validated under the rules of the backend its key names.  ``calibrate`` fits
+the three cutoffs to measured kernel times by grid search (paper §2.2),
+scoring a candidate by its geomean slowdown against the fastest kernel
+(§3.2, ``slowdown_vs_oracle``).  ``PreparedMatrix`` and ``adaptive_spmm``
+are the reference's deprecated front doors, shims over ``api.sparse``.
 """
 from __future__ import annotations
 
@@ -21,9 +25,11 @@ import dataclasses
 import json
 import os
 import warnings
+from typing import Callable
 
 import numpy as np
 
+from .formats import CSR
 from .stats import MatrixStats
 
 #: environment variable naming a calibrated-thresholds JSON file to auto-load
@@ -236,3 +242,137 @@ def select_kernel(stats: MatrixStats, n: int,
     if n <= th.n_threshold:
         return "nb_pr" if stats.avg_row < th.pr_avg_row else "rs_pr"
     return "nb_sr" if stats.cv > th.sr_cv else "rs_sr"
+
+
+# ---------------------------------------------------------------------------
+# deprecated front doors: thin shims over the repro_torch.api facade
+# ---------------------------------------------------------------------------
+
+class PreparedMatrix:
+    """Deprecated: use ``repro_torch.api.sparse``, which builds substrates
+    lazily, per the selected kernel, instead of both eagerly.  Wraps the
+    facade's ``SparseMatrix`` so the legacy ``.ell`` / ``.balanced`` /
+    ``.stats`` accessors keep working (each builds its substrate on first
+    touch)."""
+
+    def __init__(self, matrix):
+        from ..api import SparseMatrix
+        if not isinstance(matrix, SparseMatrix):  # a bare PlanBuilder
+            matrix = SparseMatrix(matrix)
+        self._matrix = matrix
+
+    @classmethod
+    def from_csr(cls, csr: CSR, tile: int = 512, *,
+                 device=None) -> "PreparedMatrix":
+        """``device=None`` is the card, as for ``sparse()``."""
+        warnings.warn("PreparedMatrix.from_csr is deprecated; use "
+                      "repro_torch.api.sparse (lazy substrates, cached plans)",
+                      DeprecationWarning, stacklevel=2)
+        from ..api import sparse
+        return cls(sparse(csr, tile=tile, device=device))
+
+    @property
+    def _plan(self):
+        return self._matrix.plan
+
+    @property
+    def csr(self) -> CSR:
+        return self._matrix.plan.csr
+
+    @property
+    def stats(self) -> MatrixStats:
+        return self._matrix.stats
+
+    @property
+    def ell(self):
+        return self._matrix.plan.substrate("ell")
+
+    @property
+    def balanced(self):
+        return self._matrix.plan.substrate("balanced")
+
+
+def adaptive_spmm(prep, x, th: SelectorThresholds = SelectorThresholds(),
+                  impl: str | None = None, *, device=None):
+    """Deprecated: ``repro_torch.api.sparse(csr) @ x`` replaces it.
+    ``prep`` is a ``PreparedMatrix`` or a CSR (planned on ``device``, the
+    card for None); ``impl`` overrides the rule (oracle / ablation mode)."""
+    warnings.warn("adaptive_spmm is deprecated; use repro_torch.api.sparse "
+                  "(m = sparse(csr); m @ x)", DeprecationWarning, stacklevel=2)
+    from ..api import sparse
+    m = (prep._matrix if isinstance(prep, PreparedMatrix)
+         else sparse(prep, device=device))
+    return m.with_thresholds(th).matmul(x, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# offline calibration (paper §2.2 method, §3.2 metric)
+# ---------------------------------------------------------------------------
+
+def slowdown_vs_oracle(stats: dict, ns: tuple, times: dict,
+                       th: SelectorThresholds) -> float:
+    """The paper's §3.2 loss of ``th``: the geometric mean over (matrix, N)
+    of the time of the kernel ``th`` selects over the fastest kernel's.
+    ``stats`` maps a matrix name to its ``MatrixStats``, ``times`` a
+    ``(name, n, kernel)`` to seconds."""
+    from .registry import MATMUL_KERNELS
+    ratios = []
+    for mname, st in stats.items():
+        for n in ns:
+            chosen = times[(mname, n, select_kernel(st, n, th))]
+            oracle = min(times[(mname, n, k)] for k in MATMUL_KERNELS)
+            ratios.append(chosen / oracle)
+    return float(np.exp(np.mean(np.log(ratios))))
+
+
+def calibrate(
+    matrices: dict,
+    ns: tuple,
+    time_fn: "Callable[[str, object, int], float] | None" = None,
+    times: dict | None = None,
+    # 1 << 30 = "never switch to sequential reduction": the PR/SR crossover
+    # of the paper's Insight 1 may not exist on a backend, and the grid may
+    # learn that
+    n_grid: tuple = (2, 4, 8, 1 << 30),
+    avg_grid: tuple = (8.0, 16.0, 32.0, 64.0),
+    cv_grid: tuple = (0.25, 0.5, 1.0, 2.0),
+    save_to: str | None = None,
+) -> tuple[SelectorThresholds, dict]:
+    """Re-derive the thresholds for a backend by grid search against
+    measured kernel times (paper §2.2): either ``time_fn(kernel_name, plan,
+    n) -> seconds`` over ``plan(csr)`` of each matrix, or the precomputed
+    ``times[(matrix_name, n, kernel_name)] -> seconds``.
+
+    Returns ``(best thresholds, report)``; the report's
+    ``geomean_slowdown_vs_oracle`` is the winner's §3.2 loss
+    (``slowdown_vs_oracle``) and ``times`` every measurement, keyed
+    ``"name|n=N|kernel"``.  ``save_to`` persists the winner as JSON for
+    ``$REPRO_THRESHOLDS``."""
+    from .plan import plan
+    from .registry import MATMUL_KERNELS
+
+    plans = {k: plan(v) for k, v in matrices.items()}
+    if times is None:
+        if time_fn is None:
+            raise ValueError("calibrate needs time_fn or times")
+        times = {}
+        for mname, p in plans.items():
+            for n in ns:
+                for kname in MATMUL_KERNELS:
+                    times[(mname, n, kname)] = time_fn(kname, p, n)
+    stats = {k: p.stats for k, p in plans.items()}
+    best, best_loss = None, np.inf
+    for nt in n_grid:
+        for ag in avg_grid:
+            for cg in cv_grid:
+                th = SelectorThresholds(nt, ag, cg)
+                loss = slowdown_vs_oracle(stats, ns, times, th)
+                if loss < best_loss:
+                    best, best_loss = th, loss
+    report = {
+        "geomean_slowdown_vs_oracle": best_loss,
+        "times": {f"{m}|n={n}|{k}": t for (m, n, k), t in times.items()},
+    }
+    if save_to is not None:
+        save_thresholds(best, save_to)
+    return best, report

@@ -4,7 +4,8 @@ K4 and K5's combine (``vsr.spill_combine``) is a kernel of its own.
 Importing this package registers the ``"hopper"`` backend (K1-K10) and the
 block-granule ``"bsr"`` backend (K11) in ``repro_torch.core.registry``; the
 registry imports it on first resolve of either.  The kernels are built and
-loaded at their first launch (``_build.lib``), never at import.
+loaded at their first launch (``_build.lib``), never at import.  ``spmm`` is
+the deprecated front door of the reference's ``repro.kernels``.
 """
 from . import attention, bsr, csc, fused_chain, spmv, vsr
 from .attention import (attn_chain_fused, attn_chain_plain, attn_stats_fused,
@@ -14,6 +15,7 @@ from .csc import spmm_csc, spmm_csc_plain, spmm_csc_stored_plain
 from .fused_chain import (chain_fused, chain_plain, chain_stats_fused,
                           chain_stats_plain, chain_unfused, sddmm_fused,
                           sddmm_plain)
+from .ops import spmm
 from .spmv import spmv_vsr, spmv_vsr_fused, spmv_vsr_plain, spmv_vsr_spill_plain
 from .vsr import (plan_visits, plan_windows, spmm_as_n_spmv_hopper, spmm_vsr,
                   spmm_vsr_fused, spmm_vsr_plain, spmm_vsr_spill_plain)

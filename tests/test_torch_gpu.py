@@ -2476,3 +2476,254 @@ def test_cuda_block_design_zero_fill_on_poisoned_staging(cuda, dtype, seq):
                                        transform="softmax", alpha=d ** -0.5)
         assert torch.isfinite(y7).all() and _rel(y7, want) < tol, d
         assert (y9[empty] == 0).all() and (y7[empty] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# the frozen artifact on the card: the builder's kernels, no host work, CUDA
+# graph capture; fault 3.5 on the card; calibration on the card
+# ---------------------------------------------------------------------------
+
+#: (graph, backend, N, impl or None, the launch counter, its design)
+_ARTIFACT_CASES = {
+    "k1_sr": ("skewed", "hopper", 32, None, "vsr_spmm", "sr"),
+    "k1_pr": ("skewed", "hopper", 4, None, "vsr_spmm", "pr"),
+    "k2": ("skewed", "hopper", 1, None, "vsr_spmv", None),
+    "k3_sr": ("uniform", "hopper", 32, None, "csc_spmm", "sr"),
+    "k3_pr": ("uniform", "hopper", 4, "rs_pr", "csc_spmm", "pr"),
+    "k11_tc": ("ragged", "bsr", 32, None, "bsr_spmm", "tc"),
+    "k11_fma": ("ragged", "bsr", 4, None, "bsr_spmm", "fma"),
+}
+
+
+def _artifact_case(cuda, case):
+    import repro_torch
+    graph, backend, n, impl, kernel, design = _ARTIFACT_CASES[case]
+    csr = (_block_matrices(cuda) if backend == "bsr" else _graphs(cuda))[graph]
+    A = repro_torch.sparse(csr, backend=backend, cache=False)
+    art = A.plan.finalize(n, impl=impl)
+    x = torch.randn(csr.shape[1], n, device=cuda)
+    return A, art, (x[:, 0].contiguous() if n == 1 else x), impl, kernel, design
+
+
+def _designs(kernel):
+    mod = {"vsr_spmm": vsr, "csc_spmm": csc, "bsr_spmm": bsr}.get(kernel)
+    return None if mod is None else dict(mod.DESIGN_LAUNCHES[kernel])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_ARTIFACT_CASES))
+def test_cuda_artifact_matches_builder(cuda, case):
+    """``execute(art, x)`` launches the builder's kernel in the builder's
+    design, once, and is bit-equal to ``A @ x`` (these small graphs have no
+    row that three tiles hold, so no sum depends on the order of atomics)."""
+    import repro_torch
+    A, art, x, impl, kernel, design = _artifact_case(cuda, case)
+    reset_launch_counts()
+    want = A.matmul(x, impl=impl)
+    builder = (launch_counts(), _designs(kernel))
+    reset_launch_counts()
+    got = repro_torch.execute(art, x, impl=impl)
+    assert (launch_counts(), _designs(kernel)) == builder
+    assert launch_counts()[kernel] == 1 and sum(launch_counts().values()) == 1
+    if design is not None:
+        assert _designs(kernel)[design] == 1
+    assert torch.equal(got, want)
+    assert _rel(got, A.matmul(x, impl=impl, backend="torch")) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["k1_sr", "k2", "k3_sr", "k11_tc"])
+def test_cuda_artifact_graph_capture_and_replay(cuda, case):
+    """``execute(art, x)`` and its live-stream form captured in a CUDA
+    graph, with the sync guard set to error: each replay bit-equal to the
+    eager call, on new values of ``x`` copied into the captured input."""
+    import repro_torch
+    A, art, x, impl, kernel, _ = _artifact_case(cuda, case)
+    vals = torch.randn(A.nnz, device=cuda)
+    calls = (lambda: repro_torch.execute(art, x, impl=impl),
+             lambda: repro_torch.execute(art, x, vals=vals, impl=impl))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in calls:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, outs = [], []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in calls:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                outs.append(f())
+            graphs.append(g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for _ in range(3):
+        x.copy_(torch.randn_like(x))
+        reset_launch_counts()
+        for g in graphs:
+            g.replay()
+        torch.cuda.synchronize()
+        assert sum(launch_counts().values()) == 0    # replays launch no wrapper
+        for f, y in zip(calls, outs):
+            assert torch.equal(y, f())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["k1_sr", "k1_pr", "k2", "k3_sr", "k11_tc",
+                                  "k11_fma"])
+def test_cuda_artifact_backward_does_no_host_work(cuda, case, no_plain):
+    """Forward and backward through an artifact under the sync guard set to
+    error: no substrate or pattern prep built, no plain version run, K6
+    for ``dvals`` and Aᵀ's pick (K11 on Aᵀ for the block family) for
+    ``dX``; both grads within 1e-6 of the builder's."""
+    import repro_torch
+    from repro_torch.core.plan import PATTERN_PREP
+    A, art, x, impl, kernel, _ = _artifact_case(cuda, case)
+    gy = torch.randn(A.shape[0], *x.shape[1:], device=cuda)
+
+    def grads(target):
+        v = A.values.detach().clone().requires_grad_()
+        xx = x.detach().clone().requires_grad_()
+        y = repro_torch.execute(target, xx, vals=v, impl=impl)
+        return torch.autograd.grad((y * gy).sum(), [v, xx])
+    want = grads(A.plan)
+    grads(art)                                   # warm-up
+    before = (dict(formats.BUILD_COUNTS), PATTERN_PREP["builds"])
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = grads(art)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = launch_counts()
+    assert (dict(formats.BUILD_COUNTS), PATTERN_PREP["builds"]) == before
+    assert no_plain == [], no_plain
+    assert counts["sddmm"] == 1 and sum(counts.values()) == 3, counts
+    for g, w in zip(got, want):
+        assert _rel(g, w) < 1e-6
+
+
+@pytest.mark.gpu
+def test_cuda_fault_35_load_state_dict(cuda):
+    """Fault 3.5 on the card: after ``load_state_dict`` writes the pattern
+    buffers in place, the backward runs on the loaded pattern's Aᵀ and
+    agrees with the freshly loaded module's."""
+    from repro_torch.configs import gemma3_12b
+    from repro_torch.core.plan import PATTERN_PREP
+    from repro_torch.models import SparseFFN
+    from repro_torch.models.config import SparseFFNConfig
+    cfg = gemma3_12b.SMOKE.scaled(sparse_ffn=SparseFFNConfig(tile=16))
+    a, b = SparseFFN(cfg, seed=0), SparseFFN(cfg, seed=1)
+    x = torch.randn(4, 8, cfg.d_model, device=cuda)
+
+    def grads(ffn):
+        xx = x.clone().requires_grad_()
+        return torch.autograd.grad(ffn(xx).square().sum(),
+                                   [xx, *ffn.parameters()])
+    grads(a)
+    builds = PATTERN_PREP["builds"]
+    a.load_state_dict(b.state_dict())
+    got = grads(a)
+    assert PATTERN_PREP["builds"] == builds + 3
+    for g, w in zip(got, grads(b)):
+        assert _rel(g, w) < 1e-6
+
+
+@pytest.mark.gpu
+def test_cuda_calibrate_backend(cuda, tmp_path):
+    """A small calibration on the Hopper kernels: every (matrix, N, kernel)
+    timed by CUDA events (finite, positive), the winner saved and
+    reloaded, each kernel launched."""
+    import math
+    import repro_torch
+    from repro_torch.core import load_thresholds
+    path = str(tmp_path / "th.json")
+    reset_launch_counts()
+    th, report = repro_torch.calibrate_backend(path, ns=(1, 4, 32), repeats=3)
+    assert load_thresholds(path) == th
+    assert len(report["times"]) == 2 * 3 * 4
+    assert all(math.isfinite(t) and t > 0 for t in report["times"].values())
+    assert report["geomean_slowdown_vs_oracle"] >= 1.0
+    counts = launch_counts()
+    assert counts["vsr_spmm"] and counts["vsr_spmv"] and counts["csc_spmm"]
+
+
+@pytest.mark.gpu
+def test_cuda_quickstart(cuda):
+    from repro_torch.examples import quickstart
+    out = quickstart.main()
+    assert out["agree_n1"] and out["agree_n4"] and out["agree_n64"]
+    for key in ("hopper_nb_pr", "hopper_rs_sr", "hopper_spmv", "artifact"):
+        assert out[key] < 1e-3, (key, out[key])
+    assert out["graph"] < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 32])
+def test_cuda_spill_artifact_has_its_windows(cuda, n):
+    """The spill opt frozen: ``finalize`` computes the row windows (a host
+    scan), so the artifact's call runs K4 (K5 at N = 1) and the combine
+    with no sync, equal to the builder's spill call, and a graph captures
+    it."""
+    import repro_torch
+    csr = _graphs(cuda)["uniform"]
+    A = repro_torch.sparse(csr, cache=False)
+    opts = A.plan.kernel_opts(A.plan.entry("nb_pr"))
+    opts["spill"] = True
+    art = A.plan.finalize(impl="nb_pr")
+    assert art.opts["nb_pr"]["windows"]._value is not None
+    x = torch.randn(csr.shape[1], n, device=cuda)
+    x = x[:, 0].contiguous() if n == 1 else x
+    want = A.matmul(x, impl="nb_pr")
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = repro_torch.execute(art, x, impl="nb_pr")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    kernel = "vsr_spmv_spill" if n == 1 else "vsr_spmm_spill"
+    assert launch_counts()[kernel] == 1 and launch_counts()["spill_combine"] == 1
+    assert _rel(got, want) < 1e-6
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = repro_torch.execute(art, x, impl="nb_pr")
+    g.replay()
+    torch.cuda.synchronize()
+    assert _rel(y, want) < 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_cuda_quantized_artifact_calls_capture(cuda, mode):
+    """A quantized artifact: its baked codes and a live stream (quantized
+    on the card at each call, plain tensor ops, no range check) both run
+    the coded K1 under the sync guard and in a CUDA graph, each replay
+    equal to the eager call."""
+    import repro_torch
+    csr = _graphs(cuda)["skewed"]
+    A = repro_torch.sparse(csr, quant=mode, cache=False)
+    art = A.finalize(32)
+    assert art.meta.quant == mode and "quant_scales" in art.aux
+    x = torch.randn(csr.shape[1], 32, device=cuda)
+    vals = torch.randn(csr.nnz, device=cuda)
+    calls = (lambda: repro_torch.execute(art, x),
+             lambda: repro_torch.execute(art, x, vals=vals))
+    builder = (lambda: A @ x, lambda: A.with_values(vals) @ x)
+    for f, b in zip(calls, builder):
+        want = b()
+        reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = f()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert vsr.VALUE_LAUNCHES["vsr_spmm"][mode] == 1
+        assert torch.equal(got, want)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            y = f()
+        x.copy_(torch.randn_like(x))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, f())

@@ -48,7 +48,29 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.core.quant",
                    "repro_torch.train.compress",
                    "repro_torch.examples.train_gat",
+                   "repro_torch.examples.quickstart",
+                   "repro_torch.kernels.ops",
                    "repro_torch.train.optim",
                    "repro_torch.train.step",
                    "repro_torch.configs.gemma3_12b"):
         assert module in names, (module, sorted(names))
+
+
+def test_port_exports_the_reference_top_level():
+    """Every name of ``repro.__all__`` but ``use_mesh`` (the sharded
+    backend is not ported) is an attribute of ``repro_torch``, which
+    imports no JAX and nothing of ``repro`` to give them."""
+    import repro
+    names = [n for n in repro.__all__ if n != "use_mesh"]
+    probe = _PROBE.split("names = sorted")[0] + (
+        "missing = [n for n in sys.argv[1:] if not hasattr(repro_torch, n)]\n"
+        "assert not missing, missing\n"
+        "leaked = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not leaked, leaked\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe, *names], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert {"calibrate", "calibrate_backend", "PlanArtifact",
+            "PlanBuilder"} <= set(names)

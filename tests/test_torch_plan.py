@@ -1,0 +1,183 @@
+"""The offline half of the port against the reference (mirrors the parts of
+``tests/test_plan.py`` that ``tests/test_torch_api.py`` does not): the
+selector's calibration (``calibrate`` on the same measured times gives the
+reference's thresholds and geomean slowdown), its ``save_to`` round trip,
+the 27-matrix R-MAT suite element for element, ``calibrate_backend`` on the
+CPU and the arguments of its unported tuners, ``backends_for``, the
+deprecated front doors (``PreparedMatrix``, ``adaptive_spmm``,
+``repro_torch.kernels.spmm``), and the quickstart example on the CPU."""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import MATMUL_KERNELS as REF_KERNELS
+from repro.core import calibrate as ref_calibrate
+from repro.core import rmat_suite as ref_rmat_suite
+from repro.core.rmat import rmat_suite_small as ref_suite_small
+import repro_torch
+from repro_torch import api, interop
+from repro_torch.core import (MATMUL_KERNELS, PreparedMatrix, adaptive_spmm,
+                              backends_for, calibrate, load_thresholds,
+                              rmat_suite)
+from repro_torch.core.selector import SelectorThresholds, slowdown_vs_oracle
+
+SMALL = ref_suite_small(seed=0)
+
+
+def _port(csr):
+    return interop.csr_from_arrays(np.asarray(csr.indptr), np.asarray(csr.indices),
+                                   np.asarray(csr.data), csr.shape)
+
+
+def _times(seed: int, ns: tuple) -> dict:
+    rng = np.random.default_rng(seed)
+    return {(name, n, k): float(rng.uniform(0.5, 2.0))
+            for name in SMALL for n in ns for k in MATMUL_KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# calibrate
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_calibrate_matches_reference_on_equal_times(seed):
+    ns = (1, 4, 32, 128)
+    times = _times(seed, ns)
+    assert MATMUL_KERNELS == REF_KERNELS
+    th, report = calibrate({k: _port(v) for k, v in SMALL.items()}, ns,
+                           times=times)
+    ref_th, ref_report = ref_calibrate(SMALL, ns, times=times)
+    assert (th.n_threshold, th.pr_avg_row, th.sr_cv) == \
+        (ref_th.n_threshold, ref_th.pr_avg_row, ref_th.sr_cv)
+    assert report["geomean_slowdown_vs_oracle"] == \
+        ref_report["geomean_slowdown_vs_oracle"]
+    assert report["times"] == ref_report["times"]
+    stats = {k: api.sparse(_port(v), device="cpu").stats
+             for k, v in SMALL.items()}
+    assert slowdown_vs_oracle(stats, ns, times, th) == \
+        report["geomean_slowdown_vs_oracle"]
+    assert slowdown_vs_oracle(stats, ns, times, SelectorThresholds()) >= \
+        report["geomean_slowdown_vs_oracle"]
+
+
+def test_calibrate_save_to(tmp_path):
+    csr = _port(SMALL["rmat_s6_e4_uniform"])
+    times = {("m", n, k): 1.0 + (k != "nb_pr") for n in (1, 8)
+             for k in MATMUL_KERNELS}
+    path = str(tmp_path / "cal.json")
+    th, report = calibrate({"m": csr}, (1, 8), times=times, save_to=path)
+    assert load_thresholds(path) == th
+    assert report["geomean_slowdown_vs_oracle"] >= 1.0
+
+
+def test_calibrate_times_every_point_with_time_fn():
+    seen = []
+
+    def time_fn(kernel, p, n):
+        seen.append((p.csr.shape, n, kernel))
+        return 1.0 + MATMUL_KERNELS.index(kernel) + n
+    mats = {k: _port(v) for k, v in list(SMALL.items())[:2]}
+    th, report = calibrate(mats, (1, 8), time_fn=time_fn)
+    assert len(seen) == len(report["times"]) == 2 * 2 * 4
+    assert report["geomean_slowdown_vs_oracle"] >= 1.0
+    with pytest.raises(ValueError, match="time_fn or times"):
+        calibrate(mats, (1,))
+
+
+# ---------------------------------------------------------------------------
+# the suite, calibrate_backend, the registry
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def suites():
+    return rmat_suite(seed=0), ref_rmat_suite(seed=0)
+
+
+def test_rmat_suite_matches_reference_element_for_element(suites):
+    port, ref = suites
+    assert list(port) == list(ref) and len(port) == 27
+    for name, want in ref.items():
+        got = port[name]
+        assert got.shape == tuple(want.shape), name
+        np.testing.assert_array_equal(got.indptr.numpy(), np.asarray(want.indptr))
+        np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
+        np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
+
+
+def test_calibrate_backend_runs_on_the_cpu(tmp_path):
+    path = str(tmp_path / "th.json")
+    th, report = repro_torch.calibrate_backend(path, device="cpu")
+    assert load_thresholds(path) == th
+    assert len(report["times"]) == 2 * 2 * 4        # matrices x ns x kernels
+    assert all(math.isfinite(t) and t > 0 for t in report["times"].values())
+    assert report["geomean_slowdown_vs_oracle"] >= 1.0
+    small = {"a": _port(SMALL["rmat_s6_e16_skewed"])}
+    th2, report2 = api.calibrate_backend(matrices=small, ns=(1, 4, 32),
+                                         repeats=1, backend="hopper",
+                                         device="cpu", n_grid=(4,))
+    assert th2.n_threshold == 4 and len(report2["times"]) == 3 * 4
+
+
+@pytest.mark.parametrize("kw", [{"tune_geometry": True},
+                                {"overlap_mesh": object()},
+                                {"tune_quant": True}])
+def test_calibrate_backend_unported_arguments(kw):
+    with pytest.raises(NotImplementedError, match="kernels/tune.py"):
+        api.calibrate_backend(device="cpu", **kw)
+
+
+def test_backends_for():
+    assert set(backends_for("nb_pr")) == {"torch", "hopper", "bsr"}
+    assert set(backends_for("sddmm")) == {"torch", "hopper"}
+
+
+# ---------------------------------------------------------------------------
+# deprecated front doors: they warn and answer like sparse()
+# ---------------------------------------------------------------------------
+
+def test_prepared_matrix_shim_is_lazy_and_warns():
+    csr = _port(SMALL["rmat_s6_e16_skewed"])
+    with pytest.warns(DeprecationWarning):
+        prep = PreparedMatrix.from_csr(csr, tile=16, device="cpu")
+    assert prep._plan.built_substrates == ()         # no eager double-build
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (64, 3)).astype(np.float32))
+    want = api.sparse(csr, tile=16, device="cpu", cache=False).matmul(
+        x, impl="nb_sr")
+    with pytest.warns(DeprecationWarning):
+        y = adaptive_spmm(prep, x, impl="nb_sr")
+    assert torch.equal(y, want)
+    assert prep.balanced is prep._plan.substrate("balanced")
+    assert prep.stats == prep._plan.stats and prep.csr is prep._plan.csr
+    with pytest.warns(DeprecationWarning):
+        y2 = adaptive_spmm(csr, x, device="cpu")
+    assert torch.allclose(y2, want, atol=1e-5)
+
+
+def test_kernels_spmm_shim():
+    from repro_torch.kernels import spmm
+    csr = _port(SMALL["rmat_s6_e16_uniform"])
+    with pytest.warns(DeprecationWarning):
+        prep = PreparedMatrix.from_csr(csr, tile=16, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (64, 3)).astype(np.float32))
+    with pytest.warns(DeprecationWarning):
+        y = spmm(prep, x, force_hopper=True)
+    want = api.sparse(csr, tile=16, device="cpu", backend="hopper",
+                      cache=False) @ x
+    assert torch.equal(y, want)
+
+
+# ---------------------------------------------------------------------------
+# the quickstart example
+# ---------------------------------------------------------------------------
+
+def test_quickstart_runs_on_the_cpu(capsys):
+    from repro_torch.examples import quickstart
+    out = quickstart.main(device="cpu")
+    assert out["agree_n1"] and out["agree_n4"] and out["agree_n64"]
+    assert out["live"] < 1e-4 and out["artifact"] == 0.0
+    assert "hopper_nb_pr" not in out and "graph" not in out
+    assert "hopper column: skipped" in capsys.readouterr().out

@@ -301,3 +301,62 @@ def test_pattern_entry_routes_its_kernel_by_n(monkeypatch, backend):
         assert [r for r in resolved if r.startswith("nb")] == [want], (n, impl)
         np.testing.assert_allclose(y.detach().numpy(), (pat.to_dense(vals) @ x).detach().numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+def _ffn_grads(ffn: SparseFFN, x: torch.Tensor, backend: str):
+    """The grads of ``sum(ffn(x)²)`` in ``x`` and every parameter, on the
+    named backend's route of ``execute_pattern``."""
+    from repro_torch.api import use_backend
+    xx = x.clone().requires_grad_()
+    with use_backend(backend):
+        loss = (ffn(xx) ** 2).sum()
+    return torch.autograd.grad(loss, [xx, *ffn.parameters()])
+
+
+@pytest.mark.parametrize("backend", ["torch", "hopper"])
+def test_load_state_dict_rebuilds_the_pattern_prep(backend):
+    """Fault 3.5: ``load_state_dict`` writes a ``SparseFFN``'s pattern
+    buffers in place, which keeps their identity; the memo of
+    ``pattern_prep`` also keys on the tensors' version counters, so the
+    backward after the load runs on the loaded pattern's Aᵀ.  Its grads
+    equal the loaded module's exactly."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (*TOKENS, CFG.d_model)).astype(np.float32))
+    a = SparseFFN(CFG, seed=0, device="cpu")
+    b = SparseFFN(CFG, seed=1, device="cpu")
+    assert not torch.equal(a.up_rows, b.up_rows)
+    _ffn_grads(a, x, backend)                   # a's prep built
+    builds = PATTERN_PREP["builds"]
+    a.load_state_dict(b.state_dict())
+    got = _ffn_grads(a, x, backend)
+    assert PATTERN_PREP["builds"] == builds + 3  # one a matrix, rebuilt
+    for g, want in zip(got, _ffn_grads(b, x, backend)):
+        assert torch.equal(g, want)
+
+
+def test_pattern_prep_follows_an_in_place_copy():
+    """Fault 3.5 on a bare pattern: ``rows.copy_(other)`` bumps the
+    version, and the next backward of ``pattern_matmul`` equals the one on
+    a fresh copy of the other pattern."""
+    from repro_torch.core.plan import execute_pattern
+    one = SparsePattern.random(1, 30, 20, 0.3, 16, device="cpu")
+    two = SparsePattern.random(2, 30, 20, 0.3, 16, device="cpu")
+    assert one.rows.shape == two.rows.shape
+    rng = np.random.default_rng(6)
+    vals = torch.from_numpy(rng.standard_normal(one.rows.shape).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((20, 8)).astype(np.float32))
+
+    def grads(rows, cols):
+        v, xx = vals.clone().requires_grad_(), x.clone().requires_grad_()
+        y = execute_pattern(rows, cols, v, one.shape, xx, backend="torch")
+        return torch.autograd.grad((y ** 2).sum(), [v, xx])
+
+    rows, cols = one.rows.clone(), one.cols.clone()
+    before = pattern_prep(rows, cols, one.shape)
+    grads(rows, cols)
+    rows.copy_(two.rows)
+    cols.copy_(two.cols)
+    assert pattern_prep(rows, cols, one.shape) is not before
+    for g, want in zip(grads(rows, cols),
+                       grads(two.rows.clone(), two.cols.clone())):
+        assert torch.equal(g, want)
