@@ -241,7 +241,35 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              grads through the artifact (g500 N = 32, the ``"bsr"``
              artifact) within 1e-4 of the builder's, with no host build and
              no sync; (c) ``repro_torch.examples.quickstart.main()``;
-14. summary — one JSON line of the kernels (``launches`` and ``design``:
+14. guardrails — the guardrails (``core/guardrails.py``) on the card's
+             kernels, the one phase that makes kernels fail on purpose: the
+             fault matrix (threshold 2, cooldown 0, three failures injected
+             at ``kernel_execute:<backend>``) on g500 (K2 at N = 1, K1 sr at
+             N = 128) and the Gemma ffn_up on ``"bsr"`` (K11 at N = 128):
+             on the card a kernel launches or raises, so three calls raise
+             with no launch, each counted as ``kernel_failure`` (no rung
+             below runs), then a probe that launches the kernel once and
+             closes the breaker; the ``"fault_launch"`` build (K1, K2 and K3
+             launched with an illegal block size:
+             ``cudaErrorInvalidConfiguration``, a real launch error) raised
+             and counted, then the default build's probe recovering;
+             sentinels on K1 sr at N = 128 with a NaN in X (raise,
+             sanitize, fallback — on the card the same pass as sanitize —
+             sanitize in a CUDA graph, raise refused at capture) and their cost on a
+             finite X; ``validate="repair"`` on a row-shuffled g500 CSR
+             with 1% of its entries split into duplicate halves, hitting
+             the clean plan's cache entry with the same output; a corrupted
+             cached plan under ``integrity="hit"`` rebuilt; times: the
+             eager artifact call with and without the guard (g500 K2 at N =
+             1, K1 sr at N = 128, and the host's µs a call on a small
+             matrix), ``inspect_csr`` / ``repair_csr`` on g500,
+             ``plan_digest`` of a builder and an artifact, a ``sparse()``
+             cache miss with and without a published digest, the FFN train
+             step with ``skip_nonfinite`` on and off (and one poisoned
+             step kept).  It ends with ``HEALTH.reset()``; every other
+             phase fails if it leaves a kernel failure, a reroute, a breaker
+             skip, a sentinel fallback or a tripped breaker in ``HEALTH``;
+15. summary — one JSON line of the kernels (``launches`` and ``design``:
              the main path's; ``launches_by_path`` and ``design_by_path``:
              every path above; for K1, K2, K4 and K5 ``launches_by_value``,
              and an entry of their own for each coded variant,
@@ -468,7 +496,28 @@ def main() -> int:
 
     t_start = time.perf_counter()
 
+    from repro_torch.core.guardrails import HEALTH
+    current_phase = [None]
+
     def phase(name):
+        """Start phase ``name``; the phase that ends must leave the
+        guardrails' ladder untouched unless it is the guardrails phase."""
+        ended = current_phase[0]
+        if ended is not None and ended != "guardrails":
+            snap = HEALTH.snapshot()
+            if snap["counters"]:
+                print(f"[health] {ended} {json.dumps(snap['counters'])}",
+                      flush=True)
+            moved = {k: v for k, v in snap["counters"].items()
+                     if k.startswith(("kernel_failure:", "kernel_reroute:",
+                                      "breaker_skip:", "sentinel_fallback:"))}
+            tripped = {k: b for k, b in snap["breakers"].items()
+                       if b["trips"] or b["state"] != "closed"}
+            if moved or tripped:
+                fail(f"{ended}: a kernel of the path failed or was "
+                     f"rerouted: {moved} {tripped}")
+            HEALTH.reset()           # the next [health] line is its phase's
+        current_phase[0] = name
         print(f"[phase] {name} at {time.perf_counter() - t_start:.1f} s",
               flush=True)
 
@@ -508,6 +557,17 @@ def main() -> int:
     phase("build")
     built = _build.build()
     _build.lib()
+    # the guardrails phase's "fault_launch" library, built meanwhile
+    import threading
+    fault_build = {}
+
+    def build_fault_launch():
+        try:
+            fault_build["result"] = _build.build("fault_launch")
+        except RuntimeError as err:
+            print(f"[build] fault_launch: {err}", file=sys.stderr, flush=True)
+    fault_thread = threading.Thread(target=build_fault_launch)
+    fault_thread.start()
     print(f"[build] {built.path.name}: {built.seconds:.1f} s")
     for line in built.log.splitlines():
         if line.startswith("==") or "registers" in line or "Compiling" in line:
@@ -982,7 +1042,8 @@ def main() -> int:
     path_launches = {path: {k: 0 for k in KERNELS}
                      for path in ("main", "backward", "train", "chain_backward",
                                   "gat_train", "attention_backward",
-                                  "bsr_backward", "quant", "offline")}
+                                  "bsr_backward", "quant", "offline",
+                                  "guardrails")}
     value_counts = {**vsr.VALUE_LAUNCHES, **spmv.VALUE_LAUNCHES}
     path_values = {path: {k: dict.fromkeys(vv, 0) for k, vv in value_counts.items()}
                    for path in path_launches}
@@ -2206,7 +2267,7 @@ def main() -> int:
     for k, row in ffn_rows.items():
         print(f"[time] {k} " + " ".join(f"{kk}={vv}" for kk, vv in row.items()),
               flush=True)
-    del ffn, state, dstate, dense, wd, gd, grads, lib_w, bal, g_out, ht, xt
+    del state, dstate, dense, wd, gd, grads, lib_w, bal, g_out, ht, xt
     torch.cuda.empty_cache()
 
     # -- 8. the backward of the chain: a GAT layer on both graphs ----------------
@@ -3103,7 +3164,346 @@ def main() -> int:
         fail(f"offline: quickstart {qs}")
     print("[offline] quickstart " + json.dumps(qs), flush=True)
 
-    # -- 14. summary --------------------------------------------------------------
+    # -- 14. the guardrails on the card's kernels --------------------------------
+    phase("guardrails")
+    from repro_torch.core import guardrails
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.core.plan import (_artifact_entry, _artifact_run,
+                                       _check_call)
+    from repro_torch.runtime.faults import FaultInjector, FaultSpec, inject_faults
+    g500 = graphs["g500"]
+    m_g, k_g = g500.shape
+    A = repro_torch.sparse(g500)
+    x1, x128 = randn(k_g), randn(k_g, 128)
+    W = repro_torch.sparse(w_csr, backend="bsr")
+    xw = randn(w_csr.shape[1], BSR_ARTIFACT_N)
+
+    def say(label, row):
+        print(f"[guardrails] {label} " + json.dumps(row, default=str), flush=True)
+
+    def attempt(call):
+        """``call()`` through ``drive``: ``(error, y, launch counts)``, the
+        error the text of a ``RuntimeError`` it raised (then y is None)."""
+        try:
+            y_, counts_ = drive(call, "guardrails")
+            return None, y_, counts_
+        except RuntimeError as err:
+            return str(err), None, launch_counts()
+
+    def ladder_moves():
+        return {k: v for k, v in HEALTH.snapshot()["counters"].items()
+                if k.startswith(("kernel_failure:", "kernel_reroute:",
+                                 "breaker_skip:"))}
+
+    # (a) the fault matrix: threshold 2, cooldown 0, three failures; on the
+    # card each raises (there is no rung below), and the probe launches
+    for label, M_, x_, backend, kernel in (
+            ("g500 K2 N=1", A, x1, "hopper", "vsr_spmv"),
+            ("g500 K1 sr N=128", A, x128, "hopper", "vsr_spmm"),
+            (f"gemma ffn_up bsr K11 N={BSR_ARTIFACT_N}", W, xw, "bsr",
+             "bsr_spmm")):
+        HEALTH.reset()
+        HEALTH.configure(threshold=2, cooldown_s=0.0)
+        name = M_.plan.select(1 if x_.ndim == 1 else x_.shape[1])
+        t0 = time.perf_counter()
+        want = M_.matmul(x_, backend="torch")
+        fi = FaultInjector({f"kernel_execute:{backend}": FaultSpec(fail=3)})
+        raised, fm_launches = [], []
+        with inject_faults(fi):
+            for i in range(4):
+                err, y, counts = attempt(lambda: M_ @ x_)
+                fm_launches.append(counts[kernel])
+                raised.append(err is not None and "injected fault" in err)
+        probe_rel = errors(y, want)[0] if y is not None else float("inf")
+        breaker = HEALTH.snapshot()["breakers"].get(f"{backend}:{name}")
+        row = {"pick": name, "raised": raised, "probe_rel_err": probe_rel,
+               "launches": fm_launches, "counters": ladder_moves(),
+               "breaker": breaker, "seconds": time.perf_counter() - t0,
+               "kernel_ms": time_ms(lambda: M_ @ x_)}
+        say(f"fault_matrix {label}", row)
+        if raised != [True, True, True, False] or \
+                probe_rel > RTOL["float32"] or \
+                fm_launches != [0, 0, 0, 1] or \
+                row["counters"] != {f"kernel_failure:{backend}:{name}": 3} \
+                or breaker != {"state": "closed", "failures": 0, "trips": 2,
+                               "recoveries": 1}:
+            fail(f"guardrails: fault matrix {label}: {row}")
+    del want, y
+
+    # (b) the "fault_launch" build: a real launch error, raised and counted,
+    # then the default build's half-open probe
+    fault_thread.join()
+    if "result" not in fault_build:
+        fail("guardrails: the fault_launch variant did not build")
+    print(f"[guardrails] fault_launch build: {fault_build['result'].seconds:.1f} s "
+          "(beside the other phases)", flush=True)
+    HEALTH.reset()
+    HEALTH.configure(threshold=1, cooldown_s=0.0)
+    U = repro_torch.sparse(graphs["unif"])
+    xu = randn(graphs["unif"].shape[1], 128)
+    launch_cases = (("g500 K2 N=1", A, x1, "vsr_spmv"),
+                    ("g500 K1 sr N=128", A, x128, "vsr_spmm"),
+                    ("unif K3 sr N=128", U, xu, "csc_spmm"))
+    errs = {}
+    with _build.variant("fault_launch"):
+        for label, M_, x_, kernel in launch_cases:
+            err, y, counts = attempt(lambda: M_ @ x_)
+            if err is None or counts[kernel]:
+                fail(f"guardrails: the fault_launch build launched {label}")
+            errs[label] = err
+    torch.cuda.synchronize()                  # a launch error is not sticky
+    recovered = {}
+    for label, M_, x_, kernel in launch_cases:
+        y, counts = drive(lambda: M_ @ x_, "guardrails")
+        recovered[label] = {"launches": counts[kernel],
+                            "rel_err": errors(y, M_.matmul(x_, backend="torch"))[0]}
+    snap = HEALTH.snapshot()
+    row = {"errors": errs, "counters": ladder_moves(),
+           "breakers": {k: b for k, b in snap["breakers"].items()
+                        if k.startswith("hopper:")}, "probe": recovered}
+    say("fault_launch", row)
+    if any("cudaError_t 9" not in e for e in errs.values()) or \
+            len(row["counters"]) != 3 or \
+            any(v != 1 for v in row["counters"].values()) or \
+            any(r["launches"] != 1 or r["rel_err"] > RTOL["float32"]
+                for r in recovered.values()) or \
+            any(b != {"state": "closed", "failures": 0, "trips": 1,
+                      "recoveries": 1} for k, b in snap["breakers"].items()
+                if k.startswith("hopper:")):
+        fail(f"guardrails: fault_launch {row}")
+
+    # (c) sentinels on K1 sr at N = 128: a NaN in X
+    HEALTH.reset()
+    HEALTH.configure()
+    art = A.finalize(128)
+    name = art.select(128)
+    xn = x128.clone()
+    xn[int(g500.indices[0])] = float("nan")
+    y = repro_torch.execute(art, xn)
+    try:
+        repro_torch.execute(art, xn, sentinel="raise")
+        fail("guardrails: sentinel='raise' did not raise on a NaN output")
+    except guardrails.NumericFault:
+        pass
+    ys, _ = drive(lambda: repro_torch.execute(art, xn, sentinel="sanitize"),
+                  "guardrails")
+    zero = torch.nan_to_num(y, nan=0.0, posinf=0.0, neginf=0.0)
+    # on the card there is no rung below: "fallback" is the sanitize pass
+    fb, fb_counts = drive(lambda: repro_torch.execute(art, xn,
+                                                      sentinel="fallback"),
+                          "guardrails")
+    fb_launched = fb_counts["vsr_spmm"] == 1
+    # under capture (no eager warm-up: the kernels ran above): "sanitize"
+    # and "fallback" the same pass in the graph, "raise" refused, no counter
+    graph, graph_fb = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        yg = repro_torch.execute(art, xn, sentinel="sanitize")
+    with torch.cuda.graph(graph_fb):
+        ygf = repro_torch.execute(art, xn, sentinel="fallback")
+    graph.replay()
+    graph_fb.replay()
+    torch.cuda.synchronize()
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            repro_torch.execute(art, x128, sentinel="raise")
+        refused = False
+    except ValueError:
+        refused = True
+    counters = HEALTH.snapshot()["counters"]
+    row = {"pick": name, "nonfinite_rows": int((~torch.isfinite(y)).any(1).sum()),
+           "sanitize_finite": bool(torch.isfinite(ys).all()),
+           "sanitize_rel_err": errors(ys, zero)[0],
+           "fallback_finite": bool(torch.isfinite(fb).all()),
+           "fallback_rel_err": errors(fb, zero)[0],
+           "fallback_launched_kernel": fb_launched,
+           "graph_sanitize_finite": bool(torch.isfinite(yg).all()),
+           "graph_fallback_rel_err": errors(ygf, zero)[0],
+           "graph_raise_refused": refused, "counters": counters}
+    if not (row["sanitize_finite"] and row["sanitize_rel_err"] <= 1e-6
+            and row["fallback_finite"] and row["fallback_rel_err"] <= 1e-6
+            and fb_launched and row["graph_sanitize_finite"]
+            and row["graph_fallback_rel_err"] <= 1e-6 and refused
+            and counters == {f"sentinel:execute:{name}": 3}):
+        fail(f"guardrails: sentinels {row}")
+    del graph, graph_fb, yg, ygf, ys, fb, zero, y, xn
+    # their cost on a finite X (CUDA events, median of 20), eager and replayed
+    for policy in (None, "sanitize", "raise", None, "sanitize", "raise"):
+        key = f"{policy or 'off'}_ms"
+        row.setdefault(key, []).append(time_ms(
+            lambda: repro_torch.execute(art, x128, sentinel=policy)))
+    for policy in ("off", "sanitize"):
+        graph, _ = capture(lambda: repro_torch.execute(art, x128,
+                                                       sentinel=policy))
+        row[f"graph_{policy}_ms"] = time_ms(graph.replay)
+        del graph
+    say(f"sentinels g500 K1 sr N=128 ({name})", row)
+    guard_rows = {"sentinels": row}
+
+    # (d) the guard's cost: the eager artifact call with and without it
+    def unguarded(art_, x_):
+        """``execute(art_, x_)`` less the guardrails: the same checks,
+        selection and dispatch."""
+        n_ = _check_call(art_.meta.shape, art_.meta.nnz, art_.aux.get("vals"),
+                         x_, None, None)
+        entry, sub = _artifact_entry(art_, art_.select(n_), art_.meta.backend)
+        return _artifact_run(art_, entry, sub, x_, None, None)
+
+    def host_us(fn, reps=2000):
+        """Host µs a call, back to back: the card's work on the small matrix
+        is shorter than the host's dispatch, so the loop waits on the host."""
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / reps
+
+    art1 = A.finalize(1)
+    small = rmat(12, 8, seed=args.seed, device=dev)
+    art_s = repro_torch.sparse(small, cache=False).finalize(1)
+    xs = randn(small.shape[1])
+    cost = {"g500 K2 N=1": {}, "g500 K1 sr N=128": {}, "small K2 N=1 host": {}}
+    for _ in range(2):
+        for label, art_, x_ in (("g500 K2 N=1", art1, x1),
+                                ("g500 K1 sr N=128", art, x128)):
+            cost[label].setdefault("guarded_ms", []).append(
+                time_ms(lambda: repro_torch.execute(art_, x_)))
+            cost[label].setdefault("unguarded_ms", []).append(
+                time_ms(lambda: unguarded(art_, x_)))
+        for _ in range(3):
+            cost["small K2 N=1 host"].setdefault("guarded_us", []).append(
+                host_us(lambda: repro_torch.execute(art_s, xs)))
+            cost["small K2 N=1 host"].setdefault("unguarded_us", []).append(
+                host_us(lambda: unguarded(art_s, xs)))
+    t0 = time.perf_counter()
+    for _ in range(100000):
+        guardrails.guarded_call("nb_pr", "hopper", int, on_card=True)
+    cost["guarded_call_alone_us"] = 10 * (time.perf_counter() - t0)
+    say("guard_cost", cost)
+    guard_rows["guard_cost"] = cost
+    del art, art1, art_s, small
+
+    # (e) pattern validation on g500, the repaired dirty copy through the
+    # cache, and the digests
+    t0 = time.perf_counter()
+    report = guardrails.inspect_csr(g500)
+    inspect_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fixed = guardrails.repair_csr(g500)
+    repair_s = time.perf_counter() - t0
+    same = all(torch.equal(getattr(fixed, f), getattr(g500, f))
+               for f in ("indptr", "indices", "data"))
+    if not report.ok or not same:
+        fail(f"guardrails: g500 inspected as {report.issues}, or its repair "
+             "changed it")
+    del fixed
+    ip, idx, dat = (formats.host(t) for t in (g500.indptr, g500.indices,
+                                              g500.data))
+    rng = np.random.default_rng(args.seed)
+    rows_np = formats.row_ids_from_indptr(ip, len(idx))
+    dup = rng.random(len(idx)) < 0.01        # 1% split into two halves
+    dat2 = dat.copy()
+    dat2[dup] *= 0.5
+    r_all = np.concatenate([rows_np, rows_np[dup]])
+    order = np.lexsort((rng.random(len(r_all)), r_all))   # shuffled in rows
+    ip2 = np.concatenate([[0], np.cumsum(np.bincount(r_all, minlength=m_g))])
+    dirty = interop.csr_from_arrays(
+        ip2, np.concatenate([idx, idx[dup]])[order],
+        np.concatenate([dat2, dat2[dup]])[order], g500.shape, device=dev)
+    del rows_np, dup, dat2, r_all, order, ip2
+    dirty_issues = guardrails.inspect_csr(dirty).issues
+    vcache = PlanCache(8)
+    A0 = repro_torch.sparse(g500, cache=vcache)
+    y0 = A0 @ x128
+    t0 = time.perf_counter()
+    Ad = repro_torch.sparse(dirty, validate="repair", cache=vcache)
+    sparse_repair_s = time.perf_counter() - t0
+    yd = Ad @ x128
+    bit, ok, diff = agree(yd, y0, multi_rows(g500, A0.plan.tile))
+    vrow = {"dirty_issues": dirty_issues, "dirty_nnz": dirty.nnz,
+            "inspect_s": inspect_s, "repair_s": repair_s,
+            "sparse_validate_repair_s": sparse_repair_s,
+            "cache": vcache.stats(), "same_plan": Ad.plan is A0.plan,
+            "output_bit_equal": bit, "max_abs_diff": diff}
+    if set(dirty_issues) != {"unsorted", "duplicates"} or not ok or \
+            Ad.plan is not A0.plan or vcache.stats()["hits"] != 1 or \
+            vcache.stats()["builds"] != 1:
+        fail(f"guardrails: validate='repair' {vrow}")
+    del dirty, Ad, yd, y0, A0, vcache
+    # a corrupted cached plan under integrity="hit" is rebuilt
+    hcache = PlanCache(4, integrity="hit")
+    Ah = repro_torch.sparse(g500, cache=hcache)
+    key = next(iter(hcache._entries))
+    corrupt = repro_torch.sparse(graphs["unif"], cache=False).plan
+    with hcache._lock:
+        hcache._entries[key] = (corrupt, hcache._entries[key][1])
+    t0 = time.perf_counter()
+    Ah2 = repro_torch.sparse(g500, cache=hcache)
+    hit_s = time.perf_counter() - t0
+    rel_h = errors(Ah2 @ x1, A @ x1)[0]
+    vrow["integrity_hit"] = {"cache": hcache.stats(), "rebuild_s": hit_s,
+                             "rel_err": rel_h}
+    if hcache.stats()["digest_mismatches"] != 1 or Ah2.plan is corrupt or \
+            hcache.stats()["builds"] != 2 or rel_h > RTOL["float32"]:
+        fail(f"guardrails: integrity='hit' {vrow['integrity_hit']}")
+    del Ah, Ah2, corrupt, hcache
+    art = A.finalize(128)
+    for label, value in (("builder", A.plan), ("artifact N=128", art)):
+        t0 = time.perf_counter()
+        guardrails.plan_digest(value)
+        vrow[f"digest_{label}_s"] = time.perf_counter() - t0
+    # a sparse() cache miss with and without the published digest (the
+    # facade's default cache publishes none)
+    for _ in range(2):
+        for integrity in ("off", "publish"):
+            t0 = time.perf_counter()
+            repro_torch.sparse(g500, cache=PlanCache(2, integrity=integrity))
+            vrow.setdefault(f"sparse_miss_{integrity}_s", []).append(
+                time.perf_counter() - t0)
+    vrow["default_cache_integrity"] = repro_torch.api.DEFAULT_CACHE.integrity
+    say("validate_and_digest g500", vrow)
+    guard_rows["validate"] = vrow
+    del art
+    torch.cuda.empty_cache()
+
+    # (f) the FFN train step with skip_nonfinite off and on, and one
+    # poisoned step kept
+    skip_row = {}
+    for skip in (False, True):
+        tc = TrainConfig(opt=OptConfig(**TRAIN_OPT), skip_nonfinite=skip)
+        step = make_train_step(ffn_loss, tc)
+        st = init_state(ffn.params(), tc)
+        step_s = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            st, metrics = step(st, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        skip_row[f"skip_{'on' if skip else 'off'}_step_ms"] = \
+            1e3 * statistics.median(step_s[1:])
+    bad_batch = {"x": batch["x"].clone(), "y": batch["y"]}
+    bad_batch["x"][0, 0, 0] = float("nan")
+    st2, m2 = step(st, bad_batch)
+    kept = all(torch.equal(st2["params"][k], st["params"][k]) for k in st["params"]) \
+        and all(torch.equal(st2["opt"][s_][k], st["opt"][s_][k])
+                for s_ in ("m", "v") for k in st["params"]) \
+        and torch.equal(st2["opt"]["step"], st["opt"]["step"])
+    skip_row.update(poisoned_skipped=int(m2["skipped_nonfinite"]),
+                    poisoned_state_kept=kept,
+                    finite_skipped=int(metrics["skipped_nonfinite"]))
+    say("skip_nonfinite ffn step", skip_row)
+    if skip_row["poisoned_skipped"] != 1 or not kept or \
+            skip_row["finite_skipped"] != 0:
+        fail(f"guardrails: skip_nonfinite {skip_row}")
+    guard_rows["skip_nonfinite"] = skip_row
+    del st, st2, bad_batch, ffn
+    HEALTH.reset()
+    HEALTH.configure()
+    torch.cuda.empty_cache()
+
+    # -- 15. summary --------------------------------------------------------------
     phase("summary")
     summary = []
     for kernel, meta in KERNELS.items():

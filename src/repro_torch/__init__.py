@@ -11,7 +11,10 @@ the plain ``"torch"`` backend for ``device="cpu"``.  ``sddmm`` and
 ``train``).  The offline half of the paper's split: ``calibrate_backend``
 fits the selector's thresholds to measured kernel times, and
 ``A.finalize(n)`` freezes a plan into a ``PlanArtifact`` whose ``execute``
-does no host work (a CUDA graph can capture it).
+does no host work (a CUDA graph can capture it).  The guardrails
+(``core/guardrails.py``): ``sparse(validate=)``, ``sentinel=`` on a call,
+and a counted ladder from the card's kernels to the plain ones, read by
+``health()``.
 """
 from . import api
 from .api import (AttentionMask, AttentionSpec, PlanArtifact, PlanBuilder,
@@ -21,6 +24,8 @@ from .api import (AttentionMask, AttentionSpec, PlanArtifact, PlanBuilder,
                   dense_attention, execute, from_block_mask, pattern_matmul,
                   scoped_plan_cache, sddmm, sliding_window, sparse,
                   sparse_attention, sparse_chain, use_backend)
+from .api import (configure_guardrails, health,  # noqa: F401 (re-export)
+                  reset_health)
 
 __all__ = [
     "api", "sparse", "SparseMatrix", "pattern_matmul", "use_backend",
@@ -30,5 +35,6 @@ __all__ = [
     "TileGeometry", "execute", "sddmm", "sparse_chain", "AttentionMask",
     "AttentionSpec", "SparseAttention", "attention_plan", "bigbird",
     "build_mask", "dense_attention", "from_block_mask", "scoped_plan_cache",
-    "sliding_window", "sparse_attention",
+    "sliding_window", "sparse_attention", "health", "reset_health",
+    "configure_guardrails",
 ]

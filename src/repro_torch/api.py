@@ -33,9 +33,17 @@
     art = A.finalize(n=x.shape[1])       # frozen PlanArtifact, no host work
     y = api.execute(art, x)              # left at call time: CUDA-graph safe
 
+    A = api.sparse(dirty, validate="repair")  # sort / coalesce / clip / zero
+    y = A.matmul(x, sentinel="sanitize")     # non-finite lanes zeroed
+    api.health()                         # failures, breakers, demotions
+
 ``sparse()`` runs on the card unless the caller passes ``device="cpu"``: by
 default the data go to CUDA and the ``"hopper"`` backend runs, and without a
-CUDA device the call raises instead of carrying on on the CPU.
+CUDA device the call raises instead of carrying on on the CPU.  A kernel
+that fails to build or launch on the card raises, and the guardrails count
+it: ``health()`` shows every failure
+(``kernel_failure:hopper:<kernel>``).  Only on CPU operands does the
+ladder reroute a failing call to the ``"torch"`` entry.
 """
 from __future__ import annotations
 
@@ -51,14 +59,20 @@ from .attention import (AttentionMask, AttentionSpec, SparseAttention,
 from .core.cache import (DEFAULT_CACHE, PlanCache, cached_plan,
                                     pattern_fingerprint)
 from .core.formats import CSR, csr_from_dense
-from .core.plan import (PlanArtifact, PlanBuilder, execute, execute_chain,
-                        execute_pattern, execute_sddmm, plan)
+from .core.guardrails import (HEALTH, NumericFault, PatternError, grad_scope,
+                              inspect_csr, plan_digest, repair_csr,
+                              sentinel_scope, validate_csr)
+from .core.plan import (PlanArtifact, PlanBuildError, PlanBuilder, execute,
+                        execute_chain, execute_pattern, execute_sddmm, plan)
 from .core.registry import backend_scope, default_backend, resolve_device
 from .core.selector import (SelectorThresholds, TileGeometry,
                             default_thresholds, load_thresholds,
                             save_thresholds)
 from .core.selector import calibrate as calibrate  # noqa: F401 (re-export)
 from .core.stats import MatrixStats
+from .runtime.faults import (FaultInjector, FaultSpec, InjectedFault,
+                             inject_faults)
+from .runtime.retry import RetryPolicy, TaskOutcome, run_with_retry
 
 __all__ = ["SparseMatrix", "sparse", "sddmm", "sparse_chain", "pattern_matmul",
            "use_backend", "calibrate", "calibrate_backend",
@@ -69,7 +83,15 @@ __all__ = ["SparseMatrix", "sparse", "sddmm", "sparse_chain", "pattern_matmul",
            "AttentionMask", "AttentionSpec", "SparseAttention",
            "attention_plan", "bigbird", "build_mask", "dense_attention",
            "from_block_mask", "scoped_plan_cache", "sliding_window",
-           "sparse_attention"]
+           "sparse_attention",
+           # fault injection and retry (the reference's serving hardening
+           # exports but Request and ServeEngine, DESIGN.md §11)
+           "FaultInjector", "FaultSpec", "InjectedFault", "RetryPolicy",
+           "TaskOutcome", "run_with_retry", "PlanBuildError",
+           # execution guardrails (DESIGN.md §12)
+           "PatternError", "NumericFault", "validate_csr", "inspect_csr",
+           "repair_csr", "plan_digest", "sentinel_scope", "grad_scope",
+           "inject_faults", "health", "reset_health", "configure_guardrails"]
 
 use_backend = backend_scope
 
@@ -138,13 +160,16 @@ class SparseMatrix:
                                  f"{self.device}")
 
     def matmul(self, x: torch.Tensor, *, impl: str | None = None,
-               backend: str | None = None) -> torch.Tensor:
+               backend: str | None = None,
+               sentinel: str | None = None) -> torch.Tensor:
         """``A @ x`` with per-call overrides: ``impl`` forces a logical
-        kernel, ``backend`` another backend for this call.  ``x`` must lie
-        on the matrix's device."""
+        kernel, ``backend`` another backend for this call, ``sentinel`` a
+        non-finite check of the output (``"raise"`` / ``"sanitize"`` /
+        ``"fallback"``, DESIGN.md §12).  ``x`` must lie on the matrix's
+        device."""
         self._on_device(x=x)
         return execute(self._plan, x, vals=self._values, impl=impl,
-                       backend=backend)
+                       backend=backend, sentinel=sentinel)
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         return self.matmul(x)
@@ -223,7 +248,7 @@ def sparse(a, *, device=None, backend: str | None = None,
            tile: int | None = None, n_hint: int | None = None,
            geometry: TileGeometry | None = None,
            chain_op: str | None = None, bsr_block: tuple = (8, 128),
-           quant: str | None = None,
+           quant: str | None = None, validate: str | None = None,
            cache: "PlanCache | bool | None" = True) -> SparseMatrix:
     """Build a sparse operand from a CSR, a SparseMatrix or a dense 2-D
     array.
@@ -247,9 +272,18 @@ def sparse(a, *, device=None, backend: str | None = None,
     thresholds' ``quant_min_n`` drops it (checked here, before the cache);
     a per-tile dynamic range that breaks the error bound falls back to the
     float plan with a warning.  Quantized and float plans are distinct
-    cache entries."""
+    cache entries.
+
+    ``validate`` (DESIGN.md §12) runs the pattern policy before anything —
+    the fingerprint, the geometry lookup, the cache — reads the CSR:
+    ``"check"`` warns of unsorted, duplicate, out-of-range or non-finite
+    entries and a broken indptr, ``"repair"`` rebuilds the matrix (so it
+    caches under its clean fingerprint), ``"strict"`` raises
+    ``PatternError``."""
     device = resolve_device(device)
     csr, values = _as_csr(a, device)
+    if validate is not None and validate != "off":
+        csr, _ = validate_csr(csr, validate)
     resolved_backend = backend or default_backend(device)
     th = thresholds if thresholds is not None else default_thresholds()
     if quant is not None and n_hint is not None and n_hint < th.quant_min_n:
@@ -309,6 +343,36 @@ def cache_stats(cache: PlanCache | None = None) -> dict:
 
 def clear_cache(cache: PlanCache | None = None) -> None:
     (cache or DEFAULT_CACHE).clear()
+
+
+def health() -> dict:
+    """A snapshot of the guardrails' ``HEALTH`` registry (DESIGN.md §12):
+    ``{"counters": {...}, "breakers": {"backend:logical": {...}}}``.
+
+    Counters: the named demotions (``demote:quant_range``,
+    ``demote:fp8_to_int8``, ``demote:chain_fuse``, ``demote:attn_fuse``),
+    ``quant_range_violations``, sentinel firings (``sentinel:<site>``,
+    ``sentinel_fallback:<site>``), kernel failures on the card
+    (``kernel_failure:<backend>:<logical>``, each re-raised), reroutes
+    down the ladder on CPU operands
+    (``kernel_reroute:<from>-><to>:<logical>``, e.g.
+    ``kernel_reroute:hopper->torch:nb_pr``), calls an open breaker skipped
+    (``breaker_skip:<backend>:<logical>``) and ``pattern_issues`` /
+    ``pattern_repairs``.  Breakers: state, consecutive failures, trips and
+    recoveries per (backend, logical kernel)."""
+    return HEALTH.snapshot()
+
+
+def reset_health() -> None:
+    """Drop every guardrail counter and breaker."""
+    HEALTH.reset()
+
+
+def configure_guardrails(*, threshold: int = 3, cooldown_s: float = 30.0) -> None:
+    """The circuit breakers' parameters: ``threshold`` kernel failures in a
+    row trip a breaker open; after ``cooldown_s`` seconds it half-opens and
+    probes the primary backend once."""
+    HEALTH.configure(threshold=threshold, cooldown_s=cooldown_s)
 
 
 # ---------------------------------------------------------------------------

@@ -30,20 +30,35 @@ SDDMM and SpMMs over the pattern and its transpose (``_ChainVJP``).  A
 plan's baked values are constants, as in the reference.  No autograd node is
 made when nothing requires grad.
 
-Two rules of the reference do not carry over.  Its plans demote
-``pallas`` to ``xla`` when a tile spans more rows than ``max_win`` — a TPU
+One rule of the reference does not carry over: its plans demote ``pallas``
+to ``xla`` when a tile spans more rows than ``max_win`` — a TPU
 spill-window limit; the fused Hopper kernels size nothing by a tile's row
 span, so a ``"hopper"`` plan keeps its backend, and only the spill path
 (``spill=True`` in the NB kernel opts, the parity reference) refuses such a
-plan when it is called.  Its dispatch reroutes a failing kernel to ``xla``;
-here a kernel that fails to build or launch raises.  The block-granule
-``"bsr"`` backend builds its BSR substrate at ``bsr_block``; a ``"bsr"``
-plan is not demoted either.  Sharding, validation and sentinels are not
-ported yet: ``plan()`` and ``execute_pattern`` raise
-``NotImplementedError`` on their arguments.  The reference's artifact rides
+plan when it is called.  The block-granule ``"bsr"`` backend builds its BSR
+substrate at ``bsr_block``; a ``"bsr"`` plan is not demoted either.
+Sharding is not ported yet: ``plan()`` and ``execute_pattern`` raise
+``NotImplementedError`` on its arguments.  The reference's artifact rides
 ``jax.jit`` and donation; here the counterpart of a jitted call is a CUDA
 graph of ``execute(artifact, x)``, and a sharded artifact awaits the sharded
 backend.
+
+Guardrails (DESIGN.md §12, ``core/guardrails.py``), where the reference
+has them: ``plan(validate=)`` runs the pattern policy before anything is
+built; ``execute`` (builder and artifact), ``execute_sddmm``,
+``execute_chain`` and ``execute_attention`` dispatch through
+``guardrails.guarded_call``.  On CPU operands a failing ``"hopper"`` or
+``"bsr"`` call is rerouted, and counted in ``HEALTH``, to the ``"torch"``
+entry of the same logical kernel (on an artifact only where the
+``"torch"`` entry's substrate was finalized in: never for ``"bsr"``), its
+backward built on ``"torch"`` too; on the card a kernel that fails to
+build or launch is counted (``kernel_failure:*``) and raises, and there is
+no rung below it (``_rung``); ``execute`` passes its output through
+``apply_sentinel`` (``sentinel=``, the plan's ``sentinel``, or the
+``sentinel_scope``).  The backward's own products run unguarded, as the
+reference's backward has no dispatch to guard.  ``plan_build`` and
+``substrate_prep`` are fault sites.  ``execute_pattern`` is not guarded, as
+in the reference.
 
 Quantized value streams (DESIGN.md §8, ``core/quant.py``): ``plan(quant=
 "int8" | "fp8")`` stores the balanced substrate's values as per-tile codes
@@ -51,7 +66,9 @@ with one f32 scale a tile (``quant_scales``), pins the selector to the NB
 family (``_quant_logical``: an ``rs_*`` pick would read the float ELL), and
 hands the NB entries the mode and the scales: on the card K1, K2, K4 and K5
 read the codes.  A slab whose per-tile dynamic range breaks the bound
-warns and keeps the float stream (``quant`` becomes None).  A live stream
+warns, bumps ``demote:quant_range`` and keeps the float stream (``quant``
+becomes None; a plan with ``sentinel="raise"`` raises ``NumericFault``
+instead).  A live stream
 on a quantized plan, and ``execute_pattern(quant=)``, is quantized at each
 call.  The backward is straight through: dX of a baked coded plan is Aᵀ·G
 over the decoded stream, of a live one over the float stream, on the
@@ -72,8 +89,11 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from ..runtime.faults import consult
+from . import guardrails
 from . import quant as quant_mod
 from . import registry
+from .guardrails import HEALTH, NumericFault
 from .formats import (CSR, BalancedCOO, balanced_pattern, balanced_transpose,
                       bsr_block_rows, bsr_slots, csr_to_balanced, csr_to_bsr,
                       csr_to_ell, csr_transpose, host)
@@ -97,8 +117,19 @@ _PREP_KWARGS: dict = {}
 CHAIN_OPS: tuple[str, ...] = CHAIN_TRANSFORMS + ("attn",)
 
 #: plan() arguments of reference paths not yet ported
-_UNPORTED = ("mesh", "shard_axis", "shard_kind", "inner_backend",
-             "validate", "sentinel")
+_UNPORTED = ("mesh", "shard_axis", "shard_kind", "inner_backend")
+
+
+class PlanBuildError(RuntimeError):
+    """A substrate build failed: the original exception (``__cause__``)
+    wrapped with the substrate kind and the pattern shape."""
+
+    def __init__(self, kind: str, shape, cause: BaseException):
+        super().__init__(f"building substrate {kind!r} for pattern shape "
+                         f"{tuple(shape)} failed: "
+                         f"{type(cause).__name__}: {cause}")
+        self.kind = kind
+        self.shape = tuple(shape)
 
 
 def _quant_logical(name: str, quant: str | None) -> str:
@@ -111,9 +142,9 @@ def _quant_logical(name: str, quant: str | None) -> str:
 
 
 def _check_quant(quant: str | None) -> str | None:
-    """Reject an unknown mode; demote fp8 to int8 where this PyTorch has
-    no ``float8_e4m3fn`` (the reference also bumps its ``demote:fp8_to_int8``
-    counter, which the port has not yet)."""
+    """Reject an unknown mode; demote fp8 to int8, warning and bumping
+    ``demote:fp8_to_int8``, where this PyTorch has no
+    ``float8_e4m3fn``."""
     if quant is None:
         return None
     if quant not in quant_mod.QUANT_MODES:
@@ -122,6 +153,7 @@ def _check_quant(quant: str | None) -> str | None:
     if not quant_mod.supports(quant):
         warnings.warn(f"quant={quant!r} is not supported by this PyTorch "
                       "build; demoting to 'int8'", stacklevel=3)
+        HEALTH.bump("demote:fp8_to_int8")
         return "int8"
     return quant
 
@@ -269,9 +301,10 @@ class PlanArtifact:
     def _sample(self, g2: torch.Tensor, x2: torch.Tensor,
                 backend: str | None) -> torch.Tensor:
         """``dvals``: the SDDMM entry over the pattern with the opts that
-        ``finalize`` prepared (``backend``, a builder's per-call override,
-        is always None here: an artifact is frozen for its own)."""
-        entry = registry.resolve("sddmm", _sddmm_backend(self.meta.backend, g2))
+        ``finalize`` prepared; ``backend`` is None (the artifact's own) or
+        the ladder's ``"torch"`` rung of a rerouted call."""
+        entry = registry.resolve(
+            "sddmm", _sddmm_backend(backend or self.meta.backend, g2))
         return entry.fn(*self._pattern(), g2, x2, shape=self.meta.shape,
                         **self.opts.get("sddmm", {}))
 
@@ -292,9 +325,14 @@ class PlanArtifact:
 
     def _transposed_matmul(self, vals: torch.Tensor, g: torch.Tensor,
                            backend: str | None) -> torch.Tensor:
-        return _execute_artifact(
-            self._transposed(), g,
-            vals.index_select(0, self.aux["transposed_perm"]), None, None)
+        """``dX = Aᵀ·G`` on the artifact of Aᵀ, unguarded, on ``backend``
+        (None: the artifact's own)."""
+        t = self._transposed()
+        name = t.select(1 if g.ndim == 1 else g.shape[1])
+        entry, sub = _artifact_entry(t, name, backend or t.meta.backend)
+        return _artifact_run(t, entry, sub, g,
+                             vals.index_select(0, self.aux["transposed_perm"]),
+                             backend)
 
 
 class _ArtifactContext:
@@ -337,6 +375,10 @@ class PlanBuilder:
     geometry: TileGeometry | None = None
     chain_op: str | None = None      # chain transform the plan was keyed for
     quant: str | None = None         # value-stream mode ("int8" / "fp8")
+    #: the default sentinel policy of this plan's ``execute`` calls (None:
+    #: the call's ``sentinel=`` or the ``sentinel_scope``); ``"raise"`` also
+    #: turns the quant range demotion into a ``NumericFault``
+    sentinel: str | None = None
     _substrates: dict = dataclasses.field(default_factory=dict, repr=False)
     _opts: dict = dataclasses.field(default_factory=dict, repr=False)
     _shared: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -360,28 +402,45 @@ class PlanBuilder:
     # -- substrates ---------------------------------------------------------
     def substrate(self, kind: str):
         """Build-and-cache the named substrate; only ever called for the
-        format the resolved kernel consumes (the laziness contract)."""
+        format the resolved kernel consumes (the laziness contract).  The
+        ``plan_build`` fault site is consulted first; a build that fails
+        with anything but a usage error or a ``NumericFault`` raises
+        ``PlanBuildError``."""
         sub = self._substrates.get(kind)
         if sub is None:
-            if kind == "ell":
-                sub = csr_to_ell(self.csr)
-            elif kind == "balanced":
-                sub = csr_to_balanced(self.csr, tile=self.tile)
-                if self.quant is not None:
-                    # a tile whose range breaks the bound demotes the whole
-                    # plan to the float stream (the reference also bumps
-                    # its demote:quant_range counter)
-                    if quant_mod.check_tile_range(sub.vals):
-                        q, sc = quant_mod.quantize_stream(sub.vals, self.quant)
-                        sub = BalancedCOO(sub.rows, sub.cols, q, sub.shape)
-                        self._quant_scales = sc
-                    else:
-                        self.quant = None
-            elif kind == "bsr":
-                sub = csr_to_bsr(self.csr, *self.bsr_block)
-            else:
-                raise ValueError(f"unknown substrate {kind!r}")
+            consult("plan_build")
+            try:
+                sub = self._build_substrate(kind)
+            except (ValueError, NumericFault):
+                raise
+            except Exception as e:
+                raise PlanBuildError(kind, self.csr.shape, e) from e
             self._substrates[kind] = sub
+        return sub
+
+    def _build_substrate(self, kind: str):
+        if kind == "ell":
+            return csr_to_ell(self.csr)
+        if kind == "bsr":
+            return csr_to_bsr(self.csr, *self.bsr_block)
+        if kind != "balanced":
+            raise ValueError(f"unknown substrate {kind!r}")
+        sub = csr_to_balanced(self.csr, tile=self.tile)
+        if self.quant is not None:
+            # a tile whose range breaks the bound demotes the whole plan to
+            # the float stream
+            if quant_mod.check_tile_range(sub.vals):
+                q, sc = quant_mod.quantize_stream(sub.vals, self.quant)
+                sub = BalancedCOO(sub.rows, sub.cols, q, sub.shape)
+                self._quant_scales = sc
+            elif self.sentinel == "raise":
+                raise NumericFault(
+                    "quantized value stream exceeds the per-tile dynamic "
+                    f"range ({self.quant!r}); plan with quant=None or "
+                    "sentinel!='raise' to demote instead")
+            else:
+                HEALTH.bump("demote:quant_range")
+                self.quant = None
         return sub
 
     @property
@@ -429,11 +488,13 @@ class PlanBuilder:
     def kernel_opts(self, entry: registry.KernelEntry) -> dict:
         """The entry's prep-hook opts for this matrix, computed once on the
         built substrate (which may demote ``quant`` first, so the key reads
-        it after).  A quantized plan's balanced entries get ``quant``."""
+        it after).  A quantized plan's balanced entries get ``quant``.  The
+        ``substrate_prep`` fault site is consulted before a prep runs."""
         sub = self.substrate(entry.substrate)
         key = (entry.logical, entry.backend, self.quant)
         opts = self._opts.get(key)
         if opts is None:
+            consult("substrate_prep")
             if entry.prep is None:
                 opts = {}
             else:
@@ -498,10 +559,10 @@ class PlanBuilder:
 
     def _transposed_matmul(self, vals: torch.Tensor, g: torch.Tensor,
                            backend: str | None) -> torch.Tensor:
-        """``dX = Aᵀ·G`` for the CSR-ordered stream ``vals``."""
-        return execute(self.transposed(), g,
-                       vals=vals.index_select(0, self.transposed_perm()),
-                       backend=backend)
+        """``dX = Aᵀ·G`` for the CSR-ordered stream ``vals``, unguarded."""
+        return _execute(self.transposed(), g,
+                        vals.index_select(0, self.transposed_perm()), None,
+                        backend)
 
     # -- ELL live-value support -----------------------------------------------
     def ell_lens(self) -> torch.Tensor:
@@ -641,6 +702,7 @@ def plan(csr: CSR, *, n_hint: int | None = None,
          backend: str | None = None, tile: int | None = None,
          geometry: TileGeometry | None = None, chain_op: str | None = None,
          bsr_block: tuple = (8, 128), quant: str | None = None,
+         validate: str | None = None, sentinel: str | None = None,
          **unported) -> PlanBuilder:
     """Offline planning front door.
 
@@ -660,7 +722,12 @@ def plan(csr: CSR, *, n_hint: int | None = None,
     values as per-tile codes and scales that the NB kernels decode in
     registers.  An ``n_hint`` below ``thresholds.quant_min_n`` drops it; a
     per-tile dynamic range past ``quant.MAX_DYNAMIC_RANGE`` drops it with a
-    warning when the substrate is built."""
+    warning when the substrate is built.
+
+    ``validate`` (``"check"`` / ``"repair"`` / ``"strict"``) runs the pattern
+    through ``guardrails.validate_csr`` before anything is built; None or
+    ``"off"`` trusts the input.  ``sentinel`` is the plan's default
+    numeric-sentinel policy for ``execute``."""
     given = sorted(k for k, v in unported.items() if v is not None)
     unknown = sorted(k for k in unported if k not in _UNPORTED)
     if unknown:
@@ -668,6 +735,11 @@ def plan(csr: CSR, *, n_hint: int | None = None,
     if given:
         raise NotImplementedError(f"plan() arguments {given} belong to paths "
                                   "of the reference not yet ported")
+    if validate is not None and validate != "off":
+        csr, _ = guardrails.validate_csr(csr, validate)
+    if sentinel is not None and sentinel not in guardrails.SENTINEL_POLICIES:
+        raise ValueError(f"unknown sentinel policy {sentinel!r}; expected "
+                         f"one of {guardrails.SENTINEL_POLICIES}")
     if chain_op is not None and chain_op not in CHAIN_OPS:
         raise ValueError(f"unknown chain_op {chain_op!r}; expected one of "
                          f"{CHAIN_OPS}")
@@ -688,7 +760,7 @@ def plan(csr: CSR, *, n_hint: int | None = None,
         raise ValueError(f"bsr_block must be two positive ints; got {bsr_block}")
     p = PlanBuilder(csr=csr, stats=stats, thresholds=th, backend=backend,
                     tile=int(tile), bsr_block=(bm, bk), geometry=geometry,
-                    chain_op=chain_op, quant=quant)
+                    chain_op=chain_op, quant=quant, sentinel=sentinel)
     if n_hint is not None:
         p.kernel_opts(p.entry(p.select(n_hint)))
     return p
@@ -810,7 +882,8 @@ class _PlanVJP:
 
 def execute(p: "PlanBuilder | PlanArtifact", x: torch.Tensor, *,
             vals: torch.Tensor | None = None, impl: str | None = None,
-            backend: str | None = None) -> torch.Tensor:
+            backend: str | None = None,
+            sentinel: str | None = None) -> torch.Tensor:
     """``y = A @ x`` on a ``PlanBuilder`` or a frozen ``PlanArtifact``.
     ``vals`` is a live CSR-ordered value stream in place of the plan's baked
     values; ``impl`` forces a logical kernel (oracle / ablation mode);
@@ -825,10 +898,36 @@ def execute(p: "PlanBuilder | PlanArtifact", x: torch.Tensor, *,
     baked codes (or quantize ``vals``); the backward is straight through.
     On an artifact the call, forward and backward, runs only what
     ``finalize`` built: a kernel it does not cover raises ``ValueError``
-    naming ``finalize``."""
+    naming ``finalize``.
+
+    Guardrails: the dispatch runs under the (backend, logical kernel)
+    circuit breaker, a failing kernel rerouted one rung down
+    ``registry.DEMOTION`` on CPU operands and counted and re-raised on the
+    card; ``sentinel`` (``"raise"`` / ``"sanitize"`` /
+    ``"fallback"``; default: a builder's ``sentinel``, then the
+    ``sentinel_scope``) checks the output for non-finite values."""
     if isinstance(p, PlanArtifact):
-        return _execute_artifact(p, x, vals, impl, backend)
-    return _execute(p, x, vals, impl, backend)
+        return _execute_artifact(p, x, vals, impl, backend, sentinel)
+    n = _check_call(p.csr.shape, p.csr.nnz, p.csr.data, x, vals, impl)
+    name = impl or p.select(n)
+    eff = backend or p.backend
+    demoted = _rung(eff, x)
+    fb = None if demoted is None else (
+        lambda: _builder_exec(p, name, demoted, x, vals))
+    y = guardrails.guarded_call(
+        name, eff, lambda: _builder_exec(p, name, backend, x, vals),
+        fallback=fb, fallback_name=demoted, on_card=x.is_cuda)
+    policy = sentinel if sentinel is not None else (
+        p.sentinel or guardrails.active_sentinel())
+    return guardrails.apply_sentinel(y, policy, site=f"execute:{name}",
+                                     fallback=fb)
+
+
+def _rung(backend: str, t: torch.Tensor) -> str | None:
+    """The rung below ``backend`` for a call on ``t``: ``registry.DEMOTION``'s
+    on CPU operands, where the wrappers run their kernels' plain versions
+    already; none on the card, where a kernel launches or raises."""
+    return None if t.is_cuda else registry.DEMOTION.get(backend)
 
 
 def _check_call(shape, nnz: int, baked: torch.Tensor | None, x, vals,
@@ -854,11 +953,19 @@ def _check_call(shape, nnz: int, baked: torch.Tensor | None, x, vals,
 
 def _execute(p: PlanBuilder, x: torch.Tensor, vals, impl, backend, *,
              coded: bool = True) -> torch.Tensor:
-    """``execute`` on a builder; with ``coded=False`` a quantized plan runs
-    its live stream unquantized (the chains' backward products, f32 math as
-    in the reference)."""
+    """``execute`` on a builder without the guardrails: the backward's
+    products.  With ``coded=False`` a quantized plan runs its live stream
+    unquantized (the chains' backward products, f32 math as in the
+    reference)."""
     n = _check_call(p.csr.shape, p.csr.nnz, p.csr.data, x, vals, impl)
-    entry = p.entry(impl or p.select(n), backend)
+    return _builder_exec(p, impl or p.select(n), backend, x, vals, coded)
+
+
+def _builder_exec(p: PlanBuilder, name: str, backend: str | None,
+                  x: torch.Tensor, vals, coded: bool = True) -> torch.Tensor:
+    """The unguarded builder dispatch: resolve, build, run; the backward is
+    built on the same ``backend`` (a rerouted call's on ``"torch"``)."""
+    entry = p.entry(name, backend)
     sub = p.substrate(entry.substrate)
     opts = p.kernel_opts(entry)
     maps = {"vals": lambda: p.csr.data, "quant_scales": p.quant_scales,
@@ -867,10 +974,38 @@ def _execute(p: PlanBuilder, x: torch.Tensor, vals, impl, backend, *,
                       functools.partial(_PlanVJP, p, backend), coded=coded)
 
 
+def _artifact_entry(art: PlanArtifact, name: str, backend: str, *,
+                    required: bool = True):
+    """``(entry, substrate)`` of ``name`` on ``backend`` over the artifact's
+    substrates; the substrate is None (or, if ``required``, a
+    ``ValueError`` naming ``finalize``) where the artifact lacks it."""
+    entry = registry.resolve(name, backend)
+    sub = art.substrates.get(entry.substrate)
+    if sub is None and required:
+        raise ValueError(
+            f"artifact carries substrates {tuple(art.substrates)} but kernel "
+            f"{name!r} needs {entry.substrate!r}; finalize with n=/impl=/"
+            "kernels= covering it")
+    return entry, sub
+
+
+def _artifact_run(art: PlanArtifact, entry: registry.KernelEntry, sub,
+                  x: torch.Tensor, vals, backend: str | None) -> torch.Tensor:
+    """The unguarded artifact dispatch of ``entry`` over the artifact's own
+    tensors and opts, with no host work; ``backend`` is None (the
+    artifact's own) or the rung a rerouted call's backward runs on."""
+    return _run_entry(entry, sub, art.opts.get(entry.logical, {}), x, vals,
+                      art.aux.__getitem__,
+                      functools.partial(_PlanVJP, art, backend))
+
+
 def _execute_artifact(art: PlanArtifact, x: torch.Tensor, vals, impl,
-                      backend) -> torch.Tensor:
-    """``execute`` on a frozen artifact: the builder's dispatch over the
-    artifact's own tensors and opts, with no host work."""
+                      backend, sentinel=None) -> torch.Tensor:
+    """``execute`` on a frozen artifact.  A rung below exists only on CPU
+    operands and where the demoted backend's entry reads a substrate the
+    artifact carries (the ``"torch"`` entries read a ``"hopper"``
+    artifact's; a ``"bsr"`` artifact carries only its BSR, so there a
+    failure re-raises)."""
     meta = art.meta
     if backend is not None and backend != meta.backend:
         raise ValueError(
@@ -878,16 +1013,19 @@ def _execute_artifact(art: PlanArtifact, x: torch.Tensor, vals, impl,
             f"a plan built with backend={backend!r} instead")
     n = _check_call(meta.shape, meta.nnz, art.aux.get("vals"), x, vals, impl)
     name = impl or art.select(n)
-    entry = registry.resolve(name, meta.backend)
-    sub = art.substrates.get(entry.substrate)
-    if sub is None:
-        raise ValueError(
-            f"artifact carries substrates {tuple(art.substrates)} but kernel "
-            f"{name!r} needs {entry.substrate!r}; finalize with n=/impl=/"
-            "kernels= covering it")
-    return _run_entry(entry, sub, art.opts.get(entry.logical, {}), x, vals,
-                      art.aux.__getitem__,
-                      functools.partial(_PlanVJP, art, None))
+    entry, sub = _artifact_entry(art, name, meta.backend)
+    demoted, fb = _rung(meta.backend, x), None
+    if demoted is not None:
+        fbe, fbs = _artifact_entry(art, name, demoted, required=False)
+        if fbs is not None:
+            fb = functools.partial(_artifact_run, art, fbe, fbs, x, vals,
+                                   demoted)
+    y = guardrails.guarded_call(
+        name, meta.backend, lambda: _artifact_run(art, entry, sub, x, vals, None),
+        fallback=fb, fallback_name=demoted, on_card=x.is_cuda)
+    policy = sentinel if sentinel is not None else guardrails.active_sentinel()
+    return guardrails.apply_sentinel(y, policy, site=f"execute:{name}",
+                                     fallback=fb)
 
 
 def _run_entry(entry: registry.KernelEntry, sub, opts: dict, x: torch.Tensor,
@@ -1087,9 +1225,9 @@ class _ChainVJP:
 
     def spmm_t(self, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         p = self.p
-        return execute(p.transposed(), x.contiguous(),
-                       vals=vals.index_select(0, p.transposed_perm()),
-                       backend=self.backend)
+        return _execute(p.transposed(), x.contiguous(),
+                        vals.index_select(0, p.transposed_perm()), None,
+                        self.backend)
 
 
 def _chain_bound(p: PlanBuilder, entry: registry.KernelEntry,
@@ -1112,20 +1250,38 @@ def _check_chain_operands(op: str, p: PlanBuilder, a, b) -> None:
                          f"match the pattern shape {(m, k)}")
 
 
+def _ladder(logical: str, backend: str, run, extra: dict, t: torch.Tensor):
+    """``guarded_call`` of ``run(backend, extra)``, the rung below (on CPU
+    operands ``t``, ``_rung``) running ``run(DEMOTION[backend], extra)``
+    without the Hopper-only ``fuse`` switch of the fuse gates."""
+    demoted = _rung(backend, t)
+    fb = None if demoted is None else (lambda: run(demoted, {
+        k: v for k, v in extra.items() if k != "fuse"}))
+    return guardrails.guarded_call(logical, backend, lambda: run(None, extra),
+                                   fallback=fb, fallback_name=demoted,
+                                   on_card=t.is_cuda)
+
+
 def execute_sddmm(p: PlanBuilder, a: torch.Tensor, b: torch.Tensor, *,
                   backend: str | None = None) -> torch.Tensor:
     """Sampled dense-dense matmul over the plan's pattern:
     ``e[i] = <A[row_i], B[col_i]>`` for every nonzero, returned as the
     CSR-ordered ``(nnz,)`` f32 edge-score stream.  Differentiable in ``a``
     and ``b`` (``ExecSddmm``: the SpMMs of A and Aᵀ with the score
-    gradient as their stream)."""
+    gradient as their stream).  Guarded as ``execute`` is."""
     _check_chain_operands("sddmm", p, a, b)
-    entry = p.entry("sddmm", backend)
-    rows, cols = _chain_pattern(p)
-    slab = exec_sddmm(_chain_bound(p, entry, {}), rows, cols,
-                      _ChainVJP(p, backend), a, b)
-    # the balanced tiling is row-major over the CSR stream: flatten and trim
-    return slab.reshape(-1)[:p.csr.nnz]
+
+    def run(bk, extra):
+        bk = bk or backend
+        entry = p.entry("sddmm", bk)
+        rows, cols = _chain_pattern(p)
+        slab = exec_sddmm(_chain_bound(p, entry, extra), rows, cols,
+                          _ChainVJP(p, bk), a, b)
+        # the balanced tiling is row-major over the CSR stream: flatten and
+        # trim
+        return slab.reshape(-1)[:p.csr.nnz]
+
+    return _ladder("sddmm", backend or p.backend, run, {}, a)
 
 
 def execute_chain(p: PlanBuilder, a: torch.Tensor, b: torch.Tensor,
@@ -1139,12 +1295,14 @@ def execute_chain(p: PlanBuilder, a: torch.Tensor, b: torch.Tensor,
     runs the unfused xla pair.  A ``"hopper"`` plan there runs the unfused
     pair made of the port's own kernels (SDDMM scores, softmax statistics,
     then the nnz-balanced SpMM on the edge stream), so the plain version
-    never takes the card's path.
+    never takes the card's path; the shut gate bumps ``demote:chain_fuse``,
+    the reference's counter of the same decision.
 
     Differentiable in ``a``, ``b`` and ``x`` (``ExecChain``): the backward
     recomputes the weights, samples ``dW`` over (G, X), applies the
     transform's jacobian (the softmax's row sum by the plan's SpMV) and
-    runs ``dA``, ``dB`` and ``dX`` as SpMMs of A and Aᵀ."""
+    runs ``dA``, ``dB`` and ``dX`` as SpMMs of A and Aᵀ.  Guarded as
+    ``execute`` is."""
     if transform not in CHAIN_TRANSFORMS:
         raise ValueError(f"unknown chain transform {transform!r}; expected "
                          f"one of {CHAIN_TRANSFORMS}")
@@ -1154,15 +1312,22 @@ def execute_chain(p: PlanBuilder, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"chain needs X (k,) or (k, n) with k={k}; got "
                          f"{tuple(x.shape)}")
     n = 1 if x.ndim == 1 else x.shape[1]
-    entry = p.entry("chain", backend)
+    eff = backend or p.backend
     extra: dict = {"transform": transform,
                    "alpha": None if alpha is None else float(alpha)}
-    if entry.backend == "hopper" and n < p.thresholds.chain_fuse_min_n:
+    if eff == "hopper" and n < p.thresholds.chain_fuse_min_n:
+        HEALTH.bump("demote:chain_fuse")
         extra["fuse"] = False
-    rows, cols = _chain_pattern(p)
-    vjp = _ChainVJP(p, backend, entry=entry, transform=transform,
-                    alpha=extra["alpha"])
-    return exec_chain(_chain_bound(p, entry, extra), rows, cols, vjp, a, b, x)
+
+    def run(bk, ex):
+        bk = bk or backend
+        entry = p.entry("chain", bk)
+        rows, cols = _chain_pattern(p)
+        vjp = _ChainVJP(p, bk, entry=entry, transform=transform,
+                        alpha=ex["alpha"])
+        return exec_chain(_chain_bound(p, entry, ex), rows, cols, vjp, a, b, x)
+
+    return _ladder("chain", eff, run, extra, a)
 
 
 def execute_attention(p: PlanBuilder, q: torch.Tensor, k: torch.Tensor,
@@ -1181,11 +1346,13 @@ def execute_attention(p: PlanBuilder, q: torch.Tensor, k: torch.Tensor,
     Fuse gate (``thresholds.attn_fuse_min_seq``): below it the reference
     runs its unfused xla pair.  A ``"hopper"`` plan there runs the port's
     own unfused kernels — ``chain_unfused`` without a bias, K6 → K9 → the
-    weights by tensor ops → K1 with one — never the plain version.
+    weights by tensor ops → K1 with one — never the plain version; the shut
+    gate bumps ``demote:attn_fuse``.
 
     Differentiable in ``q``, ``k``, ``v`` and ``bias``: without a bias the
     softmax chain's ``ExecChain``, with one ``ExecAttn`` (``dBias = dZ``,
-    carried back from the slab to the flat stream by autograd)."""
+    carried back from the slab to the flat stream by autograd).  Guarded as
+    ``execute`` is, under the logical kernel of the entry it runs."""
     m, kdim = (int(s) for s in p.csr.shape)
     if q.ndim != 2 or k.ndim != 2 or q.shape[1] != k.shape[1]:
         raise ValueError(f"attention needs Q (m, d) and K (k, d); got "
@@ -1197,20 +1364,32 @@ def execute_attention(p: PlanBuilder, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"attention needs V (k,) or (k, n) with k={kdim}; "
                          f"got {tuple(v.shape)}")
     sc = float(q.shape[1]) ** -0.5 if scale is None else float(scale)
+    eff = backend or p.backend
     extra: dict = {}
-    if (backend or p.backend) == "hopper" and m < p.thresholds.attn_fuse_min_seq:
+    if eff == "hopper" and m < p.thresholds.attn_fuse_min_seq:
+        HEALTH.bump("demote:attn_fuse")
         extra["fuse"] = False
-    rows, cols = _chain_pattern(p)
     if bias is None:
-        entry = p.entry("chain", backend)
-        vjp = _ChainVJP(p, backend, entry=entry, transform="softmax", alpha=sc)
-        return exec_chain(_chain_bound(p, entry, dict(
-            extra, transform="softmax", alpha=sc)), rows, cols, vjp, q, k, v)
+        def run(bk, ex):
+            bk = bk or backend
+            entry = p.entry("chain", bk)
+            rows, cols = _chain_pattern(p)
+            vjp = _ChainVJP(p, bk, entry=entry, transform="softmax", alpha=sc)
+            return exec_chain(_chain_bound(p, entry, dict(
+                ex, transform="softmax", alpha=sc)), rows, cols, vjp, q, k, v)
+
+        return _ladder("chain", eff, run, extra, q)
     if bias.ndim != 1 or bias.shape[0] != p.csr.nnz:
         raise ValueError(f"bias must be a flat ({p.csr.nnz},) per-edge "
                          f"stream in CSR order; got {tuple(bias.shape)}")
     slab = _stream_to_balanced(bias.float(), p.substrate("balanced"))
-    entry = p.entry("attn_chain", backend)
-    vjp = _ChainVJP(p, backend, entry=entry, transform="softmax", alpha=sc)
-    return exec_attn(_chain_bound(p, entry, dict(extra, scale=sc)), rows,
-                     cols, vjp, q, k, slab, v)
+
+    def run_attn(bk, ex):
+        bk = bk or backend
+        entry = p.entry("attn_chain", bk)
+        rows, cols = _chain_pattern(p)
+        vjp = _ChainVJP(p, bk, entry=entry, transform="softmax", alpha=sc)
+        return exec_attn(_chain_bound(p, entry, dict(ex, scale=sc)), rows,
+                         cols, vjp, q, k, slab, v)
+
+    return _ladder("attn_chain", eff, run_attn, extra, q)

@@ -21,9 +21,9 @@ reciprocal, which can round differently), ``torch.round`` (half to even, as
 
 ``check_tile_range`` guards a slab before it is quantized: a tile whose
 ``amax / median(|nonzero|)`` passes ``MAX_DYNAMIC_RANGE`` would lose most of
-its entries to zero, so the plan warns and keeps the float stream.  The
-reference also bumps a ``HEALTH`` counter there; the port has no guardrails
-yet, so only the warning and the demotion happen.
+its entries to zero, so the plan warns, bumps the ``HEALTH`` counter
+``quant_range_violations`` (``core/guardrails.py``) and keeps the float
+stream (or, under ``sentinel="raise"``, raises ``NumericFault``).
 """
 from __future__ import annotations
 
@@ -153,6 +153,8 @@ def check_tile_range(vals, bound: float = MAX_DYNAMIC_RANGE,
     ratio = np.where((cnt > 0) & (med > 0), amax / np.maximum(med, 1e-300), 0.0)
     worst = float(ratio.max()) if ratio.size else 0.0
     if worst > bound:
+        from .guardrails import HEALTH
+        HEALTH.bump("quant_range_violations")
         warnings.warn(
             f"quantization {context}: worst per-tile dynamic range "
             f"amax/rms = {worst:.1f} exceeds {bound:.0f}; keeping the "

@@ -19,7 +19,11 @@ pattern, ``fn(rows, cols, a, b[, x], *, shape, **opts)``, and the
 **opts)`` with ``bias`` a slab shaped like ``rows``.  ``opts`` come from
 the entry's optional host-side ``prep`` hook, run once per plan.
 
-There is no demotion ladder: a kernel that fails raises.
+``DEMOTION`` is the degradation ladder (``core/guardrails.py``): a call on
+CPU operands whose kernel fails on ``"hopper"`` or ``"bsr"`` is rerouted,
+and counted, to the ``"torch"`` entry of the same logical kernel;
+``"torch"`` is the bottom and re-raises.  On the card there is no rung
+below: a failing kernel is counted and raises.  The reference's sharded rung waits for the sharded backend.
 """
 from __future__ import annotations
 
@@ -40,6 +44,11 @@ MATMUL_KERNELS: tuple[str, ...] = ("rs_sr", "rs_pr", "nb_sr", "nb_pr")
 #: (DESIGN.md §10)
 LOGICAL_KERNELS: tuple[str, ...] = MATMUL_KERNELS + ("sddmm", "chain",
                                                      "attn_chain")
+
+#: one rung down the degradation ladder (``guardrails.guarded_call``): the
+#: backend a failing call of each accelerated backend on CPU operands is
+#: rerouted to
+DEMOTION: dict[str, str] = {"hopper": "torch", "bsr": "torch"}
 
 #: substrate format each entry consumes
 SUBSTRATES: tuple[str, ...] = ("ell", "balanced", "bsr")
@@ -85,7 +94,11 @@ def _ensure_backend_loaded(backend: str) -> None:
 
 
 def resolve(logical: str, backend: str) -> KernelEntry:
-    """Look up the physical kernel for (logical, backend)."""
+    """Look up the physical kernel for (logical, backend), importing the
+    backend's module on a miss."""
+    entry = _REGISTRY.get((logical, backend))
+    if entry is not None:
+        return entry
     _ensure_backend_loaded(backend)
     try:
         return _REGISTRY[(logical, backend)]

@@ -37,9 +37,10 @@ Every stream there is CSR-ordered and f32; the transform's jacobian is
 elementwise tensor math, as in the reference.  Only what
 ``ctx.needs_input_grad`` asks for is computed.  No Function has a
 higher-order gradient (``once_differentiable``), as the reference's
-``custom_vjp`` has none.  The reference passes each gradient through its
-guardrail sentinel (``sanitize_grads``); the port has no guardrails yet, so
-none does here.  ``coo_bwd_plain``, ``sddmm_bwd_plain``,
+``custom_vjp`` has none.  Every backward passes its gradients through
+the guardrails' ``sanitize_grads`` (a no-op unless a
+``guardrails.grad_scope("sanitize")`` was active at the forward or is at
+the backward), as the reference's do.  ``coo_bwd_plain``, ``sddmm_bwd_plain``,
 ``chain_bwd_plain``, ``attn_bwd_plain`` and ``bsr_bwd_plain`` are the
 reference's backward formulas in plain PyTorch: the tests' oracles, never
 on the card's path.
@@ -52,6 +53,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .formats import BSR, ELL, BalancedCOO
+from .guardrails import active_grad_sentinel, sanitize_grads
 from .spmm import _sddmm_flat, attn_weights, chain_weights
 
 
@@ -245,7 +247,7 @@ def _stream_grads(ctx, g: torch.Tensor):
     if want_x:
         dx = ctx.vjp.dx(vals.reshape(-1), g.contiguous())
         dx = dx.to(x.dtype).reshape(x.shape)
-    return dvals, dx
+    return sanitize_grads(dvals, dx, policy=ctx.grad_policy)
 
 
 def _fill_ell(ell: ELL, src, vals, baked: bool) -> ELL:
@@ -273,6 +275,7 @@ class ExecBalanced(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fn, bal, vjp, baked, vals, x):
         ctx.vjp = vjp
+        ctx.grad_policy = active_grad_sentinel()
         ctx.save_for_backward(vals, x)
         return fn(bal if baked else _with_balanced(bal, vals), x)
 
@@ -295,6 +298,7 @@ class ExecBsr(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fn, bsr, bmap, vjp, baked, vals, x):
         ctx.vjp = vjp
+        ctx.grad_policy = active_grad_sentinel()
         ctx.save_for_backward(vals, x)
         return fn(_fill_bsr(bsr, bmap, vals, baked), x)
 
@@ -313,6 +317,7 @@ class ExecEll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fn, ell, src, vjp, baked, vals, x):
         ctx.vjp = vjp
+        ctx.grad_policy = active_grad_sentinel()
         ctx.save_for_backward(vals, x)
         return fn(_fill_ell(ell, src, vals, baked), x)
 
@@ -371,6 +376,7 @@ class ExecSddmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fn, rows, cols, vjp, a, b):
         ctx.vjp = vjp
+        ctx.grad_policy = active_grad_sentinel()
         ctx.save_for_backward(a, b)
         return fn(rows, cols, a, b)
 
@@ -383,7 +389,8 @@ class ExecSddmm(torch.autograd.Function):
         de = vjp.stream(g)
         da = vjp.spmm(de, _operand(b, a.dtype)).to(a.dtype) if want_a else None
         db = vjp.spmm_t(de, _operand(a, b.dtype)).to(b.dtype) if want_b else None
-        return None, None, None, None, da, db
+        return (None, None, None, None,
+                *sanitize_grads(da, db, policy=ctx.grad_policy))
 
 
 def _pair_grads(vjp, a, b, x, g, w, de, want) -> tuple:
@@ -414,6 +421,7 @@ class ExecChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fn, rows, cols, vjp, a, b, x):
         ctx.vjp = vjp
+        ctx.grad_policy = active_grad_sentinel()
         ctx.save_for_backward(a, b, x)
         return fn(rows, cols, a, b, x)
 
@@ -434,8 +442,9 @@ class ExecChain(torch.autograd.Function):
                 de = al * dw
             else:
                 de = al * _softmax_grad(vjp, w, dw)
-        return (None, None, None, None, *_pair_grads(vjp, a, b, x, g, w, de,
-                                                     want))
+        return (None, None, None, None, *sanitize_grads(
+            *_pair_grads(vjp, a, b, x, g, w, de, want),
+            policy=ctx.grad_policy))
 
 
 class ExecAttn(torch.autograd.Function):
@@ -448,6 +457,7 @@ class ExecAttn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fn, rows, cols, vjp, q, k, bias, v):
         ctx.vjp = vjp
+        ctx.grad_policy = active_grad_sentinel()
         ctx.save_for_backward(q, k, bias, v)
         return fn(rows, cols, q, k, bias, v)
 
@@ -468,7 +478,8 @@ class ExecAttn(torch.autograd.Function):
                 bias.dtype)
         dq, dk, dv = _pair_grads(vjp, q, k, v, g, w, de,
                                  (want_q, want_k, want_v))
-        return None, None, None, None, dq, dk, dbias, dv
+        return (None, None, None, None, *sanitize_grads(
+            dq, dk, dbias, dv, policy=ctx.grad_policy))
 
 
 def exec_sddmm(fn, rows, cols, vjp, a, b) -> torch.Tensor:

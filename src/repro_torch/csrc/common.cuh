@@ -13,6 +13,19 @@
 #include <cstdint>
 #include <type_traits>
 
+// The block size a launcher of the main path (K1, K2, K3) passes at its
+// launch.  The "fault_launch" build variant (-DREPRO_FAULT_LAUNCH,
+// kernels/_build.py) asks for 2048 threads a block, past the card's 1024:
+// the launch fails with cudaErrorInvalidConfiguration, a launch error that
+// cudaGetLastError reports and clears (not sticky), so the guardrails'
+// ladder can count the failure and a later launch from the default build
+// succeeds.
+#ifdef REPRO_FAULT_LAUNCH
+#define REPRO_LAUNCH_THREADS(threads) 2048
+#else
+#define REPRO_LAUNCH_THREADS(threads) (threads)
+#endif
+
 namespace repro_torch {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }

@@ -170,9 +170,9 @@ int launch_csc_sr(const int* cols, const void* vals, const int* lens,
   const TV* v = static_cast<const TV*>(vals);
   const TX* xx = static_cast<const TX*>(x);
   if (vector_rows<TX>(x, y, n))
-    csc_sr_kernel<TV, TX, true><<<grid, kCscThreads, 0, stream>>>(cols, v, lens, xx, y, m, w, n, g);
+    csc_sr_kernel<TV, TX, true><<<grid, REPRO_LAUNCH_THREADS(kCscThreads), 0, stream>>>(cols, v, lens, xx, y, m, w, n, g);
   else
-    csc_sr_kernel<TV, TX, false><<<grid, kCscThreads, 0, stream>>>(cols, v, lens, xx, y, m, w, n, g);
+    csc_sr_kernel<TV, TX, false><<<grid, REPRO_LAUNCH_THREADS(kCscThreads), 0, stream>>>(cols, v, lens, xx, y, m, w, n, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,9 +185,9 @@ int launch_csc_pr(const int* cols, const void* vals, const int* lens,
   const TV* v = static_cast<const TV*>(vals);
   const TX* xx = static_cast<const TX*>(x);
   if (vector_rows<TX>(x, y, n))
-    csc_pr_kernel<TV, TX, true><<<grid, kCscThreads, 0, stream>>>(cols, v, lens, xx, y, m, w, n, p);
+    csc_pr_kernel<TV, TX, true><<<grid, REPRO_LAUNCH_THREADS(kCscThreads), 0, stream>>>(cols, v, lens, xx, y, m, w, n, p);
   else
-    csc_pr_kernel<TV, TX, false><<<grid, kCscThreads, 0, stream>>>(cols, v, lens, xx, y, m, w, n, p);
+    csc_pr_kernel<TV, TX, false><<<grid, REPRO_LAUNCH_THREADS(kCscThreads), 0, stream>>>(cols, v, lens, xx, y, m, w, n, p);
   return static_cast<int>(cudaGetLastError());
 }
 

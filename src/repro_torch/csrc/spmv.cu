@@ -343,8 +343,8 @@ int launch_vsr_scan(const int* rows, const int* cols, const void* vals,
   const TV* v = static_cast<const TV*>(vals);
   const TX* xx = static_cast<const TX*>(x);
   const auto run = [&](auto kernel) {
-    kernel<<<grid, kSpmvThreads, 0, stream>>>(rows, cols, v, scales, xx, y, n_tiles, tile,
-                                              m, n);
+    kernel<<<grid, REPRO_LAUNCH_THREADS(kSpmvThreads), 0, stream>>>(
+        rows, cols, v, scales, xx, y, n_tiles, tile, m, n);
     return static_cast<int>(cudaGetLastError());
   };
   const bool vec = vector_slots<TV>(rows, cols, vals, tile);

@@ -94,7 +94,7 @@ int launch_ranges(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Ar
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<grid, kRangeThreads, smem, stream>>>(args...);
+  kernel<<<grid, REPRO_LAUNCH_THREADS(kRangeThreads), smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 

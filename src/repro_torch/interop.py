@@ -28,12 +28,21 @@ from .models.transformer import SparseFFN
 
 def csr_from_arrays(indptr, indices, data, shape, *, device="cpu") -> CSR:
     """The port's CSR from a reference CSR's arrays (values keep their
-    dtype, index arrays become int32, the shape Python ints)."""
+    dtype, index arrays become int32, the shape Python ints).  The triplet
+    crosses as it is, defects included — no sort, no coalesce, no clip of
+    an index or of the indptr's values — so ``validate=``
+    (``core/guardrails.py``) sees what the reference's sees.  Refused with
+    ``ValueError``: lengths that disagree (an indptr of other than
+    ``shape[0] + 1`` entries, indices and data of different lengths) and
+    an index int32 cannot hold, which the cast would wrap into range."""
     indptr = np.asarray(indptr)
     indices = np.asarray(indices)
     if len(indptr) != int(shape[0]) + 1 or len(indices) != len(np.asarray(data)):
         raise ValueError("indptr must have shape[0] + 1 entries and indices "
                          "one per value")
+    for name, a in (("indptr", indptr), ("indices", indices)):
+        if a.size and (int(a.min()) < -2**31 or int(a.max()) >= 2**31):
+            raise ValueError(f"{name} holds values int32 cannot hold")
     return _csr(indptr, indices, np.asarray(data), shape, device)
 
 

@@ -14,9 +14,14 @@ this machine may have neither ``nvcc`` nor a card.
 A build *variant* compiles the same sources with extra defines into a
 directory of its own: ``"poison_staging"`` (``-DREPRO_POISON_STAGING``)
 fills the block design's shared-memory staging with NaN at CTA entry, so a
-test can show that every entry the kernels read was written.  ``with
-variant("poison_staging"):`` makes the wrappers launch from that library;
-outside it they launch from the default build.
+test can show that every entry the kernels read was written;
+``"fault_launch"`` (``-DREPRO_FAULT_LAUNCH``) makes the launchers of the
+main path's kernels (K1 in ``vsr.cu`` and ``spmv.cu``, K2, K3 in ``csc.cu``;
+K4 shares K1's launcher) ask for an illegal block size, so each launch
+fails with ``cudaErrorInvalidConfiguration`` — a real launch error, not
+sticky, which ``check`` raises as a ``RuntimeError`` and the guardrails'
+ladder counts (``kernel_failure:*``) before the call re-raises it.  ``with variant(name):`` makes the wrappers launch from
+that library; outside it they launch from the default build.
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ HEADERS = ("common.cuh", "score.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: build variants: name -> the extra nvcc flags ("" is the default build)
-VARIANTS = {"": (), "poison_staging": ("-DREPRO_POISON_STAGING",)}
+VARIANTS = {"": (), "poison_staging": ("-DREPRO_POISON_STAGING",),
+            "fault_launch": ("-DREPRO_FAULT_LAUNCH",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -41,11 +41,15 @@ def schedule(cfg: OptConfig, step) -> torch.Tensor:
 
 def init_opt_state(params: dict, cfg: OptConfig) -> dict:
     """``{"step": 0, "m": zeros, "v": zeros}``, the moments in
-    ``cfg.moment_dtype`` on each parameter's device."""
+    ``cfg.moment_dtype`` on each parameter's device and the step on the
+    first parameter's (the CPU for none): a step on the card computes its
+    learning rate there, with no copy from the host, so ``adamw_update``
+    and a ``skip_nonfinite`` step make no host sync."""
     mdt = getattr(torch, cfg.moment_dtype)
     zeros = {k: torch.zeros(p.shape, dtype=mdt, device=p.device)
              for k, p in params.items()}
-    return {"step": torch.zeros((), dtype=torch.int32),
+    device = next(iter(params.values())).device if params else None
+    return {"step": torch.zeros((), dtype=torch.int32, device=device),
             "m": zeros, "v": {k: z.clone() for k, z in zeros.items()}}
 
 

@@ -8,6 +8,7 @@ from typing import Callable
 
 import torch
 
+from ..core.guardrails import all_finite
 from ..core.registry import backend_scope
 from .optim import OptConfig, adamw_update, init_opt_state
 
@@ -20,8 +21,10 @@ class TrainConfig:
     #: scoped backend of the sparse layers' kernels for the whole step (the
     #: facade's ``use_backend``); None keeps the default of the data's device
     sparse_backend: str | None = None
-    #: the reference's skip-and-report guardrail; not ported (guardrails
-    #: come later), so True raises
+    #: skip-and-report guardrail (DESIGN.md §12): when the loss or any
+    #: floating grad is non-finite, keep the previous params and optimizer
+    #: state for this step and report it (``skipped_nonfinite``); the test
+    #: is one device tensor and ``torch.where``, with no host sync
     skip_nonfinite: bool = False
 
 
@@ -32,11 +35,10 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig) -> Callable:
     a dict of tensors split along dim 0 into ``tcfg.microbatches`` equal
     parts, whose gradients are summed in ``tcfg.accum_dtype`` and averaged;
     ``tcfg.sparse_backend`` pins the sparse kernels' backend for the step
-    through ``use_backend``."""
-    if tcfg.skip_nonfinite:
-        raise NotImplementedError(
-            "TrainConfig.skip_nonfinite belongs to the guardrails, which are "
-            "not ported yet")
+    through ``use_backend``.  With ``tcfg.skip_nonfinite`` a step whose loss
+    or grads hold a non-finite value returns the state it was given, bit
+    for bit, and ``skipped_nonfinite`` 1 (a 0-d tensor on the params'
+    device, as the all-finite predicate the selection reads)."""
 
     def grads_of(params: dict, batch: dict):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
@@ -71,9 +73,31 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig) -> Callable:
         out = {"loss": loss, **{k: v for k, v in metrics.items()
                                 if torch.as_tensor(v).ndim == 0},
                **opt_metrics}
+        if tcfg.skip_nonfinite:
+            ok = _all_finite(loss, grads)
+            new_params = _keep(ok, new_params, params)
+            new_opt = _keep(ok, new_opt, opt)
+            out["skipped_nonfinite"] = (~ok).to(torch.int32)
         return {"params": new_params, "opt": new_opt}, out
 
     return train_step
+
+
+def _all_finite(loss: torch.Tensor, grads: dict) -> torch.Tensor:
+    """One 0-d bool tensor on the loss's device: the loss and every
+    floating grad finite (``guardrails.all_finite``, a reduction each)."""
+    checks = [all_finite(loss)]
+    checks += [all_finite(g).to(loss.device)
+               for g in grads.values() if g.is_floating_point()]
+    return torch.stack(checks).all()
+
+
+def _keep(ok: torch.Tensor, new, old):
+    """``new`` where ``ok``, else ``old``, through nested dicts of tensors
+    (the state on its own devices)."""
+    if isinstance(new, dict):
+        return {k: _keep(ok, v, old[k]) for k, v in new.items()}
+    return torch.where(ok.to(new.device), new, old)
 
 
 def init_state(params: dict, tcfg: TrainConfig) -> dict:

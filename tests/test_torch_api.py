@@ -125,10 +125,12 @@ def test_sparse_without_cuda_raises(monkeypatch):
 
 def test_unported_arguments_raise():
     csr = _port(SUITE["rmat_s8_e4_uniform"])
-    for kw in ({"mesh": object()}, {"sentinel": "raise"},
-               {"validate": "repair"}):
+    for kw in ({"mesh": object()}, {"shard_axis": "x"}):
         with pytest.raises(NotImplementedError):
             plan_mod.plan(csr, **kw)
+    # the guardrails' arguments are ported (tests/test_torch_guardrails.py)
+    assert plan_mod.plan(csr, sentinel="raise").sentinel == "raise"
+    assert plan_mod.plan(csr, validate="repair").csr is csr
     # quantized value streams are ported (tests/test_torch_quant.py)
     assert plan_mod.plan(csr, quant="int8").quant == "int8"
     with pytest.raises(TypeError):

@@ -456,10 +456,13 @@ def test_plan_refuses_unknown_chain_op_and_unported_arguments():
         plan_mod.plan(pc, chain_op="sigmoid")
     with pytest.raises(ValueError):
         repro_torch.sparse(pc, device="cpu", chain_op="sigmoid", cache=False)
-    for kw in ({"mesh": object()}, {"sentinel": "raise"},
-               {"validate": "repair"}, {"inner_backend": "torch"}):
+    for kw in ({"mesh": object()}, {"shard_kind": "row"},
+               {"inner_backend": "torch"}):
         with pytest.raises(NotImplementedError):
             plan_mod.plan(pc, **kw)
+    # the guardrails' arguments are ported (tests/test_torch_guardrails.py)
+    assert plan_mod.plan(pc, chain_op="softmax",
+                         sentinel="sanitize").sentinel == "sanitize"
     # quantized value streams are ported (tests/test_torch_quant.py)
     assert plan_mod.plan(pc, chain_op="softmax", quant="int8").quant == "int8"
 

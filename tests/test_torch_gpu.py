@@ -7,6 +7,7 @@ runs on a machine that has only PyTorch:
 
 Tolerance: relative inf-norm error 1e-4 in float32 (sums in another order,
 atomics in no fixed order), 2e-2 with a bfloat16 x."""
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -2727,3 +2728,210 @@ def test_cuda_quantized_artifact_calls_capture(cuda, mode):
         g.replay()
         torch.cuda.synchronize()
         assert torch.equal(y, f())
+
+
+# ---------------------------------------------------------------------------
+# the guardrails on the card (core/guardrails.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def health():
+    from repro_torch.core import guardrails
+    guardrails.HEALTH.reset()
+    guardrails.HEALTH.configure()
+    yield guardrails.HEALTH
+    guardrails.HEALTH.reset()
+    guardrails.HEALTH.configure()
+
+
+@contextlib.contextmanager
+def _no_sync():
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl,n,kernel", [("nb_pr", 1, "vsr_spmv"),
+                                           ("nb_pr", 4, "vsr_spmm"),
+                                           ("nb_sr", 32, "vsr_spmm"),
+                                           ("rs_sr", 32, "csc_spmm")])
+def test_cuda_guardrails_fault_matrix(cuda, health, impl, n, kernel):
+    """threshold 2, cooldown 0, three injected Hopper failures: on the card
+    there is no rung below, so each call raises with no launch and is
+    counted as ``kernel_failure``; the fourth call's half-open probe
+    launches the kernel once and closes the breaker.  A failing call with
+    grad raises before its backward is built; the next one's grads agree
+    with the "torch" backend's."""
+    from repro_torch.core.plan import execute, plan
+    from repro_torch.runtime.faults import (FaultInjector, FaultSpec,
+                                            InjectedFault, inject_faults)
+    health.configure(threshold=2, cooldown_s=0.0)
+    csr = _graphs(cuda)["skewed"]
+    p, ref = plan(csr, backend="hopper"), plan(csr, backend="torch")
+    x = torch.randn(csr.shape[1], n, device=cuda)
+    x = x[:, 0].contiguous() if n == 1 else x
+    want = execute(ref, x, impl=impl)
+    fi = FaultInjector({"kernel_execute:hopper": FaultSpec(fail=3)})
+    launches = []
+    with inject_faults(fi):
+        for i in range(4):
+            reset_launch_counts()
+            if i < 3:
+                with pytest.raises(InjectedFault):
+                    execute(p, x, impl=impl)
+            else:
+                y = execute(p, x, impl=impl)
+            torch.cuda.synchronize()
+            launches.append(launch_counts()[kernel])
+    assert launches == [0, 0, 0, 1]
+    assert _rel(y, want) < 1e-4
+    snap = health.snapshot()
+    assert snap["counters"] == {f"kernel_failure:hopper:{impl}": 3}
+    assert snap["breakers"][f"hopper:{impl}"] == {
+        "state": "closed", "failures": 0, "trips": 2, "recoveries": 1}
+
+    def grads(target):
+        v = csr.data.clone().requires_grad_()
+        xx = x.clone().requires_grad_()
+        out = execute(target, xx, vals=v, impl=impl)
+        return (out, *torch.autograd.grad((out * out).sum(), [v, xx]))
+
+    reset_launch_counts()
+    with inject_faults(FaultInjector(
+            {"kernel_execute:hopper": FaultSpec(fail=1)})):
+        with pytest.raises(InjectedFault):
+            grads(p)
+        got = grads(p)
+    torch.cuda.synchronize()
+    assert launch_counts()[kernel] >= 1
+    for g, w in zip(got, grads(ref)):
+        assert _rel(g, w) < 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_guardrails_fault_launch_variant(cuda, health):
+    """The "fault_launch" build: K1, K2 and K3 fail at their launch with
+    cudaErrorInvalidConfiguration (9), a real launch error that is not
+    sticky — the call raises it and the ladder counts it, the card stays
+    usable, and the half-open probe on the default build launches and
+    recovers."""
+    from repro_torch.core.plan import execute, plan
+    from repro_torch.kernels import _build
+    health.configure(threshold=1, cooldown_s=0.0)
+    csr = _graphs(cuda)["skewed"]
+    p, ref = plan(csr, backend="hopper"), plan(csr, backend="torch")
+    cases = (("nb_pr", 1, "vsr_spmv"), ("nb_sr", 32, "vsr_spmm"),
+             ("rs_sr", 32, "csc_spmm"))
+    bal = formats.csr_to_balanced(csr, 512)
+    with _build.variant("fault_launch"):
+        with pytest.raises(RuntimeError, match="cudaError_t 9"):
+            vsr.spmm_vsr_fused(bal, torch.randn(csr.shape[1], 8, device=cuda))
+        for impl, n, kernel in cases:
+            x = torch.randn(csr.shape[1], n, device=cuda).squeeze(1)
+            reset_launch_counts()
+            with pytest.raises(RuntimeError, match="cudaError_t 9"):
+                execute(p, x, impl=impl)
+            assert launch_counts()[kernel] == 0
+    torch.cuda.synchronize()                     # the context is healthy
+    for impl, n, kernel in cases:
+        assert health.counter(f"kernel_failure:hopper:{impl}") == 1
+        assert health.counter(f"kernel_reroute:hopper->torch:{impl}") == 0
+        assert health.snapshot()["breakers"][f"hopper:{impl}"]["trips"] == 1
+        x = torch.randn(csr.shape[1], n, device=cuda).squeeze(1)
+        reset_launch_counts()
+        y = execute(p, x, impl=impl)
+        torch.cuda.synchronize()
+        assert launch_counts()[kernel] == 1, impl
+        assert _rel(y, execute(ref, x, impl=impl)) < 1e-4
+        assert health.snapshot()["breakers"][f"hopper:{impl}"] == {
+            "state": "closed", "failures": 0, "trips": 1, "recoveries": 1}
+
+
+@pytest.mark.gpu
+def test_cuda_sentinels_eager_and_captured(cuda, health):
+    """A NaN in X: eager "raise" raises, "sanitize" zeroes, and so does
+    "fallback" (on the card there is no rung below), each counted as a
+    sentinel firing and none as a fallback; under CUDA-graph capture
+    "sanitize" and "fallback" stay in the graph, "raise" is refused, no
+    counter moves; and the artifact's call with the sentinel off makes no
+    host sync."""
+    import repro_torch
+    from repro_torch.core import guardrails
+    csr = _graphs(cuda)["skewed"]
+    art = repro_torch.sparse(csr, cache=False).finalize(4)
+    name = art.select(4)
+    x = torch.randn(csr.shape[1], 4, device=cuda)
+    x[int(csr.indices[0])] = float("nan")
+    y = repro_torch.execute(art, x)
+    assert not bool(torch.isfinite(y).all())
+    with _no_sync():
+        y_guarded = repro_torch.execute(art, x)
+    assert torch.equal(y_guarded.isnan(), y.isnan())
+    with pytest.raises(guardrails.NumericFault):
+        repro_torch.execute(art, x, sentinel="raise")
+    zero = torch.nan_to_num(y, nan=0.0, posinf=0.0, neginf=0.0)
+    for policy in ("sanitize", "fallback"):
+        reset_launch_counts()
+        out = repro_torch.execute(art, x, sentinel=policy)
+        assert sum(launch_counts().values()) >= 1, policy
+        assert torch.isfinite(out).all()
+        assert _rel(out, zero) < 1e-6
+    assert health.snapshot()["counters"] == {f"sentinel:execute:{name}": 3}
+    health.reset()
+    graphs = {}
+    for policy in ("sanitize", "fallback"):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = repro_torch.execute(art, x, sentinel=policy)
+        graphs[policy] = (g, out)
+    with pytest.raises(ValueError, match="eagerly"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            repro_torch.execute(art, x, sentinel="raise")
+    for policy, (g, out) in graphs.items():
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all(), policy
+        assert _rel(out, zero) < 1e-4, policy
+    x2 = torch.randn_like(x)
+    x.copy_(x2)
+    graphs["fallback"][0].replay()
+    torch.cuda.synchronize()
+    assert _rel(graphs["fallback"][1], repro_torch.execute(art, x2)) < 1e-6
+    snap = health.snapshot()
+    assert snap["counters"] == {}
+    assert all(b["trips"] == 0 and b["failures"] == 0
+               for b in snap["breakers"].values())
+
+
+@pytest.mark.gpu
+def test_cuda_skip_nonfinite_makes_no_sync(cuda):
+    """``TrainConfig(skip_nonfinite=True)`` on the card: the step, its
+    all-finite predicate and the selection run under
+    ``set_sync_debug_mode("error")`` (the step counter lives on the card);
+    the poisoned step keeps params and optimizer state bit for bit."""
+    from repro_torch.train import OptConfig, TrainConfig, init_state, make_train_step
+
+    def loss_fn(params, batch):
+        poison = torch.where(batch["bad"] > 0, float("nan"), 0.0)
+        return ((params["w"] @ batch["x"]) ** 2).mean() + poison, {}
+
+    tcfg = TrainConfig(opt=OptConfig(warmup_steps=1), skip_nonfinite=True)
+    state = init_state({"w": torch.randn(8, 16, device=cuda)}, tcfg)
+    assert state["opt"]["step"].is_cuda
+    step = make_train_step(loss_fn, tcfg)
+    xb = torch.randn(16, 4, device=cuda)
+    good = {"x": xb, "bad": torch.zeros((), device=cuda)}
+    bad = {"x": xb, "bad": torch.ones((), device=cuda)}
+    s1, _ = step(state, good)
+    with _no_sync():
+        s2, m2 = step(s1, bad)
+        s3, m3 = step(s2, good)
+    assert int(m2["skipped_nonfinite"]) == 1 and int(m3["skipped_nonfinite"]) == 0
+    assert torch.equal(s1["params"]["w"], s2["params"]["w"])
+    for key in ("m", "v"):
+        assert torch.equal(s1["opt"][key]["w"], s2["opt"][key]["w"])
+    assert torch.equal(s1["opt"]["step"], s2["opt"]["step"])
+    assert not torch.equal(s3["params"]["w"], s2["params"]["w"])

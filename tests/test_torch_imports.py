@@ -52,7 +52,12 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.kernels.ops",
                    "repro_torch.train.optim",
                    "repro_torch.train.step",
-                   "repro_torch.configs.gemma3_12b"):
+                   "repro_torch.configs.gemma3_12b",
+                   "repro_torch.core.guardrails",
+                   "repro_torch.core.cache",
+                   "repro_torch.runtime",
+                   "repro_torch.runtime.faults",
+                   "repro_torch.runtime.retry"):
         assert module in names, (module, sorted(names))
 
 

@@ -235,7 +235,9 @@ def test_microbatch_equals_full_batch():
 
 def test_sparse_backend_scope_and_unported_guardrail():
     """``sparse_backend`` pins the kernels' backend for the step; both CPU
-    routes give the same step.  ``skip_nonfinite`` is not ported."""
+    routes give the same step.  ``skip_nonfinite`` (ported since; its own
+    tests are in ``test_torch_guardrails.py``) leaves a finite step as it
+    is."""
     _, _, ffn = _ref_layer()
     b = _torch_batch(_batch())
     out = []
@@ -245,8 +247,13 @@ def test_sparse_backend_scope_and_unported_guardrail():
         out.append((float(m["loss"]), st["params"]["v_up"]))
     assert out[0][0] == pytest.approx(out[1][0], rel=1e-6)
     _close(out[0][1], out[1][1].numpy(), 1e-5)
-    with pytest.raises(NotImplementedError, match="guardrails"):
-        make_train_step(_port_loss(ffn), TrainConfig(skip_nonfinite=True))
+    # skip_nonfinite is ported (tests/test_torch_guardrails.py): a finite
+    # step is the step without it, bit for bit
+    tcfg = TrainConfig(opt=OptConfig(warmup_steps=0), skip_nonfinite=True)
+    st, m = make_train_step(_port_loss(ffn), tcfg)(
+        init_state(ffn.params(), tcfg), b)
+    assert int(m["skipped_nonfinite"]) == 0
+    assert torch.equal(st["params"]["v_up"], out[0][1])
 
 
 def test_sparse_ffn_module_defaults():
