@@ -217,7 +217,9 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              (``rmat_suite()``: scales 10/12/14 x edge factors 4/16/64 x
              three skews; each matrix's ELL bytes printed before it is
              built) at N = 1, 4, 32, 128, each (matrix, N, kernel) the mean
-             of 10 calls by CUDA events after a warm-up, every time printed
+             of 10 replays of the builder's call captured in a CUDA graph
+             after a warm-up (``tune.Timer``; the timing modes counted and
+             printed), every time printed
              with the oracle's, the defaults' and the winner's pick; the
              winning thresholds, their geomean slowdown against the oracle
              and that of the defaults (the paper's "5-12%"), the winner
@@ -241,7 +243,30 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              grads through the artifact (g500 N = 32, the ``"bsr"``
              artifact) within 1e-4 of the builder's, with no host build and
              no sync; (c) ``repro_torch.examples.quickstart.main()``;
-14. guardrails — the guardrails (``core/guardrails.py``) on the card's
+14. tune   — ``kernels/tune.py`` on the card, each point timed by
+             ``tune.Timer`` (a warm-up call, the call captured in a CUDA
+             graph with the sync guard set to error, the mean of
+             TUNE_REPEATS replays by CUDA events; a call that syncs or
+             builds on the host timed back-to-back and listed): (a)
+             ``autotune_geometry`` over ``HOPPER_CANDIDATES`` (tile 128 to
+             4096) on both scale-20 graphs at N = 1, 4, 32, 128 on the
+             pick's NB kernel (``nb_sr`` forced where the pick is K3), two
+             sweeps, the winners compared; the tuned plan's tile, its
+             output against the plain version and its call beside the
+             default tile 512; (b) ``autotune_quant`` (int8, fp8) on g500 at
+             each N on the pick's design, both arms; (c) ``autotune_chain``
+             on g500 at d = 64, N = 1, 8, 32, 128 (softmax) and
+             ``measure_chain``'s arms for identity and scale; (d)
+             ``autotune_attention`` over Gemma-3-12B's local band at seq
+             1,024 to 8,192, one head of 256, with the ALiBi bias (K9 +
+             K10) and without (K7 + K8), both arms at every seq; (e)
+             ``calibrate_backend(tune_geometry=True, tune_quant=True)`` on
+             three scale-14 matrices of ``rmat_suite``, saved with the chain
+             and attention gates and reloaded through
+             ``$REPRO_THRESHOLDS``: ``sparse()`` takes the saved tiles and
+             the quant, chain and attention gates act at the saved
+             crossovers (the ``demote:*`` counters);
+15. guardrails — the guardrails (``core/guardrails.py``) on the card's
              kernels, the one phase that makes kernels fail on purpose: the
              fault matrix (threshold 2, cooldown 0, three failures injected
              at ``kernel_execute:<backend>``) on g500 (K2 at N = 1, K1 sr at
@@ -269,7 +294,7 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              step kept).  It ends with ``HEALTH.reset()``; every other
              phase fails if it leaves a kernel failure, a reroute, a breaker
              skip, a sentinel fallback or a tripped breaker in ``HEALTH``;
-15. summary — one JSON line of the kernels (``launches`` and ``design``:
+16. summary — one JSON line of the kernels (``launches`` and ``design``:
              the main path's; ``launches_by_path`` and ``design_by_path``:
              every path above; for K1, K2, K4 and K5 ``launches_by_value``,
              and an entry of their own for each coded variant,
@@ -433,6 +458,13 @@ ARTIFACT_CASES = (("g500", 1), ("g500", 4), ("g500", 32), ("g500", 128),
 FULL_N = 32
 BSR_ARTIFACT_N = 128
 GRAPH_REPLAYS = 20
+#: the tune path (``kernels/tune.py``): each timed point the mean of
+#: TUNE_REPEATS CUDA-graph replays; the chain's crossover at the GAT width
+#: over TUNE_CHAIN_NS, the attention gate's over Gemma-3-12B's local band at
+#: TUNE_ATTN_SEQS, one head of TUNE_ATTN_D
+TUNE_REPEATS = 10
+TUNE_CHAIN_NS, TUNE_CHAIN_D = (1, 8, 32, 128), 64
+TUNE_ATTN_SEQS, TUNE_ATTN_D = (1024, 2048, 4096, 8192), 256
 
 
 def pruned_ffn_weight(d_ff: int, d_model: int, seed: int):
@@ -1043,7 +1075,7 @@ def main() -> int:
                      for path in ("main", "backward", "train", "chain_backward",
                                   "gat_train", "attention_backward",
                                   "bsr_backward", "quant", "offline",
-                                  "guardrails")}
+                                  "tune", "guardrails")}
     value_counts = {**vsr.VALUE_LAUNCHES, **spmv.VALUE_LAUNCHES}
     path_values = {path: {k: dict.fromkeys(vv, 0) for k, vv in value_counts.items()}
                    for path in path_launches}
@@ -2961,6 +2993,8 @@ def main() -> int:
     cal_row = {"n_threshold": best.n_threshold, "pr_avg_row": best.pr_avg_row,
                "sr_cv": best.sr_cv, "loss_calibrated": loss_best,
                "loss_default": loss_default, "seconds": round(cal_s, 1),
+               "timing": {m: list(report["timing"].values()).count(m)
+                          for m in set(report["timing"].values())},
                "launches": {k: v for k, v in cal_counts.items() if v}}
     print("[offline] calibration " + json.dumps(cal_row), flush=True)
     if not loss_best <= loss_default:
@@ -3164,7 +3198,253 @@ def main() -> int:
         fail(f"offline: quickstart {qs}")
     print("[offline] quickstart " + json.dumps(qs), flush=True)
 
-    # -- 14. the guardrails on the card's kernels --------------------------------
+    # -- 14. tune: the nnz quota and the fuse gates, measured -----------------
+    phase("tune")
+    from repro_torch.core.selector import geometry_key
+    from repro_torch.kernels import tune
+    timers = []
+
+    def timed(label, call, timer):
+        """``call()`` on the tune path, its timer's new entries printed."""
+        start = len(timer.log)
+        out, _ = drive(call, "tune")
+        for e in timer.log[start:]:
+            print(f"[tune] {label} {e['key']} ms={1e3 * e['seconds']:.4f} "
+                  f"mode={e['mode']}"
+                  + (f" reason={e['reason']}" if e["reason"] else ""),
+                  flush=True)
+        return out, timer.log[start:]
+
+    def ms(entry):
+        return round(1e3 * entry["seconds"], 4)
+
+    # (a) the nnz quota: HOPPER_CANDIDATES at each N on the pick's NB kernel
+    # (nb_sr forced where the pick is K3), two sweeps
+    t0 = time.perf_counter()
+    sweeps = []
+    geometry_rows = {}
+    for sweep in range(2):
+        timer = tune.Timer()
+        timers.append(timer)
+        th = default_th
+        for name, csr in graphs.items():
+            for n in NS:
+                pick = PICKS[name][n]
+                impl = pick if pick.startswith("nb_") else "nb" + pick[2:]
+                th, entries = timed(
+                    f"geometry sweep {sweep + 1} {name}", lambda: (
+                        tune.autotune_geometry(
+                            csr, ns=(n,), impl=impl, thresholds=th,
+                            repeats=TUNE_REPEATS, include_wildcard=False,
+                            timer=timer)), timer)
+                row = geometry_rows.setdefault((name, n), {
+                    "pick": pick, "impl": impl, "forced": impl != pick,
+                    "ms": []})
+                row["ms"].append({g.tile: ms(e) for g, e in
+                                  zip(tune.HOPPER_CANDIDATES, entries)})
+        sweeps.append(th)
+    sweeps_agree = sweeps[0].geometries == sweeps[1].geometries
+    tuned = sweeps[0]
+    for (name, n), row in geometry_rows.items():
+        csr = graphs[name]
+        key = geometry_key("hopper", pattern_fingerprint(csr), n)
+        tiles = [dict(s.geometries)[key][0] for s in sweeps]
+        x = randn(csr.shape[1], n) if n > 1 else randn(csr.shape[1])
+        A_t = repro_torch.sparse(csr, thresholds=tuned, n_hint=n, cache=False)
+        A_d = repro_torch.sparse(csr, n_hint=n, cache=False)
+        if A_t.plan.tile != tiles[0] or A_d.plan.tile != 512:
+            fail(f"tune {name} N={n}: the tuned plan's tile {A_t.plan.tile} "
+                 f"(winner {tiles[0]}), the default's {A_d.plan.tile}")
+        y, counts = drive(lambda: A_t.matmul(x, impl=row["impl"]), "tune")
+        rel, _ = errors(y, A_t.matmul(x, impl=row["impl"], backend="torch"))
+        if rel > RTOL["float32"] or counts[kernel_of(row["impl"], n)] != 1:
+            fail(f"tune {name} N={n}: tuned plan rel err {rel}, {counts}")
+        call_timer = tune.Timer()
+        timers.append(call_timer)
+        (t_tuned, t_default), _ = drive(lambda: (
+            call_timer(lambda: A_t.matmul(x, impl=row["impl"]), dev,
+                       TUNE_REPEATS, f"call tuned {name} N={n}"),
+            call_timer(lambda: A_d.matmul(x, impl=row["impl"]), dev,
+                       TUNE_REPEATS, f"call tile=512 {name} N={n}")), "tune")
+        row.update({"winners": tiles, "rel_err_plain": rel,
+                    "tuned_ms": round(1e3 * t_tuned, 4),
+                    "default_ms": round(1e3 * t_default, 4),
+                    "modes": sorted({e["mode"] for e in call_timer.log})})
+        print(f"[tune] geometry {name} N={n} " + json.dumps(row), flush=True)
+        del A_t, A_d, x, y
+    print(f"[tune] geometry sweeps agree: {sweeps_agree} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
+
+    # (b) the quant crossover on g500: each mode, each N, the pick's design
+    t0 = time.perf_counter()
+    quant_rows = {}
+    for mode in QUANT_MODES:
+        timer = tune.Timer()
+        timers.append(timer)
+        wins = []
+        for n in NS:
+            pick = PICKS["g500"][n]
+            th_q, entries = timed(f"quant {mode}", lambda: tune.autotune_quant(
+                graphs["g500"], ns=(n,), quant=mode, impl=pick,
+                repeats=TUNE_REPEATS, timer=timer), timer)
+            quant_rows[(mode, n)] = {"coded_ms": ms(entries[0]),
+                                     "f32_ms": ms(entries[1])}
+            if th_q.quant_min_n == n:
+                wins.append(n)
+        quant_rows[mode] = min(wins) if wins else tune.QUANT_NEVER
+        print(f"[tune] quant {mode} quant_min_n={quant_rows[mode]} "
+              + json.dumps({n: quant_rows[(mode, n)] for n in NS}), flush=True)
+    print(f"[tune] quant ({time.perf_counter() - t0:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
+
+    # (c) the chain gate on g500 at the GAT width; identity and scale retimed
+    t0 = time.perf_counter()
+    timer = tune.Timer()
+    timers.append(timer)
+    th_chain, _ = timed("chain", lambda: tune.autotune_chain(
+        graphs["g500"], ns=TUNE_CHAIN_NS, d=TUNE_CHAIN_D, transform="softmax",
+        repeats=TUNE_REPEATS, timer=timer), timer)
+    chain_rows = {}
+    for transform in ("identity", "scale"):
+        for n in TUNE_CHAIN_NS:
+            (f_s, u_s), _ = timed(f"chain {transform}", lambda: tuple(
+                tune.measure_chain(graphs["g500"], n, TUNE_CHAIN_D,
+                                   fused=fused, transform=transform,
+                                   repeats=TUNE_REPEATS, timer=timer)
+                for fused in (True, False)), timer)
+            chain_rows[(transform, n)] = {"fused_ms": round(1e3 * f_s, 4),
+                                          "unfused_ms": round(1e3 * u_s, 4)}
+    print(f"[tune] chain softmax chain_fuse_min_n={th_chain.chain_fuse_min_n}; "
+          + json.dumps({f"{t} N={n}": r for (t, n), r in chain_rows.items()})
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
+
+    # (d) the attention gate over Gemma's local band, one head of 256, with
+    # the ALiBi bias (K9 + K10) and without (K7 + K8); both arms at every seq
+    t0 = time.perf_counter()
+    timer = tune.Timer()
+    timers.append(timer)
+    specs = [transformer._block_sparse_spec(gemma, s, True)
+             for s in TUNE_ATTN_SEQS]
+    attn_gates = {}
+    for bias in (True, False):
+        th_a, _ = timed(f"attention bias={bias}", lambda: (
+            tune.autotune_attention(specs, d=TUNE_ATTN_D, repeats=TUNE_REPEATS,
+                                    bias=bias, timer=timer)), timer)
+        attn_gates[bias] = th_a.attn_fuse_min_seq
+        timed_seqs = {int(e["key"].split("seq=")[1].split("|")[0])
+                      for e in timer.log
+                      if ("|bias|" if bias else "|nobias|") in e["key"]}
+        for spec in specs:
+            if spec.seq in timed_seqs:
+                continue
+            mask = patterns.build_mask(spec)
+            timed(f"attention bias={bias}", lambda: [
+                tune.measure_attention(mask, TUNE_ATTN_D, fused=fused,
+                                       bias=bias, repeats=TUNE_REPEATS,
+                                       timer=timer)
+                for fused in (True, False)], timer)
+    print(f"[tune] attention attn_fuse_min_seq with bias "
+          f"{attn_gates[True]}, without {attn_gates[False]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
+
+    # (e) calibrate_backend with both tuners on three matrices of the suite,
+    # saved with the gates and reloaded through $REPRO_THRESHOLDS
+    t0 = time.perf_counter()
+    skews = {"uniform": (0.25, 0.25, 0.25), "mild": (0.45, 0.22, 0.22),
+             "skewed": (0.57, 0.19, 0.19)}
+    # rmat_suite's seeds count up over scale x edge factor x skew from the
+    # base: scale 14 at edge factor 16 takes the seeds 21, 22 and 23
+    suite3 = {f"rmat_s14_e16_{sk}": rmat(14, 16, *abc, seed=args.seed + 21 + i,
+                                         device=dev)
+              for i, (sk, abc) in enumerate(skews.items())}
+    (cal_th, cal_report), _ = drive(lambda: repro_torch.calibrate_backend(
+        matrices=suite3, tune_geometry=True, tune_quant=True,
+        backend="hopper", repeats=TUNE_REPEATS), "tune")
+    modes = {}
+    for mode in cal_report["timing"].values():
+        modes[mode] = modes.get(mode, 0) + 1
+    print("[tune] calibrate_backend " + json.dumps({
+        "thresholds": [cal_th.n_threshold, cal_th.pr_avg_row, cal_th.sr_cv],
+        "loss": cal_report["geomean_slowdown_vs_oracle"],
+        "geometries": cal_report["geometries"],
+        "quant_min_n": cal_report["quant_min_n"], "modes": modes,
+        "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
+    saved = dataclasses.replace(cal_th,
+                                chain_fuse_min_n=th_chain.chain_fuse_min_n,
+                                attn_fuse_min_seq=attn_gates[True])
+    heavy = max(suite3, key=lambda k: suite3[k].nnz)
+    gate_shut = {}
+
+    def demotions(counter):
+        return HEALTH.snapshot()["counters"].get(counter, 0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "tuned.json")
+        repro_torch.api.save_thresholds(saved, path)
+        save_to_env = os.environ.get(THRESHOLDS_ENV)
+        os.environ[THRESHOLDS_ENV] = path
+        try:
+            if default_thresholds() != saved:
+                fail(f"tune: $REPRO_THRESHOLDS reloaded {default_thresholds()}")
+            table = dict(saved.geometries)
+            for mname, c in suite3.items():
+                A = repro_torch.sparse(c, n_hint=8, cache=False)
+                want = table[geometry_key("hopper", pattern_fingerprint(c), 8)]
+                if A.plan.tile != want[0] or A.plan.thresholds != saved:
+                    fail(f"tune: sparse({mname}) tile {A.plan.tile}, saved "
+                         f"{want}")
+            for n in NS:
+                Q = repro_torch.sparse(suite3[heavy], quant="int8", n_hint=n,
+                                       cache=False)
+                if (Q.plan.quant == "int8") != (n >= saved.quant_min_n):
+                    fail(f"tune: quant gate at N={n}: {Q.plan.quant}, "
+                         f"quant_min_n {saved.quant_min_n}")
+            c = suite3[heavy]
+            a_c, b_c = randn(c.shape[0], 16), randn(c.shape[1], 16)
+            for n in (1, 128):
+                x = randn(c.shape[1], n)
+                before = demotions("demote:chain_fuse")
+                drive(lambda: repro_torch.sparse_chain(c, a_c, b_c, x,
+                                                       cache=False), "tune")
+                shut = demotions("demote:chain_fuse") > before
+                gate_shut[f"chain N={n}"] = shut
+                if shut != (n < saved.chain_fuse_min_n):
+                    fail(f"tune: chain gate at N={n} shut={shut}, "
+                         f"chain_fuse_min_n {saved.chain_fuse_min_n}")
+            for spec in (specs[0], specs[-1]):
+                q = randn(spec.seq, TUNE_ATTN_D)
+                bias_s = tune._alibi(patterns.build_mask(spec).csr.to(dev))
+                before = demotions("demote:attn_fuse")
+                drive(lambda: repro_torch.sparse_attention(
+                    spec, q, q, q, bias=bias_s, cache=False), "tune")
+                shut = demotions("demote:attn_fuse") > before
+                gate_shut[f"attention seq={spec.seq}"] = shut
+                if shut != (spec.seq < saved.attn_fuse_min_seq):
+                    fail(f"tune: attention gate at seq {spec.seq} shut={shut}, "
+                         f"attn_fuse_min_seq {saved.attn_fuse_min_seq}")
+        finally:
+            if save_to_env is None:
+                os.environ.pop(THRESHOLDS_ENV)
+            else:
+                os.environ[THRESHOLDS_ENV] = save_to_env
+    print("[tune] reloaded: tiles and gates resolved from $REPRO_THRESHOLDS "
+          + json.dumps({"quant_min_n": saved.quant_min_n,
+                        "chain_fuse_min_n": saved.chain_fuse_min_n,
+                        "attn_fuse_min_seq": saved.attn_fuse_min_seq,
+                        "shut": gate_shut}), flush=True)
+    del suite3
+    entries = [e for t in timers for e in t.log]
+    uncaptured = {e["key"]: e["reason"] for e in entries if e["mode"] != "graph"}
+    print(f"[tune] timing: {len(entries)} entries, "
+          f"{len(entries) - len(uncaptured)} from CUDA graphs; "
+          f"calibrate_backend {modes}; not captured: {json.dumps(uncaptured)}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 15. the guardrails on the card's kernels --------------------------------
     phase("guardrails")
     from repro_torch.core import guardrails
     from repro_torch.core.cache import PlanCache
@@ -3503,7 +3783,7 @@ def main() -> int:
     HEALTH.configure()
     torch.cuda.empty_cache()
 
-    # -- 15. summary --------------------------------------------------------------
+    # -- 16. summary --------------------------------------------------------------
     phase("summary")
     summary = []
     for kernel, meta in KERNELS.items():

@@ -9,7 +9,8 @@ the plain ``"torch"`` backend for ``device="cpu"``.  ``sddmm`` and
 ``A @ x`` is differentiable in ``x`` and a ``with_values`` stream, and
 ``pattern_matmul`` is the sparse-weight training entry (``models.layers``,
 ``train``).  The offline half of the paper's split: ``calibrate_backend``
-fits the selector's thresholds to measured kernel times, and
+fits the selector's thresholds to measured kernel times, the ``autotune_*``
+tuners fit the nnz quota and the fuse gates (``kernels/tune.py``), and
 ``A.finalize(n)`` freezes a plan into a ``PlanArtifact`` whose ``execute``
 does no host work (a CUDA graph can capture it).  The guardrails
 (``core/guardrails.py``): ``sparse(validate=)``, ``sentinel=`` on a call,
@@ -19,7 +20,9 @@ and a counted ladder from the card's kernels to the plain ones, read by
 from . import api
 from .api import (AttentionMask, AttentionSpec, PlanArtifact, PlanBuilder,
                   PlanCache, SelectorThresholds, SparseAttention, SparseMatrix,
-                  TileGeometry, attention_plan, bigbird, build_mask,
+                  TileGeometry, attention_plan, autotune_attention,
+                  autotune_chain, autotune_geometry, autotune_overlap,
+                  autotune_quant, bigbird, build_mask,
                   cache_stats, calibrate, calibrate_backend, clear_cache,
                   dense_attention, execute, from_block_mask, pattern_matmul,
                   scoped_plan_cache, sddmm, sliding_window, sparse,
@@ -36,5 +39,6 @@ __all__ = [
     "AttentionSpec", "SparseAttention", "attention_plan", "bigbird",
     "build_mask", "dense_attention", "from_block_mask", "scoped_plan_cache",
     "sliding_window", "sparse_attention", "health", "reset_health",
-    "configure_guardrails",
+    "configure_guardrails", "autotune_geometry", "autotune_overlap",
+    "autotune_quant", "autotune_chain", "autotune_attention",
 ]

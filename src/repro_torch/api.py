@@ -30,6 +30,9 @@
     th, report = api.calibrate_backend("th.json")    # time the 2x2 space on
                                          # this card, grid-search Fig. 4's
                                          # thresholds (paper §2.2)
+    th = api.autotune_geometry(csr, ns=(4, 128), impl="nb_sr")
+                                         # the nnz quota per N-bucket,
+                                         # timed from CUDA graphs
     art = A.finalize(n=x.shape[1])       # frozen PlanArtifact, no host work
     y = api.execute(art, x)              # left at call time: CUDA-graph safe
 
@@ -46,8 +49,6 @@ it: ``health()`` shows every failure
 ladder reroute a failing call to the ``"torch"`` entry.
 """
 from __future__ import annotations
-
-import time as _time
 
 import numpy as np
 import torch
@@ -76,6 +77,8 @@ from .runtime.retry import RetryPolicy, TaskOutcome, run_with_retry
 
 __all__ = ["SparseMatrix", "sparse", "sddmm", "sparse_chain", "pattern_matmul",
            "use_backend", "calibrate", "calibrate_backend",
+           "autotune_geometry", "autotune_overlap", "autotune_quant",
+           "autotune_chain", "autotune_attention",
            "cache_stats", "clear_cache", "PlanArtifact", "PlanBuilder",
            "PlanCache", "SelectorThresholds", "TileGeometry", "execute",
            "save_thresholds", "load_thresholds",
@@ -376,34 +379,56 @@ def configure_guardrails(*, threshold: int = 3, cooldown_s: float = 30.0) -> Non
 
 
 # ---------------------------------------------------------------------------
-# calibration against this backend (paper §2.2)
+# calibration against this backend (paper §2.2) and the tuners
 # ---------------------------------------------------------------------------
 
-def _timer(device: torch.device, repeats: int):
-    """``time(f)``: seconds a call of ``f`` takes, the mean of ``repeats``
-    back-to-back calls after one warm-up call (which builds the substrate
-    and, on the card, the kernels): CUDA events on the card, the host clock
-    on the CPU."""
-    def time_on_card(f) -> float:
-        f()
-        torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(repeats):
-            f()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3 / repeats
+def _pattern_csr(csr_or_matrix) -> CSR:
+    return (csr_or_matrix.plan.csr if isinstance(csr_or_matrix, SparseMatrix)
+            else csr_or_matrix)
 
-    def time_on_host(f) -> float:
-        f()
-        t0 = _time.perf_counter()
-        for _ in range(repeats):
-            f()
-        return (_time.perf_counter() - t0) / repeats
 
-    return time_on_card if device.type == "cuda" else time_on_host
+def autotune_geometry(csr_or_matrix, **kwargs) -> SelectorThresholds:
+    """Timed sweep over tile geometries for one sparsity pattern (a CSR or a
+    SparseMatrix); returns thresholds whose ``geometries`` table carries
+    the winner per N-bucket (``repro_torch.kernels.tune`` for the
+    keywords).  Persist with ``save_thresholds``: later ``sparse()`` calls
+    on the pattern take the tuned tile, and the cache keys on it."""
+    from .kernels.tune import autotune_geometry as _tune
+    return _tune(_pattern_csr(csr_or_matrix), **kwargs)
+
+
+def autotune_overlap(csr_or_matrix, mesh, **kwargs) -> SelectorThresholds:
+    """The sharded backend's overlap crossover: not ported with it yet
+    (``NotImplementedError``)."""
+    from .kernels.tune import autotune_overlap as _tune
+    return _tune(_pattern_csr(csr_or_matrix), mesh, **kwargs)
+
+
+def autotune_quant(csr_or_matrix, **kwargs) -> SelectorThresholds:
+    """The quantization crossover of one pattern: thresholds whose
+    ``quant_min_n`` is the smallest dense width at which the int8 / fp8
+    plan beats the f32 one (``QUANT_NEVER`` when it never does;
+    ``repro_torch.kernels.tune.autotune_quant``)."""
+    from .kernels.tune import autotune_quant as _tune
+    return _tune(_pattern_csr(csr_or_matrix), **kwargs)
+
+
+def autotune_chain(csr_or_matrix, **kwargs) -> SelectorThresholds:
+    """The chain-fusion crossover of one pattern: thresholds whose
+    ``chain_fuse_min_n`` is the smallest dense width at which the fused
+    SDDMM→SpMM chain beats the unfused pair (``CHAIN_NEVER`` when it never
+    does; ``repro_torch.kernels.tune.autotune_chain``)."""
+    from .kernels.tune import autotune_chain as _tune
+    return _tune(_pattern_csr(csr_or_matrix), **kwargs)
+
+
+def autotune_attention(specs, **kwargs) -> SelectorThresholds:
+    """The fused-attention crossover over ``AttentionSpec``s: thresholds
+    whose ``attn_fuse_min_seq`` is the smallest sequence length at which
+    the fused attention chain beats the unfused one (``ATTN_NEVER`` when it
+    never does; ``repro_torch.kernels.tune.autotune_attention``)."""
+    from .kernels.tune import autotune_attention as _tune
+    return _tune(specs, **kwargs)
 
 
 def calibrate_backend(save_to: str | None = None, *,
@@ -413,8 +438,11 @@ def calibrate_backend(save_to: str | None = None, *,
                       n_grid: tuple = (2, 4, 8, 1 << 30),
                       avg_grid: tuple = (8.0, 16.0, 32.0, 64.0),
                       cv_grid: tuple = (0.25, 0.5, 1.0, 2.0),
-                      tune_geometry: bool = False, overlap_mesh=None,
-                      tune_quant: bool = False):
+                      tune_geometry: bool = False,
+                      geometry_candidates: tuple | None = None,
+                      overlap_mesh=None,
+                      tune_quant: bool = False,
+                      quant_ns: tuple = (8, 32, 128)):
     """Time the 2x2 kernel space on this backend and grid-search the
     selector's thresholds against the times (paper §2.2/§3.2,
     ``calibrate``), persisting the winner to ``save_to`` for
@@ -424,34 +452,57 @@ def calibrate_backend(save_to: str | None = None, *,
     matrices of scale 8, one uniform and one skewed; ``rmat_suite()`` is the
     paper's 27.  They are moved to ``device`` (``None``: the card, raising
     without one) and planned on ``backend`` (``None``: the device's).  Each
-    (matrix, N, kernel) is timed after one warm-up call as the mean of
-    ``repeats`` calls: by CUDA events on the card, by the host clock on the
-    CPU.  ``tune_geometry``, ``overlap_mesh`` and ``tune_quant`` belong to
-    ``kernels/tune.py``, not ported yet: ``NotImplementedError``."""
-    given = [name for name, on in (("tune_geometry", tune_geometry),
-                                   ("overlap_mesh", overlap_mesh is not None),
-                                   ("tune_quant", tune_quant)) if on]
-    if given:
-        raise NotImplementedError(f"calibrate_backend() arguments {given} "
-                                  "belong to a path of the reference not yet "
-                                  "ported (kernels/tune.py)")
+    time is the mean of ``repeats`` after a warm-up call, taken by
+    ``kernels.tune.Timer``: replays of a CUDA graph on the card (calls that
+    sync or build: back-to-back calls), the host clock on the CPU; the
+    report's ``"timing"`` maps each entry to its mode.
+
+    ``tune_geometry=True`` also runs ``autotune_geometry`` on each matrix at
+    the ``ns`` above 1 (``geometry_candidates``: its ``candidates``) and
+    adds the table to the report as ``"geometries"``; ``tune_quant=True``
+    runs ``autotune_quant`` at ``quant_ns`` on the matrix with the most
+    nonzeros, the report's ``"quant_min_n"``.  ``overlap_mesh`` needs the
+    sharded backend, not ported yet: ``NotImplementedError``."""
+    if overlap_mesh is not None:
+        raise NotImplementedError(
+            "calibrate_backend(overlap_mesh=) times the sharded backend's "
+            "collectives, which the port does not have yet (ROADMAP.md "
+            "queue 1, item 6)")
     from .core.rmat import rmat
+    from .kernels import tune
     device = resolve_device(device)
     if matrices is None:
         matrices = {"uniform": rmat(8, 8, a=0.25, b=0.25, c=0.25, seed=0),
                     "skewed": rmat(8, 8, seed=1)}
     matrices = {k: v.to(device) for k, v in matrices.items()}
-    timed = _timer(device, repeats)
+    names = {id(v): k for k, v in matrices.items()}
+    timer = tune.Timer()
 
     def time_fn(kernel: str, p: PlanBuilder, n: int) -> float:
         k = p.csr.shape[1]
         x = torch.ones((k, n) if n > 1 else (k,), dtype=torch.float32,
                        device=device)
-        return timed(lambda: execute(p, x, impl=kernel, backend=backend))
+        return timer(lambda: execute(p, x, impl=kernel, backend=backend),
+                     device, repeats, f"{names[id(p.csr)]}|n={n}|{kernel}")
 
     with backend_scope(backend):
         best, report = calibrate(matrices, ns, time_fn=time_fn, n_grid=n_grid,
                                  avg_grid=avg_grid, cv_grid=cv_grid)
+    if tune_geometry:
+        tune_ns = tuple(n for n in ns if n > 1) or (8,)
+        for csr in matrices.values():
+            best = tune.autotune_geometry(
+                csr, ns=tune_ns, backend=backend, thresholds=best,
+                repeats=repeats, candidates=geometry_candidates, timer=timer)
+        report["geometries"] = dict(best.geometries)
+    if tune_quant:
+        # the crossover is traffic-bound: tune on the largest value stream
+        heavy = max(matrices.values(), key=lambda c: int(c.nnz))
+        best = tune.autotune_quant(heavy, ns=quant_ns, backend=backend,
+                                   thresholds=best, repeats=repeats,
+                                   timer=timer)
+        report["quant_min_n"] = int(best.quant_min_n)
+    report["timing"] = timer.modes()
     if save_to is not None:
         save_thresholds(best, save_to)
     return best, report

@@ -107,12 +107,15 @@ class SelectorThresholds:
     n_threshold: int = 4        # N <= this → parallel reduction (paper: 4)
     pr_avg_row: float = 32.0    # PR side: avg_row < this → workload-balance
     sr_cv: float = 0.5          # SR side: cv > this → workload-balance
-    # the fields below belong to paths of the reference not yet ported
-    # (sharding, the TPU spill window, quantization, chains, attention);
+    # partition_cv and overlap_min_n belong to the sharded backend, not
+    # ported yet, and nothing tunes max_win (the spill window's guard) yet;
     # they are carried so that a thresholds file round-trips unchanged
     partition_cv: float = 1.0
     max_win: int = 4096
     overlap_min_n: int = 512
+    # the gates, measured by kernels/tune.py (autotune_quant / _chain /
+    # _attention): a coded plan from N >= quant_min_n, the fused chain from
+    # N >= chain_fuse_min_n, fused attention from seq >= attn_fuse_min_seq
     quant_min_n: int = 1
     chain_fuse_min_n: int = 1
     attn_fuse_min_seq: int = 1

@@ -5,7 +5,8 @@ Importing this package registers the ``"hopper"`` backend (K1-K10) and the
 block-granule ``"bsr"`` backend (K11) in ``repro_torch.core.registry``; the
 registry imports it on first resolve of either.  The kernels are built and
 loaded at their first launch (``_build.lib``), never at import.  ``spmm`` is
-the deprecated front door of the reference's ``repro.kernels``.
+the deprecated front door of the reference's ``repro.kernels``; ``tune``
+times the tile geometry and the fuse gates (``autotune_*``).
 """
 from . import attention, bsr, csc, fused_chain, spmv, vsr
 from .attention import (attn_chain_fused, attn_chain_plain, attn_stats_fused,
@@ -17,6 +18,14 @@ from .fused_chain import (chain_fused, chain_plain, chain_stats_fused,
                           sddmm_plain)
 from .ops import spmm
 from .spmv import spmv_vsr, spmv_vsr_fused, spmv_vsr_plain, spmv_vsr_spill_plain
+from .tune import (ATTN_NEVER, CHAIN_NEVER, DEFAULT_CANDIDATES,
+                   HOPPER_CANDIDATES, OVERLAP_NEVER, QUANT_NEVER, Timer,
+                   autotune_attention, autotune_chain, autotune_geometry,
+                   autotune_overlap, autotune_quant, measure_attention,
+                   measure_chain, measure_geometry, measure_overlap,
+                   measure_quant, modeled_traffic, modeled_traffic_attention,
+                   modeled_traffic_balanced, modeled_traffic_chain,
+                   modeled_traffic_sharded)
 from .vsr import (plan_visits, plan_windows, spmm_as_n_spmv_hopper, spmm_vsr,
                   spmm_vsr_fused, spmm_vsr_plain, spmm_vsr_spill_plain)
 

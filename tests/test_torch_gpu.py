@@ -2935,3 +2935,112 @@ def test_cuda_skip_nonfinite_makes_no_sync(cuda):
         assert torch.equal(s1["opt"][key]["w"], s2["opt"][key]["w"])
     assert torch.equal(s1["opt"]["step"], s2["opt"]["step"])
     assert not torch.equal(s3["params"]["w"], s2["params"]["w"])
+
+
+# ---------------------------------------------------------------------------
+# the tuner on the card: a geometry sweep, the gates' arms, the timer's modes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_cuda_autotune_geometry_small_graph(cuda, no_plain):
+    """A sweep over ``HOPPER_CANDIDATES`` on the Hopper kernels of a small
+    skewed graph (``nb_pr`` at N = 4, ``nb_sr`` at 32): every candidate
+    timed from a CUDA graph, the tuned plan carries the winner's tile,
+    launches its kernel and agrees with the plain version (1e-4)."""
+    import repro_torch
+    from repro_torch.core.cache import pattern_fingerprint
+    from repro_torch.kernels import tune
+    csr = rmat(12, 16, seed=5, device=cuda)
+    timer = tune.Timer()
+    th = None
+    for n, impl in ((4, "nb_pr"), (32, "nb_sr")):
+        th = repro_torch.autotune_geometry(csr, ns=(n,), impl=impl,
+                                           thresholds=th, repeats=3,
+                                           include_wildcard=False, timer=timer)
+    assert len(timer.log) == 2 * len(tune.HOPPER_CANDIDATES)
+    assert {e["mode"] for e in timer.log} == {"graph"}, timer.log
+    assert all(e["seconds"] > 0 for e in timer.log)
+    table = dict(th.geometries)
+    fp = pattern_fingerprint(csr)[:12]
+    for n, impl in ((4, "nb_pr"), (32, "nb_sr")):
+        tile = table[f"hopper|{fp}|n{n}"][0]
+        A = repro_torch.sparse(csr, thresholds=th, n_hint=n, cache=False)
+        assert A.plan.tile == tile
+        x = torch.randn(csr.shape[1], n, device=cuda)
+        reset_launch_counts()
+        y = A.matmul(x, impl=impl)
+        assert launch_counts()["vsr_spmm"] == 1
+        assert vsr.DESIGN_LAUNCHES["vsr_spmm"][impl[3:]] == 1
+        assert no_plain == []
+        assert _rel(y, A.matmul(x, impl=impl, backend="torch")) < 1e-4
+        no_plain.clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False])
+def test_cuda_measure_chain_arms(cuda, fused, no_plain):
+    """``measure_chain``'s arms on the card: the open gate runs the fused
+    slot-tile chain (K7 in edge mode, K8) and no SDDMM, the shut gate the
+    unfused pair (K6, K7 in full mode, K1) and no K8; no plain version."""
+    from repro_torch.kernels import tune
+    csr = rmat(11, 8, seed=6, device=cuda)
+    reset_launch_counts()
+    t = tune.measure_chain(csr, 32, 16, fused=fused, repeats=2)
+    counts = launch_counts()
+    assert t > 0 and no_plain == []
+    if fused:
+        assert counts["chain"] > 0 and counts["sddmm"] == 0
+        assert counts["vsr_spmm"] == 0
+        assert fused_chain.DESIGN_LAUNCHES["chain"]["slot"] == counts["chain"]
+        assert fused_chain.STATS_MODES["edge"] > 0
+    else:
+        assert counts["chain"] == 0 and counts["sddmm"] > 0
+        assert counts["vsr_spmm"] == counts["sddmm"]
+        assert fused_chain.STATS_MODES["full"] == counts["chain_stats"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("bias", [False, True])
+def test_cuda_measure_attention_arms(cuda, fused, bias, no_plain):
+    """``measure_attention``'s arms over a causal band: open, the block
+    design of K7 + K8 (no bias) or K9 + K10 (bias); shut, K6 → K7 / K9's
+    weights → K1; no plain version."""
+    from repro_torch.attention import build_mask, sliding_window
+    from repro_torch.kernels import tune
+    mask = build_mask(sliding_window(1024, 4, block=64, causal=True))
+    reset_launch_counts()
+    t = tune.measure_attention(mask, 64, fused=fused, bias=bias, repeats=2)
+    counts = launch_counts()
+    assert t > 0 and no_plain == []
+    stats, chain = (("attn_stats", "attn_chain") if bias
+                    else ("chain_stats", "chain"))
+    designs = attention.DESIGN_LAUNCHES if bias else fused_chain.DESIGN_LAUNCHES
+    if fused:
+        assert counts[chain] > 0 and counts["sddmm"] == 0
+        assert designs[chain]["block"] == counts[chain]
+        assert designs[stats]["block"] == counts[stats] == counts[chain]
+    else:
+        assert counts[chain] == 0 and counts["sddmm"] > 0
+        assert counts[stats] == counts["sddmm"] == counts["vsr_spmm"]
+
+
+@pytest.mark.gpu
+def test_cuda_timer_graph_and_eager_agree(cuda):
+    """One call timed from its CUDA graph and as back-to-back calls: the
+    device times agree within the spread of single calls (25%); a call that
+    syncs is timed back-to-back and says why."""
+    import repro_torch
+    from repro_torch.kernels import tune
+    csr = rmat(16, 16, seed=7, device=cuda)
+    A = repro_torch.sparse(csr, cache=False)
+    x = torch.randn(csr.shape[1], 128, device=cuda)
+    call = lambda: A.matmul(x, impl="nb_sr")                  # noqa: E731
+    timer = tune.Timer()
+    t_graph = timer(call, cuda, 20, "k1")
+    assert timer.log[-1]["mode"] == "graph"
+    t_b2b = tune._events(call, cuda, 20)
+    assert abs(t_graph - t_b2b) <= 0.25 * t_b2b, (t_graph, t_b2b)
+    t_sync = timer(lambda: float(call().sum()), cuda, 3, "synced")
+    assert timer.log[-1]["mode"] == "b2b" and timer.log[-1]["reason"] == "sync"
+    assert t_sync > 0

@@ -50,6 +50,7 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.examples.train_gat",
                    "repro_torch.examples.quickstart",
                    "repro_torch.kernels.ops",
+                   "repro_torch.kernels.tune",
                    "repro_torch.train.optim",
                    "repro_torch.train.step",
                    "repro_torch.configs.gemma3_12b",

@@ -3,7 +3,8 @@
 selector's calibration (``calibrate`` on the same measured times gives the
 reference's thresholds and geomean slowdown), its ``save_to`` round trip,
 the 27-matrix R-MAT suite element for element, ``calibrate_backend`` on the
-CPU and the arguments of its unported tuners, ``backends_for``, the
+CPU with its tuners (``tune_geometry``, ``tune_quant``; ``overlap_mesh``
+waits for the sharded backend), ``backends_for``, the
 deprecated front doors (``PreparedMatrix``, ``adaptive_spmm``,
 ``repro_torch.kernels.spmm``), and the quickstart example on the CPU."""
 import math
@@ -16,12 +17,14 @@ from repro.core import MATMUL_KERNELS as REF_KERNELS
 from repro.core import calibrate as ref_calibrate
 from repro.core import rmat_suite as ref_rmat_suite
 from repro.core.rmat import rmat_suite_small as ref_suite_small
+from repro.core.selector import TileGeometry as ref_geometry
 import repro_torch
 from repro_torch import api, interop
 from repro_torch.core import (MATMUL_KERNELS, PreparedMatrix, adaptive_spmm,
                               backends_for, calibrate, load_thresholds,
                               rmat_suite)
-from repro_torch.core.selector import SelectorThresholds, slowdown_vs_oracle
+from repro_torch.core.selector import (SelectorThresholds, TileGeometry,
+                                       slowdown_vs_oracle)
 
 SMALL = ref_suite_small(seed=0)
 
@@ -120,12 +123,79 @@ def test_calibrate_backend_runs_on_the_cpu(tmp_path):
     assert th2.n_threshold == 4 and len(report2["times"]) == 3 * 4
 
 
-@pytest.mark.parametrize("kw", [{"tune_geometry": True},
-                                {"overlap_mesh": object()},
-                                {"tune_quant": True}])
+@pytest.mark.parametrize("kw", [{"overlap_mesh": object()}])
 def test_calibrate_backend_unported_arguments(kw):
-    with pytest.raises(NotImplementedError, match="kernels/tune.py"):
+    with pytest.raises(NotImplementedError, match="sharded backend"):
         api.calibrate_backend(device="cpu", **kw)
+
+
+def _report_shape(report: dict) -> dict:
+    """The report's keys and value types; geometry keys without their
+    backend segment."""
+    out = {k: type(v) for k, v in report.items()}
+    if "geometries" in report:
+        out["geometries"] = {k.split("|", 1)[1]: (type(v), len(v))
+                             for k, v in report["geometries"].items()}
+    return out
+
+
+def test_calibrate_backend_tunes_geometry(tmp_path):
+    """``tune_geometry=True`` as in the reference: one entry per N-bucket of
+    the ns above 1 and a wildcard per matrix (``geometry_candidates`` the
+    sweep), the report's ``"geometries"`` the persisted table, with the
+    reference's keys and types (plus ``"timing"``, each entry's mode)."""
+    from repro import api as ref_api
+    names = ("rmat_s6_e16_skewed", "rmat_s6_e4_uniform")
+    ref_cands = (ref_geometry(tile=16), ref_geometry(tile=64))
+    cands = tuple(TileGeometry(*g.as_tuple()) for g in ref_cands)
+    path = str(tmp_path / "th.json")
+    th, report = api.calibrate_backend(
+        path, matrices={k: _port(SMALL[k]) for k in names}, ns=(1, 8),
+        repeats=1, device="cpu", tune_geometry=True,
+        geometry_candidates=cands)
+    _, ref_report = ref_api.calibrate_backend(
+        matrices={k: SMALL[k] for k in names}, ns=(1, 8), repeats=1,
+        backend="xla", tune_geometry=True, geometry_candidates=ref_cands)
+    assert set(report) == set(ref_report) | {"timing"}
+    assert _report_shape(report) == dict(_report_shape(ref_report),
+                                         timing=dict)
+    assert report["geometries"] == dict(th.geometries) == \
+        dict(load_thresholds(path).geometries)
+    assert all(k.startswith("torch|") for k in report["geometries"])
+    assert {tuple(v) for v in report["geometries"].values()} <= \
+        {g.as_tuple() for g in cands}
+    assert set(report["times"]) <= set(report["timing"])
+    assert len(report["timing"]) == len(report["times"]) + 2 * 2
+    assert set(report["timing"].values()) == {"host"}
+
+
+def test_calibrate_backend_tunes_quant(monkeypatch):
+    """``tune_quant=True`` as in the reference: ``autotune_quant`` at
+    ``quant_ns`` on the matrix with the most nonzeros, the report's
+    ``"quant_min_n"`` an int, the returned thresholds carrying it."""
+    from repro import api as ref_api
+    from repro_torch.kernels import tune
+    names = ("rmat_s6_e4_uniform", "rmat_s8_e16_skewed", "rmat_s6_e16_skewed")
+    seen = []
+    real = tune.autotune_quant
+
+    def spy(csr, **kw):
+        seen.append(csr.nnz)
+        return real(csr, **kw)
+    monkeypatch.setattr(tune, "autotune_quant", spy)
+    matrices = {k: _port(SMALL[k]) for k in names}
+    th, report = api.calibrate_backend(matrices=matrices, ns=(1, 8),
+                                       repeats=1, device="cpu",
+                                       tune_quant=True, quant_ns=(8, 32))
+    _, ref_report = ref_api.calibrate_backend(
+        matrices={k: SMALL[k] for k in names[:1]}, ns=(1,), repeats=1,
+        backend="xla", tune_quant=True, quant_ns=(8,))
+    assert set(report) == set(ref_report) | {"timing"}
+    assert _report_shape(report) == dict(_report_shape(ref_report),
+                                         timing=dict)
+    assert seen == [max(c.nnz for c in matrices.values())]
+    assert report["quant_min_n"] == th.quant_min_n
+    assert report["quant_min_n"] in (8, 32, tune.QUANT_NEVER)
 
 
 def test_backends_for():

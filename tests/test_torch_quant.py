@@ -11,8 +11,9 @@ unquantized plan is held to the analytic bound ``0.5 · step · max_scale ·
 its codes, 1 for int8 and 32 for e4m3, times its tile's scale).  On the
 CPU the ``"hopper"`` entries run the kernels' plain versions, which decode
 the codes and run the float math; ``tests/test_torch_gpu.py`` holds the
-coded kernels against them on the card.  The reference's sharded,
-``modeled_traffic`` and ``finalize`` parts are not ported yet."""
+coded kernels against them on the card.  The reference's sharded part is
+not ported yet; ``modeled_traffic(quant=)`` is held in
+``tests/test_torch_tune.py``."""
 import dataclasses
 import warnings
 
