@@ -294,12 +294,40 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              step kept).  It ends with ``HEALTH.reset()``; every other
              phase fails if it leaves a kernel failure, a reroute, a breaker
              skip, a sentinel fallback or a tripped breaker in ``HEALTH``;
-16. summary — one JSON line of the kernels (``launches`` and ``design``:
+16. models — the model layer (``repro_torch.models``) at full width and
+             depth: OLMoE-1B-7B (``configs/olmoe_1b_7b.CONFIG``: 16
+             layers, d_model 2048, 16 heads, 64 experts top-8 of
+             d_ff 1024, vocab 50,304, bf16; 6.9 B parameters, 13.8 GB)
+             initialised on the card from the seed; ``Model.prefill`` of
+             4 x 512 tokens ("sort" → ``moe_spmm``, capacity 320: each MoE
+             layer's dispatch, a (20,480 x 2,048) pattern times X, and
+             combine, a (2,048 x 20,481) pattern times H — exactly 32 K1
+             sr launches, ``vsr.DESIGN_LAUNCHES``); 16 ``decode_step``s at
+             B = 4 on the selector's one-hot path (no kernel) and 4 with
+             ``dispatch="spmm"`` forced (K1 sr twice a layer, tile 32);
+             checks: (a) one layer's ``moe_apply`` at T = 2,048 on
+             "hopper" against "torch" on the card (1e-4 with f32 weights,
+             2e-2 in bf16; the router's top-k ids equal), (b) on a 2-layer
+             float32 cut at full width (capacity factor 8, so no token
+             drops) ``decode_step(prefill(t[:64]))`` against
+             ``prefill(t[:65])`` within 2e-2, (c) finite logits at full
+             depth, (d) ``loss_fn`` forward and backward on the cut (remat
+             by ``torch.utils.checkpoint``) against "torch" within 1e-4,
+             K6 once a layer and one transpose a MoE matrix
+             (``PATTERN_PREP["builds"]``), (e) no kernel failure or
+             reroute (the ``[health]`` line); times beside the card's name
+             and power limit: prefill ms and tokens/s, ms a decode step on
+             each path, K1 alone on one layer's dispatch and combine (CUDA
+             events, with its plain version, ``torch.sparse.mm`` in bf16
+             and the bound), the parameter bytes and the phase's seconds;
+17. summary — one JSON line of the kernels (``launches`` and ``design``:
              the main path's; ``launches_by_path`` and ``design_by_path``:
              every path above; for K1, K2, K4 and K5 ``launches_by_value``,
              and an entry of their own for each coded variant,
              ``<kernel>:int8`` / ``<kernel>:fp8``, whose ``launches`` are
-             the quant path's), the card line, then the result.
+             the quant path's; K1's entry also carries ``models``, one
+             OLMoE-1B-7B layer's dispatch and combine), the card line,
+             then the result.
 
 Without a CUDA device it prints no result and exits 2.  ``--scale`` below 20
 runs smaller graphs for a quick look; the graph statistics published with
@@ -465,6 +493,17 @@ GRAPH_REPLAYS = 20
 TUNE_REPEATS = 10
 TUNE_CHAIN_NS, TUNE_CHAIN_D = (1, 8, 32, 128), 64
 TUNE_ATTN_SEQS, TUNE_ATTN_D = (1024, 2048, 4096, 8192), 256
+
+
+#: the models path: OLMoE-1B-7B (``configs/olmoe_1b_7b.CONFIG``) at full
+#: width and depth, weights from the seed on the card; a prefill of
+#: MODEL_BATCH x MODEL_SEQ tokens ("sort" → ``moe_spmm``, capacity 320),
+#: MODEL_DECODE steps on the selector's path (one-hot at B = 4) and
+#: MODEL_DECODE_SPMM with ``dispatch="spmm"`` forced; the float32 checks on
+#: a cut of MODEL_CUT layers at CUT_BATCH x CUT_SEQ tokens
+MODEL_BATCH, MODEL_SEQ = 4, 512
+MODEL_DECODE, MODEL_DECODE_SPMM = 16, 4
+MODEL_CUT, CUT_BATCH, CUT_SEQ = 2, 2, 64
 
 
 def pruned_ffn_weight(d_ff: int, d_model: int, seed: int):
@@ -1067,15 +1106,16 @@ def main() -> int:
     #: GAT chain ("chain_backward"), the GAT training steps ("gat_train"),
     #: of block-sparse attention ("attention_backward") and of the block-
     #: pruned weight ("bsr_backward")
-    #: the quantized value streams ("quant") and the offline half (the
-    #: calibration, the frozen artifacts, the quickstart: "offline"); K1,
+    #: the quantized value streams ("quant"), the offline half (the
+    #: calibration, the frozen artifacts, the quickstart: "offline"), the
+    #: tuner ("tune"), the guardrails and the models ("models"); K1,
     #: K2, K4 and K5's
     #: launches by value type (f32, bf16, int8, fp8) on each path
     path_launches = {path: {k: 0 for k in KERNELS}
                      for path in ("main", "backward", "train", "chain_backward",
                                   "gat_train", "attention_backward",
                                   "bsr_backward", "quant", "offline",
-                                  "tune", "guardrails")}
+                                  "tune", "guardrails", "models")}
     value_counts = {**vsr.VALUE_LAUNCHES, **spmv.VALUE_LAUNCHES}
     path_values = {path: {k: dict.fromkeys(vv, 0) for k, vv in value_counts.items()}
                    for path in path_launches}
@@ -3783,7 +3823,317 @@ def main() -> int:
     HEALTH.configure()
     torch.cuda.empty_cache()
 
-    # -- 16. summary --------------------------------------------------------------
+    # -- 16. the models: OLMoE-1B-7B prefill and decode at full width -----------
+    phase("models")
+    t_models = time.perf_counter()
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.models import Model, moe
+    from repro_torch.models import params as model_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def tree_leaves(tree):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from tree_leaves(tree[k])
+        else:
+            yield tree
+
+    def say_m(label, row):
+        print(f"[models] {label} " + json.dumps(row, default=str)
+              + f" ({card})", flush=True)
+
+    def paths_moved(before):
+        return {k: v - before[k] for k, v in moe.DISPATCH_PATHS.items()
+                if v != before[k]}
+
+    mcfg = olmoe_1b_7b.CONFIG
+    n_moe = mcfg.num_layers
+    model = Model(mcfg)
+    t0 = time.perf_counter()
+    mp = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p_bytes = model_params.param_bytes(model.specs)
+    held = sum(t.numel() * t.element_size() for t in tree_leaves(mp))
+    if held != p_bytes or any(t.device != dev for t in tree_leaves(mp)):
+        fail(f"models: the parameters hold {held} bytes, the specs say {p_bytes}")
+    say_m("params", {"config": mcfg.name, "layers": n_moe,
+                     "d_model": mcfg.d_model, "heads": mcfg.num_heads,
+                     "experts": mcfg.moe.num_experts, "top_k": mcfg.moe.top_k,
+                     "d_ff_expert": mcfg.moe.d_ff_expert,
+                     "vocab": mcfg.vocab_size, "dtype": mcfg.param_dtype,
+                     "param_count": model_params.param_count(model.specs),
+                     "param_bytes": p_bytes, "init_on_card_s": init_s})
+
+    # (prefill) MODEL_BATCH x MODEL_SEQ tokens: "sort" → moe_spmm, K1 sr for
+    # each MoE layer's dispatch and combine
+    n_tok = MODEL_BATCH * MODEL_SEQ
+    max_len = MODEL_SEQ + MODEL_DECODE + MODEL_DECODE_SPMM
+    toks = torch.randint(0, mcfg.vocab_size, (MODEL_BATCH, max_len),
+                         device=dev, generator=gen)
+    if moe.select_dispatch(n_tok, mcfg.moe) != "sort" or \
+            moe.capacity(n_tok, mcfg.moe) != 320:
+        fail("models: the prefill's dispatch is not 'sort' at capacity 320")
+    models_row = {}
+    with torch.no_grad():
+        before = dict(moe.DISPATCH_PATHS)
+        t0 = time.perf_counter()
+        (logits, caches), counts = drive(lambda: model.prefill(
+            mp, {"tokens": toks[:, :MODEL_SEQ]}, max_len), "models")
+        first_s = time.perf_counter() - t0
+        k1 = took()["vsr_spmm"]
+        others = {k: v for k, v in counts.items() if v and k != "vsr_spmm"}
+        row = {"k1_launches": counts["vsr_spmm"], "k1_designs": k1,
+               "dispatch_paths": paths_moved(before), "other_kernels": others,
+               "first_call_s": first_s}
+        if counts["vsr_spmm"] != 2 * n_moe or k1["sr"] != 2 * n_moe or \
+                others or row["dispatch_paths"] != {"spmm": n_moe}:
+            fail(f"models: prefill launched {row}; expected {2 * n_moe} K1 sr "
+                 "launches (vsr.DESIGN_LAUNCHES), two a MoE layer")
+        if logits.shape != (MODEL_BATCH, mcfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            fail(f"models: prefill logits of shape {tuple(logits.shape)} are "
+                 "not finite or of the wrong shape")
+        pre_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            model.prefill(mp, {"tokens": toks[:, :MODEL_SEQ]}, max_len)
+            torch.cuda.synchronize()
+            pre_s.append(time.perf_counter() - t0)
+        row["prefill_ms"] = 1e3 * statistics.median(pre_s)
+        row["tokens_per_s"] = n_tok / statistics.median(pre_s)
+        say_m(f"prefill B={MODEL_BATCH} S={MODEL_SEQ}", row)
+        models_row["prefill"] = row
+
+        # (decode) the selector's path at B = 4 (one-hot: no kernel), then
+        # dispatch="spmm" forced (K1 sr twice a MoE layer, tile 32)
+        spmm_model = Model(dataclasses.replace(
+            mcfg, moe=dataclasses.replace(mcfg.moe, dispatch="spmm")))
+        dec = {}
+        pos = MODEL_SEQ
+        for label, m_, steps, want_k1 in (
+                ("onehot", model, MODEL_DECODE, 0),
+                ("spmm", spmm_model, MODEL_DECODE_SPMM, 2 * n_moe)):
+            step_s = []
+            for _ in range(steps):
+                tok = toks[:, pos:pos + 1]
+                before = dict(moe.DISPATCH_PATHS)
+                t0 = time.perf_counter()
+                (ld, caches), counts = drive(
+                    lambda: m_.decode_step(mp, caches, tok), "models")
+                step_s.append(time.perf_counter() - t0)
+                moved = paths_moved(before)
+                k1 = took()["vsr_spmm"]
+                if counts["vsr_spmm"] != want_k1 or k1["sr"] != want_k1 or \
+                        sum(counts.values()) != want_k1 or \
+                        moved != {label: n_moe} or not torch.isfinite(ld).all():
+                    fail(f"models: decode step at {pos} on {label}: launches "
+                         f"{counts}, K1 {k1}, paths {moved}")
+                pos += 1
+            dec[label] = {"steps": steps, "step_ms": 1e3 * statistics.median(
+                step_s[1:]), "first_step_ms": 1e3 * step_s[0],
+                "k1_launches_per_step": want_k1}
+        if int(caches["length"]) != max_len:
+            fail(f"models: cache length {int(caches['length'])} != {max_len}")
+        # the two decode paths on one step: the same slotting, no drop at B=4;
+        # their difference in bf16 over 16 layers is printed, not bounded
+        tok = toks[:, -1:]
+        l_one, _ = model.decode_step(mp, caches, tok)
+        l_spmm, _ = spmm_model.decode_step(mp, caches, tok)
+        dec["onehot_vs_spmm_rel_err"] = errors(l_spmm, l_one)[0]
+        say_m(f"decode B={MODEL_BATCH} (onehot runs no kernel; spmm forced: "
+              "K1 sr)", dec)
+        if not (torch.isfinite(l_one).all() and torch.isfinite(l_spmm).all()):
+            fail(f"models: decode logits are not finite {dec}")
+        models_row["decode"] = dec
+        del caches, logits, l_one, l_spmm
+
+        # (a) one MoE layer at T = n_tok on "hopper" against "torch", f32 and
+        # bf16 weights, the router's ids equal on both
+        p0 = {k: v[0] for k, v in mp["blocks"]["ffn"].items() if k != "ln"}
+        xa = randn(n_tok, mcfg.d_model)
+        check_a = {}
+        for dt_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dt_name)
+            pp = {k: v if k == "w_router" else v.to(dt) for k, v in p0.items()}
+            xx = xa.to(dt)
+            sinks = (moe.RoutingSink(), moe.RoutingSink())
+            reset_launch_counts()
+            with moe.record_routing(sinks[0], 0):
+                y_h, aux_h = moe.moe_apply(pp, xx, mcfg.moe)
+            torch.cuda.synchronize()
+            n_k1 = launch_counts()["vsr_spmm"]
+            reset_launch_counts()
+            with repro_torch.use_backend("torch"), \
+                    moe.record_routing(sinks[1], 0):
+                y_t, aux_t = moe.moe_apply(pp, xx, mcfg.moe)
+            torch.cuda.synchronize()
+            ids = [s_.drain_routing(0)[0] for s_ in sinks]
+            rel, diff = errors(y_h, y_t)
+            check_a[dt_name] = {"rel_inf_err": rel, "max_abs_err": diff,
+                                "aux_equal": float(aux_h) == float(aux_t),
+                                "ids_equal": bool(np.array_equal(*ids)),
+                                "k1_launches": n_k1,
+                                "torch_launches": sum(launch_counts().values())}
+            print(f"[check] models (a) moe_apply layer 0 T={n_tok} hopper vs "
+                  f"torch {dt_name}: {json.dumps(check_a[dt_name])} "
+                  f"tol={RTOL[dt_name]:g}", flush=True)
+            if rel > RTOL[dt_name] or not check_a[dt_name]["ids_equal"] or \
+                    n_k1 != 2 or check_a[dt_name]["torch_launches"]:
+                fail(f"models (a): {dt_name} {check_a[dt_name]}")
+            del pp, y_h, y_t
+        models_row["check_a"] = check_a
+
+        # K1 alone at the prefill's shapes: layer 0's dispatch and combine
+        pb = {k: v for k, v in p0.items()}
+        xk = xa.to(torch.bfloat16)
+        cap, e_, k_ = 320, mcfg.moe.num_experts, mcfg.moe.top_k
+        gate, idx, _ = moe.router(pb, xk, mcfg.moe)
+        slot_u = moe._slots(idx.reshape(-1), e_, cap)
+        tile = min(512, n_tok * k_)
+        dr, dc = moe.dispatch_pattern(slot_u, k_, e_, cap, tile)
+        dv = moe._as_tiles(torch.ones(n_tok * k_, device=dev), tile, 0.0)
+        cr, cc = moe.combine_pattern(slot_u, n_tok, k_, tile)
+        cv = moe._as_tiles(gate.reshape(-1).float(), tile, 0.0)
+        bal_d = formats.BalancedCOO(dr, dc, dv, (e_ * cap, n_tok))
+        bal_c = formats.BalancedCOO(cr, cc, cv, (n_tok, e_ * cap + 1))
+        hp = randn(e_ * cap + 1, mcfg.d_model, dtype=torch.bfloat16)
+        for dt_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dt_name)
+            hold("vsr_spmm", f"olmoe dispatch {e_ * cap}x{n_tok} N={mcfg.d_model} sr",
+                 vsr.spmm_vsr_fused(bal_d, xk.to(dt), "sr"),
+                 vsr.spmm_vsr_plain(bal_d, xk.to(dt)), dt_name)
+            hold("vsr_spmm", f"olmoe combine {n_tok}x{e_ * cap + 1} N={mcfg.d_model} sr",
+                 vsr.spmm_vsr_fused(bal_c, hp.to(dt), "sr"),
+                 vsr.spmm_vsr_plain(bal_c, hp.to(dt)), dt_name)
+        kept = int((dr < e_ * cap).sum())       # the dispatch's nonzeros
+        used = int(torch.unique(cc.reshape(-1)[:n_tok * k_]).numel())
+        d_bytes = 12 * dr.numel() + 2 * n_tok * mcfg.d_model \
+            + 2 * e_ * cap * mcfg.d_model
+        c_bytes = 12 * cr.numel() + 2 * used * mcfg.d_model \
+            + 2 * n_tok * mcfg.d_model
+        k1_bound = bound(d_bytes + c_bytes,
+                         2 * (kept + n_tok * k_) * mcfg.d_model)
+
+        def lib_csr(bal, m_):
+            """The pattern as a bf16 CSR (its padding dropped) for
+            ``torch.sparse.mm``."""
+            keep = bal.rows.reshape(-1) < m_
+            return torch.sparse_coo_tensor(
+                torch.stack([bal.rows.reshape(-1)[keep].long(),
+                             bal.cols.reshape(-1)[keep].long()]),
+                bal.vals.reshape(-1)[keep].to(torch.bfloat16),
+                bal.shape).coalesce().to_sparse_csr()
+        try:
+            lib_d = lib_csr(bal_d, e_ * cap)
+            lib_c = lib_csr(bal_c, n_tok)
+            library_ms = time_ms(lambda: (lib_d @ xk, lib_c @ hp))
+        except RuntimeError as err:
+            print(f"[models] torch.sparse.mm in bfloat16: {err}", flush=True)
+            library_ms = None
+        k1_row = {
+            "shape": f"olmoe layer dispatch {e_ * cap}x{n_tok} + combine "
+                     f"{n_tok}x{e_ * cap + 1}, N={mcfg.d_model} bf16, tile {tile}",
+            "nnz": kept, "ms": time_ms(lambda: (
+                vsr.spmm_vsr_fused(bal_d, xk, "sr"),
+                vsr.spmm_vsr_fused(bal_c, hp, "sr"))),
+            "dispatch_ms": time_ms(lambda: vsr.spmm_vsr_fused(bal_d, xk, "sr")),
+            "combine_ms": time_ms(lambda: vsr.spmm_vsr_fused(bal_c, hp, "sr")),
+            "plain_ms": time_ms(lambda: (vsr.spmm_vsr_plain(bal_d, xk),
+                                         vsr.spmm_vsr_plain(bal_c, hp)), reps=5),
+            "library_ms": library_ms, "bound_ms": k1_bound[0],
+            "bound_by": k1_bound[1]}
+        k1_row["share_of_prefill"] = n_moe * k1_row["ms"] / models_row[
+            "prefill"]["prefill_ms"]
+        say_m("K1 one layer (CUDA events, median of 20)", k1_row)
+        models_row["k1"] = k1_row
+        del p0, pb, xa, xk, hp, bal_d, bal_c, gate, idx, slot_u
+        try:
+            del lib_d, lib_c
+        except NameError:
+            pass
+
+    # the float32 cut: MODEL_CUT layers at full width, the first layers'
+    # weights in float32, capacity factor 8 (as the SMOKE configs: no token
+    # drops, which would tell a prefill of n + 1 tokens from a decode of one)
+    cut = mcfg.scaled(num_layers=MODEL_CUT, param_dtype="float32",
+                      compute_dtype="float32",
+                      moe=dataclasses.replace(mcfg.moe, capacity_factor=8.0))
+    cut_model = Model(cut)
+    cp = {k: v.float() for k, v in mp.items() if k != "blocks"}
+    cp["blocks"] = {g_: {k: v[:MODEL_CUT].float() for k, v in grp.items()}
+                    for g_, grp in mp["blocks"].items()}
+    del mp
+    torch.cuda.empty_cache()
+    t2 = toks[:CUT_BATCH, :CUT_SEQ + 1]
+    with torch.no_grad():
+        # (b) decode_step(prefill(t[:n])) ≈ prefill(t[:n + 1])
+        _, c2 = cut_model.prefill(cp, {"tokens": t2[:, :CUT_SEQ]}, CUT_SEQ + 8)
+        ld, _ = cut_model.decode_step(cp, c2, t2[:, CUT_SEQ:])
+        lp2, _ = cut_model.prefill(cp, {"tokens": t2}, CUT_SEQ + 8)
+    rel_b = errors(ld, lp2)[0]
+    print(f"[check] models (b) {MODEL_CUT}-layer f32 cut: decode_step(prefill("
+          f"t[:{CUT_SEQ}])) vs prefill(t[:{CUT_SEQ + 1}]) rel_inf_err={rel_b:.3e}"
+          f" tol=2e-2 {'ok' if rel_b < 2e-2 else 'MISS'}", flush=True)
+    if rel_b >= 2e-2 or not torch.isfinite(ld).all():
+        fail(f"models (b): prefill and decode disagree, rel {rel_b}")
+    del c2, ld, lp2
+
+    # (d) loss_fn forward and backward on the cut, against "torch"
+    batch_c = {"tokens": t2[:, :CUT_SEQ], "labels": t2[:, 1:CUT_SEQ + 1]}
+
+    def loss_and_grads():
+        flat = [(g_, k, v.clone().requires_grad_())
+                for g_, grp in cp["blocks"].items() for k, v in grp.items()]
+        top = {k: v.clone().requires_grad_() for k, v in cp.items()
+               if k != "blocks"}
+        tree = dict(top, blocks={})
+        for g_, k, v in flat:
+            tree["blocks"].setdefault(g_, {})[k] = v
+        loss, metrics = cut_model.loss_fn(tree, batch_c)
+        names = [f"blocks/{g_}/{k}" for g_, k, _ in flat] + list(top)
+        grads = torch.autograd.grad(loss, [v for *_, v in flat]
+                                    + list(top.values()))
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            dict(zip(names, grads))
+
+    builds0 = PATTERN_PREP["builds"]
+    t0 = time.perf_counter()
+    (loss_h, met_h, g_h), counts = drive(loss_and_grads, "models")
+    step_s = time.perf_counter() - t0
+    builds, k1_took = PATTERN_PREP["builds"] - builds0, took()["vsr_spmm"]
+    reset_launch_counts()
+    with repro_torch.use_backend("torch"):
+        loss_t, met_t, g_t = loss_and_grads()
+    torch.cuda.synchronize()
+    torch_launches = sum(launch_counts().values())
+    rels = {k: errors(g, g_t[k])[0] for k, g in g_h.items()}
+    check_d = {"loss": float(loss_h), "loss_rel_err": errors(loss_h, loss_t)[0],
+               "aux_loss": float(met_h["aux_loss"]),
+               "max_grad_rel_err": max(rels.values()),
+               "worst": max(rels, key=rels.get), "launches": counts,
+               "k1_designs": k1_took, "torch_launches": torch_launches,
+               "pattern_prep_builds": builds, "step_s": step_s}
+    print(f"[check] models (d) {MODEL_CUT}-layer f32 cut loss_fn + backward "
+          f"hopper vs torch: {json.dumps(check_d)} tol={RTOL['float32']:g}; "
+          f"PATTERN_PREP builds {builds} (one transpose a MoE matrix: "
+          f"dispatch and combine x {MODEL_CUT} layers)", flush=True)
+    if check_d["loss_rel_err"] > RTOL["float32"] or \
+            check_d["max_grad_rel_err"] > RTOL["float32"] or \
+            counts["sddmm"] != MODEL_CUT or counts["vsr_spmm"] < 4 * MODEL_CUT \
+            or builds != 2 * MODEL_CUT or not check_d["aux_loss"] > 0 \
+            or torch_launches:
+        fail(f"models (d): {check_d}")
+    models_row["check_b_rel_err"], models_row["check_d"] = rel_b, check_d
+    del cp, g_h, g_t, loss_and_grads
+    torch.cuda.empty_cache()
+    models_row["param_bytes"] = p_bytes
+    models_row["phase_s"] = time.perf_counter() - t_models
+    print(f"[models] phase {models_row['phase_s']:.1f} s ({card}); "
+          f"[health] models {json.dumps(HEALTH.snapshot()['counters'])}",
+          flush=True)
+
+    # -- 17. summary --------------------------------------------------------------
     phase("summary")
     summary = []
     for kernel, meta in KERNELS.items():
@@ -3820,6 +4170,9 @@ def main() -> int:
             # the new widths of the training step: K1 sr at N = 2048, K6 at
             # d = 2048
             summary[-1]["ffn"] = ffn_rows[kernel]
+        if kernel == "vsr_spmm":
+            # one OLMoE-1B-7B layer's dispatch and combine at the prefill
+            summary[-1]["models"] = models_row["k1"]
         if kernel == "chain_stats":
             # K7 in full mode, as the chain's backward recomputes it
             summary[-1]["backward"] = k7_rows

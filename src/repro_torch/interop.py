@@ -1,12 +1,13 @@
 """Carry the reference package's state into the port.
 
 The reference's "weights" are its CSR, its calibrated thresholds, its
-attention specs, its model configs and its sparse-FFN patterns and
-parameters.  This module turns a reference CSR's arrays — numpy ``indptr``,
-``indices``, ``data`` and ``shape``, e.g. ``np.asarray(csr.indptr)`` —, a
-thresholds JSON, the fields of the reference's dataclasses
-(``dataclasses.asdict``) and a sparse FFN's pattern slabs and parameters
-(numpy) into the port's objects.
+attention specs, its model configs, its sparse-FFN patterns and
+parameters, and a model's parameter tree.  This module turns a reference
+CSR's arrays — numpy ``indptr``, ``indices``, ``data`` and ``shape``, e.g.
+``np.asarray(csr.indptr)`` —, a thresholds JSON, the fields of the
+reference's dataclasses (``dataclasses.asdict``), a sparse FFN's pattern
+slabs and parameters (numpy) and a model's nested dicts of numpy arrays
+into the port's objects.
 It imports nothing of the reference: only arrays, text and plain fields
 cross over.  ``alibi_bias`` builds the per-edge bias stream both packages'
 attention takes.
@@ -23,7 +24,8 @@ from .core.selector import SelectorThresholds
 from .models.config import (ModelConfig, MoEConfig, SparseFFNConfig,
                             SSMConfig)
 from .models.layers import SparsePattern
-from .models.transformer import SparseFFN
+from .models.params import ParamSpec
+from .models.transformer import SparseFFN, model_specs
 
 
 def csr_from_arrays(indptr, indices, data, shape, *, device="cpu") -> CSR:
@@ -92,6 +94,56 @@ def sparse_ffn_from_arrays(cfg: ModelConfig, patterns: dict, params: dict, *,
             t = torch.from_numpy(np.array(value))
             setattr(ffn, name, torch.nn.Parameter(t.to(dev)))
     return ffn
+
+
+def _tensor(a, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """A numpy array (bfloat16 ones as ``ml_dtypes`` give them included:
+    read through float32, which holds them exactly) as a tensor of
+    ``dtype`` on ``dev``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a)).to(dev, dtype)
+
+
+def model_params_from_arrays(cfg: ModelConfig, params: dict, *,
+                             device=None) -> dict:
+    """The port's parameter tree of ``Model(cfg)`` from the reference's:
+    nested dicts of numpy arrays with the same keys and stacking, as
+    ``jax.tree_util.tree_map(np.asarray, Model(cfg).init(key))`` gives
+    them.  Each leaf takes the type of its ``ParamSpec``; a missing or
+    extra key, or a shape other than the spec's, raises ``ValueError``.
+    ``device=None`` is the card."""
+    dev = resolve_device(device)
+
+    def walk(specs, tree, path):
+        if isinstance(specs, ParamSpec):
+            if tuple(np.shape(tree)) != specs.shape:
+                raise ValueError(f"{path}: shape {np.shape(tree)} != "
+                                 f"{specs.shape}")
+            return _tensor(tree, specs.dtype, dev)
+        if not isinstance(tree, dict) or set(tree) != set(specs):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{path or 'params'}: keys {got} != "
+                             f"{sorted(specs)}")
+        return {k: walk(specs[k], tree[k], f"{path}/{k}") for k in specs}
+    return walk(model_specs(cfg), params, "")
+
+
+def model_patterns_from_arrays(cfg: ModelConfig, patterns: dict, *,
+                               device=None) -> dict:
+    """The sparse FFN's per-layer patterns of ``Model(cfg, patterns=)``
+    from the reference model's stacked ones: ``patterns`` maps ``gate`` /
+    ``up`` / ``down`` to ``(rows, cols)`` numpy slabs of shape
+    ``(num_layers, n_tiles, tile)`` (a reference ``SparsePattern``'s
+    ``rows`` / ``cols``).  Returns ``{name: [SparsePattern, ...]}``, one a
+    layer.  ``device=None`` is the card."""
+    dev = resolve_device(device)
+    shapes = {"gate": (cfg.d_ff, cfg.d_model), "up": (cfg.d_ff, cfg.d_model),
+              "down": (cfg.d_model, cfg.d_ff)}
+    return {name: [SparsePattern.from_arrays(r, c, shapes[name], device=dev)
+                   for r, c in zip(np.asarray(rows), np.asarray(cols))]
+            for name, (rows, cols) in patterns.items()}
 
 
 def _host(a) -> np.ndarray:

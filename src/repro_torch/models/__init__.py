@@ -1,11 +1,16 @@
-"""Model code of the port; counterpart of ``repro.models``.  Ported so far:
-the configuration dataclasses, the block-sparse attention of
-``transformer.py``, and the sparse FFN (``layers.py``'s ``SparsePattern``,
-``sparse_matmul``, ``sparse_mlp_apply``; ``transformer.SparseFFN``)."""
-from .config import ModelConfig, MoEConfig, SparseFFNConfig, SSMConfig
+"""Model code of the port; counterpart of ``repro.models`` for the
+attention families: the configuration dataclasses and shape cells, the
+param specs (``params``), the layers, the transformer blocks, the MoE
+(``moe``: router, one-hot, sort and SpMM dispatch, the pinned half), the
+chunked LM loss and ``Model``.  The SSM, hybrid and audio families are not
+ported yet."""
+from .config import (SHAPES, ModelConfig, MoEConfig, ShapeCell,
+                     SparseFFNConfig, SSMConfig)
 from .layers import SparsePattern, rmsnorm, sparse_matmul, sparse_mlp_apply
+from .model import Model
 from .transformer import SparseFFN, ffn_apply, sparse_patterns
 
-__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "SparseFFNConfig",
-           "SparseFFN", "SparsePattern", "ffn_apply", "rmsnorm",
-           "sparse_matmul", "sparse_mlp_apply", "sparse_patterns"]
+__all__ = ["SHAPES", "Model", "ModelConfig", "MoEConfig", "SSMConfig",
+           "ShapeCell", "SparseFFNConfig", "SparseFFN", "SparsePattern",
+           "ffn_apply", "rmsnorm", "sparse_matmul", "sparse_mlp_apply",
+           "sparse_patterns"]

@@ -1,8 +1,9 @@
 """Model configuration; counterpart of ``repro.models.config``.
 
 The reference's frozen dataclasses (``ModelConfig``, ``MoEConfig``,
-``SSMConfig``, ``SparseFFNConfig``), copied as plain dataclasses so the port
-imports nothing of the reference.  Their fields are the reference's, so a
+``SSMConfig``, ``SparseFFNConfig``) and the dry-run shape cells
+(``ShapeCell``, ``SHAPES``), copied so the port imports nothing of the
+reference.  Their fields are the reference's, so a
 reference config's ``dataclasses.asdict`` rebuilds here
 (``repro_torch.interop.model_config_from_fields``).
 """
@@ -112,3 +113,20 @@ class ModelConfig:
     def scaled(self, **kw) -> "ModelConfig":
         """Reduced copy for smoke tests (same family/topology, tiny dims)."""
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One (architecture x input-shape) dry-run cell."""
+    name: str                       # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+SHAPES = (
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "decode"),
+)

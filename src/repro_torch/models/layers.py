@@ -1,17 +1,29 @@
-"""Shared layers; counterpart of ``repro.models.layers``.  Ported so far:
-``rmsnorm`` and the sparse FFN — the paper as a feature: FFN weights pruned
-to a fixed pattern, stored as a balanced value stream and executed through
-the SpMM (``pattern_matmul``), differentiable in the values and the input.
+"""Shared layers; counterpart of ``repro.models.layers``: ``rmsnorm``,
+``dot``, the rotary embeddings (standard and Qwen2-VL's M-RoPE), attention
+(``flash_attention`` for train/prefill, ``decode_attention`` against a
+cache), the dense MLP and the sparse FFN — the paper as a feature: FFN
+weights pruned to a fixed pattern, stored as a balanced value stream and
+executed through the SpMM (``pattern_matmul``), differentiable in the values
+and the input.
+
+Attention here is plain PyTorch, as the reference's is plain JAX (no Pallas
+kernel): scores in f32, masked entries at −1e30 (not −inf), so a row with
+every key masked averages V instead of giving NaN.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.plan import execute_pattern
 from ..core.registry import resolve_device
+
+#: the score of a masked (query, key) pair, the reference's
+MASKED = -1e30
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -20,6 +32,143 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * (1.0 + w.to(x.dtype))
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (``(..., i, j) x (j, k)``) in ``a.dtype``: a bf16 product
+    accumulates in f32 and rounds once, as the reference's
+    ``preferred_element_type=f32`` product cast back."""
+    return torch.matmul(a, b.to(a.dtype))
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (standard + M-RoPE)
+# ---------------------------------------------------------------------------
+
+def _freqs(half: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def _rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    freqs = _freqs(head_dim // 2, theta, positions.device)
+    ang = positions[..., None].float() * freqs                # (..., S, half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    half = x.shape[-1] // 2
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S).  Half-rotation (llama)
+    convention."""
+    cos, sin = _rope_cos_sin(positions, x.shape[-1], theta)   # (B, S, half)
+    return _rotate(x, cos, sin)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections: tuple,
+                theta: float) -> torch.Tensor:
+    """Qwen2-VL M-RoPE.  positions3: (B, S, 3) = (t, h, w) ids; ``sections``
+    split head_dim//2 among the three.  For text, t == h == w == position."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = _freqs(half, theta, x.device)
+    # per-frequency section id → which of (t, h, w) drives it
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.as_tensor(sections, device=x.device))
+    pos = positions3.float()[..., sec_id]                     # (B, S, half)
+    ang = pos * freqs
+    return _rotate(x, torch.cos(ang), torch.sin(ang))
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_offset: int | torch.Tensor = 0,
+                    q_block: int = 512, kv_block: int = 1024) -> torch.Tensor:
+    """q: (B, Hq, Sq, D), k/v: (B, Hk, Sk, D) with Hq % Hk == 0 (GQA by
+    grouping: query head ``j·rep + r`` reads KV head ``j``).
+
+    One softmax a ``q_block`` of queries over all keys, O(q_block · Sk)
+    live memory; the reference's online softmax over ``kv_block`` blocks
+    computes the same.  The keys are padded to a multiple of ``kv_block``
+    as there, so a query whose every key is masked averages V over the
+    padded length, as the reference's does.  ``window > 0`` adds
+    sliding-window masking (local layers); ``q_offset`` is the absolute
+    position of q[0] (prefill continuation / decode)."""
+    b, hq, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    rep = hq // hk
+    scale = 1.0 / math.sqrt(d)
+    q_block = min(q_block, sq)
+    kv_block = min(kv_block, sk)
+    sk_p = -(-sk // kv_block) * kv_block
+    kf = F.pad(k.float(), (0, 0, 0, sk_p - sk))
+    vf = F.pad(v.float(), (0, 0, 0, sk_p - sk))
+    k_pos = torch.arange(sk_p, device=q.device)
+    outs = []
+    for q0 in range(0, sq, q_block):
+        qb = q[:, :, q0:q0 + q_block]
+        nq = qb.shape[2]
+        qg = qb.reshape(b, hk, rep, nq, d).float() * scale
+        q_pos = q_offset + q0 + torch.arange(nq, device=q.device)
+        s = torch.einsum("bhrqd,bhkd->bhrqk", qg, kf)
+        mask = (k_pos < sk)[None, :].expand(nq, sk_p)         # kv padding
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window > 0:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        s = torch.where(mask, s, MASKED)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhrqk,bhkd->bhrqd", p, vf)
+                    .reshape(b, hq, nq, d))
+    return torch.cat(outs, dim=2).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, length, window: int = 0
+                     ) -> torch.Tensor:
+    """Single-token attention against a cache.  q: (B, Hq, 1, D),
+    k/v_cache: (B, Hk, L, D); ``length`` = #valid cache entries (the new
+    token is already written at length-1): an int, a 0-d tensor (all lanes
+    in lockstep) or a (B,) tensor (each lane its own)."""
+    b, hq, _, d = q.shape
+    hk, lmax = k_cache.shape[1], k_cache.shape[2]
+    rep = hq // hk
+    qg = q.reshape(b, hk, rep, d).float() / math.sqrt(d)
+    s = torch.einsum("bhrd,bhld->bhrl", qg, k_cache.float())
+    pos = torch.arange(lmax, device=q.device)
+    length = torch.as_tensor(length, device=q.device)
+    lens = length.reshape(-1, 1)                               # (1|B, 1)
+    mask = pos[None, :] < lens
+    if window > 0:
+        mask = mask & (pos[None, :] >= lens - window)
+    s = torch.where(mask[:, None, None, :], s, MASKED)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhrl,bhld->bhrd", p, v_cache.float())
+    return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs — dense and sparse (the paper's feature)
+# ---------------------------------------------------------------------------
+
+def mlp_apply(p: dict, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+    if act == "swiglu":
+        h = F.silu(dot(x, p["w_gate"])) * dot(x, p["w_up"])
+    else:
+        h = F.gelu(dot(x, p["w_up"]), approximate="tanh")
+    return dot(h, p["w_down"])
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -1,15 +1,132 @@
-"""Transformer blocks; counterpart of ``repro.models.transformer``.  Ported
-so far: the block-sparse attention of the ``block_sparse`` pattern
-(DESIGN.md §10), ``_block_sparse_spec`` and ``_block_sparse_attention``; and
-the sparse FFN — ``mlp_specs``' sparse branch as the module ``SparseFFN``,
-``sparse_patterns`` and the sparse branch of ``ffn_apply``."""
+"""Architecture assembly; counterpart of ``repro.models.transformer`` for
+the attention families (dense, MoE, VLM, Gemma's local/global stack,
+``block_sparse`` attention and the sparse FFN): the param specs, the block
+forwards (``attn_apply`` with its caches, ``ffn_apply``,
+``dense_block_apply``), the block-sparse attention of DESIGN.md §10, and
+the sparse FFN as the module ``SparseFFN``.
+
+The SSM families (rwkv6, Mamba-2 and the Zamba2 hybrid) and the Whisper
+encoder-decoder are not ported yet: their specs raise
+``NotImplementedError``.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from .config import ModelConfig
-from .layers import SparsePattern, rmsnorm, sparse_mlp_apply
+from .layers import (SparsePattern, apply_mrope, apply_rope, decode_attention,
+                     dot, flash_attention, mlp_apply, rmsnorm,
+                     sparse_mlp_apply)
+from .moe import moe_apply
+from .params import ParamSpec, map_specs
+
+P = ParamSpec
+
+#: what the families not yet ported raise
+NOT_PORTED = ("the SSM families (rwkv6, Mamba-2, the Zamba2 hybrid) and the "
+              "Whisper encoder-decoder are not ported yet (ROADMAP queue 1, "
+              "item 4b)")
+
+
+# ---------------------------------------------------------------------------
+# param specs
+# ---------------------------------------------------------------------------
+
+def _dt(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def attn_specs(cfg: ModelConfig, cross: bool = False) -> dict:
+    del cross
+    d, hd = cfg.d_model, cfg.head_dim
+    h, hk = cfg.num_heads, cfg.num_kv_heads
+    return {
+        "ln": P((d,), ("embed",), _dt(cfg), "zeros"),
+        "wq": P((d, h * hd), ("embed", "heads"), _dt(cfg)),
+        "wk": P((d, hk * hd), ("embed", "heads"), _dt(cfg)),
+        "wv": P((d, hk * hd), ("embed", "heads"), _dt(cfg)),
+        "wo": P((h * hd, d), ("heads", "embed"), _dt(cfg)),
+    }
+
+
+def mlp_specs(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.sparse_ffn is not None:
+        sp = cfg.sparse_ffn
+        tiles = lambda m, k: -(-max(int(m * k * sp.density), 1) // sp.tile)
+        return {
+            "ln": P((d,), ("embed",), _dt(cfg), "zeros"),
+            "v_gate": P((tiles(f, d), sp.tile), ("tiles", "nnz"), _dt(cfg), scale=0.02),
+            "v_up": P((tiles(f, d), sp.tile), ("tiles", "nnz"), _dt(cfg), scale=0.02),
+            "v_down": P((tiles(d, f), sp.tile), ("tiles", "nnz"), _dt(cfg), scale=0.02),
+        }
+    s = {
+        "ln": P((d,), ("embed",), _dt(cfg), "zeros"),
+        "w_up": P((d, f), ("embed", "ff"), _dt(cfg)),
+        "w_down": P((f, d), ("ff", "embed"), _dt(cfg)),
+    }
+    if cfg.act == "swiglu":
+        s["w_gate"] = P((d, f), ("embed", "ff"), _dt(cfg))
+    return s
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    d, m = cfg.d_model, cfg.moe
+    return {
+        "ln": P((d,), ("embed",), _dt(cfg), "zeros"),
+        "w_router": P((d, m.num_experts), ("embed", None), torch.float32, scale=0.02),
+        "w_gate": P((m.num_experts, d, m.d_ff_expert), ("experts", "embed", "ff"), _dt(cfg)),
+        "w_up": P((m.num_experts, d, m.d_ff_expert), ("experts", "embed", "ff"), _dt(cfg)),
+        "w_down": P((m.num_experts, m.d_ff_expert, d), ("experts", "ff", "embed"), _dt(cfg)),
+    }
+
+
+def mamba_specs(cfg: ModelConfig) -> dict:
+    raise NotImplementedError(f"mamba_specs: {NOT_PORTED}")
+
+
+def rwkv_specs(cfg: ModelConfig) -> dict:
+    raise NotImplementedError(f"rwkv_specs: {NOT_PORTED}")
+
+
+def block_specs(cfg: ModelConfig, cross: bool = False) -> dict:
+    """One decoder block for the family."""
+    if cfg.family == "ssm" and cfg.ssm.kind == "rwkv6":
+        return rwkv_specs(cfg)
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm and cfg.ssm.kind == "mamba2":
+        return mamba_specs(cfg)
+    s = {"attn": attn_specs(cfg)}
+    if cross:
+        s["xattn"] = attn_specs(cfg, cross=True)
+    s["ffn"] = moe_specs(cfg) if cfg.moe else mlp_specs(cfg)
+    return s
+
+
+def _stack(specs: dict, n: int, axis_name: str) -> dict:
+    return map_specs(lambda p: P((n,) + p.shape, (axis_name,) + p.logical,
+                                 p.dtype, p.init, p.scale), specs)
+
+
+def model_specs(cfg: ModelConfig) -> dict:
+    d, v = cfg.d_model, cfg.vocab_size
+    specs: dict = {
+        "embed": P((v, d), ("vocab", "embed"), _dt(cfg), scale=0.02),
+        "final_ln": P((d,), ("embed",), _dt(cfg), "zeros"),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P((d, v), ("embed", "vocab"), _dt(cfg), scale=0.02)
+    if cfg.family in ("audio", "hybrid"):
+        raise NotImplementedError(f"model_specs({cfg.family!r}): {NOT_PORTED}")
+    if cfg.attn_pattern == "local_global":  # gemma3 grouped
+        inner = cfg.local_per_global + 1
+        groups = cfg.num_layers // inner
+        specs["blocks"] = _stack(_stack(block_specs(cfg), inner, "inner"),
+                                 groups, "groups")
+        return specs
+    specs["blocks"] = _stack(block_specs(cfg), cfg.num_layers, "layers")
+    return specs
+
 
 #: the sparse FFN's matrices: (pattern name, value parameter, W is (d_ff,
 #: d_model) or (d_model, d_ff))
@@ -39,16 +156,6 @@ def sparse_patterns(cfg: ModelConfig, seed: int = 17, device=None):
             pats[name].append(SparsePattern.random(
                 int(seeds[3 * i + j]), m, k, sp.density, sp.tile, device))
     return pats
-
-
-def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, patterns=None):
-    """The FFN block with its residual: ``(x + mlp(rmsnorm(x)), aux)``.
-    Ported: the sparse branch (``cfg.sparse_ffn`` with ``patterns``)."""
-    if cfg.sparse_ffn is None or patterns is None or cfg.moe is not None:
-        raise NotImplementedError("ffn_apply: only the sparse FFN branch is "
-                                  "ported; the dense and MoE FFNs are not")
-    xn = rmsnorm(x, p["ln"], cfg.norm_eps)
-    return x + sparse_mlp_apply(patterns, p, xn, cfg.act), 0.0
 
 
 class SparseFFN(torch.nn.Module):
@@ -140,3 +247,123 @@ def _block_sparse_attention(qt, kt, vt, cfg: ModelConfig, causal: bool):
     out = sparse_attention(spec, qt.to(torch.float32), kt.to(torch.float32),
                            vt.to(torch.float32))
     return out.to(qt.dtype)
+
+
+# ---------------------------------------------------------------------------
+# block forwards
+# ---------------------------------------------------------------------------
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, hd)
+
+
+def _write_decode(cache: torch.Tensor, new: torch.Tensor,
+                  idx: torch.Tensor) -> torch.Tensor:
+    """A copy of ``cache`` (B, Hk, L, hd) with ``new`` (B, Hk, 1, hd)
+    written at slot ``idx``: a 0-d index for every lane, or a (B,) index a
+    lane.  The slot is clamped into ``[0, L)``, as ``dynamic_update_slice``
+    clamps its start; no host sync."""
+    lmax = cache.shape[2]
+    idx = idx.clamp(0, lmax - 1).long()
+    new = new.to(cache.dtype)
+    if idx.ndim == 0:
+        return cache.index_copy(2, idx.reshape(1), new)
+    out = cache.clone()
+    out[torch.arange(cache.shape[0], device=cache.device), :, idx] = new[:, :, 0]
+    return out
+
+
+def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
+               cache=None, window: int = 0, causal: bool = True,
+               memory=None, rope: bool = True):
+    """Self- or cross-attention with optional KV cache.
+
+    cache: dict(k, v, length) with k/v (B, Hk, L, hd) and ``length`` a 0-d
+    or (B,) int tensor; returns the updated cache (new tensors: the given
+    ones are not written).  Decode (one token) writes at ``length`` (at
+    ``length % L`` on a window cache, a rolling write) and attends to the
+    valid entries; prefill writes the last ``min(S, L)`` keys rolled so
+    that position p sits at slot ``p % L``.  memory: (B, Sm, D) for
+    cross-attention (keys/values from memory, no cache)."""
+    b, s, _ = x.shape
+    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xn = rmsnorm(x, p["ln"], cfg.norm_eps)
+    q = _split_heads(dot(xn, p["wq"]), h, hd)
+    kv_src = memory if memory is not None else xn
+    k = _split_heads(dot(kv_src, p["wk"]), hk, hd)
+    v = _split_heads(dot(kv_src, p["wv"]), hk, hd)
+
+    if rope and memory is None:
+        if cfg.mrope_sections:
+            pos3 = positions[..., None].expand(positions.shape + (3,))
+            q = apply_mrope(q, pos3, cfg.mrope_sections, cfg.rope_theta)
+            k = apply_mrope(k, pos3, cfg.mrope_sections, cfg.rope_theta)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2)
+    vt = v.transpose(1, 2)
+
+    if memory is not None:
+        # cross-attention: no cache, full (non-causal) memory attention
+        if s == 1:
+            out = decode_attention(qt, kt, vt, length=kt.shape[2])
+        else:
+            out = flash_attention(qt, kt, vt, causal=False)
+    elif cache is not None:
+        lmax = cache["k"].shape[2]
+        length = cache["length"]
+        if s == 1:  # decode: rolling write for window caches
+            idx = length % lmax if window > 0 else length
+            newk = _write_decode(cache["k"], kt, idx)
+            newv = _write_decode(cache["v"], vt, idx)
+            length = length + 1
+            valid = torch.clamp(length, max=lmax) if window > 0 else length
+            out = decode_attention(qt, newk, newv, length=valid, window=0)
+            cache = dict(k=newk, v=newv, length=length)
+        else:       # prefill: write the (rolled) suffix; slot of pos p = p % lmax
+            keep = min(s, lmax)
+            tail_k, tail_v = kt[:, :, s - keep:], vt[:, :, s - keep:]
+            shift = (s - keep) % lmax
+            if shift:
+                tail_k = torch.roll(tail_k, shift, dims=2)
+                tail_v = torch.roll(tail_v, shift, dims=2)
+            newk, newv = cache["k"].clone(), cache["v"].clone()
+            newk[:, :, :keep] = tail_k
+            newv[:, :, :keep] = tail_v
+            cache = dict(k=newk, v=newv, length=length + s)
+            if cfg.attn_pattern == "block_sparse":
+                out = _block_sparse_attention(qt, kt, vt, cfg, causal)
+            else:
+                out = flash_attention(qt, kt, vt, causal=causal, window=window)
+    elif cfg.attn_pattern == "block_sparse":
+        out = _block_sparse_attention(qt, kt, vt, cfg, causal)
+    else:
+        out = flash_attention(qt, kt, vt, causal=causal, window=window)
+
+    out = out.transpose(1, 2).reshape(b, s, h * hd)
+    return x + dot(out, p["wo"]), cache
+
+
+def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, patterns=None):
+    """The FFN block with its residual: ``(x + ffn(rmsnorm(x)), aux)`` —
+    the MoE (``aux`` its load-balancing loss), the sparse FFN
+    (``cfg.sparse_ffn`` with ``patterns``) or the dense MLP."""
+    xn = rmsnorm(x, p["ln"], cfg.norm_eps)
+    if cfg.moe is not None and "w_router" in p:
+        y, aux = moe_apply(p, xn, cfg.moe)
+        return x + y, aux
+    if cfg.sparse_ffn is not None and patterns is not None:
+        return x + sparse_mlp_apply(patterns, p, xn, cfg.act), 0.0
+    return x + mlp_apply(p, xn, cfg.act), 0.0
+
+
+def dense_block_apply(p: dict, x, cfg, *, positions, cache=None, window=0,
+                      causal=True, patterns=None):
+    x, cache = attn_apply(p["attn"], x, cfg, positions=positions,
+                          cache=cache, window=window, causal=causal)
+    x, aux = ffn_apply(p["ffn"], x, cfg, patterns=patterns)
+    return x, cache, aux

@@ -3044,3 +3044,123 @@ def test_cuda_timer_graph_and_eager_agree(cuda):
     t_sync = timer(lambda: float(call().sum()), cuda, 3, "synced")
     assert timer.log[-1]["mode"] == "b2b" and timer.log[-1]["reason"] == "sync"
     assert t_sync > 0
+
+
+# ---------------------------------------------------------------------------
+# the models: the MoE's SpMM dispatch (K1) and a model's prefill on the card
+# ---------------------------------------------------------------------------
+
+def _moe_case(device, e, k, d, f, t, cf, seed=0):
+    from repro_torch.models.config import MoEConfig
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = {name: torch.randn(s, device=device, generator=gen) * 0.1
+         for name, s in (("w_router", (d, e)), ("w_up", (e, d, f)),
+                         ("w_gate", (e, d, f)), ("w_down", (e, f, d)))}
+    x = torch.randn(t, d, device=device, generator=gen)
+    return MoEConfig(e, k, f, capacity_factor=cf), p, x
+
+
+def _moe_grads(fn, p, x, cfg):
+    """``fn``'s output, aux loss and the grads of a fixed projection of
+    both w.r.t. ``x`` and every weight."""
+    leaves = {n: v.clone().requires_grad_() for n, v in p.items()}
+    xg = x.clone().requires_grad_()
+    y, aux = fn(leaves, xg, cfg)
+    w = torch.cos(torch.arange(y.numel(), device=y.device,
+                               dtype=torch.float32)).reshape(y.shape)
+    grads = torch.autograd.grad((y * w).sum() + aux,
+                                [xg, *leaves.values()])
+    return y.detach(), dict(zip(["x", *leaves], grads))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf,drops", [(4.0, False), (0.5, True)])
+def test_cuda_moe_spmm_matches_torch_backend(cuda, cf, drops):
+    """``moe_spmm`` on the card (K1 sr for the dispatch and the combine, K1
+    on Aᵀ and K6 in the backward) against the same call on the ``"torch"``
+    backend, with and without dropped tokens: forward and grads within
+    1e-4."""
+    import repro_torch
+    from repro_torch.models import moe
+    cfg, p, x = _moe_case(cuda, e=16, k=4, d=256, f=64, t=300, cf=cf)
+    _, idx, _ = moe.router(p, x, cfg)
+    counts_e = torch.bincount(idx.reshape(-1).long(), minlength=16)
+    assert bool(counts_e.max() > moe.capacity(300, cfg)) == drops
+    reset_launch_counts()
+    vsr.reset_counts()
+    y, grads = _moe_grads(moe.moe_spmm, p, x, cfg)
+    counts = launch_counts()
+    assert counts["vsr_spmm"] == 4 and counts["sddmm"] == 1, counts
+    assert vsr.DESIGN_LAUNCHES["vsr_spmm"]["sr"] == 4
+    with repro_torch.use_backend("torch"):
+        reset_launch_counts()
+        y_t, grads_t = _moe_grads(moe.moe_spmm, p, x, cfg)
+        assert sum(launch_counts().values()) == 0
+    assert _rel(y, y_t) < 1e-4
+    for name, g in grads.items():
+        assert _rel(g, grads_t[name]) < 1e-4, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 3, 4, 64])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_cuda_moe_spmm_small_tiles(cuda, t, xdtype):
+    """Decode-sized token counts: ``tile = min(512, T·k)`` down to 8 slots;
+    K1 takes such a tile (forced dispatch, OLMoE's top-8 of 64 experts)."""
+    from repro_torch.models import moe
+    cfg, p, x = _moe_case(cuda, e=64, k=8, d=512, f=64, t=t, cf=1.25)
+    p, x = {n: v.to(xdtype) if n != "w_router" else v for n, v in p.items()}, \
+        x.to(xdtype)
+    reset_launch_counts()
+    y, _ = moe.moe_spmm(p, x, cfg)
+    assert launch_counts()["vsr_spmm"] == 2
+    import repro_torch
+    with repro_torch.use_backend("torch"):
+        y_t, _ = moe.moe_spmm(p, x, cfg)
+    assert _rel(y, y_t) < (1e-4 if xdtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_pinned_dispatch_matches_moe_spmm(cuda):
+    """The pinned half on the card: the router's own topology frozen into
+    two artifacts, the gates a live stream, equal to ``moe_spmm``."""
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.models import moe
+    cfg, p, x = _moe_case(cuda, e=8, k=2, d=64, f=32, t=6, cf=4.0, seed=3)
+    y_ref, _ = moe.moe_spmm(p, x, cfg)
+    _, idx, _ = moe.router(p, x, cfg)
+    topo = tuple(tuple(int(v) for v in row) for row in idx.cpu().numpy())
+    cache = PlanCache(capacity=8)
+    pinned = moe.dispatch_plans(topo, cfg, cache=cache, n_hint=64)
+    assert pinned.dispatch.backend == "hopper" and pinned.idx.is_cuda
+    reset_launch_counts()
+    y_pin, _ = moe.moe_spmm_pinned(p, x, cfg, pinned)
+    # one kernel a product, the selector's pick for each matrix
+    assert sum(launch_counts().values()) == 2, launch_counts()
+    assert _rel(y_pin, y_ref) < 1e-4
+    assert moe.dispatch_plans(topo, cfg, cache=cache, n_hint=64) is pinned
+
+
+@pytest.mark.gpu
+def test_cuda_olmoe_smoke_prefill_matches_torch_backend(cuda):
+    """One ``Model.prefill`` of ``olmoe-1b-7b``'s SMOKE config on the card
+    (128 tokens: the SpMM dispatch, K1 twice a layer) against the same
+    prefill on the ``"torch"`` backend: logits and caches within 1e-4."""
+    import repro_torch
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.models import Model, moe
+    model = Model(olmoe_1b_7b.SMOKE)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, 256, (4, 32), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    before = dict(moe.DISPATCH_PATHS)
+    reset_launch_counts()
+    logits, caches = model.prefill(params, {"tokens": toks}, 40)
+    assert launch_counts()["vsr_spmm"] == 2 * olmoe_1b_7b.SMOKE.num_layers
+    assert moe.DISPATCH_PATHS["spmm"] - before["spmm"] == 2
+    with repro_torch.use_backend("torch"):
+        logits_t, caches_t = model.prefill(params, {"tokens": toks}, 40)
+    assert bool(torch.isfinite(logits).all())
+    assert _rel(logits, logits_t) < 1e-4
+    for name in ("k", "v"):
+        assert _rel(caches["kv"][name], caches_t["kv"][name]) < 1e-4

@@ -54,6 +54,17 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.train.optim",
                    "repro_torch.train.step",
                    "repro_torch.configs.gemma3_12b",
+                   "repro_torch.configs.olmoe_1b_7b",
+                   "repro_torch.configs.kimi_k2_1t_a32b",
+                   "repro_torch.configs.llama3_2_1b",
+                   "repro_torch.configs.phi3_mini_3_8b",
+                   "repro_torch.configs.phi4_mini_3_8b",
+                   "repro_torch.configs.qwen2_vl_72b",
+                   "repro_torch.models.sharding_ctx",
+                   "repro_torch.models.params",
+                   "repro_torch.models.moe",
+                   "repro_torch.models.model_loss",
+                   "repro_torch.models.model",
                    "repro_torch.core.guardrails",
                    "repro_torch.core.cache",
                    "repro_torch.runtime",
