@@ -320,13 +320,47 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              each path, K1 alone on one layer's dispatch and combine (CUDA
              events, with its plain version, ``torch.sparse.mm`` in bf16
              and the bound), the parameter bytes and the phase's seconds;
-17. summary — one JSON line of the kernels (``launches`` and ``design``:
+17. serve  — the serve engine (``repro_torch.serve.ServeEngine``) on
+             OLMoE-1B-7B at full width and depth (bf16, weights from the
+             seed): (a) ``slots=4, max_len=640, pin_topology=True,
+             drift_patience=2``, 8 requests of prompt lengths drawn from
+             the seed in 128-512, 16 new tokens each — every request done,
+             K1 launched, plan builds and hits, derived topologies, the
+             dispatch paths "spmm" (prefill) and "pinned" (decode), no
+             kernel failure or reroute; TTFT, tick and decode tokens/s, the
+             pinned and one-hot decode group times and the share of tokens
+             equal to the sequential oracle's (printed, not bounded: pinned
+             lanes decode on their derived topology and bf16 batch shapes
+             may flip near-ties); (a') a synchronous engine on two of the
+             requests, each prefill's and each pinned step's launches
+             counted apart (K1 in both); (c) four requests with every plan
+             build failing (``FaultSpec(fail=10)``, ``plan_timeout=0.5``):
+             all done through the fallback path, build failures and
+             fallback lanes counted, no lane that has decoded misses a
+             tick; (b) on the 2-layer float32 cut at full width: the
+             synchronous engine's tokens equal the sequential greedy
+             oracle's, the async engine's equal the synchronous one's
+             (plain and ``pin_topology=True``), and a pinned engine's logits
+             equal a ``use_backend("torch")`` engine's within 1e-4; (d)
+             Llama-3.2-1B at full width with a block-sparse causal band
+             (window 1024, blocks of 64), prompts of 2,048, 2,048, 4,096
+             and 4,096 tokens, 8 new each: K7 and K8 on the block design
+             (``fused_chain.DESIGN_LAUNCHES``), exactly 2 attention plan
+             builds in the engine's cache, TTFT at each length;
+18. driver — ``TrainDriver`` on ``examples/train_sparse_lm.py``'s model (6
+             layers, d_model 512, sparse FFN at density 0.15: K1 and K6 each
+             step) for 8 steps of 8 x 128 tokens, a checkpoint every 4, the
+             first try of step 6 failing: the run restarts from step 4, ends
+             at step 8, step 0's batch has a lower loss after than before,
+             and the last checkpoint restores bit-equal to the final state;
+19. summary — one JSON line of the kernels (``launches`` and ``design``:
              the main path's; ``launches_by_path`` and ``design_by_path``:
              every path above; for K1, K2, K4 and K5 ``launches_by_value``,
              and an entry of their own for each coded variant,
              ``<kernel>:int8`` / ``<kernel>:fp8``, whose ``launches`` are
              the quant path's; K1's entry also carries ``models``, one
-             OLMoE-1B-7B layer's dispatch and combine), the card line,
+             OLMoE-1B-7B layer's dispatch and combine, and ``serve``, the
+             launches by engine call of (a')), the card line,
              then the result.
 
 Without a CUDA device it prints no result and exits 2.  ``--scale`` below 20
@@ -336,12 +370,14 @@ the slice are checked at scale 20 only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -522,6 +558,443 @@ def pruned_ffn_weight(d_ff: int, d_model: int, seed: int):
     return w.reshape(d_ff, d_model), len(bi)
 
 
+#: the serve path: OLMoE-1B-7B at full width and depth (bf16, weights from
+#: the seed) behind ``ServeEngine(slots=4, max_len=640, pin_topology=True,
+#: drift_patience=2)``, SERVE_REQUESTS requests of prompt lengths drawn from
+#: the seed in SERVE_PROMPT, SERVE_NEW tokens each; the attribution run
+#: (synchronous, two requests) that splits K1 between prefill and pinned
+#: decode; the float32 cut (MODEL_CUT layers) for exactness at
+#: SERVE_CUT_PROMPT lengths; the faulted run (SERVE_FAULT_REQUESTS); the
+#: long-context run: Llama-3.2-1B at full width with a block-sparse causal
+#: band (window 1024, blocks of 64) on prompts of LONG_PROMPTS tokens
+SERVE = dict(slots=4, max_len=640, requests=8, prompt=(128, 512), new=16,
+             attribution_requests=2, attribution_new=4,
+             cut_requests=4, cut_prompt=(32, 96), cut_new=8, cut_max_len=128,
+             fault_requests=4,
+             long_prompts=(2048, 2048, 4096, 4096), long_new=8,
+             long_window=1024, long_block=64)
+#: the driver path: ``examples/train_sparse_lm.py``'s model (6 layers,
+#: d_model 512, sparse FFN at density 0.15) under ``TrainDriver``, steps,
+#: the checkpoint period and the step whose first try fails
+DRIVER = dict(steps=8, every=4, fail_at=6, batch=8, seq=128)
+
+
+def serve_phase(ctx, sizes=SERVE):
+    """Phase ``serve``: the serve engine of the port on OLMoE-1B-7B at full
+    width and depth ((a) timings and counts, (b) exactness on the float32
+    cut, (c) faults), then long-context prefill on Llama-3.2-1B ((d)).
+    ``ctx`` carries the card's helpers; returns the phase's rows."""
+    import torch
+
+    import repro_torch
+    from repro_torch.configs import llama3_2_1b, olmoe_1b_7b
+    from repro_torch.kernels import launch_counts, vsr
+    from repro_torch.models import Model, moe
+    from repro_torch.serve import (FaultInjector, FaultSpec, Request,
+                                   ServeEngine)
+
+    dev, fail, say = ctx.dev, ctx.fail, ctx.say
+    rows = {}
+    rng = np.random.default_rng(ctx.seed)
+    mcfg = ctx.olmoe if ctx.olmoe is not None else olmoe_1b_7b.CONFIG
+    model = Model(mcfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(ctx.seed),
+                        device=dev)
+    n_moe = mcfg.num_layers
+    vocab = mcfg.vocab_size
+    lo, hi = sizes["prompt"]
+    prompts = [rng.integers(0, vocab, int(n)).tolist()
+               for n in rng.integers(lo, hi + 1, sizes["requests"])]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def health_moved(m):
+        return {k: v for k, v in m["health"]["counters"].items()
+                if k.startswith(("kernel_failure:", "kernel_reroute:",
+                                 "breaker_skip:", "sentinel_fallback:"))}
+
+    def timed_groups(eng):
+        """Wall time of each decode group call by kind (the tick's tokens
+        come to the host inside it, so it includes the device's work)."""
+        times = {"pinned": [], "onehot": []}
+        orig = eng._decode_group
+
+        def group(lanes, *, pinned):
+            t0 = time.perf_counter()
+            orig(lanes, pinned=pinned)
+            times["pinned" if pinned else "onehot"].append(
+                time.perf_counter() - t0)
+        eng._decode_group = group
+        return times
+
+    prefill_alone = []
+
+    def oracle(m_, p_, prompt, n, max_len):
+        """The sequential greedy oracle: ``prefill``, then ``decode_step``;
+        the prefill's wall time (ending in a sync) goes to
+        ``prefill_alone``."""
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            logits, cache = m_.prefill(p_, {"tokens": torch.tensor(
+                [prompt], dtype=torch.int32, device=dev)}, max_len)
+            want = [int(torch.argmax(logits[0]))]
+            prefill_alone.append(time.perf_counter() - t0)
+            while len(want) < n:
+                logits, cache = m_.decode_step(p_, cache, torch.tensor(
+                    [[want[-1]]], dtype=torch.int32, device=dev))
+                want.append(int(torch.argmax(logits[0])))
+        return want
+
+    # (a) the async engine at full width and depth
+    eng = ServeEngine(model, params, slots=sizes["slots"],
+                      max_len=sizes["max_len"], pin_topology=True,
+                      drift_patience=2)
+    groups = timed_groups(eng)
+    paths0 = dict(moe.DISPATCH_PATHS)
+
+    def serve_all():
+        t0 = time.perf_counter()
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new=sizes["new"]))
+        done = eng.run_until_done(max_ticks=2000)
+        sync()
+        return done, time.perf_counter() - t0
+    (done, wall), counts = ctx.drive(serve_all, "serve")
+    k1 = ctx.took()["vsr_spmm"]
+    eng.close()
+    m = eng.metrics()
+    paths = {k: v - paths0[k] for k, v in moe.DISPATCH_PATHS.items()
+             if v != paths0[k]}
+    dec_tokens = sum(r.metrics.decode_ticks for r in done)
+    dec_s = sum(groups["pinned"]) + sum(groups["onehot"])
+    row = {"requests": len(done), "prompt_lens": [len(p) for p in prompts],
+           "max_new": sizes["new"], "status": m["requests"],
+           "ticks": m["ticks"], "latency": m["latency"],
+           "counters": m["counters"], "plan_cache": m["plan_cache"],
+           "dispatch_paths": paths, "launches": counts, "k1_designs": k1,
+           "decode_tokens": dec_tokens, "decode_s": dec_s,
+           "decode_tokens_per_s": dec_tokens / dec_s if dec_s else None,
+           "pinned_group_ms_p50": (1e3 * statistics.median(groups["pinned"])
+                                   if groups["pinned"] else None),
+           "onehot_group_ms_p50": (1e3 * statistics.median(groups["onehot"])
+                                   if groups["onehot"] else None),
+           "pinned_groups": len(groups["pinned"]),
+           "onehot_groups": len(groups["onehot"]),
+           "wall_s": wall, "health": health_moved(m),
+           "queue_ms": [1e3 * r.metrics.queue_s for r in done],
+           "prefill_ms": [1e3 * r.metrics.prefill_s for r in done],
+           "ttft_ms": [1e3 * r.metrics.ttft_s for r in done]}
+    say("(a) olmoe async engine", row)
+    if not all(r.done for r in done) or counts["vsr_spmm"] < 1 or \
+            m["plan_cache"]["builds"] < 1 or m["plan_cache"]["hits"] < 1 or \
+            m["counters"].get("topologies_derived", 0) < 1 or row["health"] \
+            or not paths.get("spmm") or not paths.get("pinned"):
+        fail(f"serve (a): {row}")
+    rows["a"] = row
+    # the tokens of the bf16 full-depth run beside the sequential oracle
+    # (pinned lanes decode on their derived topology, not the router's:
+    # printed, not bounded)
+    agree = total = 0
+    for r, p in zip(done, prompts):
+        want = oracle(model, params, p, sizes["new"], sizes["max_len"])
+        agree += sum(int(a == b) for a, b in zip(r.out, want))
+        total += len(want)
+    rows["a"]["oracle_agreement"] = agree / total
+    say("(a) bf16 tokens equal to the oracle's; each prefill alone (a "
+        "sequential call, warm)", {
+            "share": agree / total, "tokens": total,
+            "prefill_alone_ms": [1e3 * t for t in prefill_alone]})
+
+    # (a') the synchronous engine: K1 in prefill and in pinned decode apart
+    eng = ServeEngine(model, params, slots=sizes["slots"],
+                      max_len=sizes["max_len"], pin_topology=True,
+                      async_prefill=False, async_plans=False)
+    split = {"prefill": {}, "pinned": {}, "onehot": {}}
+
+    def counted(kind, fn):
+        def call(*args):
+            before = launch_counts()
+            d0 = {d: n for d, n in vsr.DESIGN_LAUNCHES["vsr_spmm"].items()}
+            out = fn(*args)
+            sync()
+            moved = {k: v - before[k] for k, v in launch_counts().items()
+                     if v != before[k]}
+            moved["vsr_spmm_sr"] = vsr.DESIGN_LAUNCHES["vsr_spmm"]["sr"] - d0["sr"]
+            for k, v in moved.items():
+                split[kind][k] = split[kind].get(k, 0) + v
+            split[kind]["calls"] = split[kind].get("calls", 0) + 1
+            return out
+        return call
+    eng._prefill = counted("prefill", eng._prefill)
+    eng._decode = counted("onehot", eng._decode)
+    pinned_step = eng._pinned_decode
+    eng._pinned_decode = lambda topo: counted("pinned", pinned_step(topo))
+
+    def attribution():
+        for rid, p in enumerate(prompts[:sizes["attribution_requests"]]):
+            eng.submit(Request(rid=rid, prompt=p,
+                               max_new=sizes["attribution_new"]))
+        return eng.run_until_done(max_ticks=200)
+    done_s, _ = ctx.drive(attribution, "serve")
+    eng.close()
+    say("(a') launches by call (synchronous engine)", split)
+    if not all(r.done for r in done_s) or \
+            split["prefill"].get("vsr_spmm_sr", 0) < 1 or \
+            split["pinned"].get("vsr_spmm", 0) < 1:
+        fail(f"serve (a'): K1 did not launch in prefill and pinned decode "
+             f"{split}")
+    rows["launches_by_call"] = split
+
+    # (c) faults: every plan build fails; residents keep their ticks
+    faults = FaultInjector({"plan_build": FaultSpec(fail=10)}, seed=ctx.seed)
+    eng = ServeEngine(model, params, slots=sizes["slots"],
+                      max_len=sizes["max_len"], pin_topology=True,
+                      faults=faults, plan_timeout=0.5)
+    reqs = [Request(rid=rid, prompt=p, max_new=sizes["new"])
+            for rid, p in enumerate(prompts[:sizes["fault_requests"]])]
+
+    def faulted():
+        for r in reqs:
+            eng.submit(r)
+        missed = []
+        while eng.pending() and eng.ticks < 2000:
+            before = {r.rid: len(r.out) for r in reqs
+                      if r.status == "active" and r.metrics.decode_ticks}
+            eng.tick()
+            missed += [rid for rid, n in before.items()
+                       if not reqs[rid].done and len(reqs[rid].out) != n + 1]
+        eng.run_until_done(max_ticks=2000)
+        sync()
+        return missed
+    missed, counts_c = ctx.drive(faulted, "serve")
+    eng.close()
+    m = eng.metrics()
+    row = {"status": m["requests"], "counters": m["counters"],
+           "faults": m["faults"], "missed_ticks": missed,
+           "fallback_ticks": [r.metrics.fallback_ticks for r in reqs],
+           "wait_ticks": [r.metrics.wait_ticks for r in reqs],
+           "launches": counts_c, "health": health_moved(m)}
+    say("(c) plan builds failing", row)
+    if not all(r.done for r in reqs) or missed or row["health"] or \
+            m["counters"].get("plan_build_failures", 0) < 1 or \
+            m["counters"].get("plan_fallback_lanes", 0) < 1:
+        fail(f"serve (c): {row}")
+    rows["c"] = row
+
+    # (b) exactness on the float32 cut of the same width
+    cut = mcfg.scaled(num_layers=ctx.cut_layers, param_dtype="float32",
+                      compute_dtype="float32",
+                      moe=dataclasses.replace(mcfg.moe, capacity_factor=8.0))
+    cut_model = Model(cut)
+    cp = {k: v.float() for k, v in params.items() if k != "blocks"}
+    cp["blocks"] = {g: {k: v[:ctx.cut_layers].float() for k, v in grp.items()}
+                    for g, grp in params["blocks"].items()}
+    del params, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    lo, hi = sizes["cut_prompt"]
+    cut_prompts = [rng.integers(0, vocab, int(n)).tolist()
+                   for n in rng.integers(lo, hi + 1, sizes["cut_requests"])]
+
+    def serve_cut(backend=None, spy=False, **kw):
+        eng = ServeEngine(cut_model, cp, slots=sizes["slots"],
+                          max_len=sizes["cut_max_len"], **kw)
+        seen = []
+        if spy:
+            def record(fn):
+                def call(*args):
+                    logits, cache = fn(*args)
+                    seen.append(logits.float())
+                    return logits, cache
+                return call
+            eng._prefill = record(eng._prefill)
+            eng._decode = record(eng._decode)
+            pinned_step = eng._pinned_decode
+            eng._pinned_decode = lambda topo: record(pinned_step(topo))
+        scope = (repro_torch.use_backend(backend) if backend
+                 else contextlib.nullcontext())
+        with scope:
+            for rid, p in enumerate(cut_prompts):
+                eng.submit(Request(rid=rid, prompt=p, max_new=sizes["cut_new"]))
+            done = eng.run_until_done(max_ticks=500)
+        eng.close()
+        if not all(r.done for r in done):
+            fail(f"serve (b): a request of the cut did not finish "
+                 f"{[(r.rid, r.status) for r in done]}")
+        return {r.rid: list(r.out) for r in done}, seen, eng.metrics()
+
+    sync_kw = dict(async_prefill=False, async_plans=False)
+    (tok_sync, _, _), counts_b = ctx.drive(lambda: serve_cut(**sync_kw),
+                                           "serve")
+    tok_async, _, _ = serve_cut()
+    want = {rid: oracle(cut_model, cp, p, sizes["cut_new"], sizes["cut_max_len"])
+            for rid, p in enumerate(cut_prompts)}
+    tok_pin, logits_h, m_h = serve_cut(spy=True, pin_topology=True, **sync_kw)
+    tok_pin_t, logits_t, m_t = serve_cut("torch", spy=True, pin_topology=True,
+                                         **sync_kw)
+    tok_pin_async, _, m_pa = serve_cut(pin_topology=True)
+    rel = max((ctx.errors(a, b)[0] for a, b in zip(logits_h, logits_t)),
+              default=float("inf"))
+    row = {"prompt_lens": [len(p) for p in cut_prompts],
+           "sync_equals_oracle": tok_sync == want,
+           "async_equals_sync": tok_async == tok_sync,
+           "pinned_hopper_equals_torch": tok_pin == tok_pin_t,
+           "pinned_async_equals_sync": tok_pin_async == tok_pin,
+           "logit_calls": [len(logits_h), len(logits_t)],
+           "logits_rel_err_vs_torch": rel,
+           "topologies_derived": m_pa["counters"].get("topologies_derived"),
+           "plan_builds": m_pa["plan_cache"]["builds"],
+           "launches_sync": counts_b}
+    say(f"(b) {ctx.cut_layers}-layer f32 cut, tol {ctx.rtol:g}", row)
+    if not (row["sync_equals_oracle"] and row["async_equals_sync"]
+            and row["pinned_hopper_equals_torch"]
+            and row["pinned_async_equals_sync"]) \
+            or len(logits_h) != len(logits_t) or rel > ctx.rtol \
+            or row["topologies_derived"] != len(cut_prompts) \
+            or row["plan_builds"] < 1:
+        fail(f"serve (b): {row}")
+    rows["b"] = row
+    del cp, cut_model, logits_h, logits_t
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) long context: block-sparse prefill on the block design of K7/K8
+    lcfg = (ctx.llama if ctx.llama is not None else llama3_2_1b.CONFIG).scaled(
+        attn_pattern="block_sparse", window=sizes["long_window"],
+        attn_block=sizes["long_block"])
+    lmodel = Model(lcfg)
+    lparams = lmodel.init(torch.Generator(device=dev).manual_seed(ctx.seed),
+                          device=dev)
+    long_prompts = [rng.integers(0, lcfg.vocab_size, n).tolist()
+                    for n in sizes["long_prompts"]]
+    eng = ServeEngine(lmodel, lparams, slots=sizes["slots"],
+                      max_len=max(sizes["long_prompts"]) + sizes["long_new"])
+
+    def serve_long():
+        for rid, p in enumerate(long_prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new=sizes["long_new"]))
+        done = eng.run_until_done(max_ticks=500)
+        sync()
+        return done
+    done_l, counts_d = ctx.drive(serve_long, "serve")
+    designs = {k: v for k, v in ctx.took().items()
+               if k in ("chain_stats", "chain")}
+    eng.close()
+    m = eng.metrics()
+    # each length's prefill alone (warm, ending in a sync) beside the plan
+    # key's fingerprint, which every layer call pays (ROADMAP item 0)
+    from repro_torch.attention.module import _spec_csr
+    from repro_torch.core.cache import pattern_fingerprint
+    from repro_torch.models.transformer import _block_sparse_spec
+    alone = {}
+    for n in sorted(set(sizes["long_prompts"])):
+        toks = torch.tensor([long_prompts[sizes["long_prompts"].index(n)]],
+                            dtype=torch.int32, device=dev)
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                lmodel.prefill(lparams, {"tokens": toks}, n)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        csr = _spec_csr(_block_sparse_spec(lcfg, n, True), dev)
+        fps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pattern_fingerprint(csr)
+            fps.append(time.perf_counter() - t0)
+        fp_ms = 1e3 * statistics.median(fps)
+        alone[n] = {"prefill_ms": 1e3 * min(walls), "nnz": csr.nnz,
+                    "fingerprint_ms": fp_ms,
+                    "fingerprint_share": lcfg.num_layers * fp_ms
+                    / (1e3 * min(walls))}
+    ttft = {}
+    for r in done_l:
+        ttft.setdefault(len(r.prompt), []).append(1e3 * r.metrics.ttft_s)
+    row = {"prompt_lens": list(sizes["long_prompts"]),
+           "status": m["requests"], "plan_cache": m["plan_cache"],
+           "launches": counts_d, "designs": designs,
+           "ttft_ms_by_len": ttft, "prefill_alone": alone,
+           "ticks": m["ticks"],
+           "latency": m["latency"], "health": health_moved(m)}
+    say("(d) long-context prefill", row)
+    if not all(r.done for r in done_l) or m["plan_cache"]["builds"] != 2 \
+            or designs["chain_stats"]["block"] < 1 \
+            or designs["chain"]["block"] < 1 or row["health"]:
+        fail(f"serve (d): {row}")
+    rows["d"] = row
+    del lparams, lmodel
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
+def driver_phase(ctx, sizes=DRIVER):
+    """Phase ``driver``: ``TrainDriver`` on ``train_sparse_lm``'s model,
+    a failure at ``fail_at`` rolled back to the last checkpoint; the final
+    state restored bit for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.examples import train_sparse_lm
+
+    dev, fail, say = ctx.dev, ctx.fail, ctx.say
+    armed = [True]
+
+    def hook(step):
+        if step == sizes["fail_at"] and armed[0]:
+            armed[0] = False
+            raise RuntimeError("injected failure")
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        def run():
+            return train_sparse_lm.train(
+                steps=sizes["steps"], batch=sizes["batch"], seq=sizes["seq"],
+                device=dev, checkpoint_every=sizes["every"],
+                checkpoint_dir=ckdir, failure_hook=hook, seed=ctx.seed)
+        (driver, model, batch_fn, initial, final), counts = ctx.drive(
+            run, "driver")
+        latest = driver.ckpt.latest_step()
+        back = driver.ckpt.restore(latest, like=final)
+
+        def equal(a, b):
+            if isinstance(a, dict):
+                return set(a) == set(b) and all(equal(a[k], b[k]) for k in a)
+            return a.dtype == b.dtype and a.device == b.device \
+                and torch.equal(a, b)
+        restored_equal = equal(back, final)
+    with torch.no_grad():
+        before, _ = model.loss_fn(initial["params"], batch_fn(0))
+        after, _ = model.loss_fn(final["params"], batch_fn(0))
+    steps = [e.step for e in driver.events]
+    walls = [e.wall for e in driver.events]
+    row = {"steps": steps, "restarts": driver.restarts,
+           "final_step": int(final["opt"]["step"]),
+           "latest_checkpoint": latest,
+           "losses": [e.metrics["loss"] for e in driver.events],
+           "batch0_loss_before": float(before),
+           "batch0_loss_after": float(after),
+           "step_ms_median": 1e3 * statistics.median(walls[1:]),
+           "first_step_ms": 1e3 * walls[0],
+           "stragglers": driver.straggler_events,
+           "restored_bit_equal": restored_equal, "launches": counts,
+           "k1_designs": ctx.took()["vsr_spmm"]}
+    say("train_sparse_lm under TrainDriver", row)
+    # steps up to the failure, then again from the last checkpoint
+    restart = sizes["fail_at"] // sizes["every"] * sizes["every"]
+    want_steps = (list(range(sizes["fail_at"]))
+                  + list(range(restart, sizes["steps"])))
+    if steps != want_steps or driver.restarts != 1 or \
+            row["final_step"] != sizes["steps"] or not restored_equal or \
+            not float(after) < float(before) or counts["vsr_spmm"] < 1 or \
+            counts["sddmm"] < 1:
+        fail(f"driver: {row}")
+    return row
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -549,6 +1022,7 @@ def main() -> int:
     from repro_torch.configs import gemma3_12b
     from repro_torch.core import formats, quant, registry, stats
     from repro_torch.core.cache import pattern_fingerprint
+    from repro_torch.core.guardrails import plan_digest
     from repro_torch.core.plan import (PATTERN_PREP, _ChainVJP,
                                        _stream_to_balanced, execute,
                                        execute_attention, pattern_prep)
@@ -1115,7 +1589,8 @@ def main() -> int:
                      for path in ("main", "backward", "train", "chain_backward",
                                   "gat_train", "attention_backward",
                                   "bsr_backward", "quant", "offline",
-                                  "tune", "guardrails", "models")}
+                                  "tune", "guardrails", "models", "serve",
+                                  "driver")}
     value_counts = {**vsr.VALUE_LAUNCHES, **spmv.VALUE_LAUNCHES}
     path_values = {path: {k: dict.fromkeys(vv, 0) for k, vv in value_counts.items()}
                    for path in path_launches}
@@ -1890,10 +2365,20 @@ def main() -> int:
                 t0 = time.perf_counter()
                 repro_torch.attention_plan(a["spec"])
                 t_plan.append(1e3 * (time.perf_counter() - t0))
+            # the digest the default cache (integrity="publish") takes of
+            # a plan it inserts: the host cost a miss of this layer pays
+            t_dig = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                plan_digest(p)
+                t_dig.append(1e3 * (time.perf_counter() - t0))
             print(f"[time] pattern_fingerprint {cname} nnz={csr.nnz}: "
                   f"ms={statistics.median(t_fp)} | attention_plan (a cache "
-                  f"hit): ms={statistics.median(t_plan)} (host clock, "
-                  "median of 5)", flush=True)
+                  f"hit): ms={statistics.median(t_plan)} | plan_digest (a "
+                  f"miss of the default cache, integrity="
+                  f"{repro_torch.api.DEFAULT_CACHE.integrity!r}): "
+                  f"ms={statistics.median(t_dig)} (host clock, median of 5)",
+                  flush=True)
         del st, mask, p
         torch.cuda.empty_cache()
 
@@ -4133,7 +4618,33 @@ def main() -> int:
           f"[health] models {json.dumps(HEALTH.snapshot()['counters'])}",
           flush=True)
 
-    # -- 17. summary --------------------------------------------------------------
+    # -- 17. serve ------------------------------------------------------------
+    phase("serve")
+    t_serve = time.perf_counter()
+
+    def say_s(label, row):
+        print(f"[serve] {label} " + json.dumps(row, default=str)
+              + f" ({card})", flush=True)
+    ctx = types.SimpleNamespace(dev=dev, seed=args.seed, fail=fail, say=say_s,
+                                drive=drive, took=took, errors=errors,
+                                rtol=RTOL["float32"], olmoe=None, llama=None,
+                                cut_layers=MODEL_CUT)
+    serve_rows = serve_phase(ctx)
+    print(f"[serve] phase {time.perf_counter() - t_serve:.1f} s ({card}); "
+          f"[health] serve {json.dumps(HEALTH.snapshot()['counters'])}",
+          flush=True)
+
+    # -- 18. driver -----------------------------------------------------------
+    phase("driver")
+    t_driver = time.perf_counter()
+    ctx.say = lambda label, row: print(
+        f"[driver] {label} " + json.dumps(row, default=str) + f" ({card})",
+        flush=True)
+    driver_row = driver_phase(ctx)
+    print(f"[driver] phase {time.perf_counter() - t_driver:.1f} s ({card})",
+          flush=True)
+
+    # -- 19. summary --------------------------------------------------------------
     phase("summary")
     summary = []
     for kernel, meta in KERNELS.items():
@@ -4171,8 +4682,10 @@ def main() -> int:
             # d = 2048
             summary[-1]["ffn"] = ffn_rows[kernel]
         if kernel == "vsr_spmm":
-            # one OLMoE-1B-7B layer's dispatch and combine at the prefill
+            # one OLMoE-1B-7B layer's dispatch and combine at the prefill,
+            # and the served model's launches by engine call
             summary[-1]["models"] = models_row["k1"]
+            summary[-1]["serve"] = serve_rows["launches_by_call"]
         if kernel == "chain_stats":
             # K7 in full mode, as the chain's backward recomputes it
             summary[-1]["backward"] = k7_rows

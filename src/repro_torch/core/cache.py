@@ -181,12 +181,11 @@ class PlanCache:
                 f"evictions={s['evictions']}, builds={s['builds']})")
 
 
-#: process-default cache of the ``repro_torch.api`` facade.  It digests
-#: nothing (``integrity="off"``), where the reference's default publishes:
-#: a published digest is read only by ``put_built``, whose one caller, the
-#: serve engine, is not ported, and taking it copies the whole CSR to the
-#: host on every miss.
-DEFAULT_CACHE = PlanCache(integrity="off")
+#: process-default cache of the ``repro_torch.api`` facade; as the
+#: reference's, it digests each entry on insert (``integrity="publish"``),
+#: which ``put_built`` (the serve engine's plan prep) checks when a key is
+#: published again.  A miss pays the digest: a copy of the CSR to the host.
+DEFAULT_CACHE = PlanCache()
 
 
 def cached_plan(csr: CSR, *, cache: PlanCache | None = None,

@@ -1,11 +1,11 @@
-"""The port's runtime: deterministic fault injection (``faults.py``) and
-bounded retry (``retry.py``); counterpart of ``repro.runtime``'s two
-modules of the same names.  The reference's training driver
-(``runtime/driver.py``) is not ported yet."""
+"""The port's runtime: deterministic fault injection (``faults.py``),
+bounded retry (``retry.py``) and the fault-tolerant training driver
+(``driver.py``); counterpart of ``repro.runtime``."""
 from .faults import (FaultInjector, FaultSpec, InjectedFault, active_injector,
                      consult, inject_faults)
 from .retry import RetryPolicy, TaskOutcome, run_with_retry
+from .driver import DriverConfig, StepEvent, TrainDriver
 
-__all__ = ["FaultInjector", "FaultSpec", "InjectedFault", "RetryPolicy",
-           "TaskOutcome", "active_injector", "consult", "inject_faults",
-           "run_with_retry"]
+__all__ = ["DriverConfig", "FaultInjector", "FaultSpec", "InjectedFault",
+           "RetryPolicy", "StepEvent", "TaskOutcome", "TrainDriver",
+           "active_injector", "consult", "inject_faults", "run_with_retry"]

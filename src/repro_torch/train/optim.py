@@ -1,7 +1,7 @@
 """AdamW and its learning-rate schedule; counterpart of
 ``repro.train.optim``.
 
-Functions on dicts of tensors, as the reference's are on pytrees: the
+Functions on nested dicts of tensors, as the reference's are on pytrees: the
 global-norm clip in f32 whatever the gradients' type, linear warmup then
 cosine decay to ``min_lr_ratio``, and weight decay decoupled from the
 adaptive step.  Nothing is updated in place: each call returns new dicts.
@@ -39,6 +39,22 @@ def schedule(cfg: OptConfig, step) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, ``rest`` walked by ``tree``'s
+    keys."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
 def init_opt_state(params: dict, cfg: OptConfig) -> dict:
     """``{"step": 0, "m": zeros, "v": zeros}``, the moments in
     ``cfg.moment_dtype`` on each parameter's device and the step on the
@@ -46,17 +62,18 @@ def init_opt_state(params: dict, cfg: OptConfig) -> dict:
     learning rate there, with no copy from the host, so ``adamw_update``
     and a ``skip_nonfinite`` step make no host sync."""
     mdt = getattr(torch, cfg.moment_dtype)
-    zeros = {k: torch.zeros(p.shape, dtype=mdt, device=p.device)
-             for k, p in params.items()}
-    device = next(iter(params.values())).device if params else None
+    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device),
+                     params)
+    leaves = tree_leaves(params)
+    device = leaves[0].device if leaves else None
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
-            "m": zeros, "v": {k: z.clone() for k, z in zeros.items()}}
+            "m": zeros, "v": tree_map(torch.clone, zeros)}
 
 
 def global_norm(tree: dict) -> torch.Tensor:
     """The f32 2-norm of every tensor in ``tree`` together, on the device
     of the first."""
-    sq = [torch.sum(torch.square(t.float())) for t in tree.values()]
+    sq = [torch.sum(torch.square(t.float())) for t in tree_leaves(tree)]
     if not sq:
         return torch.zeros(())
     return torch.sqrt(torch.stack([s.to(sq[0].device) for s in sq]).sum())
@@ -73,15 +90,18 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
     stepf = step.float()
     bc1, bc2 = 1 - b1 ** stepf, 1 - b2 ** stepf
     mdt = getattr(torch, cfg.moment_dtype)
-    new_p, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
+
+    def one(p, g, m, v):
         dev = p.device
-        g32 = grads[k].float() * scale.to(dev)
-        m32 = b1 * state["m"][k].float() + (1 - b1) * g32
-        v32 = b2 * state["v"][k].float() + (1 - b2) * g32 * g32
+        g32 = g.float() * scale.to(dev)
+        m32 = b1 * m.float() + (1 - b1) * g32
+        v32 = b2 * v.float() + (1 - b2) * g32 * g32
         mhat, vhat = m32 / bc1.to(dev), v32 / bc2.to(dev)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
-        new_p[k] = (p.float() - lr.to(dev) * delta).to(p.dtype)
-        new_m[k], new_v[k] = m32.to(mdt), v32.to(mdt)
+        return (p.float() - lr.to(dev) * delta).to(p.dtype), m32.to(mdt), \
+            v32.to(mdt)
+    out = tree_map(one, params, grads, state["m"], state["v"])
+    new_p, new_m, new_v = (tree_map(lambda t, i=i: t[i], out)
+                           for i in range(3))
     return new_p, {"step": step, "m": new_m, "v": new_v}, \
         {"grad_norm": gnorm, "lr": lr}

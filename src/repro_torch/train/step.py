@@ -1,6 +1,6 @@
 """Train-step builder; counterpart of ``repro.train.step``: loss → grads →
 (optional microbatch accumulation) → clip → AdamW, one step a call over the
-state ``{"params": ..., "opt": ...}`` (dicts of tensors)."""
+state ``{"params": ..., "opt": ...}`` (nested dicts of tensors)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +10,8 @@ import torch
 
 from ..core.guardrails import all_finite
 from ..core.registry import backend_scope
-from .optim import OptConfig, adamw_update, init_opt_state
+from .optim import (OptConfig, adamw_update, init_opt_state, tree_leaves,
+                    tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,26 +42,27 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig) -> Callable:
     device, as the all-finite predicate the selection reads)."""
 
     def grads_of(params: dict, batch: dict):
-        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         with backend_scope(tcfg.sparse_backend), torch.enable_grad():
             loss, metrics = loss_fn(leaves, batch)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), metrics, dict(zip(leaves, grads))
+            grads = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
+        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                   for k, v in metrics.items()}
+        return loss.detach(), metrics, tree_map(lambda _: next(grads), leaves)
 
     def accumulate(params: dict, batch: dict):
         mb = tcfg.microbatches
         adt = getattr(torch, tcfg.accum_dtype)
-        acc = {k: torch.zeros(p.shape, dtype=adt, device=p.device)
-               for k, p in params.items()}
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
+                                             device=p.device), params)
         total = 0.0
         for i in range(mb):
             part = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])[i]
                     for k, v in batch.items()}
             loss, _, grads = grads_of(params, part)
-            for k, g in grads.items():
-                acc[k] += g.to(adt)
+            acc = tree_map(lambda a, g: a + g.to(adt), acc, grads)
             total = total + loss
-        return total / mb, {}, {k: (a / mb).to(adt) for k, a in acc.items()}
+        return total / mb, {}, tree_map(lambda a: (a / mb).to(adt), acc)
 
     def train_step(state: dict, batch: dict):
         params, opt = state["params"], state["opt"]
@@ -88,7 +90,7 @@ def _all_finite(loss: torch.Tensor, grads: dict) -> torch.Tensor:
     floating grad finite (``guardrails.all_finite``, a reduction each)."""
     checks = [all_finite(loss)]
     checks += [all_finite(g).to(loss.device)
-               for g in grads.values() if g.is_floating_point()]
+               for g in tree_leaves(grads) if g.is_floating_point()]
     return torch.stack(checks).all()
 
 
@@ -102,5 +104,5 @@ def _keep(ok: torch.Tensor, new, old):
 
 def init_state(params: dict, tcfg: TrainConfig) -> dict:
     """``{"params": detached copies, "opt": init_opt_state(...)}``."""
-    params = {k: p.detach().clone() for k, p in params.items()}
+    params = tree_map(lambda p: p.detach().clone(), params)
     return {"params": params, "opt": init_opt_state(params, tcfg.opt)}

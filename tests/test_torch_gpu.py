@@ -3164,3 +3164,77 @@ def test_cuda_olmoe_smoke_prefill_matches_torch_backend(cuda):
     assert _rel(logits, logits_t) < 1e-4
     for name in ("k", "v"):
         assert _rel(caches["kv"][name], caches_t["kv"][name]) < 1e-4
+
+
+def _serve_smoke(cuda, reqs, *, backend=None, **kw):
+    """Serve ``reqs`` (rid, prompt, topology) on ``olmoe-1b-7b``'s SMOKE
+    config on the card, submits and ticks inside ``use_backend(backend)``;
+    returns (tokens by rid, the engine's metrics, launches)."""
+    import repro_torch
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.models import Model
+    from repro_torch.serve import Request, ServeEngine
+    model = Model(olmoe_1b_7b.SMOKE)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    scope = (repro_torch.use_backend(backend) if backend is not None
+             else contextlib.nullcontext())
+    reset_launch_counts()
+    with scope:
+        eng = ServeEngine(model, params, slots=2, max_len=48, **kw)
+        for rid, prompt, topo in reqs:
+            eng.submit(Request(rid=rid, prompt=list(prompt), max_new=6,
+                               topology=topo))
+        done = eng.run_until_done(max_ticks=500)
+        eng.close()
+    torch.cuda.synchronize()
+    assert all(r.done for r in done), [(r.rid, r.status) for r in done]
+    return {r.rid: list(r.out) for r in done}, eng.metrics(), launch_counts()
+
+
+_SERVE_REQS = [(0, [1, 2, 3, 4], (0, 3)), (1, [5, 6], (0, 3)),
+               (2, [7, 8, 9], (1, 2))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["plain", "pinned", "pin_topology"])
+def test_cuda_serve_engine_matches_torch_backend(cuda, mode):
+    """The serve engine on the card's kernels against the same engine on
+    the ``"torch"`` backend: equal tokens, the same plan builds, no plain
+    launch on the ``"torch"`` run and no kernel failure."""
+    from repro_torch.core.guardrails import HEALTH
+    reqs = [(rid, p, topo if mode == "pinned" else None)
+            for rid, p, topo in _SERVE_REQS]
+    kw = dict(pin_topology=True) if mode == "pin_topology" else {}
+    HEALTH.reset()
+    out_h, m_h, _ = _serve_smoke(cuda, reqs, async_prefill=False,
+                                 async_plans=False, **kw)
+    out_t, m_t, launches_t = _serve_smoke(cuda, reqs, backend="torch",
+                                          async_prefill=False,
+                                          async_plans=False, **kw)
+    assert out_h == out_t
+    assert m_h["plan_cache"]["builds"] == m_t["plan_cache"]["builds"]
+    assert sum(launches_t.values()) == 0
+    assert not any(k.startswith(("kernel_failure", "kernel_reroute"))
+                   for k in m_h["health"]["counters"])
+
+
+@pytest.mark.gpu
+def test_cuda_serve_engine_pinned_decode_counts_k1(cuda):
+    """Pinned lanes decode through the frozen dispatch and combine
+    artifacts: K1 launches in every pinned tick (the dispatch, once a MoE
+    layer; the combine takes the selector's pick), and the async engine
+    decodes the synchronous engine's tokens."""
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.models import moe
+    before = moe.DISPATCH_PATHS["pinned"]
+    out_s, m_s, launches = _serve_smoke(cuda, _SERVE_REQS, async_prefill=False,
+                                        async_plans=False)
+    pinned_calls = moe.DISPATCH_PATHS["pinned"] - before
+    assert pinned_calls > 0
+    assert pinned_calls % olmoe_1b_7b.SMOKE.num_layers == 0
+    # the dispatch on K1 a MoE layer, the combine on the selector's pick
+    assert launches["vsr_spmm"] >= pinned_calls
+    assert sum(launches.values()) >= 2 * pinned_calls
+    out_a, m_a, _ = _serve_smoke(cuda, _SERVE_REQS)
+    assert out_a == out_s
+    assert m_a["plan_cache"]["builds"] >= 1

@@ -938,10 +938,9 @@ def test_cache_integrity_off_skips_digests():
         assert cache._entries[("k",)][1] is None
     with pytest.raises(ValueError, match="integrity"):
         PlanCache(4, integrity="paranoid")
-    # the facade's default cache digests nothing (no caller reads a
-    # published digest yet); a cache built by hand publishes, as the
-    # reference's does
-    assert api.DEFAULT_CACHE.integrity == "off"
+    # the facade's default cache and a cache built by hand publish, as the
+    # reference's do (the serve engine's plan prep reads a published digest)
+    assert api.DEFAULT_CACHE.integrity == "publish"
     assert PlanCache(4).integrity == "publish"
 
 

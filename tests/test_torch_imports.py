@@ -69,7 +69,19 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.core.cache",
                    "repro_torch.runtime",
                    "repro_torch.runtime.faults",
-                   "repro_torch.runtime.retry"):
+                   "repro_torch.runtime.retry",
+                   "repro_torch.runtime.driver",
+                   "repro_torch.serve",
+                   "repro_torch.serve.engine",
+                   "repro_torch.serve.metrics",
+                   "repro_torch.serve.faults",
+                   "repro_torch.checkpoint",
+                   "repro_torch.checkpoint.manager",
+                   "repro_torch.data",
+                   "repro_torch.data.pipeline",
+                   "repro_torch.examples.serve_moe",
+                   "repro_torch.examples.serve_longcontext",
+                   "repro_torch.examples.train_sparse_lm"):
         assert module in names, (module, sorted(names))
 
 
