@@ -353,14 +353,43 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              first try of step 6 failing: the run restarts from step 4, ends
              at step 8, step 0's batch has a lower loss after than before,
              and the last checkpoint restores bit-equal to the final state;
-19. summary — one JSON line of the kernels (``launches`` and ``design``:
+19. families — the SSM, hybrid and audio families at full width and
+             depth, bf16 weights from the seed: (a) RWKV-6 3B (32 layers,
+             d_model 2,560, 40 heads of 64), prefill 2 x 512 and 16 greedy
+             decode steps, finite logits, the cache's bytes the same at
+             max_len 640 and 8,192; on its 2-layer f32 cut, prefill(t) vs
+             prefill(t[:-1]) + decode_step(t[-1]) within 1e-3 and the
+             card's logits within 1e-4 of the CPU's; (b) Zamba2-2.7B (54
+             Mamba-2 layers, shared attention every 6), prefill 1 x 2,048
+             (full attention) and 16 decode steps; block-sparse (window
+             1,024, blocks of 64) at 4,096 tokens: exactly 288 launches
+             each of K7 and K8 on the block design (9 shared-attention
+             calls x 32 heads), the plan key's fingerprint share; K7 and K8
+             alone at one head (d = 80) against their plain versions, timed
+             beside SDPA; ``ssd_chunked`` against the ``ssd_decode_step``
+             recurrence at H 80, P 64, N 64, chunk 256, 1,024 tokens within
+             1e-3; the one-group f32 cut (6 layers) at 1,024 tokens,
+             "hopper" against "torch" within 1e-4 and prefill + decode
+             against a longer prefill within 2e-2; (c) Whisper-tiny (4 + 4
+             layers, d_model 384, 1,500 frames), prefill 4 x 64 and 16
+             decode steps; block-sparse f32 (window 256, blocks of 64): K7
+             and K8 once a layer, head and lane in the encoder's
+             non-causal band and the decoder's prefill, "hopper" against
+             "torch" within 1e-4; (d) the serve engine (4 slots, max_len
+             640) on (a)'s model, 8 requests of 128-512 tokens, 16 new:
+             every request done, TTFT, tick and decode tokens/s; on its f32
+             cut and on (b)'s one-group cut (4 requests, 8 new, K7 and K8
+             in the prefills) the tokens equal the sequential greedy
+             oracle's, async equal to sync;
+20. summary — one JSON line of the kernels (``launches`` and ``design``:
              the main path's; ``launches_by_path`` and ``design_by_path``:
              every path above; for K1, K2, K4 and K5 ``launches_by_value``,
              and an entry of their own for each coded variant,
              ``<kernel>:int8`` / ``<kernel>:fp8``, whose ``launches`` are
              the quant path's; K1's entry also carries ``models``, one
              OLMoE-1B-7B layer's dispatch and combine, and ``serve``, the
-             launches by engine call of (a')), the card line,
+             launches by engine call of (a'); K7's and K8's carry
+             ``families``, one Zamba2 head at d = 80), the card line,
              then the result.
 
 Without a CUDA device it prints no result and exits 2.  ``--scale`` below 20
@@ -995,6 +1024,534 @@ def driver_phase(ctx, sizes=DRIVER):
     return row
 
 
+#: the families path: RWKV-6 3B, Zamba2-2.7B and Whisper-tiny at full
+#: width and depth (bf16, weights from the seed), each freed before the
+#: next.  (a) RWKV-6: prefill rwkv_batch x rwkv_seq, ``decode`` greedy
+#: steps; the f32 cut of rwkv_cut_layers for the state handoff and the CPU
+#: equality; (b) Zamba2: prefill zamba_seq as published (full attention),
+#: ``decode`` steps; block-sparse shared attention (window, block) at
+#: zamba_sparse_seq; the SSD scan at the full head shapes ``ssd``; the
+#: one-group f32 cut (zamba_cut_layers) at zamba_cut_seq; (c) Whisper:
+#: frames (whisper_batch, num_frames, d_model), prefill whisper_seq,
+#: ``decode`` steps, block-sparse in f32 (whisper_window, block); (d) the
+#: serve engine on (a)'s model (slots, max_len, ``requests`` prompts in
+#: ``prompt``, ``new`` tokens), on its f32 cut, and on (b)'s f32 cut
+#: (cut_requests, cut_new)
+FAMILIES = dict(rwkv_batch=2, rwkv_seq=512, decode=16, rwkv_cut_layers=2,
+                rwkv_cut_seq=128, rwkv_long_len=8192,
+                zamba_seq=2048, zamba_sparse_seq=4096, window=1024, block=64,
+                ssd=dict(seq=1024, heads=80, head_dim=64, state=64, chunk=256),
+                zamba_cut_layers=6, zamba_cut_seq=1024,
+                whisper_batch=4, whisper_seq=64, whisper_window=256,
+                slots=4, max_len=640, requests=8, prompt=(128, 512), new=16,
+                cut_requests=4, cut_new=8)
+
+
+def families_phase(ctx, sizes=FAMILIES):
+    """Phase ``families``: the SSM, hybrid and audio models of the port at
+    full width and depth, their exactness on float32 cuts, K7/K8 at
+    Zamba2's head width (d = 80) and under Whisper's non-causal encoder
+    mask, and the serve engine on the RWKV-6 and Zamba2 caches.  ``ctx``
+    carries the card's helpers; returns the phase's rows."""
+    import torch
+
+    import repro_torch
+    from repro_torch.attention.module import _spec_csr
+    from repro_torch.configs import rwkv6_3b, whisper_tiny, zamba2_2_7b
+    from repro_torch.core import formats
+    from repro_torch.core.cache import pattern_fingerprint
+    from repro_torch.kernels import fused_chain
+    from repro_torch.kernels.blocks import BLOCK, AttnBlocks
+    from repro_torch.models import Model, ssm
+    from repro_torch.models import params as model_params
+    from repro_torch.models.transformer import _block_sparse_spec
+    from repro_torch.serve import Request, ServeEngine
+
+    dev, fail, say = ctx.dev, ctx.fail, ctx.say
+    rows = {}
+    rng = np.random.default_rng(ctx.seed)
+    gen = torch.Generator(device=dev).manual_seed(ctx.seed)
+    f32 = dict(param_dtype="float32", compute_dtype="float32", remat="none")
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def free():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def walled(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k])
+        else:
+            yield tree
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+    def tree_map(fn, tree):
+        if isinstance(tree, dict):
+            return {k: tree_map(fn, v) for k, v in tree.items()}
+        return fn(tree)
+
+    def rel(got, want):
+        return ctx.errors(got, want)[0]
+
+    def health_moved(m):
+        return {k: v for k, v in m["health"]["counters"].items()
+                if k.startswith(("kernel_failure:", "kernel_reroute:",
+                                 "breaker_skip:", "sentinel_fallback:"))}
+
+    def decode_run(model, params, logits, caches, steps):
+        """``steps`` greedy decode steps from ``logits``: the last logits,
+        the caches and each step's wall time (ending in a sync)."""
+        walls = []
+        for _ in range(steps):
+            tok = logits.argmax(-1, keepdim=True)
+            (logits, caches), w = walled(
+                lambda: model.decode_step(params, caches, tok))
+            walls.append(w)
+        return logits, caches, walls
+
+    def oracle(model, params, prompt, n, max_len):
+        """The sequential greedy oracle: ``prefill``, then ``decode_step``."""
+        with torch.no_grad():
+            logits, cache = model.prefill(params, {"tokens": torch.tensor(
+                [prompt], dtype=torch.int32, device=dev)}, max_len)
+            want = [int(torch.argmax(logits[0]))]
+            while len(want) < n:
+                logits, cache = model.decode_step(params, cache, torch.tensor(
+                    [[want[-1]]], dtype=torch.int32, device=dev))
+                want.append(int(torch.argmax(logits[0])))
+        return want
+
+    def serve(model, params, prompts, new, *, max_len, label, **kw):
+        """Serve ``prompts`` (``new`` tokens each) on a fresh engine, driven
+        as one call; returns (tokens by rid, metrics, launches, the decode
+        groups' wall times)."""
+        eng = ServeEngine(model, params, slots=sizes["slots"],
+                          max_len=max_len, **kw)
+        groups = []
+        orig = eng._decode_group
+
+        def group(lanes, *, pinned):
+            t0 = time.perf_counter()
+            orig(lanes, pinned=pinned)
+            groups.append(time.perf_counter() - t0)
+        eng._decode_group = group
+
+        def run():
+            for rid, p in enumerate(prompts):
+                eng.submit(Request(rid=rid, prompt=p, max_new=new))
+            done = eng.run_until_done(max_ticks=2000)
+            sync()
+            return done
+        done, counts = ctx.drive(run, "families")
+        eng.close()
+        m = eng.metrics()
+        if not all(r.done for r in done) or health_moved(m):
+            fail(f"families (d) {label}: {[(r.rid, r.status) for r in done]} "
+                 f"{health_moved(m)}")
+        return {r.rid: list(r.out) for r in done}, m, counts, groups, done
+
+    # ---- (a) RWKV-6 3B at full width and depth ----------------------------
+    cfg = ctx.rwkv if ctx.rwkv is not None else rwkv6_3b.CONFIG
+    model = Model(cfg)
+    (params, init_s) = walled(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(ctx.seed), device=dev))
+    b, s, steps = sizes["rwkv_batch"], sizes["rwkv_seq"], sizes["decode"]
+    max_len = sizes["max_len"]
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), device=dev,
+                         generator=gen)
+    with torch.no_grad():
+        ((logits, caches), first_s), counts = ctx.drive(lambda: walled(
+            lambda: model.prefill(params, {"tokens": toks[:, :s]}, max_len)),
+            "families")
+        _, pre_s = walled(lambda: model.prefill(params, {"tokens": toks[:, :s]},
+                                                max_len))
+        ok_prefill = bool(torch.isfinite(logits).all())
+        logits, caches, dec = decode_run(model, params, logits, caches, steps)
+    cache_bytes = {n: nbytes(model.init_cache(b, n, device="meta"))
+                   for n in (max_len, sizes["rwkv_long_len"])}
+    row = {"config": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "param_count": model_params.param_count(model.specs),
+           "param_bytes": model_params.param_bytes(model.specs),
+           "init_on_card_s": init_s, "batch": b, "seq": s,
+           "first_prefill_ms": 1e3 * first_s, "prefill_ms": 1e3 * pre_s,
+           "prefill_tokens_per_s": b * s / pre_s,
+           "decode_step_ms": 1e3 * statistics.median(dec[1:]),
+           "first_decode_step_ms": 1e3 * dec[0],
+           "decode_tokens_per_s": b / statistics.median(dec[1:]),
+           "cache_bytes": nbytes(caches),
+           "cache_bytes_by_max_len": cache_bytes,
+           "cache_bytes_per_lane": nbytes(caches) / b,
+           "launches": {k: v for k, v in counts.items() if v}}
+    say("(a) rwkv6-3b prefill and decode", row)
+    if not ok_prefill or not bool(torch.isfinite(logits).all()) or \
+            int(caches["length"]) != s + steps or \
+            len(set(cache_bytes.values())) != 1 or \
+            row["cache_bytes"] != cache_bytes[max_len]:
+        fail(f"families (a): {row}")
+    rows["a"] = row
+
+    # the f32 cut at full width: the state handoff and the CPU's logits
+    n_cut = sizes["rwkv_cut_layers"]
+    cut = cfg.scaled(num_layers=n_cut, **f32)
+    cut_model = Model(cut)
+    cp = {k: v.float() for k, v in params.items() if k != "blocks"}
+    cp["blocks"] = {k: v[:n_cut].float() for k, v in params["blocks"].items()}
+    t = toks[:, :sizes["rwkv_cut_seq"] + 1]
+    with torch.no_grad():
+        lp, _ = cut_model.prefill(cp, {"tokens": t}, 2 * t.shape[1])
+        _, c = cut_model.prefill(cp, {"tokens": t[:, :-1]}, 2 * t.shape[1])
+        ld, _ = cut_model.decode_step(cp, c, t[:, -1:])
+        cpu = torch.device("cpu")
+        (lc, _), cpu_s = walled(lambda: cut_model.prefill(
+            tree_map(lambda v: v.to(cpu), cp), {"tokens": t.to(cpu)},
+            2 * t.shape[1]))
+    check = {"layers": n_cut, "seq": t.shape[1],
+             "stream_max_abs_err": float((lp - ld).abs().max()),
+             "card_vs_cpu_rel_err": rel(lp, lc.to(dev)),
+             "cpu_prefill_s": cpu_s}
+    print(f"[check] families (a) rwkv6 {n_cut}-layer f32 cut: prefill(t) vs "
+          f"prefill(t[:-1]) + decode_step(t[-1]) and the card vs the CPU "
+          f"{json.dumps(check)} tol 1e-3 (abs) / {ctx.rtol:g}", flush=True)
+    if check["stream_max_abs_err"] > 1e-3 or \
+            check["card_vs_cpu_rel_err"] > ctx.rtol:
+        fail(f"families (a) cut: {check}")
+    rows["a"]["cut"] = check
+    del lp, ld, lc, c
+
+    # ---- (d) the serve engine on RWKV-6, full and on the f32 cut ----------
+    lo, hi = sizes["prompt"]
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(lo, hi + 1, sizes["requests"])]
+    out, m, counts, groups, done = serve(model, params, prompts, sizes["new"],
+                                         max_len=max_len, label="rwkv")
+    dec_tokens = sum(r.metrics.decode_ticks for r in done)
+    row = {"requests": len(done), "prompt_lens": [len(p) for p in prompts],
+           "max_new": sizes["new"], "status": m["requests"],
+           "ticks": m["ticks"], "latency": m["latency"],
+           "decode_tokens": dec_tokens, "decode_s": sum(groups),
+           "decode_tokens_per_s": dec_tokens / sum(groups),
+           "group_ms_p50": 1e3 * statistics.median(groups),
+           "ttft_ms": [1e3 * r.metrics.ttft_s for r in done],
+           "prefill_ms": [1e3 * r.metrics.prefill_s for r in done],
+           "launches": {k: v for k, v in counts.items() if v},
+           "health": health_moved(m)}
+    say("(d) rwkv6-3b served", row)
+    rows["d_rwkv"] = row
+    del params, model, caches, logits
+    free()
+    sync_kw = dict(async_prefill=False, async_plans=False)
+    tok_sync, *_ = serve(cut_model, cp, prompts, sizes["new"],
+                         max_len=max_len, label="rwkv cut sync", **sync_kw)
+    tok_async, *_ = serve(cut_model, cp, prompts, sizes["new"],
+                          max_len=max_len, label="rwkv cut async")
+    want = {rid: oracle(cut_model, cp, p, sizes["new"], max_len)
+            for rid, p in enumerate(prompts)}
+    check = {"requests": len(prompts),
+             "sync_equals_oracle": tok_sync == want,
+             "async_equals_sync": tok_async == tok_sync}
+    say(f"(d) rwkv6-3b {n_cut}-layer f32 cut served", check)
+    if not (check["sync_equals_oracle"] and check["async_equals_sync"]):
+        fail(f"families (d) rwkv cut: {check}")
+    rows["d_rwkv"]["cut"] = check
+    del cp, cut_model
+    free()
+
+    # ---- (b) Zamba2-2.7B at full width and depth --------------------------
+    zcfg = ctx.zamba if ctx.zamba is not None else zamba2_2_7b.CONFIG
+    groups_n = zcfg.num_layers // zcfg.shared_every
+    zm = Model(zcfg)
+    zp, init_s = walled(lambda: zm.init(
+        torch.Generator(device=dev).manual_seed(ctx.seed), device=dev))
+    zs, zss = sizes["zamba_seq"], sizes["zamba_sparse_seq"]
+    ztoks = torch.randint(0, zcfg.vocab_size, (1, zss + 1), device=dev,
+                          generator=gen)
+    with torch.no_grad():
+        ((logits, caches), first_s), counts = ctx.drive(lambda: walled(
+            lambda: zm.prefill(zp, {"tokens": ztoks[:, :zs]}, zs + steps)),
+            "families")
+        _, pre_s = walled(lambda: zm.prefill(zp, {"tokens": ztoks[:, :zs]},
+                                             zs + steps))
+        ok_prefill = bool(torch.isfinite(logits).all())
+        logits, caches, dec = decode_run(zm, zp, logits, caches, steps)
+    row = {"config": zcfg.name, "layers": zcfg.num_layers,
+           "shared_every": zcfg.shared_every, "d_model": zcfg.d_model,
+           "param_count": model_params.param_count(zm.specs),
+           "param_bytes": model_params.param_bytes(zm.specs),
+           "init_on_card_s": init_s, "seq": zs,
+           "first_prefill_ms": 1e3 * first_s, "prefill_ms": 1e3 * pre_s,
+           "prefill_tokens_per_s": zs / pre_s,
+           "decode_step_ms": 1e3 * statistics.median(dec[1:]),
+           "first_decode_step_ms": 1e3 * dec[0],
+           "cache_bytes": nbytes(caches),
+           "launches": {k: v for k, v in counts.items() if v}}
+    say("(b) zamba2-2.7b prefill (full attention) and decode", row)
+    if not ok_prefill or not bool(torch.isfinite(logits).all()) or \
+            int(caches["length"]) != zs + steps:
+        fail(f"families (b): {row}")
+    rows["b"] = row
+    del caches, logits
+
+    # block-sparse shared attention: K7 and K8 on the block design, one
+    # launch a group and head at B = 1
+    scfg = zcfg.scaled(attn_pattern="block_sparse", window=sizes["window"],
+                       attn_block=sizes["block"])
+    sm = Model(scfg)
+    want_k = groups_n * scfg.num_heads
+    with torch.no_grad():
+        ((logits, _), first_s), counts = ctx.drive(lambda: walled(
+            lambda: sm.prefill(zp, {"tokens": ztoks[:, :zss]}, zss)),
+            "families")
+        designs = {k: v for k, v in ctx.took().items()
+                   if k in ("chain_stats", "chain")}
+        _, pre_s = walled(lambda: sm.prefill(zp, {"tokens": ztoks[:, :zss]},
+                                             zss))
+    csr = _spec_csr(_block_sparse_spec(scfg, zss, True), dev)
+    fps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pattern_fingerprint(csr)
+        fps.append(time.perf_counter() - t0)
+    fp_ms = 1e3 * statistics.median(fps)
+    row = {"seq": zss, "window": scfg.window, "block": scfg.attn_block,
+           "head_dim": scfg.head_dim, "nnz": csr.nnz,
+           "first_prefill_ms": 1e3 * first_s, "prefill_ms": 1e3 * pre_s,
+           "launches": {k: v for k, v in counts.items() if v},
+           "designs": designs, "expected_each": want_k,
+           "fingerprint_ms": fp_ms,
+           "fingerprint_share": groups_n * fp_ms / (1e3 * pre_s)}
+    say("(b) zamba2-2.7b block-sparse prefill", row)
+    if not bool(torch.isfinite(logits).all()) or \
+            counts["chain_stats"] != want_k or counts["chain"] != want_k or \
+            designs["chain_stats"]["block"] != want_k or \
+            designs["chain"]["block"] != want_k:
+        fail(f"families (b) block-sparse: K7/K8 launched {counts} {designs}, "
+             f"expected {want_k} each on the block design")
+    rows["b"]["block_sparse"] = row
+    del logits
+
+    # K7 and K8 alone at one head of the shared attention (d = 80) against
+    # their plain versions, timed beside SDPA on the dense mask
+    d = scfg.head_dim
+    bal = formats.csr_to_balanced(csr, 512)
+    blocks = AttnBlocks()
+    q, k, v = (torch.randn(zss, d, device=dev, generator=gen)
+               for _ in range(3))
+    pat = (bal.rows, bal.cols, q, k)
+    kw = dict(shape=csr.shape, alpha=d ** -0.5)
+    pm, ps = fused_chain.chain_stats_plain(*pat, **kw)
+    yp = fused_chain.chain_plain(*pat, v, transform="softmax",
+                                 stats=(pm, ps), **kw)
+    fkw = dict(kw, blocks=blocks)
+    rm, rs = fused_chain._launch_stats("block", *pat, **fkw)
+    y = fused_chain._launch_chain("block", *pat, v, transform="softmax",
+                                  stats=(pm, ps), **fkw)
+    label = f"zamba2 shared attention head seq={zss} d={d} block"
+    ctx.hold("chain_stats", f"{label} row max", rm, pm, "float32")
+    ctx.hold("chain_stats", f"{label} row sum", rs, ps, "float32")
+    ctx.hold("chain", f"{label} softmax", y, yp, "float32")
+    lay = blocks(bal.rows, bal.cols, csr.shape)
+    pattern_bytes = (12 * BLOCK * lay.n_blocks + 4 * lay.n_blocks
+                     + 16 * lay.work.shape[0])
+    base = pattern_bytes + 2 * zss * d * 4 + 8 * zss
+    b7 = ctx.bound(base, 2 * csr.nnz * d)
+    b8 = ctx.bound(base + 2 * zss * d * 4, 4 * csr.nnz * d)
+    st = fused_chain._launch_stats(None, *pat, **fkw)
+    r_ = torch.repeat_interleave(torch.arange(zss, device=dev),
+                                 torch.diff(csr.indptr.long()))
+    mask = torch.zeros((zss, zss), dtype=torch.bool, device=dev)
+    mask[r_, csr.indices.long()] = True
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k7 = {"shape": f"{label} fill {lay.fill:.4f}", "nnz": csr.nnz,
+          "ms": ctx.time_ms(lambda: fused_chain._launch_stats(None, *pat,
+                                                              **fkw)),
+          "plain_ms": ctx.time_ms(lambda: fused_chain.chain_stats_plain(
+              *pat, **kw), 3),
+          "library_ms": None, "bound_ms": b7[0], "bound_by": b7[1]}
+    k8 = {"shape": f"{label} fill {lay.fill:.4f}", "nnz": csr.nnz,
+          "ms": ctx.time_ms(lambda: fused_chain._launch_chain(
+              None, *pat, v, transform="softmax", stats=st, **fkw)),
+          "plain_ms": ctx.time_ms(lambda: fused_chain.chain_plain(
+              *pat, v, transform="softmax", stats=st, **kw), 3),
+          "library_ms": ctx.time_ms(lambda: sdpa(
+              q[None, None], k[None, None], v[None, None],
+              attn_mask=mask)),
+          "bound_ms": b8[0], "bound_by": b8[1]}
+    say("K7 / K8 at d = 80 (CUDA events, median of 20; K8's library: SDPA "
+        "on the dense boolean mask, K7 + K8)", {"k7": k7, "k8": k8})
+    rows["k7_d80"], rows["k8_d80"] = k7, k8
+    del bal, blocks, q, k, v, pat, pm, ps, yp, rm, rs, y, st, mask, r_
+
+    # the SSD scan at the full head shapes: chunked against the recurrence
+    sd = sizes["ssd"]
+    h_, p_, n_ = sd["heads"], sd["head_dim"], sd["state"]
+    x = torch.randn(1, sd["seq"], h_, p_, device=dev, generator=gen)
+    dt = torch.rand(1, sd["seq"], h_, device=dev, generator=gen) * 0.1 + 0.01
+    a_log = torch.rand(h_, device=dev, generator=gen)
+    bb = 0.3 * torch.randn(1, sd["seq"], n_, device=dev, generator=gen)
+    cc = 0.3 * torch.randn(1, sd["seq"], n_, device=dev, generator=gen)
+    dsk = torch.randn(h_, device=dev, generator=gen)
+    with torch.no_grad():
+        (y_c, s_c), chunk_s = walled(lambda: ssm.ssd_chunked(
+            x, dt, a_log, bb, cc, dsk, chunk=sd["chunk"]))
+        state = torch.zeros(1, h_, n_, p_, device=dev)
+        ys = []
+        t0 = time.perf_counter()
+        for i in range(sd["seq"]):
+            yi, state = ssm.ssd_decode_step(state, x[:, i], dt[:, i], a_log,
+                                            bb[:, i], cc[:, i], dsk)
+            ys.append(yi)
+        sync()
+        step_s = time.perf_counter() - t0
+    check = {**sd, "y_rel_err": rel(y_c, torch.stack(ys, 1)),
+             "state_rel_err": rel(s_c, state), "chunked_ms": 1e3 * chunk_s,
+             "recurrence_ms": 1e3 * step_s}
+    print(f"[check] families (b) ssd_chunked vs the ssd_decode_step "
+          f"recurrence {json.dumps(check)} tol 1e-3", flush=True)
+    if check["y_rel_err"] > 1e-3 or check["state_rel_err"] > 1e-3:
+        fail(f"families (b) ssd: {check}")
+    rows["b"]["ssd"] = check
+    del x, dt, bb, cc, y_c, s_c, ys, state
+
+    # one group in f32 at full width, block-sparse: "hopper" against
+    # "torch", and prefill + one decode step against a longer prefill
+    n_g = sizes["zamba_cut_layers"]
+    gcfg = scfg.scaled(num_layers=n_g, **f32)
+    gm = Model(gcfg)
+    gp = {k: v.float() for k, v in zp.items()
+          if k not in ("blocks", "shared_attn")}
+    gp["blocks"] = tree_map(lambda v: v[:n_g // zcfg.shared_every].float(),
+                            zp["blocks"])
+    gp["shared_attn"] = tree_map(lambda v: v.float(), zp["shared_attn"])
+    del zp, zm, sm
+    free()
+    gs = sizes["zamba_cut_seq"]
+    t = ztoks[:, :gs + 1]
+    with torch.no_grad():
+        (lh, ch), counts = ctx.drive(lambda: gm.prefill(
+            gp, {"tokens": t[:, :gs]}, gs + 8), "families")
+        with repro_torch.use_backend("torch"):
+            lt, _ = gm.prefill(gp, {"tokens": t[:, :gs]}, gs + 8)
+        ld, _ = gm.decode_step(gp, ch, t[:, gs:])
+        lp2, _ = gm.prefill(gp, {"tokens": t}, gs + 8)
+    check = {"layers": n_g, "seq": gs, "hopper_vs_torch_rel_err": rel(lh, lt),
+             "decode_vs_prefill_rel_err": rel(ld, lp2),
+             "launches": {k: v for k, v in counts.items() if v}}
+    print(f"[check] families (b) zamba2 one-group f32 cut, block-sparse: "
+          f"{json.dumps(check)} tol {ctx.rtol:g} / 2e-2", flush=True)
+    if check["hopper_vs_torch_rel_err"] > ctx.rtol or \
+            check["decode_vs_prefill_rel_err"] >= 2e-2 or \
+            counts["chain_stats"] != gcfg.num_heads or \
+            counts["chain"] != gcfg.num_heads:
+        fail(f"families (b) cut: {check}")
+    rows["b"]["cut"] = check
+    del lh, lt, ld, lp2, ch
+
+    # (d) the serve engine on the one-group cut: K7/K8 in the prefills
+    cut_prompts = [rng.integers(0, zcfg.vocab_size, int(n)).tolist()
+                   for n in rng.integers(lo, hi + 1, sizes["cut_requests"])]
+    tok_sync, m, counts, groups, done = serve(
+        gm, gp, cut_prompts, sizes["cut_new"], max_len=max_len,
+        label="zamba2 cut sync", **sync_kw)
+    tok_async, *_ = serve(gm, gp, cut_prompts, sizes["cut_new"],
+                          max_len=max_len, label="zamba2 cut async")
+    want = {rid: oracle(gm, gp, p, sizes["cut_new"], max_len)
+            for rid, p in enumerate(cut_prompts)}
+    check = {"prompt_lens": [len(p) for p in cut_prompts],
+             "sync_equals_oracle": tok_sync == want,
+             "async_equals_sync": tok_async == tok_sync,
+             "launches_sync": {k: v for k, v in counts.items() if v},
+             "ticks": m["ticks"], "latency": m["latency"],
+             "decode_tokens_per_s": sum(r.metrics.decode_ticks for r in done)
+             / sum(groups)}
+    say("(d) zamba2-2.7b one-group f32 block-sparse cut served", check)
+    if not (check["sync_equals_oracle"] and check["async_equals_sync"]) or \
+            counts["chain_stats"] < 1 or counts["chain"] < 1:
+        fail(f"families (d) zamba2 cut: {check}")
+    rows["d_zamba"] = check
+    del gp, gm
+    free()
+
+    # ---- (c) Whisper-tiny at full width -----------------------------------
+    wcfg = ctx.whisper if ctx.whisper is not None else whisper_tiny.CONFIG
+    wm = Model(wcfg)
+    wp = wm.init(torch.Generator(device=dev).manual_seed(ctx.seed), device=dev)
+    wb, ws = sizes["whisper_batch"], sizes["whisper_seq"]
+    frames = torch.randn(wb, wcfg.num_frames, wcfg.d_model, device=dev,
+                         generator=gen)
+    wtoks = torch.randint(0, wcfg.vocab_size, (wb, ws), device=dev,
+                          generator=gen)
+    batch = {"tokens": wtoks, "frames": frames}
+    with torch.no_grad():
+        ((logits, caches), first_s), counts = ctx.drive(lambda: walled(
+            lambda: wm.prefill(wp, batch, ws + steps)), "families")
+        _, pre_s = walled(lambda: wm.prefill(wp, batch, ws + steps))
+        ok_prefill = bool(torch.isfinite(logits).all())
+        logits, caches, dec = decode_run(wm, wp, logits, caches, steps)
+    row = {"config": wcfg.name, "encoder_layers": wcfg.encoder_layers,
+           "layers": wcfg.num_layers, "d_model": wcfg.d_model,
+           "frames": wcfg.num_frames, "batch": wb, "seq": ws,
+           "param_count": model_params.param_count(wm.specs),
+           "first_prefill_ms": 1e3 * first_s, "prefill_ms": 1e3 * pre_s,
+           "decode_step_ms": 1e3 * statistics.median(dec[1:]),
+           "first_decode_step_ms": 1e3 * dec[0],
+           "launches": {k: v for k, v in counts.items() if v}}
+    say("(c) whisper-tiny prefill and decode", row)
+    if not ok_prefill or not bool(torch.isfinite(logits).all()) or \
+            int(caches["length"]) != ws + steps or \
+            tuple(caches["memory"].shape) != (wb, wcfg.num_frames,
+                                              wcfg.d_model):
+        fail(f"families (c): {row}")
+    rows["c"] = row
+    del logits, caches
+
+    # block-sparse in f32: the encoder's non-causal band over 1,500 frames
+    # (the last block partial) and the decoder's causal prefill on K7 + K8
+    fcfg = wcfg.scaled(attn_pattern="block_sparse",
+                       window=sizes["whisper_window"],
+                       attn_block=sizes["block"], **f32)
+    fm = Model(fcfg)
+    fp = tree_map(lambda v: v.float(), wp)
+    want_k = (fcfg.encoder_layers + fcfg.num_layers) * fcfg.num_heads * wb
+    with torch.no_grad():
+        (lh, ch), counts = ctx.drive(lambda: fm.prefill(fp, batch, ws + 8),
+                                     "families")
+        designs = {k: v for k, v in ctx.took().items()
+                   if k in ("chain_stats", "chain")}
+        with repro_torch.use_backend("torch"):
+            lt, ct = fm.prefill(fp, batch, ws + 8)
+    check = {"window": fcfg.window, "block": fcfg.attn_block,
+             "hopper_vs_torch_rel_err": rel(lh, lt),
+             "memory_rel_err": rel(ch["memory"], ct["memory"]),
+             "launches": {k: v for k, v in counts.items() if v},
+             "designs": designs, "expected_each": want_k}
+    print(f"[check] families (c) whisper-tiny block-sparse f32: "
+          f"{json.dumps(check)} tol {ctx.rtol:g}", flush=True)
+    if check["hopper_vs_torch_rel_err"] > ctx.rtol or \
+            check["memory_rel_err"] > ctx.rtol or \
+            counts["chain_stats"] != want_k or counts["chain"] != want_k or \
+            designs["chain_stats"]["block"] < 1 or designs["chain"]["block"] < 1:
+        fail(f"families (c) block-sparse: {check}")
+    rows["c"]["block_sparse"] = check
+    del wp, fp, wm, fm, lh, lt, ch, ct, frames
+    free()
+    return rows
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -1590,7 +2147,7 @@ def main() -> int:
                                   "gat_train", "attention_backward",
                                   "bsr_backward", "quant", "offline",
                                   "tune", "guardrails", "models", "serve",
-                                  "driver")}
+                                  "driver", "families")}
     value_counts = {**vsr.VALUE_LAUNCHES, **spmv.VALUE_LAUNCHES}
     path_values = {path: {k: dict.fromkeys(vv, 0) for k, vv in value_counts.items()}
                    for path in path_launches}
@@ -4644,7 +5201,20 @@ def main() -> int:
     print(f"[driver] phase {time.perf_counter() - t_driver:.1f} s ({card})",
           flush=True)
 
-    # -- 19. summary --------------------------------------------------------------
+    # -- 19. families -----------------------------------------------------------
+    phase("families")
+    t_families = time.perf_counter()
+    ctx.say = lambda label, row: print(
+        f"[families] {label} " + json.dumps(row, default=str) + f" ({card})",
+        flush=True)
+    ctx.hold, ctx.bound, ctx.time_ms = hold, bound, time_ms
+    ctx.rwkv = ctx.zamba = ctx.whisper = None
+    families_rows = families_phase(ctx)
+    print(f"[families] phase {time.perf_counter() - t_families:.1f} s "
+          f"({card}); [health] families "
+          f"{json.dumps(HEALTH.snapshot()['counters'])}", flush=True)
+
+    # -- 20. summary --------------------------------------------------------------
     phase("summary")
     summary = []
     for kernel, meta in KERNELS.items():
@@ -4689,6 +5259,11 @@ def main() -> int:
         if kernel == "chain_stats":
             # K7 in full mode, as the chain's backward recomputes it
             summary[-1]["backward"] = k7_rows
+        if kernel in ("chain_stats", "chain"):
+            # one head of Zamba2-2.7B's shared attention (d = 80), block
+            # design, and its launches in phase families
+            summary[-1]["families"] = families_rows[
+                "k7_d80" if kernel == "chain_stats" else "k8_d80"]
         if kernel in CODED:
             # launches by the value type of the slab read, on each path
             summary[-1]["launches_by_value"] = {

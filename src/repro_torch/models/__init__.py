@@ -1,9 +1,8 @@
-"""Model code of the port; counterpart of ``repro.models`` for the
-attention families: the configuration dataclasses and shape cells, the
-param specs (``params``), the layers, the transformer blocks, the MoE
-(``moe``: router, one-hot, sort and SpMM dispatch, the pinned half), the
-chunked LM loss and ``Model``.  The SSM, hybrid and audio families are not
-ported yet."""
+"""Model code of the port; counterpart of ``repro.models``: the
+configuration dataclasses and shape cells, the param specs (``params``),
+the layers, the transformer blocks, the MoE (``moe``: router, one-hot, sort
+and SpMM dispatch, the pinned half), the Mamba-2 / SSD mixer (``ssm``), the
+RWKV-6 mixers (``rwkv``), the chunked LM loss and ``Model``."""
 from .config import (SHAPES, ModelConfig, MoEConfig, ShapeCell,
                      SparseFFNConfig, SSMConfig)
 from .layers import SparsePattern, rmsnorm, sparse_matmul, sparse_mlp_apply

@@ -1,23 +1,32 @@
 """Model: turns a ModelConfig into train/prefill/decode functions;
-counterpart of ``repro.models.model`` for the attention families (dense,
-MoE, VLM, Gemma's local/global stack, ``block_sparse`` and the sparse FFN).
+counterpart of ``repro.models.model`` for every family: dense, MoE, VLM,
+Gemma's local/global stack, ``block_sparse`` and the sparse FFN, the Zamba2
+hybrid (Mamba-2 groups and one shared attention block), RWKV-6 and the
+Whisper encoder-decoder.
 
 All functions are pure (params and caches in, values out; a cache given is
 not written).  The reference's ``lax.scan`` over the stacked leading axis is
 a Python loop here; its ``_remat`` is ``torch.utils.checkpoint`` around each
-block when ``cfg.remat != "none"`` and autograd records.  Cache layout:
+block (a Zamba2 group, an RWKV block) when ``cfg.remat != "none"`` and
+autograd records.  Cache layout:
 
   dense/moe/vlm  {"kv": {k,v: (L, B, Hk, Lmax, hd)}, length}
   gemma3         {"local": {k,v: (G, inner-1, B, Hk, min(window, Lmax), hd)},
                   "global": {k,v: (G, 1, B, Hk, Lmax, hd)}, length}
+  hybrid(zamba2) {"ssm": (G, inner, B, H, N, P) f32, "conv": (G, inner, B,
+                  W-1, C), "kv": {k,v: (G, B, Hk, Lmax, hd)}, length}
+  ssm(rwkv6)     {"wkv": (L, B, H, N, N) f32, "tm_prev" / "cm_prev": (L, B,
+                  D), length}
+  audio(whisper) {"kv": decoder self-attention (L, ...), "memory": (B, Sm,
+                  D) (set by prefill), length}
 
 ``length`` is a 0-d int32 tensor, or (B,) for lanes at their own positions.
-The SSM, hybrid and audio backbones are not ported yet.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -26,8 +35,10 @@ from .config import ModelConfig
 from .layers import rmsnorm
 from .model_loss import lm_loss
 from .params import init_params
-from .transformer import (NOT_PORTED, dense_block_apply, model_specs,
-                          sparse_patterns)
+from .rwkv import rwkv6_channel_mix, rwkv6_time_mix
+from .ssm import mamba2_mix
+from .transformer import (attn_apply, dense_block_apply, ffn_apply,
+                          model_specs, sparse_patterns)
 
 
 def _tree_idx(tree, *i):
@@ -81,23 +92,29 @@ class Model:
                 else params["lm_head"])
 
     # ------------------------------------------------------------- backbones
+    def _remat(self, fn, *args):
+        """``fn(*args)``, under ``torch.utils.checkpoint`` when training
+        with remat.  The recompute runs in the backward, on autograd's
+        thread for CUDA tensors: it re-enters the forward's backend scope."""
+        if self.cfg.remat == "none" or not torch.is_grad_enabled():
+            return fn(*args)
+        scoped = registry.scoped_backend()
+
+        def run(*a):
+            with registry.backend_scope(scoped):
+                return fn(*a)
+        return checkpoint(run, *args, use_reentrant=False)
+
     def _block(self, p, x, positions, cache=None, window=0, patterns=None):
         """One decoder block, checkpointed when training with remat."""
         cfg = self.cfg
-        if cache is None and cfg.remat != "none" and torch.is_grad_enabled():
-            # the recompute runs in the backward, on autograd's thread for
-            # CUDA tensors: it re-enters the forward's backend scope
-            scoped = registry.scoped_backend()
-
+        if cache is None:
             def run(p_, x_):
-                with registry.backend_scope(scoped):
-                    y, _, a = dense_block_apply(p_, x_, cfg,
-                                                positions=positions,
-                                                window=window,
-                                                patterns=patterns)
+                y, _, a = dense_block_apply(p_, x_, cfg, positions=positions,
+                                            window=window, patterns=patterns)
                 return y, torch.as_tensor(a, dtype=torch.float32,
                                           device=y.device)
-            y, a = checkpoint(run, p, x, use_reentrant=False)
+            y, a = self._remat(run, p, x)
             return y, None, a
         return dense_block_apply(p, x, cfg, positions=positions, cache=cache,
                                  window=window, patterns=patterns)
@@ -153,24 +170,148 @@ class Model:
         new["global"] = _stack_caches(new_gc, (groups, 1))
         return x, new, zero
 
-    def _backbone(self, params, x, positions, caches=None):
+    def _backbone_zamba(self, params, x, positions, caches=None):
+        """Zamba2: groups of ``shared_every`` Mamba-2 layers, each group
+        closed by the one shared attention block.  Every group reads the
+        same ``shared_attn`` tensors, so their gradient is the sum over the
+        groups."""
         cfg = self.cfg
-        if cfg.family in ("audio", "hybrid", "ssm"):
-            raise NotImplementedError(f"{cfg.family} backbone: {NOT_PORTED}")
+        inner = cfg.shared_every
+        groups = cfg.num_layers // inner
+        decode = x.shape[1] == 1 and caches is not None
+        shared_p = params["shared_attn"]
+
+        def group(pg, shared, x, ssm_g=None, conv_g=None, kv=None):
+            states, convs = [], []
+            for i in range(inner):
+                pi = _tree_idx(pg, i)
+                y, (st, cv) = mamba2_mix(
+                    pi, rmsnorm(x, pi["ln"], cfg.norm_eps), cfg.ssm,
+                    cfg.d_model, state=None if ssm_g is None else ssm_g[i],
+                    conv_cache=None if conv_g is None else conv_g[i],
+                    decode=decode)
+                x = x + y
+                states.append(st)
+                convs.append(cv)
+            x, kv, _ = dense_block_apply(shared, x, cfg, positions=positions,
+                                         cache=kv)
+            return x, states, convs, kv
+
+        new_ssm, new_conv, new_kv = [], [], []
+        for g in range(groups):
+            pg = _tree_idx(params["blocks"], g)
+            if caches is None:
+                x = self._remat(lambda p_, s_, x_: group(p_, s_, x_)[0],
+                                pg, shared_p, x)
+                continue
+            kv = dict(_tree_idx(caches["kv"], g), length=caches["length"])
+            x, states, convs, kv = group(pg, shared_p, x, caches["ssm"][g],
+                                         caches["conv"][g], kv)
+            new_ssm.append(torch.stack(states))
+            new_conv.append(torch.stack(convs))
+            new_kv.append(kv)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        if caches is None:
+            return x, None, zero
+        return x, dict(caches, ssm=torch.stack(new_ssm),
+                       conv=torch.stack(new_conv),
+                       kv=_stack_caches(new_kv, (groups,)),
+                       length=caches["length"] + x.shape[1]), zero
+
+    def _backbone_rwkv(self, params, x, positions, caches=None):
+        """RWKV-6: time mix and channel mix a layer, each carrying its state
+        (the WKV matrix, the last normed token) in the cache."""
+        cfg = self.cfg
+
+        def block(p, x, wkv=None, tm_prev=None, cm_prev=None):
+            xn = rmsnorm(x, p["ln1"], cfg.norm_eps)
+            y, (wkv, tm_prev) = rwkv6_time_mix(p, xn, cfg.num_heads,
+                                               state=wkv, x_prev=tm_prev)
+            x = x + y
+            xn = rmsnorm(x, p["ln2"], cfg.norm_eps)
+            y, cm_prev = rwkv6_channel_mix(p, xn, x_prev=cm_prev)
+            return x + y, wkv, tm_prev, cm_prev
+
+        new = {"wkv": [], "tm_prev": [], "cm_prev": []}
+        for i in range(cfg.num_layers):
+            p = _tree_idx(params["blocks"], i)
+            if caches is None:
+                x = self._remat(lambda p_, x_: block(p_, x_)[0], p, x)
+                continue
+            x, *state = block(p, x, *(caches[k][i] for k in new))
+            for k, v in zip(new, state):
+                new[k].append(v)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        if caches is None:
+            return x, None, zero
+        return x, dict(caches, **{k: torch.stack(v) for k, v in new.items()},
+                       length=caches["length"] + x.shape[1]), zero
+
+    def _encode_audio(self, params, frames):
+        """Whisper encoder over the frame embeddings (B, Sm, D): the
+        sinusoid added, then non-causal blocks with RoPE, as the
+        reference."""
+        cfg = self.cfg
+        x = frames.to(getattr(torch, cfg.compute_dtype))
+        pos = torch.arange(x.shape[1], device=x.device)[None]
+        x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+        for i in range(cfg.encoder_layers):
+            x, _, _ = dense_block_apply(_tree_idx(params["enc_blocks"], i), x,
+                                        cfg, positions=pos, causal=False)
+        return rmsnorm(x, params["enc_final_ln"], cfg.norm_eps)
+
+    def _backbone_whisper(self, params, x, positions, caches=None,
+                          memory=None):
+        """Whisper decoder: causal self-attention (cached), cross-attention
+        on ``memory`` (its K/V recomputed at every call, as the reference),
+        the MLP; sinusoidal positions, no RoPE."""
+        cfg = self.cfg
+        x = x + _sinusoid_at(positions, cfg.d_model, x.dtype)
+        new_kv = []
+        for i in range(cfg.num_layers):
+            p = _tree_idx(params["dec_blocks"], i)
+            kv = None
+            if caches is not None:
+                kv = dict(_tree_idx(caches["kv"], i), length=caches["length"])
+            x, kv = attn_apply(p["attn"], x, cfg, positions=positions,
+                               cache=kv, rope=False)
+            x, _ = attn_apply(p["xattn"], x, cfg, positions=positions,
+                              memory=memory, rope=False)
+            x, _ = ffn_apply(p["ffn"], x, cfg)
+            if caches is not None:
+                new_kv.append(kv)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        if caches is None:
+            return x, None, zero
+        return x, dict(caches, kv=_stack_caches(new_kv, (len(new_kv),)),
+                       length=caches["length"] + x.shape[1]), zero
+
+    def _backbone(self, params, x, positions, caches=None, memory=None):
+        cfg = self.cfg
+        if cfg.family == "audio":
+            return self._backbone_whisper(params, x, positions, caches,
+                                          memory)
         if cfg.attn_pattern == "local_global":
             return self._backbone_gemma(params, x, positions, caches)
+        if cfg.family == "hybrid":
+            return self._backbone_zamba(params, x, positions, caches)
+        if cfg.family == "ssm" and cfg.ssm.kind == "rwkv6":
+            return self._backbone_rwkv(params, x, positions, caches)
         return self._backbone_uniform(params, x, positions, caches)
 
     # ------------------------------------------------------------ public fns
     def loss_fn(self, params, batch):
-        """batch: tokens (B, S), labels (B, S) [-1 = pad] → (loss,
-        {"ce_loss", "aux_loss", "tokens"})."""
+        """batch: tokens (B, S), labels (B, S) [-1 = pad]; audio adds frames
+        (B, Sm, D) → (loss, {"ce_loss", "aux_loss", "tokens"})."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[
             None].expand(tokens.shape)
-        h, _, aux = self._backbone(params, x, positions)
+        memory = None
+        if cfg.family == "audio":
+            memory = self._encode_audio(params, batch["frames"])
+        h, _, aux = self._backbone(params, x, positions, memory=memory)
         h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
         loss, ntok = lm_loss(h, self._unembed_w(params), batch["labels"])
         aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
@@ -182,14 +323,20 @@ class Model:
         return (h.float() @ self._unembed_w(params).float())[:, 0]
 
     def prefill(self, params, batch, max_len: int):
-        """tokens (B, S) → (last-position logits (B, V), caches of
+        """tokens (B, S) (audio: and frames (B, Sm, D), whose encoding the
+        caches keep as ``memory``) → (last-position logits (B, V), caches of
         ``max_len``)."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         caches = self.init_cache(b, max_len, device=tokens.device)
+        memory = None
+        if self.cfg.family == "audio":
+            memory = self._encode_audio(params, batch["frames"])
+            caches["memory"] = memory
         x = self._embed(params, tokens)
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        h, caches, _ = self._backbone(params, x, positions, caches=caches)
+        h, caches, _ = self._backbone(params, x, positions, caches=caches,
+                                      memory=memory)
         return self._logits(params, h[:, -1:]), caches
 
     def decode_step(self, params, caches, tokens):
@@ -201,7 +348,9 @@ class Model:
         lens = caches["length"]
         positions = (lens.reshape(1, 1).expand(b, 1) if lens.ndim == 0
                      else lens[:, None])
-        h, caches, _ = self._backbone(params, x, positions, caches=caches)
+        memory = caches.get("memory") if self.cfg.family == "audio" else None
+        h, caches, _ = self._backbone(params, x, positions, caches=caches,
+                                      memory=memory)
         return self._logits(params, h), caches
 
     # ---------------------------------------------------------------- caches
@@ -219,11 +368,51 @@ class Model:
             return dict(k=torch.zeros(shape, dtype=dt, device=dev),
                         v=torch.zeros(shape, dtype=dt, device=dev))
 
-        if cfg.family in ("audio", "hybrid", "ssm"):
-            raise NotImplementedError(f"{cfg.family} caches: {NOT_PORTED}")
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        if cfg.family == "audio":
+            return {"kv": kv((cfg.num_layers,), max_len), "length": length}
         if cfg.attn_pattern == "local_global":
             inner = cfg.local_per_global + 1
             groups = cfg.num_layers // inner
             return {"local": kv((groups, inner - 1), min(cfg.window, max_len)),
                     "global": kv((groups, 1), max_len), "length": length}
+        if cfg.family == "hybrid":
+            s = cfg.ssm
+            di = s.expand * cfg.d_model
+            groups = cfg.num_layers // cfg.shared_every
+            lead = (groups, cfg.shared_every, batch)
+            return {
+                "ssm": zeros(lead + (di // s.head_dim, s.d_state, s.head_dim),
+                             torch.float32),
+                "conv": zeros(lead + (s.conv_width - 1, di + 2 * s.d_state),
+                              dt),
+                "kv": kv((groups,), max_len),
+                "length": length,
+            }
+        if cfg.family == "ssm":  # rwkv6
+            n = cfg.d_model // cfg.num_heads
+            lead = (cfg.num_layers, batch)
+            return {"wkv": zeros(lead + (cfg.num_heads, n, n), torch.float32),
+                    "tm_prev": zeros(lead + (cfg.d_model,), dt),
+                    "cm_prev": zeros(lead + (cfg.d_model,), dt),
+                    "length": length}
         return {"kv": kv((cfg.num_layers,), max_len), "length": length}
+
+
+def _sinusoid(s: int, d: int, dtype, device) -> torch.Tensor:
+    """The (s, d) sinusoidal table, [sin | cos], computed in float64 on the
+    host and cast, as the reference."""
+    pos = np.arange(s)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / d))
+    return torch.as_tensor(np.concatenate([np.sin(ang), np.cos(ang)], -1),
+                           dtype=dtype, device=device)
+
+
+def _sinusoid_at(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """The sinusoid at ``positions`` (B, S) → (B, S, d), in f32, cast."""
+    i = torch.arange(d // 2, device=positions.device)[None, None, :]
+    ang = positions[..., None] / (10000 ** (2 * i / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)

@@ -1,13 +1,10 @@
-"""Architecture assembly; counterpart of ``repro.models.transformer`` for
-the attention families (dense, MoE, VLM, Gemma's local/global stack,
-``block_sparse`` attention and the sparse FFN): the param specs, the block
-forwards (``attn_apply`` with its caches, ``ffn_apply``,
-``dense_block_apply``), the block-sparse attention of DESIGN.md §10, and
-the sparse FFN as the module ``SparseFFN``.
-
-The SSM families (rwkv6, Mamba-2 and the Zamba2 hybrid) and the Whisper
-encoder-decoder are not ported yet: their specs raise
-``NotImplementedError``.
+"""Architecture assembly; counterpart of ``repro.models.transformer``: the
+param specs of every family (dense, MoE, VLM, Gemma's local/global stack,
+the Mamba-2 and RWKV-6 blocks, the Zamba2 hybrid's groups and shared
+attention, Whisper's encoder and decoder), the block forwards
+(``attn_apply`` with its caches, ``ffn_apply``, ``dense_block_apply``), the
+block-sparse attention of DESIGN.md §10, and the sparse FFN as the module
+``SparseFFN``.
 """
 from __future__ import annotations
 
@@ -22,11 +19,6 @@ from .moe import moe_apply
 from .params import ParamSpec, map_specs
 
 P = ParamSpec
-
-#: what the families not yet ported raise
-NOT_PORTED = ("the SSM families (rwkv6, Mamba-2, the Zamba2 hybrid) and the "
-              "Whisper encoder-decoder are not ported yet (ROADMAP queue 1, "
-              "item 4b)")
 
 
 # ---------------------------------------------------------------------------
@@ -83,11 +75,48 @@ def moe_specs(cfg: ModelConfig) -> dict:
 
 
 def mamba_specs(cfg: ModelConfig) -> dict:
-    raise NotImplementedError(f"mamba_specs: {NOT_PORTED}")
+    d, s = cfg.d_model, cfg.ssm
+    di = s.expand * d
+    n = s.d_state
+    h = di // s.head_dim
+    zdim = 2 * di + 2 * n + h
+    return {
+        "ln": P((d,), ("embed",), _dt(cfg), "zeros"),
+        "w_in": P((d, zdim), ("embed", "ssm_in"), _dt(cfg)),
+        "w_conv": P((s.conv_width, di + 2 * n), (None, "ssm_in"), _dt(cfg), scale=0.5),
+        "dt_bias": P((h,), (None,), torch.float32, "zeros"),
+        "a_log": P((h,), (None,), torch.float32, "zeros"),
+        "d_skip": P((h,), (None,), torch.float32, "ones"),
+        "norm_w": P((di,), ("ssm_in",), _dt(cfg), "zeros"),
+        "w_out": P((di, d), ("ssm_in", "embed"), _dt(cfg)),
+    }
 
 
 def rwkv_specs(cfg: ModelConfig) -> dict:
-    raise NotImplementedError(f"rwkv_specs: {NOT_PORTED}")
+    d, f = cfg.d_model, cfg.d_ff
+    r = 64  # decay-LoRA rank
+    mus = {f"mu_{k}": P((d,), ("embed",), _dt(cfg), "zeros") for k in "rkvwg"}
+    return {
+        "ln1": P((d,), ("embed",), _dt(cfg), "zeros"),
+        **mus,
+        "w_r": P((d, d), ("embed", "heads"), _dt(cfg)),
+        "w_k": P((d, d), ("embed", "heads"), _dt(cfg)),
+        "w_v": P((d, d), ("embed", "heads"), _dt(cfg)),
+        "w_g": P((d, d), ("embed", "heads"), _dt(cfg)),
+        "w_decay_a": P((d, r), ("embed", None), _dt(cfg), scale=0.02),
+        "w_decay_b": P((r, d), (None, "heads"), _dt(cfg), scale=0.02),
+        "w0": P((d,), ("heads",), torch.float32, "zeros"),
+        "u_bonus": P((d,), ("heads",), torch.float32, "zeros"),
+        "ln_w": P((d,), ("heads",), torch.float32, "ones"),
+        "ln_b": P((d,), ("heads",), torch.float32, "zeros"),
+        "w_o": P((d, d), ("heads", "embed"), _dt(cfg)),
+        "ln2": P((d,), ("embed",), _dt(cfg), "zeros"),
+        "mu_ck": P((d,), ("embed",), _dt(cfg), "zeros"),
+        "mu_cr": P((d,), ("embed",), _dt(cfg), "zeros"),
+        "w_ck": P((d, f), ("embed", "ff"), _dt(cfg)),
+        "w_cv": P((f, d), ("ff", "embed"), _dt(cfg)),
+        "w_cr": P((d, d), ("embed", None), _dt(cfg)),
+    }
 
 
 def block_specs(cfg: ModelConfig, cross: bool = False) -> dict:
@@ -116,13 +145,25 @@ def model_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = P((d, v), ("embed", "vocab"), _dt(cfg), scale=0.02)
-    if cfg.family in ("audio", "hybrid"):
-        raise NotImplementedError(f"model_specs({cfg.family!r}): {NOT_PORTED}")
+    if cfg.family == "audio":  # whisper enc-dec
+        specs["enc_blocks"] = _stack(
+            {"attn": attn_specs(cfg), "ffn": mlp_specs(cfg)},
+            cfg.encoder_layers, "layers")
+        specs["enc_final_ln"] = P((d,), ("embed",), _dt(cfg), "zeros")
+        specs["dec_blocks"] = _stack(block_specs(cfg, cross=True),
+                                     cfg.num_layers, "layers")
+        return specs
     if cfg.attn_pattern == "local_global":  # gemma3 grouped
         inner = cfg.local_per_global + 1
         groups = cfg.num_layers // inner
         specs["blocks"] = _stack(_stack(block_specs(cfg), inner, "inner"),
                                  groups, "groups")
+        return specs
+    if cfg.family == "hybrid":  # zamba2: shared_every mamba + shared attn
+        groups = cfg.num_layers // cfg.shared_every
+        specs["blocks"] = _stack(_stack(mamba_specs(cfg), cfg.shared_every,
+                                        "inner"), groups, "groups")
+        specs["shared_attn"] = {"attn": attn_specs(cfg), "ffn": mlp_specs(cfg)}
         return specs
     specs["blocks"] = _stack(block_specs(cfg), cfg.num_layers, "layers")
     return specs

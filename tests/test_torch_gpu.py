@@ -3238,3 +3238,140 @@ def test_cuda_serve_engine_pinned_decode_counts_k1(cuda):
     out_a, m_a, _ = _serve_smoke(cuda, _SERVE_REQS)
     assert out_a == out_s
     assert m_a["plan_cache"]["builds"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# the SSM, hybrid and audio families
+# ---------------------------------------------------------------------------
+
+def _family_batch(cfg, cuda, b, s, seed):
+    """Tokens (b, s) from ``seed``, and frame embeddings for an audio
+    config."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device=cuda,
+                                     generator=gen)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(b, cfg.num_frames, cfg.d_model,
+                                      device=cuda, generator=gen)
+    return batch
+
+
+def _tree_rel(got, want):
+    """The largest relative error over the leaves of two cache trees."""
+    if isinstance(want, dict):
+        assert set(got) == set(want)
+        return max(_tree_rel(got[k], want[k]) for k in want)
+    if want.is_floating_point():
+        return _rel(got, want)
+    assert torch.equal(got, want)
+    return 0.0
+
+
+def _family_run(model, params, batch, steps, max_len):
+    """Prefill, then ``steps`` greedy decode steps: every step's logits and
+    the last caches."""
+    logits, caches = model.prefill(params, batch, max_len)
+    out = [logits]
+    for _ in range(steps):
+        tok = logits.argmax(-1, keepdim=True)
+        logits, caches = model.decode_step(params, caches, tok)
+        out.append(logits)
+    return out, caches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rwkv6-3b", "zamba2-2.7b", "whisper-tiny"])
+def test_cuda_ssm_family_smoke_matches_torch_backend(cuda, name):
+    """Each new family's SMOKE model on the card: a prefill of 12 tokens
+    and 3 greedy decode steps on ``"hopper"`` (the default) against
+    ``"torch"``: logits and caches within 1e-4, all finite."""
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.models import Model
+    cfg = configs.get_smoke(name)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = _family_batch(cfg, cuda, 2, 12, 1)
+    with torch.no_grad():
+        got, caches = _family_run(model, params, batch, 3, 24)
+        with repro_torch.use_backend("torch"):
+            want, caches_t = _family_run(model, params, batch, 3, 24)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) < 1e-4
+    assert _tree_rel(caches, caches_t) < 1e-4
+    assert int(caches["length"]) == 15
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["zamba2-d80", "whisper-20-frames"])
+def test_cuda_block_sparse_families_launch_k7_k8(cuda, case):
+    """``block_sparse`` attention in the new families runs K7 and K8, one
+    launch each a layer, head and lane: Zamba2's shared attention at head
+    width 80 (a causal band of 64-blocks, the block design), and Whisper's
+    encoder on a non-causal mask over 20 frames (not a multiple of the
+    block) and its decoder's causal prefill.  Prefill and one decode step
+    against ``"torch"`` within 1e-4."""
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.kernels import fused_chain
+    from repro_torch.models import Model
+    if case == "zamba2-d80":
+        cfg = configs.get_smoke("zamba2-2.7b").scaled(
+            d_model=160, num_heads=2, num_kv_heads=2, head_dim=80,
+            attn_pattern="block_sparse", window=128, attn_block=64)
+        b, s = 1, 256
+        want = (cfg.num_layers // cfg.shared_every) * cfg.num_heads * b
+    else:
+        cfg = configs.get_smoke("whisper-tiny").scaled(
+            attn_pattern="block_sparse", window=16, attn_block=8,
+            num_frames=20)
+        b, s = 2, 12
+        want = (cfg.encoder_layers + cfg.num_layers) * cfg.num_heads * b
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = _family_batch(cfg, cuda, b, s, 2)
+    with torch.no_grad():
+        reset_launch_counts()
+        got, _ = _family_run(model, params, batch, 1, s + 4)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        designs = {k: dict(fused_chain.DESIGN_LAUNCHES[k])
+                   for k in ("chain_stats", "chain")}
+        with repro_torch.use_backend("torch"):
+            ref, _ = _family_run(model, params, batch, 1, s + 4)
+    assert counts["chain_stats"] == counts["chain"] == want, (counts, want)
+    if case == "zamba2-d80":
+        assert designs["chain_stats"]["block"] == designs["chain"]["block"] \
+            == want, designs
+    for g, w in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) < 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_chunked_matches_the_recurrence_at_head_width_64(cuda):
+    """``ssd_chunked`` at Zamba2-2.7B's head shapes (H 80, P 64, N 64,
+    chunk 256) on 512 tokens, with a chunk that does not divide them too:
+    y and the final state equal the ``ssd_decode_step`` recurrence within
+    1e-3."""
+    from repro_torch.models import ssm
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, s, h, p, n = 1, 512, 80, 64, 64
+    x = torch.randn(b, s, h, p, device=cuda, generator=gen)
+    dt = torch.rand(b, s, h, device=cuda, generator=gen) * 0.1 + 0.01
+    a_log = torch.rand(h, device=cuda, generator=gen)
+    bb = torch.randn(b, s, n, device=cuda, generator=gen) * 0.3
+    cc = torch.randn(b, s, n, device=cuda, generator=gen) * 0.3
+    d = torch.randn(h, device=cuda, generator=gen)
+    state = torch.zeros(b, h, n, p, device=cuda)
+    ys = []
+    for t in range(s):
+        y, state = ssm.ssd_decode_step(state, x[:, t], dt[:, t], a_log,
+                                       bb[:, t], cc[:, t], d)
+        ys.append(y)
+    y_step = torch.stack(ys, 1)
+    for chunk in (256, 200):
+        y, fin = ssm.ssd_chunked(x, dt, a_log, bb, cc, d, chunk=chunk)
+        assert _rel(y, y_step) < 1e-3, chunk
+        assert _rel(fin, state) < 1e-3, chunk

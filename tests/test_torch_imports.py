@@ -60,6 +60,12 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.configs.phi3_mini_3_8b",
                    "repro_torch.configs.phi4_mini_3_8b",
                    "repro_torch.configs.qwen2_vl_72b",
+                   "repro_torch.configs.rwkv6_3b",
+                   "repro_torch.configs.zamba2_2_7b",
+                   "repro_torch.configs.whisper_tiny",
+                   "repro_torch.configs.paper_spmm",
+                   "repro_torch.models.ssm",
+                   "repro_torch.models.rwkv",
                    "repro_torch.models.sharding_ctx",
                    "repro_torch.models.params",
                    "repro_torch.models.moe",

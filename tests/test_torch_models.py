@@ -1,7 +1,9 @@
 """The port's models against the reference, on the CPU, at the ``SMOKE``
-configs in float32: every ported architecture (dense, MoE, VLM with M-RoPE,
-Gemma's local/global stack), a ``block_sparse`` variant, a ``sparse_ffn``
-variant and a MoE variant with the SpMM dispatch forced.  The reference runs
+configs in float32: every architecture (dense, MoE, VLM with M-RoPE,
+Gemma's local/global stack, the Zamba2 hybrid, RWKV-6, Whisper), three
+``block_sparse`` variants (Llama, Zamba2's shared attention, Whisper's
+encoder and decoder over 20 frames, not a multiple of the block), a
+``sparse_ffn`` variant and a MoE variant with the SpMM dispatch forced.  The reference runs
 as ``tests/test_models.py`` runs it (``jax.jit(model.loss_fn)``,
 ``jax.grad``); the port gets the same weights (and sparse-FFN patterns)
 carried across by ``interop.model_params_from_arrays`` /
@@ -43,6 +45,11 @@ def _variants():
     extra = {
         "llama3.2-1b+block_sparse": ("llama3.2-1b", dict(
             attn_pattern="block_sparse", window=16, attn_block=8)),
+        "zamba2-2.7b+block_sparse": ("zamba2-2.7b", dict(
+            attn_pattern="block_sparse", window=16, attn_block=8)),
+        "whisper-tiny+block_sparse": ("whisper-tiny", dict(
+            attn_pattern="block_sparse", window=16, attn_block=8,
+            num_frames=20)),
         "llama3.2-1b+sparse_ffn": ("llama3.2-1b", dict(
             sparse_ffn=(RefSparseFFNConfig(density=0.2, tile=64),
                         SparseFFNConfig(density=0.2, tile=64)))),
@@ -81,6 +88,19 @@ def _pair(name):
 def _tokens(cfg, b, s, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s),
                                                 dtype=np.int32)
+
+
+def _batches(cfg, toks, seed=2):
+    """The reference's batch and the port's for ``toks`` (numpy); an audio
+    config gets frame embeddings (B, num_frames, d_model) from ``seed``."""
+    ref = {"tokens": jnp.asarray(toks)}
+    port = {"tokens": torch.from_numpy(toks).long()}
+    if cfg.family == "audio":
+        frames = np.random.default_rng(seed).standard_normal(
+            (toks.shape[0], cfg.num_frames, cfg.d_model)).astype(np.float32)
+        ref["frames"], port["frames"] = jnp.asarray(frames), \
+            torch.from_numpy(frames)
+    return ref, port
 
 
 def _rel(got, want) -> float:
@@ -154,14 +174,6 @@ def test_init_params_follows_the_specs():
             device=CPU)
 
 
-@pytest.mark.parametrize("family", ["rwkv6-3b", "zamba2-2.7b", "whisper-tiny"])
-def test_families_not_ported_raise(family):
-    cfg = interop.model_config_from_fields(
-        **dataclasses.asdict(ref_configs.get_smoke(family)))
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        Model(cfg)
-
-
 # ---------------------------------------------------------------------------
 # the model against the reference
 # ---------------------------------------------------------------------------
@@ -172,9 +184,9 @@ def test_loss_metrics_and_grads_match_reference(name):
     toks = _tokens(model.cfg, 2, 16)
     labels = toks.copy()
     labels[0, -3:] = -1                                      # ignored
-    ref_batch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
-    batch = {"tokens": torch.from_numpy(toks).long(),
-             "labels": torch.from_numpy(labels).long()}
+    ref_batch, batch = _batches(model.cfg, toks)
+    ref_batch["labels"] = jnp.asarray(labels)
+    batch["labels"] = torch.from_numpy(labels).long()
     (ref_loss, ref_m), ref_g = jax.jit(jax.value_and_grad(
         ref.loss_fn, has_aux=True))(ref_p, ref_batch)
     leaves = dict(_leaves(p))
@@ -210,14 +222,15 @@ def test_prefill_and_decode_match_reference(name):
     b, s, max_len = 2, 12, 32
     toks = _tokens(model.cfg, b, s + 1)
     ref_prefill = jax.jit(lambda pp, x: ref.prefill(pp, x, max_len))
-    ref_lp, ref_c = ref_prefill(ref_p, {"tokens": jnp.asarray(toks[:, :s])})
+    ref_b, b_ = _batches(model.cfg, toks[:, :s])
+    ref_lp, ref_c = ref_prefill(ref_p, ref_b)
     ref_ld, ref_c2 = jax.jit(ref.decode_step)(ref_p, ref_c,
                                               jnp.asarray(toks[:, s:]))
     t = torch.from_numpy(toks).long()
     with torch.no_grad():
-        lp, c = model.prefill(p, {"tokens": t[:, :s]}, max_len)
+        lp, c = model.prefill(p, b_, max_len)
         ld, c2 = model.decode_step(p, c, t[:, s:])
-        lp2, _ = model.prefill(p, {"tokens": t}, max_len)
+        lp2, _ = model.prefill(p, dict(b_, tokens=t), max_len)
     assert _rel(lp, ref_lp) <= TOL
     assert _rel(ld, ref_ld) <= TOL
     np_tree = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
@@ -226,7 +239,8 @@ def test_prefill_and_decode_match_reference(name):
     assert _rel(ld, lp2) < 2e-2
 
 
-@pytest.mark.parametrize("name", ["llama3.2-1b", "gemma3-12b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("name", ["llama3.2-1b", "gemma3-12b", "olmoe-1b-7b",
+                                  "zamba2-2.7b"])
 def test_decode_with_per_lane_lengths(name):
     """Batched serving: each lane at its own position (a (B,) length),
     written at its own slot and masked to its own length."""
@@ -395,10 +409,12 @@ def test_mlp_apply_matches_reference(act):
 
 
 @pytest.mark.parametrize("name", ["olmoe-1b-7b+spmm", "gemma3-12b",
-                                  "llama3.2-1b+sparse_ffn"])
+                                  "llama3.2-1b+sparse_ffn", "rwkv6-3b",
+                                  "zamba2-2.7b"])
 def test_remat_recomputes_the_same_loss_and_grads(name):
-    """``remat="block"`` (``torch.utils.checkpoint`` around each block)
-    gives the loss and grads of ``remat="none"``, bit for bit on the CPU."""
+    """``remat="block"`` (``torch.utils.checkpoint`` around each block, a
+    Zamba2 group with the shared attention it reads) gives the loss and
+    grads of ``remat="none"``, bit for bit on the CPU."""
     _, _, model, p = _pair(name)
     toks = torch.from_numpy(_tokens(model.cfg, 2, 16, seed=7)).long()
     batch = {"tokens": toks, "labels": toks}

@@ -1,14 +1,19 @@
-"""Where OLMoE-1B-7B's prefill and decode spend their time on the card:
+"""Where a model's prefill and decode spend their time on the card:
 ``torch.profiler`` traces of the port's ``Model.prefill`` and
-``Model.decode_step`` at full width and depth (``configs/olmoe_1b_7b.py``,
-bf16 weights from the seed, made on the card).
+``Model.decode_step`` at full width (bf16 weights from the seed, made on
+the card).
 
-    python3 tools/profile_models.py [--seed 0] [--layers 16]
+    python3 tools/profile_models.py [--model olmoe-1b-7b] [--seed 0] [--layers N]
 
-Run from the root of a checkout on a CUDA card.  After a warm-up it traces
-three windows: 3 prefills of 4 x 512 tokens (the "sort" dispatch, K1 twice
-a MoE layer), 8 decode steps at B = 4 on the selector's one-hot path, and 8
-with ``dispatch="spmm"`` forced.  For each window it prints one JSON line:
+Run from the root of a checkout on a CUDA card.  ``--model olmoe-1b-7b``
+(the default, ``configs/olmoe_1b_7b.py``): after a warm-up it traces three
+windows: 3 prefills of 4 x 512 tokens (the "sort" dispatch, K1 twice a MoE
+layer), 8 decode steps at B = 4 on the selector's one-hot path, and 8 with
+``dispatch="spmm"`` forced.  ``--model rwkv6-3b``: 1 prefill of 2 x 512
+tokens (the WKV recurrence a token at a time) and 8 decode steps at B = 2;
+``--model zamba2-2.7b``: 1 prefill of 1 x 2,048 tokens and 8 decode steps
+at B = 1.  ``--layers`` cuts the depth (default: the config's).  For each
+window it prints one JSON line:
 the wall time a call (host clock, ending in a sync) unprofiled and
 profiled, the device's busy time a call (the union of the device events'
 intervals), the idle share against each wall (the profiler's own host cost
@@ -29,11 +34,14 @@ sys.path.insert(0, str(Path.cwd() / "src"))
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.configs import olmoe_1b_7b  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 
-BATCH, SEQ, STEPS = 4, 512, 8
+#: (batch, prompt tokens, prefills traced) of each model; 8 decode steps
+SIZES = {"olmoe-1b-7b": (4, 512, 3), "rwkv6-3b": (2, 512, 1),
+         "zamba2-2.7b": (1, 2048, 1)}
+STEPS = 8
 
 
 def _window(label, fn, calls, card):
@@ -90,8 +98,9 @@ def _window(label, fn, calls, card):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=sorted(SIZES), default="olmoe-1b-7b")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--layers", type=int, default=olmoe_1b_7b.CONFIG.num_layers)
+    ap.add_argument("--layers", type=int, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_models: no CUDA device; nothing was run", file=sys.stderr)
@@ -101,22 +110,26 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     _build.lib()
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = olmoe_1b_7b.CONFIG.scaled(num_layers=args.layers)
+    cfg = configs.get(args.model)
+    cfg = cfg.scaled(num_layers=args.layers or cfg.num_layers)
+    batch, seq, prefills = SIZES[args.model]
     model = Model(cfg)
-    spmm_model = Model(dataclasses.replace(
-        cfg, moe=dataclasses.replace(cfg.moe, dispatch="spmm")))
+    decoders = [("", model)]
+    if cfg.moe is not None:
+        decoders = [(" onehot", model), (" spmm", Model(dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, dispatch="spmm"))))]
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init(gen)
-    max_len = SEQ + 4 * STEPS
-    toks = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), device=dev,
+    max_len = seq + 4 * STEPS
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), device=dev,
                          generator=gen)
     with torch.no_grad():
-        _window(f"prefill B={BATCH} S={SEQ}", lambda: model.prefill(
-            params, {"tokens": toks[:, :SEQ]}, max_len), 3, card)
-        _, caches = model.prefill(params, {"tokens": toks[:, :SEQ]}, max_len)
-        tok = toks[:, SEQ:]
-        for label, m in (("onehot", model), ("spmm", spmm_model)):
-            _window(f"decode B={BATCH} {label}",
+        _window(f"{cfg.name} prefill B={batch} S={seq}", lambda: model.prefill(
+            params, {"tokens": toks[:, :seq]}, max_len), prefills, card)
+        _, caches = model.prefill(params, {"tokens": toks[:, :seq]}, max_len)
+        tok = toks[:, seq:]
+        for label, m in decoders:
+            _window(f"{cfg.name} decode B={batch}{label}",
                     lambda: m.decode_step(params, caches, tok), STEPS, card)
     return 0
 
