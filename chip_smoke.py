@@ -381,7 +381,31 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              cut and on (b)'s one-group cut (4 requests, 8 new, K7 and K8
              in the prefills) the tokens equal the sequential greedy
              oracle's, async equal to sync;
-20. summary — one JSON line of the kernels (``launches`` and ``design``:
+20. sharded — the sharded backend (``core/shard.py``) on a mesh of 4
+             shards that share the card, each shard on a stream of its own
+             (``SHARDED``), every result held to the unsharded plan on the
+             card within 1e-4 (f32; the ring against the psum within 1e-5),
+             each check with its launches a call (the shard's kernel 4
+             times) and its times, median of 20: (a) ``sparse(csr,
+             mesh=mesh) @ x`` on both scale-20 graphs at N = 1, 4, 32, 128
+             (g500 split by nonzeros and psummed: K2, K1 pr / sr; uniform
+             split by rows and concatenated: K2, K1 pr, K3 sr), the psum
+             or concat alone, the spill inner (K5 + combine on g500 at N =
+             1, K4 + combine on the uniform graph at N = 128); (b) the ring
+             at N = 512 against the psum, ``autotune_overlap`` at N = 256,
+             512 on CUDA-graph replays; (c) the backward at N = 32 (K6 and
+             K1 a shard); (d) an int8 plan at N = 128 against the product of
+             its decoded values; (e) the GAT softmax chain on both graphs
+             (K7 + K8 a shard; nnz split: the statistics merged across the
+             shards) and one Gemma-3-12B local head at seq 8,192 (row split,
+             a block layout a shard), with a bias refused; (f) one sparse FFN
+             layer at Gemma-3-12B's widths through
+             ``execute_pattern_sharded``, 5 AdamW steps, each loss within
+             1e-4 of the unsharded run's, then the int8 error-feedback
+             all-reduce of its gradients on 4 micro-batches over a 4-way
+             ``data`` mesh, within 1% (relative L2) of the f32 mean; (g) a
+             finalized sharded artifact, no host build and no sync a call;
+21. summary — one JSON line of the kernels (``launches`` and ``design``:
              the main path's; ``launches_by_path`` and ``design_by_path``:
              every path above; for K1, K2, K4 and K5 ``launches_by_value``,
              and an entry of their own for each coded variant,
@@ -389,8 +413,8 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              the quant path's; K1's entry also carries ``models``, one
              OLMoE-1B-7B layer's dispatch and combine, and ``serve``, the
              launches by engine call of (a'); K7's and K8's carry
-             ``families``, one Zamba2 head at d = 80), the card line,
-             then the result.
+             ``families``, one Zamba2 head at d = 80; ``launches_by_path``
+             has ``sharded``), the card line, then the result.
 
 Without a CUDA device it prints no result and exits 2.  ``--scale`` below 20
 runs smaller graphs for a quick look; the graph statistics published with
@@ -1552,6 +1576,435 @@ def families_phase(ctx, sizes=FAMILIES):
     return rows
 
 
+#: the sharded path: SHARDED["shards"] shards of one mesh that share the
+#: card (``make_local_mesh(4, 1, devices=["cuda:0"] * 4)``, each shard on a
+#: stream of its own), every result against the unsharded plan on the same
+#: card: (a) ``sparse(csr, mesh=mesh) @ x`` on both scale-20 graphs at
+#: ``ns`` (g500 by nonzeros: psum; uniform by rows: concat), the spill inner
+#: (K4/K5 + the combine a shard) at ``spill`` — (graph, N, kernel; g500's
+#: window is past the default ``max_win``, so its plan takes
+#: ``spill_max_win``; at N = 128 its partials would take 27 GB a shard, so
+#: the N = 128 spill runs on the uniform graph); (b) the ring at ``ring_n``
+#: against the blocking psum, ``autotune_overlap`` over ``ring_ns``; (c)
+#: the backward at ``bwd_n``; (d) an int8 plan at ``quant_n``; (e) the GAT
+#: softmax chain (d = ``chain_d``, N = ``chain_n``) on both graphs and one
+#: head of Gemma-3-12B's local attention; (f) one sparse FFN layer at
+#: Gemma-3-12B's widths through ``execute_pattern_sharded``, the train
+#: phase's batch and steps, then the int8 error-feedback all-reduce of its
+#: gradients on ``dp`` micro-batches; (g) a finalized sharded artifact
+SHARDED = dict(shards=4, ns=(1, 4, 32, 128),
+               spill=(("g500", 1, "nb_pr"), ("unif", 128, "nb_sr")),
+               spill_max_win=8192, ring_n=512, ring_ns=(256, 512), bwd_n=32,
+               quant_n=128, chain_d=64, chain_n=32, alpha=0.125,
+               attn_seq=8192, train_batch=4, train_seq=512, train_steps=5,
+               dp=4, reps=20, ffn_cfg=None)
+
+
+def sharded_phase(ctx, sizes=SHARDED):
+    """Phase ``sharded``: the sharded backend (``core/shard.py``) on one
+    card, (a)-(g) of ``SHARDED``.  ``ctx`` carries the card's helpers and
+    the graphs; returns the phase's rows."""
+    import torch
+
+    import repro_torch
+    from repro_torch.configs import gemma3_12b
+    from repro_torch.core import formats, quant, shard
+    from repro_torch.core.plan import PATTERN_PREP, execute, execute_attention
+    from repro_torch.kernels import tune
+    from repro_torch.launch import (SPARSE_WEIGHT_RULES, make_local_mesh,
+                                    resolve_rules)
+    from repro_torch.models import SparseFFN, sharding_ctx, transformer
+    from repro_torch.models.config import SparseFFNConfig
+    from repro_torch.train import (OptConfig, TrainConfig, init_state,
+                                   make_dp_compressed_allreduce,
+                                   make_train_step)
+
+    dev, fail, say, drive = ctx.dev, ctx.fail, ctx.say, ctx.drive
+    n_sh, reps = sizes["shards"], sizes["reps"]
+    mesh = make_local_mesh(n_sh, 1, devices=[str(dev)] * n_sh)
+    gen = torch.Generator(device=dev).manual_seed(ctx.seed + 32)
+    rows: dict = {}
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=dev, generator=gen)
+
+    def time_ms(fn):
+        return ctx.time_ms(fn, reps)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def free():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def check(label, got, want, tol):
+        rel, diff = ctx.errors(got, want)
+        print(f"[check] sharded {label}: rel_inf_err={rel:.3e} "
+              f"max_abs_err={diff:.3e} tol={tol:g} "
+              f"{'ok' if rel <= tol else 'MISS'}", flush=True)
+        if not rel <= tol:
+            fail(f"sharded {label}: {rel:.3e} > {tol:g} against the unsharded "
+                 "plan")
+        return rel
+
+    def launched(label, counts, want: dict):
+        got = {k: counts[k] for k in want}
+        if got != want:
+            fail(f"sharded {label}: launches {got}, expected {want} "
+                 f"({n_sh} shards); all: { {k: v for k, v in counts.items() if v} }")
+        return {k: v for k, v in counts.items() if v}
+
+    def operand(csr, n):
+        k = csr.shape[1]
+        return randn(k, n) if n > 1 else randn(k)
+
+    # (a) the products, each shard's kernel once a call, and the spill inner
+    mats = {}
+    for name, kind in (("g500", "nnz"), ("unif", "row")):
+        csr = ctx.graphs[name]
+        t0 = time.perf_counter()
+        A = repro_torch.sparse(csr, mesh=mesh)
+        U = repro_torch.sparse(csr, device=dev)
+        mats[name] = (A, U)
+        spec = A.plan.shard_spec
+        if spec.kind != kind or A.plan.inner_backend != "hopper":
+            fail(f"sharded {name}: partition {spec.kind} / inner "
+                 f"{A.plan.inner_backend}, expected {kind} / hopper")
+        for n in sizes["ns"]:
+            x = operand(csr, n)
+            pick = A.plan.select(n)
+            kernel = kernel_of(pick, n)
+            t1 = time.perf_counter()
+            y, counts = drive(lambda: A @ x, "sharded")
+            first_s = time.perf_counter() - t1
+            launches = launched(f"(a) {name} N={n}", counts, {kernel: n_sh})
+            rel = check(f"(a) {name} {kind} N={n} {pick}", y, U @ x,
+                        ctx.rtol["float32"])
+            parts = [y.clone() for _ in range(n_sh)]
+            if spec.reduction == "psum":
+                red_ms = time_ms(lambda: shard.psum(parts))
+            else:
+                m_pad = spec.m_pad
+                red_ms = time_ms(lambda: torch.cat(
+                    [p[:m_pad] for p in parts])[:csr.shape[0]])
+            row = {"pick": pick, "kernel": kernel, "launches": launches,
+                   "rel_err": rel, "first_call_s": first_s,
+                   "ms": time_ms(lambda: A @ x),
+                   "unsharded_ms": time_ms(lambda: U @ x),
+                   f"{spec.reduction}_ms": red_ms}
+            row["reduction_share"] = red_ms / row["ms"]
+            rows[("a", name, n)] = row
+            say(f"(a) {name} {kind} split N={n}", row)
+        say(f"(a) {name} plan and substrate", {
+            "spec": dataclasses.asdict(spec),
+            "substrates": A.plan.built_substrates,
+            "host_s_incl_first_calls": time.perf_counter() - t0})
+    default_th = repro_torch.SelectorThresholds()
+    spill_th = dataclasses.replace(default_th,
+                                   max_win=sizes["spill_max_win"])
+    for name, n, impl in sizes["spill"]:
+        A, U = mats[name]
+        S = A.with_thresholds(spill_th)
+        S.plan.kernel_opts(S.plan.entry(impl))["spill"] = True
+        x = operand(ctx.graphs[name], n)
+        y, counts = drive(lambda: S.matmul(x, impl=impl), "sharded")
+        spill = "vsr_spmv_spill" if n == 1 else "vsr_spmm_spill"
+        launches = launched(f"(a) spill {name} N={n}", counts,
+                            {spill: n_sh, "spill_combine": n_sh})
+        rel = check(f"(a) spill {name} N={n} {impl}", y, U.matmul(x, impl=impl),
+                    ctx.rtol["float32"])
+        row = {"impl": impl, "launches": launches, "rel_err": rel,
+               "ms": time_ms(lambda: S.matmul(x, impl=impl)),
+               "unsharded_fused_ms": time_ms(lambda: U.matmul(x, impl=impl))}
+        rows[("spill", name, n)] = row
+        say(f"(a) spill {name} N={n}", row)
+        del S
+    free()
+
+    # (b) the ring against the blocking psum, and the overlap tuner
+    A, U = mats["g500"]
+    ring = A.with_thresholds(dataclasses.replace(default_th, overlap_min_n=1))
+    blocking = A.with_thresholds(dataclasses.replace(
+        default_th, overlap_min_n=tune.OVERLAP_NEVER))
+    x = operand(ctx.graphs["g500"], sizes["ring_n"])
+    y_ring, counts = drive(lambda: ring @ x, "sharded")
+    chunks = -(-sizes["ring_n"] // shard.RING_CHUNK)
+    launches = launched("(b) ring", counts, {"vsr_spmm": n_sh * chunks})
+    y_psum = blocking @ x
+    rel = check(f"(b) ring vs psum g500 N={sizes['ring_n']}", y_ring, y_psum,
+                1e-5)
+    del y_ring, y_psum
+    t0 = time.perf_counter()
+    timer = tune.Timer()
+    tuned = tune.autotune_overlap(ctx.graphs["g500"], mesh,
+                                  ns=sizes["ring_ns"], repeats=reps,
+                                  timer=timer)
+    row = {"launches": launches, "rel_err": rel,
+           "ring_ms": time_ms(lambda: ring @ x),
+           "psum_ms": time_ms(lambda: blocking @ x),
+           "unsharded_ms": time_ms(lambda: U @ x),
+           "autotune_overlap": {"overlap_min_n": tuned.overlap_min_n,
+                                "s": time.perf_counter() - t0,
+                                "timings": timer.log}}
+    rows["b"] = row
+    say(f"(b) ring g500 N={sizes['ring_n']}", row)
+    if any(e["mode"] != "graph" for e in timer.log):
+        fail(f"sharded (b): a sharded call was not captured: {timer.log}")
+    del x, ring, blocking
+    free()
+
+    # (c) the backward: dvals of a live stream (K6 a shard), dX (K1 a shard
+    # on its transposed slabs)
+    csr = ctx.graphs["g500"]
+    x = operand(csr, sizes["bwd_n"])
+    g = randn(csr.shape[0], sizes["bwd_n"])
+
+    def grads(M):
+        v = csr.data.clone().requires_grad_()
+        xx = x.clone().requires_grad_()
+        loss = ((M.with_values(v) @ xx) * g).sum()
+        return torch.autograd.grad(loss, (v, xx))
+
+    (dv, dx), counts = drive(lambda: grads(A), "sharded")
+    launches = launched("(c) backward", counts,
+                        {"sddmm": n_sh, "vsr_spmm": 2 * n_sh})
+    dv_u, dx_u = grads(U)
+    row = {"launches": launches,
+           "dvals_rel_err": check("(c) dvals g500 N=32", dv, dv_u,
+                                  ctx.rtol["float32"]),
+           "dx_rel_err": check("(c) dX g500 N=32", dx, dx_u,
+                               ctx.rtol["float32"]),
+           "ms": time_ms(lambda: grads(A)),
+           "unsharded_ms": time_ms(lambda: grads(U))}
+    rows["c"] = row
+    say("(c) backward g500 nnz split N=32 (forward + backward)", row)
+    del dv, dx, dv_u, dx_u, x, g
+
+    # (d) an int8 sharded plan against the unsharded product of its decoded
+    # values
+    Q = repro_torch.sparse(csr, mesh=mesh, quant="int8")
+    Q1 = repro_torch.sparse(csr, device=dev, quant="int8")
+    x = operand(csr, sizes["quant_n"])
+    y, counts = drive(lambda: Q @ x, "sharded")
+    sub = Q.plan.substrate("shard_balanced")
+    if sub.quant != "int8":
+        fail(f"sharded (d): the plan did not quantize ({sub.quant})")
+    decoded = torch.zeros(csr.nnz + 1, device=dev)
+    for codes, scales, src in zip(sub.vals, sub.scales, sub.src):
+        slot = torch.where(src >= 0, src, csr.nnz).reshape(-1).long()
+        decoded.index_put_((slot,), quant.dequantize_stream(codes, scales)
+                           .reshape(-1))
+    want = U.with_values(decoded[:csr.nnz]) @ x
+    launches = launched("(d) int8", counts, {"vsr_spmm": n_sh})
+    row = {"launches": launches,
+           "rel_err": check("(d) int8 g500 N=128", y, want, ctx.rtol["float32"]),
+           "f32_rel_err": ctx.errors(y, U @ x)[0],
+           "ms": time_ms(lambda: Q @ x),
+           "unsharded_int8_ms": time_ms(lambda: Q1 @ x)}
+    rows["d"] = row
+    say("(d) int8 g500 N=128", row)
+    del Q, Q1, sub, decoded, want, x, y
+    free()
+
+    # (e) the chain: GAT softmax on both graphs (nnz split: K7 a shard, the
+    # statistics merged, K8 a shard; row split: K8 with its K7 a shard) and
+    # one head of Gemma-3-12B's local attention (row split, a block layout
+    # a shard)
+    for name, (A, U) in mats.items():
+        csr = ctx.graphs[name]
+        a = randn(csr.shape[0], sizes["chain_d"], scale=0.3)
+        b = randn(csr.shape[1], sizes["chain_d"], scale=0.3)
+        x = operand(csr, sizes["chain_n"])
+        call = lambda: A.chain(a, b, x, alpha=sizes["alpha"])  # noqa: E731
+        y, counts = drive(call, "sharded")
+        launches = launched(f"(e) chain {name}", counts,
+                            {"chain_stats": n_sh, "chain": n_sh})
+        row = {"kind": A.plan.shard_spec.kind, "launches": launches,
+               "designs": {k: v for k, v in ctx.took()["chain"].items() if v},
+               "rel_err": check(f"(e) softmax chain {name} d={sizes['chain_d']}"
+                                f" N={sizes['chain_n']}", y,
+                                U.chain(a, b, x, alpha=sizes["alpha"]),
+                                ctx.rtol["float32"]),
+               "ms": time_ms(call),
+               "unsharded_ms": time_ms(
+                   lambda: U.chain(a, b, x, alpha=sizes["alpha"]))}
+        rows[("e", name)] = row
+        say(f"(e) GAT softmax chain {name}", row)
+        del a, b, x, y
+    gemma = dataclasses.replace(gemma3_12b.CONFIG, attn_pattern="block_sparse")
+    spec = transformer._block_sparse_spec(gemma, sizes["attn_seq"], True)
+    q, k, v = (randn(sizes["attn_seq"], gemma.head_dim, scale=0.3)
+               for _ in range(3))
+    call = lambda: repro_torch.sparse_attention(spec, q, k, v, mesh=mesh)  # noqa: E731
+    y, counts = drive(call, "sharded")
+    designs = ctx.took()
+    launches = launched("(e) gemma head", counts,
+                        {"chain_stats": n_sh, "chain": n_sh})
+    if designs["chain"].get("block", 0) != n_sh:
+        fail(f"sharded (e) gemma head: K8 designs {designs['chain']}")
+    P = repro_torch.attention_plan(spec, device=dev, mesh=mesh)
+    layouts = [o["blocks"] for o in
+               P.kernel_opts(P.entry("chain"))["shards"]]
+    layout_nnz = [None if b._value is None else b._value.nnz
+                  for b in layouts]
+    if len({id(b) for b in layouts}) != n_sh or None in layout_nnz or \
+            len(set(layout_nnz)) < 2:
+        fail(f"sharded (e) gemma head: the shards do not each hold their own "
+             f"block layout ({layout_nnz})")
+    row = {"kind": P.shard_spec.kind, "launches": launches,
+           "designs": {kk: {d: c for d, c in vv.items() if c}
+                       for kk, vv in designs.items()
+                       if kk in ("chain_stats", "chain")},
+           "layout_nnz": layout_nnz,
+           "rel_err": check("(e) gemma local head seq=8192 d=256", y,
+                            repro_torch.sparse_attention(spec, q, k, v),
+                            ctx.rtol["float32"]),
+           "facade_ms": time_ms(call),
+           "unsharded_facade_ms": time_ms(
+               lambda: repro_torch.sparse_attention(spec, q, k, v))}
+    # the facade's call looks the plan up by the mask's fingerprint (host
+    # time); the plans' own calls
+    P1 = repro_torch.attention_plan(spec, device=dev)
+    row["ms"] = time_ms(lambda: execute_attention(P, q, k, v))
+    row["unsharded_ms"] = time_ms(lambda: execute_attention(P1, q, k, v))
+    try:
+        repro_torch.sparse_attention(spec, q, k, v, mesh=mesh,
+                                     bias=torch.zeros(P.nnz, device=dev))
+        fail("sharded (e): attention with a bias did not raise")
+    except ValueError as err:
+        row["bias_raises"] = type(err).__name__
+    rows[("e", "gemma")] = row
+    say("(e) gemma-3-12b local head", row)
+    del q, k, v, y, P, P1, layouts
+    free()
+
+    # (f) one sparse FFN layer at Gemma-3-12B's widths, sharded, against the
+    # same steps unsharded; then the int8 error-feedback all-reduce of its
+    # gradients on dp micro-batches
+    cfg = (sizes.get("ffn_cfg") or gemma3_12b.CONFIG).scaled(
+        sparse_ffn=SparseFFNConfig(), param_dtype="float32",
+        compute_dtype="float32")
+    ffn = SparseFFN(cfg, seed=ctx.seed, device=dev)
+    shape = (sizes["train_batch"], sizes["train_seq"], cfg.d_model)
+    batch = {"x": randn(*shape), "y": randn(*shape)}
+
+    def ffn_loss(p, b):
+        return torch.mean((ffn(b["x"], p) - b["y"]) ** 2), {}
+
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2,
+                                     total_steps=sizes["train_steps"]))
+    step = make_train_step(ffn_loss, tcfg)
+    rules = resolve_rules(overrides=SPARSE_WEIGHT_RULES)
+    losses = {}
+    for label in ("unsharded", "sharded"):
+        state = init_state(ffn.params(), tcfg)
+        losses[label], step_ms, counts_each = [], [], []
+        with sharding_ctx.activation_sharding(
+                mesh, rules, enabled=label == "sharded"):
+            for _ in range(sizes["train_steps"]):
+                t0 = time.perf_counter()
+                if label == "sharded":
+                    (state, metrics), counts = drive(
+                        lambda: step(state, batch), "sharded")
+                    counts_each.append(counts)
+                else:
+                    state, metrics = step(state, batch)
+                losses[label].append(float(metrics["loss"]))
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+        rows[("f", label)] = {"losses": losses[label], "step_ms": step_ms}
+    for i, counts in enumerate(counts_each):
+        launched(f"(f) train step {i + 1}", counts,
+                 {"vsr_spmm": 6 * n_sh, "sddmm": 3 * n_sh})
+    rel_losses = [abs(a - b) / abs(b) for a, b in
+                  zip(losses["sharded"], losses["unsharded"])]
+    rows[("f", "sharded")]["loss_rel_err"] = rel_losses
+    rows[("f", "sharded")]["launches_a_step"] = {
+        k: v for k, v in counts_each[0].items() if v}
+    say("(f) sparse FFN gemma-3-12b widths, sharded vs unsharded",
+        {"unsharded": rows[("f", "unsharded")],
+         "sharded": rows[("f", "sharded")]})
+    if max(rel_losses) > ctx.rtol["float32"]:
+        fail(f"sharded (f): losses {losses} differ by {rel_losses}")
+    params = init_state(ffn.params(), tcfg)["params"]
+    micro = [{k: t[i:i + 1] for k, t in batch.items()}
+             for i in range(sizes["dp"])]
+    grads_mb = []
+    for mb in micro:
+        leaves = {k: p.detach().clone().requires_grad_()
+                  for k, p in params.items()}
+        loss = ffn_loss(leaves, mb)[0]
+        grads_mb.append(dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values())))))
+    dp_mesh = make_local_mesh(sizes["dp"], 1, devices=[str(dev)] * sizes["dp"])
+    allreduce = make_dp_compressed_allreduce(dp_mesh, "data")
+    stacked = {k: torch.stack([g_[k] for g_ in grads_mb]) for k in params}
+    residuals = {k: torch.zeros_like(t) for k, t in stacked.items()}
+    mean_q, new_res = allreduce(stacked, residuals)
+    sync()
+    # the wire protocol's mirror (per-shard int8 encode, int32 sum, one
+    # decode with the mean scale) and the reference's bound on its distance
+    # from the f32 mean: per shard 127·|s_i − s̄| (the mean-scale decode)
+    # + s_i / 2 (the rounding), over n
+    dp_rows = {}
+    for k, t in stacked.items():
+        want = t.mean(0)
+        enc = [quant.int8_encode(t[i]) for i in range(t.shape[0])]
+        codes = torch.stack([q for q, _ in enc]).to(torch.int32)
+        scales = torch.stack([sc for _, sc in enc])
+        mirror = codes.sum(0).float() * (scales.sum() / t.shape[0]) / t.shape[0]
+        bound = float((127 * (scales - scales.mean()).abs().sum()
+                       + scales.sum() / 2) / t.shape[0])
+        dp_rows[k] = {"mirror_rel_err": ctx.errors(mean_q[k], mirror)[0],
+                      "max_abs_err": float((mean_q[k] - want).abs().max()),
+                      "bound": bound,
+                      "rel_l2_err": float((mean_q[k] - want).norm()
+                                          / want.norm()),
+                      "scale_spread": float(scales.max() / scales.min()),
+                      "residual_rel_l2": float(new_res[k].norm() / t.norm())}
+        if dp_rows[k]["mirror_rel_err"] > 1e-5 or \
+                dp_rows[k]["max_abs_err"] > bound:
+            fail(f"sharded (f): the int8 all-reduce of {k} is not the wire "
+                 f"protocol's mean or exceeds its bound: {dp_rows[k]}")
+    dp_rows["ms"] = time_ms(lambda: allreduce(stacked, residuals))
+    rows[("f", "dp")] = dp_rows
+    say(f"(f) int8 EF all-reduce over a {sizes['dp']}-way data mesh", dp_rows)
+    del ffn, batch, state, stacked, residuals, mean_q, new_res, grads_mb
+    free()
+
+    # (g) a finalized sharded artifact: no host build and no sync a call
+    A, _ = mats["g500"]
+    art = A.finalize(sizes["bwd_n"])
+    x = operand(ctx.graphs["g500"], sizes["bwd_n"])
+    want = A @ x
+    builds = (dict(formats.BUILD_COUNTS), dict(PATTERN_PREP))
+    sync()
+    on_card = dev.type == "cuda"
+    mode = torch.cuda.get_sync_debug_mode() if on_card else None
+    if on_card:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, counts = drive(lambda: execute(art, x), "sharded")
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode(mode)
+    after = (dict(formats.BUILD_COUNTS), dict(PATTERN_PREP))
+    if after != builds:
+        fail(f"sharded (g): the artifact's call built on the host: {builds} "
+             f"-> {after}")
+    launches = launched("(g) artifact", counts, {"vsr_spmm": n_sh})
+    row = {"launches": launches,
+           "rel_err": check("(g) artifact vs builder g500 N=32", y, want,
+                            ctx.rtol["float32"]),
+           "bit_equal": bool(torch.equal(y, want)),
+           "ms": time_ms(lambda: execute(art, x)),
+           "builder_ms": time_ms(lambda: A @ x)}
+    rows["g"] = row
+    say("(g) finalized artifact g500 N=32", row)
+    return rows
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -2147,7 +2600,7 @@ def main() -> int:
                                   "gat_train", "attention_backward",
                                   "bsr_backward", "quant", "offline",
                                   "tune", "guardrails", "models", "serve",
-                                  "driver", "families")}
+                                  "driver", "families", "sharded")}
     value_counts = {**vsr.VALUE_LAUNCHES, **spmv.VALUE_LAUNCHES}
     path_values = {path: {k: dict.fromkeys(vv, 0) for k, vv in value_counts.items()}
                    for path in path_launches}
@@ -5214,7 +5667,22 @@ def main() -> int:
           f"({card}); [health] families "
           f"{json.dumps(HEALTH.snapshot()['counters'])}", flush=True)
 
-    # -- 20. summary --------------------------------------------------------------
+    # -- 20. sharded --------------------------------------------------------------
+    phase("sharded")
+    t_sharded = time.perf_counter()
+    torch.cuda.empty_cache()
+    sctx = types.SimpleNamespace(
+        dev=dev, seed=args.seed, fail=fail, drive=drive, took=took,
+        errors=errors, time_ms=time_ms, rtol=RTOL, graphs=graphs,
+        say=lambda label, row: print(
+            f"[sharded] {label} " + json.dumps(row, default=str)
+            + f" ({card})", flush=True))
+    sharded_phase(sctx)
+    print(f"[sharded] phase {time.perf_counter() - t_sharded:.1f} s ({card}); "
+          f"[health] sharded {json.dumps(HEALTH.snapshot()['counters'])}",
+          flush=True)
+
+    # -- 21. summary --------------------------------------------------------------
     phase("summary")
     summary = []
     for kernel, meta in KERNELS.items():

@@ -15,7 +15,8 @@ tuners fit the nnz quota and the fuse gates (``kernels/tune.py``), and
 does no host work (a CUDA graph can capture it).  The guardrails
 (``core/guardrails.py``): ``sparse(validate=)``, ``sentinel=`` on a call,
 and a counted ladder from the card's kernels to the plain ones, read by
-``health()``.
+``health()``.  ``sparse(csr, mesh=...)`` (or a ``use_mesh`` scope) shards
+the matrix over a device mesh (``core/shard.py``, ``launch/mesh.py``).
 """
 from . import api
 from .api import (AttentionMask, AttentionSpec, PlanArtifact, PlanBuilder,
@@ -26,12 +27,13 @@ from .api import (AttentionMask, AttentionSpec, PlanArtifact, PlanBuilder,
                   cache_stats, calibrate, calibrate_backend, clear_cache,
                   dense_attention, execute, from_block_mask, pattern_matmul,
                   scoped_plan_cache, sddmm, sliding_window, sparse,
-                  sparse_attention, sparse_chain, use_backend)
+                  sparse_attention, sparse_chain, use_backend, use_mesh)
 from .api import (configure_guardrails, health,  # noqa: F401 (re-export)
                   reset_health)
 
 __all__ = [
     "api", "sparse", "SparseMatrix", "pattern_matmul", "use_backend",
+    "use_mesh",
     "calibrate", "calibrate_backend", "cache_stats", "clear_cache",
     "PlanArtifact", "PlanBuilder", "PlanCache", "SelectorThresholds",
     # beyond the reference's top level: the rest of the facade

@@ -36,6 +36,13 @@
     art = A.finalize(n=x.shape[1])       # frozen PlanArtifact, no host work
     y = api.execute(art, x)              # left at call time: CUDA-graph safe
 
+    mesh = make_local_mesh(4, 1, devices=["cuda:0"] * 4)
+    S = api.sparse(csr, mesh=mesh)       # sharded: a row or nnz split by the
+    y = S @ x                            # statistics, K1-K8 a shard, concat
+                                         # or psum (core/shard.py)
+    with api.use_mesh(mesh):             # scoped mesh, like use_backend
+        y = api.sparse(csr) @ x
+
     A = api.sparse(dirty, validate="repair")  # sort / coalesce / clip / zero
     y = A.matmul(x, sentinel="sanitize")     # non-finite lanes zeroed
     api.health()                         # failures, breakers, demotions
@@ -49,6 +56,9 @@ it: ``health()`` shows every failure
 ladder reroute a failing call to the ``"torch"`` entry.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -66,6 +76,7 @@ from .core.guardrails import (HEALTH, NumericFault, PatternError, grad_scope,
 from .core.plan import (PlanArtifact, PlanBuildError, PlanBuilder, execute,
                         execute_chain, execute_pattern, execute_sddmm, plan)
 from .core.registry import backend_scope, default_backend, resolve_device
+from .core.shard import default_shard_axis
 from .core.selector import (SelectorThresholds, TileGeometry,
                             default_thresholds, load_thresholds,
                             save_thresholds)
@@ -76,7 +87,8 @@ from .runtime.faults import (FaultInjector, FaultSpec, InjectedFault,
 from .runtime.retry import RetryPolicy, TaskOutcome, run_with_retry
 
 __all__ = ["SparseMatrix", "sparse", "sddmm", "sparse_chain", "pattern_matmul",
-           "use_backend", "calibrate", "calibrate_backend",
+           "use_backend", "use_mesh", "scoped_mesh", "calibrate",
+           "calibrate_backend",
            "autotune_geometry", "autotune_overlap", "autotune_quant",
            "autotune_chain", "autotune_attention",
            "cache_stats", "clear_cache", "PlanArtifact", "PlanBuilder",
@@ -97,6 +109,29 @@ __all__ = ["SparseMatrix", "sparse", "sddmm", "sparse_chain", "pattern_matmul",
            "inject_faults", "health", "reset_health", "configure_guardrails"]
 
 use_backend = backend_scope
+
+_MESH = threading.local()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, axis: str | None = None):
+    """Make ``mesh`` the default of every ``sparse()`` in the dynamic extent
+    of this thread: matrices plan onto the sharded backend without a
+    ``mesh=`` at each call site.  ``axis`` pins the shard axis."""
+    stack = getattr(_MESH, "stack", None)
+    if stack is None:
+        stack = _MESH.stack = []
+    stack.append((mesh, axis))
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def scoped_mesh() -> tuple:
+    """``(mesh, axis)`` of the innermost ``use_mesh``, or ``(None, None)``."""
+    stack = getattr(_MESH, "stack", None)
+    return stack[-1] if stack else (None, None)
 
 #: the training entry of the facade: differentiable SpMM over a bare
 #: balanced pattern with live values (no CSR, no plan object)
@@ -210,8 +245,38 @@ class SparseMatrix:
                             cache=self._cache)
 
     def with_thresholds(self, th: SelectorThresholds) -> "SparseMatrix":
+        """The same plan (its partition spec and mesh kept) under ``th``."""
         return SparseMatrix(self._plan.with_thresholds(th),
                             values=self._values, cache=self._cache)
+
+    def shard(self, mesh=None, *, axis: str | None = None,
+              kind: str | None = None, inner_backend: str | None = None,
+              geometry: TileGeometry | None = None) -> "SparseMatrix":
+        """Re-plan this operand onto the sharded backend
+        (``core/shard.py``): the statistics pick a row or nnz split unless
+        ``kind`` forces one.  ``mesh`` defaults to the ``use_mesh`` scope.
+        This plan's geometry carries over only when the inner backend is
+        the one it was resolved for (``geometry=`` always wins)."""
+        if mesh is None:
+            mesh, scoped_axis = scoped_mesh()
+            axis = axis or scoped_axis
+        if mesh is None:
+            raise ValueError("shard() needs a mesh (argument or use_mesh scope)")
+        from .core.shard import default_inner_backend, shard_devices
+        old = self._plan
+        if geometry is None:
+            had = old.inner_backend if old.backend == "sharded" else old.backend
+            lookup = inner_backend or default_inner_backend(
+                shard_devices(mesh, axis or default_shard_axis(mesh))[0])
+            geometry = old.geometry if lookup == had else None
+        kw = dict(backend="sharded", mesh=mesh, thresholds=old.thresholds,
+                  tile=old.tile, bsr_block=old.bsr_block, geometry=geometry,
+                  shard_axis=axis, shard_kind=kind,
+                  inner_backend=inner_backend, quant=old.quant,
+                  chain_op=old.chain_op)
+        p = (plan(old.csr, **kw) if self._cache is None
+             else cached_plan(old.csr, cache=self._cache, **kw))
+        return SparseMatrix(p, values=self._values, cache=self._cache)
 
     def finalize(self, n: int | None = None, *, impl: str | None = None,
                  kernels: tuple | None = None) -> PlanArtifact:
@@ -223,9 +288,13 @@ class SparseMatrix:
         if self._values is not None:
             csr = CSR(p.csr.indptr, p.csr.indices,
                       self._values.detach().reshape(-1), p.csr.shape)
+            spec = p.shard_spec
             p = plan(csr, thresholds=p.thresholds, backend=p.backend,
                      tile=p.tile, bsr_block=p.bsr_block, geometry=p.geometry,
-                     chain_op=p.chain_op, quant=p.quant)
+                     chain_op=p.chain_op, quant=p.quant, mesh=p.mesh,
+                     shard_axis=None if spec is None else spec.axis,
+                     shard_kind=None if spec is None else spec.kind,
+                     inner_backend=p.inner_backend)
         return p.finalize(n, impl=impl, kernels=kernels)
 
 
@@ -252,7 +321,9 @@ def sparse(a, *, device=None, backend: str | None = None,
            geometry: TileGeometry | None = None,
            chain_op: str | None = None, bsr_block: tuple = (8, 128),
            quant: str | None = None, validate: str | None = None,
-           cache: "PlanCache | bool | None" = True) -> SparseMatrix:
+           cache: "PlanCache | bool | None" = True, mesh=None,
+           shard_axis: str | None = None,
+           shard_kind: str | None = None) -> SparseMatrix:
     """Build a sparse operand from a CSR, a SparseMatrix or a dense 2-D
     array.
 
@@ -282,7 +353,23 @@ def sparse(a, *, device=None, backend: str | None = None,
     ``"check"`` warns of unsorted, duplicate, out-of-range or non-finite
     entries and a broken indptr, ``"repair"`` rebuilds the matrix (so it
     caches under its clean fingerprint), ``"strict"`` raises
-    ``PatternError``."""
+    ``PatternError``.
+
+    ``mesh`` (default: the ``use_mesh`` scope) plans onto the sharded
+    backend (``core/shard.py``): ``shard_kind`` forces the row or nnz split
+    the statistics would pick, ``shard_axis`` names the mesh axis.
+    ``device=None`` is then the first shard's device, and ``backend`` the
+    inner backend (None: that device's)."""
+    if mesh is None:
+        mesh, scoped_axis = scoped_mesh()
+        shard_axis = shard_axis or scoped_axis
+    inner_backend = None
+    if mesh is not None:
+        from .core.shard import shard_devices
+        if device is None:
+            device = shard_devices(
+                mesh, shard_axis or default_shard_axis(mesh))[0]
+        inner_backend, backend = backend, "sharded"
     device = resolve_device(device)
     csr, values = _as_csr(a, device)
     if validate is not None and validate != "off":
@@ -292,8 +379,10 @@ def sparse(a, *, device=None, backend: str | None = None,
     if quant is not None and n_hint is not None and n_hint < th.quant_min_n:
         quant = None     # cached_plan never sees n_hint: gate here
     if geometry is None and th.geometries:
-        geometry = th.geometry_for(pattern_fingerprint(csr), n_hint,
-                                   resolved_backend)
+        geometry = th.geometry_for(
+            pattern_fingerprint(csr), n_hint,
+            inner_backend or (default_backend(device) if mesh is not None
+                              else resolved_backend))
     if cache is True:
         cache_obj = DEFAULT_CACHE
     elif cache is False:
@@ -302,7 +391,8 @@ def sparse(a, *, device=None, backend: str | None = None,
         cache_obj = cache
     kw = dict(backend=resolved_backend, thresholds=th, tile=tile,
               geometry=geometry, chain_op=chain_op, bsr_block=bsr_block,
-              quant=quant)
+              quant=quant, mesh=mesh, shard_axis=shard_axis,
+              shard_kind=shard_kind, inner_backend=inner_backend)
     p = (plan(csr, **kw) if cache_obj is None
          else cached_plan(csr, cache=cache_obj, **kw))
     if values is None and p.csr is not csr and not torch.equal(p.csr.data, csr.data):
@@ -398,8 +488,10 @@ def autotune_geometry(csr_or_matrix, **kwargs) -> SelectorThresholds:
 
 
 def autotune_overlap(csr_or_matrix, mesh, **kwargs) -> SelectorThresholds:
-    """The sharded backend's overlap crossover: not ported with it yet
-    (``NotImplementedError``)."""
+    """The sharded backend's overlap crossover on ``mesh``: thresholds whose
+    ``overlap_min_n`` is the smallest dense width at which the chunked ring
+    beats the blocking psum (``OVERLAP_NEVER`` when it never does;
+    ``repro_torch.kernels.tune.autotune_overlap``)."""
     from .kernels.tune import autotune_overlap as _tune
     return _tune(_pattern_csr(csr_or_matrix), mesh, **kwargs)
 
@@ -441,6 +533,7 @@ def calibrate_backend(save_to: str | None = None, *,
                       tune_geometry: bool = False,
                       geometry_candidates: tuple | None = None,
                       overlap_mesh=None,
+                      overlap_ns: tuple = (256, 512, 1024),
                       tune_quant: bool = False,
                       quant_ns: tuple = (8, 32, 128)):
     """Time the 2x2 kernel space on this backend and grid-search the
@@ -461,13 +554,10 @@ def calibrate_backend(save_to: str | None = None, *,
     the ``ns`` above 1 (``geometry_candidates``: its ``candidates``) and
     adds the table to the report as ``"geometries"``; ``tune_quant=True``
     runs ``autotune_quant`` at ``quant_ns`` on the matrix with the most
-    nonzeros, the report's ``"quant_min_n"``.  ``overlap_mesh`` needs the
-    sharded backend, not ported yet: ``NotImplementedError``."""
-    if overlap_mesh is not None:
-        raise NotImplementedError(
-            "calibrate_backend(overlap_mesh=) times the sharded backend's "
-            "collectives, which the port does not have yet (ROADMAP.md "
-            "queue 1, item 6)")
+    nonzeros, the report's ``"quant_min_n"``.  ``overlap_mesh`` (a device
+    mesh) runs ``autotune_overlap`` on it at ``overlap_ns`` on the matrix
+    with the largest CV (where psum plans live), the report's
+    ``"overlap_min_n"``."""
     from .core.rmat import rmat
     from .kernels import tune
     device = resolve_device(device)
@@ -495,6 +585,13 @@ def calibrate_backend(save_to: str | None = None, *,
                 csr, ns=tune_ns, backend=backend, thresholds=best,
                 repeats=repeats, candidates=geometry_candidates, timer=timer)
         report["geometries"] = dict(best.geometries)
+    if overlap_mesh is not None:
+        from .core.stats import matrix_stats
+        skewed = max(matrices.values(), key=lambda c: matrix_stats(c).cv)
+        best = tune.autotune_overlap(skewed, overlap_mesh, ns=overlap_ns,
+                                     thresholds=best, inner_backend=backend,
+                                     repeats=repeats, timer=timer)
+        report["overlap_min_n"] = int(best.overlap_min_n)
     if tune_quant:
         # the crossover is traffic-bound: tune on the largest value stream
         heavy = max(matrices.values(), key=lambda c: int(c.nnz))

@@ -87,18 +87,20 @@ def _spec_csr(spec: AttentionSpec, device: torch.device) -> CSR:
 
 def attention_plan(spec: AttentionSpec, *,
                    thresholds: SelectorThresholds | None = None,
-                   backend: str | None = None, device=None, cache=True):
+                   backend: str | None = None, device=None, cache=True,
+                   mesh=None):
     """The ``PlanBuilder`` for a spec's token-level mask on ``device``
     (CUDA for ``None``), via the resolved PlanCache (``cache=False`` builds
     uncached).  ``chain_op="attn"`` segments attention plans from
-    same-pattern chain and SpMM plans."""
+    same-pattern chain and SpMM plans.  ``mesh`` plans it on the sharded
+    backend (its partition by the mask's statistics)."""
     csr = _spec_csr(spec, resolve_device(device))
     resolved = _resolve_cache(cache)
     if resolved is None:
         return plan(csr, thresholds=thresholds, backend=backend,
-                    chain_op="attn")
+                    chain_op="attn", mesh=mesh)
     return cached_plan(csr, cache=resolved, backend=backend,
-                       thresholds=thresholds, chain_op="attn")
+                       thresholds=thresholds, chain_op="attn", mesh=mesh)
 
 
 def sparse_attention(spec: AttentionSpec, q: torch.Tensor, k: torch.Tensor,
@@ -106,7 +108,7 @@ def sparse_attention(spec: AttentionSpec, q: torch.Tensor, k: torch.Tensor,
                      bias: torch.Tensor | None = None,
                      thresholds: SelectorThresholds | None = None,
                      backend: str | None = None,
-                     cache=True) -> torch.Tensor:
+                     cache=True, mesh=None) -> torch.Tensor:
     """Block-sparse attention ``softmax_mask(scale * Q Kᵀ + bias) @ V``.
 
     ``q``/``k``/``v`` are ``(..., seq, head_dim)`` with matching leading
@@ -114,7 +116,8 @@ def sparse_attention(spec: AttentionSpec, q: torch.Tensor, k: torch.Tensor,
     the *same* plan, so the mask's substrate is built once.  ``bias`` is an
     optional flat ``(nnz,)`` per-edge additive stream in CSR order, shared
     across leading dims.  Rows the mask leaves fully masked give exact-zero
-    outputs."""
+    outputs.  ``mesh`` runs it on the sharded backend (each shard's block
+    layout its own; no bias: a bias raises ``ShardedBiasError``)."""
     if q.shape != k.shape or q.shape[:-1] != v.shape[:-1]:
         raise ValueError(f"q/k/v leading shapes must match; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -126,7 +129,7 @@ def sparse_attention(spec: AttentionSpec, q: torch.Tensor, k: torch.Tensor,
         if t is not None and t.device != q.device:
             raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
     p = attention_plan(spec, thresholds=thresholds, backend=backend,
-                       device=q.device, cache=cache)
+                       device=q.device, cache=cache, mesh=mesh)
     if q.ndim == 2:
         return execute_attention(p, q, k, v, scale=scale, bias=bias)
     lead = q.shape[:-2]
@@ -147,8 +150,10 @@ class SparseAttention:
 
     def __init__(self, spec: AttentionSpec, *,
                  thresholds: SelectorThresholds | None = None,
-                 backend: str | None = None, device=None, cache=True):
+                 backend: str | None = None, device=None, cache=True,
+                 mesh=None):
         self.spec = spec
+        self.mesh = mesh
         self.thresholds = thresholds
         self.backend = backend
         self.device = device
@@ -163,7 +168,7 @@ class SparseAttention:
         """The plan on this handle's device (CUDA when none was given)."""
         return attention_plan(self.spec, thresholds=self.thresholds,
                               backend=self.backend, device=self.device,
-                              cache=self.cache)
+                              cache=self.cache, mesh=self.mesh)
 
     def __call__(self, q, k, v, *, scale=None, bias=None):
         if self.device is not None and q.device != resolve_device(self.device):
@@ -171,7 +176,8 @@ class SparseAttention:
                              f"{resolve_device(self.device)}")
         return sparse_attention(self.spec, q, k, v, scale=scale, bias=bias,
                                 thresholds=self.thresholds,
-                                backend=self.backend, cache=self.cache)
+                                backend=self.backend, cache=self.cache,
+                                mesh=self.mesh)
 
     def __repr__(self) -> str:
         s = self.spec

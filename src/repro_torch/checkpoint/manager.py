@@ -161,11 +161,13 @@ class CheckpointManager:
         """Rebuild the tree of ``like`` (structure donor) from step's arrays,
         each leaf a tensor of the stored type on the device of the matching
         leaf of ``like`` (the CPU where that leaf is no tensor).  A sharded
-        restore (``shardings``) waits for the sharded backend."""
+        restore (``shardings``) splits dense leaves over a mesh, which needs
+        a tensor-parallel runtime the port does not have: it raises."""
         if shardings is not None:
             raise NotImplementedError(
-                "restore(shardings=) places leaves on a device mesh: the "
-                "sharded backend is not ported yet (ROADMAP queue 1, item 6)")
+                "restore(shardings=) splits dense leaves over a device mesh: "
+                "that needs a tensor-parallel runtime, not ported yet "
+                "(ROADMAP queue 1, item 7)")
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "manifest.json")) as f:
             dtypes = json.load(f)["dtypes"]

@@ -12,5 +12,7 @@ from .registry import MATMUL_KERNELS, backends_for
 from .rmat import rmat, rmat_suite, rmat_suite_small
 from .selector import (PreparedMatrix, SelectorThresholds, TileGeometry,
                        adaptive_spmm, calibrate, default_thresholds,
-                       load_thresholds, save_thresholds, select_kernel)
+                       load_thresholds, save_thresholds, select_kernel,
+                       select_partition)
 from .stats import MatrixStats, balanced_tile_span, matrix_stats
+from .shard import ShardSpec, make_shard_spec

@@ -34,6 +34,13 @@ def pattern_fingerprint(csr: CSR) -> str:
     return h.hexdigest()
 
 
+def mesh_signature(mesh) -> tuple | None:
+    """Hashable identity of a device mesh: its axis names, their extents
+    and the device string of each position (``"cuda:0"``, ``"cpu"``), so
+    a mesh on the card and one on the CPU key apart; None without one."""
+    return None if mesh is None else mesh.signature()
+
+
 def thresholds_version(th: SelectorThresholds | None) -> tuple:
     """The thresholds' part of the key: every field, so a recalibration
     invalidates the plans whose selector decisions it changes."""
@@ -43,16 +50,19 @@ def thresholds_version(th: SelectorThresholds | None) -> tuple:
 def plan_key(csr: CSR, *, backend: str, device,
              thresholds: SelectorThresholds | None = None,
              tile: int | None = None, bsr_block: tuple = (8, 128),
-             extra: tuple = ()) -> tuple:
+             extra: tuple = (), mesh=None) -> tuple:
     """The cache key of a ``plan()`` call.  ``tile=None`` keys as 512 (its
     resolution) when the thresholds carry no geometry table, else as
-    ``"auto"`` (then the thresholds in the key fix the resolution)."""
+    ``"auto"`` (then the thresholds in the key fix the resolution).  A
+    sharded plan's key ends with its ``mesh_signature``; a key without a
+    mesh is the tuple it was before the sharded backend."""
     if tile is None and not (thresholds is not None and thresholds.geometries):
         tile = 512
-    return ("plan", pattern_fingerprint(csr), tuple(csr.shape), backend,
-            str(device), thresholds_version(thresholds),
-            "auto" if tile is None else int(tile),
-            tuple(int(b) for b in bsr_block), extra)
+    key = ("plan", pattern_fingerprint(csr), tuple(csr.shape), backend,
+           str(device), thresholds_version(thresholds),
+           "auto" if tile is None else int(tile),
+           tuple(int(b) for b in bsr_block), extra)
+    return key if mesh is None else key + (("mesh", mesh_signature(mesh)),)
 
 
 class PlanCache:
@@ -209,13 +219,16 @@ def cached_plan(csr: CSR, *, cache: PlanCache | None = None,
 
     cache = cache if cache is not None else DEFAULT_CACHE
     th = thresholds if thresholds is not None else default_thresholds()
-    resolved = backend or registry.default_backend(csr.device)
     # None kwargs are plan() defaults: explicit-default and omitted
     # spellings share a key
     plan_kwargs = {k: v for k, v in plan_kwargs.items() if v is not None}
+    mesh = plan_kwargs.get("mesh")
+    resolved = backend or ("sharded" if mesh is not None
+                           else registry.default_backend(csr.device))
     key = plan_key(csr, backend=resolved, device=csr.device, thresholds=th,
-                   tile=tile, bsr_block=bsr_block,
-                   extra=tuple(sorted(plan_kwargs.items())))
+                   tile=tile, bsr_block=bsr_block, mesh=mesh,
+                   extra=tuple(sorted((k, v) for k, v in plan_kwargs.items()
+                                      if k != "mesh")))
     return cache.get_or_build(
         key, lambda: build_plan(csr, thresholds=th, backend=resolved,
                                 tile=tile, bsr_block=bsr_block, **plan_kwargs))

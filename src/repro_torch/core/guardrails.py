@@ -33,7 +33,9 @@
    ``"hopper"`` and ``"bsr"`` wrappers run their kernels' plain versions, a
    kernel failure, real or injected at the ``kernel_execute`` fault sites,
    reroutes the call one rung down ``registry.DEMOTION`` (``"hopper"`` →
-   ``"torch"``, ``"bsr"`` → ``"torch"``) and bumps
+   ``"torch"``, ``"bsr"`` → ``"torch"``; a ``"sharded"`` call keeps its
+   shards and runs them on the ``"torch"`` inner, ``"sharded/torch-inner"``,
+   where the reference's rung is ``"sharded/xla-inner"``) and bumps
    ``kernel_reroute:<from>-><to>:<logical>``.  ``threshold`` failures in a
    row trip the breaker open (``breaker_skip:<backend>:<logical>`` counts
    each call it skips); after ``cooldown_s`` it half-opens and probes the

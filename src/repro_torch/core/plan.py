@@ -37,11 +37,21 @@ span, so a ``"hopper"`` plan keeps its backend, and only the spill path
 (``spill=True`` in the NB kernel opts, the parity reference) refuses such a
 plan when it is called.  The block-granule ``"bsr"`` backend builds its BSR
 substrate at ``bsr_block``; a ``"bsr"`` plan is not demoted either.
-Sharding is not ported yet: ``plan()`` and ``execute_pattern`` raise
-``NotImplementedError`` on its arguments.  The reference's artifact rides
-``jax.jit`` and donation; here the counterpart of a jitted call is a CUDA
-graph of ``execute(artifact, x)``, and a sharded artifact awaits the sharded
-backend.
+The reference's artifact rides ``jax.jit`` and donation; here the
+counterpart of a jitted call is a CUDA graph of ``execute(artifact, x)``.
+
+The sharded backend (``core/shard.py``): ``plan(csr, mesh=...)`` (backend
+``"sharded"``) picks a row or nnz split of the matrix over a mesh axis from
+its statistics (``shard_kind`` forces one, ``shard_axis`` names the axis)
+and runs the entries of an inner backend (``inner_backend``: ``"hopper"``
+for a mesh on the card, ``"torch"`` on the CPU) once per shard on the
+lazily built ``shard_ell`` / ``shard_balanced`` substrates.  A live stream
+is gathered into the shards' slabs through their ``src`` maps; a sharded
+artifact freezes the substrates and every shard's prep.  On CPU operands a
+failing per-shard inner is rerouted to the ``"torch"`` inner
+(``sharded/torch-inner``); on the card it is counted and raises.
+``execute_pattern(mesh=...)`` splits a bare pattern's tiles over the shards
+(``shard.execute_pattern_sharded``).
 
 Guardrails (DESIGN.md §12, ``core/guardrails.py``), where the reference
 has them: ``plan(validate=)`` runs the pattern policy before anything is
@@ -107,7 +117,7 @@ from .vjp import (_as_2d, _stream_to_balanced, exec_attn,  # noqa: F401 (re-expo
 #: plan-context kwargs a prep hook may opt into by declaring them; ``shared``
 #: is a dict of the plan that its entries' prep hooks share (the attention
 #: block layout, one per pattern)
-_PREP_CONTEXT_NAMES = ("geometry", "max_win", "shared")
+_PREP_CONTEXT_NAMES = ("geometry", "max_win", "shared", "overlap_min_n")
 
 #: accepted-keyword cache of prep hooks (see ``_prep_context_kwargs``)
 _PREP_KWARGS: dict = {}
@@ -116,8 +126,13 @@ _PREP_KWARGS: dict = {}
 #: plans of block-sparse attention
 CHAIN_OPS: tuple[str, ...] = CHAIN_TRANSFORMS + ("attn",)
 
-#: plan() arguments of reference paths not yet ported
-_UNPORTED = ("mesh", "shard_axis", "shard_kind", "inner_backend")
+#: the substrates of the sharded backend
+_SHARD_SUBSTRATES = ("shard_ell", "shard_balanced")
+
+
+class ShardedBiasError(NotImplementedError, ValueError):
+    """``execute_attention`` with a bias on a sharded plan: the reference
+    refuses it too (both its ``NotImplementedError`` and a ``ValueError``)."""
 
 
 class PlanBuildError(RuntimeError):
@@ -218,10 +233,10 @@ def _opts_digest(opts: dict) -> str:
 class PlanMeta:
     """Hashable static half of a ``PlanArtifact`` (its pytree context).
     Equal metas mean equal pattern topology, layout knobs, statistics
-    (``MatrixStats`` reads only the pattern), thresholds and prep opts.
-    The reference's fields but ``shard_spec`` and ``mesh`` (the sharded
-    backend is not ported), and ``transposed``: the meta of the plan of Aᵀ
-    that the backward's ``dX`` runs on."""
+    (``MatrixStats`` reads only the pattern), thresholds, prep opts and, for
+    a sharded plan, its partition and mesh.  The reference's fields and
+    ``transposed``: the meta of the plan of Aᵀ that the backward's ``dX``
+    runs on (None on a sharded artifact, whose backward is per shard)."""
 
     shape: tuple
     nnz: int
@@ -232,6 +247,8 @@ class PlanMeta:
     bsr_block: tuple
     topology: str
     prep: tuple = ()                 # ((logical, opts digest), ...)
+    shard_spec: Any = None           # ShardSpec of a sharded plan
+    mesh: Any = None                 # its launch.mesh.Mesh
     inner_backend: str | None = None
     geometry: Any = None             # TileGeometry, or None
     quant: str | None = None         # value-stream mode ("int8" / "fp8")
@@ -379,6 +396,11 @@ class PlanBuilder:
     #: the call's ``sentinel=`` or the ``sentinel_scope``); ``"raise"`` also
     #: turns the quant range demotion into a ``NumericFault``
     sentinel: str | None = None
+    #: the sharded backend: the mesh, the partition chosen from the
+    #: statistics, and the backend whose entries run a shard
+    mesh: Any = None
+    shard_spec: Any = None
+    inner_backend: str | None = None
     _substrates: dict = dataclasses.field(default_factory=dict, repr=False)
     _opts: dict = dataclasses.field(default_factory=dict, repr=False)
     _shared: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -423,6 +445,8 @@ class PlanBuilder:
             return csr_to_ell(self.csr)
         if kind == "bsr":
             return csr_to_bsr(self.csr, *self.bsr_block)
+        if kind in _SHARD_SUBSTRATES:
+            return self._build_sharded(kind)
         if kind != "balanced":
             raise ValueError(f"unknown substrate {kind!r}")
         sub = csr_to_balanced(self.csr, tile=self.tile)
@@ -441,6 +465,30 @@ class PlanBuilder:
             else:
                 HEALTH.bump("demote:quant_range")
                 self.quant = None
+        return sub
+
+    def _build_sharded(self, kind: str):
+        """A shard substrate (``shard.build_sharded_substrate``); a quantized
+        plan whose per-shard range check fails keeps the float slab
+        (``demote:quant_range``, or ``NumericFault`` under
+        ``sentinel="raise"``)."""
+        if self.mesh is None or self.shard_spec is None:
+            raise ValueError("sharded substrates need a plan built with "
+                             "mesh=... (plan(csr, backend='sharded', mesh=m))")
+        from . import shard
+        sub = shard.build_sharded_substrate(
+            self.csr, self.shard_spec, self.mesh,
+            inner_kind=kind[len("shard_"):], tile=self.tile,
+            inner_backend=self.inner_backend, quant=self.quant)
+        if self.quant is not None and kind == "shard_balanced" \
+                and sub.scales is None:
+            if self.sentinel == "raise":
+                raise NumericFault(
+                    "quantized value stream exceeds the per-tile dynamic "
+                    f"range ({self.quant!r}) on a shard; plan with quant=None "
+                    "or sentinel!='raise' to demote instead")
+            HEALTH.bump("demote:quant_range")
+            self.quant = None
         return sub
 
     @property
@@ -501,9 +549,11 @@ class PlanBuilder:
                 ctx = _prep_context_kwargs(
                     entry.prep, {"geometry": self.geometry,
                                  "max_win": self.thresholds.max_win,
-                                 "shared": self._shared})
+                                 "shared": self._shared,
+                                 "overlap_min_n": self.thresholds.overlap_min_n})
                 opts = dict(entry.prep(sub, **ctx))
-            if self.quant is not None and entry.substrate == "balanced":
+            if self.quant is not None and entry.substrate in (
+                    "balanced", "shard_balanced"):
                 opts["quant"] = self.quant
             self._opts[key] = opts
         return opts
@@ -538,8 +588,10 @@ class PlanBuilder:
         if self._transposed is None:
             csr_t, perm = csr_transpose(self.csr)
             bm, bk = self.bsr_block
+            backend = (self.inner_backend if self.backend == "sharded"
+                       else self.backend)
             pt = PlanBuilder(csr=csr_t, stats=matrix_stats(csr_t),
-                             thresholds=self.thresholds, backend=self.backend,
+                             thresholds=self.thresholds, backend=backend,
                              tile=self.tile, bsr_block=(bk, bm))
             self._transposed = (pt, perm)
         return self._transposed[0]
@@ -618,8 +670,9 @@ class PlanBuilder:
             if impl is not None:
                 kernels = (impl,)
             elif n is not None:
-                if self.quant is not None:
-                    self.substrate("balanced")   # settle the range check
+                if self.quant is not None:       # settle the range check
+                    self.substrate("shard_balanced" if self.backend == "sharded"
+                                   else "balanced")
                 kernels = (self.select(n),)
             else:
                 kernels = registry.MATMUL_KERNELS
@@ -635,6 +688,9 @@ class PlanBuilder:
                                  f"one of {registry.MATMUL_KERNELS}")
         subs, aux, opts = self._freeze(kernels)
         aux["vals"] = self.csr.data
+        if self.backend == "sharded":
+            # the backward runs a shard (shard._ShardVJP): no plan of Aᵀ
+            return PlanArtifact(subs, aux, self._meta(opts), opts)
         if "balanced" in subs and self._quant_scales is not None:
             aux["quant_scales"] = self._quant_scales
         rows, cols = self.pattern()
@@ -672,7 +728,10 @@ class PlanBuilder:
             sub = self.substrate(entry.substrate)
             subs[entry.substrate] = sub
             o = dict(self.kernel_opts(entry))
-            if o.get("spill"):
+            if entry.substrate in _SHARD_SUBSTRATES:
+                from . import shard
+                shard.freeze_opts(sub, o)
+            elif o.get("spill"):
                 o["windows"](sub)        # the tile spans, scanned on the host
             opts[entry.logical] = o
             if entry.substrate == "ell":
@@ -690,7 +749,9 @@ class PlanBuilder:
             backend=self.backend, stats=self.stats, thresholds=self.thresholds,
             tile=self.tile, bsr_block=tuple(self.bsr_block),
             topology=self.topology_key(), prep=prep, geometry=self.geometry,
-            quant=self.quant, chain_op=self.chain_op, transposed=transposed)
+            quant=self.quant, chain_op=self.chain_op, transposed=transposed,
+            shard_spec=self.shard_spec, mesh=self.mesh,
+            inner_backend=self.inner_backend)
 
 
 #: the builder's earlier name, kept as an alias (reference ``SparsePlan``)
@@ -703,7 +764,9 @@ def plan(csr: CSR, *, n_hint: int | None = None,
          geometry: TileGeometry | None = None, chain_op: str | None = None,
          bsr_block: tuple = (8, 128), quant: str | None = None,
          validate: str | None = None, sentinel: str | None = None,
-         **unported) -> PlanBuilder:
+         mesh: Any = None, shard_axis: str | None = None,
+         shard_kind: str | None = None,
+         inner_backend: str | None = None) -> PlanBuilder:
     """Offline planning front door.
 
     ``n_hint`` (the expected N) builds the substrate and prep of the kernel
@@ -727,14 +790,15 @@ def plan(csr: CSR, *, n_hint: int | None = None,
     ``validate`` (``"check"`` / ``"repair"`` / ``"strict"``) runs the pattern
     through ``guardrails.validate_csr`` before anything is built; None or
     ``"off"`` trusts the input.  ``sentinel`` is the plan's default
-    numeric-sentinel policy for ``execute``."""
-    given = sorted(k for k, v in unported.items() if v is not None)
-    unknown = sorted(k for k in unported if k not in _UNPORTED)
-    if unknown:
-        raise TypeError(f"plan() got unexpected arguments {unknown}")
-    if given:
-        raise NotImplementedError(f"plan() arguments {given} belong to paths "
-                                  "of the reference not yet ported")
+    numeric-sentinel policy for ``execute``.
+
+    Sharded backend (``core/shard.py``): ``mesh`` (a ``launch.mesh.Mesh``)
+    makes ``backend=None`` ``"sharded"``.  The partition is chosen from the
+    statistics (``cv`` against ``thresholds.partition_cv``: row split below,
+    nnz split above) unless ``shard_kind`` forces one; ``shard_axis``
+    defaults to the mesh's largest axis and ``inner_backend`` to the one of
+    the first shard's device (``"hopper"`` on the card, ``"torch"`` on the
+    CPU).  Other backends ignore the three."""
     if validate is not None and validate != "off":
         csr, _ = guardrails.validate_csr(csr, validate)
     if sentinel is not None and sentinel not in guardrails.SENTINEL_POLICIES:
@@ -744,15 +808,29 @@ def plan(csr: CSR, *, n_hint: int | None = None,
         raise ValueError(f"unknown chain_op {chain_op!r}; expected one of "
                          f"{CHAIN_OPS}")
     if backend is None:
-        backend = registry.default_backend(csr.device)
+        backend = ("sharded" if mesh is not None
+                   else registry.default_backend(csr.device))
     th = thresholds if thresholds is not None else default_thresholds()
     quant = _check_quant(quant)
     if quant is not None and n_hint is not None and n_hint < th.quant_min_n:
         quant = None                 # below the crossover: not worth it
     stats = matrix_stats(csr)
+    spec = None
+    if backend == "sharded":
+        if mesh is None:
+            raise ValueError("backend='sharded' needs mesh=... (e.g. "
+                             "repro_torch.launch.make_local_mesh)")
+        from . import shard
+        spec = shard.make_shard_spec(stats, mesh, axis=shard_axis,
+                                     kind=shard_kind, thresholds=th)
+        inner_backend = inner_backend or shard.default_inner_backend(
+            shard.shard_devices(mesh, spec.axis)[0])
+    else:
+        mesh = inner_backend = None
     if geometry is None and th.geometries:
         from .cache import pattern_fingerprint
-        geometry = th.geometry_for(pattern_fingerprint(csr), n_hint, backend)
+        geometry = th.geometry_for(pattern_fingerprint(csr), n_hint,
+                                   inner_backend or backend)
     if tile is None:
         tile = geometry.tile if geometry is not None else 512
     bm, bk = (int(b) for b in bsr_block)
@@ -760,7 +838,8 @@ def plan(csr: CSR, *, n_hint: int | None = None,
         raise ValueError(f"bsr_block must be two positive ints; got {bsr_block}")
     p = PlanBuilder(csr=csr, stats=stats, thresholds=th, backend=backend,
                     tile=int(tile), bsr_block=(bm, bk), geometry=geometry,
-                    chain_op=chain_op, quant=quant, sentinel=sentinel)
+                    chain_op=chain_op, quant=quant, sentinel=sentinel,
+                    mesh=mesh, shard_spec=spec, inner_backend=inner_backend)
     if n_hint is not None:
         p.kernel_opts(p.entry(p.select(n_hint)))
     return p
@@ -785,6 +864,9 @@ class PatternPrep:
         self.shape = tuple(int(s) for s in shape)
         self._opts: dict = {}
         self._t = None
+        #: the pattern split over a mesh's shards, by (devices, entry):
+        #: ``shard.execute_pattern_sharded``'s memo
+        self.shards: dict = {}
 
     def transposed(self, rows, cols) -> tuple[BalancedCOO, torch.Tensor]:
         """Aᵀ's values-free ``BalancedCOO`` and ``perm`` (int32, the flat
@@ -911,9 +993,13 @@ def execute(p: "PlanBuilder | PlanArtifact", x: torch.Tensor, *,
     n = _check_call(p.csr.shape, p.csr.nnz, p.csr.data, x, vals, impl)
     name = impl or p.select(n)
     eff = backend or p.backend
-    demoted = _rung(eff, x)
-    fb = None if demoted is None else (
-        lambda: _builder_exec(p, name, demoted, x, vals))
+    demoted = _rung(eff, x, p.inner_backend)
+    if demoted is None:
+        fb = None
+    elif eff == "sharded":
+        fb = lambda: _builder_exec(_demoted_inner(p), name, None, x, vals)  # noqa: E731
+    else:
+        fb = lambda: _builder_exec(p, name, demoted, x, vals)  # noqa: E731
     y = guardrails.guarded_call(
         name, eff, lambda: _builder_exec(p, name, backend, x, vals),
         fallback=fb, fallback_name=demoted, on_card=x.is_cuda)
@@ -923,11 +1009,36 @@ def execute(p: "PlanBuilder | PlanArtifact", x: torch.Tensor, *,
                                      fallback=fb)
 
 
-def _rung(backend: str, t: torch.Tensor) -> str | None:
+def _rung(backend: str, t: torch.Tensor, inner: str | None = None
+          ) -> str | None:
     """The rung below ``backend`` for a call on ``t``: ``registry.DEMOTION``'s
     on CPU operands, where the wrappers run their kernels' plain versions
-    already; none on the card, where a kernel launches or raises."""
-    return None if t.is_cuda else registry.DEMOTION.get(backend)
+    already; none on the card, where a kernel launches or raises.  A
+    sharded call's rung keeps the shards and runs them on the ``"torch"``
+    inner (``"sharded/torch-inner"``), none when ``inner`` is that
+    already."""
+    if t.is_cuda:
+        return None
+    if backend == "sharded":
+        down = registry.DEMOTION["sharded"]
+        return None if inner == down else f"sharded/{down}-inner"
+    return registry.DEMOTION.get(backend)
+
+
+def _demoted_inner(p: PlanBuilder) -> PlanBuilder:
+    """The sharded plan one rung down: the same matrix, spec and mesh with
+    the ``"torch"`` inner, every cache its own (its shard substrates are
+    built anew, never aliasing the parent's).  Made once a plan."""
+    key = ("demoted_inner",)
+    cached = p._opts.get(key)
+    if cached is None:
+        cached = p._opts[key] = dataclasses.replace(
+            p, inner_backend=registry.DEMOTION["sharded"], _substrates={},
+            _opts={}, _shared={},
+            _ell_src=None, _bsr_map=None, _bsr_brow=None, _pattern=None,
+            _pattern_prep=None, _transposed=None, _quant_scales=None,
+            _topology=None)
+    return cached
 
 
 def _check_call(shape, nnz: int, baked: torch.Tensor | None, x, vals,
@@ -1014,7 +1125,9 @@ def _execute_artifact(art: PlanArtifact, x: torch.Tensor, vals, impl,
     n = _check_call(meta.shape, meta.nnz, art.aux.get("vals"), x, vals, impl)
     name = impl or art.select(n)
     entry, sub = _artifact_entry(art, name, meta.backend)
-    demoted, fb = _rung(meta.backend, x), None
+    # a frozen sharded artifact carries no "torch"-inner substrates
+    demoted = None if meta.backend == "sharded" else _rung(meta.backend, x)
+    fb = None
     if demoted is not None:
         fbe, fbs = _artifact_entry(art, name, demoted, required=False)
         if fbs is not None:
@@ -1035,6 +1148,12 @@ def _run_entry(entry: registry.KernelEntry, sub, opts: dict, x: torch.Tensor,
     requires grad.  ``aux(name)`` gives the baked stream and the maps
     (``"vals"``, ``"quant_scales"``, ``"ell_src"``, ``"bsr_map"``);
     ``vjp(dtype, scales)`` the backward's products."""
+    if entry.substrate in _SHARD_SUBSTRATES:
+        # a shard's entry gathers a live stream through the substrate's src
+        # maps and carries the per-shard backward itself (core/shard.py)
+        if not coded:
+            opts = {k: v for k, v in opts.items() if k != "quant"}
+        return entry.fn(sub, x, vals=vals, **opts)
     baked = vals is None             # the substrate as built holds them
     scales = None
     if baked and entry.substrate == "balanced" and \
@@ -1114,19 +1233,24 @@ def execute_pattern(rows: torch.Tensor, cols: torch.Tensor,
     at each call, so only the coded stream reaches the kernel (K1 / K2 on
     the card); an ``rs_*`` impl is pinned to its ``nb_*`` sibling.  The
     backward is straight through: both products use the float values.
-    ``mesh`` and ``shard_axis`` belong to paths of the reference not yet
-    ported."""
-    given = [name for name, v in (("mesh", mesh), ("shard_axis", shard_axis))
-             if v is not None]
-    if given:
-        raise NotImplementedError(f"execute_pattern() arguments {given} "
-                                  "belong to paths of the reference not yet "
-                                  "ported")
+
+    ``mesh`` (or ``backend="sharded"``) splits the pattern's tiles evenly
+    over ``shard_axis`` (default: the mesh's largest axis) and psums the
+    partials (``shard.execute_pattern_sharded``); ``backend`` then names the
+    inner backend (None or ``"sharded"``: the first shard's device's)."""
     quant = _check_quant(quant)
-    backend = backend or registry.default_backend(rows.device)
     if impl is None:
         impl = _pattern_impl(1 if x.ndim == 1 else x.shape[1])
     impl = _quant_logical(impl, quant)
+    if mesh is not None or backend == "sharded":
+        if mesh is None:
+            raise ValueError("backend='sharded' needs mesh=...")
+        from . import shard
+        return shard.execute_pattern_sharded(
+            rows, cols, vals, tuple(shape), x, mesh=mesh, axis=shard_axis,
+            impl=impl, backend=None if backend == "sharded" else backend,
+            quant=quant)
+    backend = backend or registry.default_backend(rows.device)
     entry = registry.resolve(impl, backend)
     if entry.substrate != "balanced":
         raise ValueError(f"execute_pattern needs a balanced-substrate kernel; "
@@ -1233,11 +1357,37 @@ class _ChainVJP:
 def _chain_bound(p: PlanBuilder, entry: registry.KernelEntry,
                  extra: dict):
     """The entry with the matrix shape, the per-call statics (transform,
-    alpha) and the prep opts bound.  A quantized plan's mode is dropped: a
-    chain reads the pattern, never the coded slab."""
+    alpha) and the prep opts bound (a sharded entry's shard substrate too).
+    A quantized plan's mode is dropped: a chain reads the pattern, never the
+    coded slab."""
     opts = {k: v for k, v in p.kernel_opts(entry).items() if k != "quant"}
+    if entry.substrate in _SHARD_SUBSTRATES:
+        opts["sub"] = p.substrate(entry.substrate)
     return functools.partial(entry.fn, shape=tuple(p.csr.shape), **extra,
                              **opts)
+
+
+def _chain_run(p: PlanBuilder, logical: str, bk: str, ex: dict, exec_fn,
+               vjp_kw: dict, *operands):
+    """One call of a chain-family entry (``exec_fn`` is ``exec_sddmm`` or
+    ``exec_chain``) on ``bk``: over the plan's balanced pattern, or a
+    sharded entry over its shard substrate, whose backward runs on the
+    inner backend (``ex["inner_backend"]`` on the ladder's rung) over the
+    whole pattern."""
+    entry = p.entry(logical, bk)
+    if entry.substrate in _SHARD_SUBSTRATES:
+        inner = ex.get("inner_backend") or p.inner_backend
+        vjp = _ChainVJP(p, inner, entry=p.entry(logical, inner), **vjp_kw)
+        return exec_fn(_chain_bound(p, entry, ex), None, None, vjp, *operands)
+    rows, cols = _chain_pattern(p)
+    vjp = _ChainVJP(p, bk, entry=entry, **vjp_kw)
+    return exec_fn(_chain_bound(p, entry, ex), rows, cols, vjp, *operands)
+
+
+def _shut_gate(p: PlanBuilder, backend: str) -> bool:
+    """Whether the Hopper kernels run this call (its fuse gates apply)."""
+    return backend == "hopper" or (backend == "sharded"
+                                   and p.inner_backend == "hopper")
 
 
 def _check_chain_operands(op: str, p: PlanBuilder, a, b) -> None:
@@ -1250,13 +1400,21 @@ def _check_chain_operands(op: str, p: PlanBuilder, a, b) -> None:
                          f"match the pattern shape {(m, k)}")
 
 
-def _ladder(logical: str, backend: str, run, extra: dict, t: torch.Tensor):
+def _ladder(logical: str, backend: str, run, extra: dict, t: torch.Tensor,
+            inner: str | None = None):
     """``guarded_call`` of ``run(backend, extra)``, the rung below (on CPU
-    operands ``t``, ``_rung``) running ``run(DEMOTION[backend], extra)``
+    operands ``t``, ``_rung``) running ``run(DEMOTION[backend], extra)`` —
+    a sharded call ``run("sharded", extra)`` with the ``"torch"`` inner —
     without the Hopper-only ``fuse`` switch of the fuse gates."""
-    demoted = _rung(backend, t)
-    fb = None if demoted is None else (lambda: run(demoted, {
-        k: v for k, v in extra.items() if k != "fuse"}))
+    demoted = _rung(backend, t, inner)
+    ex = {k: v for k, v in extra.items() if k != "fuse"}
+    if demoted is None:
+        fb = None
+    elif backend == "sharded":
+        fb = lambda: run(backend, dict(  # noqa: E731
+            ex, inner_backend=registry.DEMOTION["sharded"]))
+    else:
+        fb = lambda: run(demoted, ex)  # noqa: E731
     return guardrails.guarded_call(logical, backend, lambda: run(None, extra),
                                    fallback=fb, fallback_name=demoted,
                                    on_card=t.is_cuda)
@@ -1272,16 +1430,13 @@ def execute_sddmm(p: PlanBuilder, a: torch.Tensor, b: torch.Tensor, *,
     _check_chain_operands("sddmm", p, a, b)
 
     def run(bk, extra):
-        bk = bk or backend
-        entry = p.entry("sddmm", bk)
-        rows, cols = _chain_pattern(p)
-        slab = exec_sddmm(_chain_bound(p, entry, extra), rows, cols,
-                          _ChainVJP(p, bk), a, b)
-        # the balanced tiling is row-major over the CSR stream: flatten and
-        # trim
+        slab = _chain_run(p, "sddmm", bk or backend, extra, exec_sddmm, {},
+                          a, b)
+        # the balanced tiling is row-major over the CSR stream (a sharded
+        # entry returns the stream): flatten and trim
         return slab.reshape(-1)[:p.csr.nnz]
 
-    return _ladder("sddmm", backend or p.backend, run, {}, a)
+    return _ladder("sddmm", backend or p.backend, run, {}, a, p.inner_backend)
 
 
 def execute_chain(p: PlanBuilder, a: torch.Tensor, b: torch.Tensor,
@@ -1315,19 +1470,16 @@ def execute_chain(p: PlanBuilder, a: torch.Tensor, b: torch.Tensor,
     eff = backend or p.backend
     extra: dict = {"transform": transform,
                    "alpha": None if alpha is None else float(alpha)}
-    if eff == "hopper" and n < p.thresholds.chain_fuse_min_n:
+    if _shut_gate(p, eff) and n < p.thresholds.chain_fuse_min_n:
         HEALTH.bump("demote:chain_fuse")
         extra["fuse"] = False
 
     def run(bk, ex):
-        bk = bk or backend
-        entry = p.entry("chain", bk)
-        rows, cols = _chain_pattern(p)
-        vjp = _ChainVJP(p, bk, entry=entry, transform=transform,
-                        alpha=ex["alpha"])
-        return exec_chain(_chain_bound(p, entry, ex), rows, cols, vjp, a, b, x)
+        return _chain_run(p, "chain", bk or backend, ex, exec_chain,
+                          {"transform": transform, "alpha": ex["alpha"]},
+                          a, b, x)
 
-    return _ladder("chain", eff, run, extra, a)
+    return _ladder("chain", eff, run, extra, a, p.inner_backend)
 
 
 def execute_attention(p: PlanBuilder, q: torch.Tensor, k: torch.Tensor,
@@ -1366,19 +1518,25 @@ def execute_attention(p: PlanBuilder, q: torch.Tensor, k: torch.Tensor,
     sc = float(q.shape[1]) ** -0.5 if scale is None else float(scale)
     eff = backend or p.backend
     extra: dict = {}
-    if eff == "hopper" and m < p.thresholds.attn_fuse_min_seq:
+    if _shut_gate(p, eff) and m < p.thresholds.attn_fuse_min_seq:
         HEALTH.bump("demote:attn_fuse")
         extra["fuse"] = False
     if bias is None:
         def run(bk, ex):
-            bk = bk or backend
-            entry = p.entry("chain", bk)
-            rows, cols = _chain_pattern(p)
-            vjp = _ChainVJP(p, bk, entry=entry, transform="softmax", alpha=sc)
-            return exec_chain(_chain_bound(p, entry, dict(
-                ex, transform="softmax", alpha=sc)), rows, cols, vjp, q, k, v)
+            return _chain_run(p, "chain", bk or backend,
+                              dict(ex, transform="softmax", alpha=sc),
+                              exec_chain, {"transform": "softmax", "alpha": sc},
+                              q, k, v)
 
-        return _ladder("chain", eff, run, extra, q)
+        return _ladder("chain", eff, run, extra, q, p.inner_backend)
+    if eff == "sharded":
+        raise ShardedBiasError(
+            "sharded block-sparse attention does not support an additive "
+            "bias stream; supported alternatives: (1) keep the bias and run "
+            "unsharded — execute_attention(p, ..., backend='hopper') or "
+            "'torch' on a single-device plan over the same pattern, or (2) "
+            "keep the sharded plan and drop bias= (the no-bias path rides "
+            "the sharded softmax chain, cross-shard merge included)")
     if bias.ndim != 1 or bias.shape[0] != p.csr.nnz:
         raise ValueError(f"bias must be a flat ({p.csr.nnz},) per-edge "
                          f"stream in CSR order; got {tuple(bias.shape)}")

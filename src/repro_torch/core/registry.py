@@ -23,7 +23,13 @@ the entry's optional host-side ``prep`` hook, run once per plan.
 CPU operands whose kernel fails on ``"hopper"`` or ``"bsr"`` is rerouted,
 and counted, to the ``"torch"`` entry of the same logical kernel;
 ``"torch"`` is the bottom and re-raises.  On the card there is no rung
-below: a failing kernel is counted and raises.  The reference's sharded rung waits for the sharded backend.
+below: a failing kernel is counted and raises.  A ``"sharded"`` plan's
+rung keeps its shards and demotes their inner backend to ``"torch"``
+(``core/plan.py``, counted as ``sharded/torch-inner``).
+
+``"sharded"`` (``core/shard.py``) runs a matmul, SDDMM or chain entry of
+an inner backend once per shard of a device mesh, on the stacked
+per-shard substrates ``shard_ell`` / ``shard_balanced``.
 """
 from __future__ import annotations
 
@@ -47,11 +53,13 @@ LOGICAL_KERNELS: tuple[str, ...] = MATMUL_KERNELS + ("sddmm", "chain",
 
 #: one rung down the degradation ladder (``guardrails.guarded_call``): the
 #: backend a failing call of each accelerated backend on CPU operands is
-#: rerouted to
-DEMOTION: dict[str, str] = {"hopper": "torch", "bsr": "torch"}
+#: rerouted to; for ``"sharded"``, the inner backend its shards demote to
+DEMOTION: dict[str, str] = {"hopper": "torch", "bsr": "torch",
+                            "sharded": "torch"}
 
 #: substrate format each entry consumes
-SUBSTRATES: tuple[str, ...] = ("ell", "balanced", "bsr")
+SUBSTRATES: tuple[str, ...] = ("ell", "balanced", "bsr", "shard_ell",
+                               "shard_balanced")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +78,7 @@ _LAZY_BACKENDS: dict[str, str] = {
     "torch": "repro_torch.core.spmm",
     "hopper": "repro_torch.kernels",
     "bsr": "repro_torch.kernels",
+    "sharded": "repro_torch.core.shard",
 }
 
 

@@ -107,9 +107,10 @@ class SelectorThresholds:
     n_threshold: int = 4        # N <= this → parallel reduction (paper: 4)
     pr_avg_row: float = 32.0    # PR side: avg_row < this → workload-balance
     sr_cv: float = 0.5          # SR side: cv > this → workload-balance
-    # partition_cv and overlap_min_n belong to the sharded backend, not
-    # ported yet, and nothing tunes max_win (the spill window's guard) yet;
-    # they are carried so that a thresholds file round-trips unchanged
+    # the sharded backend (core/shard.py): cv > partition_cv shards by
+    # nonzeros, else by rows (select_partition); psum plans take the
+    # overlapped ring from N >= overlap_min_n (kernels/tune.py::
+    # autotune_overlap).  Nothing tunes max_win (the spill window's guard)
     partition_cv: float = 1.0
     max_win: int = 4096
     overlap_min_n: int = 512
@@ -245,6 +246,14 @@ def select_kernel(stats: MatrixStats, n: int,
     if n <= th.n_threshold:
         return "nb_pr" if stats.avg_row < th.pr_avg_row else "rs_pr"
     return "nb_sr" if stats.cv > th.sr_cv else "rs_sr"
+
+
+def select_partition(stats: MatrixStats,
+                     th: SelectorThresholds = SelectorThresholds()) -> str:
+    """Partitioner of the sharded backend (DESIGN.md §4.1): the CV rule one
+    level up — uniform rows shard by rows (``"row"``), skewed rows by
+    nonzeros (``"nnz"``, the BalancedCOO tile split)."""
+    return "nnz" if stats.cv > th.partition_cv else "row"
 
 
 # ---------------------------------------------------------------------------

@@ -29,9 +29,9 @@ replay neither).  ``Timer.log`` says which mode timed each entry.
 ``modeled_traffic*`` are the reference's byte models of the TPU's
 BlockSpec DMA pipeline (DESIGN.md §6), key for key; no tuner reads them.
 
-The sharded overlap crossover (``measure_overlap``, ``autotune_overlap``,
-``modeled_traffic_sharded``) waits for the sharded backend and raises
-``NotImplementedError``.
+The sharded overlap crossover (``measure_overlap``, ``autotune_overlap``)
+times a sharded psum plan (``core/shard.py``) with the ring forced on and
+off; ``modeled_traffic_sharded`` is the reference's per-shard byte model.
 """
 from __future__ import annotations
 
@@ -448,29 +448,119 @@ def modeled_traffic_attention(mask, head_dim: int = 64, *,
     return base
 
 
+def modeled_traffic_sharded(sub, n: int, *,
+                            geometry: TileGeometry | None = None,
+                            dtype_bytes: int = 4, index_bytes: int = 4,
+                            quant: str | None = None) -> dict:
+    """The reference's per-shard fused-vs-spill byte model of a
+    ``ShardedSubstrate`` (a model of the TPU, as ``modeled_traffic``):
+    every shard's spill window is the largest over the shards (a static of
+    the TPU's ``shard_map`` body), its fused schedule its own.  A baked
+    quantized substrate is charged at its coded width."""
+    from ..core import quant as quant_mod
+    from ..core.formats import BalancedCOO
+    geom = (geometry or TileGeometry()).validate("pallas")
+    if quant is None:
+        quant = getattr(sub, "quant", None)
+    value_bytes = None
+    vals0 = sub.vals[0]
+    if quant is None:
+        value_bytes = quant_mod.value_bytes(vals0.dtype)
+        if quant_mod.is_quantized_dtype(vals0.dtype):
+            quant = "int8"
+    rows_h, cols_h, src_h = (sub.stacked(f) for f in ("rows", "cols", "src"))
+    n_shards = rows_h.shape[0]
+    slabs = [BalancedCOO(torch.from_numpy(rows_h[s]),
+                         torch.from_numpy(cols_h[s]),
+                         torch.zeros(rows_h[s].shape), sub.inner_shape)
+             for s in range(n_shards)]
+    win = max(plan_windows(b)[1] for b in slabs)
+    per_shard = [modeled_traffic_balanced(
+        bal, n, int((src_h[s] >= 0).sum()), geometry=geom, win=win,
+        dtype_bytes=dtype_bytes, index_bytes=index_bytes,
+        value_bytes=value_bytes, quant=quant)
+        for s, bal in enumerate(slabs)]
+    spill = sum(t["spill_bytes"] for t in per_shard)
+    fused = sum(t["fused_bytes"] for t in per_shard)
+    return {
+        "per_shard": per_shard,
+        "n_shards": n_shards,
+        "spill_bytes": int(spill),
+        "fused_bytes": int(fused),
+        "spill_value_bytes": sum(t["spill_value_bytes"] for t in per_shard),
+        "fused_value_bytes": sum(t["fused_value_bytes"] for t in per_shard),
+        "quant": quant,
+        "spill_win": int(win),
+        "max_visits": max(t["n_visits"] for t in per_shard),
+        "flops": sum(t["flops"] for t in per_shard),
+        "bytes_reduction": spill / max(fused, 1),
+    }
+
+
 # ---------------------------------------------------------------------------
-# the sharded overlap crossover: waits for the sharded backend
+# the sharded overlap crossover: when does the chunked ring beat one psum?
 # ---------------------------------------------------------------------------
 
-def _sharded_unported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} needs the sharded backend, which the port does not have "
-        "yet (ROADMAP.md queue 1, item 6)")
+def _overlap_plan(csr: CSR, mesh, n: int, shard_kind: str,
+                  thresholds: SelectorThresholds | None,
+                  inner_backend: str | None):
+    """A sharded psum plan of ``csr`` on ``mesh`` (on its first shard's
+    device), its substrate built for width ``n``."""
+    th = thresholds if thresholds is not None else default_thresholds()
+    return plan(csr.to(_mesh_device(mesh)), backend="sharded", mesh=mesh,
+                shard_kind=shard_kind, thresholds=th,
+                inner_backend=inner_backend, n_hint=n)
 
 
-def modeled_traffic_sharded(sub, n: int, **kwargs) -> dict:
-    """The reference's per-shard byte model; needs the sharded backend."""
-    raise _sharded_unported("modeled_traffic_sharded")
+def _time_overlap(p, n: int, chunked: bool, impl: str, repeats: int,
+                  timer: Timer | None) -> float:
+    """Seconds per call of the sharded plan ``p`` with the reduction forced
+    to the ring or the psum: ``p.with_thresholds`` shares its substrates."""
+    q = p.with_thresholds(dataclasses.replace(
+        p.thresholds, overlap_min_n=1 if chunked else OVERLAP_NEVER))
+    return _timed_execute(q, n, impl, repeats, timer,
+                          f"overlap|{_csr_label(p.csr)}|{impl}|n={n}|"
+                          f"{'ring' if chunked else 'psum'}")
 
 
-def measure_overlap(csr: CSR, mesh, n: int, **kwargs) -> float:
-    """The reference's ring-versus-psum timing; needs the sharded backend."""
-    raise _sharded_unported("measure_overlap")
+def measure_overlap(csr: CSR, mesh, n: int, *, chunked: bool,
+                    thresholds: SelectorThresholds | None = None,
+                    impl: str = "nb_pr", shard_kind: str = "nnz",
+                    inner_backend: str | None = None, repeats: int = 2,
+                    timer: Timer | None = None) -> float:
+    """Seconds per call of a sharded psum plan with the reduction forced to
+    the chunked ring (``chunked=True``) or one blocking psum, timed on the
+    first shard's device (``Timer``: CUDA events on the card)."""
+    p = _overlap_plan(csr, mesh, n, shard_kind, thresholds, inner_backend)
+    return _time_overlap(p, n, chunked, impl, repeats, timer)
 
 
-def autotune_overlap(csr: CSR, mesh, **kwargs) -> SelectorThresholds:
-    """The reference's ``overlap_min_n`` tuner; needs the sharded backend."""
-    raise _sharded_unported("autotune_overlap")
+def autotune_overlap(csr: CSR, mesh, *, ns: tuple = (256, 512, 1024),
+                     thresholds: SelectorThresholds | None = None,
+                     impl: str = "nb_pr", shard_kind: str = "nnz",
+                     inner_backend: str | None = None, repeats: int = 2,
+                     timer: Timer | None = None) -> SelectorThresholds:
+    """The overlap crossover: the smallest N of ``ns`` at which the chunked
+    ring beats the blocking psum becomes ``overlap_min_n``
+    (``OVERLAP_NEVER`` when it never does).  Widths of one ring chunk
+    (``shard.RING_CHUNK``) or less cannot chunk and are skipped; one plan
+    (one substrate build) serves every width."""
+    from ..core.shard import RING_CHUNK
+    th = thresholds if thresholds is not None else default_thresholds()
+    widths = sorted(n for n in ns if n > RING_CHUNK)
+    if widths:
+        p = _overlap_plan(csr, mesh, widths[0], shard_kind, th, inner_backend)
+    for n in widths:
+        times = [_time_overlap(p, n, chunked, impl, repeats, timer)
+                 for chunked in (True, False)]
+        if times[0] < times[1]:
+            return dataclasses.replace(th, overlap_min_n=int(n))
+    return dataclasses.replace(th, overlap_min_n=OVERLAP_NEVER)
+
+
+def _mesh_device(mesh) -> torch.device:
+    from ..core.shard import default_shard_axis, shard_devices
+    return shard_devices(mesh, default_shard_axis(mesh))[0]
 
 
 # ---------------------------------------------------------------------------

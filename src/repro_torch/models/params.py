@@ -4,8 +4,10 @@ One tree of ``ParamSpec`` per model (nested dicts), consumed by
 ``init_params`` (real tensors from an explicit ``torch.Generator``),
 ``param_count`` and ``param_bytes``.  The logical axis names are the
 reference's (``layers``, ``embed``, ``heads``, ``experts``, ...), kept for
-the sharded backend.  The reference's ``abstract_params`` and
-``param_shardings`` (dry-run and sharding tooling) are not ported yet.
+sharding rules (``launch/sharding_rules.py``).  The reference's
+``abstract_params`` and ``param_shardings`` (the dry run's tooling and
+GSPMD placement of dense leaves) are not ported yet (ROADMAP queue 1,
+item 7).
 """
 from __future__ import annotations
 

@@ -9,8 +9,7 @@ counterpart of ``repro.train.compress``.
 * ``tree_int8_encode`` / ``tree_int8_decode`` — the pair over a nest of
   dicts, lists and tuples of tensors (the reference's pytrees).
 
-The reference's sharded int8 all-reduce (``train/manual_collectives.py``)
-is not ported yet.
+The sharded int8 all-reduce over a mesh is ``train/manual_collectives.py``.
 """
 from __future__ import annotations
 

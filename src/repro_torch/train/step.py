@@ -1,6 +1,7 @@
 """Train-step builder; counterpart of ``repro.train.step``: loss → grads →
 (optional microbatch accumulation) → clip → AdamW, one step a call over the
-state ``{"params": ..., "opt": ...}`` (nested dicts of tensors)."""
+state ``{"params": ..., "opt": ...}`` (nested dicts of tensors); and
+``sparse_weight_shardings``, the split of the sparse weights over a mesh."""
 from __future__ import annotations
 
 import dataclasses
@@ -106,3 +107,29 @@ def init_state(params: dict, tcfg: TrainConfig) -> dict:
     """``{"params": detached copies, "opt": init_opt_state(...)}``."""
     params = tree_map(lambda p: p.detach().clone(), params)
     return {"params": params, "opt": init_opt_state(params, tcfg.opt)}
+
+
+def sparse_weight_shardings(params: dict, mesh, rules=None) -> dict:
+    """A ``NamedSharding`` (the pair ``(mesh, PartitionSpec)``) a leaf for
+    the sparse-FFN value streams (``v_gate`` / ``v_up`` / ``v_down``,
+    ``(..., tiles, nnz)``): tiles over the DP axes, nnz contiguous — the
+    split the sharded SpMM backend makes
+    (``launch.sharding_rules.SPARSE_WEIGHT_RULES``); leading (layer) axes
+    unsharded, a tile count the axes do not divide replicated.  Other
+    leaves map to None (the caller's layout)."""
+    from ..launch.sharding_rules import (SPARSE_WEIGHT_RULES, NamedSharding,
+                                         check_divisibility, partition_spec)
+    rules = rules or SPARSE_WEIGHT_RULES
+
+    def one(name: str, leaf):
+        if isinstance(leaf, dict):
+            return {k: one(k, v) for k, v in leaf.items()}
+        if not name.startswith("v_"):
+            return None
+        logical = (None,) * (leaf.ndim - 2) + ("tiles", "nnz")
+        spec = partition_spec(logical, rules, mesh)
+        if not check_divisibility(tuple(leaf.shape), spec, mesh):
+            spec = partition_spec((), rules, mesh)
+        return NamedSharding(mesh, spec)
+
+    return {k: one(k, v) for k, v in params.items()}

@@ -124,10 +124,18 @@ def test_sparse_without_cuda_raises(monkeypatch):
 
 
 def test_unported_arguments_raise():
+    """No argument of the reference's plan() is refused now: a mesh plans
+    on the sharded backend (tests/test_torch_shard.py), the shard arguments
+    without one are ignored as the reference ignores them, and a sharded
+    backend without a mesh is a usage error."""
+    from repro_torch.launch import make_local_mesh
     csr = _port(SUITE["rmat_s8_e4_uniform"])
-    for kw in ({"mesh": object()}, {"shard_axis": "x"}):
-        with pytest.raises(NotImplementedError):
-            plan_mod.plan(csr, **kw)
+    p = plan_mod.plan(csr, mesh=make_local_mesh(4, 1, devices=["cpu"] * 4))
+    assert (p.backend, p.inner_backend, p.shard_spec.n_shards) == (
+        "sharded", "torch", 4)
+    assert plan_mod.plan(csr, shard_axis="x").backend == "torch"
+    with pytest.raises(ValueError, match="mesh"):
+        plan_mod.plan(csr, backend="sharded")
     # the guardrails' arguments are ported (tests/test_torch_guardrails.py)
     assert plan_mod.plan(csr, sentinel="raise").sentinel == "raise"
     assert plan_mod.plan(csr, validate="repair").csr is csr

@@ -456,10 +456,16 @@ def test_plan_refuses_unknown_chain_op_and_unported_arguments():
         plan_mod.plan(pc, chain_op="sigmoid")
     with pytest.raises(ValueError):
         repro_torch.sparse(pc, device="cpu", chain_op="sigmoid", cache=False)
-    for kw in ({"mesh": object()}, {"shard_kind": "row"},
-               {"inner_backend": "torch"}):
-        with pytest.raises(NotImplementedError):
-            plan_mod.plan(pc, **kw)
+    # the sharding arguments are ported (tests/test_torch_shard.py): a chain
+    # plan on a mesh is sharded; without a mesh they are ignored
+    from repro_torch.launch import make_local_mesh
+    mesh = make_local_mesh(2, 1, devices=["cpu"] * 2)
+    ps = plan_mod.plan(pc, chain_op="softmax", mesh=mesh, shard_kind="row",
+                       inner_backend="torch")
+    assert (ps.backend, ps.chain_op, ps.shard_spec.kind) == (
+        "sharded", "softmax", "row")
+    for kw in ({"shard_kind": "row"}, {"inner_backend": "torch"}):
+        assert plan_mod.plan(pc, **kw).backend == "torch"
     # the guardrails' arguments are ported (tests/test_torch_guardrails.py)
     assert plan_mod.plan(pc, chain_op="softmax",
                          sentinel="sanitize").sentinel == "sanitize"

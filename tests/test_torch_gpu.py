@@ -3375,3 +3375,202 @@ def test_cuda_ssd_chunked_matches_the_recurrence_at_head_width_64(cuda):
         y, fin = ssm.ssd_chunked(x, dt, a_log, bb, cc, d, chunk=chunk)
         assert _rel(y, y_step) < 1e-3, chunk
         assert _rel(fin, state) < 1e-3, chunk
+
+
+# ---------------------------------------------------------------------------
+# the sharded backend: four shards of one matrix on cuda:0, each on a stream
+# of its own, against the unsharded plan on the same card
+# ---------------------------------------------------------------------------
+
+def _shard_mesh(device, n=4):
+    from repro_torch.launch import make_local_mesh
+    return make_local_mesh(n, 1, devices=[str(device)] * n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kind", [("skewed", "nnz"), ("uniform", "row")])
+def test_cuda_sharded_matmul_matches_unsharded(cuda, name, kind):
+    """Every matmul kernel a shard (four launches a call), repeated in one
+    process to catch races between the shards' streams."""
+    from repro_torch.core import plan as plan_mod
+    kernel_of = {"nb_sr": "vsr_spmm", "nb_pr": "vsr_spmm",
+                 "rs_sr": "csc_spmm", "rs_pr": "csc_spmm"}
+    csr = _graphs(cuda)[name]
+    p = plan_mod.plan(csr, mesh=_shard_mesh(cuda), shard_kind=kind)
+    assert p.inner_backend == "hopper" and p.shard_spec.kind == kind
+    ref = plan_mod.plan(csr, backend="hopper")
+    for _ in range(3):
+        for n in (1, 4, 32, 128):
+            x = torch.randn(csr.shape[1], n, device=cuda)
+            x = x[:, 0].contiguous() if n == 1 else x
+            for impl, kernel in kernel_of.items():
+                kernel = "vsr_spmv" if n == 1 and impl.startswith("nb") else kernel
+                want = plan_mod.execute(ref, x, impl=impl)
+                reset_launch_counts()
+                got = plan_mod.execute(p, x, impl=impl)
+                torch.cuda.synchronize()
+                assert launch_counts()[kernel] == 4, (impl, n)
+                assert got.device == x.device
+                assert _rel(got, want) < 1e-4, (impl, n)
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_backward_and_spill(cuda):
+    """nnz split at N = 32: ``dvals`` of a live stream (K6 a shard) and
+    ``dX`` (K1 on each shard's transposed slabs) against the unsharded
+    plan's; the spill inner (K4 / K5 and the combine a shard)."""
+    from repro_torch.core import plan as plan_mod
+    csr = _graphs(cuda)["skewed"]
+    p = plan_mod.plan(csr, mesh=_shard_mesh(cuda), shard_kind="nnz")
+    ref = plan_mod.plan(csr, backend="hopper")
+    for _ in range(3):
+        x = torch.randn(csr.shape[1], 32, device=cuda)
+        g = torch.randn(csr.shape[0], 32, device=cuda)
+        grads = []
+        for plan_ in (p, ref):
+            v = csr.data.clone().requires_grad_()
+            xx = x.clone().requires_grad_()
+            reset_launch_counts()
+            (plan_mod.execute(plan_, xx, vals=v) * g).sum().backward()
+            torch.cuda.synchronize()
+            grads.append((v.grad, xx.grad, launch_counts()))
+        (dv, dx, counts), (dv_ref, dx_ref, _) = grads
+        assert counts["sddmm"] == 4 and counts["vsr_spmm"] == 8, counts
+        assert _rel(dv, dv_ref) < 1e-4 and _rel(dx, dx_ref) < 1e-4
+    p.kernel_opts(p.entry("nb_pr"))["spill"] = True
+    for n in (1, 8):
+        x = torch.randn(csr.shape[1], n, device=cuda)
+        x = x[:, 0].contiguous() if n == 1 else x
+        reset_launch_counts()
+        got = plan_mod.execute(p, x, impl="nb_pr")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        spill = "vsr_spmv_spill" if n == 1 else "vsr_spmm_spill"
+        assert counts[spill] == counts["spill_combine"] == 4, counts
+        assert _rel(got, plan_mod.execute(ref, x, impl="nb_pr")) < 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_ring_matches_psum(cuda):
+    """The overlapped ring (three chunks at N = 300, the ring on a stream of
+    its own) against the blocking psum, value and gradient, repeated."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.selector import SelectorThresholds
+    csr = _graphs(cuda)["skewed"]
+    ring = plan_mod.plan(csr, mesh=_shard_mesh(cuda), shard_kind="nnz",
+                         thresholds=SelectorThresholds(overlap_min_n=1))
+    psum = plan_mod.plan(csr, mesh=_shard_mesh(cuda), shard_kind="nnz")
+    for _ in range(5):
+        x = torch.randn(csr.shape[1], 300, device=cuda, requires_grad=True)
+        y, y_psum = (plan_mod.execute(q, x, impl="nb_sr") for q in (ring, psum))
+        assert _rel(y, y_psum) < 1e-5
+        g = torch.randn_like(y)
+        gx = torch.autograd.grad((y * g).sum(), x)[0]
+        gx_psum = torch.autograd.grad((y_psum * g).sum(), x)[0]
+        assert _rel(gx, gx_psum) < 1e-5
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_chain_and_attention(cuda):
+    """The softmax chain with the cross-shard merge (nnz split: K7 a shard,
+    then K8 a shard on the merged statistics), row split, and one attention
+    head on a band (row split: each shard its own block layout) against the
+    unsharded plans; with a bias it raises."""
+    from repro_torch.attention import sparse_attention
+    from repro_torch.core import plan as plan_mod
+    for name, kind in (("skewed", "nnz"), ("uniform", "row")):
+        csr = _graphs(cuda)[name]
+        p = plan_mod.plan(csr, mesh=_shard_mesh(cuda), shard_kind=kind)
+        ref = plan_mod.plan(csr, backend="hopper")
+        for _ in range(3):
+            a, b, x = _chain_operands(csr, 32, 16)
+            reset_launch_counts()
+            got = plan_mod.execute_chain(p, a, b, x, transform="softmax",
+                                         alpha=0.125)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            assert counts["chain"] == 4, counts
+            assert counts["chain_stats"] == 4 or kind == "row", counts
+            want = plan_mod.execute_chain(ref, a, b, x, transform="softmax",
+                                          alpha=0.125)
+            assert _rel(got, want) < 1e-4, (name, kind)
+            assert _rel(plan_mod.execute_sddmm(p, a, b),
+                        plan_mod.execute_sddmm(ref, a, b)) < 1e-4
+    spec = patterns.sliding_window(1024, 2, block=64, causal=True)
+    mesh = _shard_mesh(cuda)
+    q, k, v = (torch.randn(1024, 64, device=cuda) for _ in range(3))
+    for _ in range(3):
+        reset_launch_counts()
+        got = sparse_attention(spec, q, k, v, mesh=mesh, cache=False)
+        torch.cuda.synchronize()
+        assert launch_counts()["chain"] == 4
+        assert fused_chain.DESIGN_LAUNCHES["chain"]["block"] == 4
+        assert _rel(got, sparse_attention(spec, q, k, v, cache=False)) < 1e-4
+    with pytest.raises(ValueError, match="bias"):
+        sparse_attention(spec, q, k, v, mesh=mesh, cache=False, bias=torch.zeros(
+            patterns.build_mask(spec).csr.nnz, device=cuda))
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_artifact_and_pattern(cuda):
+    """A finalized sharded artifact: its call equals the builder's and does
+    no sync; ``execute_pattern(mesh=)`` and its grads equal the unsharded
+    entry's."""
+    from repro_torch.core import plan as plan_mod
+    csr = _graphs(cuda)["skewed"]
+    p = plan_mod.plan(csr, mesh=_shard_mesh(cuda), shard_kind="nnz")
+    art = p.finalize(32)
+    x = torch.randn(csr.shape[1], 32, device=cuda)
+    want = plan_mod.execute(p, x)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = plan_mod.execute(art, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert _rel(got, want) < 1e-4
+    bal = formats.csr_to_balanced(csr, 64)
+    for _ in range(3):
+        out = []
+        for mesh in (_shard_mesh(cuda), None):
+            v = bal.vals.clone().requires_grad_()
+            xx = x.clone().requires_grad_()
+            y = plan_mod.execute_pattern(bal.rows, bal.cols, v, bal.shape, xx,
+                                         mesh=mesh)
+            out.append((y, *torch.autograd.grad(y.square().sum(), (v, xx))))
+        for a, b in zip(*out):
+            assert _rel(a, b) < 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_call_captures_in_a_graph(cuda):
+    """A sharded call forks the shards' streams from the capturing stream and
+    joins them back: ``tune.Timer`` times it from a CUDA graph, and a
+    graph of a frozen artifact's call (the ring's too) replays the eager
+    result."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.selector import SelectorThresholds
+    from repro_torch.kernels import tune
+    csr = _graphs(cuda)["skewed"]
+    for th in (SelectorThresholds(), SelectorThresholds(overlap_min_n=1)):
+        p = plan_mod.plan(csr, mesh=_shard_mesh(cuda), shard_kind="nnz",
+                          thresholds=th)
+        x = torch.randn(csr.shape[1], 300, device=cuda)
+        timer = tune.Timer()
+        timer(lambda: plan_mod.execute(p, x, impl="nb_sr"), cuda, 3, "k")
+        assert timer.log[-1]["mode"] == "graph", timer.log
+        art = p.finalize(kernels=("nb_sr",))
+        want = plan_mod.execute(art, x)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            plan_mod.execute(art, x)                    # warm-up
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = plan_mod.execute(art, x)
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert _rel(y, want) < 1e-5

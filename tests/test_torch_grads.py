@@ -305,10 +305,18 @@ def test_refusals_and_unported_arguments(rng):
     with torch.no_grad():
         assert not execute(p, torch.randn(10)).requires_grad
     bal = formats.csr_to_balanced(pc, 8)
-    for kw in ({"mesh": object()}, {"shard_axis": "x"}):
-        with pytest.raises(NotImplementedError):
-            execute_pattern(bal.rows, bal.cols, bal.vals, bal.shape,
-                            torch.randn(10), **kw)
+    # the mesh arguments are ported (tests/test_torch_shard_train.py): the
+    # pattern's tiles split over the shards give the unsharded product
+    from repro_torch.launch import make_local_mesh
+    x = torch.randn(10)
+    y = execute_pattern(bal.rows, bal.cols, bal.vals, bal.shape, x)
+    ys = execute_pattern(bal.rows, bal.cols, bal.vals, bal.shape, x,
+                         mesh=make_local_mesh(2, 1, devices=["cpu"] * 2),
+                         shard_axis="data")
+    assert torch.allclose(ys, y, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="mesh"):
+        execute_pattern(bal.rows, bal.cols, bal.vals, bal.shape, x,
+                        backend="sharded")
     # quantized value streams are ported (tests/test_torch_quant.py)
     assert execute_pattern(bal.rows, bal.cols, bal.vals, bal.shape,
                            torch.randn(10), quant="int8").shape == (10,)

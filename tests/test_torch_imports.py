@@ -87,16 +87,22 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.data.pipeline",
                    "repro_torch.examples.serve_moe",
                    "repro_torch.examples.serve_longcontext",
-                   "repro_torch.examples.train_sparse_lm"):
+                   "repro_torch.examples.train_sparse_lm",
+                   "repro_torch.core.shard",
+                   "repro_torch.launch",
+                   "repro_torch.launch.mesh",
+                   "repro_torch.launch.sharding_rules",
+                   "repro_torch.train.manual_collectives"):
         assert module in names, (module, sorted(names))
 
 
 def test_port_exports_the_reference_top_level():
-    """Every name of ``repro.__all__`` but ``use_mesh`` (the sharded
-    backend is not ported) is an attribute of ``repro_torch``, which
+    """Every name of ``repro.__all__`` (``use_mesh`` too, since the
+    sharded backend is ported) is an attribute of ``repro_torch``, which
     imports no JAX and nothing of ``repro`` to give them."""
     import repro
-    names = [n for n in repro.__all__ if n != "use_mesh"]
+    names = list(repro.__all__)
+    assert "use_mesh" in names
     probe = _PROBE.split("names = sorted")[0] + (
         "missing = [n for n in sys.argv[1:] if not hasattr(repro_torch, n)]\n"
         "assert not missing, missing\n"

@@ -489,6 +489,11 @@ def test_lm_loss_matches_reference(chunk):
 
 
 def test_sharding_ctx_is_single_device():
+    """Without a scope every hook is the single-device stand-in; under a
+    mesh the dense hooks still return their argument (a dim the axis does
+    not divide cannot raise), and the sparse-weight marker and the MoE
+    groups are read from the rules."""
+    from repro_torch.launch import SPARSE_WEIGHT_RULES, make_local_mesh
     from repro_torch.models import sharding_ctx
     x = torch.ones(3)
     assert sharding_ctx.constrain(x, ("batch",)) is x
@@ -497,9 +502,15 @@ def test_sharding_ctx_is_single_device():
     assert sharding_ctx.moe_groups() == 1
     assert sharding_ctx.sparse_shard() == (None, None)
     with sharding_ctx.activation_sharding(None, {}):
-        pass
-    with sharding_ctx.activation_sharding(object(), {}, enabled=False):
-        pass
-    with pytest.raises(NotImplementedError, match="sharded backend"):
-        with sharding_ctx.activation_sharding(object(), {}):
-            pass
+        assert sharding_ctx.sparse_shard() == (None, None)
+    mesh = make_local_mesh(2, 2, devices=["cpu"] * 4)
+    with sharding_ctx.activation_sharding(mesh, SPARSE_WEIGHT_RULES,
+                                          enabled=False):
+        assert sharding_ctx.sparse_shard() == (None, None)
+    rules = dict(SPARSE_WEIGHT_RULES, heads=("model",), __moe_groups__=2)
+    with sharding_ctx.activation_sharding(mesh, rules):
+        assert sharding_ctx.sparse_shard() == (mesh, "data")
+        assert sharding_ctx.moe_groups() == 2
+        heads = torch.ones(1, 3, 4)                   # 3 heads on model=2
+        assert sharding_ctx.constrain(heads, (None, "heads", None)) is heads
+    assert sharding_ctx.sparse_shard() == (None, None)

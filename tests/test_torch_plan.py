@@ -3,8 +3,8 @@
 selector's calibration (``calibrate`` on the same measured times gives the
 reference's thresholds and geomean slowdown), its ``save_to`` round trip,
 the 27-matrix R-MAT suite element for element, ``calibrate_backend`` on the
-CPU with its tuners (``tune_geometry``, ``tune_quant``; ``overlap_mesh``
-waits for the sharded backend), ``backends_for``, the
+CPU with its tuners (``tune_geometry``, ``tune_quant``, ``overlap_mesh``
+on a mesh of four CPU shards), ``backends_for``, the
 deprecated front doors (``PreparedMatrix``, ``adaptive_spmm``,
 ``repro_torch.kernels.spmm``), and the quickstart example on the CPU."""
 import math
@@ -123,10 +123,20 @@ def test_calibrate_backend_runs_on_the_cpu(tmp_path):
     assert th2.n_threshold == 4 and len(report2["times"]) == 3 * 4
 
 
-@pytest.mark.parametrize("kw", [{"overlap_mesh": object()}])
+@pytest.mark.parametrize("kw", [{"overlap_mesh": "cpu4"}])
 def test_calibrate_backend_unported_arguments(kw):
-    with pytest.raises(NotImplementedError, match="sharded backend"):
-        api.calibrate_backend(device="cpu", **kw)
+    del kw
+    """``overlap_mesh`` is ported: the overlap crossover measured on the
+    mesh lands in the report (on the CPU the ring never wins by much; any
+    width of ``overlap_ns`` or ``OVERLAP_NEVER`` is a valid answer)."""
+    from repro_torch.kernels.tune import OVERLAP_NEVER
+    from repro_torch.launch import make_local_mesh
+    mesh = make_local_mesh(4, 1, devices=["cpu"] * 4)
+    th, report = api.calibrate_backend(
+        device="cpu", repeats=1, ns=(1,), n_grid=(4,), avg_grid=(32.0,),
+        cv_grid=(0.5,), overlap_mesh=mesh, overlap_ns=(256,))
+    assert report["overlap_min_n"] in (256, OVERLAP_NEVER)
+    assert th.overlap_min_n == report["overlap_min_n"]
 
 
 def _report_shape(report: dict) -> dict:
@@ -199,8 +209,8 @@ def test_calibrate_backend_tunes_quant(monkeypatch):
 
 
 def test_backends_for():
-    assert set(backends_for("nb_pr")) == {"torch", "hopper", "bsr"}
-    assert set(backends_for("sddmm")) == {"torch", "hopper"}
+    assert set(backends_for("nb_pr")) == {"torch", "hopper", "bsr", "sharded"}
+    assert set(backends_for("sddmm")) == {"torch", "hopper", "sharded"}
 
 
 # ---------------------------------------------------------------------------

@@ -158,13 +158,14 @@ def test_straggler_watchdog(tmp_ckpt):
 
 def test_elastic_restore(tmp_ckpt):
     """A restore places each leaf on the device of ``like``'s; a sharded
-    restore (``shardings=``) waits for the sharded backend."""
+    restore (``shardings=``) splits dense leaves over a mesh, which waits
+    for a tensor-parallel runtime (ROADMAP item 7)."""
     mgr = CheckpointManager(tmp_ckpt)
     tree = {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8)}
     mgr.save(1, tree)
     back = mgr.restore(1, like={"w": torch.zeros(8, 8)})
     assert torch.equal(back["w"], tree["w"]) and back["w"].device == CPU
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         mgr.restore(1, like=tree, shardings={"w": None})
 
 

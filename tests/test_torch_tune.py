@@ -383,13 +383,38 @@ def test_hopper_geometries_cross_between_the_packages(tmp_path):
 @pytest.mark.parametrize("call", ["measure_overlap", "autotune_overlap",
                                   "modeled_traffic_sharded"])
 def test_sharded_tuners_refuse(call):
-    csr, mesh = _port(PATTERNS["banded"]()), object()
-    args = {"measure_overlap": (csr, mesh, 512), "autotune_overlap": (csr, mesh),
-            "modeled_traffic_sharded": (object(), 128)}[call]
-    with pytest.raises(NotImplementedError, match="sharded backend"):
-        getattr(tune, call)(*args)
-    with pytest.raises(NotImplementedError, match="sharded backend"):
-        repro_torch.autotune_overlap(_port(PATTERNS["banded"]()), object())
+    """The sharded tuners are ported: the ring and the psum timed on a mesh
+    of four CPU shards, the crossover one of ``ns`` or ``OVERLAP_NEVER``
+    (widths of one ring chunk skipped), and the per-shard byte model equal
+    to the reference's on the same partition."""
+    from repro.core.shard import build_sharded_substrate as ref_build
+    from repro.core.shard import make_shard_spec as ref_spec
+    from repro.core.stats import matrix_stats as ref_stats
+    from repro_torch.core import shard
+    from repro_torch.core.stats import matrix_stats
+    from repro_torch.launch import make_local_mesh
+    mesh = make_local_mesh(4, 1, devices=["cpu"] * 4)
+    ref_csr = PATTERNS["rmat_skewed"]()
+    csr = _port(ref_csr)
+    if call == "measure_overlap":
+        for chunked in (True, False):
+            t = tune.measure_overlap(csr, mesh, 256, chunked=chunked, repeats=1)
+            assert math.isfinite(t) and t > 0
+    elif call == "autotune_overlap":
+        th = repro_torch.autotune_overlap(csr, mesh, ns=(128, 256), repeats=1)
+        assert th.overlap_min_n in (256, tune.OVERLAP_NEVER)
+    else:
+        class FakeMesh:
+            axis_names, shape = ("data",), {"data": 4}
+        ref_sub = ref_build(ref_csr, ref_spec(ref_stats(ref_csr), FakeMesh(),
+                                              kind="nnz"),
+                            FakeMesh(), inner_kind="balanced", tile=64,
+                            inner_backend="xla")
+        sub = shard.build_sharded_substrate(
+            csr, shard.make_shard_spec(matrix_stats(csr), mesh, kind="nnz"),
+            mesh, inner_kind="balanced", tile=64, inner_backend="torch")
+        assert tune.modeled_traffic_sharded(sub, 128) == \
+            ref_tune.modeled_traffic_sharded(ref_sub, 128)
 
 
 def test_timer_logs_each_entry_on_the_cpu():
