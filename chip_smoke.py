@@ -405,7 +405,25 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              all-reduce of its gradients on 4 micro-batches over a 4-way
              ``data`` mesh, within 1% (relative L2) of the f32 mean; (g) a
              finalized sharded artifact, no host build and no sync a call;
-21. summary — one JSON line of the kernels (``launches`` and ``design``:
+21. launch — the launch tooling (``repro_torch.launch``), run from a
+             temporary working directory: (a) ``launch.train`` at ``--arch
+             llama3.2-1b --scale full`` (16 layers, d_model 2,048, bf16,
+             weights from the seed), 10 steps of 4 x 256 tokens on the
+             card, ``--ckpt-every`` above ``--steps`` (a checkpoint at this
+             width, bf16 weights and f32 moments, is ~12.4 GB; the driver
+             still writes one at the end): finite losses, the parameter
+             count, step ms (median after the first), tokens/s and the
+             model-FLOP share ``cost_model.cell_cost(...).model_flops /
+             (step s x 989e12)`` beside the card's name and power limit;
+             (b) ``launch.train`` at ``--arch olmoe-1b-7b --scale 100m``,
+             150 steps of 8 x 256 at ``--lr 1e-3`` (the loss of the
+             launcher's synthetic stream rises for ~40 steps after the
+             warm-up, then falls): the mean of the last 5 losses below the
+             mean of the first 5, K1 launched (the MoE's dispatch and
+             combine), ``moe.DISPATCH_PATHS`` of the run; (c) one dry-run cell,
+             ``llama3.2-1b train_4k`` on the (data=32, model=8) mesh of meta
+             devices, on the card's host: its summary line;
+22. summary — one JSON line of the kernels (``launches`` and ``design``:
              the main path's; ``launches_by_path`` and ``design_by_path``:
              every path above; for K1, K2, K4 and K5 ``launches_by_value``,
              and an entry of their own for each coded variant,
@@ -414,7 +432,8 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              OLMoE-1B-7B layer's dispatch and combine, and ``serve``, the
              launches by engine call of (a'); K7's and K8's carry
              ``families``, one Zamba2 head at d = 80; ``launches_by_path``
-             has ``sharded``), the card line, then the result.
+             has ``sharded`` and ``launch``), the card line, then the
+             result.
 
 Without a CUDA device it prints no result and exits 2.  ``--scale`` below 20
 runs smaller graphs for a quick look; the graph statistics published with
@@ -426,6 +445,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2005,6 +2025,140 @@ def sharded_phase(ctx, sizes=SHARDED):
     return rows
 
 
+#: the launch path: (a) Llama-3.2-1B at full width, (b) OLMoE-1B-7B at the
+#: launcher's 100m scale, (c) one dry-run cell.  (b) must end ``moe_margin``
+#: nats below ln V, the loss of a uniform guess: a model that ignores the
+#: context scores at least ln V on the stream's uniform targets, so only
+#: learned structure gets below it (a 5-step mean covers 40,960 tokens: its
+#: noise is under 0.01).  At the launcher's lr of 3e-4 the loss is
+#: still above ln V after 600 steps of 8 x 256; 300 steps of 32 x 256 at
+#: 3e-3 end ~0.05 below it (``PERF.md`` §7).
+LAUNCH = dict(full_arch="llama3.2-1b", full_scale="full", full_steps=10,
+              full_batch=4, full_seq=256, moe_arch="olmoe-1b-7b",
+              moe_scale="100m", moe_steps=300, moe_lr=3e-3,
+              moe_batch=32, moe_seq=256, moe_margin=0.03,
+              dry_arch="llama3.2-1b", dry_shape="train_4k")
+
+
+def launch_phase(ctx, sizes=LAUNCH):
+    """Phase ``launch``: the training launcher on the card at full width
+    and at the 100m scale, and one dry-run cell.  Runs from a temporary
+    working directory (the launcher writes ``results/`` there).  ``ctx``
+    carries the card's helpers; returns the phase's rows."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import cost_model, dryrun, train
+    from repro_torch.models import moe
+    from repro_torch.models.config import ShapeCell
+
+    fail, say = ctx.fail, ctx.say
+    rows = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            # (a) full width; the checkpoint period above the steps
+            n = sizes["full_steps"]
+            argv = ["--arch", sizes["full_arch"], "--scale", sizes["full_scale"],
+                    "--steps", str(n), "--batch", str(sizes["full_batch"]),
+                    "--seq", str(sizes["full_seq"]),
+                    "--ckpt-every", str(n + 1),
+                    "--ckpt-dir", os.path.join(work, "ckpt_full"),
+                    "--device", str(ctx.dev), "--seed", str(ctx.seed)]
+            if torch.cuda.is_available():
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out, counts = ctx.drive(lambda: train.main(argv), "launch")
+            run_s = time.perf_counter() - t0
+            cfg = train.scale_config(sizes["full_arch"], sizes["full_scale"])
+            losses, walls = out["losses"], out["step_s"]
+            step_s = statistics.median(walls[1:])
+            tokens = sizes["full_batch"] * sizes["full_seq"]
+            cost = cost_model.cell_cost(cfg, ShapeCell(
+                "launch", sizes["full_seq"], sizes["full_batch"], "train"))
+            row = {"arch": cfg.name, "params": cost.n_params,
+                   "steps": len(losses), "losses": losses,
+                   "step_ms_median": 1e3 * step_s,
+                   "first_step_ms": 1e3 * walls[0],
+                   "tokens_per_s": tokens / step_s,
+                   "model_flops_step": cost.model_flops,
+                   "model_flop_share": cost.model_flops / (step_s * 989e12),
+                   "analytic_flop_share": cost.flops / (step_s * 989e12),
+                   "run_s_with_final_checkpoint": run_s,
+                   "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                   if torch.cuda.is_available() else None),
+                   "launches": {k: v for k, v in counts.items() if v}}
+            say(f"(a) launch.train --scale {sizes['full_scale']}", row)
+            if len(losses) != n or not all(math.isfinite(x) for x in losses):
+                fail(f"launch (a): {row}")
+            rows["full"] = row
+            torch.cuda.empty_cache()
+
+            # (b) the 100m MoE: the loss falls below a uniform guess's, the
+            # dispatch runs on K1
+            paths0 = dict(moe.DISPATCH_PATHS)
+            argv = ["--arch", sizes["moe_arch"], "--scale", sizes["moe_scale"],
+                    "--steps", str(sizes["moe_steps"]),
+                    "--lr", str(sizes["moe_lr"]),
+                    "--batch", str(sizes["moe_batch"]),
+                    "--seq", str(sizes["moe_seq"]),
+                    "--ckpt-every", str(sizes["moe_steps"] + 1),
+                    "--ckpt-dir", os.path.join(work, "ckpt_moe"),
+                    "--device", str(ctx.dev), "--seed", str(ctx.seed)]
+            out, counts = ctx.drive(lambda: train.main(argv), "launch")
+            losses, walls = out["losses"], out["step_s"]
+            first, last = (statistics.mean(losses[:5]),
+                           statistics.mean(losses[-5:]))
+            uniform = math.log(train.scale_config(
+                sizes["moe_arch"], sizes["moe_scale"]).vocab_size)
+            paths = {k: v - paths0[k] for k, v in moe.DISPATCH_PATHS.items()}
+            row = {"arch": sizes["moe_arch"], "scale": sizes["moe_scale"],
+                   "steps": len(losses), "loss_first5_mean": first,
+                   "loss_last5_mean": last, "uniform_loss": uniform,
+                   "loss_by_25_steps": [statistics.mean(losses[i:i + 25])
+                                        for i in range(0, len(losses), 25)],
+                   "step_ms_median": 1e3 * statistics.median(walls[1:]),
+                   "dispatch_paths": paths,
+                   "launches": {k: v for k, v in counts.items() if v},
+                   "k1_designs": ctx.took().get("vsr_spmm")}
+            say(f"(b) launch.train --scale {sizes['moe_scale']}", row)
+            print(f"[launch] moe.DISPATCH_PATHS {json.dumps(paths)}",
+                  flush=True)
+            if not last < min(first, uniform - sizes["moe_margin"]) or \
+                    counts["vsr_spmm"] < 1 or \
+                    not all(math.isfinite(x) for x in losses):
+                fail(f"launch (b): {row}")
+            rows["moe"] = row
+            torch.cuda.empty_cache()
+
+            # (c) one dry-run cell on the card's host, meta tensors only
+            art = dryrun.run_cell(sizes["dry_arch"], sizes["dry_shape"],
+                                  False, os.path.join(work, "dryrun"))
+            print(f"[launch] (c) dryrun {dryrun.summarize(art)}", flush=True)
+            cost = art["cost_analysis"]
+            row = {"status": art["status"], "chips": art["chips"],
+                   "trace_flops": cost["flops"],
+                   "analytic_flops": art["cost_model"]["flops"],
+                   "compile_s": art["compile_s"],
+                   "peak_gb_a_device":
+                       art["memory_analysis"]["peak_memory_in_bytes"] / 1e9,
+                   "fits": art["memory_analysis"]["fits"],
+                   "roofline": {k: art["roofline"][k] for k in
+                                ("compute_s", "memory_s", "collective_s",
+                                 "bottleneck")}}
+            say("(c) dryrun", row)
+            if art["status"] != "ok" or cost["flops"] is None or \
+                    not art["memory_analysis"]["fits"]:
+                fail(f"launch (c): {row}")
+            rows["dryrun"] = row
+        finally:
+            os.chdir(cwd)
+    return rows
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -2600,7 +2754,8 @@ def main() -> int:
                                   "gat_train", "attention_backward",
                                   "bsr_backward", "quant", "offline",
                                   "tune", "guardrails", "models", "serve",
-                                  "driver", "families", "sharded")}
+                                  "driver", "families", "sharded",
+                                  "launch")}
     value_counts = {**vsr.VALUE_LAUNCHES, **spmv.VALUE_LAUNCHES}
     path_values = {path: {k: dict.fromkeys(vv, 0) for k, vv in value_counts.items()}
                    for path in path_launches}
@@ -5682,7 +5837,33 @@ def main() -> int:
           f"[health] sharded {json.dumps(HEALTH.snapshot()['counters'])}",
           flush=True)
 
-    # -- 21. summary --------------------------------------------------------------
+    # -- 21. launch ---------------------------------------------------------------
+    phase("launch")
+    t_launch = time.perf_counter()
+    # the full-width step holds two train states at once (the functional
+    # AdamW returns a new one): free what the earlier phases cached first
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    repro_torch.clear_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[launch] card memory of the earlier phases {held / 1e9:.2f} GB, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB with the plan cache "
+          f"cleared, free {torch.cuda.mem_get_info()[0] / 1e9:.2f} GB",
+          flush=True)
+    lctx = types.SimpleNamespace(
+        dev=dev, seed=args.seed, fail=fail, drive=drive, took=took,
+        say=lambda label, row: print(
+            f"[launch] {label} " + json.dumps(row, default=str)
+            + f" ({card})", flush=True))
+    launch_phase(lctx)
+    print(f"[launch] phase {time.perf_counter() - t_launch:.1f} s ({card}); "
+          f"[health] launch {json.dumps(HEALTH.snapshot()['counters'])}",
+          flush=True)
+
+    # -- 22. summary --------------------------------------------------------------
     phase("summary")
     summary = []
     for kernel, meta in KERNELS.items():

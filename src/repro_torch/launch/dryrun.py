@@ -1,0 +1,438 @@
+"""Dry run of every (architecture x shape-cell) on the production meshes,
+on meta tensors; counterpart of ``repro.launch.dryrun``.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
+  python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k --multipod
+  python -m repro_torch.launch.dryrun --all
+  python -m repro_torch.launch.dryrun --all --multipod
+
+Artifacts: results/dryrun/<arch>__<shape>__<mesh>.json, with the
+reference's keys.  Nothing is allocated: the stand-ins are meta tensors
+(``input_specs.build_cell``) and the mesh's positions are meta devices
+(``mesh.make_production_mesh``), so it runs anywhere, the CPU included.
+
+Where the reference compiles the step for 512 fake devices and reads XLA's
+analyses, the port derives each term from the stand-ins and the rules:
+
+* ``memory_analysis`` (bytes a device): the arguments (params, moments,
+  batch, caches), exact from each stand-in's shape, type and spec (a dim
+  its axes do not divide is rounded up); the outputs (train: the state;
+  prefill: logits and caches; decode: logits and caches), none of them
+  aliased: the port's step returns a new state (and decode new caches)
+  while the old is alive, where the reference's compiled step donates
+  it; ``temp`` is the analytic activation term,
+  ``cost_model.hbm_bytes``' activations (train: half of them, written
+  forward and read backward, plus the gradients; prefill and decode: one
+  layer's share) over the batch's axes; no code size.  ``fits`` compares
+  the peak with the card's HBM (80 GiB).
+* ``collectives``: the plan's collectives, counted from the rules and each
+  leaf's spec into ``analysis.collective_bytes``.  Assumptions:
+    - train and prefill gather every sharded weight where it is used
+      (``__gather_weights__``), train again in the backward; a leaf sharded
+      over several axes is gathered hierarchically, the ``data`` / ``pod``
+      axes first, so that the slow link carries the smaller share; expert
+      weights stay sharded over their ``experts`` axis (EP: the tokens
+      move) and are gathered over their other axes only;
+    - decode keeps TP over ``model``; a leaf sharded over ``data`` / ``pod``
+      (FSDP kept for the archs whose weights do not fit the model axis) is
+      gathered over those axes every step;
+    - the gradients are reduce-scattered over the axes that a leaf is
+      gathered over (``model`` first) and all-reduced over the batch axes
+      that replicate it, in the parameter's type;
+    - decode all-reduces each block's residual branches (attention, MLP or
+      MoE, the SSM mixers; Whisper's cross-attention) over ``model``;
+    - the grouped MoE (``moe.moe_sort``, one group a device) runs one
+      all-to-all over ``model`` for the dispatch and one for the combine
+      of a layer, train both again in the backward; one-hot dispatch moves
+      nothing beyond the MLP all-reduce;
+    - not counted: the vocab-sharded loss's statistics, the sequence-
+      sharded cache's softmax merge at decode, norms' and router's small
+      all-reduces.
+* ``cost_analysis``: a diagnostic, the FLOPs that ``FlopCounterMode``
+  counts over the step traced on the stand-ins (global: one trace of the
+  whole step), and the bytes its ops read and write (every non-view op
+  reads its inputs and writes its outputs: an eager, unfused count).  The
+  reference's ``cost_analysis`` is XLA's over the compiled module.  Where
+  the trace reaches an op whose result depends on values (no meta
+  implementation) or runs past the per-cell budget ``TRACE_BUDGET_S``,
+  ``flops`` is null and ``reason`` says why.  A short trace is not scaled
+  up.
+* ``roofline``: from ``cost_model`` and the collective count, on the H100's
+  datasheet constants (``mesh.H100``): plan numbers, not card times.
+
+``lower_s`` is the stand-ins' build and ``compile_s`` the trace (seconds).
+Skipped cells (``long_500k`` on pure full-attention archs) emit a skip
+artifact so the 40-cell table stays complete.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+import time
+import traceback
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import FlopCounterMode
+
+from ..configs import ARCH_NAMES, get
+from ..models import SHAPES, Model
+from ..models.config import ShapeCell
+from ..models.moe import capacity, select_dispatch
+from .analysis import Collective, collective_bytes, roofline_terms, summarize
+from .cost_model import cell_cost, hbm_bytes
+from .input_specs import build_cell, cache_specs
+from .mesh import H100, make_production_mesh
+from .sharding_rules import make_sharding_fn
+
+RESULTS = os.path.join(os.getcwd(), "results", "dryrun")
+#: seconds a cell's trace may take before its diagnostic is given up
+TRACE_BUDGET_S = 120.0
+
+
+def cell_by_name(name: str) -> ShapeCell:
+    return next(c for c in SHAPES if c.name == name)
+
+
+def should_skip(cfg, cell: ShapeCell) -> str | None:
+    if cell.name == "long_500k" and not cfg.sub_quadratic:
+        return ("pure full-attention arch: 500k-token cache per layer is "
+                "quadratic-prefill territory; skipped per spec, see DESIGN.md §6")
+    return None
+
+
+# --------------------------------------------------------------- per device
+
+def _axes(dim) -> tuple:
+    if dim is None:
+        return ()
+    return (dim,) if isinstance(dim, str) else tuple(dim)
+
+
+def _extent(mesh, axes) -> int:
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def shard_bytes(t: torch.Tensor, sharding) -> int:
+    """Bytes of ``t``'s share on one device under ``sharding`` (a dim its
+    axes do not divide is rounded up, as a padded shard)."""
+    mesh, spec = sharding
+    spec = tuple(spec) + (None,) * (t.ndim - len(spec))
+    n = 1
+    for size, dim in zip(t.shape, spec):
+        n *= -(-size // _extent(mesh, _axes(dim)))
+    return n * t.element_size()
+
+
+def tree_bytes(tree, shardings) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(tree[k], shardings[k]) for k in tree)
+    if isinstance(tree, (tuple, list)):
+        return sum(tree_bytes(a, s) for a, s in zip(tree, shardings))
+    return shard_bytes(tree, shardings)
+
+
+def _batch_extent(mesh, rules) -> int:
+    return _extent(mesh, [a for a in rules.get("batch", ())
+                          if a in mesh.axis_names])
+
+
+def memory_analysis(model: Model, cell: ShapeCell, built, mesh,
+                    hw=H100) -> dict:
+    cfg = model.cfg
+    sfn = make_sharding_fn(mesh, built.rules)
+    args = tree_bytes(built.args, built.shardings)
+    hb = hbm_bytes(cfg, cell, 0.0)
+    bext = _batch_extent(mesh, built.rules)
+    if cell.kind == "train":
+        params = tree_bytes(built.args[0]["params"],
+                            built.shardings[0]["params"])
+        outputs = tree_bytes(built.args[0], built.shardings[0])
+        temp = hb["activations"] / 2 / bext + params     # + the gradients
+    else:
+        logits = torch.empty((cell.global_batch, cfg.vocab_size),
+                             dtype=torch.float32, device="meta")
+        outputs = shard_bytes(logits, sfn(("batch", "vocab")))
+        caches, caches_sh = cache_specs(model, cell.global_batch,
+                                        cell.seq_len, sfn)
+        outputs += tree_bytes(caches, caches_sh)
+        temp = hb["activations"] / max(cfg.num_layers, 1) / bext
+    peak = args + outputs + temp
+    return {"argument_size_in_bytes": args,
+            "output_size_in_bytes": outputs,
+            "temp_size_in_bytes": temp,
+            "generated_code_size_in_bytes": None,
+            "alias_size_in_bytes": 0,
+            "peak_memory_in_bytes": peak,
+            "hbm_capacity_bytes": hw.hbm_bytes,
+            "fits": bool(peak <= hw.hbm_bytes)}
+
+
+# -------------------------------------------------------------- collectives
+
+def _residual_branches(cfg) -> int:
+    """Residual branches a decode step all-reduces over ``model``."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers + 2 * (cfg.num_layers // cfg.shared_every)
+    if cfg.family == "audio":
+        return 3 * cfg.num_layers                 # self, cross, MLP
+    return 2 * cfg.num_layers
+
+
+def _param_paths(specs, prefix=""):
+    out = []
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], f"{path}.{k}" if path else k)
+        else:
+            out.append((path, tree))
+    walk(specs, prefix)
+    return out
+
+
+def plan_collectives(model: Model, cell: ShapeCell, mesh, rules) -> list:
+    """The step's collectives a device takes part in (``analysis.
+    Collective`` records), under the assumptions of the module docstring."""
+    cfg = model.cfg
+    sfn = make_sharding_fn(mesh, rules)
+    train = cell.kind == "train"
+    gather = bool(rules.get("__gather_weights__"))
+    batch_axes = [a for a in rules.get("batch", ()) if a in mesh.axis_names]
+    recs = []
+    for path, spec in _param_paths(model.specs):
+        ps = sfn(spec.logical).spec
+        full = math.prod(spec.shape) * spec.dtype.itemsize
+        rule = f"{spec.logical} -> {tuple(ps)}"
+        sharded = [a for dim in ps for a in _axes(dim)]
+        # expert weights stay sharded over their axes (EP): the tokens move
+        ep = [a for name, dim in zip(spec.logical, ps) if name == "experts"
+              for a in _axes(dim)]
+        # the axes a leaf is gathered over, slow link first
+        slow = [a for a in sharded if a != "model" and a not in ep]
+        fast = [a for a in sharded if a == "model" and a not in ep]
+        order = slow + fast if gather else slow
+        left = _extent(mesh, sharded)
+        for a in order:
+            n = mesh.shape[a]
+            left //= n
+            # all-gather output after gathering ``a``: full / what is left
+            recs.append(Collective("all-gather", full / left, (a,), n,
+                                   2 if train else 1, path, rule))
+        if not train:
+            continue
+        left_in = full / _extent(mesh, ep)
+        for a in fast + slow:
+            n = mesh.shape[a]
+            recs.append(Collective("reduce-scatter", left_in, (a,), n, 1,
+                                   path, rule))
+            left_in /= n
+        dp = tuple(a for a in batch_axes if a not in sharded)
+        if dp:
+            recs.append(Collective("all-reduce", left_in, dp,
+                                   _extent(mesh, dp), 1, path, rule))
+    act = getattr(torch, cfg.compute_dtype).itemsize
+    m = mesh.shape.get("model", 1)
+    if cell.kind == "decode" and m > 1:
+        b_local = -(-cell.global_batch // _extent(mesh, batch_axes))
+        recs.append(Collective("all-reduce", b_local * cfg.d_model * act,
+                               ("model",), m, _residual_branches(cfg),
+                               "block outputs (B, 1, d_model)",
+                               "TP over model"))
+    if cfg.moe is not None and m > 1:
+        tokens = cell.global_batch * (1 if cell.kind == "decode"
+                                      else cell.seq_len)
+        g = max(1, min(int(rules.get("__moe_groups__", 1)), tokens))
+        while tokens % g:
+            g //= 2
+        if select_dispatch(tokens, cfg.moe) == "sort" and g > 1:
+            e = cfg.moe.num_experts
+            cap = capacity(tokens // g, cfg.moe)
+            per_dev = g * (e * cap) * cfg.d_model * act / mesh.size
+            recs.append(Collective(
+                "all-to-all", per_dev, ("model",), m,
+                cfg.num_layers * (4 if train else 2),
+                f"MoE dispatch / combine buffer ({g} groups, capacity {cap})",
+                "__moe_groups__, experts -> model"))
+    return recs
+
+
+# --------------------------------------------------------------- the trace
+
+class _OverBudget(RuntimeError):
+    pass
+
+
+class _Meter(TorchDispatchMode):
+    """Bytes that non-view ops read and write, tensors made off ``meta``,
+    and the deadline of the trace."""
+
+    def __init__(self, deadline: float):
+        super().__init__()
+        self.deadline = deadline
+        self.bytes = 0
+        self.ops = 0
+        self.off_meta = 0
+        self.over = False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if time.monotonic() > self.deadline:
+            self.over = True
+            raise _OverBudget(f"past the budget after {self.ops} ops")
+        out = func(*args, **(kwargs or {}))
+        self.ops += 1
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        self.off_meta += sum(t.nbytes for t in outs if t.device.type != "meta")
+        if not func.is_view:
+            ins = [t for t in tree_leaves((args, kwargs))
+                   if isinstance(t, torch.Tensor)]
+            self.bytes += sum(t.nbytes for t in ins + outs)
+        return out
+
+
+def _where(err: BaseException) -> str:
+    """The innermost frame of the port in ``err``'s traceback."""
+    frames = [f for f in traceback.extract_tb(err.__traceback__)
+              if f"{os.sep}repro_torch{os.sep}" in f.filename
+              and f"{os.sep}launch{os.sep}" not in f.filename]
+    if not frames:
+        return "?"
+    f = frames[-1]
+    tail = f.filename.split(f"{os.sep}repro_torch{os.sep}")[-1]
+    return f"repro_torch/{tail}:{f.lineno} ({f.name})"
+
+
+def trace_flops(fn, args, budget_s: float = TRACE_BUDGET_S) -> dict:
+    """Run ``fn(*args)`` on meta tensors under ``FlopCounterMode``: the
+    FLOPs and bytes of the step, or ``flops`` None and the ``reason``."""
+    t0 = time.monotonic()
+    meter = _Meter(t0 + budget_s)
+    out = {"source": "FlopCounterMode over the step traced on meta tensors",
+           "budget_s": budget_s}
+    try:
+        with FlopCounterMode(display=False) as fc, meter:
+            fn(*args)
+    except Exception as err:            # the diagnostic only, never the cell
+        if meter.over:
+            reason = (f"trace passed the per-cell budget of {budget_s:g} s "
+                      f"after {meter.ops} ops (in {_where(err)})")
+        else:
+            msg = str(err).strip().splitlines()[0][:240] if str(err) else ""
+            reason = (f"{type(err).__name__} at {_where(err)}: {msg} "
+                      "(an op whose result depends on values has no meta "
+                      "implementation)")
+        out.update(flops=None, bytes_accessed=None, reason=reason,
+                   ops=meter.ops, trace_s=time.monotonic() - t0,
+                   off_meta_bytes=meter.off_meta)
+        return out
+    out.update(flops=float(fc.get_total_flops()),
+               bytes_accessed=float(meter.bytes), ops=meter.ops,
+               trace_s=time.monotonic() - t0, off_meta_bytes=meter.off_meta)
+    return out
+
+
+# ---------------------------------------------------------------- the cell
+
+def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str = RESULTS,
+             tag: str = "") -> dict:
+    cfg = get(arch)
+    cell = cell_by_name(shape)
+    mesh_name = ("multi" if multi_pod else "single") + (f"-{tag}" if tag else "")
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, f"{arch}__{shape}__{mesh_name}.json")
+
+    skip = should_skip(cfg, cell)
+    if skip:
+        artifact = {"arch": arch, "cell": shape, "mesh": mesh_name,
+                    "status": "skipped", "reason": skip}
+        with open(out_path, "w") as f:
+            json.dump(artifact, f, indent=1)
+        print(f"SKIP {arch} {shape}: {skip}")
+        return artifact
+
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    chips = mesh.size
+    model = Model(cfg)
+    t0 = time.monotonic()
+    built = build_cell(model, cell, mesh)
+    t_build = time.monotonic() - t0
+
+    mem = memory_analysis(model, cell, built, mesh)
+    print("memory_analysis:", mem)
+    coll = collective_bytes(plan_collectives(model, cell, mesh, built.rules))
+    cost = trace_flops(built.fn, built.args)
+    print("cost_analysis[flops]:", cost["flops"],
+          " bytes:", cost["bytes_accessed"],
+          *(["reason:", cost["reason"]] if cost["flops"] is None else []))
+
+    cm = cell_cost(cfg, cell)
+    roof = roofline_terms(cm.flops, cm.hbm_bytes, coll["wire_bytes_by_link"],
+                          chips, cm.model_flops,
+                          hlo_flops=(cost["flops"] or 0.0) / chips,
+                          hlo_bytes=(cost["bytes_accessed"] or 0.0) / chips)
+    artifact = {
+        "arch": arch, "cell": shape, "mesh": mesh_name, "status": "ok",
+        "chips": chips,
+        "lower_s": round(t_build, 2), "compile_s": round(cost["trace_s"], 2),
+        "memory_analysis": mem,
+        "cost_analysis": cost,
+        "collectives": coll,
+        "cost_model": cm.to_dict(),
+        "roofline": roof.to_dict(),
+    }
+    with open(out_path, "w") as f:
+        json.dump(artifact, f, indent=1)
+    print(summarize(artifact))
+    return artifact
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Dry run of the port on meta tensors (no allocation).")
+    ap.add_argument("--arch", choices=ARCH_NAMES)
+    ap.add_argument("--shape", choices=[c.name for c in SHAPES])
+    ap.add_argument("--multipod", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default=RESULTS)
+    ap.add_argument("--force", action="store_true",
+                    help="recompute cells that already have artifacts")
+    ap.add_argument("--tag", default="",
+                    help="artifact suffix (e.g. opt1) for before/after runs")
+    args = ap.parse_args(argv)
+
+    if args.all:
+        failures = []
+        mesh_name = "multi" if args.multipod else "single"
+        for arch in ARCH_NAMES:
+            for cell in SHAPES:
+                path = os.path.join(args.out,
+                                    f"{arch}__{cell.name}__{mesh_name}.json")
+                if os.path.exists(path) and not args.force:
+                    print(f"CACHED {arch} {cell.name} {mesh_name}")
+                    continue
+                print(f">>> {arch} {cell.name} {mesh_name}", flush=True)
+                try:
+                    run_cell(arch, cell.name, args.multipod, args.out)
+                except Exception:
+                    traceback.print_exc()
+                    failures.append((arch, cell.name))
+                sys.stdout.flush()
+        if failures:
+            print("FAILURES:", failures)
+            sys.exit(1)
+        print("ALL CELLS OK")
+        return
+
+    if not (args.arch and args.shape):
+        ap.error("--arch and --shape (or --all)")
+    run_cell(args.arch, args.shape, args.multipod, args.out, tag=args.tag)
+
+
+if __name__ == "__main__":
+    main()

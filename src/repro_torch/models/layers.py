@@ -80,10 +80,11 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections: tuple,
     half = x.shape[-1] // 2
     assert sum(sections) == half, (sections, half)
     freqs = _freqs(half, theta, x.device)
-    # per-frequency section id → which of (t, h, w) drives it
+    # per-frequency section id → which of (t, h, w) drives it (the output
+    # size given, so that a meta tensor traces too)
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))
+        torch.as_tensor(sections, device=x.device), output_size=half)
     pos = positions3.float()[..., sec_id]                     # (B, S, half)
     ang = pos * freqs
     return _rotate(x, torch.cos(ang), torch.sin(ang))

@@ -403,7 +403,10 @@ class Model:
 
 def _sinusoid(s: int, d: int, dtype, device) -> torch.Tensor:
     """The (s, d) sinusoidal table, [sin | cos], computed in float64 on the
-    host and cast, as the reference."""
+    host and cast, as the reference; on the meta device its shape only
+    (the dry run's trace), with no table on the host."""
+    if torch.device(device).type == "meta":
+        return torch.empty((s, d), dtype=dtype, device=device)
     pos = np.arange(s)[:, None]
     i = np.arange(d // 2)[None, :]
     ang = pos / (10000 ** (2 * i / d))

@@ -2,18 +2,17 @@
 
 One tree of ``ParamSpec`` per model (nested dicts), consumed by
 ``init_params`` (real tensors from an explicit ``torch.Generator``),
-``param_count`` and ``param_bytes``.  The logical axis names are the
-reference's (``layers``, ``embed``, ``heads``, ``experts``, ...), kept for
-sharding rules (``launch/sharding_rules.py``).  The reference's
-``abstract_params`` and ``param_shardings`` (the dry run's tooling and
-GSPMD placement of dense leaves) are not ported yet (ROADMAP queue 1,
-item 7).
+``abstract_params`` (shape-only stand-ins on the ``meta`` device, for the
+dry run), ``param_shardings`` (each leaf's ``NamedSharding``, a parallel
+tree), ``param_count`` and ``param_bytes``.  The logical axis names are the
+reference's (``layers``, ``embed``, ``heads``, ``experts``, ...), resolved
+by the sharding rules (``launch/sharding_rules.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -73,6 +72,23 @@ def init_params(specs, generator: torch.Generator | None = None,
                         device=dev)
         return w.mul_(_std(spec)).to(spec.dtype)
     return map_specs(make, specs)
+
+
+def abstract_params(specs, sharding_fn: Callable | None = None) -> Any:
+    """A ``meta`` tensor a leaf, of the spec's shape and type: nothing is
+    allocated.  A meta tensor carries no sharding, so ``sharding_fn`` (the
+    reference's argument) is only checked to resolve every leaf; the
+    shardings themselves are ``param_shardings(specs, sharding_fn)``, a
+    tree of the same keys."""
+    if sharding_fn is not None:
+        param_shardings(specs, sharding_fn)
+    return map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                           device="meta"), specs)
+
+
+def param_shardings(specs, sharding_fn: Callable) -> Any:
+    """``sharding_fn(spec.logical)`` a leaf (a ``NamedSharding``)."""
+    return map_specs(lambda s: sharding_fn(s.logical), specs)
 
 
 def param_count(specs) -> int:

@@ -3574,3 +3574,90 @@ def test_cuda_sharded_call_captures_in_a_graph(cuda):
             graph.replay()
             torch.cuda.synchronize()
             assert _rel(y, want) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "olmoe-1b-7b"])
+def test_cuda_launcher_smoke_matches_the_cpu(cuda, arch, tmp_path):
+    """``launch.train`` at ``--scale smoke`` (f32), 3 steps on the card
+    from the CPU's initial params: losses within 1e-4 of the CPU run's,
+    each leaf's change over the run within 1e-3 and its AdamW moments
+    within 1e-4 (2-norm, relative; the CPU run is held to the reference's
+    in ``test_torch_launch.py``), the state on the card, the MoE's dispatch
+    and combine on K1."""
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    cfg = train.scale_config(arch, "smoke")
+    init = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for dev in ("cpu", cuda):
+        params = _to(init, dev)
+        reset_launch_counts()
+        driver, _, state = train.train(
+            cfg, steps=3, batch=2, seq=32, device=dev, params=params,
+            ckpt_dir=str(tmp_path / str(dev)))
+        runs[str(dev)] = ([e.metrics["loss"] for e in driver.events],
+                          launch_counts(), state)
+        assert state["params"]["embed"].device.type == torch.device(dev).type
+    (cpu_losses, cpu_counts, cpu_state), (card_losses, card_counts,
+                                          card_state) = runs.values()
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-4)
+    init = _flat(init)
+    for tree, tol in (("params", 1e-3), ("m", 1e-4), ("v", 1e-4)):
+        pick = (lambda st: st["params"]) if tree == "params" else (
+            lambda st, t=tree: st["opt"][t])
+        got, want = _flat(pick(card_state)), _flat(pick(cpu_state))
+        if tree == "params":
+            got = {k: v - init[k] for k, v in got.items()}
+            want = {k: v - init[k] for k, v in want.items()}
+        worst = max(float((got[k] - want[k]).norm()
+                          / max(float(want[k].norm()), 1e-30)) for k in want)
+        assert worst < tol, (tree, worst)
+    assert not any(cpu_counts.values())
+    if arch == "olmoe-1b-7b":
+        assert card_counts["vsr_spmm"] >= 2 * cfg.num_layers
+
+
+@pytest.mark.gpu
+def test_cuda_launcher_follows_the_cpu_past_warmup(cuda, tmp_path):
+    """The launcher's 100m OLMoE cut to 2 layers of 128 and a vocab of
+    1,024 (the 100m's capacity factor: experts drop tokens), 100 steps of
+    16 x 128 at lr 3e-3 from the same params on the card and on the CPU
+    (which ``test_torch_launch.py`` holds to the reference): each 25-step
+    mean within 5e-3, the loss falling 0.1, the dispatch and combine on
+    K1."""
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    cfg = train.scale_config("olmoe-1b-7b", "100m")
+    cfg = cfg.scaled(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2,
+                     head_dim=32, d_ff=512, vocab_size=1024,
+                     moe=dataclasses.replace(cfg.moe, d_ff_expert=256))
+    init = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    means = {}
+    for dev in ("cpu", cuda):
+        reset_launch_counts()
+        driver, _, _ = train.train(
+            cfg, steps=100, batch=16, seq=128, lr=3e-3, device=dev,
+            params=_to(init, dev), ckpt_dir=str(tmp_path / str(dev)),
+            ckpt_every=101)
+        losses = np.array([e.metrics["loss"] for e in driver.events])
+        means[str(dev)] = losses.reshape(-1, 25).mean(1)
+    card_counts = launch_counts()
+    cpu, card = means["cpu"], means[str(cuda)]
+    np.testing.assert_allclose(card, cpu, atol=5e-3)
+    assert cpu[-1] < cpu[0] - 0.1
+    assert card_counts["vsr_spmm"] >= 4 * cfg.num_layers * 100
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _flat(tree, prefix=""):
+    """``{"a.b": leaf}`` of a tree of dicts, leaves as f64 on the CPU."""
+    if isinstance(tree, dict):
+        return {k: v for name in tree
+                for k, v in _flat(tree[name], f"{prefix}{name}.").items()}
+    return {prefix[:-1]: tree.detach().double().cpu()}

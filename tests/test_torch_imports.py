@@ -92,6 +92,12 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.launch",
                    "repro_torch.launch.mesh",
                    "repro_torch.launch.sharding_rules",
+                   "repro_torch.launch.analysis",
+                   "repro_torch.launch.cost_model",
+                   "repro_torch.launch.input_specs",
+                   "repro_torch.launch.dryrun",
+                   "repro_torch.launch.diagnose",
+                   "repro_torch.launch.train",
                    "repro_torch.train.manual_collectives"):
         assert module in names, (module, sorted(names))
 

@@ -4,6 +4,7 @@
 the card).
 
     python3 tools/profile_models.py [--model olmoe-1b-7b] [--seed 0] [--layers N]
+    python3 tools/profile_models.py --model llama3.2-1b --train
 
 Run from the root of a checkout on a CUDA card.  ``--model olmoe-1b-7b``
 (the default, ``configs/olmoe_1b_7b.py``): after a warm-up it traces three
@@ -12,8 +13,12 @@ layer), 8 decode steps at B = 4 on the selector's one-hot path, and 8 with
 ``dispatch="spmm"`` forced.  ``--model rwkv6-3b``: 1 prefill of 2 x 512
 tokens (the WKV recurrence a token at a time) and 8 decode steps at B = 2;
 ``--model zamba2-2.7b``: 1 prefill of 1 x 2,048 tokens and 8 decode steps
-at B = 1.  ``--layers`` cuts the depth (default: the config's).  For each
-window it prints one JSON line:
+at B = 1.  ``--train`` traces the training step that
+``launch.train.build`` makes (the launcher's own composition) at the sizes
+of ``TRAIN``: 3 steps of the whole step and 3 of its loss and backward
+alone (Llama-3.2-1B: 4 x 256 tokens, the launcher's full-width phase in
+``chip_smoke.py``).  ``--layers`` cuts the depth (default: the config's).
+For each window it prints one JSON line:
 the wall time a call (host clock, ending in a sync) unprofiled and
 profiled, the device's busy time a call (the union of the device events'
 intervals), the idle share against each wall (the profiler's own host cost
@@ -42,6 +47,8 @@ from repro_torch.models import Model  # noqa: E402
 SIZES = {"olmoe-1b-7b": (4, 512, 3), "rwkv6-3b": (2, 512, 1),
          "zamba2-2.7b": (1, 2048, 1)}
 STEPS = 8
+#: (batch, seq, steps traced) of the training windows
+TRAIN = {"llama3.2-1b": (4, 256, 3), "olmoe-1b-7b": (4, 256, 3)}
 
 
 def _window(label, fn, calls, card):
@@ -96,9 +103,36 @@ def _window(label, fn, calls, card):
         "card": card}), flush=True)
 
 
+def _train_windows(cfg, dev, seed, card) -> int:
+    """The launcher's training step and its loss and backward alone."""
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch.launch.train import build
+    batch, seq, steps = TRAIN[cfg.name]
+    model, state, step, data_fn = build(cfg, steps=steps, batch=batch,
+                                        seq=seq, device=dev, seed=seed)
+    data = data_fn(0)
+
+    def grads():
+        params = tree_map(lambda p: p.detach().requires_grad_(),
+                          state["params"])
+        loss, _ = model.loss_fn(params, data)
+        torch.autograd.grad(loss, tree_leaves(params))
+    _window(f"{cfg.name} train step B={batch} S={seq}",
+            lambda: step(state, data), steps, card)
+    _window(f"{cfg.name} loss + backward B={batch} S={seq}", grads, steps,
+            card)
+    print(json.dumps({"peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "card": card}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=sorted(SIZES), default="olmoe-1b-7b")
+    ap.add_argument("--model", choices=sorted(set(SIZES) | set(TRAIN)),
+                    default="olmoe-1b-7b")
+    ap.add_argument("--train", action="store_true",
+                    help="trace the training step instead of prefill and decode")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=None)
     args = ap.parse_args()
@@ -112,6 +146,8 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg = configs.get(args.model)
     cfg = cfg.scaled(num_layers=args.layers or cfg.num_layers)
+    if args.train:
+        return _train_windows(cfg, dev, args.seed, card)
     batch, seq, prefills = SIZES[args.model]
     model = Model(cfg)
     decoders = [("", model)]
