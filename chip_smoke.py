@@ -423,7 +423,27 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              combine), ``moe.DISPATCH_PATHS`` of the run; (c) one dry-run cell,
              ``llama3.2-1b train_4k`` on the (data=32, model=8) mesh of meta
              devices, on the card's host: its summary line;
-22. summary — one JSON line of the kernels (``launches`` and ``design``:
+22. tp     — the weight-gathered SPMD runtime (``models/spmd.py``) on a
+             (data=2, model=2) mesh whose four positions share the card
+             (``TP``), no kernel of K1-K11 on its path: (a) Llama-3.2-1B at
+             full width (bf16, block remat), 3 steps of 4 x 256 at lr 3e-4
+             from the params of an unsharded run on the card: each loss
+             within 2e-2 (relative) of the unsharded step's, each leaf's
+             change and f32 first moment within 2e-2 of their size
+             (2-norm) or within twice the error of the floor run, the
+             unsharded step in 2 microbatches (bf16 gradients of the row
+             halves summed, as the mesh sums them), whichever is larger;
+             the
+             collective log's bytes a step by kind (position (0, 0)'s
+             program) equal to ``dryrun.plan_collectives`` for that mesh
+             and shape; step ms, device-busy ms of the last step
+             (``torch.profiler``), peak GB; (b) a prefill of 4 x 512 on the
+             mesh, the last position's logits within 2e-2 of the unsharded
+             prefill's; (c) at the 100m scale, a placed state saved at (2,
+             2) restored at (4, 1) and unplaced, both bit-equal to it once
+             gathered, and one more step from the restored state bit-equal
+             to the step from the state never saved;
+23. summary — one JSON line of the kernels (``launches`` and ``design``:
              the main path's; ``launches_by_path`` and ``design_by_path``:
              every path above; for K1, K2, K4 and K5 ``launches_by_value``,
              and an entry of their own for each coded variant,
@@ -820,8 +840,12 @@ def serve_phase(ctx, sizes=SERVE):
              f"{split}")
     rows["launches_by_call"] = split
 
-    # (c) faults: every plan build fails; residents keep their ticks
-    faults = FaultInjector({"plan_build": FaultSpec(fail=10)}, seed=ctx.seed)
+    # (c) faults: every plan build fails; residents keep their ticks.  A
+    # finite burst is not enough: a build whose group changes while it runs
+    # (a later prefill joins) is abandoned unpolled, so a burst can be spent
+    # on abandoned builds and the last group's build then succeeds
+    faults = FaultInjector({"plan_build": FaultSpec(fail=10_000)},
+                           seed=ctx.seed)
     eng = ServeEngine(model, params, slots=sizes["slots"],
                       max_len=sizes["max_len"], pin_topology=True,
                       faults=faults, plan_timeout=0.5)
@@ -2159,6 +2183,268 @@ def launch_phase(ctx, sizes=LAUNCH):
     return rows
 
 
+#: the weight-gathered SPMD runtime (``models/spmd.py``): (a) Llama-3.2-1B at
+#: full width on a (data=2, model=2) mesh whose positions share the card,
+#: ``tp_steps`` steps of ``tp_batch`` x ``tp_seq`` at lr 3e-4 against the
+#: unsharded steps from the same params; (b) a prefill of ``pre_batch`` x
+#: ``pre_seq``; (c) an elastic restore at the ``restore_scale``
+TP = dict(arch="llama3.2-1b", scale="full", data=2, model=2, tp_steps=3,
+          tp_batch=4, tp_seq=256, lr=3e-4, pre_batch=4, pre_seq=512,
+          restore_scale="100m", restore_batch=8, restore_seq=256)
+
+
+def _busy_ms(fn) -> tuple:
+    """``(device busy ms, wall ms)`` of one call of ``fn`` under
+    ``torch.profiler``: the union of the device events' intervals."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in device):
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return out, busy_us / 1e3, 1e3 * wall
+
+
+def tp_phase(ctx, sizes=TP):
+    """Phase ``tp``: the weight-gathered SPMD runtime on a mesh whose
+    positions share ``ctx.dev``, held to the unsharded run from the same
+    params.  Returns the phase's rows."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dist.placement import device_get, device_put
+    from repro_torch.launch import dryrun, make_local_mesh, train
+    from repro_torch.models import spmd
+    from repro_torch.launch.sharding_rules import make_sharding_fn
+    from repro_torch.models import Model
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.models.params import param_shardings
+    from repro_torch.train import (OptConfig, TrainConfig, init_state,
+                                   make_train_step)
+
+    dev, fail, say = ctx.dev, ctx.fail, ctx.say
+    n_pos = sizes["data"] * sizes["model"]
+    rows = {}
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def mesh_of(data, model):
+        return make_local_mesh(data, model, devices=[dev] * (data * model))
+
+    def batch_of(gen, b, s, vocab):
+        toks = torch.randint(0, vocab, (b, s + 1), generator=gen, device=dev)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    # (a) full-width training: the unsharded steps, then the placed ones
+    cfg = train.scale_config(sizes["arch"], sizes["scale"])
+    model = Model(cfg)
+    tcfg = TrainConfig(opt=OptConfig(lr=sizes["lr"], warmup_steps=0,
+                                     total_steps=10_000))
+    gen = torch.Generator(device=dev).manual_seed(ctx.seed)
+    init = model.init(gen, dev)
+    batches = [batch_of(gen, sizes["tp_batch"], sizes["tp_seq"],
+                        cfg.vocab_size) for _ in range(sizes["tp_steps"])]
+    step = make_train_step(model.loss_fn, tcfg)
+    state = init_state(init, tcfg)
+    plain_losses, plain_ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        sync()
+        plain_ms.append(1e3 * (time.perf_counter() - t0))
+        plain_losses.append(float(m["loss"]))
+    flat_init = _flat_tree(init)
+    plain_final = _flat_tree(state["params"])
+    plain_m = _flat_tree(state["opt"]["m"])
+    del state, m
+    gc_cuda()
+
+    def leaf_errors(params, moments):
+        """Each leaf's change (params − init) and f32 first moment against
+        the unsharded run's: relative 2-norm errors."""
+        out = {}
+        for k, final in plain_final.items():
+            start = flat_init[k].float()
+            want = final.float() - start
+            ce = float((params[k].float() - start - want).norm())
+            mw = plain_m[k].float()
+            me = float((moments[k].float() - mw).norm())
+            out[k] = (ce / max(float(want.norm()), 1e-30),
+                      me / max(float(mw.norm()), 1e-30))
+        return out
+
+    # the floor: the unsharded step in 2 microbatches, the same math with
+    # the bf16 gradients of two halves of the rows summed, as the mesh's
+    # batch split sums them
+    mstep = make_train_step(model.loss_fn,
+                            dataclasses.replace(tcfg, microbatches=2))
+    state = init_state(init, tcfg)
+    for b in batches:
+        state, _ = mstep(state, b)
+    floor = leaf_errors(_flat_tree(state["params"]), _flat_tree(state["opt"]["m"]))
+    del state
+    gc_cuda()
+    mesh = mesh_of(sizes["data"], sizes["model"])
+    pstate, _ = train.place_state(model, init_state(init, tcfg), mesh)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    losses, walls, logs = [], [], []
+    busy = wall_prof = None
+    for i, b in enumerate(batches):
+        def run(b=b):
+            return ctx.drive(lambda: step(pstate, b), "tp")
+        with spmd.collective_log() as log:
+            if i == len(batches) - 1:       # the last step under the profiler
+                ((pstate, m), counts), busy, wall_prof = _busy_ms(run)
+                t = wall_prof
+            else:
+                t0 = time.perf_counter()
+                (pstate, m), counts = run()
+                t = 1e3 * (time.perf_counter() - t0)
+        if any(counts.values()):
+            fail(f"tp (a): the dense path launched {counts}")
+        walls.append(t)
+        losses.append(float(m["loss"]))
+        logs.append(log.bytes_by_kind((0, 0)))
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    got = _flat_tree(device_get(pstate["params"], dev))
+    # bf16 params and gradients: a step's update of lr 3e-4 is ~2.5 spacings
+    # of a weight of 0.02, and the mesh sums the bf16 gradients of its row
+    # halves where the unsharded step rounds once, so each leaf is held to
+    # 2e-2 of its change's (and first moment's) size or to twice the floor
+    # run's error, whichever is larger
+    errs = leaf_errors(got, _flat_tree(device_get(pstate["opt"]["m"], dev)))
+    bad = {k: (e, floor[k]) for k, e in errs.items()
+           if any(x > max(ctx.rtol["bfloat16"], 2 * f)
+                  for x, f in zip(e, floor[k]))}
+    worst_c = max(errs, key=lambda k: errs[k][0])
+    worst_m = max(errs, key=lambda k: errs[k][1])
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    cell = ShapeCell("tp", sizes["tp_seq"], sizes["tp_batch"], "train")
+    plan = {}
+    for r in dryrun.plan_collectives(model, cell, mesh, train.train_rules()):
+        plan[r.kind] = plan.get(r.kind, 0) + r.bytes * r.count
+    row = {"arch": cfg.name, "mesh": dict(mesh.shape), "positions": n_pos,
+           "losses": losses, "unsharded_losses": plain_losses,
+           "loss_rel_err": max(rel),
+           "worst_leaf_change": [worst_c, errs[worst_c][0],
+                                 floor[worst_c][0]],
+           "worst_leaf_m": [worst_m, errs[worst_m][1], floor[worst_m][1]],
+           "leaves_over_2e-2": sum(max(e) > ctx.rtol["bfloat16"]
+                                   for e in errs.values()),
+           "leaves_over_bound": bad,
+           "step_ms": walls, "step_ms_profiled_last": wall_prof,
+           "device_busy_ms_last": busy, "unsharded_step_ms": plain_ms,
+           "peak_gb": peak, "log_bytes_a_step": logs[-1],
+           "plan_bytes_a_step": plan}
+    say("(a) train", row)
+    if max(rel) > ctx.rtol["bfloat16"] or bad or \
+            any(log != plan for log in logs) or \
+            not all(math.isfinite(x) for x in losses):
+        fail(f"tp (a): {row}")
+    rows["train"] = row
+    del pstate, plain_final, plain_m, got
+    gc_cuda()
+
+    # (b) prefill on the mesh against the unsharded prefill
+    toks = batch_of(gen, sizes["pre_batch"], sizes["pre_seq"],
+                    cfg.vocab_size)["tokens"]
+    with torch.no_grad():
+        want, _ = model.prefill(init, {"tokens": toks}, sizes["pre_seq"])
+        placed = device_put(init, param_shardings(
+            model.specs, make_sharding_fn(mesh, train.train_rules())))
+        t0 = time.perf_counter()
+        (logits, _), counts = ctx.drive(
+            lambda: model.prefill(placed, {"tokens": toks}, sizes["pre_seq"]),
+            "tp")
+        pre_ms = 1e3 * (time.perf_counter() - t0)
+        logits = device_get(logits, dev)
+    err = float((logits.float() - want.float()).abs().max()) / \
+        float(want.float().abs().max())
+    row = {"batch": sizes["pre_batch"], "seq": sizes["pre_seq"],
+           "logits_rel_err": err, "prefill_ms": pre_ms,
+           "logits_spec": "(batch over data, vocab over model)"}
+    say("(b) prefill", row)
+    if not err <= ctx.rtol["bfloat16"] or any(counts.values()):
+        fail(f"tp (b): {row} {counts}")
+    rows["prefill"] = row
+    del placed, logits, want, init
+    gc_cuda()
+
+    # (c) elastic restore at the 100m scale
+    rcfg = train.scale_config(sizes["arch"], sizes["restore_scale"])
+    rmodel = Model(rcfg)
+    rstep = make_train_step(rmodel.loss_fn, tcfg)
+    rinit = rmodel.init(torch.Generator(device=dev).manual_seed(ctx.seed), dev)
+    rb = batch_of(gen, sizes["restore_batch"], sizes["restore_seq"],
+                  rcfg.vocab_size)
+    st, _ = train.place_state(rmodel, init_state(rinit, tcfg), mesh)
+    st, _ = rstep(st, rb)
+    saved = _flat_tree(device_get(st, dev))
+    mesh41 = mesh_of(n_pos, 1)
+    with tempfile.TemporaryDirectory() as work:
+        mgr = CheckpointManager(work)
+        mgr.save(1, st)
+        _, sh41 = train.place_state(rmodel, init_state(rinit, tcfg), mesh41)
+        back41 = mgr.restore(1, like=st, shardings=sh41)
+        plain = mgr.restore(1, like=device_get(st, dev))
+    same41 = all(torch.equal(v, saved[k]) for k, v in
+                 _flat_tree(device_get(back41, dev)).items())
+    same_plain = all(torch.equal(v, saved[k])
+                     for k, v in _flat_tree(plain).items())
+    # one more step from the restored state and from the state never saved,
+    # both on the (4, 1) mesh: bit-equal
+    direct, _ = train.place_state(rmodel, device_get(st, dev), mesh41)
+    a, _ = rstep(back41, rb)
+    b_, _ = rstep(direct, rb)
+    step_equal = all(torch.equal(v, _flat_tree(device_get(b_, dev))[k])
+                     for k, v in _flat_tree(device_get(a, dev)).items())
+    row = {"scale": sizes["restore_scale"], "saved_mesh": dict(mesh.shape),
+           "restored_mesh": dict(mesh41.shape),
+           "restored_bit_equal": same41, "unplaced_bit_equal": same_plain,
+           "next_step_bit_equal": step_equal,
+           "leaves": len(saved)}
+    say("(c) elastic restore", row)
+    if not (same41 and same_plain and step_equal):
+        fail(f"tp (c): {row}")
+    rows["restore"] = row
+    return rows
+
+
+def _flat_tree(tree, prefix=""):
+    """``{"a.b": leaf}`` of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: v for name in tree
+                for k, v in _flat_tree(tree[name], f"{prefix}{name}.").items()}
+    return {prefix[:-1]: tree}
+
+
+def gc_cuda():
+    import gc
+
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -2755,7 +3041,7 @@ def main() -> int:
                                   "bsr_backward", "quant", "offline",
                                   "tune", "guardrails", "models", "serve",
                                   "driver", "families", "sharded",
-                                  "launch")}
+                                  "launch", "tp")}
     value_counts = {**vsr.VALUE_LAUNCHES, **spmv.VALUE_LAUNCHES}
     path_values = {path: {k: dict.fromkeys(vv, 0) for k, vv in value_counts.items()}
                    for path in path_launches}
@@ -5863,7 +6149,24 @@ def main() -> int:
           f"[health] launch {json.dumps(HEALTH.snapshot()['counters'])}",
           flush=True)
 
-    # -- 22. summary --------------------------------------------------------------
+    # -- 22. tp -------------------------------------------------------------------
+    phase("tp")
+    t_tp = time.perf_counter()
+    repro_torch.clear_cache()
+    gc_cuda()
+    print(f"[tp] card memory of the earlier phases "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, free "
+          f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB", flush=True)
+    tctx = types.SimpleNamespace(
+        dev=dev, seed=args.seed, fail=fail, drive=drive, rtol=RTOL,
+        say=lambda label, row: print(
+            f"[tp] {label} " + json.dumps(row, default=str)
+            + f" ({card})", flush=True))
+    tp_phase(tctx)
+    print(f"[tp] phase {time.perf_counter() - t_tp:.1f} s ({card})",
+          flush=True)
+
+    # -- 23. summary --------------------------------------------------------------
     phase("summary")
     summary = []
     for kernel, meta in KERNELS.items():

@@ -19,6 +19,10 @@ Guarantees:
     reads the reference's ``ml_dtypes`` leaves); the manifest's dtype
     string says how to read them.  A checkpoint written by either package
     restores in the other.
+  * placement — a tree of placed leaves (``dist.placement``) is written
+    as its logical arrays, so the format does not change with the mesh;
+    ``restore(shardings=)`` places each leaf on a mesh, which may differ
+    from the one that saved it (elastic resume).
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+
+from ..dist.placement import Placed, get, put
 
 
 def _canon(tree: Any) -> Any:
@@ -68,7 +74,10 @@ def _treedef_str(tree: Any) -> str:
 
 
 def _to_host(leaf) -> tuple:
-    """(array as stored, dtype name) of one leaf."""
+    """(array as stored, dtype name) of one leaf; a placed leaf's logical
+    array."""
+    if isinstance(leaf, Placed):
+        leaf = get(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -160,14 +169,11 @@ class CheckpointManager:
     def restore(self, step: int, like: Any, shardings: Any = None) -> Any:
         """Rebuild the tree of ``like`` (structure donor) from step's arrays,
         each leaf a tensor of the stored type on the device of the matching
-        leaf of ``like`` (the CPU where that leaf is no tensor).  A sharded
-        restore (``shardings``) splits dense leaves over a mesh, which needs
-        a tensor-parallel runtime the port does not have: it raises."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=) splits dense leaves over a device mesh: "
-                "that needs a tensor-parallel runtime, not ported yet "
-                "(ROADMAP queue 1, item 7)")
+        leaf of ``like`` (the CPU where that leaf is no tensor), placed by
+        ``like``'s sharding where that leaf is placed.  ``shardings`` (a
+        tree of ``NamedSharding`` of the same keys, None leaves kept as
+        above) places each leaf on its mesh instead: pass shardings on a
+        *different* mesh for an elastic resume."""
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "manifest.json")) as f:
             dtypes = json.load(f)["dtypes"]
@@ -179,8 +185,38 @@ class CheckpointManager:
             raise ValueError(f"step {step} holds {len(arrays)} leaves; the "
                              f"structure donor has {len(slots)}")
         leaves = list(like_leaves)
+        sh_leaves = ([None] * len(like_leaves) if shardings is None else
+                     _sharding_leaves(shardings, like))
         for i, a, dt in zip(slots, arrays, dtypes):
             t = _from_host(a, dt)
-            ref = like_leaves[i]
-            leaves[i] = t.to(ref.device) if isinstance(ref, torch.Tensor) else t
+            ref, sh = like_leaves[i], sh_leaves[i]
+            if sh is None and isinstance(ref, Placed):
+                sh = ref.sharding
+            if sh is not None:
+                leaves[i] = put(t, sh, ref.name if isinstance(ref, Placed)
+                                else "")
+            else:
+                leaves[i] = (t.to(ref.device) if isinstance(ref, torch.Tensor)
+                             else t)
         return _reorder(pytree.tree_unflatten(leaves, spec), like)
+
+
+def _sharding_leaves(shardings: Any, like: Any) -> list:
+    """``shardings`` flattened in ``like``'s canonical leaf order (a None
+    where it has no sharding for a leaf)."""
+    def walk(sh, lk):
+        if isinstance(lk, dict):
+            return {k: walk(sh.get(k) if isinstance(sh, dict) else sh, lk[k])
+                    for k in sorted(lk)}
+        return _Leaf(sh)
+    leaves, _ = pytree.tree_flatten(walk(shardings, like))
+    return [l.sharding for l in leaves]
+
+
+class _Leaf:
+    """A sharding held as one pytree leaf (a ``NamedSharding`` is a tuple,
+    which the flattening would open)."""
+    __slots__ = ("sharding",)
+
+    def __init__(self, sharding):
+        self.sharding = sharding

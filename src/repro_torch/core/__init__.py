@@ -16,3 +16,4 @@ from .selector import (PreparedMatrix, SelectorThresholds, TileGeometry,
                        select_partition)
 from .stats import MatrixStats, balanced_tile_span, matrix_stats
 from .shard import ShardSpec, make_shard_spec
+from .spmm import spmm_nb_pr_trainable

@@ -319,3 +319,21 @@ for _name, _fn, _wrap, _sub in (("rs_sr", spmm_rs_sr, _ignore_opts, "ell"),
 registry.register("sddmm", "torch", "balanced", sddmm_torch)
 registry.register("chain", "torch", "balanced", chain_torch)
 registry.register("attn_chain", "torch", "balanced", attn_chain_torch)
+
+
+# ---------------------------------------------------------------------------
+# deprecation shim — the trainable front door lives in core.plan
+# ---------------------------------------------------------------------------
+
+def spmm_nb_pr_trainable(bal_static: tuple, vals: torch.Tensor,
+                         x: torch.Tensor) -> torch.Tensor:
+    """Deprecated: use ``repro_torch.core.plan.execute_pattern`` (the
+    differentiable front door of all four logical kernels).
+    ``bal_static`` is ``(rows, cols, shape)`` of a balanced pattern."""
+    import warnings
+    warnings.warn("spmm_nb_pr_trainable is deprecated; use "
+                  "repro_torch.core.plan.execute_pattern", DeprecationWarning,
+                  stacklevel=2)
+    from .plan import execute_pattern
+    rows, cols, shape = bal_static
+    return execute_pattern(rows, cols, vals, tuple(shape), x, impl="nb_pr")

@@ -30,29 +30,14 @@ Ring-traffic factors (per-device wire bytes, group size n):
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
 
+from ..models.spmd import Collective
 from .mesh import H100, Hardware
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
 _FACTOR = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
            "all-to-all": 1.0, "collective-permute": 1.0}
-
-
-class Collective(NamedTuple):
-    """One collective a device takes part in: ``bytes`` is the all-gather's
-    output, the all-reduce's and reduce-scatter's input, the all-to-all's
-    and permute's buffer, all per device; ``axes`` the mesh axes of its
-    group, ``n`` the group's size; ``count`` how many times the step runs
-    it; ``what`` the parameter path or activation it moves (diagnose)."""
-    kind: str
-    bytes: float
-    axes: tuple
-    n: int
-    count: int = 1
-    what: str = ""
-    rule: str = ""
 
 
 def wire_bytes(rec: Collective) -> float:

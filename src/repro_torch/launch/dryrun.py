@@ -26,29 +26,46 @@ analyses, the port derives each term from the stand-ins and the rules:
   forward and read backward, plus the gradients; prefill and decode: one
   layer's share) over the batch's axes; no code size.  ``fits`` compares
   the peak with the card's HBM (80 GiB).
-* ``collectives``: the plan's collectives, counted from the rules and each
-  leaf's spec into ``analysis.collective_bytes``.  Assumptions:
+* ``collectives``: for the train and prefill cells of the families the
+  weight-gathered runtime runs (dense attention and an MLP: Llama, Phi,
+  Gemma, Qwen2-VL), the log of one position's program (``models/spmd.py``;
+  ``runtime_collectives``): the step run on the meta mesh for position
+  ``(0, 0)`` alone, the SPMD symmetry making one position enough.  Every
+  other cell takes the plan's collectives, counted from the rules and each
+  leaf's spec.  ``collectives["source"]`` names which.  The plan
+  (``plan_collectives``) agrees with the runtime's log on its cells byte
+  for byte (``tests/test_torch_tp.py``); its assumptions:
     - train and prefill gather every sharded weight where it is used
-      (``__gather_weights__``), train again in the backward; a leaf sharded
-      over several axes is gathered hierarchically, the ``data`` / ``pod``
-      axes first, so that the slow link carries the smaller share; expert
-      weights stay sharded over their ``experts`` axis (EP: the tokens
-      move) and are gathered over their other axes only;
+      (``__gather_weights__``), hierarchically, the ``data`` / ``pod`` axes
+      first, so that the slow link carries the smaller share; a block's
+      weights once a layer, again in the recompute of a rematted block; the
+      embedding whole for the lookup and, tied, over its non-vocab axes for
+      the unembedding (``lm_head`` likewise), each once; expert weights stay
+      sharded over their ``experts`` axis (EP: the tokens move) and are
+      gathered over their other axes only;
+    - the gradient of a gathered weight is reduce-scattered over the batch
+      axes it was gathered over (the last gathered first) and *sliced* over
+      the others: the ``model`` positions compute the same rows, so each
+      holds the whole gradient of its rows (no reduce-scatter over
+      ``model``); a leaf the batch axes replicate has its gradient
+      all-reduced over them, in the parameter's type;
+    - the vocab-sharded loss (dense families): a chunk's logsumexp max,
+      exp-sum and gold logit all-reduced over the vocab axes, and in the
+      backward the chunk's hidden-state gradient (B, chunk, d_model) f32;
+      the token loss and count over the batch axes; the global norm's
+      squares over the mesh;
     - decode keeps TP over ``model``; a leaf sharded over ``data`` / ``pod``
       (FSDP kept for the archs whose weights do not fit the model axis) is
       gathered over those axes every step;
-    - the gradients are reduce-scattered over the axes that a leaf is
-      gathered over (``model`` first) and all-reduced over the batch axes
-      that replicate it, in the parameter's type;
     - decode all-reduces each block's residual branches (attention, MLP or
       MoE, the SSM mixers; Whisper's cross-attention) over ``model``;
     - the grouped MoE (``moe.moe_sort``, one group a device) runs one
       all-to-all over ``model`` for the dispatch and one for the combine
       of a layer, train both again in the backward; one-hot dispatch moves
       nothing beyond the MLP all-reduce;
-    - not counted: the vocab-sharded loss's statistics, the sequence-
-      sharded cache's softmax merge at decode, norms' and router's small
-      all-reduces.
+    - not counted outside the runtime's cells: the vocab-sharded loss's
+      statistics, the sequence-sharded cache's softmax merge at decode,
+      norms' and router's small all-reduces.
 * ``cost_analysis``: a diagnostic, the FLOPs that ``FlopCounterMode``
   counts over the step traced on the stand-ins (global: one trace of the
   whole step), and the bytes its ops read and write (every non-view op
@@ -88,6 +105,8 @@ from .analysis import Collective, collective_bytes, roofline_terms, summarize
 from .cost_model import cell_cost, hbm_bytes
 from .input_specs import build_cell, cache_specs
 from .mesh import H100, make_production_mesh
+from ..dist.placement import device_put
+from ..models import spmd
 from .sharding_rules import make_sharding_fn
 
 RESULTS = os.path.join(os.getcwd(), "results", "dryrun")
@@ -197,13 +216,109 @@ def _param_paths(specs, prefix=""):
     return out
 
 
+def _gathers(mesh, spec, keep, batch_axes, full, gathers, scatters, what,
+             rule) -> list:
+    """A weight of ``full`` bytes gathered over its sharded axes but
+    ``keep`` (``gathers`` times; the slow axes first) and its gradient
+    reduce-scattered over the batch axes among them (``scatters`` times;
+    the last gathered first)."""
+    gathered = [a for dim in spec for a in _axes(dim) if a not in keep]
+    order = ([a for a in gathered if a != "model"]
+             + [a for a in gathered if a == "model"])
+    out_bytes = full // _extent(mesh, keep)
+    recs, left = [], _extent(mesh, order)
+    for a in order:
+        left //= mesh.shape[a]
+        recs.append(Collective("all-gather", out_bytes // left, (a,),
+                               mesh.shape[a], gathers, what, rule))
+    cur = out_bytes
+    for a in reversed(order):
+        if a in batch_axes and scatters:
+            recs.append(Collective("reduce-scatter", cur, (a,),
+                                   mesh.shape[a], scatters, what, rule))
+        cur //= mesh.shape[a]
+    return recs
+
+
+def _plan_runtime(model: Model, cell: ShapeCell, mesh, rules) -> list:
+    """The collectives of one position's program under the weight-gathered
+    runtime (``models/spmd.py``), counted from the specs: what its log
+    records, record for record in bytes."""
+    cfg = model.cfg
+    sfn = make_sharding_fn(mesh, rules)
+    train = cell.kind == "train"
+    bax = tuple(a for a in rules.get("batch", ()) if a in mesh.axis_names)
+    if cell.global_batch % _extent(mesh, bax):
+        bax = ()
+    b_local = cell.global_batch // _extent(mesh, bax)
+    recs = []
+    for path, spec in _param_paths(model.specs):
+        ps = tuple(sfn(spec.logical).spec) + (None,) * len(spec.shape)
+        ps = ps[:len(spec.shape)]
+        full = math.prod(spec.shape) * spec.dtype.itemsize
+        rule = f"{spec.logical} -> {ps}"
+        if path.startswith("blocks."):
+            lead = 2 if cfg.attn_pattern == "local_global" else 1
+            layers = math.prod(spec.shape[:lead])
+            # a layer a use; a rematted block gathers again in the recompute
+            uses = layers * (2 if train and cfg.remat != "none" else 1)
+            recs += _gathers(mesh, ps[lead:], (), bax, full // layers, uses,
+                             layers * train, path, rule)
+        elif path in ("embed", "lm_head"):
+            vdim = 0 if path == "embed" else 1
+            if path == "embed":
+                recs += _gathers(mesh, ps, (), bax, full, 1, int(train),
+                                 path, rule)
+            if path == "lm_head" or cfg.tie_embeddings:
+                recs += _gathers(mesh, ps, _axes(ps[vdim]), bax, full, 1,
+                                 int(train), f"{path} (unembedding)", rule)
+        else:
+            recs += _gathers(mesh, ps, (), bax, full, 1, int(train), path,
+                             rule)
+        if train:
+            dp = tuple(a for a in bax if a not in
+                       [x for d in ps for x in _axes(d)])
+            if dp:
+                local = full // _extent(mesh, [x for d in ps for x in _axes(d)])
+                recs.append(Collective("all-reduce", local, dp,
+                                       _extent(mesh, dp), 1, path, rule))
+    if not train:
+        return recs
+    # the vocab-parallel loss
+    emb = "embed" if cfg.tie_embeddings else "lm_head"
+    espec = tuple(sfn(model.specs[emb].logical).spec)
+    vax = _axes(espec[0 if cfg.tie_embeddings else 1] if espec else None)
+    chunk = min(512, cell.seq_len)
+    n_chunks = -(-cell.seq_len // chunk)
+    if _extent(mesh, vax) > 1:
+        n = _extent(mesh, vax)
+        stat = b_local * chunk * 4
+        for what, nbytes in (("loss max (B, chunk)", stat),
+                             ("loss sum (B, chunk)", stat),
+                             ("loss gold (B, chunk)", stat),
+                             ("loss dh (B, chunk, D)",
+                              b_local * chunk * cfg.d_model * 4)):
+            recs.append(Collective("all-reduce", nbytes, vax, n, n_chunks,
+                                   what, "vocab-parallel loss"))
+    if _extent(mesh, bax) > 1:
+        for what in ("loss total", "loss count"):
+            recs.append(Collective("all-reduce", 4, bax, _extent(mesh, bax),
+                                   1, what, "vocab-parallel loss"))
+    axes = tuple(mesh.axis_names)
+    recs.append(Collective("all-reduce", 4, axes, mesh.size, 1,
+                           "global norm", "clip"))
+    return recs
+
+
 def plan_collectives(model: Model, cell: ShapeCell, mesh, rules) -> list:
     """The step's collectives a device takes part in (``analysis.
     Collective`` records), under the assumptions of the module docstring."""
     cfg = model.cfg
+    gather = bool(rules.get("__gather_weights__"))
+    if gather and cell.kind in ("train", "prefill") and spmd.supports(cfg):
+        return _plan_runtime(model, cell, mesh, rules)
     sfn = make_sharding_fn(mesh, rules)
     train = cell.kind == "train"
-    gather = bool(rules.get("__gather_weights__"))
     batch_axes = [a for a in rules.get("batch", ()) if a in mesh.axis_names]
     recs = []
     for path, spec in _param_paths(model.specs):
@@ -227,15 +342,18 @@ def plan_collectives(model: Model, cell: ShapeCell, mesh, rules) -> list:
                                    2 if train else 1, path, rule))
         if not train:
             continue
-        left_in = full / _extent(mesh, ep)
-        for a in fast + slow:
+        # the gradient: sliced over the axes that compute the same rows,
+        # reduce-scattered over the batch axes (the last gathered first)
+        cur = full / _extent(mesh, ep)
+        for a in reversed(order):
             n = mesh.shape[a]
-            recs.append(Collective("reduce-scatter", left_in, (a,), n, 1,
-                                   path, rule))
-            left_in /= n
+            if a in batch_axes:
+                recs.append(Collective("reduce-scatter", cur, (a,), n, 1,
+                                       path, rule))
+            cur /= n
         dp = tuple(a for a in batch_axes if a not in sharded)
         if dp:
-            recs.append(Collective("all-reduce", left_in, dp,
+            recs.append(Collective("all-reduce", cur, dp,
                                    _extent(mesh, dp), 1, path, rule))
     act = getattr(torch, cfg.compute_dtype).itemsize
     m = mesh.shape.get("model", 1)
@@ -261,6 +379,20 @@ def plan_collectives(model: Model, cell: ShapeCell, mesh, rules) -> list:
                 f"MoE dispatch / combine buffer ({g} groups, capacity {cap})",
                 "__moe_groups__, experts -> model"))
     return recs
+
+
+def runtime_collectives(model: Model, cell: ShapeCell, mesh, built):
+    """The collectives of position ``(0, …, 0)``'s program, one step of
+    the weight-gathered runtime (``models/spmd.py``) run on the meta mesh
+    for that position alone; None for a cell it does not run."""
+    if cell.kind not in ("train", "prefill") or not spmd.supports(model.cfg) \
+            or not built.rules.get("__gather_weights__"):
+        return None
+    pos = (0,) * len(mesh.axis_names)
+    args = (device_put(built.args[0], built.shardings[0]),) + built.args[1:]
+    with spmd.only_position(pos), spmd.collective_log() as log:
+        built.fn(*args)
+    return log.program(pos)
 
 
 # --------------------------------------------------------------- the trace
@@ -365,7 +497,14 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str = RESULTS,
 
     mem = memory_analysis(model, cell, built, mesh)
     print("memory_analysis:", mem)
-    coll = collective_bytes(plan_collectives(model, cell, mesh, built.rules))
+    plan = plan_collectives(model, cell, mesh, built.rules)
+    ran = runtime_collectives(model, cell, mesh, built)
+    coll = collective_bytes(plan if ran is None else ran)
+    coll["source"] = (
+        "plan: dryrun.plan_collectives, counted from the rules" if ran is None
+        else "runtime: the log of position (0, 0)'s program, one step of "
+        "models/spmd.py on the meta mesh")
+    coll["plan_total_wire_bytes"] = collective_bytes(plan)["total_wire_bytes"]
     cost = trace_flops(built.fn, built.args)
     print("cost_analysis[flops]:", cost["flops"],
           " bytes:", cost["bytes_accessed"],

@@ -14,15 +14,18 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..dist.placement import device_put
 from ..models import Model, ModelConfig, ShapeCell
+from ..models.model import cache_logical
 from ..models.params import abstract_params, param_bytes, param_shardings
 from ..models.sharding_ctx import activation_sharding
 from ..models.transformer import model_specs
-from ..train import OptConfig, TrainConfig, make_train_step
+from ..train import OptConfig, TrainConfig, init_state, make_train_step
 from ..train.optim import tree_map
 from .mesh import H100, MODEL_AXIS, Mesh
 from .sharding_rules import (LONG_CTX_OVERRIDES, TRAIN_RULES, make_sharding_fn,
                              resolve_rules)
+
 
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
@@ -76,29 +79,6 @@ def batch_specs(cfg: ModelConfig, cell: ShapeCell, sfn):
     return out, shard
 
 
-def _cache_logical(path_keys: tuple, ndim: int) -> tuple:
-    last = path_keys[-1]
-    if last in ("k", "v"):
-        if ndim == 6:
-            return ("groups", "inner", "batch", "kv_heads", "cache_seq", "head_dim")
-        return ("layers", "batch", "kv_heads", "cache_seq", "head_dim")
-    if last == "ssm":
-        return ("groups", "inner", "batch", "heads", None, None)
-    if last == "conv":
-        return ("groups", "inner", "batch", None, "ssm_in")
-    if last == "wkv":
-        # rwkv6's 40 heads divide no model axis: heads replicated, batch
-        # sharded
-        return ("layers", "batch", None, None, None)
-    if last in ("tm_prev", "cm_prev"):
-        return ("layers", "batch", "embed")
-    if last == "memory":
-        return ("batch", None, "embed")
-    if last == "length":
-        return ()
-    raise ValueError(f"unknown cache leaf {path_keys}")
-
-
 def cache_specs(model: Model, batch: int, max_len: int, sfn):
     """``(stand-ins, shardings)`` of the caches, shapes from
     ``Model.init_cache(..., device="meta")``."""
@@ -109,7 +89,7 @@ def cache_specs(model: Model, batch: int, max_len: int, sfn):
             pairs = {k: walk(v, keys + (k,)) for k, v in tree.items()}
             return ({k: p[0] for k, p in pairs.items()},
                     {k: p[1] for k, p in pairs.items()})
-        return tree, sfn(_cache_logical(keys, tree.ndim))
+        return tree, sfn(cache_logical(keys, tree.ndim))
 
     return walk(shapes, ())
 
@@ -144,11 +124,54 @@ class Cell(NamedTuple):
 def build_cell(model: Model, cell: ShapeCell, mesh: Mesh,
                act_sharding: bool | None = None, *,
                hbm_bytes: float = H100.hbm_bytes) -> Cell:
-    """The cell's step and its stand-ins.  ``act_sharding`` installs the
-    activation-sharding scope while the step runs (default on;
-    ``REPRO_ACT_SHARDING=0`` turns it off): it carries the MoE's dispatch
-    groups (``__moe_groups__``), the port's dense tensors stay whole.
-    Decode's rules read the mesh's ``model`` extent and ``hbm_bytes``."""
+    """The cell's step and its inputs.  On a mesh of meta devices (the dry
+    run's production meshes) the inputs are stand-ins; on a mesh of real
+    devices (``make_local_mesh``) they are placed by their shardings
+    (``dist.placement``): params from ``Model.init`` with a generator
+    seeded 0, AdamW moments at zero, tokens drawn from it, caches at zero,
+    which the weight-gathered runtime runs (``models/spmd.py``).
+    ``act_sharding`` installs the activation-sharding scope while the step
+    runs (default on; ``REPRO_ACT_SHARDING=0`` turns it off): the rules,
+    with the weight gather of train and prefill and the MoE's dispatch
+    groups (``__moe_groups__``).  Decode's rules read the mesh's ``model``
+    extent and ``hbm_bytes``."""
+    built = _build_cell(model, cell, mesh, act_sharding, hbm_bytes)
+    if mesh.devices.reshape(-1)[0].type == "meta":
+        return built
+    return built._replace(args=_placed_args(model, cell, built, mesh))
+
+
+def _placed_args(model: Model, cell: ShapeCell, built: Cell,
+                 mesh: Mesh) -> tuple:
+    """The cell's inputs made real on the first position's device and placed
+    by their shardings."""
+    cfg = model.cfg
+    dev = mesh.devices.reshape(-1)[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, dev)
+
+    def tokens(t):
+        return torch.randint(0, cfg.vocab_size, t.shape, generator=gen,
+                             device=dev, dtype=t.dtype)
+
+    def batch(stand_in):
+        return {k: tokens(v) if k in ("tokens", "labels") else
+                torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                for k, v in stand_in.items()}
+    if cell.kind == "train":
+        args = (init_state(params, train_config_for(cfg)),
+                batch(built.args[1]))
+    elif cell.kind == "prefill":
+        args = (params, batch(built.args[1]))
+    else:
+        args = (params, model.init_cache(cell.global_batch, cell.seq_len,
+                                         device=dev),
+                tokens(built.args[2]))
+    return tuple(device_put(a, s) for a, s in zip(args, built.shardings))
+
+
+def _build_cell(model: Model, cell: ShapeCell, mesh: Mesh,
+                act_sharding: bool | None, hbm_bytes: float) -> Cell:
     cfg = model.cfg
     rules = finalize_rules(
         rules_for_cell(cell, cfg, model_axis=mesh.shape.get("model", 1),

@@ -8,7 +8,11 @@ Example (~100M model, a few hundred steps):
 
 ``--scale smoke|100m|full`` controls the parameterization; ``full`` is the
 published config (Llama-3.2-1B fits one H100: bf16 weights and grads and
-f32 AdamW moments ≈ 15 GB).  Checkpoint/restart, the straggler watchdog
+f32 AdamW moments ≈ 15 GB).  ``--data-mesh D --model-mesh M`` places the
+state over a ``(data=D, model=M)`` mesh by ``param_shardings`` under the
+train rules and runs the weight-gathered runtime (``models/spmd.py``): the
+positions on ``cuda:0 … cuda:D·M-1`` (``--devices cuda:0,cuda:0,...`` lets
+them share one card, ``--device cpu`` the CPU).  Checkpoint/restart, the straggler watchdog
 and preemption handling come from ``runtime.TrainDriver``.  The run trains
 on ``cuda`` unless ``--device cpu`` is given, and writes
 ``results/train_<name>.json`` under the working directory.
@@ -26,13 +30,14 @@ import torch
 from ..configs import ARCH_NAMES, get, get_smoke
 from ..core.registry import resolve_device
 from ..data import DataConfig, SyntheticLM
+from ..dist.placement import device_put
 from ..models import Model
-from ..models.params import param_count
+from ..models.params import param_count, param_shardings
 from ..models.sharding_ctx import activation_sharding
 from ..runtime import DriverConfig, TrainDriver
 from ..train import OptConfig, TrainConfig, init_state, make_train_step
 from .mesh import make_local_mesh
-from .sharding_rules import resolve_rules
+from .sharding_rules import make_sharding_fn, resolve_rules
 
 
 def scale_config(arch: str, scale: str):
@@ -61,12 +66,29 @@ def scale_config(arch: str, scale: str):
     return cfg.scaled(**kw)
 
 
-def local_mesh(data: int, model: int, device: torch.device):
+def local_mesh(data: int, model: int, device: torch.device, devices=None):
     """``make_local_mesh(data, model)`` on the cards, which raises when
-    fewer are present; on the CPU its positions share it."""
+    fewer are present; on the CPU its positions share it; ``devices`` places
+    them as given."""
+    if devices is not None:
+        return make_local_mesh(data, model, devices=list(devices))
     if device.type == "cuda":
         return make_local_mesh(data, model)
     return make_local_mesh(data, model, devices=[device] * (data * model))
+
+
+def train_rules() -> dict:
+    """The train rules of a placed run: weights gathered at their use."""
+    return dict(resolve_rules(), __gather_weights__=True)
+
+
+def place_state(model, state: dict, mesh) -> tuple:
+    """``(placed state, its shardings)``: params and AdamW moments by
+    ``param_shardings`` under ``train_rules()``, the step replicated."""
+    sfn = make_sharding_fn(mesh, train_rules())
+    sh = param_shardings(model.specs, sfn)
+    shardings = {"params": sh, "opt": {"step": sfn(()), "m": sh, "v": sh}}
+    return device_put(state, shardings), shardings
 
 
 def build(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
@@ -104,27 +126,34 @@ def build(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
 def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
           microbatches: int = 1, ckpt_dir: str | None = None,
           ckpt_every: int = 50, data_mesh: int = 1, model_mesh: int = 1,
-          device=None, params: dict | None = None, seed: int = 0):
+          device=None, params: dict | None = None, seed: int = 0,
+          devices=None):
     """Train ``cfg`` for ``steps`` steps of ``batch`` x ``seq`` synthetic
     tokens under ``TrainDriver``, as the reference's ``main``; ``build``
-    makes what it runs.  The mesh's activation scope is installed for the
-    run; the default rules carry no dispatch groups and no sparse axis, so
-    a one-card mesh computes what no mesh does.  Returns
-    ``(driver, model, state)``."""
+    makes what it runs.  On a mesh of more than one position
+    (``data_mesh`` x ``model_mesh``, on ``devices`` when given) the state
+    is placed by ``param_shardings`` under the train rules and the
+    weight-gathered runtime runs the step (``models/spmd.py``); a
+    one-position mesh computes what no mesh does.  Returns
+    ``(driver, model, state)``, the state placed on a mesh."""
     dev = resolve_device(device)
-    mesh = local_mesh(data_mesh, model_mesh, dev)
+    mesh = local_mesh(data_mesh, model_mesh, dev, devices)
     model, state, step, data_fn = build(
         cfg, steps=steps, batch=batch, seq=seq, lr=lr,
         microbatches=microbatches, device=dev, params=params, seed=seed)
     del params
+    rules, shardings = resolve_rules(), None
+    if mesh.size > 1:
+        rules = train_rules()
+        state, shardings = place_state(model, state, mesh)
     if ckpt_dir is None:
         ckpt_dir = os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt")
     driver = TrainDriver(DriverConfig(total_steps=steps,
                                       checkpoint_every=ckpt_every,
                                       checkpoint_dir=ckpt_dir),
                          step, data_fn)
-    with activation_sharding(mesh, resolve_rules()):
-        state = driver.run(state)
+    with activation_sharding(mesh, rules):
+        state = driver.run(state, shardings)
     return driver, model, state
 
 
@@ -144,11 +173,17 @@ def main(argv=None):
                     help="a checkpoint of the full Llama-3.2-1B (bf16 "
                     "weights, f32 moments) is ~12.4 GB")
     ap.add_argument("--data-mesh", type=int, default=1,
-                    help="data extent of the local mesh (data x model cards; "
-                    "raises when fewer cards are present).  Dense tensors "
-                    "stay whole on each device: the mesh carries the "
-                    "activation scope and places nothing")
+                    help="data extent of the local mesh (data x model "
+                    "positions on as many cards; raises when fewer are "
+                    "present, see --devices).  Past one position the params "
+                    "and moments are placed by their shardings and each "
+                    "weight is gathered at its use (models/spmd.py): the "
+                    "batch splits over data, the vocab of the loss over "
+                    "model")
     ap.add_argument("--model-mesh", type=int, default=1)
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated device of each mesh position, "
+                    "e.g. cuda:0,cuda:0,cuda:0,cuda:0 to share one card")
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' to run on the CPU")
     ap.add_argument("--seed", type=int, default=0)
@@ -162,7 +197,9 @@ def main(argv=None):
                          microbatches=args.microbatches,
                          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                          data_mesh=args.data_mesh, model_mesh=args.model_mesh,
-                         device=args.device, seed=args.seed)
+                         device=args.device, seed=args.seed,
+                         devices=(args.devices.split(",") if args.devices
+                                  else None))
     losses = [e.metrics["loss"] for e in driver.events]
     walls = [e.wall for e in driver.events]
     print(f"steps={len(driver.events)} loss[first5]={losses[:5]} "

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from ..core.plan import execute_pattern
 from ..core.registry import resolve_device
-from .sharding_ctx import sparse_shard
+from .sharding_ctx import constrain, constrain_gemm, gathered, sparse_shard
 
 #: the score of a masked (query, key) pair, the reference's
 MASKED = -1e30
@@ -29,7 +29,9 @@ MASKED = -1e30
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """``x / rms(x) * (1 + w)``, the norm taken in f32 and cast back to
-    ``x.dtype`` before the scale, as the reference does."""
+    ``x.dtype`` before the scale, as the reference does.  A placed weight's
+    local view is gathered first."""
+    w = gathered(w)
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * (1.0 + w.to(x.dtype))
@@ -38,8 +40,11 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (``(..., i, j) x (j, k)``) in ``a.dtype``: a bf16 product
     accumulates in f32 and rounds once, as the reference's
-    ``preferred_element_type=f32`` product cast back."""
-    return torch.matmul(a, b.to(a.dtype))
+    ``preferred_element_type=f32`` product cast back.  Weight-gathered in
+    train and prefill cells (``constrain_gemm``, reference ``:35-41``)."""
+    b = constrain_gemm(w=b)
+    out = torch.matmul(a, b.to(a.dtype))
+    return constrain_gemm(out=out)
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +117,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hk, sk = k.shape[1], k.shape[2]
     rep = hq // hk
     scale = 1.0 / math.sqrt(d)
+    # pinned to pure batch sharding, as the reference (``:106-111``)
+    q = constrain(q, ("batch", None, None, None))
+    k = constrain(k, ("batch", None, None, None))
+    v = constrain(v, ("batch", None, None, None))
     q_block = min(q_block, sq)
     kv_block = min(kv_block, sk)
     sk_p = -(-sk // kv_block) * kv_block
@@ -147,6 +156,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     b, hq, _, d = q.shape
     hk, lmax = k_cache.shape[1], k_cache.shape[2]
     rep = hq // hk
+    q = constrain(q, ("batch", None, None, None))
     qg = q.reshape(b, hk, rep, d).float() / math.sqrt(d)
     s = torch.einsum("bhrd,bhld->bhrl", qg, k_cache.float())
     pos = torch.arange(lmax, device=q.device)

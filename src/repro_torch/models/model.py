@@ -31,9 +31,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import registry
+from ..dist.placement import block_index, device_get, dim_axes, is_placed
+from ..dist.sharding_rules import PartitionSpec
+from . import sharding_ctx, spmd
 from .config import ModelConfig
 from .layers import rmsnorm
-from .model_loss import lm_loss
+from .model_loss import lm_loss, lm_loss_vocab_parallel
 from .params import init_params
 from .rwkv import rwkv6_channel_mix, rwkv6_time_mix
 from .ssm import mamba2_mix
@@ -81,11 +84,12 @@ class Model:
 
     # ------------------------------------------------------------- embedding
     def _embed(self, params, tokens):
-        x = params["embed"][tokens]
+        x = sharding_ctx.gathered(params["embed"])[tokens]
         if self.cfg.attn_pattern == "local_global":        # gemma convention
             x = x * float(torch.tensor(math.sqrt(self.cfg.d_model),
                                        dtype=x.dtype))
-        return x.to(getattr(torch, self.cfg.compute_dtype))
+        return sharding_ctx.constrain(
+            x.to(getattr(torch, self.cfg.compute_dtype)), ("batch", None, None))
 
     def _unembed_w(self, params):
         return (params["embed"].T if self.cfg.tie_embeddings
@@ -95,13 +99,16 @@ class Model:
     def _remat(self, fn, *args):
         """``fn(*args)``, under ``torch.utils.checkpoint`` when training
         with remat.  The recompute runs in the backward, on autograd's
-        thread for CUDA tensors: it re-enters the forward's backend scope."""
+        thread for CUDA tensors: it re-enters the forward's backend scope
+        and its sharding scopes (a placed step's position gathers its
+        weights again there)."""
         if self.cfg.remat == "none" or not torch.is_grad_enabled():
             return fn(*args)
         scoped = registry.scoped_backend()
+        scopes = sharding_ctx.capture()
 
         def run(*a):
-            with registry.backend_scope(scoped):
+            with registry.backend_scope(scoped), sharding_ctx.restore(scopes):
                 return fn(*a)
         return checkpoint(run, *args, use_reentrant=False)
 
@@ -300,9 +307,9 @@ class Model:
         return self._backbone_uniform(params, x, positions, caches)
 
     # ------------------------------------------------------------ public fns
-    def loss_fn(self, params, batch):
-        """batch: tokens (B, S), labels (B, S) [-1 = pad]; audio adds frames
-        (B, Sm, D) → (loss, {"ce_loss", "aux_loss", "tokens"})."""
+    def _hidden(self, params, batch):
+        """The final-normed hidden states (B, S, D) of the batch's tokens
+        and the backbone's aux loss."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
@@ -312,7 +319,18 @@ class Model:
         if cfg.family == "audio":
             memory = self._encode_audio(params, batch["frames"])
         h, _, aux = self._backbone(params, x, positions, memory=memory)
-        h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
+        return rmsnorm(h, params["final_ln"], cfg.norm_eps), aux
+
+    def loss_fn(self, params, batch):
+        """batch: tokens (B, S), labels (B, S) [-1 = pad]; audio adds frames
+        (B, Sm, D) → (loss, {"ce_loss", "aux_loss", "tokens"}).  On placed
+        parameters (``dist.placement``) the weight-gathered SPMD runtime
+        runs it (``_loss_placed``): every value is then a replicated
+        ``Placed``."""
+        if is_placed(params):
+            return self._loss_placed(params, batch)
+        cfg = self.cfg
+        h, aux = self._hidden(params, batch)
         loss, ntok = lm_loss(h, self._unembed_w(params), batch["labels"])
         aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
         total = loss + aux_w * aux / max(cfg.num_layers, 1)
@@ -322,10 +340,9 @@ class Model:
         h = rmsnorm(h, params["final_ln"], self.cfg.norm_eps)
         return (h.float() @ self._unembed_w(params).float())[:, 0]
 
-    def prefill(self, params, batch, max_len: int):
-        """tokens (B, S) (audio: and frames (B, Sm, D), whose encoding the
-        caches keep as ``memory``) → (last-position logits (B, V), caches of
-        ``max_len``)."""
+    def _prefill_hidden(self, params, batch, max_len: int):
+        """The final-normed hidden state of the last position (B, 1, D) and
+        the caches of ``max_len`` that prefill hands on."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         caches = self.init_cache(b, max_len, device=tokens.device)
@@ -337,12 +354,25 @@ class Model:
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         h, caches, _ = self._backbone(params, x, positions, caches=caches,
                                       memory=memory)
-        return self._logits(params, h[:, -1:]), caches
+        return rmsnorm(h[:, -1:], params["final_ln"], self.cfg.norm_eps), caches
+
+    def prefill(self, params, batch, max_len: int):
+        """tokens (B, S) (audio: and frames (B, Sm, D), whose encoding the
+        caches keep as ``memory``) → (last-position logits (B, V), caches of
+        ``max_len``).  On placed parameters the SPMD runtime runs it
+        (``_prefill_placed``: logits and caches placed)."""
+        if is_placed(params):
+            return self._prefill_placed(params, batch, max_len)
+        h, caches = self._prefill_hidden(params, batch, max_len)
+        return (h.float() @ self._unembed_w(params).float())[:, 0], caches
 
     def decode_step(self, params, caches, tokens):
         """tokens (B, 1) → (logits (B, V), caches).  ``caches["length"]``
         may be 0-d (all lanes in lockstep) or (B,) (each lane at its own
-        position, masked to its own length in attention)."""
+        position, masked to its own length in attention).  Placed parameters
+        need decode's tensor-parallel regime, not ported: refused."""
+        if is_placed(params):
+            spmd.refuse(self.cfg, "decode")
         b = tokens.shape[0]
         x = self._embed(params, tokens)
         lens = caches["length"]
@@ -352,6 +382,71 @@ class Model:
         h, caches, _ = self._backbone(params, x, positions, caches=caches,
                                       memory=memory)
         return self._logits(params, h), caches
+
+    # ------------------------------------------------ on placed parameters
+    def _vocab_axes(self, params) -> tuple:
+        """The mesh axes the unembedding's vocab dim is sharded over
+        (placed params, or a position's views of them)."""
+        tied = self.cfg.tie_embeddings
+        leaf = params["embed"] if tied else params["lm_head"]
+        placed = leaf.placed if isinstance(leaf, spmd.LocalView) else leaf
+        return dim_axes(placed.spec[0 if tied else 1])
+
+    def _unembed_shard(self, views) -> tuple:
+        """This position's vocab shard of the unembedding, ``(w (D, V_l),
+        its first vocab id)``: the tied embedding's or ``lm_head``'s local
+        view gathered over every axis but the vocab dim's."""
+        tied = self.cfg.tie_embeddings
+        vaxes = self._vocab_axes(views)
+        view = views["embed"] if tied else views["lm_head"]
+        w = view.gather(keep=vaxes)
+        w = w.T if tied else w
+        return w, block_index(view.placed.mesh, view.pos, vaxes) * w.shape[1]
+
+    def _loss_placed(self, params, batch):
+        """``loss_fn`` on placed parameters: each position's program
+        (``spmd.Runtime``) takes its rows of the batch, the vocab-parallel
+        loss combines them; ``(loss, metrics)``, each a replicated
+        ``Placed`` 0-d value whose positions' tensors lie in one autograd
+        graph."""
+        spmd.refuse(self.cfg, "train")
+        batch = device_get(batch)
+        rt = spmd.Runtime.of(params, batch["tokens"].shape[0])
+        hs, ws, v0, ys = {}, {}, {}, {}
+        for pos in rt.positions:
+            with rt.at(pos):
+                views = rt.views(params, pos)
+                rows = {k: rt.rows(v, pos) for k, v in batch.items()}
+                hs[pos], _ = self._hidden(views, rows)
+                ws[pos], v0[pos] = self._unembed_shard(views)
+                ys[pos] = rows["labels"]
+        ce, cnt = lm_loss_vocab_parallel(hs, ws, ys, v0, rt,
+                                         self._vocab_axes(params))
+        zero = {p: torch.zeros((), dtype=torch.float32, device=rt.device(p))
+                for p in rt.positions}
+        return rt.rep(ce, "loss"), {"ce_loss": rt.rep(ce),
+                                    "aux_loss": rt.rep(zero),
+                                    "tokens": rt.rep(cnt)}
+
+    def _prefill_placed(self, params, batch, max_len: int):
+        """``prefill`` on placed parameters: ``(logits, caches)`` placed,
+        the last position's logits ``(B, V)`` over the batch and vocab axes,
+        the caches by the spec the rules give them."""
+        spmd.refuse(self.cfg, "prefill")
+        batch = device_get(batch)
+        rt = spmd.Runtime.of(params, batch["tokens"].shape[0])
+        logits, caches = {}, {}
+        for pos in rt.positions:
+            with rt.at(pos):
+                views = rt.views(params, pos)
+                rows = {k: rt.rows(v, pos) for k, v in batch.items()}
+                h, caches[pos] = self._prefill_hidden(views, rows, max_len)
+                w, _ = self._unembed_shard(views)
+                logits[pos] = (h.float() @ w.float())[:, 0]
+        spec = PartitionSpec(spmd.spec_dim(rt.batch_axes),
+                             spmd.spec_dim(self._vocab_axes(params)))
+        return (rt.placed(logits, spec, name="logits"),
+                rt.place_local(caches, cache_logical))
 
     # ---------------------------------------------------------------- caches
     def init_cache(self, batch: int, max_len: int, device=None):
@@ -399,6 +494,31 @@ class Model:
                     "cm_prev": zeros(lead + (cfg.d_model,), dt),
                     "length": length}
         return {"kv": kv((cfg.num_layers,), max_len), "length": length}
+
+
+def cache_logical(path_keys: tuple, ndim: int) -> tuple:
+    """The logical axes of the cache leaf at ``path_keys`` (``ndim`` dims),
+    which the sharding rules map onto a mesh."""
+    last = path_keys[-1]
+    if last in ("k", "v"):
+        if ndim == 6:
+            return ("groups", "inner", "batch", "kv_heads", "cache_seq", "head_dim")
+        return ("layers", "batch", "kv_heads", "cache_seq", "head_dim")
+    if last == "ssm":
+        return ("groups", "inner", "batch", "heads", None, None)
+    if last == "conv":
+        return ("groups", "inner", "batch", None, "ssm_in")
+    if last == "wkv":
+        # rwkv6's 40 heads divide no model axis: heads replicated, batch
+        # sharded
+        return ("layers", "batch", None, None, None)
+    if last in ("tm_prev", "cm_prev"):
+        return ("layers", "batch", "embed")
+    if last == "memory":
+        return ("batch", None, "embed")
+    if last == "length":
+        return ()
+    raise ValueError(f"unknown cache leaf {path_keys}")
 
 
 def _sinusoid(s: int, d: int, dtype, device) -> torch.Tensor:

@@ -17,6 +17,7 @@ from .layers import (SparsePattern, apply_mrope, apply_rope, decode_attention,
                      sparse_mlp_apply)
 from .moe import moe_apply
 from .params import ParamSpec, map_specs
+from .sharding_ctx import constrain
 
 P = ParamSpec
 
@@ -404,7 +405,9 @@ def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, patterns=None):
 
 def dense_block_apply(p: dict, x, cfg, *, positions, cache=None, window=0,
                       causal=True, patterns=None):
+    x = constrain(x, ("batch", None, None))
     x, cache = attn_apply(p["attn"], x, cfg, positions=positions,
                           cache=cache, window=window, causal=causal)
+    x = constrain(x, ("batch", None, None))
     x, aux = ffn_apply(p["ffn"], x, cfg, patterns=patterns)
     return x, cache, aux

@@ -19,8 +19,11 @@ Responsibilities (all exercised by tests/test_runtime.py):
     where ``$REPRO_THRESHOLDS`` auto-loads it, so fleets converge to
     backend-correct selector thresholds without operator action.
 
-Train state and batches are trees of tensors; a step's time is taken after
-a sync on the device of its first metric.
+Train state and batches are trees of tensors, or of placed leaves
+(``dist.placement``; ``run(state, shardings)`` restores onto the mesh of
+``shardings``, by default onto the state's own, after a failure too); a
+step's time is taken after a sync on the device of its first metric (of a
+placed step, the first position's).
 """
 from __future__ import annotations
 

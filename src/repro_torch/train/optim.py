@@ -13,6 +13,10 @@ import math
 
 import torch
 
+from ..dist.placement import (first_placed, is_placed, local_tree,
+                              per_position, replicated)
+from ..models import spmd
+
 
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
@@ -54,7 +58,6 @@ def tree_leaves(tree) -> list:
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
 
-
 def init_opt_state(params: dict, cfg: OptConfig) -> dict:
     """``{"step": 0, "m": zeros, "v": zeros}``, the moments in
     ``cfg.moment_dtype`` on each parameter's device and the step on the
@@ -62,17 +65,36 @@ def init_opt_state(params: dict, cfg: OptConfig) -> dict:
     learning rate there, with no copy from the host, so ``adamw_update``
     and a ``skip_nonfinite`` step make no host sync."""
     mdt = getattr(torch, cfg.moment_dtype)
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device),
-                     params)
-    leaves = tree_leaves(params)
-    device = leaves[0].device if leaves else None
-    return {"step": torch.zeros((), dtype=torch.int32, device=device),
-            "m": zeros, "v": tree_map(torch.clone, zeros)}
+    zeros = tree_map(per_position(
+        lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)), params)
+    if is_placed(params):
+        step = replicated(torch.zeros((), dtype=torch.int32),
+                          first_placed(params).mesh, "step")
+    else:
+        leaves = tree_leaves(params)
+        step = torch.zeros((), dtype=torch.int32,
+                           device=leaves[0].device if leaves else None)
+    return {"step": step, "m": zeros,
+            "v": tree_map(per_position(torch.clone), zeros)}
 
 
 def global_norm(tree: dict) -> torch.Tensor:
     """The f32 2-norm of every tensor in ``tree`` together, on the device
-    of the first."""
+    of the first.  Of placed gradients, the norm of the logical ones: each
+    position sums the squares of the shards it is the first to hold (a
+    replicated copy counts once), a psum over the mesh adds them; a
+    replicated ``Placed`` 0-d value."""
+    if is_placed(tree):
+        rt = spmd.Runtime.of(tree)
+        sq = {}
+        for p in rt.positions:
+            parts = [torch.sum(torch.square(g.local(p).float()))
+                     for g in tree_leaves(tree) if g.owns(p)]
+            zero = torch.zeros((), dtype=torch.float32, device=rt.device(p))
+            sq[p] = torch.stack(parts).sum() if parts else zero
+        with torch.no_grad():
+            tot = spmd.psum_all(rt, sq, "global norm")
+        return rt.rep({p: torch.sqrt(t) for p, t in tot.items()}, "grad_norm")
     sq = [torch.sum(torch.square(t.float())) for t in tree_leaves(tree)]
     if not sq:
         return torch.zeros(())
@@ -81,9 +103,35 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
-    """One AdamW step: ``(new_params, new_state, {"grad_norm", "lr"})``."""
-    step = state["step"] + 1
+    """One AdamW step: ``(new_params, new_state, {"grad_norm", "lr"})``.
+    On placed trees each position updates its own shards (the clip on the
+    logical gradients' norm); the metrics are the first position's."""
+    if is_placed(params):
+        return _adamw_placed(params, grads, state, cfg)
+    return _adamw(params, grads, state, cfg, global_norm(grads))
+
+
+def _adamw_placed(params: dict, grads: dict, state: dict, cfg: OptConfig):
+    rt = spmd.Runtime.of(params)
     gnorm = global_norm(grads)
+    outs = {p: _adamw(local_tree(params, p), local_tree(grads, p),
+                      local_tree(state, p), cfg, gnorm.local(p))
+            for p in rt.positions}
+
+    def back(like, pick):
+        if isinstance(like, dict):
+            return {k: back(v, lambda o, k=k: pick(o)[k])
+                    for k, v in like.items()}
+        return rt.placed({p: pick(o) for p, o in outs.items()}, like.spec,
+                         like.shape, like.name)
+    p0 = rt.positions[0]
+    return (back(params, lambda o: o[0]), back(state, lambda o: o[1]),
+            outs[p0][2])
+
+
+def _adamw(params: dict, grads: dict, state: dict, cfg: OptConfig,
+           gnorm: torch.Tensor):
+    step = state["step"] + 1
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     b1, b2 = cfg.betas

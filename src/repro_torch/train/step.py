@@ -11,6 +11,10 @@ import torch
 
 from ..core.guardrails import all_finite
 from ..core.registry import backend_scope
+from ..dist.placement import device_get, is_placed, per_position
+from ..dist.sharding_rules import (SPARSE_WEIGHT_RULES, NamedSharding,
+                                   check_divisibility, partition_spec)
+from ..models import spmd
 from .optim import (OptConfig, adamw_update, init_opt_state, tree_leaves,
                     tree_map)
 
@@ -40,9 +44,21 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig) -> Callable:
     through ``use_backend``.  With ``tcfg.skip_nonfinite`` a step whose loss
     or grads hold a non-finite value returns the state it was given, bit
     for bit, and ``skipped_nonfinite`` 1 (a 0-d tensor on the params'
-    device, as the all-finite predicate the selection reads)."""
+    device, as the all-finite predicate the selection reads).
 
-    def grads_of(params: dict, batch: dict):
+    On placed state (``dist.placement``) the same step runs on the
+    weight-gathered runtime (``models/spmd.py``): each position's rows of
+    each microbatch (a microbatch is a slice of the global batch, then
+    split over the batch axes, as the reference's), one graph over the
+    positions, gradients synced over the batch axes that replicate a leaf,
+    AdamW on each position's shards, one non-finite decision for all; the
+    metrics are the first position's tensors (the positions hold them
+    alike)."""
+
+    def grads_of(params: dict, batch: dict, rt):
+        if rt is not None:
+            with backend_scope(tcfg.sparse_backend):
+                return spmd.grads_of(loss_fn, rt, params, batch)
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         with backend_scope(tcfg.sparse_backend), torch.enable_grad():
             loss, metrics = loss_fn(leaves, batch)
@@ -51,36 +67,47 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig) -> Callable:
                    for k, v in metrics.items()}
         return loss.detach(), metrics, tree_map(lambda _: next(grads), leaves)
 
-    def accumulate(params: dict, batch: dict):
+    def accumulate(params: dict, batch: dict, rt):
         mb = tcfg.microbatches
         adt = getattr(torch, tcfg.accum_dtype)
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
-                                             device=p.device), params)
+        acc = tree_map(per_position(lambda p: torch.zeros(
+            p.shape, dtype=adt, device=p.device)), params)
         total = 0.0
+        batch = device_get(batch)        # a placed batch splits as logical
         for i in range(mb):
             part = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])[i]
                     for k, v in batch.items()}
-            loss, _, grads = grads_of(params, part)
-            acc = tree_map(lambda a, g: a + g.to(adt), acc, grads)
+            loss, _, grads = grads_of(params, part, rt)
+            acc = tree_map(per_position(lambda a, g: a + g.to(adt)), acc, grads)
             total = total + loss
-        return total / mb, {}, tree_map(lambda a: (a / mb).to(adt), acc)
+        return total / mb, {}, tree_map(per_position(
+            lambda a: (a / mb).to(adt)), acc)
 
     def train_step(state: dict, batch: dict):
         params, opt = state["params"], state["opt"]
+        rt = None
+        if is_placed(params):
+            rt = spmd.Runtime.of(params,
+                                 batch["tokens"].shape[0] // tcfg.microbatches)
         if tcfg.microbatches > 1:
-            loss, metrics, grads = accumulate(params, batch)
+            loss, metrics, grads = accumulate(params, batch, rt)
         else:
-            loss, metrics, grads = grads_of(params, batch)
+            loss, metrics, grads = grads_of(params, batch, rt)
         new_params, new_opt, opt_metrics = adamw_update(params, grads, opt,
                                                         tcfg.opt)
         out = {"loss": loss, **{k: v for k, v in metrics.items()
                                 if torch.as_tensor(v).ndim == 0},
                **opt_metrics}
         if tcfg.skip_nonfinite:
-            ok = _all_finite(loss, grads)
+            if rt is None:
+                ok = _all_finite(loss, grads)
+                skipped = ~ok
+            else:
+                ok = spmd.all_finite(rt, loss, grads)
+                skipped = ~ok.local(rt.positions[0])
             new_params = _keep(ok, new_params, params)
             new_opt = _keep(ok, new_opt, opt)
-            out["skipped_nonfinite"] = (~ok).to(torch.int32)
+            out["skipped_nonfinite"] = skipped.to(torch.int32)
         return {"params": new_params, "opt": new_opt}, out
 
     return train_step
@@ -95,17 +122,18 @@ def _all_finite(loss: torch.Tensor, grads: dict) -> torch.Tensor:
     return torch.stack(checks).all()
 
 
-def _keep(ok: torch.Tensor, new, old):
+def _keep(ok, new, old):
     """``new`` where ``ok``, else ``old``, through nested dicts of tensors
-    (the state on its own devices)."""
-    if isinstance(new, dict):
-        return {k: _keep(ok, v, old[k]) for k, v in new.items()}
-    return torch.where(ok.to(new.device), new, old)
+    (the state on its own devices); of placed state each position by its
+    own copy of ``ok``, a replicated ``Placed``."""
+    keep = per_position(lambda n, o, k: torch.where(k.to(n.device), n, o))
+    return tree_map(lambda n, o: keep(n, o, ok), new, old)
 
 
 def init_state(params: dict, tcfg: TrainConfig) -> dict:
-    """``{"params": detached copies, "opt": init_opt_state(...)}``."""
-    params = tree_map(lambda p: p.detach().clone(), params)
+    """``{"params": detached copies, "opt": init_opt_state(...)}`` (of
+    placed params: placed, each position's copy its own)."""
+    params = tree_map(per_position(lambda p: p.detach().clone()), params)
     return {"params": params, "opt": init_opt_state(params, tcfg.opt)}
 
 
@@ -114,11 +142,9 @@ def sparse_weight_shardings(params: dict, mesh, rules=None) -> dict:
     the sparse-FFN value streams (``v_gate`` / ``v_up`` / ``v_down``,
     ``(..., tiles, nnz)``): tiles over the DP axes, nnz contiguous — the
     split the sharded SpMM backend makes
-    (``launch.sharding_rules.SPARSE_WEIGHT_RULES``); leading (layer) axes
+    (``dist.sharding_rules.SPARSE_WEIGHT_RULES``); leading (layer) axes
     unsharded, a tile count the axes do not divide replicated.  Other
     leaves map to None (the caller's layout)."""
-    from ..launch.sharding_rules import (SPARSE_WEIGHT_RULES, NamedSharding,
-                                         check_divisibility, partition_spec)
     rules = rules or SPARSE_WEIGHT_RULES
 
     def one(name: str, leaf):

@@ -3661,3 +3661,114 @@ def _flat(tree, prefix=""):
         return {k: v for name in tree
                 for k, v in _flat(tree[name], f"{prefix}{name}.").items()}
     return {prefix[:-1]: tree.detach().double().cpu()}
+
+
+# ---------------------------------------------------------------------------
+# the weight-gathered SPMD runtime (models/spmd.py): a (2, 2) mesh whose
+# four positions share the card, against the same mesh of CPU positions
+# ---------------------------------------------------------------------------
+
+def _tp_state(arch, devices, tcfg):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import make_local_mesh
+    from repro_torch.launch.train import place_state
+    from repro_torch.models import Model
+    from repro_torch.train import init_state
+    model = Model(get_smoke(arch))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    mesh = make_local_mesh(2, 2, devices=devices)
+    state, shardings = place_state(model, init_state(params, tcfg), mesh)
+    return model, params, mesh, state, shardings
+
+
+def _tp_batch(dev):
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, 256, (4, 32))).to(dev)
+    labels = torch.from_numpy(rng.integers(-1, 256, (4, 32))).to(dev)
+    return {"tokens": tokens, "labels": labels}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-12b"])
+def test_cuda_tp_train_matches_the_cpu(cuda, arch):
+    """Two steps on the card's (2, 2) mesh from the CPU mesh's params:
+    losses within 1e-4, each leaf's change within 1e-3 and its AdamW
+    moments within 1e-4 (2-norm, relative); every shard on the card."""
+    from repro_torch.dist.placement import device_get
+    from repro_torch.train import OptConfig, TrainConfig, make_train_step
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1))
+    runs = {}
+    for devs in (["cpu"] * 4, [str(cuda)] * 4):
+        model, init, mesh, state, _ = _tp_state(arch, devs, tcfg)
+        step = make_train_step(model.loss_fn, tcfg)
+        losses = []
+        for _ in range(2):
+            state, metrics = step(state, _tp_batch(devs[0]))
+            losses.append(float(metrics["loss"]))
+        leaf = state["params"]["blocks"]["attn"]["wq"]
+        assert all(leaf.local(p).device.type == torch.device(devs[0]).type
+                   for p in np.ndindex(2, 2))
+        runs[devs[0]] = (losses, device_get(state))
+    (cpu_l, cpu_s), (card_l, card_s) = runs.values()
+    np.testing.assert_allclose(card_l, cpu_l, rtol=1e-4)
+    init = _flat(init)
+    for tree, tol in (("params", 1e-3), ("m", 1e-4), ("v", 1e-4)):
+        pick = (lambda st: st["params"]) if tree == "params" else (
+            lambda st, t=tree: st["opt"][t])
+        got, want = _flat(pick(card_s)), _flat(pick(cpu_s))
+        if tree == "params":
+            got = {k: v - init[k] for k, v in got.items()}
+            want = {k: v - init[k] for k, v in want.items()}
+        for k in want:
+            assert float((got[k] - want[k]).norm()) <= \
+                tol * float(want[k].norm()) + 1e-12, (tree, k)
+
+
+@pytest.mark.gpu
+def test_cuda_tp_prefill_matches_the_cpu(cuda):
+    from repro_torch.dist.placement import device_get
+    from repro_torch.train import TrainConfig
+    out = {}
+    for devs in (["cpu"] * 4, [str(cuda)] * 4):
+        model, _, _, state, _ = _tp_state("llama3.2-1b", devs, TrainConfig())
+        logits, caches = model.prefill(state["params"],
+                                       {"tokens": _tp_batch(devs[0])["tokens"]},
+                                       40)
+        out[devs[0]] = (device_get(logits), device_get(caches))
+    (lc, cc), (lg, cg) = out.values()
+    assert float((lg - lc).abs().max()) <= 1e-4 * float(lc.abs().max())
+    for k, v in _flat(cc).items():
+        assert float((_flat(cg)[k] - v).abs().max()) <= \
+            1e-4 * max(float(v.abs().max()), 1e-30), k
+
+
+@pytest.mark.gpu
+def test_cuda_tp_restore_onto_another_mesh_and_the_log(cuda, tmp_path):
+    """A placed state saved at (2, 2) on the card restores at (4, 1) on the
+    card bit-equal; one step's log of position (0, 0) equals the plan."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dist.placement import Placed, device_get
+    from repro_torch.launch import dryrun, make_local_mesh
+    from repro_torch.models import spmd
+    from repro_torch.launch.train import place_state, train_rules
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    tcfg = TrainConfig()
+    model, params, mesh, state, _ = _tp_state("llama3.2-1b",
+                                              [str(cuda)] * 4, tcfg)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state)
+    mesh4 = make_local_mesh(4, 1, devices=[str(cuda)] * 4)
+    _, sh4 = place_state(model, init_state(params, tcfg), mesh4)
+    back = mgr.restore(1, like=state, shardings=sh4)
+    assert isinstance(back["params"]["embed"], Placed)
+    want, got = _flat(device_get(state)), _flat(device_get(back))
+    assert all(torch.equal(got[k], v) for k, v in want.items())
+    with spmd.collective_log() as log:
+        make_train_step(model.loss_fn, tcfg)(state, _tp_batch(cuda))
+    plan = dryrun.plan_collectives(model, ShapeCell("t", 32, 4, "train"),
+                                   mesh, train_rules())
+    by_kind = {}
+    for r in plan:
+        by_kind[r.kind] = by_kind.get(r.kind, 0) + r.bytes * r.count
+    assert log.bytes_by_kind((0, 0)) == by_kind

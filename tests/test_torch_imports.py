@@ -98,6 +98,10 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.launch.dryrun",
                    "repro_torch.launch.diagnose",
                    "repro_torch.launch.train",
+                   "repro_torch.dist",
+                   "repro_torch.dist.placement",
+                   "repro_torch.dist.sharding_rules",
+                   "repro_torch.models.spmd",
                    "repro_torch.train.manual_collectives"):
         assert module in names, (module, sorted(names))
 

@@ -241,14 +241,19 @@ def test_plan_collectives_by_regime():
     mesh = make_production_mesh()
     llama = Model(get("llama3.2-1b"))
     # every Llama leaf is sharded over the batch axes (FSDP): no grad
-    # all-reduce is left
-    for name, kinds in (("train_4k", {"all-gather", "reduce-scatter"}),
+    # all-reduce is left; train's all-reduces are the vocab-sharded loss's
+    # and the global norm's (the runtime's count, ``models/spmd.py``)
+    for name, kinds in (("train_4k", {"all-gather", "reduce-scatter",
+                                      "all-reduce"}),
                         ("prefill_32k", {"all-gather"}),
                         ("decode_32k", {"all-reduce"})):
         cell = _cell(name)
         rules = input_specs.build_cell(llama, cell, mesh).rules
         recs = dryrun.plan_collectives(llama, cell, mesh, rules)
         assert {r.kind for r in recs} == kinds, name
+        assert not [r for r in recs if r.kind == "all-reduce"
+                    and r.rule not in ("vocab-parallel loss", "clip",
+                                       "TP over model")], name
     cell = _cell("decode_32k")
     rules = input_specs.build_cell(llama, cell, mesh).rules
     (tp,) = dryrun.plan_collectives(llama, cell, mesh, rules)

@@ -250,6 +250,31 @@ def test_kernels_spmm_shim():
     assert torch.equal(y, want)
 
 
+def test_spmm_nb_pr_trainable_shim():
+    """Mirrors ``tests/test_plan.py::test_spmm_nb_pr_trainable_shim``: the
+    deprecated trainable front door warns and answers as ``A @ x`` does,
+    and the reference's shim gives the same product."""
+    from repro.core import plan as ref_plan
+    from repro.core import spmm_nb_pr_trainable as ref_shim
+    from repro_torch.core import spmm_nb_pr_trainable
+    from repro_torch.core.plan import plan
+    from conftest import random_csr
+    import jax.numpy as jnp
+    rng = np.random.default_rng(0)
+    csr, a = random_csr(rng, 20, 20, 0.2)
+    bal = plan(_port(csr), tile=16).substrate("balanced")
+    xn = rng.standard_normal((20, 3)).astype(np.float32)
+    x = torch.from_numpy(xn)
+    with pytest.warns(DeprecationWarning):
+        y = spmm_nb_pr_trainable((bal.rows, bal.cols, bal.shape), bal.vals, x)
+    np.testing.assert_allclose(y.numpy(), a @ xn, atol=1e-4)
+    rbal = ref_plan(csr, tile=16).substrate("balanced")
+    with pytest.warns(DeprecationWarning):
+        ry = ref_shim((rbal.rows, rbal.cols, rbal.shape), rbal.vals,
+                      jnp.asarray(xn))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # the quickstart example
 # ---------------------------------------------------------------------------

@@ -157,16 +157,26 @@ def test_straggler_watchdog(tmp_ckpt):
 
 
 def test_elastic_restore(tmp_ckpt):
-    """A restore places each leaf on the device of ``like``'s; a sharded
-    restore (``shardings=``) splits dense leaves over a mesh, which waits
-    for a tensor-parallel runtime (ROADMAP item 7)."""
+    """Checkpoint written under one sharding restores onto a different mesh
+    (the reference's contract): gathered equal, each shard on its
+    position's device; a plain restore places on ``like``'s device."""
+    from repro_torch.dist.placement import Placed, device_get
+    from repro_torch.launch import make_local_mesh
+    from repro_torch.launch.sharding_rules import NamedSharding, PartitionSpec
     mgr = CheckpointManager(tmp_ckpt)
     tree = {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8)}
     mgr.save(1, tree)
     back = mgr.restore(1, like={"w": torch.zeros(8, 8)})
     assert torch.equal(back["w"], tree["w"]) and back["w"].device == CPU
-    with pytest.raises(NotImplementedError, match="item 7"):
-        mgr.restore(1, like=tree, shardings={"w": None})
+    mesh = make_local_mesh(4, 1, devices=["cpu"] * 4)
+    sh = {"w": NamedSharding(mesh, PartitionSpec("data", None))}
+    back = mgr.restore(1, like=tree, shardings=sh)
+    assert isinstance(back["w"], Placed) and back["w"].sharding == sh["w"]
+    assert torch.equal(device_get(back)["w"], tree["w"])
+    for i in range(4):
+        local = back["w"].local((i, 0))
+        assert local.device == mesh.devices[i, 0]
+        assert torch.equal(local, tree["w"][2 * i:2 * i + 2])
 
 
 def test_driver_calibration_retries_and_surfaces_outcome(tmp_ckpt, tmp_path,
