@@ -425,7 +425,8 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              devices, on the card's host: its summary line;
 22. tp     — the weight-gathered SPMD runtime (``models/spmd.py``) on a
              (data=2, model=2) mesh whose four positions share the card
-             (``TP``), no kernel of K1-K11 on its path: (a) Llama-3.2-1B at
+             (``TP``), no kernel of K1-K11 on the path of (a)-(c) and
+             (e): (a) Llama-3.2-1B at
              full width (bf16, block remat), 3 steps of 4 x 256 at lr 3e-4
              from the params of an unsharded run on the card: each loss
              within 2e-2 (relative) of the unsharded step's, each leaf's
@@ -442,7 +443,17 @@ uses neither JAX nor the reference package.  Phases, each fatal on failure:
              prefill's; (c) at the 100m scale, a placed state saved at (2,
              2) restored at (4, 1) and unplaced, both bit-equal to it once
              gathered, and one more step from the restored state bit-equal
-             to the step from the state never saved;
+             to the step from the state never saved; (d) (a) and (b)
+             with a sparse FFN (density 0.15, tile 512: 4,916 tiles a
+             matrix, placed 2,458 a ``data`` shard), each shard's K1 and
+             K6 on its own piece: K1 1,152 and K6 384 a step and K1 384 a
+             prefill, as the per-shard design counts them, the log equal
+             to the plan, and a second floor run (the unsharded step with
+             its sparse matmuls' tiles over 2 shards of the sharded
+             backend); (e) Zamba2-2.7B cut to 12 layers, RWKV-6 3B to 4,
+             Whisper-tiny whole, at full width in f32 (``LEAF_TOL`` 1e-3),
+             2 steps and a prefill each; every loss within ``RTOL`` or
+             twice the floor runs' loss error;
 23. summary — one JSON line of the kernels (``launches`` and ``design``:
              the main path's; ``launches_by_path`` and ``design_by_path``:
              every path above; for K1, K2, K4 and K5 ``launches_by_value``,
@@ -2187,10 +2198,22 @@ def launch_phase(ctx, sizes=LAUNCH):
 #: full width on a (data=2, model=2) mesh whose positions share the card,
 #: ``tp_steps`` steps of ``tp_batch`` x ``tp_seq`` at lr 3e-4 against the
 #: unsharded steps from the same params; (b) a prefill of ``pre_batch`` x
-#: ``pre_seq``; (c) an elastic restore at the ``restore_scale``
+#: ``pre_seq``; (c) an elastic restore at the ``restore_scale``; (d) (a) and
+#: (b) with a sparse FFN of ``sparse_density`` in tiles of ``sparse_tile``
+#: (``examples/train_sparse_lm.py``'s settings); (e) ``family_steps`` steps
+#: of each of ``families`` (arch, depth cut, (batch, seq)) and a prefill,
+#: in ``family_dtype``: in bf16 AdamW's ratio turns the rounding of
+#: near-zero gradient entries into whole updates of either sign, which the
+#: floor run does not reproduce (Whisper's norm weights 3.7% against a
+#: floor of 0.5% on an H100), so the families are held in f32 at 1e-3
 TP = dict(arch="llama3.2-1b", scale="full", data=2, model=2, tp_steps=3,
           tp_batch=4, tp_seq=256, lr=3e-4, pre_batch=4, pre_seq=512,
-          restore_scale="100m", restore_batch=8, restore_seq=256)
+          restore_scale="100m", restore_batch=8, restore_seq=256,
+          sparse_density=0.15, sparse_tile=512, family_steps=2,
+          families=(("zamba2-2.7b", {"num_layers": 12}, (4, 256)),
+                    ("rwkv6-3b", {"num_layers": 4}, (4, 256)),
+                    ("whisper-tiny", {}, (4, 64))),
+          family_dtype="float32")
 
 
 def _busy_ms(fn) -> tuple:
@@ -2198,9 +2221,10 @@ def _busy_ms(fn) -> tuple:
     ``torch.profiler``: the union of the device events' intervals."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
+    # the device's activity alone on the card: a host-bound step's CPU
+    # events (RWKV-6's token loop) cost more to collect than the step
+    acts = [ProfilerActivity.CUDA if torch.cuda.is_available()
+            else ProfilerActivity.CPU]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         out = fn()
@@ -2226,24 +2250,18 @@ def tp_phase(ctx, sizes=TP):
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.dist.placement import device_get, device_put
-    from repro_torch.launch import dryrun, make_local_mesh, train
-    from repro_torch.models import spmd
-    from repro_torch.launch.sharding_rules import make_sharding_fn
+    from repro_torch.dist.placement import device_get
+    from repro_torch.launch import make_local_mesh, train
+    from repro_torch.launch.sharding_rules import SPARSE_WEIGHT_RULES
     from repro_torch.models import Model
-    from repro_torch.models.config import ShapeCell
-    from repro_torch.models.params import param_shardings
+    from repro_torch.models.config import SparseFFNConfig
+    from repro_torch.models.sharding_ctx import activation_sharding
     from repro_torch.train import (OptConfig, TrainConfig, init_state,
                                    make_train_step)
 
     dev, fail, say = ctx.dev, ctx.fail, ctx.say
     n_pos = sizes["data"] * sizes["model"]
     rows = {}
-    on_card = dev.type == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
 
     def mesh_of(data, model):
         return make_local_mesh(data, model, devices=[dev] * (data * model))
@@ -2261,131 +2279,28 @@ def tp_phase(ctx, sizes=TP):
     init = model.init(gen, dev)
     batches = [batch_of(gen, sizes["tp_batch"], sizes["tp_seq"],
                         cfg.vocab_size) for _ in range(sizes["tp_steps"])]
-    step = make_train_step(model.loss_fn, tcfg)
-    state = init_state(init, tcfg)
-    plain_losses, plain_ms = [], []
-    for b in batches:
-        t0 = time.perf_counter()
-        state, m = step(state, b)
-        sync()
-        plain_ms.append(1e3 * (time.perf_counter() - t0))
-        plain_losses.append(float(m["loss"]))
-    flat_init = _flat_tree(init)
-    plain_final = _flat_tree(state["params"])
-    plain_m = _flat_tree(state["opt"]["m"])
-    del state, m
-    gc_cuda()
-
-    def leaf_errors(params, moments):
-        """Each leaf's change (params − init) and f32 first moment against
-        the unsharded run's: relative 2-norm errors."""
-        out = {}
-        for k, final in plain_final.items():
-            start = flat_init[k].float()
-            want = final.float() - start
-            ce = float((params[k].float() - start - want).norm())
-            mw = plain_m[k].float()
-            me = float((moments[k].float() - mw).norm())
-            out[k] = (ce / max(float(want.norm()), 1e-30),
-                      me / max(float(mw.norm()), 1e-30))
-        return out
-
-    # the floor: the unsharded step in 2 microbatches, the same math with
-    # the bf16 gradients of two halves of the rows summed, as the mesh's
-    # batch split sums them
-    mstep = make_train_step(model.loss_fn,
-                            dataclasses.replace(tcfg, microbatches=2))
-    state = init_state(init, tcfg)
-    for b in batches:
-        state, _ = mstep(state, b)
-    floor = leaf_errors(_flat_tree(state["params"]), _flat_tree(state["opt"]["m"]))
-    del state
-    gc_cuda()
     mesh = mesh_of(sizes["data"], sizes["model"])
-    pstate, _ = train.place_state(model, init_state(init, tcfg), mesh)
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
-    losses, walls, logs = [], [], []
-    busy = wall_prof = None
-    for i, b in enumerate(batches):
-        def run(b=b):
-            return ctx.drive(lambda: step(pstate, b), "tp")
-        with spmd.collective_log() as log:
-            if i == len(batches) - 1:       # the last step under the profiler
-                ((pstate, m), counts), busy, wall_prof = _busy_ms(run)
-                t = wall_prof
-            else:
-                t0 = time.perf_counter()
-                (pstate, m), counts = run()
-                t = 1e3 * (time.perf_counter() - t0)
-        if any(counts.values()):
-            fail(f"tp (a): the dense path launched {counts}")
-        walls.append(t)
-        losses.append(float(m["loss"]))
-        logs.append(log.bytes_by_kind((0, 0)))
-    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
-    got = _flat_tree(device_get(pstate["params"], dev))
-    # bf16 params and gradients: a step's update of lr 3e-4 is ~2.5 spacings
-    # of a weight of 0.02, and the mesh sums the bf16 gradients of its row
-    # halves where the unsharded step rounds once, so each leaf is held to
-    # 2e-2 of its change's (and first moment's) size or to twice the floor
-    # run's error, whichever is larger
-    errs = leaf_errors(got, _flat_tree(device_get(pstate["opt"]["m"], dev)))
-    bad = {k: (e, floor[k]) for k, e in errs.items()
-           if any(x > max(ctx.rtol["bfloat16"], 2 * f)
-                  for x, f in zip(e, floor[k]))}
-    worst_c = max(errs, key=lambda k: errs[k][0])
-    worst_m = max(errs, key=lambda k: errs[k][1])
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
-    cell = ShapeCell("tp", sizes["tp_seq"], sizes["tp_batch"], "train")
-    plan = {}
-    for r in dryrun.plan_collectives(model, cell, mesh, train.train_rules()):
-        plan[r.kind] = plan.get(r.kind, 0) + r.bytes * r.count
-    row = {"arch": cfg.name, "mesh": dict(mesh.shape), "positions": n_pos,
-           "losses": losses, "unsharded_losses": plain_losses,
-           "loss_rel_err": max(rel),
-           "worst_leaf_change": [worst_c, errs[worst_c][0],
-                                 floor[worst_c][0]],
-           "worst_leaf_m": [worst_m, errs[worst_m][1], floor[worst_m][1]],
-           "leaves_over_2e-2": sum(max(e) > ctx.rtol["bfloat16"]
-                                   for e in errs.values()),
-           "leaves_over_bound": bad,
-           "step_ms": walls, "step_ms_profiled_last": wall_prof,
-           "device_busy_ms_last": busy, "unsharded_step_ms": plain_ms,
-           "peak_gb": peak, "log_bytes_a_step": logs[-1],
-           "plan_bytes_a_step": plan}
+    row, counts = _train_on_mesh(ctx, model, init, batches, mesh, tcfg)
+    row = {"arch": cfg.name, "positions": n_pos, **row}
     say("(a) train", row)
-    if max(rel) > ctx.rtol["bfloat16"] or bad or \
-            any(log != plan for log in logs) or \
-            not all(math.isfinite(x) for x in losses):
+    if any(n for c in counts for n in c.values()):
+        fail(f"tp (a): the dense path launched {counts}")
+    if not row["ok"]:
         fail(f"tp (a): {row}")
     rows["train"] = row
-    del pstate, plain_final, plain_m, got
-    gc_cuda()
 
     # (b) prefill on the mesh against the unsharded prefill
     toks = batch_of(gen, sizes["pre_batch"], sizes["pre_seq"],
                     cfg.vocab_size)["tokens"]
-    with torch.no_grad():
-        want, _ = model.prefill(init, {"tokens": toks}, sizes["pre_seq"])
-        placed = device_put(init, param_shardings(
-            model.specs, make_sharding_fn(mesh, train.train_rules())))
-        t0 = time.perf_counter()
-        (logits, _), counts = ctx.drive(
-            lambda: model.prefill(placed, {"tokens": toks}, sizes["pre_seq"]),
-            "tp")
-        pre_ms = 1e3 * (time.perf_counter() - t0)
-        logits = device_get(logits, dev)
-    err = float((logits.float() - want.float()).abs().max()) / \
-        float(want.float().abs().max())
-    row = {"batch": sizes["pre_batch"], "seq": sizes["pre_seq"],
-           "logits_rel_err": err, "prefill_ms": pre_ms,
+    row, counts = _prefill_on_mesh(ctx, model, init, {"tokens": toks}, mesh,
+                                   sizes["pre_seq"])
+    row = {"batch": sizes["pre_batch"], "seq": sizes["pre_seq"], **row,
            "logits_spec": "(batch over data, vocab over model)"}
     say("(b) prefill", row)
-    if not err <= ctx.rtol["bfloat16"] or any(counts.values()):
+    if not row["ok"] or any(counts.values()):
         fail(f"tp (b): {row} {counts}")
     rows["prefill"] = row
-    del placed, logits, want, init
+    del init
     gc_cuda()
 
     # (c) elastic restore at the 100m scale
@@ -2425,7 +2340,277 @@ def tp_phase(ctx, sizes=TP):
     if not (same41 and same_plain and step_equal):
         fail(f"tp (c): {row}")
     rows["restore"] = row
+    del st, back41, plain, direct, a, b_, rinit
+    gc_cuda()
+
+    # (d) the sparse FFN at full width: each value stream's tiles over data
+    scfg = cfg.scaled(sparse_ffn=SparseFFNConfig(
+        density=sizes["sparse_density"], tile=sizes["sparse_tile"]))
+    smodel = Model(scfg)
+    sgen = torch.Generator(device=dev).manual_seed(ctx.seed)
+    sinit = smodel.init(sgen, dev)
+    sbatches = [batch_of(sgen, sizes["tp_batch"], sizes["tp_seq"],
+                         scfg.vocab_size) for _ in range(sizes["tp_steps"])]
+    # a second floor: the unsharded step whose sparse matmuls split their
+    # tiles over 2 shards of the sharded backend and sum the partials, as
+    # each position's matmul does (the reference's shard_map)
+    split = make_local_mesh(sizes["data"], 1,
+                            devices=[dev] * sizes["data"])
+    row, counts = _train_on_mesh(
+        ctx, smodel, sinit, sbatches, mesh, tcfg,
+        floor_scopes=[("tiles split over 2 shards",
+                       lambda: activation_sharding(split,
+                                                   SPARSE_WEIGHT_RULES))])
+    pats = smodel.patterns
+    tiles = pats["gate"][0].n_tiles
+    nnz = int((pats["gate"][0].rows < scfg.d_ff).sum())
+    vsh = train.param_placement(smodel, sinit, mesh)["blocks"]["ffn"]["v_up"]
+    shards = sizes["data"] if vsh.spec[1] == "data" else 1
+    # a step's K1 launches by the per-shard design: each position's program
+    # runs one K1 a shard for each of its 3 matrices in each layer, again in
+    # the recompute of the rematted block, and once more on the shard's
+    # transposed slabs for dX; K6 one a shard a matrix a layer for dvals
+    matmuls = n_pos * shards * 3 * scfg.num_layers
+    want_k1 = matmuls * (3 if scfg.remat != "none" else 2)
+    k1 = [c["vsr_spmm"] for c in counts]
+    k6 = [c["sddmm"] for c in counts]
+    others = {k: n for c in counts for k, n in c.items()
+              if n and k not in ("vsr_spmm", "sddmm")}
+    row = {"arch": scfg.name, "positions": n_pos,
+           "sparse_ffn": {"density": sizes["sparse_density"],
+                          "tile": sizes["sparse_tile"], "nnz_a_matrix": nnz,
+                          "tiles_a_matrix": tiles,
+                          "tiles_a_shard": -(-tiles // shards),
+                          "v_spec": str(vsh.spec)},
+           **row, "k1_launches_a_step": k1, "k1_designed_a_step": want_k1,
+           "k6_launches_a_step": k6, "k6_designed_a_step": matmuls,
+           "other_launches": others}
+    say("(d) sparse FFN train", row)
+    if not row["ok"] or any(n != want_k1 for n in k1) or \
+            any(n != matmuls for n in k6) or others or shards != sizes["data"]:
+        fail(f"tp (d): {row}")
+    rows["sparse_train"] = row
+    stoks = batch_of(sgen, sizes["pre_batch"], sizes["pre_seq"],
+                     scfg.vocab_size)["tokens"]
+    row, counts = _prefill_on_mesh(ctx, smodel, sinit, {"tokens": stoks},
+                                   mesh, sizes["pre_seq"])
+    want = n_pos * shards * 3 * scfg.num_layers
+    row = {"batch": sizes["pre_batch"], "seq": sizes["pre_seq"], **row,
+           "k1_launches": counts["vsr_spmm"], "k1_designed": want}
+    say("(d) sparse FFN prefill", row)
+    if not row["ok"] or counts["vsr_spmm"] != want or \
+            any(n for k, n in counts.items() if k != "vsr_spmm"):
+        fail(f"tp (d): {row} {counts}")
+    rows["sparse_prefill"] = row
+    del sinit, smodel, pats
+    gc_cuda()
+
+    # (e) the hybrid, SSM and audio families at full width, cut in depth
+    for arch, cut, (fb, fs) in sizes["families"]:
+        fcfg = train.scale_config(arch, sizes["scale"]).scaled(
+            **cut, param_dtype=sizes["family_dtype"],
+            compute_dtype=sizes["family_dtype"])
+        fmodel = Model(fcfg)
+        fgen = torch.Generator(device=dev).manual_seed(ctx.seed)
+        finit = fmodel.init(fgen, dev)
+
+        def fbatch(b, s, fcfg=fcfg, fgen=fgen):
+            out = batch_of(fgen, b, s, fcfg.vocab_size)
+            if fcfg.family == "audio":
+                out["frames"] = torch.randn(
+                    (b, fcfg.num_frames, fcfg.d_model), generator=fgen,
+                    device=dev)
+            return out
+        fbatches = [fbatch(fb, fs) for _ in range(sizes["family_steps"])]
+        row, counts = _train_on_mesh(ctx, fmodel, finit, fbatches, mesh, tcfg)
+        pre = fbatch(fb, fs)
+        pre.pop("labels")
+        prow, pcounts = _prefill_on_mesh(ctx, fmodel, finit, pre, mesh, fs)
+        row = {"arch": fcfg.name, "family": fcfg.family, "cut": cut,
+               "layers": fcfg.num_layers, "batch": fb, "seq": fs,
+               "positions": n_pos, **row, "prefill": prow}
+        say(f"(e) {fcfg.family} {arch}", row)
+        if not (row["ok"] and prow["ok"]) or \
+                any(n for c in counts + [pcounts] for n in c.values()):
+            fail(f"tp (e): {row} {counts} {pcounts}")
+        rows[arch] = row
+        del finit, fmodel, fbatches, pre
+        gc_cuda()
     return rows
+
+
+def _leaf_errors(plain_final, flat_init, plain_m, params, moments) -> dict:
+    """Each leaf's change (params − init) and f32 first moment against the
+    unsharded run's: relative 2-norm errors."""
+    out = {}
+    for k, final in plain_final.items():
+        start = flat_init[k].float()
+        want = final.float() - start
+        ce = float((params[k].float() - start - want).norm())
+        mw = plain_m[k].float()
+        me = float((moments[k].float() - mw).norm())
+        out[k] = (ce / max(float(want.norm()), 1e-30),
+                  me / max(float(mw.norm()), 1e-30))
+    return out
+
+
+#: a leaf's change and first moment on the mesh against the unsharded
+#: run's (relative 2-norm), by the params' type, unless twice the floor
+#: run's error is larger
+LEAF_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
+
+
+def _train_on_mesh(ctx, model, init, batches, mesh, tcfg,
+                   floor_scopes=()) -> tuple:
+    """The steps of ``batches`` unsharded, then the floor runs, then on
+    ``mesh`` (driven, on path ``tp``), all from the same params ``init``:
+    ``(row, each placed step's launches by kernel)``.  A floor run is the
+    unsharded step computed another way the mesh also computes it: in 2
+    microbatches (the gradients of two halves of the rows summed, as the
+    mesh's batch split sums them), and in each ``(name, scope)`` of
+    ``floor_scopes``, the unsharded step run inside ``scope()``.
+    ``row["ok"]``: each loss within ``RTOL`` of the params' type (relative)
+    of the unsharded step's, each leaf's change and f32 first moment within
+    ``LEAF_TOL`` of their size (2-norm), either or twice the floor runs'
+    largest error, whichever is larger, and the collective log's bytes a
+    step by kind (position (0, 0)'s program) equal to
+    ``dryrun.plan_collectives``.  The last placed step runs under the
+    profiler (device-busy ms)."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from repro_torch.dist.placement import device_get
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models import spmd
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.train import init_state, make_train_step
+
+    dev = ctx.dev
+    on_card = dev.type == "cuda"
+    t_start = time.perf_counter()
+    dtype = model.cfg.param_dtype
+    step = make_train_step(model.loss_fn, tcfg)
+    state = init_state(init, tcfg)
+    plain_losses, plain_ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        if on_card:
+            torch.cuda.synchronize()
+        plain_ms.append(1e3 * (time.perf_counter() - t0))
+        plain_losses.append(float(m["loss"]))
+    flat_init = _flat_tree(init)
+    plain_final = _flat_tree(state["params"])
+    plain_m = _flat_tree(state["opt"]["m"])
+    del state, m
+    gc_cuda()
+    mstep = make_train_step(model.loss_fn,
+                            dataclasses.replace(tcfg, microbatches=2))
+    floor, floor_loss = None, 0.0
+    for fstep, scope in ((mstep, contextlib.nullcontext),
+                         *((step, sc) for _, sc in floor_scopes)):
+        state = init_state(init, tcfg)
+        with scope():
+            for b, want in zip(batches, plain_losses):
+                state, m = fstep(state, b)
+                floor_loss = max(floor_loss,
+                                 abs(float(m["loss"]) - want) / abs(want))
+        errs = _leaf_errors(plain_final, flat_init, plain_m,
+                            _flat_tree(state["params"]),
+                            _flat_tree(state["opt"]["m"]))
+        floor = errs if floor is None else {
+            k: tuple(map(max, e, floor[k])) for k, e in errs.items()}
+        del state, m
+        gc_cuda()
+    pstate, _ = train.place_state(model, init_state(init, tcfg), mesh)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    losses, walls, logs, counts = [], [], [], []
+    busy = wall_prof = None
+    for i, b in enumerate(batches):
+        def run(b=b):
+            return ctx.drive(lambda: step(pstate, b), "tp")
+        with spmd.collective_log() as log:
+            if i == len(batches) - 1:       # the last step under the profiler
+                ((pstate, m), c), busy, wall_prof = _busy_ms(run)
+                t = wall_prof
+            else:
+                t0 = time.perf_counter()
+                (pstate, m), c = run()
+                t = 1e3 * (time.perf_counter() - t0)
+        counts.append(c)
+        walls.append(t)
+        losses.append(float(m["loss"]))
+        logs.append(log.bytes_by_kind((0, 0)))
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    got = _flat_tree(device_get(pstate["params"], dev))
+    # bf16 params and gradients: a step's update of lr 3e-4 is ~2.5 spacings
+    # of a weight of 0.02, and the mesh sums the bf16 gradients of its row
+    # halves where the unsharded step rounds once, so each leaf is held to
+    # 2e-2 of its change's (and first moment's) size or to twice the floor
+    # run's error, whichever is larger (f32: 1e-3)
+    errs = _leaf_errors(plain_final, flat_init, plain_m, got,
+                        _flat_tree(device_get(pstate["opt"]["m"], dev)))
+    bad = {k: (e, floor[k]) for k, e in errs.items()
+           if any(x > max(LEAF_TOL[dtype], 2 * f)
+                  for x, f in zip(e, floor[k]))}
+    worst_c = max(errs, key=lambda k: errs[k][0])
+    worst_m = max(errs, key=lambda k: errs[k][1])
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    b0 = batches[0]["tokens"]
+    cell = ShapeCell("tp", b0.shape[1], b0.shape[0], "train")
+    plan = {}
+    for r in dryrun.plan_collectives(model, cell, mesh,
+                                     train.train_rules(model.cfg)):
+        plan[r.kind] = plan.get(r.kind, 0) + r.bytes * r.count
+    ok = (max(rel) <= max(ctx.rtol[dtype], 2 * floor_loss) and not bad
+          and all(log == plan for log in logs)
+          and all(math.isfinite(x) for x in losses))
+    row = {"mesh": dict(mesh.shape), "dtype": dtype, "losses": losses,
+           "unsharded_losses": plain_losses, "loss_rel_err": max(rel),
+           "floor_runs": ["microbatches=2"] + [n for n, _ in floor_scopes],
+           "floor_loss_rel_err": floor_loss,
+           "worst_leaf_change": [worst_c, errs[worst_c][0],
+                                 floor[worst_c][0]],
+           "worst_leaf_m": [worst_m, errs[worst_m][1], floor[worst_m][1]],
+           "leaves_over_tol": sum(max(e) > LEAF_TOL[dtype]
+                                  for e in errs.values()),
+           "leaves_over_bound": bad,
+           "step_ms": walls, "step_ms_profiled_last": wall_prof,
+           "device_busy_ms_last": busy, "unsharded_step_ms": plain_ms,
+           "peak_gb": peak, "log_bytes_a_step": logs[-1],
+           "plan_bytes_a_step": plan, "ok": ok,
+           "section_s": time.perf_counter() - t_start}
+    del pstate, got
+    gc_cuda()
+    return row, counts
+
+
+def _prefill_on_mesh(ctx, model, init, batch, mesh, max_len) -> tuple:
+    """A prefill on ``mesh`` (driven, on path ``tp``) against the unsharded
+    prefill from the same params: ``(row, its launches by kernel)``;
+    ``row["ok"]``: the last position's logits within ``RTOL`` of the
+    params' type of the largest unsharded logit."""
+    import torch
+
+    from repro_torch.dist.placement import device_get, device_put
+    from repro_torch.launch import train
+
+    with torch.no_grad():
+        want, _ = model.prefill(init, batch, max_len)
+        placed = device_put(init, train.param_placement(model, init, mesh))
+        t0 = time.perf_counter()
+        (logits, _), counts = ctx.drive(
+            lambda: model.prefill(placed, batch, max_len), "tp")
+        pre_ms = 1e3 * (time.perf_counter() - t0)
+        logits = device_get(logits, ctx.dev)
+    err = float((logits.float() - want.float()).abs().max()) / \
+        float(want.float().abs().max())
+    del placed
+    return {"logits_rel_err": err, "prefill_ms": pre_ms,
+            "ok": err <= ctx.rtol[model.cfg.param_dtype]}, counts
 
 
 def _flat_tree(tree, prefix=""):

@@ -47,7 +47,10 @@ whole pattern on the inner backend, as the reference's custom VJP runs
 outside ``shard_map``.
 
 ``execute_pattern_sharded`` splits a bare balanced pattern's tiles evenly
-over the shards and psums the partials (the sparse-weight layers).
+over the shards and psums the partials (the sparse-weight layers);
+``pattern_split`` / ``run_pattern_shard`` are its split and one shard's
+product, which the placed runtime (``models.spmd.sparse_matmul``) runs on
+the pieces of a placed value stream.
 """
 from __future__ import annotations
 
@@ -810,29 +813,18 @@ registry.register("chain", "sharded", "shard_balanced", _chain_sharded,
 # the plan-free sharded entry of trainable patterns (sparse-weight layers)
 # ---------------------------------------------------------------------------
 
-def execute_pattern_sharded(rows: torch.Tensor, cols: torch.Tensor,
-                            vals: torch.Tensor, shape, x: torch.Tensor, *,
-                            mesh, axis: str | None = None,
-                            impl: str = "nb_pr", backend: str | None = None,
-                            quant: str | None = None) -> torch.Tensor:
-    """Split a bare balanced pattern's tiles evenly over ``axis`` (the
-    pattern is nnz-balanced already, so equal tiles are the nnz
-    partitioner) and psum the partials.  ``backend`` is the inner backend
-    (``None``: the one of the first shard's device).  The per-shard split
-    and prep are memoised on the pattern's ``PatternPrep`` (the identity
-    and version counters of ``rows`` and ``cols``, ``plan.pattern_prep``),
-    never hashed."""
+def pattern_split(rows: torch.Tensor, cols: torch.Tensor, shape, devices,
+                  entry: registry.KernelEntry) -> tuple[list, int]:
+    """A bare balanced pattern's tiles split evenly over ``devices`` (the
+    tail padded with ``row == M`` to equal shares): ``([(local
+    BalancedCOO, entry's prep opts, _ShardBwd) a shard], tiles a shard)``,
+    each shard's slabs on its device.  Memoised on the pattern's
+    ``PatternPrep`` (the identity and version counters of ``rows`` and
+    ``cols``, ``plan.pattern_prep``), never hashed."""
     from .plan import pattern_prep
-    axis = axis or default_shard_axis(mesh)
-    devices = shard_devices(mesh, axis)
-    n = len(devices)
-    backend = backend or default_inner_backend(devices[0])
-    entry = registry.resolve(impl, backend)
-    if entry.substrate != "balanced":
-        raise ValueError(f"execute_pattern_sharded needs a balanced-substrate "
-                         f"kernel; {impl!r} consumes {entry.substrate!r}")
     shape = tuple(int(s) for s in shape)
-    t, tile = rows.shape
+    t = rows.shape[0]
+    n = len(devices)
     per = -(-t // n)
     prep = pattern_prep(rows, cols, shape)
     key = (tuple(str(d) for d in devices), entry.logical, entry.backend)
@@ -849,19 +841,52 @@ def execute_pattern_sharded(rows: torch.Tensor, cols: torch.Tensor,
             opts = {} if entry.prep is None else dict(entry.prep(local))
             split.append((local, opts, _ShardBwd.of(local)))
         prep.shards[key] = split
+    return split, per
+
+
+def run_pattern_shard(split: list, s: int, entry: registry.KernelEntry,
+                      backend: str, vals: torch.Tensor, x: torch.Tensor,
+                      quant: str | None = None) -> torch.Tensor:
+    """Shard ``s`` of ``pattern_split``'s split times ``x``: its kernel on
+    its value slab ``vals`` (``(tiles a shard, tile)``), differentiable in
+    both (the SDDMM for ``vals``, the nb kernel on the shard's transposed
+    slabs for ``x``), on the shard's device."""
+    local, opts, bwd = split[s]
+    fn = functools.partial(entry.fn, **(opts if quant is None
+                                        else dict(opts, quant=quant)))
+    return exec_balanced(fn, local, _ShardVJP(bwd, backend, entry.logical),
+                         _on(vals, local.rows.device),
+                         _record_on_lane(_on(x, local.rows.device)))
+
+
+def execute_pattern_sharded(rows: torch.Tensor, cols: torch.Tensor,
+                            vals: torch.Tensor, shape, x: torch.Tensor, *,
+                            mesh, axis: str | None = None,
+                            impl: str = "nb_pr", backend: str | None = None,
+                            quant: str | None = None) -> torch.Tensor:
+    """Split a bare balanced pattern's tiles evenly over ``axis`` (the
+    pattern is nnz-balanced already, so equal tiles are the nnz
+    partitioner, ``pattern_split``) and psum the partials.  ``backend`` is
+    the inner backend (``None``: the one of the first shard's device)."""
+    axis = axis or default_shard_axis(mesh)
+    devices = shard_devices(mesh, axis)
+    n = len(devices)
+    backend = backend or default_inner_backend(devices[0])
+    entry = registry.resolve(impl, backend)
+    if entry.substrate != "balanced":
+        raise ValueError(f"execute_pattern_sharded needs a balanced-substrate "
+                         f"kernel; {impl!r} consumes {entry.substrate!r}")
+    t, tile = rows.shape
+    split, per = pattern_split(rows, cols, shape, devices, entry)
     v2 = torch.nn.functional.pad(vals.reshape(t, tile), (0, 0, 0, per * n - t))
     lanes = _Lanes(devices)
     spec = ShardSpec("nnz", axis, n, "psum", tuple(0 for _ in range(n + 1)))
 
     def run(s: int, xc: torch.Tensor) -> torch.Tensor:
-        local, opts, bwd = split[s]
-        fn = functools.partial(entry.fn, **(opts if quant is None
-                                            else dict(opts, quant=quant)))
-        return exec_balanced(fn, local, _ShardVJP(bwd, backend, impl),
-                             _on(v2[s * per:(s + 1) * per], local.rows.device),
-                             _record_on_lane(_on(xc, local.rows.device)))
+        return run_pattern_shard(split, s, entry, backend,
+                                 v2[s * per:(s + 1) * per], xc, quant)
 
-    return _reduce(spec, lanes, run, x, shape[0], None)
+    return _reduce(spec, lanes, run, x, int(shape[0]), None)
 
 
 def default_inner_backend(device) -> str:

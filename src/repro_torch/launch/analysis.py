@@ -26,6 +26,9 @@ Ring-traffic factors (per-device wire bytes, group size n):
   reduce-scatter     in_bytes  x (n-1)/n
   all-to-all         bytes     x (n-1)/n
   collective-permute bytes     x 1
+  broadcast, reduce  bytes     x (n-1)   (rooted at each position in turn:
+                     the sparse matmul's x out to its shards and their
+                     partials back, ``spmd.sparse_matmul``)
 """
 from __future__ import annotations
 
@@ -35,15 +38,18 @@ from ..models.spmd import Collective
 from .mesh import H100, Hardware
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-                "collective-permute")
+                "collective-permute", "broadcast", "reduce")
 _FACTOR = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
-           "all-to-all": 1.0, "collective-permute": 1.0}
+           "all-to-all": 1.0, "collective-permute": 1.0, "broadcast": 1.0,
+           "reduce": 1.0}
 
 
 def wire_bytes(rec: Collective) -> float:
     """Per-device wire bytes of ``rec``, all its repetitions."""
     if rec.kind == "collective-permute":
         ring = 1.0
+    elif rec.kind in ("broadcast", "reduce"):
+        ring = max(int(rec.n), 1) - 1
     else:
         n = max(int(rec.n), 2)
         ring = (n - 1) / n

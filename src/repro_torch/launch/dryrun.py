@@ -27,22 +27,32 @@ analyses, the port derives each term from the stand-ins and the rules:
   layer's share) over the batch's axes; no code size.  ``fits`` compares
   the peak with the card's HBM (80 GiB).
 * ``collectives``: for the train and prefill cells of the families the
-  weight-gathered runtime runs (dense attention and an MLP: Llama, Phi,
-  Gemma, Qwen2-VL), the log of one position's program (``models/spmd.py``;
-  ``runtime_collectives``): the step run on the meta mesh for position
-  ``(0, 0)`` alone, the SPMD symmetry making one position enough.  Every
-  other cell takes the plan's collectives, counted from the rules and each
-  leaf's spec.  ``collectives["source"]`` names which.  The plan
-  (``plan_collectives``) agrees with the runtime's log on its cells byte
-  for byte (``tests/test_torch_tp.py``); its assumptions:
+  weight-gathered runtime runs (all but MoE: Llama, Phi, Gemma, Qwen2-VL,
+  Zamba2, RWKV-6, Whisper), the log of one position's program
+  (``models/spmd.py``; ``runtime_collectives``): the step run on the meta
+  mesh for position ``(0, 0)`` alone, the SPMD symmetry making one
+  position enough.  Every other cell takes the plan's collectives, counted
+  from the rules and each leaf's spec, and so does a runtime cell whose
+  trace passes ``TRACE_BUDGET_S`` (RWKV-6's token loop at 4,096 and
+  32,768; ``collectives["runtime_reason"]`` says so).
+  ``collectives["source"]`` names which.  The plan (``plan_collectives``)
+  agrees with the runtime's log on its cells byte for byte
+  (``tests/test_torch_tp.py``, ``tests/test_torch_tp_sparse.py``); its
+  assumptions:
     - train and prefill gather every sharded weight where it is used
       (``__gather_weights__``), hierarchically, the ``data`` / ``pod`` axes
       first, so that the slow link carries the smaller share; a block's
-      weights once a layer, again in the recompute of a rematted block; the
+      weights once a layer (a Zamba2 group's layers and its shared block's
+      weights once a group), again in the recompute of a rematted block
+      (Whisper's blocks are not rematted); the
       embedding whole for the lookup and, tied, over its non-vocab axes for
       the unembedding (``lm_head`` likewise), each once; expert weights stay
       sharded over their ``experts`` axis (EP: the tokens move) and are
       gathered over their other axes only;
+    - a sparse FFN's value stream is never gathered: each of its matmuls
+      broadcasts the position's columns to the shards along its tile axes
+      and reduces their partials onto it, backward the cotangent out and
+      dX back, in the compute type (``_sparse_moves``);
     - the gradient of a gathered weight is reduce-scattered over the batch
       axes it was gathered over (the last gathered first) and *sliced* over
       the others: the ``model`` positions compute the same rows, so each
@@ -107,7 +117,7 @@ from .input_specs import build_cell, cache_specs
 from .mesh import H100, make_production_mesh
 from ..dist.placement import device_put
 from ..models import spmd
-from .sharding_rules import make_sharding_fn
+from .sharding_rules import check_divisibility, make_sharding_fn
 
 RESULTS = os.path.join(os.getcwd(), "results", "dryrun")
 #: seconds a cell's trace may take before its diagnostic is given up
@@ -240,6 +250,41 @@ def _gathers(mesh, spec, keep, batch_axes, full, gathers, scatters, what,
     return recs
 
 
+#: the sparse FFN's value streams: W is (d_ff, d_model) or (d_model, d_ff)
+_SPARSE_W = {"v_gate": "ff", "v_up": "ff", "v_down": "model"}
+
+
+def _sparse_moves(cfg, mesh, path, ps, layers, tokens, again, train,
+                  rule) -> list:
+    """The moves of one value stream's sparse matmul in each of ``layers``
+    (``spmd.sparse_matmul``): the position's ``x`` (k, tokens) broadcast to
+    the shards along the stream's tile axes and their partials (m, tokens)
+    reduced onto it, in the compute type; in the backward the cotangent
+    (m, tokens) broadcast and the shards' dX (k, tokens) reduced.  A
+    replicated stream moves nothing."""
+    axes = _axes(ps[-2])
+    n = _extent(mesh, axes)
+    if n == 1:
+        return []
+    d, f = cfg.d_model, cfg.d_ff
+    m, k = (f, d) if _SPARSE_W[path.rsplit(".", 1)[-1]] == "ff" else (d, f)
+    act = getattr(torch, cfg.compute_dtype).itemsize
+    # a rematted block's recompute stops at its last saved tensor (torch's
+    # early stop): the down projection's reduce, which saves nothing, runs
+    # once
+    last = path.endswith("v_down")
+    recs = [Collective("broadcast", k * tokens * act, axes, n,
+                       layers * again, path, rule),
+            Collective("reduce", m * tokens * act, axes, n,
+                       layers * (1 if last else again), path, rule)]
+    if train:
+        recs += [Collective("broadcast", m * tokens * act, axes, n, layers,
+                            path, rule),
+                 Collective("reduce", k * tokens * act, axes, n, layers,
+                            path, rule)]
+    return recs
+
+
 def _plan_runtime(model: Model, cell: ShapeCell, mesh, rules) -> list:
     """The collectives of one position's program under the weight-gathered
     runtime (``models/spmd.py``), counted from the specs: what its log
@@ -251,19 +296,37 @@ def _plan_runtime(model: Model, cell: ShapeCell, mesh, rules) -> list:
     if cell.global_batch % _extent(mesh, bax):
         bax = ()
     b_local = cell.global_batch // _extent(mesh, bax)
+    # a rematted block (a Zamba2 group, an RWKV block) runs its forward
+    # again in the recompute; Whisper's blocks are not rematted
+    again = 2 if train and cfg.remat != "none" else 1
     recs = []
     for path, spec in _param_paths(model.specs):
         ps = tuple(sfn(spec.logical).spec) + (None,) * len(spec.shape)
         ps = ps[:len(spec.shape)]
         full = math.prod(spec.shape) * spec.dtype.itemsize
+        stream = path.rsplit(".", 1)[-1].startswith("v_")
+        if stream and not check_divisibility(spec.shape, ps, mesh):
+            ps = (None,) * len(spec.shape)       # replicated, as placed
         rule = f"{spec.logical} -> {ps}"
-        if path.startswith("blocks."):
-            lead = 2 if cfg.attn_pattern == "local_global" else 1
+        if stream:
+            recs += _sparse_moves(cfg, mesh, path, ps, spec.shape[0],
+                                  b_local * cell.seq_len, again, train, rule)
+        elif path.startswith("blocks."):
+            lead = 2 if cfg.attn_pattern == "local_global" or \
+                cfg.family == "hybrid" else 1
             layers = math.prod(spec.shape[:lead])
-            # a layer a use; a rematted block gathers again in the recompute
-            uses = layers * (2 if train and cfg.remat != "none" else 1)
-            recs += _gathers(mesh, ps[lead:], (), bax, full // layers, uses,
+            # a layer a use, again in a rematted block's recompute
+            recs += _gathers(mesh, ps[lead:], (), bax, full // layers,
+                             layers * again, layers * train, path, rule)
+        elif path.startswith(("enc_blocks.", "dec_blocks.")):
+            layers = spec.shape[0]
+            recs += _gathers(mesh, ps[1:], (), bax, full // layers, layers,
                              layers * train, path, rule)
+        elif path.startswith("shared_attn."):
+            # Zamba2's shared block: gathered at each group's use
+            groups = cfg.num_layers // cfg.shared_every
+            recs += _gathers(mesh, ps, (), bax, full, groups * again,
+                             groups * train, path, rule)
         elif path in ("embed", "lm_head"):
             vdim = 0 if path == "embed" else 1
             if path == "embed":
@@ -384,13 +447,15 @@ def plan_collectives(model: Model, cell: ShapeCell, mesh, rules) -> list:
 def runtime_collectives(model: Model, cell: ShapeCell, mesh, built):
     """The collectives of position ``(0, …, 0)``'s program, one step of
     the weight-gathered runtime (``models/spmd.py``) run on the meta mesh
-    for that position alone; None for a cell it does not run."""
+    for that position alone; None for a cell it does not run.  A run past
+    ``TRACE_BUDGET_S`` raises ``_OverBudget`` (RWKV-6's token loop)."""
     if cell.kind not in ("train", "prefill") or not spmd.supports(model.cfg) \
             or not built.rules.get("__gather_weights__"):
         return None
     pos = (0,) * len(mesh.axis_names)
     args = (device_put(built.args[0], built.shardings[0]),) + built.args[1:]
-    with spmd.only_position(pos), spmd.collective_log() as log:
+    meter = _Meter(time.monotonic() + TRACE_BUDGET_S)
+    with spmd.only_position(pos), spmd.collective_log() as log, meter:
         built.fn(*args)
     return log.program(pos)
 
@@ -498,12 +563,21 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str = RESULTS,
     mem = memory_analysis(model, cell, built, mesh)
     print("memory_analysis:", mem)
     plan = plan_collectives(model, cell, mesh, built.rules)
-    ran = runtime_collectives(model, cell, mesh, built)
+    over = None
+    try:
+        ran = runtime_collectives(model, cell, mesh, built)
+    except _OverBudget as err:
+        ran, over = None, (f"the runtime's trace passed the per-cell budget "
+                           f"of {TRACE_BUDGET_S:g} s ({err}); the plan "
+                           "equals its log at a short sequence "
+                           "(tests/test_torch_tp_sparse.py)")
     coll = collective_bytes(plan if ran is None else ran)
     coll["source"] = (
         "plan: dryrun.plan_collectives, counted from the rules" if ran is None
         else "runtime: the log of position (0, 0)'s program, one step of "
         "models/spmd.py on the meta mesh")
+    if over:
+        coll["runtime_reason"] = over
     coll["plan_total_wire_bytes"] = collective_bytes(plan)["total_wire_bytes"]
     cost = trace_flops(built.fn, built.args)
     print("cost_analysis[flops]:", cost["flops"],

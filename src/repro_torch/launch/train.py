@@ -36,8 +36,10 @@ from ..models.params import param_count, param_shardings
 from ..models.sharding_ctx import activation_sharding
 from ..runtime import DriverConfig, TrainDriver
 from ..train import OptConfig, TrainConfig, init_state, make_train_step
+from ..train.step import sparse_weight_shardings
 from .mesh import make_local_mesh
-from .sharding_rules import make_sharding_fn, resolve_rules
+from .sharding_rules import (SPARSE_WEIGHT_RULES, TRAIN_RULES,
+                             make_sharding_fn, resolve_rules)
 
 
 def scale_config(arch: str, scale: str):
@@ -77,16 +79,38 @@ def local_mesh(data: int, model: int, device: torch.device, devices=None):
     return make_local_mesh(data, model, devices=[device] * (data * model))
 
 
-def train_rules() -> dict:
-    """The train rules of a placed run: weights gathered at their use."""
-    return dict(resolve_rules(), __gather_weights__=True)
+def train_rules(cfg=None) -> dict:
+    """The train rules of a placed run: weights gathered at their use; a
+    ``cfg`` with a sparse FFN adds ``SPARSE_WEIGHT_RULES`` (the value
+    streams' tiles over the DP axes)."""
+    sparse = cfg is not None and cfg.sparse_ffn is not None
+    return dict(resolve_rules(TRAIN_RULES,
+                               SPARSE_WEIGHT_RULES if sparse else None),
+                __gather_weights__=True)
+
+
+def param_placement(model, params: dict, mesh) -> dict:
+    """Each parameter's ``NamedSharding`` on ``mesh``: ``param_shardings``
+    under ``train_rules(model.cfg)``, the sparse FFN's value streams by
+    ``sparse_weight_shardings`` (replicated where the tile count does not
+    divide the DP axes, the reference's fallback)."""
+    rules = train_rules(model.cfg)
+    sh = param_shardings(model.specs, make_sharding_fn(mesh, rules))
+    if model.cfg.sparse_ffn is None:
+        return sh
+
+    def merge(a, b):
+        if isinstance(a, dict):
+            return {k: merge(a[k], b[k]) for k in a}
+        return a if b is None else b
+    return merge(sh, sparse_weight_shardings(params, mesh, rules))
 
 
 def place_state(model, state: dict, mesh) -> tuple:
     """``(placed state, its shardings)``: params and AdamW moments by
-    ``param_shardings`` under ``train_rules()``, the step replicated."""
-    sfn = make_sharding_fn(mesh, train_rules())
-    sh = param_shardings(model.specs, sfn)
+    ``param_placement``, the step replicated."""
+    sfn = make_sharding_fn(mesh, train_rules(model.cfg))
+    sh = param_placement(model, state["params"], mesh)
     shardings = {"params": sh, "opt": {"step": sfn(()), "m": sh, "v": sh}}
     return device_put(state, shardings), shardings
 
@@ -144,7 +168,7 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     del params
     rules, shardings = resolve_rules(), None
     if mesh.size > 1:
-        rules = train_rules()
+        rules = train_rules(cfg)
         state, shardings = place_state(model, state, mesh)
     if ckpt_dir is None:
         ckpt_dir = os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt")

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..core.plan import execute_pattern
 from ..core.registry import resolve_device
+from . import spmd
 from .sharding_ctx import constrain, constrain_gemm, gathered, sparse_shard
 
 #: the score of a masked (query, key) pair, the reference's
@@ -243,20 +244,25 @@ class SparsePattern:
                            v[keep], accumulate=True)
 
 
-def sparse_matmul(pattern: SparsePattern, vals: torch.Tensor,
-                  x: torch.Tensor, *, mesh=None,
-                  shard_axis: str | None = None) -> torch.Tensor:
+def sparse_matmul(pattern: SparsePattern, vals, x: torch.Tensor, *,
+                  mesh=None, shard_axis: str | None = None) -> torch.Tensor:
     """``x @ Wᵀ`` with W (m, k) sparse, as the SpMM ``W · xᵀ`` through
     ``pattern_matmul``: differentiable in ``vals`` and ``x``.  ``x`` is
     ``(..., k)``; the result ``(..., m)`` in ``x.dtype``.  With a ``mesh``
     (given, or installed by ``sharding_ctx.activation_sharding`` with the
     ``__sparse_shard_axis__`` marker) the SpMM runs on the sharded backend:
-    the pattern's tiles split over the axis, the partials psum."""
-    if mesh is None:
-        mesh, shard_axis = sparse_shard()
+    the pattern's tiles split over the axis, the partials psum.  In a
+    position's program ``vals`` is a placed leaf's local view: the pieces
+    of the stream are the shards (``spmd.sparse_matmul``)."""
     flat = x.reshape(-1, x.shape[-1])                          # (T, k)
-    y = execute_pattern(pattern.rows, pattern.cols, vals, pattern.shape,
-                        flat.T, mesh=mesh, shard_axis=shard_axis)  # (m, T)
+    if not isinstance(vals, torch.Tensor):
+        y = spmd.sparse_matmul(pattern.rows, pattern.cols, pattern.shape,
+                               vals, flat.T)
+    else:
+        if mesh is None:
+            mesh, shard_axis = sparse_shard()
+        y = execute_pattern(pattern.rows, pattern.cols, vals, pattern.shape,
+                            flat.T, mesh=mesh, shard_axis=shard_axis)
     return y.T.reshape(x.shape[:-1] + (pattern.shape[0],)).to(x.dtype)
 
 

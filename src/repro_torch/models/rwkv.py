@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import dot
+from .sharding_ctx import gathered
 
 
 def _token_shift(x: torch.Tensor, x_prev: torch.Tensor | None):
@@ -49,11 +50,15 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, n_heads: int, *,
     n = d // n_heads
     prev = _token_shift(x, x_prev)
 
-    xr = _lerp(x, prev, p["mu_r"])
-    xk = _lerp(x, prev, p["mu_k"])
-    xv = _lerp(x, prev, p["mu_v"])
-    xw = _lerp(x, prev, p["mu_w"])
-    xg = _lerp(x, prev, p["mu_g"])
+    # the parameters read outside ``dot``, gathered on a placed step
+    mu_r, mu_k, mu_v, mu_w, mu_g, w0, u_bonus, ln_w, ln_b = (
+        gathered(p[k]) for k in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g",
+                                 "w0", "u_bonus", "ln_w", "ln_b"))
+    xr = _lerp(x, prev, mu_r)
+    xk = _lerp(x, prev, mu_k)
+    xv = _lerp(x, prev, mu_v)
+    xw = _lerp(x, prev, mu_w)
+    xg = _lerp(x, prev, mu_g)
 
     r = dot(xr, p["w_r"]).reshape(bsz, s, n_heads, n)
     k = dot(xk, p["w_k"]).reshape(bsz, s, n_heads, n)
@@ -64,20 +69,20 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, n_heads: int, *,
     lora = dot(xw, p["w_decay_a"])
     lora = dot(torch.tanh(lora), p["w_decay_b"])
     w = torch.exp(-torch.exp(torch.clamp(
-        p["w0"][None, None].float() + lora.float(), -8.0, 8.0)))
+        w0[None, None].float() + lora.float(), -8.0, 8.0)))
     w = w.reshape(bsz, s, n_heads, n)
 
     if state is None:
         state = torch.zeros((bsz, n_heads, n, n), dtype=torch.float32,
                             device=x.device)
     y, state = wkv6_scan(r.float(), k.float(), v.float(), w,
-                         p["u_bonus"].reshape(n_heads, n).float(), state)
+                         u_bonus.reshape(n_heads, n).float(), state)
     # per-head groupnorm
     mean = y.mean(dim=-1, keepdim=True)
     var = ((y - mean) ** 2).mean(dim=-1, keepdim=True)
     y = (y - mean) * torch.rsqrt(var + 1e-5)
-    y = (y.reshape(bsz, s, d) * p["ln_w"][None, None].float()
-         + p["ln_b"][None, None].float())
+    y = (y.reshape(bsz, s, d) * ln_w[None, None].float()
+         + ln_b[None, None].float())
     out = dot(y.to(x.dtype) * g.to(x.dtype), p["w_o"])
     return out, (state, x[:, -1])
 
@@ -85,8 +90,8 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, n_heads: int, *,
 def rwkv6_channel_mix(p: dict, x: torch.Tensor, *, x_prev=None):
     """Squared-ReLU channel mix.  Returns (out, x_prev_new)."""
     prev = _token_shift(x, x_prev)
-    xk = _lerp(x, prev, p["mu_ck"])
-    xr = _lerp(x, prev, p["mu_cr"])
+    xk = _lerp(x, prev, gathered(p["mu_ck"]))
+    xr = _lerp(x, prev, gathered(p["mu_cr"]))
     k = dot(xk, p["w_ck"])
     k = torch.square(F.relu(k))
     kv = dot(k, p["w_cv"])

@@ -22,8 +22,10 @@ Without a position scope the dense hooks return their argument, under a
 mesh too.  What a scope carries besides: ``sparse_shard()`` routes the
 sparse-weight layers through the sharded backend (rules with the
 ``__sparse_shard_axis__`` marker, ``launch.sharding_rules.
-SPARSE_WEIGHT_RULES``) and ``moe_groups()`` reads ``__moe_groups__``.  The
-context is a no-op unless installed.
+SPARSE_WEIGHT_RULES``; inside a position the placed value stream's
+pieces are the shards, ``models.spmd.sparse_matmul``) and
+``moe_groups()`` reads ``__moe_groups__``.  The context is a no-op unless
+installed.
 """
 from __future__ import annotations
 
@@ -120,9 +122,12 @@ def constrain_gemm(w=None, out=None):
 def sparse_shard():
     """``(mesh, axis)`` of the sharded sparse-weight layers: the installed
     mesh and the rules' ``__sparse_shard_axis__`` when the mesh has that
-    axis, else ``(None, None)`` (the single-device path)."""
+    axis, else ``(None, None)`` (the single-device path).  Inside a
+    position scope ``(None, None)``: a position's sparse layer reads the
+    placed value stream's local view, whose pieces are its shards
+    (``models.spmd.sparse_matmul``)."""
     ctx = getattr(_TLS, "ctx", None)
-    if ctx is None:
+    if ctx is None or current_position() is not None:
         return None, None
     mesh, rules = ctx
     axis = rules.get("__sparse_shard_axis__")

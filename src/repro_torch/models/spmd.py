@@ -1,7 +1,9 @@
-"""The weight-gathered SPMD runtime of the dense families, in one process;
-the counterpart of the reference's GSPMD step under ``__gather_weights__``
-(``repro.models.sharding_ctx.constrain_gemm``, ``repro.launch.input_specs.
-rules_for_cell``).
+"""The weight-gathered SPMD runtime, in one process: train and prefill of
+the dense, SSM (RWKV-6), hybrid (Zamba2) and audio (Whisper) families and
+of the sparse FFN; the counterpart of the reference's GSPMD step under
+``__gather_weights__`` (``repro.models.sharding_ctx.constrain_gemm``,
+``repro.launch.input_specs.rules_for_cell``) and, for the sparse FFN's
+value streams, ``SPARSE_WEIGHT_RULES``.
 
 Parameters and AdamW moments are ``Placed`` leaves (``dist/placement.
 py``), stored sharded by ``param_shardings``.  The step runs the program of
@@ -20,7 +22,11 @@ every mesh position in turn, in one thread and one autograd graph
 * the unembedding stays vocab-sharded: a position gathers it over its other
   axes only, and ``model_loss.lm_loss_vocab_parallel`` combines the vocab
   shards' statistics by ``pmax`` / ``psum`` over the vocab axes and the
-  token sums by ``psum`` over the batch axes.
+  token sums by ``psum`` over the batch axes;
+* a sparse FFN's value stream, its tiles placed over the DP axes, is never
+  gathered: its pieces are the shards of the sharded SpMM
+  (``sparse_matmul``), each run on its own piece with the position's
+  columns, the partials summed on the position.
 
 Gradients follow the reference's replication: a value all positions of a
 group hold alike has one cotangent, held alike by all of them.  So a
@@ -31,8 +37,10 @@ backward; and the all-gather of a weight returns each position's cotangent
 to the pieces it read along the batch axes — autograd adds them up, the
 reduce-scatter — and *slices* it along the other axes: of a piece held by
 another ``model`` position only that position's own copy receives a
-gradient.  Nothing is ``M`` times too large, and each vocab shard of the
-unembedding receives its gradient once.  After the backward, a leaf that
+gradient.  A sparse matmul's shards hold the pieces of this position's
+``model`` coordinate, so each piece's ``dvals`` land there once a position
+of its column.  Nothing is ``M`` times too large, and each vocab shard of
+the unembedding receives its gradient once.  After the backward, a leaf that
 the batch axes replicate has its gradients all-reduced over them
 (``sync_grads``).
 
@@ -60,7 +68,10 @@ from typing import TYPE_CHECKING, Any, NamedTuple
 import numpy as np
 import torch
 
+from ..core import registry
 from ..core.guardrails import all_finite as _finite
+from ..core.plan import _pattern_impl
+from ..core.shard import default_inner_backend, pattern_split, run_pattern_shard
 from ..dist.placement import (Placed, block_index, coord, dim_axes, extent,
                               first_placed, placed_leaves, positions)
 from ..dist.sharding_rules import (TRAIN_RULES, NamedSharding, PartitionSpec,
@@ -163,7 +174,8 @@ def only_position(pos: tuple):
 
 def refuse(cfg, what: str) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for what the
-    weight-gathered dense runtime does not run on placed parameters."""
+    weight-gathered runtime does not run on placed parameters: decode
+    (item 7a) and MoE (item 7b)."""
     if what == "decode":
         raise NotImplementedError(
             "decode on placed parameters needs the tensor-parallel regime "
@@ -174,15 +186,6 @@ def refuse(cfg, what: str) -> None:
             f"{cfg.name}: MoE on placed parameters needs expert parallelism "
             "(experts kept sharded, tokens moved by all-to-all): not ported "
             "yet (ROADMAP item 7b)")
-    if cfg.family in ("ssm", "hybrid", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family on placed parameters is "
-            "not ported yet (ROADMAP item 7c)")
-    if cfg.sparse_ffn is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sparse_ffn value streams on placed parameters go "
-            "through the sharded backend under the runtime: not ported yet "
-            "(ROADMAP item 7d)")
 
 
 def supports(cfg) -> bool:
@@ -665,6 +668,122 @@ def spec_dim(axes: tuple):
     if not axes:
         return None
     return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+# ---------------------------------------------------------------------------
+# the sparse-weight layers: the placed value stream's pieces as the shards
+# ---------------------------------------------------------------------------
+
+def sparse_matmul(rows: torch.Tensor, cols: torch.Tensor, shape,
+                  view: LocalView, x: torch.Tensor) -> torch.Tensor:
+    """``W · x`` in a position's program: W ``(m, k)`` sparse, its pattern
+    ``(rows, cols)`` the balanced tiles, its value stream the placed leaf
+    ``view`` ``(tiles, tile)``; ``x`` ``(k, T)`` the position's columns.
+    Returns ``(m, T)`` on the position's device.
+
+    The shards are the pieces of the stream held by the positions that
+    differ from this one along the mesh axes of its tiles dim, taken as
+    they are: shard s holds tiles ``[s·per, (s+1)·per)``, the reference's
+    split of ``execute_pattern_sharded``.  ``x`` goes to every shard
+    (``broadcast``), each runs the kernel ``execute_pattern`` would pick
+    for the width of ``x`` on its own piece, and the
+    partials are summed on the position (``reduce``), in shard order.  In
+    the backward ``dvals`` of each shard (the SDDMM) lands on that shard's
+    piece, whose holder shares this position's ``model`` coordinate, and
+    the shards' ``dX`` are summed back onto the position.  A replicated
+    leaf is one shard: the position's own copy, and nothing moves."""
+    position = sharding_ctx.current_position()
+    if position is None or position.pos != view.pos:
+        raise RuntimeError(f"{view.name}: a local view of {view.pos} read "
+                           f"outside its program ({position and position.pos})")
+    rt, pos = position.rt, view.pos
+    axes = dim_axes(view.placed.spec[len(view.index)])
+    group = rt.group(pos, axes)
+    devices = [rt.device(q) for q in group]
+    backend = default_inner_backend(devices[0])
+    entry = registry.resolve(_pattern_impl(x.shape[1]), backend)
+    split, per = pattern_split(rows, cols, shape, devices, entry)
+    pieces = [view.placed.local(q)[view.index] for q in group]
+    if per * len(group) != rows.shape[0] or pieces[0].shape[0] != per:
+        raise ValueError(f"{view.name}: {rows.shape[0]} tiles in "
+                         f"{len(group)} pieces of {pieces[0].shape[0]}")
+    if len(group) == 1:
+        return run_pattern_shard(split, 0, entry, backend, pieces[0], x)
+    meta = _Moves(rt, pos, group, devices, axes, view.name)
+    xs = _Broadcast.apply(meta, x)
+    parts = []
+    for s, d in enumerate(devices):
+        with _on_device(d):
+            parts.append(run_pattern_shard(split, s, entry, backend,
+                                           pieces[s], xs[s]))
+    return _Reduce.apply(meta, *parts)
+
+
+def _on_device(d: torch.device):
+    """The CUDA device ``d`` current (a kernel's launch reads it)."""
+    if d.type == "cuda":
+        return torch.cuda.device(d)
+    return contextlib.nullcontext()
+
+
+class _Moves:
+    """What a sparse matmul's broadcast and reduce record and where they
+    go: the position, its shards (``group``) and their devices."""
+    __slots__ = ("rt", "pos", "group", "devices", "axes", "what")
+
+    def __init__(self, rt, pos, group, devices, axes, what):
+        self.rt, self.pos, self.group, self.devices = rt, pos, group, devices
+        self.axes, self.what = tuple(axes), what
+
+    def log(self, kind: str, t: torch.Tensor, when: str):
+        _record(self.rt.logs, self.pos,
+                Collective(kind, t.numel() * t.element_size(), self.axes,
+                           len(self.group), 1, self.what, "runtime"), when)
+
+    def sum_on_position(self, ts) -> torch.Tensor:
+        """The sum of ``ts`` in their order, on the position's device."""
+        dev = self.rt.device(self.pos)
+        total = ts[0].to(dev)
+        for t in ts[1:]:
+            total = total + t.to(dev)
+        return total
+
+
+class _Broadcast(torch.autograd.Function):
+    """The position's ``x`` on each shard's device; backward, the shards'
+    cotangents summed onto the position (a reduce)."""
+
+    @staticmethod
+    def forward(ctx, meta: _Moves, x):
+        ctx.meta = meta
+        meta.log("broadcast", x, "forward")
+        return tuple(x.view_as(x) if d == x.device else x.to(d)
+                     for d in meta.devices)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        meta = ctx.meta
+        meta.log("reduce", gs[0], "backward")
+        return None, meta.sum_on_position(gs)
+
+
+class _Reduce(torch.autograd.Function):
+    """The shards' partials summed onto the position, in shard order;
+    backward, the position's cotangent on each shard's device (a
+    broadcast)."""
+
+    @staticmethod
+    def forward(ctx, meta: _Moves, *parts):
+        ctx.meta = meta
+        meta.log("reduce", parts[0], "forward")
+        return meta.sum_on_position(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        meta = ctx.meta
+        meta.log("broadcast", g, "backward")
+        return (None,) + tuple(g.view_as(g) if d == g.device else g.to(d)
+                               for d in meta.devices)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from .config import SSMConfig
 from .layers import dot
-from .sharding_ctx import constrain
+from .sharding_ctx import constrain, gathered
 
 
 def ssd_chunked(x, dt, a_log, b, c, d_skip, *, chunk: int):
@@ -122,29 +122,32 @@ def mamba2_mix(p: dict, x: torch.Tensor, cfg: SSMConfig, d_model: int, *,
     h = d_inner // cfg.head_dim
     n = cfg.d_state
 
+    # the parameters read outside ``dot``, gathered on a placed step
+    dt_bias, w_conv, a_log, d_skip, norm_w = (
+        gathered(p[k]) for k in ("dt_bias", "w_conv", "a_log", "d_skip",
+                                 "norm_w"))
     zxbcdt = dot(x, p["w_in"])
     z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * n, h], dim=-1)
     z = constrain(z, ("batch", None, None))
     xbc = constrain(xbc, ("batch", None, None))
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    dt = F.softplus(dt.float() + dt_bias.float())
 
-    xbc, conv_cache = causal_conv(xbc, p["w_conv"], conv_cache)
+    xbc, conv_cache = causal_conv(xbc, w_conv, conv_cache)
     xbc = F.silu(xbc)
     xs, b, c = torch.split(xbc, [d_inner, n, n], dim=-1)
     xs = xs.reshape(*xs.shape[:-1], h, cfg.head_dim)
 
     if decode:
-        y, state = ssd_decode_step(state, xs[:, 0], dt[:, 0], p["a_log"],
-                                   b[:, 0], c[:, 0], p["d_skip"])
+        y, state = ssd_decode_step(state, xs[:, 0], dt[:, 0], a_log,
+                                   b[:, 0], c[:, 0], d_skip)
         y = y[:, None]                                          # (B,1,H,P)
     else:
-        y, state = ssd_chunked(xs, dt, p["a_log"], b, c, p["d_skip"],
-                               chunk=cfg.chunk)
+        y, state = ssd_chunked(xs, dt, a_log, b, c, d_skip, chunk=cfg.chunk)
     y = y.reshape(*y.shape[:-2], d_inner)
     # gated RMSNorm (mamba2's norm-before-out)
     y32 = y.float() * F.silu(z.float())
     var = (y32 * y32).mean(dim=-1, keepdim=True)
     y = (y32 * torch.rsqrt(var + 1e-5)).to(x.dtype) \
-        * (1.0 + p["norm_w"].to(x.dtype))
+        * (1.0 + norm_w.to(x.dtype))
     out = dot(y, p["w_out"])
     return out, (state, conv_cache)

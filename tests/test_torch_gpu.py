@@ -3669,12 +3669,20 @@ def _flat(tree, prefix=""):
 # ---------------------------------------------------------------------------
 
 def _tp_state(arch, devices, tcfg):
+    """``arch``'s smoke model, its params and a (2, 2) mesh on ``devices``
+    with the state placed; ``<arch>+sparse`` adds a sparse FFN whose value
+    streams (308 tiles of 8) split over data."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch import make_local_mesh
     from repro_torch.launch.train import place_state
     from repro_torch.models import Model
+    from repro_torch.models.config import SparseFFNConfig
     from repro_torch.train import init_state
-    model = Model(get_smoke(arch))
+    arch, _, sparse = arch.partition("+")
+    cfg = get_smoke(arch)
+    if sparse:
+        cfg = cfg.scaled(sparse_ffn=SparseFFNConfig(density=0.3, tile=8))
+    model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     mesh = make_local_mesh(2, 2, devices=devices)
     state, shardings = place_state(model, init_state(params, tcfg), mesh)
@@ -3689,12 +3697,18 @@ def _tp_batch(dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-12b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-12b",
+                                  "llama3.2-1b+sparse", "zamba2-2.7b"])
 def test_cuda_tp_train_matches_the_cpu(cuda, arch):
     """Two steps on the card's (2, 2) mesh from the CPU mesh's params:
     losses within 1e-4, each leaf's change within 1e-3 and its AdamW
-    moments within 1e-4 (2-norm, relative); every shard on the card."""
+    moments within 1e-4 (2-norm, relative); every shard on the card.  The
+    sparse FFN's steps launch K1 (each shard's forward and dX) and K6
+    (each shard's dvals): 2 layers x 3 matrices x 2 shards x 4 positions
+    = 48 matmuls a step, K1 twice each."""
     from repro_torch.dist.placement import device_get
+    from repro_torch.kernels import (fused_chain, launch_counts,
+                                     reset_launch_counts, vsr)
     from repro_torch.train import OptConfig, TrainConfig, make_train_step
     tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1))
     runs = {}
@@ -3703,9 +3717,21 @@ def test_cuda_tp_train_matches_the_cpu(cuda, arch):
         step = make_train_step(model.loss_fn, tcfg)
         losses = []
         for _ in range(2):
+            reset_launch_counts()
             state, metrics = step(state, _tp_batch(devs[0]))
             losses.append(float(metrics["loss"]))
-        leaf = state["params"]["blocks"]["attn"]["wq"]
+            counts = launch_counts()
+            if devs[0] != "cpu" and arch.endswith("+sparse"):
+                assert (counts["vsr_spmm"], counts["sddmm"]) == (96, 48), \
+                    counts
+                assert sum(vsr.DESIGN_LAUNCHES["vsr_spmm"].values()) == 96
+                assert sum(fused_chain.DESIGN_LAUNCHES["sddmm"].values()) == 48
+            elif devs[0] != "cpu":
+                assert not any(counts.values()), counts
+        leaf = state["params"]["blocks"]["attn" if "attn" in
+                                         state["params"]["blocks"] else
+                                         "w_in"]
+        leaf = leaf["wq"] if isinstance(leaf, dict) else leaf
         assert all(leaf.local(p).device.type == torch.device(devs[0]).type
                    for p in np.ndindex(2, 2))
         runs[devs[0]] = (losses, device_get(state))

@@ -427,24 +427,36 @@ def test_constrain_checks_an_activation_inside_a_position():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("olmoe-1b-7b", "7b"), ("rwkv6-3b", "7c"), ("zamba2-2.7b", "7c"),
-    ("whisper-tiny", "7c")])
+    ("olmoe-1b-7b", "7b"), ("rwkv6-3b", "7a"), ("zamba2-2.7b", "7a"),
+    ("whisper-tiny", "7a")])
 def test_placed_families_out_of_scope_are_refused(arch, item):
+    """OLMoE's train step (expert parallelism, item 7b) and the decode of
+    the SSM, hybrid and audio families (tensor parallelism, item 7a) on
+    placed parameters; their train and prefill run
+    (``tests/test_torch_tp_sparse.py``)."""
     cfg = get_smoke(arch)
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     sh = param_shardings(model.specs, make_sharding_fn(_mesh(), train_rules()))
     placed = device_put(params, sh)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        model.loss_fn(placed, _torch_batch())
+        if item == "7b":
+            model.loss_fn(placed, _torch_batch())
+        else:
+            caches = model.init_cache(BATCH, SEQ, device="cpu")
+            model.decode_step(placed, caches, torch.zeros(BATCH, 1).long())
 
 
 def test_sparse_ffn_and_placed_decode_are_refused():
+    """The sparse FFN's train and prefill run on placed parameters
+    (``tests/test_torch_tp_sparse.py``), its decode is refused with the
+    dense families' (item 7a)."""
     from repro_torch.models.config import SparseFFNConfig
     cfg = get_smoke("llama3.2-1b").scaled(
         sparse_ffn=SparseFFNConfig(density=0.25, tile=16))
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        spmd.refuse(cfg, "train")
+    assert spmd.supports(cfg)
+    with pytest.raises(NotImplementedError, match="item 7a"):
+        spmd.refuse(cfg, "decode")
     model, params = _params("llama3.2-1b")
     sh = param_shardings(model.specs, make_sharding_fn(_mesh(), train_rules()))
     placed = device_put(params, sh)
