@@ -2194,7 +2194,8 @@ def launch_phase(ctx, sizes=LAUNCH):
     return rows
 
 
-#: the weight-gathered SPMD runtime (``models/spmd.py``): (a) Llama-3.2-1B at
+#: the SPMD runtime (``models/spmd.py``), weight-gathered for (a)-(e) and
+#: tensor-parallel for (f)-(h): (a) Llama-3.2-1B at
 #: full width on a (data=2, model=2) mesh whose positions share the card,
 #: ``tp_steps`` steps of ``tp_batch`` x ``tp_seq`` at lr 3e-4 against the
 #: unsharded steps from the same params; (b) a prefill of ``pre_batch`` x
@@ -2205,7 +2206,16 @@ def launch_phase(ctx, sizes=LAUNCH):
 #: in ``family_dtype``: in bf16 AdamW's ratio turns the rounding of
 #: near-zero gradient entries into whole updates of either sign, which the
 #: floor run does not reproduce (Whisper's norm weights 3.7% against a
-#: floor of 0.5% on an H100), so the families are held in f32 at 1e-3
+#: floor of 0.5% on an H100), so the families are held in f32 at 1e-3.
+#: Decode on placed params under ``rules_for_cell``'s decode rules: (f) a
+#: prefill of ``decode_batch`` x ``decode_prompt`` unsharded, its caches
+#: placed, ``decode_steps`` teacher-forced steps against the unsharded
+#: decode from the same caches; then batch 1 under the ``long_500k`` rules
+#: on a cache of ``long_len`` positions filled from the seed (keys at
+#: ``long_key_scale``), its sequence split over (data, model); both again
+#: in f32 for ``witness_steps`` steps; (g) all of (f) with (d)'s sparse
+#: FFN, K1 pr on each shard; (h) ``families`` at ``family_decode`` (batch,
+#: prompt) in ``family_dtype``, ``family_decode_steps`` steps
 TP = dict(arch="llama3.2-1b", scale="full", data=2, model=2, tp_steps=3,
           tp_batch=4, tp_seq=256, lr=3e-4, pre_batch=4, pre_seq=512,
           restore_scale="100m", restore_batch=8, restore_seq=256,
@@ -2213,7 +2223,10 @@ TP = dict(arch="llama3.2-1b", scale="full", data=2, model=2, tp_steps=3,
           families=(("zamba2-2.7b", {"num_layers": 12}, (4, 256)),
                     ("rwkv6-3b", {"num_layers": 4}, (4, 256)),
                     ("whisper-tiny", {}, (4, 64))),
-          family_dtype="float32")
+          family_dtype="float32",
+          decode_batch=4, decode_prompt=512, decode_steps=16,
+          witness_steps=4, long_len=32768, long_key_scale=2.0,
+          family_decode=(4, 64), family_decode_steps=4)
 
 
 def _busy_ms(fn) -> tuple:
@@ -2436,7 +2449,419 @@ def tp_phase(ctx, sizes=TP):
         rows[arch] = row
         del finit, fmodel, fbatches, pre
         gc_cuda()
+
+    # (f)-(h) decode on placed params, tensor-parallel
+    rows.update(_decode_parts(ctx, sizes, cfg, mesh))
     return rows
+
+
+def _decode_parts(ctx, sizes, cfg, mesh) -> dict:
+    """(f)-(h) of phase ``tp``: decode on placed params, tensor-parallel
+    (``Model.decode_step`` on the (data, model) positions sharing the
+    card, under ``rules_for_cell``'s decode rules), each held to the
+    unsharded decode from the same caches.  Returns their rows."""
+    import torch
+
+    from repro_torch.launch import input_specs, train
+    from repro_torch.models import SHAPES, Model
+    from repro_torch.models.config import SparseFFNConfig
+
+    dev, fail, say = ctx.dev, ctx.fail, ctx.say
+    n_pos = mesh.size
+    rows = {}
+    cells = {c.name: c for c in SHAPES}
+    gen = torch.Generator(device=dev).manual_seed(ctx.seed + 36)
+
+    def tokens(b, n, vocab):
+        return torch.randint(0, vocab, (b, n), generator=gen, device=dev)
+
+    def rules_of(c, cell):
+        return input_specs.rules_for_cell(cells[cell], c,
+                                          model_axis=mesh.shape["model"])
+
+    def long_caches(model, n):
+        """Batch 1, ``long_len`` positions of keys and values from the
+        seed, the last ``n`` slots free.  The keys are drawn at
+        ``long_key_scale``: a query of unit-variance entries (the params'
+        1/sqrt(fan_in) init on a normed input) then scores them with a
+        spread of about that scale.  At 2 the softmax's mass lies on about
+        600 of the 32,768 slots (N·exp(-2²)), spread over the shards, so
+        the attention output is not the mean of random V and a fault in
+        the split-KV merge moves the logits; at 3 (about one slot) the
+        decode is chaotic: a rounding in another order picks another
+        slot, and even the f32 decodes part."""
+        caches = model.init_cache(1, sizes["long_len"], device=dev)
+        for name, leaf in caches["kv"].items():
+            x = torch.randn(leaf.shape, generator=gen, device=dev)
+            leaf.copy_(x * sizes["long_key_scale"] if name == "k" else x)
+        caches["length"].fill_(sizes["long_len"] - n)
+        return caches
+
+    def check(label, row, counts):
+        say(label, row)
+        if not row["ok"]:
+            fail(f"tp {label}: {row}")
+        return counts
+
+    # (f) dense decode at full width, batch 4 after a prefill and batch 1
+    # on a long cache split four ways
+    def dense_and_long(model, tag, init, n):
+        c = model.cfg
+        prompt = tokens(sizes["decode_batch"], sizes["decode_prompt"],
+                        c.vocab_size)
+        steps = tokens(sizes["decode_batch"], n, c.vocab_size)
+        with torch.no_grad():
+            _, caches = model.prefill(init, {"tokens": prompt},
+                                      sizes["decode_prompt"] + n)
+        row, counts = _decode_on_mesh(ctx, model, init, caches, steps, mesh,
+                                      rules_of(c, "decode_32k"))
+        row = {"arch": c.name, "batch": sizes["decode_batch"],
+               "prompt": sizes["decode_prompt"], **row}
+        out = {"decode": (row, check(f"({tag}) decode", row, counts))}
+        del caches
+        gc_cuda()
+        caches = long_caches(model, n)
+        row, counts = _decode_on_mesh(
+            ctx, model, init, caches, tokens(1, n, c.vocab_size), mesh,
+            rules_of(c, "long_500k"))
+        row = {"arch": c.name, "batch": 1, "cache": sizes["long_len"],
+               "cache_split": "(data, model)",
+               "key_scale": sizes["long_key_scale"], **row}
+        out["long"] = (row, check(f"({tag}) decode long_500k", row, counts))
+        del caches
+        gc_cuda()
+        return out
+
+    # in bf16 first, then the same model in f32, the witness: a mesh
+    # decode whose every product and merge is exact to f32 rounding
+    for dtype, tag, n in (("bfloat16", "f", sizes["decode_steps"]),
+                          ("float32", "f f32", sizes["witness_steps"])):
+        model = Model(cfg.scaled(param_dtype=dtype, compute_dtype=dtype))
+        init = model.init(torch.Generator(device=dev).manual_seed(ctx.seed),
+                          dev)
+        out = dense_and_long(model, tag, init, n)
+        for key, (row, counts) in out.items():
+            if any(counts_step[k] for counts_step in counts
+                   for k in counts_step):
+                fail(f"tp ({tag}) {key}: the dense path launched {counts}")
+            rows[f"dense_{key}" if dtype == cfg.compute_dtype
+                 else f"dense_{key}_{dtype}"] = row
+        del init, model
+        gc_cuda()
+
+    # (g) the same with (d)'s sparse FFN: K1 pr on each shard's piece, in
+    # bf16 and again in f32, the witness (on the long cache the bf16
+    # decodes' own rounding moves the logits by tens of percent)
+    scfg = cfg.scaled(sparse_ffn=SparseFFNConfig(
+        density=sizes["sparse_density"], tile=sizes["sparse_tile"]))
+    patterns = None
+    for dtype, tag, steps in (("bfloat16", "g", sizes["decode_steps"]),
+                              ("float32", "g f32", sizes["witness_steps"])):
+        smodel = Model(scfg.scaled(param_dtype=dtype, compute_dtype=dtype),
+                       patterns=patterns)
+        patterns = smodel.patterns
+        sinit = smodel.init(torch.Generator(device=dev).manual_seed(
+            ctx.seed), dev)
+        shards = {}
+        for key, cell in (("decode", "decode_32k"), ("long", "long_500k")):
+            sh = train.param_placement(smodel, sinit, mesh,
+                                       rules_of(smodel.cfg, cell))
+            v = sh["blocks"]["ffn"]["v_up"].spec
+            shards[key] = mesh.shape["data"] if v[1] == "data" else 1
+        out = dense_and_long(smodel, tag, sinit, steps)
+        for key, (row, counts) in out.items():
+            want = n_pos * shards[key] * 3 * scfg.num_layers
+            k1 = [c["vsr_spmm"] for c in counts]
+            designs = row.pop("k1_designs")
+            others = {k: n for c in counts for k, n in c.items()
+                      if n and k != "vsr_spmm"}
+            row.update(k1_launches_a_step=k1, k1_designed_a_step=want,
+                       k1_designs_a_step=designs, shards=shards[key],
+                       other_launches=others)
+            say(f"({tag}) sparse FFN decode {key} launches", {
+                k: row[k] for k in ("k1_launches_a_step",
+                                    "k1_designed_a_step",
+                                    "k1_designs_a_step", "other_launches")})
+            if any(n != want for n in k1) or others or \
+                    any(d != {"pr": want, "sr": 0} for d in designs) or \
+                    shards[key] != mesh.shape["data"]:
+                fail(f"tp ({tag}) {key}: K1 {k1} by design {designs}, "
+                     f"expected {want} pr a step; others {others}")
+            rows[f"sparse_{key}" if dtype == cfg.compute_dtype
+                 else f"sparse_{key}_{dtype}"] = row
+        if dtype == cfg.compute_dtype:
+            rows["k1_decode"] = _k1_decode_shard(ctx, smodel, sinit, mesh,
+                                                 sizes, rows)
+        del sinit, smodel
+        gc_cuda()
+
+    # (h) the hybrid, SSM and audio families at full width, cut in depth
+    fb, fs = sizes["family_decode"]
+    for arch, cut, _ in sizes["families"]:
+        fcfg = train.scale_config(arch, sizes["scale"]).scaled(
+            **cut, param_dtype=sizes["family_dtype"],
+            compute_dtype=sizes["family_dtype"])
+        fmodel = Model(fcfg)
+        finit = fmodel.init(torch.Generator(device=dev).manual_seed(
+            ctx.seed), dev)
+        batch = {"tokens": tokens(fb, fs, fcfg.vocab_size)}
+        if fcfg.family == "audio":
+            batch["frames"] = torch.randn(
+                (fb, fcfg.num_frames, fcfg.d_model), generator=gen,
+                device=dev)
+        with torch.no_grad():
+            _, caches = fmodel.prefill(finit, batch,
+                                       fs + sizes["family_decode_steps"])
+        row, counts = _decode_on_mesh(
+            ctx, fmodel, finit, caches,
+            tokens(fb, sizes["family_decode_steps"], fcfg.vocab_size),
+            mesh, rules_of(fcfg, "decode_32k"),
+            memory=fcfg.num_frames if fcfg.family == "audio" else 0)
+        row = {"arch": fcfg.name, "family": fcfg.family, "cut": cut,
+               "layers": fcfg.num_layers, "batch": fb, "prompt": fs,
+               **row}
+        check(f"(h) decode {fcfg.family} {arch}", row, counts)
+        if any(n for c in counts for n in c.values()):
+            fail(f"tp (h) {arch}: launched {counts}")
+        rows[f"decode_{arch}"] = row
+        del finit, fmodel, caches
+        gc_cuda()
+    return rows
+
+
+def _decode_on_mesh(ctx, model, init, caches, steps, mesh, rules,
+                    memory: int = 0) -> tuple:
+    """Teacher-forced decode of ``steps`` (B, n) from ``caches``,
+    unsharded, then on ``mesh`` (params placed by ``param_placement``
+    under ``rules``, the caches by ``Model.cache_shardings``; each step
+    driven on path ``tp``): ``(row, each placed step's launches by
+    kernel)``.  ``row["ok"]``: each step's collective log (position (0,
+    0)'s program) equal to ``dryrun.plan_collectives`` record for record,
+    and the outputs right.  In f32, every step's logits and every cache
+    leaf after the last within ``RTOL`` (relative inf-norm) of the
+    unsharded decode's.  In bf16 both decodes are held to one truth, the
+    same unsharded decode in f32 (params and caches cast): the placed
+    decode's logits and each cache leaf within twice the unsharded bf16
+    decode's own distance from it.  A mesh rounds its split-KV merge and
+    its row-parallel sums in another order, and one flipped bf16 rounding
+    spreads through the layers to the size of the bf16 decode's own
+    rounding error, so the distance between the two bf16 decodes
+    (``logits_rel_err``, reported beside ``RTOL``) is no measure of
+    either's fault; the f32 witness parts hold the mesh's arithmetic
+    itself.  The last placed step runs under the profiler (device-busy
+    ms)."""
+    import torch
+
+    from repro_torch.dist.placement import device_get, device_put
+    from repro_torch.kernels import vsr
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models import Model, spmd
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.models.sharding_ctx import activation_sharding
+
+    dev = ctx.dev
+    on_card = dev.type == "cuda"
+    t_start = time.perf_counter()
+    tol = ctx.rtol[model.cfg.compute_dtype]
+    n = steps.shape[1]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()) / \
+            max(float(want.float().abs().max()), 1e-30)
+
+    with torch.no_grad():
+        want, plain_ms, c = [], [], caches
+        for i in range(n):
+            t0 = time.perf_counter()
+            logits, c = model.decode_step(init, c, steps[:, i:i + 1])
+            sync()
+            plain_ms.append(1e3 * (time.perf_counter() - t0))
+            want.append(logits)
+        want_caches = _flat_tree(c)
+        del c
+        # bf16: the truth both decodes are held to, the unsharded decode
+        # in f32, and the unsharded bf16 decode's distance from it
+        truth = truth_caches = None
+        floor, floor_cache = 0.0, {}
+        if model.cfg.compute_dtype != "float32":
+            f32 = Model(model.cfg.scaled(param_dtype="float32",
+                                         compute_dtype="float32"),
+                        patterns=model.patterns)
+
+            def up(tree):
+                if isinstance(tree, dict):
+                    return {k: up(v) for k, v in tree.items()}
+                return tree.float() if tree.is_floating_point() else tree
+            c, p32, truth = up(caches), up(init), []
+            for i in range(n):
+                logits, c = f32.decode_step(p32, c, steps[:, i:i + 1])
+                truth.append(logits)
+                floor = max(floor, rel(want[i], logits))
+            truth_caches = _flat_tree(c)
+            floor_cache = {k: rel(w, truth_caches[k])
+                           for k, w in want_caches.items()}
+            del c, p32, f32
+            gc_cuda()
+        placed = device_put(init, train.param_placement(model, init, mesh,
+                                                        rules))
+        pc = device_put(caches, model.cache_shardings(caches, mesh, rules))
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        max_len = next((v.shape[-2] for key, v in _flat_tree(caches).items()
+                        if key.endswith(".k")), 1)
+        cell = ShapeCell("tp", max_len, steps.shape[0], "decode")
+        plan = {}
+        for r in dryrun.plan_collectives(model, cell, mesh, rules,
+                                         memory=memory):
+            key = (r.kind, r.axes, r.n, r.bytes)
+            plan[key] = plan.get(key, 0) + r.count
+        errs, errs_truth, walls, counts, designs, logs_ok = \
+            [], [], [], [], [], []
+        busy = wall_prof = None
+        with activation_sharding(mesh, rules):
+            for i in range(n):
+                def run(i=i):
+                    return ctx.drive(lambda: model.decode_step(
+                        placed, pc, steps[:, i:i + 1]), "tp")
+                with spmd.collective_log() as log:
+                    if i == n - 1:          # the last step under the profiler
+                        ((got, pc), cnt), busy, wall_prof = _busy_ms(run)
+                        t = wall_prof
+                    else:
+                        t0 = time.perf_counter()
+                        (got, pc), cnt = run()
+                        t = 1e3 * (time.perf_counter() - t0)
+                counts.append(cnt)
+                designs.append({d: v for d, v in
+                                vsr.DESIGN_LAUNCHES["vsr_spmm"].items()})
+                walls.append(t)
+                got = device_get(got, dev)
+                errs.append(rel(got, want[i]))
+                if truth is not None:
+                    errs_truth.append(rel(got, truth[i]))
+                ran = {}
+                for r in log.program((0,) * len(mesh.axis_names)):
+                    key = (r.kind, r.axes, r.n, r.bytes)
+                    ran[key] = ran.get(key, 0) + r.count
+                logs_ok.append(ran == plan)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        got_caches = _flat_tree(device_get(pc, dev))
+    cache_errs = {k: rel(got_caches[k], w) for k, w in want_caches.items()}
+    worst = max(cache_errs, key=cache_errs.get)
+    by_kind = {}
+    for (kind, _, _, nbytes), cnt in plan.items():
+        by_kind[kind] = by_kind.get(kind, 0) + nbytes * cnt
+    finite = all(math.isfinite(e) for e in errs)
+    if truth is None:
+        right = max(errs) <= tol and cache_errs[worst] <= tol
+        held = {}
+    else:
+        truth_errs = {k: rel(got_caches[k], w)
+                      for k, w in truth_caches.items()}
+        over = {k: [e, floor_cache[k]] for k, e in truth_errs.items()
+                if not e <= 2 * floor_cache[k]}
+        right = max(errs_truth) <= 2 * floor and not over
+        held = {"logits_rel_err_to_f32": max(errs_truth),
+                "unsharded_logits_rel_err_to_f32": floor,
+                "cache_rel_err_to_f32": truth_errs,
+                "unsharded_cache_rel_err_to_f32": floor_cache,
+                "cache_leaves_over": over}
+    ok = right and finite and all(logs_ok)
+    row = {"mesh": dict(mesh.shape), "dtype": model.cfg.compute_dtype,
+           "steps": n, "logits_rel_err": max(errs),
+           "worst_cache_leaf": [worst, cache_errs[worst]], "tol": tol,
+           **held,
+           "logs_equal_plan": all(logs_ok), "plan_bytes_a_step": by_kind,
+           "step_ms": walls, "step_ms_profiled_last": wall_prof,
+           "device_busy_ms_last": busy, "unsharded_step_ms": plain_ms,
+           "peak_gb": peak, "k1_designs": designs, "ok": ok,
+           "section_s": time.perf_counter() - t_start}
+    del placed, pc, got_caches, want_caches, want, truth, truth_caches
+    gc_cuda()
+    return row, counts
+
+
+def _k1_decode_shard(ctx, smodel, sinit, mesh, sizes, rows) -> dict:
+    """K1 pr on one shard of the sparse FFN at decode: layer 0's up
+    projection (d_ff x d_model), the tiles of data shard 0, at the
+    columns a position gives it (N = 2 at batch 4 over data, N = 1 at
+    batch 1): the wrapper against its plain version on the same inputs,
+    its time, the plain version's, ``torch.sparse.mm``'s on the shard's
+    CSR and the bound of §2 in the stream's type (a slot's value and its
+    int32 row and column, 10 bytes in bf16; x read, the f32 Y written).
+    ``ms`` is one call between two events, the host's launch included;
+    ``device_ms`` the device's busy time a call over 20 back-to-back
+    calls under the profiler, and ``back_to_back_ms`` their wall time a
+    call: what of ``ms`` is the host's."""
+    import torch
+
+    from repro_torch.core.formats import BalancedCOO
+    from repro_torch.kernels import launch_counts, reset_launch_counts, vsr
+
+    dev, fail = ctx.dev, ctx.fail
+    pat = smodel.patterns["up"][0]
+    n_sh = mesh.shape["data"]
+    per = -(-pat.n_tiles // n_sh)
+    rows_, cols_ = pat.rows[:per].contiguous(), pat.cols[:per].contiguous()
+    vals = sinit["blocks"]["ffn"]["v_up"][0][:per].contiguous()
+    m, k = pat.shape
+    bal = BalancedCOO(rows_, cols_, vals, (m, k))
+    keep = rows_.reshape(-1) < m
+    nnz = int(keep.sum())
+    csr = torch.sparse_coo_tensor(
+        torch.stack([rows_.reshape(-1)[keep].long(),
+                     cols_.reshape(-1)[keep].long()]),
+        vals.reshape(-1)[keep], (m, k)).coalesce().to_sparse_csr()
+    out = {"matrix": f"layer 0 up {m}x{k}, data shard 0 of {n_sh}",
+           "tiles": per, "tile": pat.rows.shape[1], "slots": per *
+           pat.rows.shape[1], "nnz": nnz, "dtype": str(vals.dtype)}
+    gen = torch.Generator(device=dev).manual_seed(ctx.seed + 37)
+    for n, key in ((2, "decode"), (1, "long")):
+        x = torch.randn((k, n), generator=gen, device=dev).to(vals.dtype)
+        reset_launch_counts()
+        y = vsr.spmm_vsr_fused(bal, x, "pr")
+        torch.cuda.synchronize()
+        launched = launch_counts()["vsr_spmm"]
+        pr = vsr.DESIGN_LAUNCHES["vsr_spmm"]["pr"]
+        plain = vsr.spmm_vsr_plain(bal, x)
+        diff = float((y.float() - plain.float()).abs().max())
+        rel = diff / max(float(plain.float().abs().max()), 1e-30)
+        if launched != 1 or pr != 1 or not rel <= ctx.rtol["bfloat16"]:
+            fail(f"tp K1 pr decode shard N={n}: launches {launched} (pr {pr}),"
+                 f" rel err {rel:.3e}")
+        nbytes = ((8 + vals.element_size()) * per * pat.rows.shape[1]
+                  + x.element_size() * k * n + 4 * m * n)
+        flops = 2 * nnz * n
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_BF16_FLOP_PER_S * 1e3
+        step_launches = rows.get(f"sparse_{key}", {}).get(
+            "k1_launches_a_step")
+        try:
+            lib = ctx.time_ms(lambda: torch.sparse.mm(csr, x))
+            lib_dtype = str(vals.dtype)
+        except RuntimeError:        # no bf16 cuSPARSE product on this build
+            csr32, x32 = csr.to(torch.float32), x.float()
+            lib = ctx.time_ms(lambda: torch.sparse.mm(csr32, x32))
+            lib_dtype = "float32"
+        def calls(reps=20):
+            for _ in range(reps):
+                vsr.spmm_vsr_fused(bal, x, "pr")
+        _, busy, wall = _busy_ms(calls)
+        out[f"N={n}"] = {
+            "ms": ctx.time_ms(lambda: vsr.spmm_vsr_fused(bal, x, "pr")),
+            "device_ms": busy / 20, "back_to_back_ms": wall / 20,
+            "plain_ms": ctx.time_ms(lambda: vsr.spmm_vsr_plain(bal, x)),
+            "library_ms": lib, "library": f"torch.sparse.mm ({lib_dtype})",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": diff, "rel_err": rel,
+            "launches_a_step": step_launches[-1] if step_launches else None}
+    ctx.say("(g) K1 pr on a decode shard", out)
+    return out
 
 
 def _leaf_errors(plain_final, flat_init, plain_m, params, moments) -> dict:
@@ -6344,10 +6769,11 @@ def main() -> int:
           f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB", flush=True)
     tctx = types.SimpleNamespace(
         dev=dev, seed=args.seed, fail=fail, drive=drive, rtol=RTOL,
+        time_ms=time_ms,
         say=lambda label, row: print(
             f"[tp] {label} " + json.dumps(row, default=str)
             + f" ({card})", flush=True))
-    tp_phase(tctx)
+    tp_rows = tp_phase(tctx)
     print(f"[tp] phase {time.perf_counter() - t_tp:.1f} s ({card})",
           flush=True)
 
@@ -6390,9 +6816,11 @@ def main() -> int:
             summary[-1]["ffn"] = ffn_rows[kernel]
         if kernel == "vsr_spmm":
             # one OLMoE-1B-7B layer's dispatch and combine at the prefill,
-            # and the served model's launches by engine call
+            # and the served model's launches by engine call; the pr design
+            # on a shard of the sparse Llama FFN at placed decode
             summary[-1]["models"] = models_row["k1"]
             summary[-1]["serve"] = serve_rows["launches_by_call"]
+            summary[-1]["tp_decode"] = tp_rows["k1_decode"]
         if kernel == "chain_stats":
             # K7 in full mode, as the chain's backward recomputes it
             summary[-1]["backward"] = k7_rows

@@ -26,15 +26,15 @@ analyses, the port derives each term from the stand-ins and the rules:
   forward and read backward, plus the gradients; prefill and decode: one
   layer's share) over the batch's axes; no code size.  ``fits`` compares
   the peak with the card's HBM (80 GiB).
-* ``collectives``: for the train and prefill cells of the families the
-  weight-gathered runtime runs (all but MoE: Llama, Phi, Gemma, Qwen2-VL,
-  Zamba2, RWKV-6, Whisper), the log of one position's program
-  (``models/spmd.py``; ``runtime_collectives``): the step run on the meta
-  mesh for position ``(0, 0)`` alone, the SPMD symmetry making one
-  position enough.  Every other cell takes the plan's collectives, counted
-  from the rules and each leaf's spec, and so does a runtime cell whose
-  trace passes ``TRACE_BUDGET_S`` (RWKV-6's token loop at 4,096 and
-  32,768; ``collectives["runtime_reason"]`` says so).
+* ``collectives``: for every cell of the families the runtime runs (all
+  but MoE: Llama, Phi, Gemma, Qwen2-VL, Zamba2, RWKV-6, Whisper; train and
+  prefill weight-gathered, decode tensor-parallel), the log of one
+  position's program (``models/spmd.py``; ``runtime_collectives``): the
+  step run on the meta mesh for position ``(0, 0)`` alone, the SPMD
+  symmetry making one position enough.  Every other cell takes the plan's
+  collectives, counted from the rules and each leaf's spec, and so does a
+  runtime cell whose trace passes ``TRACE_BUDGET_S`` (RWKV-6's token loop
+  at 4,096 and 32,768; ``collectives["runtime_reason"]`` says so).
   ``collectives["source"]`` names which.  The plan (``plan_collectives``)
   agrees with the runtime's log on its cells byte for byte
   (``tests/test_torch_tp.py``, ``tests/test_torch_tp_sparse.py``); its
@@ -66,16 +66,22 @@ analyses, the port derives each term from the stand-ins and the rules:
       squares over the mesh;
     - decode keeps TP over ``model``; a leaf sharded over ``data`` / ``pod``
       (FSDP kept for the archs whose weights do not fit the model axis) is
-      gathered over those axes every step;
-    - decode all-reduces each block's residual branches (attention, MLP or
-      MoE, the SSM mixers; Whisper's cross-attention) over ``model``;
+      gathered over those axes at each use (``_plan_decode``, the
+      runtime's decode): q, k and v all-gathered over ``model`` (Whisper's
+      cross-attention runs on its heads where they split whole), the
+      sequence-split cache's softmax merge (max, sum, values) over the
+      cache's sequence axes, the row-parallel outputs (in f32, as the
+      reference's f32 product) and the embedding's lookup all-reduced, Mamba-2's in-projection and conv channels
+      gathered and its gated norm's sum all-reduced, RWKV-6's r / k / v /
+      g / decay gathered and its per-head vectors read whole; the MoE's
+      decode (the plan, not run) all-reduces each block's residual
+      branches over ``model``;
     - the grouped MoE (``moe.moe_sort``, one group a device) runs one
       all-to-all over ``model`` for the dispatch and one for the combine
       of a layer, train both again in the backward; one-hot dispatch moves
       nothing beyond the MLP all-reduce;
     - not counted outside the runtime's cells: the vocab-sharded loss's
-      statistics, the sequence-sharded cache's softmax merge at decode,
-      norms' and router's small all-reduces.
+      statistics, norms' and router's small all-reduces.
 * ``cost_analysis``: a diagnostic, the FLOPs that ``FlopCounterMode``
   counts over the step traced on the stand-ins (global: one trace of the
   whole step), and the bytes its ops read and write (every non-view op
@@ -110,6 +116,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..configs import ARCH_NAMES, get
 from ..models import SHAPES, Model
 from ..models.config import ShapeCell
+from ..models.model import SPLIT_CACHES
 from ..models.moe import capacity, select_dispatch
 from .analysis import Collective, collective_bytes, roofline_terms, summarize
 from .cost_model import cell_cost, hbm_bytes
@@ -373,12 +380,180 @@ def _plan_runtime(model: Model, cell: ShapeCell, mesh, rules) -> list:
     return recs
 
 
-def plan_collectives(model: Model, cell: ShapeCell, mesh, rules) -> list:
+#: leaves a decode step reads whole (``sharding_ctx.gathered``): the norms,
+#: RWKV-6's token-shift mixes, decay base, bonus and group norm, Mamba-2's
+#: dt bias; every other leaf keeps its pieces over ``model``
+_READ_WHOLE = ("ln", "ln1", "ln2", "final_ln", "mu_r", "mu_k", "mu_v",
+               "mu_w", "mu_g", "mu_ck", "mu_cr", "w0", "u_bonus", "ln_w",
+               "ln_b", "dt_bias")
+
+
+def _tp(dim) -> tuple:
+    """The axes of a weight dim that decode keeps split (``spmd.TP_AXES``)."""
+    axes = _axes(dim)
+    return axes if any(a in spmd.TP_AXES for a in axes) else ()
+
+
+def _plan_decode(model: Model, cell: ShapeCell, mesh, rules,
+                 memory: int) -> list:
+    """The collectives of one position's decode program under the
+    tensor-parallel runtime (``models/spmd.py``), counted from the specs:
+    what its log records, record for record in bytes.  ``memory``: the
+    frames of an audio model's encoder memory in the caches (0: none)."""
+    cfg = model.cfg
+    sfn = make_sharding_fn(mesh, rules)
+    bax = tuple(a for a in rules.get("batch", ()) if a in mesh.axis_names)
+    if cell.global_batch % _extent(mesh, bax):
+        bax = ()
+    b = cell.global_batch // _extent(mesh, bax)
+    act = getattr(torch, cfg.compute_dtype).itemsize
+    d, hd = cfg.d_model, cfg.head_dim
+    specs = dict(_param_paths(model.specs))
+    recs = []
+
+    def spec(path):
+        shape = specs[path].shape
+        ps = (tuple(sfn(specs[path].logical).spec)
+              + (None,) * len(shape))[:len(shape)]
+        if path.rsplit(".", 1)[-1].startswith("v_") and \
+                not check_divisibility(shape, ps, mesh):
+            ps = (None,) * len(shape)          # replicated, as placed
+        return ps
+
+    def coll(kind, nbytes, axes, count, what):
+        n = _extent(mesh, axes)
+        if n > 1 and count:
+            recs.append(Collective(kind, nbytes, tuple(axes), n, count, what,
+                                   "runtime"))
+
+    # the weights: pieces over data / pod (FSDP kept) gathered at each use
+    groups = cfg.num_layers // cfg.shared_every if cfg.family == "hybrid" \
+        else 1
+    for path, ps_spec in specs.items():
+        if path.startswith(("enc_blocks.", "enc_final_ln")):
+            continue                           # the encoder ran at prefill
+        ps = spec(path)
+        full = math.prod(ps_spec.shape) * ps_spec.dtype.itemsize
+        name = path.rsplit(".", 1)[-1]
+        rule = f"{ps_spec.logical} -> {ps}"
+        if name.startswith("v_"):
+            recs += _sparse_moves(cfg, mesh, path, ps, ps_spec.shape[0], b,
+                                  1, False, rule)
+            continue
+        lead, uses = 0, 1
+        if path.startswith("blocks."):
+            lead = 2 if cfg.attn_pattern == "local_global" or \
+                cfg.family == "hybrid" else 1
+        elif path.startswith("dec_blocks."):
+            lead = 1
+        elif path.startswith("shared_attn."):
+            uses = groups
+        layers = math.prod(ps_spec.shape[:lead])
+        sharded = [a for dim in ps[lead:] for a in _axes(dim)]
+        keep = () if name in _READ_WHOLE else \
+            tuple(a for a in spmd.TP_AXES if a in sharded)
+        if path in ("embed", "lm_head"):
+            vaxes = _axes(ps[0 if path == "embed" else 1])
+            reads = (1 if path == "embed" else 0) + \
+                (1 if path == "lm_head" or cfg.tie_embeddings else 0)
+            recs += _gathers(mesh, ps, vaxes, bax, full, reads, 0, path, rule)
+            continue
+        recs += _gathers(mesh, ps[lead:], keep, bax, full // layers,
+                         layers * uses, 0, path, rule)
+
+    # the activations' collectives
+    vaxes = _axes(spec("embed")[0])
+    coll("all-reduce", b * d * specs["embed"].dtype.itemsize, vaxes, 1,
+         "embedding (vocab-parallel lookup)")
+    caches = model.init_cache(cell.global_batch, cell.seq_len, device="meta")
+    csh = model.cache_shardings(caches, mesh, rules)
+    # a cache leaf read whole, split beyond its batch (FSDP kept at batch 1)
+    for (path, leaf), (_, sh) in zip(_param_paths(caches),
+                                     _param_paths(csh)):
+        if path.rsplit(".", 1)[-1] not in SPLIT_CACHES:
+            recs += _gathers(mesh, tuple(sh.spec), bax, bax,
+                             math.prod(leaf.shape) * leaf.element_size(), 1,
+                             0, path, "cache leaf read whole")
+
+    def attention(prefix, count, cache=None, cross=0):
+        wq, wk, wv, wo = (spec(f"{prefix}.{w}") for w in ("wq", "wk", "wv",
+                                                          "wo"))
+        q_ax, k_ax, v_ax = _tp(wq[-1]), _tp(wk[-1]), _tp(wv[-1])
+        split = bool(q_ax) and k_ax == v_ax == q_ax and \
+            cfg.num_kv_heads % _extent(mesh, q_ax) == 0
+        if not (cross and split):
+            kv_len = cross or 1
+            coll("all-gather", b * cfg.num_heads * hd * act, q_ax, count,
+                 f"{prefix}.wq (column-parallel)")
+            for w, ax in (("wk", k_ax), ("wv", v_ax)):
+                coll("all-gather", b * kv_len * cfg.num_kv_heads * hd * act,
+                     ax, count, f"{prefix}.{w} (column-parallel)")
+        if cache is not None:
+            seq = _axes(tuple(cache.spec)[-2])
+            stat = b * cfg.num_heads * 4
+            coll("all-reduce", stat, seq, count, "decode attention max")
+            coll("all-reduce", stat, seq, count, "decode attention sum")
+            coll("all-reduce", stat * hd, seq, count,
+                 "decode attention values")
+        coll("all-reduce", b * d * 4, _tp(wo[-2]), count,
+             f"{prefix}.wo (row-parallel)")
+
+    def mlp(prefix, count):
+        if cfg.sparse_ffn is None:
+            coll("all-reduce", b * d * 4, _tp(spec(f"{prefix}.w_down")[-2]),
+                 count, f"{prefix}.w_down (row-parallel)")
+
+    layers = cfg.num_layers
+    if cfg.family == "audio":
+        attention("dec_blocks.attn", layers, csh["kv"]["k"])
+        attention("dec_blocks.xattn", layers, cross=memory)
+        mlp("dec_blocks.ffn", layers)
+    elif cfg.attn_pattern == "local_global":
+        inner = cfg.local_per_global + 1
+        g = layers // inner
+        attention("blocks.attn", g * (inner - 1), csh["local"]["k"])
+        attention("blocks.attn", g, csh["global"]["k"])
+        mlp("blocks.ffn", layers)
+    elif cfg.family == "hybrid":
+        s_ = cfg.ssm
+        di = s_.expand * d
+        zdim = 2 * di + 2 * s_.d_state + di // s_.head_dim
+        coll("all-gather", b * zdim * act, _tp(spec("blocks.w_in")[-1]),
+             layers, "blocks.w_in (column-parallel)")
+        cax = _axes(tuple(csh["conv"].spec)[-1])
+        coll("all-gather", b * (di + 2 * s_.d_state) * act, cax, layers,
+             "mamba2 conv channels")
+        hax = _axes(tuple(csh["ssm"].spec)[3])
+        coll("all-reduce", b * 4, hax, layers, "mamba2 gated norm")
+        coll("all-reduce", b * d * 4, _tp(spec("blocks.w_out")[-2]), layers,
+             "blocks.w_out (row-parallel)")
+        attention("shared_attn.attn", groups, csh["kv"]["k"])
+        mlp("shared_attn.ffn", groups)
+    elif cfg.family == "ssm":
+        for w in ("w_r", "w_k", "w_v", "w_g", "w_decay_b"):
+            coll("all-gather", b * d * act, _tp(spec(f"blocks.{w}")[-1]),
+                 layers, f"blocks.{w} (column-parallel)")
+        for w in ("w_o", "w_cv"):
+            coll("all-reduce", b * d * 4, _tp(spec(f"blocks.{w}")[-2]),
+                 layers, f"blocks.{w} (row-parallel)")
+    else:
+        attention("blocks.attn", layers, csh["kv"]["k"])
+        mlp("blocks.ffn", layers)
+    return recs
+
+
+def plan_collectives(model: Model, cell: ShapeCell, mesh, rules, *,
+                     memory: int = 0) -> list:
     """The step's collectives a device takes part in (``analysis.
-    Collective`` records), under the assumptions of the module docstring."""
+    Collective`` records), under the assumptions of the module docstring.
+    ``memory``: at an audio model's decode, the frames of the encoder
+    memory its caches hold (after a prefill; the dry run's cell starts
+    from ``init_cache``, without)."""
     cfg = model.cfg
     gather = bool(rules.get("__gather_weights__"))
-    if gather and cell.kind in ("train", "prefill") and spmd.supports(cfg):
+    if spmd.supports(cfg) and gather == (cell.kind != "decode"):
+        if cell.kind == "decode":
+            return _plan_decode(model, cell, mesh, rules, memory)
         return _plan_runtime(model, cell, mesh, rules)
     sfn = make_sharding_fn(mesh, rules)
     train = cell.kind == "train"
@@ -446,14 +621,19 @@ def plan_collectives(model: Model, cell: ShapeCell, mesh, rules) -> list:
 
 def runtime_collectives(model: Model, cell: ShapeCell, mesh, built):
     """The collectives of position ``(0, …, 0)``'s program, one step of
-    the weight-gathered runtime (``models/spmd.py``) run on the meta mesh
-    for that position alone; None for a cell it does not run.  A run past
-    ``TRACE_BUDGET_S`` raises ``_OverBudget`` (RWKV-6's token loop)."""
-    if cell.kind not in ("train", "prefill") or not spmd.supports(model.cfg) \
-            or not built.rules.get("__gather_weights__"):
+    the runtime (``models/spmd.py``) run on the meta mesh for that position
+    alone: train and prefill weight-gathered, decode tensor-parallel; None
+    for a cell it does not run.  A run past ``TRACE_BUDGET_S`` raises
+    ``_OverBudget`` (RWKV-6's token loop)."""
+    decode = cell.kind == "decode"
+    if not spmd.supports(model.cfg) or \
+            bool(built.rules.get("__gather_weights__")) == decode:
         return None
     pos = (0,) * len(mesh.axis_names)
-    args = (device_put(built.args[0], built.shardings[0]),) + built.args[1:]
+    placed = 2 if decode else 1                # params (and caches) placed
+    args = tuple(device_put(a, s) for a, s in
+                 zip(built.args[:placed], built.shardings)) + \
+        built.args[placed:]
     meter = _Meter(time.monotonic() + TRACE_BUDGET_S)
     with spmd.only_position(pos), spmd.collective_log() as log, meter:
         built.fn(*args)

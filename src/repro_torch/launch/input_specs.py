@@ -23,8 +23,9 @@ from ..models.transformer import model_specs
 from ..train import OptConfig, TrainConfig, init_state, make_train_step
 from ..train.optim import tree_map
 from .mesh import H100, MODEL_AXIS, Mesh
-from .sharding_rules import (LONG_CTX_OVERRIDES, TRAIN_RULES, make_sharding_fn,
-                             resolve_rules)
+from .train import param_placement
+from .sharding_rules import (LONG_CTX_OVERRIDES, SPARSE_WEIGHT_RULES,
+                             TRAIN_RULES, make_sharding_fn, resolve_rules)
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -39,11 +40,15 @@ def rules_for_cell(cell: ShapeCell, cfg: ModelConfig | None = None, *,
     DP axes when a device's share, ``param_bytes / model_axis``, is under
     half of ``hbm_bytes`` (else FSDP kept).  The reference hard-wires a
     v5e (``/ 16``, ``< 8e9``); ``model_axis=16, hbm_bytes=16e9`` gives its
-    rules."""
+    rules.  A ``cfg`` with a sparse FFN adds ``SPARSE_WEIGHT_RULES`` (its
+    value streams' tiles over the DP axes), as ``launch.train.
+    train_rules`` does."""
     if cell.name == "long_500k":
         rules = resolve_rules(TRAIN_RULES, LONG_CTX_OVERRIDES)
     else:
         rules = resolve_rules(TRAIN_RULES)
+    if cfg is not None and cfg.sparse_ffn is not None:
+        rules.update(SPARSE_WEIGHT_RULES)
     if cell.kind in ("train", "prefill"):
         rules["__gather_weights__"] = True
     elif cfg is not None:
@@ -129,7 +134,9 @@ def build_cell(model: Model, cell: ShapeCell, mesh: Mesh,
     devices (``make_local_mesh``) they are placed by their shardings
     (``dist.placement``): params from ``Model.init`` with a generator
     seeded 0, AdamW moments at zero, tokens drawn from it, caches at zero,
-    which the weight-gathered runtime runs (``models/spmd.py``).
+    which the runtime runs (``models/spmd.py``: train and prefill
+    weight-gathered, decode tensor-parallel; a sparse FFN's value streams
+    placed by ``launch.train.param_placement``).
     ``act_sharding`` installs the activation-sharding scope while the step
     runs (default on; ``REPRO_ACT_SHARDING=0`` turns it off): the rules,
     with the weight gather of train and prefill and the MoE's dispatch
@@ -194,7 +201,7 @@ def _build_cell(model: Model, cell: ShapeCell, mesh: Mesh,
         return Cell(wrap(step), (state, batch), (state_sh, batch_sh), rules)
 
     params = abstract_params(model.specs)
-    params_sh = param_shardings(model.specs, sfn)
+    params_sh = param_placement(model, params, mesh, rules)
     if cell.kind == "prefill":
         fn = functools.partial(_prefill_fn, model, cell.seq_len)
         batch, batch_sh = batch_specs(cfg, cell, sfn)

@@ -89,12 +89,14 @@ def train_rules(cfg=None) -> dict:
                 __gather_weights__=True)
 
 
-def param_placement(model, params: dict, mesh) -> dict:
+def param_placement(model, params: dict, mesh, rules=None) -> dict:
     """Each parameter's ``NamedSharding`` on ``mesh``: ``param_shardings``
-    under ``train_rules(model.cfg)``, the sparse FFN's value streams by
+    under ``rules`` (default ``train_rules(model.cfg)``; a decode cell's
+    are ``input_specs.rules_for_cell``'s), the sparse FFN's value streams by
     ``sparse_weight_shardings`` (replicated where the tile count does not
-    divide the DP axes, the reference's fallback)."""
-    rules = train_rules(model.cfg)
+    divide the DP axes, the reference's fallback).  ``params``: tensors or
+    stand-ins of their shapes."""
+    rules = train_rules(model.cfg) if rules is None else rules
     sh = param_shardings(model.specs, make_sharding_fn(mesh, rules))
     if model.cfg.sparse_ffn is None:
         return sh

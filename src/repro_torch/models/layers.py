@@ -22,7 +22,8 @@ import torch.nn.functional as F
 from ..core.plan import execute_pattern
 from ..core.registry import resolve_device
 from . import spmd
-from .sharding_ctx import constrain, constrain_gemm, gathered, sparse_shard
+from .sharding_ctx import (constrain, constrain_gemm, gathered, pmax, psum,
+                           sparse_shard, tensor_parallel)
 
 #: the score of a masked (query, key) pair, the reference's
 MASKED = -1e30
@@ -38,11 +39,18 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * (1.0 + w.to(x.dtype))
 
 
-def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def dot(a: torch.Tensor, b: torch.Tensor, whole: bool = False
+        ) -> torch.Tensor:
     """``a @ b`` (``(..., i, j) x (j, k)``) in ``a.dtype``: a bf16 product
     accumulates in f32 and rounds once, as the reference's
     ``preferred_element_type=f32`` product cast back.  Weight-gathered in
-    train and prefill cells (``constrain_gemm``, reference ``:35-41``)."""
+    train and prefill cells (``constrain_gemm``, reference ``:35-41``).
+    Tensor-parallel at decode on placed parameters (``spmd.tp_dot``): a
+    weight split along ``k`` gives the position's slice of the output
+    features (all of them with ``whole``), one split along ``j`` takes
+    ``a``'s slice and all-reduces the partial outputs."""
+    if tensor_parallel(b):
+        return spmd.tp_dot(a, b, whole)
     b = constrain_gemm(w=b)
     out = torch.matmul(a, b.to(a.dtype))
     return constrain_gemm(out=out)
@@ -148,28 +156,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, *, length, window: int = 0
-                     ) -> torch.Tensor:
+                     v_cache: torch.Tensor, *, length, window: int = 0,
+                     offset: int = 0, seq_axes: tuple = ()) -> torch.Tensor:
     """Single-token attention against a cache.  q: (B, Hq, 1, D),
     k/v_cache: (B, Hk, L, D); ``length`` = #valid cache entries (the new
     token is already written at length-1): an int, a 0-d tensor (all lanes
-    in lockstep) or a (B,) tensor (each lane its own)."""
+    in lockstep) or a (B,) tensor (each lane its own).
+
+    A cache whose sequence is split over ``seq_axes`` (decode on placed
+    parameters) is this position's slots ``offset …``, masked by their
+    numbers in the whole cache: the shards' softmax statistics are merged
+    over the axes (the split-KV merge: the max by ``pmax``, the sum and
+    the weighted values by ``psum``).  A row with every key masked
+    averages V over the whole cache, as unsplit."""
     b, hq, _, d = q.shape
     hk, lmax = k_cache.shape[1], k_cache.shape[2]
     rep = hq // hk
     q = constrain(q, ("batch", None, None, None))
     qg = q.reshape(b, hk, rep, d).float() / math.sqrt(d)
     s = torch.einsum("bhrd,bhld->bhrl", qg, k_cache.float())
-    pos = torch.arange(lmax, device=q.device)
+    pos = offset + torch.arange(lmax, device=q.device)
     length = torch.as_tensor(length, device=q.device)
     lens = length.reshape(-1, 1)                               # (1|B, 1)
     mask = pos[None, :] < lens
     if window > 0:
         mask = mask & (pos[None, :] >= lens - window)
     s = torch.where(mask[:, None, None, :], s, MASKED)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhrl,bhld->bhrd", p, v_cache.float())
-    return out.reshape(b, hq, 1, d).to(q.dtype)
+    if not seq_axes:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhrl,bhld->bhrd", p, v_cache.float())
+        return out.reshape(b, hq, 1, d).to(q.dtype)
+    m = pmax(s.amax(dim=-1, keepdim=True), seq_axes, "decode attention max")
+    p = torch.exp(s - m)
+    total = psum(p.sum(dim=-1, keepdim=True), seq_axes,
+                 "decode attention sum")
+    out = psum(torch.einsum("bhrl,bhld->bhrd", p, v_cache.float()), seq_axes,
+               "decode attention values")
+    return (out / total).reshape(b, hq, 1, d).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

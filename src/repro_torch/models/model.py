@@ -31,7 +31,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import registry
-from ..dist.placement import block_index, device_get, dim_axes, is_placed
+from ..dist.placement import (block_index, device_get, device_put, dim_axes,
+                              is_placed)
 from ..dist.sharding_rules import PartitionSpec
 from . import sharding_ctx, spmd
 from .config import ModelConfig
@@ -42,6 +43,19 @@ from .rwkv import rwkv6_channel_mix, rwkv6_time_mix
 from .ssm import mamba2_mix
 from .transformer import (attn_apply, dense_block_apply, ffn_apply,
                           model_specs, sparse_patterns)
+
+
+def _leaves(tree, keys=()):
+    """``(path keys, leaf)`` of each leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in _leaves(v, keys + (k,))]
+    return [(keys, tree)]
+
+
+def _tree_at(tree, keys):
+    for k in keys:
+        tree = tree[k]
+    return tree
 
 
 def _tree_idx(tree, *i):
@@ -84,7 +98,11 @@ class Model:
 
     # ------------------------------------------------------------- embedding
     def _embed(self, params, tokens):
-        x = sharding_ctx.gathered(params["embed"])[tokens]
+        emb = params["embed"]
+        if sharding_ctx.tensor_parallel(emb):        # decode on placed params
+            x = spmd.embed_lookup(emb, tokens)
+        else:
+            x = sharding_ctx.gathered(emb)[tokens]
         if self.cfg.attn_pattern == "local_global":        # gemma convention
             x = x * float(torch.tensor(math.sqrt(self.cfg.d_model),
                                        dtype=x.dtype))
@@ -336,10 +354,6 @@ class Model:
         total = loss + aux_w * aux / max(cfg.num_layers, 1)
         return total, {"ce_loss": loss, "aux_loss": aux, "tokens": ntok}
 
-    def _logits(self, params, h):
-        h = rmsnorm(h, params["final_ln"], self.cfg.norm_eps)
-        return (h.float() @ self._unembed_w(params).float())[:, 0]
-
     def _prefill_hidden(self, params, batch, max_len: int):
         """The final-normed hidden state of the last position (B, 1, D) and
         the caches of ``max_len`` that prefill hands on."""
@@ -366,13 +380,9 @@ class Model:
         h, caches = self._prefill_hidden(params, batch, max_len)
         return (h.float() @ self._unembed_w(params).float())[:, 0], caches
 
-    def decode_step(self, params, caches, tokens):
-        """tokens (B, 1) → (logits (B, V), caches).  ``caches["length"]``
-        may be 0-d (all lanes in lockstep) or (B,) (each lane at its own
-        position, masked to its own length in attention).  Placed parameters
-        need decode's tensor-parallel regime, not ported: refused."""
-        if is_placed(params):
-            spmd.refuse(self.cfg, "decode")
+    def _decode_hidden(self, params, caches, tokens):
+        """The final-normed hidden state (B, 1, D) of one decode step and
+        the caches it hands on."""
         b = tokens.shape[0]
         x = self._embed(params, tokens)
         lens = caches["length"]
@@ -381,7 +391,18 @@ class Model:
         memory = caches.get("memory") if self.cfg.family == "audio" else None
         h, caches, _ = self._backbone(params, x, positions, caches=caches,
                                       memory=memory)
-        return self._logits(params, h), caches
+        return rmsnorm(h, params["final_ln"], self.cfg.norm_eps), caches
+
+    def decode_step(self, params, caches, tokens):
+        """tokens (B, 1) → (logits (B, V), caches).  ``caches["length"]``
+        may be 0-d (all lanes in lockstep) or (B,) (each lane at its own
+        position, masked to its own length in attention).  On placed
+        parameters the SPMD runtime runs it tensor-parallel
+        (``_decode_placed``: logits and caches placed)."""
+        if is_placed(params):
+            return self._decode_placed(params, caches, tokens)
+        h, caches = self._decode_hidden(params, caches, tokens)
+        return (h.float() @ self._unembed_w(params).float())[:, 0], caches
 
     # ------------------------------------------------ on placed parameters
     def _vocab_axes(self, params) -> tuple:
@@ -448,6 +469,65 @@ class Model:
         return (rt.placed(logits, spec, name="logits"),
                 rt.place_local(caches, cache_logical))
 
+    def _decode_placed(self, params, caches, tokens):
+        """``decode_step`` on placed parameters, under rules without
+        ``__gather_weights__`` (the installed ones, else ``TRAIN_RULES``):
+        each position's program (``spmd.Runtime.run``) takes its rows of
+        the tokens, keeps the weights' pieces over ``model`` and merges the
+        sequence-split caches' attention; ``(logits, caches)`` placed, the
+        logits ``(B, V)`` over the batch and vocab axes, each cache leaf as
+        it came (unplaced caches are placed by ``cache_shardings``)."""
+        spmd.refuse(self.cfg, "decode")
+        tokens = device_get(tokens)
+        rt = spmd.Runtime.of(params, tokens.shape[0], decode=True)
+        if not is_placed(caches):
+            caches = device_put(caches, self.cache_shardings(caches, rt.mesh,
+                                                             rt.rules))
+        length = caches["length"]
+        state = {k: v for k, v in caches.items() if k != "length"}
+
+        def program(pos):
+            views = rt.views(params, pos)
+            lens = length.local(pos)
+            local = dict(rt.cache_views(state, pos, SPLIT_CACHES),
+                         length=rt.rows(lens, pos) if lens.ndim else lens)
+            h, new = self._decode_hidden(views, local,
+                                         rt.rows(tokens, pos))
+            w, _ = self._unembed_shard(views)
+            return (h.float() @ w.float())[:, 0], new
+        outs = rt.run(program)
+        spec = PartitionSpec(spmd.spec_dim(rt.batch_axes),
+                             spmd.spec_dim(self._vocab_axes(params)))
+        logits = rt.placed({p: o[0] for p, o in outs.items()}, spec,
+                           name="logits")
+
+        def place(tree, keys=()):
+            if isinstance(tree, dict):
+                return {k: place(v, keys + (k,)) for k, v in tree.items()}
+            by_pos = {p: _tree_at(o[1], keys) for p, o in outs.items()}
+            if not rt.reads_split(tree, SPLIT_CACHES):
+                by_pos = {p: rt.cut(t, tree.spec, p) for p, t in
+                          by_pos.items()}
+            return rt.placed(by_pos, tree.spec, tree.shape, tree.name)
+        return logits, dict(place(state), length=length.map(lambda t: t + 1))
+
+    def cache_shardings(self, caches, mesh, rules=None) -> dict:
+        """The ``NamedSharding`` of each cache leaf on ``mesh``: the spec
+        ``rules`` (default: decode's, ``TRAIN_RULES``) give its
+        ``cache_logical`` axes, the batch over the batch axes where they
+        divide it and a dim its axes do not divide kept whole — the layout
+        ``decode_step`` on placed parameters keeps."""
+        rules = spmd.gather_rules(mesh, decode=True) if rules is None \
+            else {k: v for k, v in rules.items() if k != "__gather_weights__"}
+        batch = None
+        for keys, leaf in _leaves(caches):
+            logical = cache_logical(keys, leaf.ndim)
+            if "batch" in logical:
+                batch = leaf.shape[logical.index("batch")]
+                break
+        rt = spmd.Runtime(mesh, rules, batch, decode=True)
+        return rt.shardings(caches, cache_logical)
+
     # ---------------------------------------------------------------- caches
     def init_cache(self, batch: int, max_len: int, device=None):
         """Zeroed caches for ``batch`` lanes of ``max_len`` positions, in
@@ -494,6 +574,12 @@ class Model:
                     "cm_prev": zeros(lead + (cfg.d_model,), dt),
                     "length": length}
         return {"kv": kv((cfg.num_layers,), max_len), "length": length}
+
+
+#: the cache leaves decode reads split beyond the batch (``LocalView``s):
+#: a KV cache along its sequence (``attn_apply``), a Mamba-2 conv cache
+#: along its channels and its state along its heads (``mamba2_mix``)
+SPLIT_CACHES = ("k", "v", "conv", "ssm")
 
 
 def cache_logical(path_keys: tuple, ndim: int) -> tuple:

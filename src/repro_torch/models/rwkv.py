@@ -60,14 +60,17 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, n_heads: int, *,
     xw = _lerp(x, prev, mu_w)
     xg = _lerp(x, prev, mu_g)
 
-    r = dot(xr, p["w_r"]).reshape(bsz, s, n_heads, n)
-    k = dot(xk, p["w_k"]).reshape(bsz, s, n_heads, n)
-    v = dot(xv, p["w_v"]).reshape(bsz, s, n_heads, n)
-    g = F.silu(dot(xg, p["w_g"]))
+    # whole: at decode on placed parameters each position runs the
+    # recurrence on every head (the state is not split), so the projections'
+    # column slices are gathered
+    r = dot(xr, p["w_r"], whole=True).reshape(bsz, s, n_heads, n)
+    k = dot(xk, p["w_k"], whole=True).reshape(bsz, s, n_heads, n)
+    v = dot(xv, p["w_v"], whole=True).reshape(bsz, s, n_heads, n)
+    g = F.silu(dot(xg, p["w_g"], whole=True))
 
     # data-dependent decay (the Finch contribution): w = exp(-exp(w0 + lora))
     lora = dot(xw, p["w_decay_a"])
-    lora = dot(torch.tanh(lora), p["w_decay_b"])
+    lora = dot(torch.tanh(lora), p["w_decay_b"], whole=True)
     w = torch.exp(-torch.exp(torch.clamp(
         w0[None, None].float() + lora.float(), -8.0, 8.0)))
     w = w.reshape(bsz, s, n_heads, n)

@@ -3,16 +3,22 @@
 The reference pins activations to mesh axes at a few load-bearing points
 (attention q/k/v, block outputs, loss logits) through GSPMD, and in train
 and prefill cells (``__gather_weights__``) pins each weight replicated at
-its GEMM: the weight-gathered (ZeRO-3) regime.  The port runs that regime
-on placed parameters (``dist/placement.py``) through the single-process
-SPMD runtime of ``models/spmd.py``, which runs one position's program at a
-time inside a *position scope*:
+its GEMM: the weight-gathered (ZeRO-3) regime; decode cells keep the
+weights split over ``model`` (tensor parallelism).  The port runs both
+regimes on placed parameters (``dist/placement.py``) through the
+single-process SPMD runtime of ``models/spmd.py``, which runs each
+position's program inside a *position scope*:
 
 * ``constrain_gemm(w=)`` — and ``gathered(w)`` for the embedding and the
   norms — gathers a placed leaf's local view over its sharded axes (an
-  all-gather with a log); a plain tensor is returned as it is.  A local
-  view outside the weight-gathered regime (decode's tensor parallelism)
-  is refused.
+  all-gather with a log); a plain tensor is returned as it is.  Under rules
+  without ``__gather_weights__`` a product with a local view is
+  tensor-parallel (``tensor_parallel``; ``layers.dot`` runs
+  ``spmd.tp_dot``), while ``gathered`` still returns the leaf whole.
+* ``local``, ``split_axes``, ``offset`` and ``part`` read a cache leaf or
+  a weight that decode keeps split (a tensor is whole: no axes, offset 0);
+  ``psum``, ``pmax`` and ``all_gather`` are the position's collectives over
+  the axes given (none: the argument as it is).
 * ``constrain(x, logical)`` checks a local activation against the spec the
   rules give ``logical`` (the reference's divisibility fallback applied to
   the logical size): its device is the position's and its dims are split
@@ -93,16 +99,71 @@ def gather_weights_mode() -> bool:
 
 def gathered(w):
     """``w`` whole on this position: a tensor as it is, a placed leaf's
-    local view all-gathered over its sharded axes (weight-gathered regime
-    only; decode's tensor parallelism is not ported)."""
+    local view all-gathered over its sharded axes."""
     if w is None or isinstance(w, torch.Tensor):
         return w
-    if not gather_weights_mode():
-        raise NotImplementedError(
-            "a placed weight outside the weight-gathered regime (rules "
-            "without __gather_weights__, decode's tensor parallelism over "
-            "model) is not ported yet (ROADMAP item 7a)")
     return w.gather()
+
+
+def tensor_parallel(w) -> bool:
+    """``w`` is a placed leaf's local view under rules without
+    ``__gather_weights__``: decode's tensor parallelism, where a product
+    keeps the weight's pieces over ``model`` (``spmd.tp_dot``)."""
+    return w is not None and not isinstance(w, torch.Tensor) and \
+        not gather_weights_mode()
+
+
+# --------------------------------------------- split leaves inside a program
+
+def local(c):
+    """A tensor as it is, a local view's piece on this position."""
+    return c if c is None or isinstance(c, torch.Tensor) else c.local()
+
+
+def split_axes(c, dim: int) -> tuple:
+    """The mesh axes dim ``dim`` of ``c`` is split over (a tensor: none)."""
+    return () if c is None or isinstance(c, torch.Tensor) else c.axes(dim)
+
+
+def offset(c, dim: int) -> int:
+    """The index, in the whole leaf, of the first entry of ``local(c)``
+    along ``dim``."""
+    return 0 if c is None or isinstance(c, torch.Tensor) else c.offset(dim)
+
+
+def part(x, dim: int, axes):
+    """This position's block of ``x`` along ``dim`` over ``axes``: of a
+    tensor (whole) cut here, of a local view read as its piece (its other
+    axes gathered); no axes: ``x`` whole."""
+    if not isinstance(x, torch.Tensor):
+        return x.part(dim, axes) if axes else x.gather()
+    return current_position().part(x, dim, axes) if axes else x
+
+
+def axes_extent(axes) -> int:
+    """The number of positions along ``axes`` of the program's mesh."""
+    if not axes:
+        return 1
+    mesh = current_position().rt.mesh
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return n
+
+
+def psum(x, axes, what: str = ""):
+    """``x`` summed over the positions along ``axes`` (none: ``x``)."""
+    return current_position().psum(x, axes, what) if axes else x
+
+
+def pmax(x, axes, what: str = ""):
+    """The elementwise max of ``x`` over the positions along ``axes``."""
+    return current_position().pmax(x, axes, what) if axes else x
+
+
+def all_gather(x, dim: int, axes, what: str = ""):
+    """The positions' ``x`` along ``axes`` concatenated along ``dim``."""
+    return current_position().all_gather(x, dim, axes, what) if axes else x
 
 
 def constrain_gemm(w=None, out=None):

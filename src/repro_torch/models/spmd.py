@@ -1,32 +1,51 @@
-"""The weight-gathered SPMD runtime, in one process: train and prefill of
-the dense, SSM (RWKV-6), hybrid (Zamba2) and audio (Whisper) families and
-of the sparse FFN; the counterpart of the reference's GSPMD step under
-``__gather_weights__`` (``repro.models.sharding_ctx.constrain_gemm``,
-``repro.launch.input_specs.rules_for_cell``) and, for the sparse FFN's
-value streams, ``SPARSE_WEIGHT_RULES``.
+"""The single-process SPMD runtime: train and prefill of the dense, SSM
+(RWKV-6), hybrid (Zamba2) and audio (Whisper) families and of the sparse
+FFN with the weights gathered at their use, and their decode with the
+weights kept split over ``model`` (tensor parallelism); the counterpart of
+the reference's GSPMD step under ``repro.launch.input_specs.
+rules_for_cell`` (``__gather_weights__`` for train and prefill, classic TP
+at decode) and, for the sparse FFN's value streams, ``SPARSE_WEIGHT_RULES``.
 
 Parameters and AdamW moments are ``Placed`` leaves (``dist/placement.
 py``), stored sharded by ``param_shardings``.  The step runs the program of
-every mesh position in turn, in one thread and one autograd graph
-(``Model.loss_fn`` and ``Model.prefill`` on placed parameters drive it,
-``train.step`` and ``train.optim`` run the step's cross-position parts):
+every mesh position (``Model.loss_fn``, ``Model.prefill`` and
+``Model.decode_step`` on placed parameters drive it, ``train.step`` and
+``train.optim`` run the train step's cross-position parts):
 
 * each position takes its rows of the batch over the ``batch`` axes
   (``(pod, data)`` ∩ the mesh; all rows where they do not divide it, the
   reference's fallback); positions that differ along the other axes
   (``model``) compute the same rows;
-* each weight is all-gathered at its use (``gather``, called by
-  ``sharding_ctx.constrain_gemm`` / ``gathered``), hierarchically: the
-  ``data`` / ``pod`` axes first, ``model`` last; a checkpointed block
-  gathers again in its recompute;
+* train and prefill (``__gather_weights__``): each weight is all-gathered
+  at its use (``gather``, called by ``sharding_ctx.constrain_gemm`` /
+  ``gathered``), hierarchically: the ``data`` / ``pod`` axes first,
+  ``model`` last; a checkpointed block gathers again in its recompute;
+* decode (rules without it): a weight's pieces split over ``model`` stay
+  where they are, those over ``data`` / ``pod`` (FSDP kept) are gathered
+  at use (``tp_dot``).  A product whose output features are split
+  (column-parallel) gives the position's slice of them, all-gathered where
+  the caller needs every one; a product whose input features are split
+  (row-parallel) takes the slice and all-reduces the partial outputs over
+  ``model``.  The embedding is looked up in the position's vocab range
+  and all-reduced (``embed_lookup``).  A cache leaf split along its
+  sequence, channels or heads is read through a ``LocalView``: attention
+  merges the shards' softmax statistics over the cache's sequence axes
+  (``layers.decode_attention``);
 * the unembedding stays vocab-sharded: a position gathers it over its other
-  axes only, and ``model_loss.lm_loss_vocab_parallel`` combines the vocab
-  shards' statistics by ``pmax`` / ``psum`` over the vocab axes and the
-  token sums by ``psum`` over the batch axes;
+  axes only; train's ``model_loss.lm_loss_vocab_parallel`` combines the
+  vocab shards' statistics by ``pmax`` / ``psum`` over the vocab axes and
+  the token sums by ``psum`` over the batch axes;
 * a sparse FFN's value stream, its tiles placed over the DP axes, is never
   gathered: its pieces are the shards of the sharded SpMM
   (``sparse_matmul``), each run on its own piece with the position's
   columns, the partials summed on the position.
+
+Train and prefill run the positions' programs one after another: they meet
+only after the forward (the loss) and in the backward.  Decode's programs
+meet inside every block, so ``Runtime.run`` runs each on a thread of its
+own, one at a time in the mesh's order: a program runs to its next
+collective and hands the turn on (``_Lockstep``), so a step is as
+deterministic as a sequential run.
 
 Gradients follow the reference's replication: a value all positions of a
 group hold alike has one cotangent, held alike by all of them.  So a
@@ -68,7 +87,7 @@ from typing import TYPE_CHECKING, Any, NamedTuple
 import numpy as np
 import torch
 
-from ..core import registry
+from ..core import guardrails, registry
 from ..core.guardrails import all_finite as _finite
 from ..core.plan import _pattern_impl
 from ..core.shard import default_inner_backend, pattern_split, run_pattern_shard
@@ -76,6 +95,7 @@ from ..dist.placement import (Placed, block_index, coord, dim_axes, extent,
                               first_placed, placed_leaves, positions)
 from ..dist.sharding_rules import (TRAIN_RULES, NamedSharding, PartitionSpec,
                                    partition_spec, resolve_rules)
+from ..runtime import faults
 from . import sharding_ctx
 
 if TYPE_CHECKING:
@@ -174,22 +194,18 @@ def only_position(pos: tuple):
 
 def refuse(cfg, what: str) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for what the
-    weight-gathered runtime does not run on placed parameters: decode
-    (item 7a) and MoE (item 7b)."""
-    if what == "decode":
-        raise NotImplementedError(
-            "decode on placed parameters needs the tensor-parallel regime "
-            "(weights split over model, an all-reduce a block): not ported "
-            "yet (ROADMAP item 7a)")
+    runtime does not run on placed parameters (``what``: train, prefill or
+    decode): MoE, which needs expert parallelism (item 7b)."""
     if cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: MoE on placed parameters needs expert parallelism "
-            "(experts kept sharded, tokens moved by all-to-all): not ported "
-            "yet (ROADMAP item 7b)")
+            f"{cfg.name}: MoE {what} on placed parameters needs expert "
+            "parallelism (experts kept sharded, tokens moved by all-to-all): "
+            "not ported yet (ROADMAP item 7b)")
 
 
 def supports(cfg) -> bool:
-    """The runtime runs ``cfg``'s train and prefill on placed params."""
+    """The runtime runs ``cfg``'s train, prefill and decode on placed
+    params."""
     try:
         refuse(cfg, "train")
     except NotImplementedError:
@@ -201,27 +217,34 @@ def supports(cfg) -> bool:
 # the runtime of one step
 # ---------------------------------------------------------------------------
 
-def gather_rules(mesh: Mesh) -> dict:
+def gather_rules(mesh: Mesh, decode: bool = False) -> dict:
     """The rules of a placed step: those installed by ``sharding_ctx.
-    activation_sharding`` for this mesh, else ``TRAIN_RULES`` with
-    ``__gather_weights__``."""
+    activation_sharding`` for this mesh, else ``TRAIN_RULES``, with
+    ``__gather_weights__`` unless the step is a decode."""
     ctx, _ = sharding_ctx.capture()
     if ctx is not None and ctx[0] == mesh:
         return ctx[1]
-    return dict(resolve_rules(TRAIN_RULES), __gather_weights__=True)
+    rules = resolve_rules(TRAIN_RULES)
+    return rules if decode else dict(rules, __gather_weights__=True)
 
 
 class Runtime:
     """The mesh, the rules and the activation layout of one step: the
     ``batch`` axes the rows are split over (``batch_axes``), the positions
-    whose programs run (every one, or ``only_position``'s), the logs."""
+    whose programs run (every one, or ``only_position``'s), the logs.
+    ``decode``: the step is a decode, whose rules keep the weights split
+    (no ``__gather_weights__``); train and prefill gather them."""
 
-    def __init__(self, mesh: Mesh, rules: dict, batch: int | None):
-        if not rules.get("__gather_weights__"):
-            raise NotImplementedError(
-                "placed parameters under rules without __gather_weights__ "
-                "(decode's tensor parallelism) are not ported yet (ROADMAP "
-                "item 7a)")
+    def __init__(self, mesh: Mesh, rules: dict, batch: int | None,
+                 decode: bool = False):
+        if bool(rules.get("__gather_weights__")) == decode:
+            raise ValueError(
+                "decode on placed parameters runs tensor-parallel, under "
+                "rules without __gather_weights__ (rules_for_cell of a "
+                "decode cell)" if decode else
+                "train and prefill on placed parameters gather the weights "
+                "at their use, under rules with __gather_weights__; rules "
+                "without it are decode's")
         self.mesh, self.rules = mesh, rules
         axes = tuple(a for a in rules.get("batch", ()) if a in mesh.axis_names)
         if batch is not None and batch % extent(mesh, axes):
@@ -234,11 +257,43 @@ class Runtime:
                              f"{mesh.devices[only]}")
         self.positions = [only] if only is not None else positions(mesh)
         self.logs = _open_logs()
+        self.lockstep = None
 
     @classmethod
-    def of(cls, tree: Any, batch: int | None = None) -> "Runtime":
+    def of(cls, tree: Any, batch: int | None = None,
+           decode: bool = False) -> "Runtime":
         leaf = first_placed(tree)
-        return cls(leaf.mesh, gather_rules(leaf.mesh), batch)
+        return cls(leaf.mesh, gather_rules(leaf.mesh, decode), batch, decode)
+
+    def run(self, program) -> dict:
+        """``{pos: program(pos)}`` of every run position, each inside
+        ``at(pos)``.  Programs that meet in collectives (``Position.psum``,
+        ``pmax``, ``all_gather``) run on threads of their own, one at a
+        time (``_Lockstep``), each in the caller's grad mode, backend
+        scope, sentinel and gradient-sentinel scopes and fault injector,
+        and on its position's card."""
+        if len(self.positions) == 1:
+            pos = self.positions[0]
+            with self.at(pos):
+                return {pos: program(pos)}
+        grad, backend = torch.is_grad_enabled(), registry.scoped_backend()
+        sentinel = guardrails.active_sentinel()
+        grad_sentinel = guardrails.active_grad_sentinel()
+        injector = faults.active_injector()
+
+        def body(pos):
+            with torch.set_grad_enabled(grad), \
+                    registry.backend_scope(backend), \
+                    guardrails.sentinel_scope(sentinel), \
+                    guardrails.grad_scope(grad_sentinel), \
+                    faults.inject_faults(injector), \
+                    _on_device(self.device(pos)), self.at(pos):
+                return program(pos)
+        self.lockstep = _Lockstep(self.positions)
+        try:
+            return self.lockstep.run(body)
+        finally:
+            self.lockstep = None
 
     # ------------------------------------------------------------ positions
     @property
@@ -282,6 +337,40 @@ class Runtime:
         if isinstance(tree, Placed):
             return LocalView(tree, pos)
         return tree
+
+    def reads_split(self, leaf: Placed, split: tuple) -> bool:
+        """A program reads the cache ``leaf`` as a ``LocalView``: its name
+        is in ``split`` and a dim besides the batch is split."""
+        return leaf.name.rsplit(".", 1)[-1] in split and \
+            not set(leaf.sharded_axes()) <= set(self.batch_axes)
+
+    def cache_views(self, tree: Any, pos: tuple, split: tuple) -> Any:
+        """``pos``'s view of each placed leaf of a cache tree, inside its
+        program: a ``LocalView`` of the leaves named in ``split`` whose
+        other dims are split (a KV cache's sequence, a conv cache's
+        channels, an SSM state's heads), the rows of every other leaf —
+        all-gathered over the other axes where it is split beyond its batch
+        dim (``cut`` takes the position's piece of its new value)."""
+        if isinstance(tree, dict):
+            return {k: self.cache_views(v, pos, split)
+                    for k, v in tree.items()}
+        if not isinstance(tree, Placed):
+            return tree
+        if self.reads_split(tree, split):
+            return LocalView(tree, pos)
+        if set(tree.sharded_axes()) <= set(self.batch_axes):
+            return tree.local(pos)
+        return LocalView(tree, pos).gather(keep=self.batch_axes)
+
+    def shardings(self, tree: Any, logical_of, keys: tuple = ()) -> Any:
+        """The ``NamedSharding`` of each leaf of ``tree`` (tensors or
+        placed leaves): the spec the rules give its logical axes
+        ``logical_of(path keys, ndim)`` (``spec_for``)."""
+        if isinstance(tree, dict):
+            return {k: self.shardings(v, logical_of, keys + (k,))
+                    for k, v in tree.items()}
+        return NamedSharding(self.mesh, PartitionSpec(*self.spec_for(
+            logical_of(keys, len(tree.shape)), tuple(tree.shape))))
 
     def placed(self, by_pos: dict, spec=PartitionSpec(), shape=None,
                name: str = "") -> Placed:
@@ -328,19 +417,22 @@ class Runtime:
                                         logical_of, keys + (k,))
                     for k in some}
         spec = self.spec_for(logical_of(keys, some.ndim), tuple(some.shape))
-        out = {}
-        for pos, t in by_pos.items():
-            sl = []
-            for d, dim in enumerate(spec):
-                axes = [a for a in dim_axes(dim) if a not in self.batch_axes]
-                if axes:          # the batch dim holds this position's rows
-                    b = t.shape[d] // extent(self.mesh, axes)
-                    i = block_index(self.mesh, pos, axes)
-                    sl.append(slice(i * b, (i + 1) * b))
-                else:
-                    sl.append(slice(None))
-            out[pos] = t[tuple(sl)].clone() if t.ndim else t
+        out = {pos: self.cut(t, spec, pos) for pos, t in by_pos.items()}
         return self.placed(out, spec, name=".".join(keys))
+
+    def cut(self, t: torch.Tensor, spec: tuple, pos: tuple) -> torch.Tensor:
+        """``pos``'s piece of ``t``, whole but for its rows, under
+        ``spec``."""
+        sl = []
+        for d, dim in enumerate(spec):
+            axes = [a for a in dim_axes(dim) if a not in self.batch_axes]
+            if axes:              # the batch dim holds this position's rows
+                b = t.shape[d] // extent(self.mesh, axes)
+                i = block_index(self.mesh, pos, axes)
+                sl.append(slice(i * b, (i + 1) * b))
+            else:
+                sl.append(slice(None))
+        return t[tuple(sl)].clone() if t.ndim else t
 
     # ---------------------------------------------------------- collectives
     def _groups(self, xs: dict, axes) -> list:
@@ -454,6 +546,93 @@ class _Vary(torch.autograd.Function):
         return (None,) + tuple(total.to(gr.device, copy=True) for gr in grads)
 
 
+class _Aborted(Exception):
+    """Another position's program failed: this one stops."""
+
+
+class _Lockstep:
+    """The programs of ``order``'s positions on threads of their own, one
+    running at a time: a program runs until its next collective
+    (``exchange``), leaves its tensor and hands the turn to the next
+    position in ``order``; it resumes once every other program has left
+    its tensor for the same collective.  Every program must run the same
+    collectives in the same order (SPMD); a program that raises stops the
+    others, and ``run`` raises its error."""
+
+    def __init__(self, order: list):
+        self.order = list(order)
+        self.live = list(order)
+        self.turn = self.order[0]
+        self.cond = threading.Condition()
+        self.rounds: dict = {}         # collective number -> {pos: tensor}
+        self.reads: dict = {}
+        self.seq = {p: 0 for p in order}
+        self.error: BaseException | None = None
+
+    def _await(self, pos):
+        while self.turn != pos and self.error is None:
+            self.cond.wait()
+        if self.error is not None:
+            raise _Aborted()
+
+    def _hand_on(self, pos):
+        i = self.live.index(pos)
+        self.turn = self.live[(i + 1) % len(self.live)]
+        self.cond.notify_all()
+
+    def exchange(self, pos: tuple, x: torch.Tensor) -> dict:
+        """Every position's tensor of this collective, by position."""
+        with self.cond:
+            k = self.seq[pos]
+            self.seq[pos] = k + 1
+            self.rounds.setdefault(k, {})[pos] = x
+            self._hand_on(pos)
+            self._await(pos)
+            got = self.rounds[k]
+            if len(got) != len(self.order):
+                raise RuntimeError(
+                    f"collective {k}: the programs of "
+                    f"{sorted(set(self.order) - set(got))} ran no such "
+                    "collective (the positions' programs differ)")
+            self.reads[k] = self.reads.get(k, 0) + 1
+            if self.reads[k] == len(self.order):
+                del self.rounds[k], self.reads[k]
+            return got
+
+    def run(self, body) -> dict:
+        out = {}
+
+        def main(pos):
+            try:
+                with self.cond:
+                    self._await(pos)
+                out[pos] = body(pos)
+            except _Aborted:
+                pass
+            except BaseException as err:    # re-raised by the caller
+                with self.cond:
+                    if self.error is None:
+                        self.error = err
+            finally:
+                with self.cond:
+                    i = self.live.index(pos)
+                    self.live.remove(pos)
+                    if self.turn == pos and self.live:
+                        self.turn = self.live[i % len(self.live)]
+                    self.cond.notify_all()
+
+        threads = [threading.Thread(target=main, args=(pos,), daemon=True,
+                                    name=f"position {pos}")
+                   for pos in self.order]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if self.error is not None:
+            raise self.error
+        return out
+
+
 # ---------------------------------------------------------------------------
 # one position's program: local views and their gathers
 # ---------------------------------------------------------------------------
@@ -503,6 +682,77 @@ class Position:
                 raise ValueError(
                     f"activation {tuple(x.shape)} {logical}: dim {name!r} is "
                     f"split over {have} here, the rules give {picked}")
+
+    # ------------------------------------- collectives inside the program
+    def _members(self, x: torch.Tensor, axes: tuple, kind: str, nbytes,
+                 what: str):
+        """Record the collective and return the group's tensors in the
+        group's order (None when this position's program runs alone)."""
+        rt = self.rt
+        _record(rt.logs, self.pos, Collective(kind, nbytes, axes,
+                                              extent(rt.mesh, axes), 1,
+                                              what, "runtime"), "forward")
+        if rt.alone:
+            return None
+        if rt.lockstep is None:
+            raise RuntimeError(f"a collective over {axes} ({what}) outside "
+                               "Runtime.run")
+        got = rt.lockstep.exchange(self.pos, x)
+        return [got[q] for q in rt.group(self.pos, axes)]
+
+    def psum(self, x: torch.Tensor, axes, what: str = "") -> torch.Tensor:
+        """The sum of ``x`` over the positions along ``axes`` (added in the
+        group's order on its first member's device), on this position."""
+        axes = tuple(axes)
+        if extent(self.rt.mesh, axes) == 1:
+            return x
+        xs = self._members(x, axes, "all-reduce",
+                           x.numel() * x.element_size(), what)
+        if xs is None:
+            return x.clone()
+        total = xs[0].clone()
+        for t in xs[1:]:
+            total = total + t.to(total.device)
+        return total.to(x.device)
+
+    def pmax(self, x: torch.Tensor, axes, what: str = "") -> torch.Tensor:
+        """The elementwise max of ``x`` over the positions along ``axes``."""
+        axes = tuple(axes)
+        if extent(self.rt.mesh, axes) == 1:
+            return x
+        xs = self._members(x, axes, "all-reduce",
+                           x.numel() * x.element_size(), what)
+        if xs is None:
+            return x.clone()
+        total = xs[0]
+        for t in xs[1:]:
+            total = torch.maximum(total, t.to(total.device))
+        return total.to(x.device)
+
+    def all_gather(self, x: torch.Tensor, dim: int, axes,
+                   what: str = "") -> torch.Tensor:
+        """The positions' ``x`` along ``axes`` concatenated along ``dim``
+        in the order of their blocks (``block_index``)."""
+        axes = tuple(axes)
+        n = extent(self.rt.mesh, axes)
+        if n == 1:
+            return x
+        xs = self._members(x, axes, "all-gather",
+                           x.numel() * x.element_size() * n, what)
+        if xs is None:
+            shape = list(x.shape)
+            shape[dim] *= n
+            return torch.empty(shape, dtype=x.dtype, device=x.device)
+        return torch.cat([t.to(x.device) for t in xs], dim=dim)
+
+    def part(self, x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+        """This position's block of ``x`` along ``dim`` split over
+        ``axes`` (no collective)."""
+        n = extent(self.rt.mesh, axes)
+        if n == 1:
+            return x
+        b = x.shape[dim] // n
+        return x.narrow(dim, block_index(self.rt.mesh, self.pos, axes) * b, b)
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -561,11 +811,28 @@ class LocalView:
 
     def gather(self, keep=()) -> torch.Tensor:
         """This leaf whole on the position (``keep``: axes left sharded)."""
-        position = sharding_ctx.current_position()
-        if position is None or position.pos != self.pos:
-            raise RuntimeError(f"{self.name}: a local view of {self.pos} read "
-                               f"outside its program ({position and position.pos})")
-        return _gather(position.rt, self, tuple(keep))
+        return _gather(_position_of(self).rt, self, tuple(keep))
+
+    def axes(self, dim: int) -> tuple:
+        """The mesh axes dim ``dim`` (of this view) is split over."""
+        return dim_axes(self.placed.spec[len(self.index) + dim % self.ndim])
+
+    def offset(self, dim: int) -> int:
+        """The index, in the whole leaf, of this position's first entry
+        along ``dim``."""
+        axes = self.axes(dim)
+        size = self.shape[dim] // extent(self.placed.mesh, axes)
+        return block_index(self.placed.mesh, self.pos, axes) * size
+
+    def part(self, dim: int, axes) -> torch.Tensor:
+        """This position's block along ``dim`` over ``axes``, every other
+        dim whole: the local piece where the leaf is split so (its other
+        axes gathered), else cut from the whole leaf."""
+        axes = tuple(axes)
+        if axes and self.axes(dim) == axes:
+            return self.gather(keep=axes)
+        whole = self.gather()
+        return sharding_ctx.current_position().part(whole, dim, axes)
 
     def __repr__(self) -> str:
         return f"LocalView({self.name} at {self.pos})"
@@ -671,6 +938,88 @@ def spec_dim(axes: tuple):
 
 
 # ---------------------------------------------------------------------------
+# decode's tensor parallelism: the split weights' products
+# ---------------------------------------------------------------------------
+
+#: the axes decode keeps a weight split over (``rules_for_cell``: heads,
+#: ff, ssm_in and vocab over ``model``)
+TP_AXES = ("model",)
+
+
+def _position_of(view: LocalView) -> Position:
+    position = sharding_ctx.current_position()
+    if position is None or position.pos != view.pos:
+        raise RuntimeError(f"{view.name}: a local view of {view.pos} read "
+                           f"outside its program ({position and position.pos})")
+    return position
+
+
+def _kept(view: LocalView, dim: int) -> tuple:
+    axes = view.axes(dim)
+    return axes if any(a in TP_AXES for a in axes) else ()
+
+
+def tp_dot(a: torch.Tensor, view: LocalView, whole: bool = False
+           ) -> torch.Tensor:
+    """``a @ W`` for the placed weight ``view`` (``(k, n)``) under decode's
+    tensor parallelism, in ``a.dtype``: W's pieces over ``model`` stay,
+    its other axes (FSDP kept) are gathered.  W split along ``n``
+    (column-parallel): the position's slice of the output features, all
+    of them all-gathered when ``whole``.  W split along ``k``
+    (row-parallel): ``a`` (its slice, or whole and cut here) times the
+    piece, the partial outputs all-reduced over the axes in f32 and cast
+    once, as the reference all-reduces its f32 product before the cast (a
+    bf16 partial rounded before the sum drifts from the unsharded product
+    by a rounding a branch).  The partials come from the product in the
+    operands' type with an f32 result (``_f32_product``): the piece is
+    read as it is stored."""
+    position = _position_of(view)
+    w = view.gather(keep=TP_AXES)
+    k_axes, n_axes = _kept(view, -2), _kept(view, -1)
+    if k_axes:
+        if a.shape[-1] != w.shape[-2]:
+            a = position.part(a, -1, k_axes)
+        y = _f32_product(a, w.to(a.dtype))
+        return position.psum(y, k_axes,
+                             f"{view.name} (row-parallel)").to(a.dtype)
+    y = torch.matmul(a, w.to(a.dtype))
+    if n_axes and whole:
+        y = position.all_gather(y, -1, n_axes,
+                                f"{view.name} (column-parallel)")
+    return y
+
+
+def _f32_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` (``w`` 2-D) with an f32 result.  On the card a 16-bit
+    product is one GEMM that accumulates in f32 and writes f32
+    (``torch.mm``'s ``out_dtype``): neither operand is cast, and no f32
+    copy of the weight is made.  Elsewhere the operands are cast: a
+    product of two bf16 or f16 values is exact in f32, so it is the same
+    sum up to the order of its terms."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        y = torch.mm(a.reshape(-1, a.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*a.shape[:-1], w.shape[-1])
+    return torch.matmul(a.float(), w.float())
+
+
+def embed_lookup(view: LocalView, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of the embedding ``view`` ``(V, D)`` at ``tokens``, vocab
+    split: each position looks up the tokens in its vocab range (zero
+    elsewhere), all-reduced over the vocab axes — the table is never
+    gathered."""
+    position = _position_of(view)
+    vaxes = view.axes(0)
+    w = view.gather(keep=vaxes)
+    if not vaxes:
+        return w[tokens]
+    ids = tokens - view.offset(0)
+    hit = (ids >= 0) & (ids < w.shape[0])
+    x = torch.where(hit[..., None], w[ids.clamp(0, w.shape[0] - 1)],
+                    torch.zeros((), dtype=w.dtype, device=w.device))
+    return position.psum(x, vaxes, f"{view.name} (vocab-parallel lookup)")
+
+
+# ---------------------------------------------------------------------------
 # the sparse-weight layers: the placed value stream's pieces as the shards
 # ---------------------------------------------------------------------------
 
@@ -692,10 +1041,7 @@ def sparse_matmul(rows: torch.Tensor, cols: torch.Tensor, shape,
     piece, whose holder shares this position's ``model`` coordinate, and
     the shards' ``dX`` are summed back onto the position.  A replicated
     leaf is one shard: the position's own copy, and nothing moves."""
-    position = sharding_ctx.current_position()
-    if position is None or position.pos != view.pos:
-        raise RuntimeError(f"{view.name}: a local view of {view.pos} read "
-                           f"outside its program ({position and position.pos})")
+    position = _position_of(view)
     rt, pos = position.rt, view.pos
     axes = dim_axes(view.placed.spec[len(view.index)])
     group = rt.group(pos, axes)

@@ -17,7 +17,8 @@ import torch.nn.functional as F
 
 from .config import SSMConfig
 from .layers import dot
-from .sharding_ctx import constrain, gathered
+from .sharding_ctx import all_gather, constrain, gathered, local, part, psum, \
+    split_axes
 
 
 def ssd_chunked(x, dt, a_log, b, c, d_skip, *, chunk: int):
@@ -117,37 +118,51 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 def mamba2_mix(p: dict, x: torch.Tensor, cfg: SSMConfig, d_model: int, *,
                state=None, conv_cache=None, decode: bool = False):
-    """Full Mamba2 mixer.  x (B,S,D).  Returns (y, (state, conv_cache))."""
+    """Full Mamba2 mixer.  x (B,S,D).  Returns (y, (state, conv_cache)).
+
+    At decode on placed parameters the caches may be split (local views):
+    the conv cache's channels and the state's heads over ``model``.  The
+    in-projection's columns, split where they do not line up with
+    ``z | xBC | dt``, are gathered whole (B x zdim, small at decode); the
+    conv runs on the cache's channels and its output is gathered; the
+    recurrence runs on the state's heads, whose outputs the gated norm
+    sums over the positions before the row-parallel out-projection."""
     d_inner = cfg.expand * d_model
     h = d_inner // cfg.head_dim
     n = cfg.d_state
 
-    # the parameters read outside ``dot``, gathered on a placed step
-    dt_bias, w_conv, a_log, d_skip, norm_w = (
-        gathered(p[k]) for k in ("dt_bias", "w_conv", "a_log", "d_skip",
-                                 "norm_w"))
-    zxbcdt = dot(x, p["w_in"])
+    zxbcdt = dot(x, p["w_in"], whole=True)
     z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * n, h], dim=-1)
     z = constrain(z, ("batch", None, None))
     xbc = constrain(xbc, ("batch", None, None))
-    dt = F.softplus(dt.float() + dt_bias.float())
+    dt = F.softplus(dt.float() + gathered(p["dt_bias"]).float())
 
-    xbc, conv_cache = causal_conv(xbc, w_conv, conv_cache)
-    xbc = F.silu(xbc)
+    cax = split_axes(conv_cache, -1)            # the conv cache's channels
+    xbc, conv_cache = causal_conv(part(xbc, -1, cax),
+                                  part(p["w_conv"], -1, cax),
+                                  local(conv_cache))
+    xbc = all_gather(F.silu(xbc), -1, cax, "mamba2 conv channels")
     xs, b, c = torch.split(xbc, [d_inner, n, n], dim=-1)
     xs = xs.reshape(*xs.shape[:-1], h, cfg.head_dim)
 
+    hax = split_axes(state, 1) if decode else ()   # the state's heads
+    a_log, d_skip = (part(p[k], 0, hax) for k in ("a_log", "d_skip"))
     if decode:
-        y, state = ssd_decode_step(state, xs[:, 0], dt[:, 0], a_log,
+        y, state = ssd_decode_step(local(state), part(xs[:, 0], 1, hax),
+                                   part(dt[:, 0], 1, hax), a_log,
                                    b[:, 0], c[:, 0], d_skip)
         y = y[:, None]                                          # (B,1,H,P)
     else:
         y, state = ssd_chunked(xs, dt, a_log, b, c, d_skip, chunk=cfg.chunk)
-    y = y.reshape(*y.shape[:-2], d_inner)
-    # gated RMSNorm (mamba2's norm-before-out)
-    y32 = y.float() * F.silu(z.float())
-    var = (y32 * y32).mean(dim=-1, keepdim=True)
+    y = y.reshape(*y.shape[:-2], -1)
+    # gated RMSNorm (mamba2's norm-before-out) over all d_inner channels
+    y32 = y.float() * F.silu(part(z, -1, hax).float())
+    if hax:
+        var = psum((y32 * y32).sum(dim=-1, keepdim=True), hax,
+                   "mamba2 gated norm") / d_inner
+    else:
+        var = (y32 * y32).mean(dim=-1, keepdim=True)
     y = (y32 * torch.rsqrt(var + 1e-5)).to(x.dtype) \
-        * (1.0 + norm_w.to(x.dtype))
+        * (1.0 + part(p["norm_w"], -1, hax).to(x.dtype))
     out = dot(y, p["w_out"])
     return out, (state, conv_cache)

@@ -17,7 +17,8 @@ from .layers import (SparsePattern, apply_mrope, apply_rope, decode_attention,
                      sparse_mlp_apply)
 from .moe import moe_apply
 from .params import ParamSpec, map_specs
-from .sharding_ctx import constrain
+from .sharding_ctx import (axes_extent, constrain, local, offset,
+                           split_axes, tensor_parallel)
 
 P = ParamSpec
 
@@ -300,15 +301,21 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(b, s, n, hd)
 
 
-def _write_decode(cache: torch.Tensor, new: torch.Tensor,
-                  idx: torch.Tensor) -> torch.Tensor:
+def _write_decode(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
+                  lmax: int | None = None, first: int = 0) -> torch.Tensor:
     """A copy of ``cache`` (B, Hk, L, hd) with ``new`` (B, Hk, 1, hd)
     written at slot ``idx``: a 0-d index for every lane, or a (B,) index a
-    lane.  The slot is clamped into ``[0, L)``, as ``dynamic_update_slice``
-    clamps its start; no host sync."""
-    lmax = cache.shape[2]
+    lane.  The slot is clamped into ``[0, lmax)``, as
+    ``dynamic_update_slice`` clamps its start; no host sync.  A shard of a
+    sequence-split cache (``lmax`` slots in all, this one holding slots
+    ``first …``) writes the lanes whose slot it holds."""
+    lmax = cache.shape[2] if lmax is None else lmax
     idx = idx.clamp(0, lmax - 1).long()
     new = new.to(cache.dtype)
+    if cache.shape[2] < lmax:
+        slots = first + torch.arange(cache.shape[2], device=cache.device)
+        hit = slots[None, :] == idx.reshape(-1, 1)             # (1|B, L)
+        return torch.where(hit[:, None, :, None], new, cache)
     if idx.ndim == 0:
         return cache.index_copy(2, idx.reshape(1), new)
     out = cache.clone()
@@ -327,14 +334,24 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
     ``length % L`` on a window cache, a rolling write) and attends to the
     valid entries; prefill writes the last ``min(S, L)`` keys rolled so
     that position p sits at slot ``p % L``.  memory: (B, Sm, D) for
-    cross-attention (keys/values from memory, no cache)."""
+    cross-attention (keys/values from memory, no cache).
+
+    Decode on placed parameters (tensor-parallel ``dot``): a
+    cross-attention whose heads split whole over the positions runs on the
+    position's heads; every other attention gathers q, k and v for all
+    heads, and a cache whose sequence is split (local views of k / v) is
+    written by the shard holding the slot and attended with the split-KV
+    merge (``decode_attention``).  ``wo`` is row-parallel either way."""
     b, s, _ = x.shape
-    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hk, hd = cfg.num_kv_heads, cfg.head_dim
     xn = rmsnorm(x, p["ln"], cfg.norm_eps)
-    q = _split_heads(dot(xn, p["wq"]), h, hd)
+    whole = memory is None or not _heads_split(p, hk)
+    q = dot(xn, p["wq"], whole)
     kv_src = memory if memory is not None else xn
-    k = _split_heads(dot(kv_src, p["wk"]), hk, hd)
-    v = _split_heads(dot(kv_src, p["wv"]), hk, hd)
+    k, v = dot(kv_src, p["wk"], whole), dot(kv_src, p["wv"], whole)
+    q = _split_heads(q, q.shape[-1] // hd, hd)
+    k = _split_heads(k, k.shape[-1] // hd, hd)
+    v = _split_heads(v, v.shape[-1] // hd, hd)
 
     if rope and memory is None:
         if cfg.mrope_sections:
@@ -356,15 +373,17 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
         else:
             out = flash_attention(qt, kt, vt, causal=False)
     elif cache is not None:
-        lmax = cache["k"].shape[2]
+        lmax = cache["k"].shape[2]                 # every shard's slots
         length = cache["length"]
         if s == 1:  # decode: rolling write for window caches
             idx = length % lmax if window > 0 else length
-            newk = _write_decode(cache["k"], kt, idx)
-            newv = _write_decode(cache["v"], vt, idx)
+            seq, first = split_axes(cache["k"], 2), offset(cache["k"], 2)
+            newk = _write_decode(local(cache["k"]), kt, idx, lmax, first)
+            newv = _write_decode(local(cache["v"]), vt, idx, lmax, first)
             length = length + 1
             valid = torch.clamp(length, max=lmax) if window > 0 else length
-            out = decode_attention(qt, newk, newv, length=valid, window=0)
+            out = decode_attention(qt, newk, newv, length=valid, window=0,
+                                   offset=first, seq_axes=seq)
             cache = dict(k=newk, v=newv, length=length)
         else:       # prefill: write the (rolled) suffix; slot of pos p = p % lmax
             keep = min(s, lmax)
@@ -386,9 +405,21 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
     else:
         out = flash_attention(qt, kt, vt, causal=causal, window=window)
 
-    out = out.transpose(1, 2).reshape(b, s, h * hd)
+    out = out.transpose(1, 2).reshape(b, s, -1)
     return x + dot(out, p["wo"]), cache
 
+
+def _heads_split(p: dict, hk: int) -> bool:
+    """``wq``, ``wk`` and ``wv`` are tensor-parallel, their output features
+    split alike over positions that each hold whole heads of both q and
+    k / v (the KV heads divide by the positions, so a position's q heads
+    read its own KV heads)."""
+    if not tensor_parallel(p["wq"]):
+        return False
+    axes = split_axes(p["wq"], -1)
+    return bool(axes) and all(split_axes(p[n], -1) == axes
+                              for n in ("wk", "wv")) \
+        and hk % axes_extent(axes) == 0
 
 def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, patterns=None):
     """The FFN block with its residual: ``(x + ffn(rmsnorm(x)), aux)`` —

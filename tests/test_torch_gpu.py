@@ -3798,3 +3798,80 @@ def test_cuda_tp_restore_onto_another_mesh_and_the_log(cuda, tmp_path):
     for r in plan:
         by_kind[r.kind] = by_kind.get(r.kind, 0) + r.bytes * r.count
     assert log.bytes_by_kind((0, 0)) == by_kind
+
+
+# ---------------------------------------------------------------------------
+# decode on placed params (models/spmd.py, tensor-parallel): a (2, 2) mesh
+# whose four positions share the card, against the card's unsharded decode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "llama3.2-1b+sparse"])
+def test_cuda_tp_decode_matches_the_unsharded_decode(cuda, arch, cell):
+    """Three decode steps after an unsharded prefill (batch 4, or 1 under
+    the long_500k rules, the cache's sequence split four ways): logits and
+    caches within 1e-4 (f32) of the unsharded decode on the card; each
+    step's log equals the plan.  The sparse FFN's value streams (308 tiles
+    of 8) split over data: K1 pr on each shard's piece, 4 positions x 2
+    shards x 3 matrices x 2 layers = 48 a step, no sr; the dense model
+    launches no kernel."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.dist.placement import device_get, device_put
+    from repro_torch.kernels import launch_counts, reset_launch_counts, vsr
+    from repro_torch.launch import dryrun, input_specs, make_local_mesh
+    from repro_torch.launch.train import param_placement
+    from repro_torch.models import SHAPES, Model, spmd
+    from repro_torch.models.config import ShapeCell, SparseFFNConfig
+    from repro_torch.models.sharding_ctx import activation_sharding
+    base, _, sparse = arch.partition("+")
+    cfg = get_smoke(base)
+    if sparse:
+        cfg = cfg.scaled(sparse_ffn=SparseFFNConfig(density=0.3, tile=8))
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    params = _to(params, cuda)
+    b = 1 if cell == "long_500k" else 4
+    rules = input_specs.rules_for_cell(
+        next(c for c in SHAPES if c.name == cell), cfg, model_axis=2)
+    mesh = make_local_mesh(2, 2, devices=[str(cuda)] * 4)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, 256, (b, 12))).to(cuda)
+    steps = torch.from_numpy(rng.integers(0, 256, (b, 3))).to(cuda)
+    with torch.no_grad():
+        _, caches = model.prefill(params, {"tokens": prompt}, 32)
+        placed = device_put(params, param_placement(model, params, mesh,
+                                                    rules))
+        pc = device_put(caches, model.cache_shardings(caches, mesh, rules))
+        plan = {}
+        for r in dryrun.plan_collectives(model, ShapeCell("t", 32, b,
+                                                          "decode"),
+                                         mesh, rules):
+            key = (r.kind, r.axes, r.n, r.bytes)
+            plan[key] = plan.get(key, 0) + r.count
+        for i in range(3):
+            want, caches = model.decode_step(params, caches, steps[:, i:i + 1])
+            reset_launch_counts()
+            with activation_sharding(mesh, rules), \
+                    spmd.collective_log() as log:
+                got, pc = model.decode_step(placed, pc, steps[:, i:i + 1])
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            if sparse:
+                assert counts["vsr_spmm"] == 48, counts
+                assert vsr.DESIGN_LAUNCHES["vsr_spmm"] == {"sr": 0, "pr": 48}
+                assert sum(counts.values()) == 48, counts
+            else:
+                assert not any(counts.values()), counts
+            ran = {}
+            for r in log.program((0, 0)):
+                key = (r.kind, r.axes, r.n, r.bytes)
+                ran[key] = ran.get(key, 0) + r.count
+            assert ran == plan
+            got = device_get(got, cuda)
+            assert float((got - want).abs().max()) <= \
+                1e-4 * float(want.abs().max())
+    for k, v in _flat(caches).items():
+        g = _flat(device_get(pc, cuda))[k]
+        assert float((g - v).abs().max()) <= \
+            1e-4 * max(float(v.abs().max()), 1e-30), k

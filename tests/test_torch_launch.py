@@ -236,29 +236,40 @@ def test_collective_bytes_hand_computed():
 
 def test_plan_collectives_by_regime():
     """Train gathers a weight twice and reduce-scatters its grad; decode
-    keeps TP and all-reduces the block outputs over ``model``; the grouped
-    MoE moves its buffer by all-to-all."""
+    keeps TP: it gathers q, k and v over ``model``, merges the
+    sequence-split cache's softmax statistics and all-reduces the
+    row-parallel outputs; the grouped MoE moves its buffer by
+    all-to-all."""
     mesh = make_production_mesh()
     llama = Model(get("llama3.2-1b"))
     # every Llama leaf is sharded over the batch axes (FSDP): no grad
     # all-reduce is left; train's all-reduces are the vocab-sharded loss's
-    # and the global norm's (the runtime's count, ``models/spmd.py``)
+    # and the global norm's, decode's the runtime's (``models/spmd.py``)
     for name, kinds in (("train_4k", {"all-gather", "reduce-scatter",
                                       "all-reduce"}),
                         ("prefill_32k", {"all-gather"}),
-                        ("decode_32k", {"all-reduce"})):
+                        ("decode_32k", {"all-gather", "all-reduce"})):
         cell = _cell(name)
         rules = input_specs.build_cell(llama, cell, mesh).rules
         recs = dryrun.plan_collectives(llama, cell, mesh, rules)
         assert {r.kind for r in recs} == kinds, name
         assert not [r for r in recs if r.kind == "all-reduce"
                     and r.rule not in ("vocab-parallel loss", "clip",
-                                       "TP over model")], name
+                                       "runtime")], name
     cell = _cell("decode_32k")
     rules = input_specs.build_cell(llama, cell, mesh).rules
-    (tp,) = dryrun.plan_collectives(llama, cell, mesh, rules)
-    assert tp.count == 2 * 16 and tp.axes == ("model",) and tp.n == 8
-    assert tp.bytes == (128 // 32) * 2048 * 2
+    recs = dryrun.plan_collectives(llama, cell, mesh, rules)
+    assert all(r.axes == ("model",) and r.n == 8 for r in recs)
+    b = 128 // 32                                   # a position's rows
+    rows = [r for r in recs if "row-parallel" in r.what]
+    assert sum(r.count for r in rows) == 2 * 16
+    assert all(r.bytes == b * 2048 * 4 for r in rows)     # f32 partials
+    (q,) = [r for r in recs if r.what.endswith("wq (column-parallel)")]
+    assert q.kind == "all-gather" and q.count == 16
+    assert q.bytes == b * 32 * 64 * 2
+    merge = [r for r in recs if r.what.startswith("decode attention")]
+    assert sorted(r.bytes for r in merge) == [b * 32 * 4, b * 32 * 4,
+                                              b * 32 * 64 * 4]
     olmoe = Model(get("olmoe-1b-7b"))
     cell = _cell("train_4k")
     rules = input_specs.build_cell(olmoe, cell, mesh).rules
@@ -351,7 +362,12 @@ def test_dryrun_decode_cell(tmp_path):
     # one token a lane: the trace's FLOPs within 2x of the analytic model
     ratio = art["cost_analysis"]["flops"] / art["cost_model"]["flops"]
     assert 0.5 < ratio < 2.0, ratio
-    assert art["collectives"]["n_all-reduce"] == 2 * cfg.num_layers
+    # the runtime's log: a layer's split-KV merge (3), wo and w_down; the
+    # embedding's lookup; q, k and v gathered a layer
+    coll = art["collectives"]
+    assert coll["source"].startswith("runtime")
+    assert coll["n_all-reduce"] == 5 * cfg.num_layers + 1
+    assert coll["n_all-gather"] == 3 * cfg.num_layers
 
 
 def test_dryrun_audio_prefill_cell(tmp_path):

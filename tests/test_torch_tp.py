@@ -6,7 +6,8 @@ reference's GSPMD step on 4 host devices (the rules of ``train_4k``, weights
 gathered at their GEMMs), prefill, ``restore(shardings=)`` onto another mesh,
 ``TrainDriver``'s rollback on placed state, the runtime's collective log
 against ``dryrun.plan_collectives`` (the local mesh and both production
-meshes), and the refusals.
+meshes), and the refusals (MoE, and a step under the other regime's
+rules).
 
 The reference runs in one subprocess a module with four virtual host
 devices (``XLA_FLAGS=--xla_force_host_platform_device_count=4``) on an Auto
@@ -426,47 +427,51 @@ def test_constrain_checks_an_activation_inside_a_position():
     assert sharding_ctx.constrain(x, ("batch", "heads", None)) is x
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("olmoe-1b-7b", "7b"), ("rwkv6-3b", "7a"), ("zamba2-2.7b", "7a"),
-    ("whisper-tiny", "7a")])
-def test_placed_families_out_of_scope_are_refused(arch, item):
-    """OLMoE's train step (expert parallelism, item 7b) and the decode of
-    the SSM, hybrid and audio families (tensor parallelism, item 7a) on
-    placed parameters; their train and prefill run
-    (``tests/test_torch_tp_sparse.py``)."""
+@pytest.mark.parametrize("arch,what", [
+    ("olmoe-1b-7b", "train"), ("olmoe-1b-7b", "prefill"),
+    ("olmoe-1b-7b", "decode"), ("kimi-k2-1t-a32b", "decode")])
+def test_placed_families_out_of_scope_are_refused(arch, what):
+    """MoE on placed parameters — train, prefill and decode — needs expert
+    parallelism (item 7b); the SSM, hybrid and audio families' decode runs
+    (``tests/test_torch_tp_decode.py``)."""
     cfg = get_smoke(arch)
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     sh = param_shardings(model.specs, make_sharding_fn(_mesh(), train_rules()))
     placed = device_put(params, sh)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        if item == "7b":
+    assert not spmd.supports(cfg)
+    with pytest.raises(NotImplementedError, match=f"MoE {what}.*item 7b"):
+        if what == "train":
             model.loss_fn(placed, _torch_batch())
+        elif what == "prefill":
+            model.prefill(placed, {"tokens": _torch_batch()["tokens"]}, SEQ)
         else:
             caches = model.init_cache(BATCH, SEQ, device="cpu")
             model.decode_step(placed, caches, torch.zeros(BATCH, 1).long())
 
 
 def test_sparse_ffn_and_placed_decode_are_refused():
-    """The sparse FFN's train and prefill run on placed parameters
-    (``tests/test_torch_tp_sparse.py``), its decode is refused with the
-    dense families' (item 7a)."""
+    """The sparse FFN's train, prefill and decode run on placed parameters
+    (``tests/test_torch_tp_sparse.py``, ``tests/test_torch_tp_decode.py``);
+    what stays refused is a step under the other regime's rules: decode
+    under rules that gather the weights (``__gather_weights__``, train's),
+    a train step under rules that keep them split (decode's)."""
     from repro_torch.models.config import SparseFFNConfig
     cfg = get_smoke("llama3.2-1b").scaled(
         sparse_ffn=SparseFFNConfig(density=0.25, tile=16))
     assert spmd.supports(cfg)
-    with pytest.raises(NotImplementedError, match="item 7a"):
-        spmd.refuse(cfg, "decode")
+    spmd.refuse(cfg, "decode")
     model, params = _params("llama3.2-1b")
     sh = param_shardings(model.specs, make_sharding_fn(_mesh(), train_rules()))
     placed = device_put(params, sh)
     caches = model.init_cache(BATCH, SEQ, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7a"):
-        model.decode_step(placed, caches, torch.zeros(BATCH, 1).long())
+    with sharding_ctx.activation_sharding(_mesh(), train_rules()):
+        with pytest.raises(ValueError, match="tensor-parallel"):
+            model.decode_step(placed, caches, torch.zeros(BATCH, 1).long())
     # a placed weight under rules without the gather (decode's TP)
     rt_rules = dict(train_rules(), __gather_weights__=False)
     with sharding_ctx.activation_sharding(_mesh(), rt_rules):
-        with pytest.raises(NotImplementedError, match="item 7a"):
+        with pytest.raises(ValueError, match="gather the weights"):
             model.loss_fn(placed, _torch_batch())
 
 

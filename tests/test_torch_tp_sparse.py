@@ -363,13 +363,15 @@ def test_log_matches_the_plan(case, runs):
 
 
 def test_supports_the_families_and_the_sparse_ffn():
-    """The runtime runs the three families and a sparse FFN; MoE (7b) and
-    placed decode (7a) stay refused."""
+    """The runtime runs the three families and a sparse FFN, decode
+    included (``tests/test_torch_tp_decode.py``); MoE stays refused (item
+    7b)."""
     for case in CASES:
         assert spmd.supports(_cfg(case))
+        spmd.refuse(_cfg(case), "decode")
     assert not spmd.supports(get_smoke("olmoe-1b-7b"))
-    with pytest.raises(NotImplementedError, match="item 7a"):
-        spmd.refuse(_cfg("sparse-split"), "decode")
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        spmd.refuse(get_smoke("olmoe-1b-7b"), "decode")
 
 
 # ---------------------------------------------------------------------------
